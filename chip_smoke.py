@@ -2,33 +2,45 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout, on a CUDA machine
-    python3 chip_smoke.py --profile  # and where one __call__'s device time goes
+    python3 chip_smoke.py --profile  # and where the device time goes
 
 Phases (any failure exits non-zero; no phase is caught):
  1. the card's name and power limit (``nvidia-smi``); the kernels are built
     from ``viet_tts_torch/csrc`` (nvcc, sm_90a);
- 2. kernel K1 (flash attention) against its plain version at the JETS
-    shapes (B=16, H=2, D=128; encoder T=64, decoder T=1008, ragged lengths
-    and one fully padded row), fp32 and bf16, with times;
- 3. kernel K2 (fused MRF stage) against its plain version at the two fused
+ 2. kernel K1 (flash attention forward) against its plain version at the
+    inference shapes (B=16, H=2, D=128; encoder T=64, decoder T=1008, ragged
+    lengths and one fully padded row), fp32 and bf16, with times;
+ 3. K1 with attention-weight dropout and K3 (the backward pair: K3a dq,
+    K3b dk and dv) against their plain versions under one seed at the
+    training shapes (B=8; T=64 and T=512; ragged lengths, one fully padded
+    row), fp32 and bf16, dropout 0 and 0.2, with times;
+ 4. kernel K2 (fused MRF stage) against its plain version at the two fused
     HiFi-GAN stages (C=64 at T=128*1008, C=32 at T=256*1008, B=16), one case
     with seq_len < T, with times;
- 4. the main path: full-width JETS (config/model_config.yaml widths) with
-    seeded random weights, saved as a port checkpoint, served by
+ 5. the inference path: full-width JETS (config/model_config.yaml widths)
+    with seeded random weights, saved as a port checkpoint, served by
     ``OneStageTTS(ckpt, fused_vocoder=True)``: 16 sentences in one call, once
     more with ``half=True``, then the HTTP server (``/health``, two
     ``/synthesize``, one ``/synthesize_stream``). The kernels' launch counts
     are zeroed before and read after this phase; a small input is checked
     against the same model on the CPU (plain PyTorch path);
- 5. with ``--profile`` only: five timed fp32 calls of 16 sentences and one
-    under ``torch.profiler``, device time by kernel group;
- 6. one JSON line ``{"kernels": [...]}``, then the card's line, then
+ 6. the training path: ``make_jets_train_step`` on full-width JETS and the
+    full MSMPD discriminator (flash attention, every dropout as
+    configured) with the bench.py batch (B=8, T_text=64, T_mel=512): two
+    warm-up and five timed steps, launch counts zeroed before and read
+    after them (10 of each of K1, K3a, K3b a step), finite metrics, both
+    models changed; the MAS and forward-sum loops timed alone; one small
+    full-width step on the card against the CPU;
+ 7. with ``--profile`` only: five timed fp32 calls of 16 sentences and
+    five training steps, one of each under ``torch.profiler``, device time
+    by kernel group;
+ 8. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Times are CUDA-event times over repeated launches after a warm-up. bound_ms
 is the larger of bytes / 3.35 TB/s and operations / the card's peak for the
-work's type (fp32 work at the 67 TFLOP/s CUDA-core rate), per the H100 SXM
-data sheet; the card's power limit is printed beside them.
+work's type (fp32 work at the 67 TFLOP/s CUDA-core rate, bf16 at 989), per
+the H100 SXM data sheet; the card's power limit is printed beside them.
 """
 
 from __future__ import annotations
@@ -140,7 +152,7 @@ def check_flash_attention(dev):
             mask = (padp * fa.MASK_NEG)[:, None, None, :].to(q.dtype)
             l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask, scale=scale), iters)
-            flops = 4.0 * B * H * T * tp * D
+            flops = _attn_flops(2, H, D, T, lens)
             # q, k, v in their dtype; ctx, lse and pad in fp32
             nbytes = (3 * q.element_size() * B * T * H * D
                       + 4.0 * (B * T * H * D + B * H * T + B * T))
@@ -171,7 +183,161 @@ def check_flash_attention(dev):
 
 
 # --------------------------------------------------------------------------
-# phase 3: K2
+# phase 3: K1 with dropout and K3 at the training shapes
+# --------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL = 8, 64, 512  # bench.py:56-60
+ATTN_DROPOUT = 0.2  # config/model_config.yaml: transformer_*_attn_dropout_rate
+
+
+def _attn_flops(n_matmuls: int, H: int, D: int, T: int, lens) -> float:
+    """FLOP of ``n_matmuls`` (T, D) x (D, L) products per head and batch
+    row over the row's live keys L: keys at padding need no work (their
+    weights are 0 and their gradients are not used), so this is what the
+    data needs, not the T x Tp the kernels loop over."""
+    return 2.0 * n_matmuls * H * D * T * float(np.sum(lens))
+
+
+def _library_attention(q, k, v, g, pad, scale, dropout_p):
+    """``F.scaled_dot_product_attention`` on the JAX wrapper's padded
+    (B, H, Tp, D) layout with the same additive mask: (forward call, its
+    backward through autograd on a retained graph). A yardstick only."""
+    from viet_tts_torch.ops import flash_attention as fa
+
+    T = q.shape[1]
+    tp = fa.padded_time(T)
+    qh, kh, vh, gh = (F.pad(x, (0, 0, 0, 0, 0, tp - T)).permute(0, 2, 1, 3).contiguous()
+                      for x in (q, k, v, g))
+    padp = F.pad(pad.float(), (0, tp - T), value=1.0)
+    mask = (padp * fa.MASK_NEG)[:, None, None, :].to(q.dtype)
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                         dropout_p=dropout_p, scale=scale)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              dropout_p=dropout_p, scale=scale)
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, gh, retain_graph=True)
+
+    return fwd, bwd
+
+
+def check_flash_training(dev):
+    """K1 with dropout, K3a (bwd_q) and K3b (bwd_kv) against their plain
+    versions under one seed, at the training shapes (B=8, H=2, D=128;
+    encoder T=64, decoder T=512; ragged lengths and a fully padded row),
+    fp32 and bf16, dropout 0 and 0.2, with times. Returns the per-step
+    figures (fp32, dropout 0.2: 4 encoder + 6 decoder layers a step)."""
+    from viet_tts_torch.ops import flash_attention as fa
+
+    B, H, D = TRAIN_B, 2, 128
+    scale = D ** -0.5
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    step = {name: dict.fromkeys(keys, 0.0) for name in ("fwd", "bwd_q", "bwd_kv")}
+    err = {name: 0.0 for name in step}
+    kinds = {name: set() for name in step}
+    for T, n_layers in ((TRAIN_T_TEXT, 4), (TRAIN_T_MEL, 6)):
+        rng = np.random.RandomState(T + 7)
+        lens = rng.randint(1, T + 1, B)
+        lens[0], lens[-1] = T, 0  # one full row, one fully padded row
+        pad = (torch.arange(T)[None] >= torch.from_numpy(lens)[:, None]).to(dev)
+        padf = pad.float()
+        base = [torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32)).to(dev)
+                for _ in range(4)]
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            peak = FP32_FLOP_PER_MS if dtype == torch.float32 else BF16_FLOP_PER_MS
+            q, k, v = (x.to(dtype) for x in base[:3])
+            g = base[3]  # the cotangent of ctx is fp32, as autograd hands it over
+            esz = q.element_size()
+            for p in (0.0, ATTN_DROPOUT):
+                seed = 1000003 * T + int(p * 10)
+                ctx, lse = fa.attention_fwd(q, k, v, scale, pad, p, seed)
+                ref, ref_lse = fa.attention_fwd_plain(q, k, v, scale, pad, p, seed)
+                delta, gs = fa.backward_inputs(ctx, g, dtype)
+                args = (q, k, v, gs, padf, lse, delta, scale, p, seed)
+                dq = fa.attention_bwd_dq(*args)
+                dk, dv = fa.attention_bwd_dkv(*args)
+                rdq = fa.attention_bwd_dq_plain(*args)
+                rdk, rdv = fa.attention_bwd_dkv_plain(*args)
+                torch.cuda.synchronize()
+                errs = {"ctx": (ctx - ref).abs().max().item(),
+                        "dq": (dq - rdq).abs().max().item(),
+                        "dk": (dk - rdk).abs().max().item(),
+                        "dv": (dv - rdv).abs().max().item()}
+                lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item()
+                name = f"T={T} {str(dtype)[6:]} dropout={p}"
+                finite = all(torch.isfinite(x).all() for x in (ctx, dq, dk, dv))
+                if not (finite and max(errs.values()) <= tol and lse_err <= 1e-5):
+                    raise AssertionError(f"K1/K3 {name}: max_abs_err {errs} (tol {tol}), "
+                                         f"lse rel err {lse_err}")
+                iters = 50 if T == TRAIN_T_TEXT else 20
+                lib_fwd, lib_bwd = _library_attention(q, k, v, g, pad, scale, p)
+                l_bwd = cuda_ms(lib_bwd, iters)
+                # bytes: inputs once in their dtype, fp32 pad/lse/delta/outputs once
+                row, stat = B * T * H * D, B * H * T
+                times = {
+                    "fwd": (cuda_ms(lambda: fa.attention_fwd(q, k, v, scale, pad, p, seed), iters),
+                            cuda_ms(lambda: fa.attention_fwd_plain(q, k, v, scale, pad, p, seed),
+                                    iters),
+                            cuda_ms(lib_fwd, iters),
+                            bound(3 * esz * row + 4.0 * (row + stat + B * T),
+                                  _attn_flops(2, H, D, T, lens), peak),
+                            errs["ctx"]),
+                    "bwd_q": (cuda_ms(lambda: fa.attention_bwd_dq(*args), iters),
+                              cuda_ms(lambda: fa.attention_bwd_dq_plain(*args), iters),
+                              l_bwd,
+                              bound(4 * esz * row + 4.0 * (row + 2 * stat + B * T),
+                                    _attn_flops(3, H, D, T, lens), peak),
+                              errs["dq"]),
+                    "bwd_kv": (cuda_ms(lambda: fa.attention_bwd_dkv(*args), iters),
+                               cuda_ms(lambda: fa.attention_bwd_dkv_plain(*args), iters),
+                               l_bwd,
+                               bound(4 * esz * row + 4.0 * (2 * row + 2 * stat + B * T),
+                                     _attn_flops(4, H, D, T, lens), peak),
+                               max(errs["dk"], errs["dv"])),
+                }
+                pair_ms, _ = bound(4 * esz * row + 4.0 * (3 * row + 2 * stat + B * T),
+                                   _attn_flops(5, H, D, T, lens), peak)
+                log(f"K1/K3 {name}: max_abs_err {', '.join(f'{n} {e:.3e}' for n, e in errs.items())}"
+                    f" (tol {tol}); K3 pair bound {pair_ms:.4f} ms (10 BHTLD FLOP; the "
+                    f"two-kernel schedule does 14; x{n_layers} a step)")
+                for kern, (k_ms, p_ms, l_ms, (b_ms, kind), e) in times.items():
+                    log(f"  {kern}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+                        f"library_ms {l_ms:.4f} bound_ms {b_ms:.4f} ({kind}) "
+                        f"max_abs_err {e:.3e}")
+                    if dtype != torch.float32 or p != ATTN_DROPOUT:
+                        continue  # the kernel line reports fp32 with dropout
+                    err[kern] = max(err[kern], e)
+                    kinds[kern].add(kind)
+                    for key, val in zip(keys, (k_ms, p_ms, l_ms, b_ms)):
+                        step[kern][key] += n_layers * val
+    for kern in step:
+        step[kern]["max_abs_err"] = err[kern]
+        step[kern]["bound_by"] = "operations" if "operations" in kinds[kern] else "bytes"
+    return step
+
+
+def k3_entries(step):
+    per = (f"one training step, fp32, attention dropout {ATTN_DROPOUT} (4 calls at "
+           f"({TRAIN_B}, {TRAIN_T_TEXT}) + 6 at ({TRAIN_B}, {TRAIN_T_MEL}), H=2, D=128)")
+    library = ("F.scaled_dot_product_attention backward (dq, dk and dv together) on "
+               "a retained graph")
+    return [
+        {"name": "flash_attention_bwd_q", "route": "cuda",
+         "source": "viet_tts_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "viet_tts_tpu/ops/pallas_attention.py:627",
+         "tol": 1e-4, "per": per, "library": library, **step["bwd_q"]},
+        {"name": "flash_attention_bwd_kv", "route": "cuda",
+         "source": "viet_tts_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "viet_tts_tpu/ops/pallas_attention.py:656",
+         "tol": 1e-4, "per": per, "library": library, **step["bwd_kv"]},
+    ]
+
+
+# --------------------------------------------------------------------------
+# phase 4: K2
 # --------------------------------------------------------------------------
 
 KS = (3, 7, 11)
@@ -281,7 +447,7 @@ def check_fused_mrf(dev, frames: int):
 
 
 # --------------------------------------------------------------------------
-# phase 4: the main path
+# phase 5: the inference path
 # --------------------------------------------------------------------------
 
 
@@ -396,22 +562,214 @@ def check_main_path(dev, ckpt_dir: str):
 
 
 # --------------------------------------------------------------------------
-# --profile: where the time of one __call__ goes
+# phase 6: the training path
+# --------------------------------------------------------------------------
+
+def build_gan(hp_overrides=None):
+    """Full-width JETS (config/model_config.yaml, attn_implementation flash,
+    fused_mrf off as in training, two speakers as bench.py has it) and the
+    full MSMPD, seeded random weights on the CPU, and the step's pieces
+    from the shipped training config."""
+    from viet_tts_torch import config
+    from viet_tts_torch.models.hifigan import MelSpectrogramLoss
+    from viet_tts_torch.models.hifigan import MultiScaleMultiPeriodDiscriminator
+    from viet_tts_torch.models.jets import JETS
+    from viet_tts_torch.nn.utils import seeded_init_
+    from viet_tts_torch.text import NUM_SYMBOLS
+
+    hp = dict(config.jets_generator_params(), attn_implementation="flash", fused_mrf=False)
+    hp.update(hp_overrides or {})
+    audio = config.default_audio()
+    gen = torch.Generator().manual_seed(SEED)
+    model = seeded_init_(JETS(NUM_SYMBOLS, audio["mel"]["channels"], hp, n_speakers=2), gen)
+    with torch.no_grad():
+        for up in model.generator.upsamples:  # audio-scale output (see phase 5)
+            up[1].weight_g.fill_(1.0)
+    dp = config.jets_discriminator_params()
+    disc = seeded_init_(MultiScaleMultiPeriodDiscriminator(
+        scales=dp["scales"], scale_params=dp["scale_discriminator_params"],
+        periods=dp["periods"], period_params=dp["period_discriminator_params"]), gen)
+    mel_loss = MelSpectrogramLoss(
+        fs=audio["signal"]["sampling_rate"], n_fft=audio["stft"]["filter_length"],
+        hop_length=audio["stft"]["hop_length"], win_length=audio["stft"]["win_length"],
+        window=audio["stft"]["window"], n_mels=audio["mel"]["channels"],
+        fmin=audio["mel"]["fmin"], fmax=audio["mel"]["fmax"], log_base=None)
+    return model, disc, mel_loss, config.jets_train_conf(), config.upsample_factor(audio)
+
+
+def gan_states(model, disc, train_conf):
+    from viet_tts_torch.config import GRAD_CLIP_THRESH
+    from viet_tts_torch.train.state import TrainState, adamw_with_clip
+
+    opt = train_conf["optimizer"]
+    states = []
+    for module, key in ((model, "gen_optim_conf"), (disc, "dis_optim_conf")):
+        c = opt[key]
+        states.append(TrainState.create(module, adamw_with_clip(
+            module.parameters(), c["lr"], c["betas"], c["eps"], c["weight_decay"],
+            GRAD_CLIP_THRESH)))
+    return states
+
+
+def synthetic_batch(B, T_text, T_mel, hop, dev):
+    """bench.py:946-957: full lengths, speech 0.1 * randn, numpy seed 0."""
+    from viet_tts_torch.text import NUM_SYMBOLS
+
+    rng = np.random.RandomState(0)
+    batch = dict(
+        text=rng.randint(1, NUM_SYMBOLS, (B, T_text)).astype(np.int64),
+        text_lengths=np.full(B, T_text, np.int64),
+        feats=rng.randn(B, T_mel, 80).astype(np.float32),
+        feats_lengths=np.full(B, T_mel, np.int64),
+        pitch=rng.randn(B, T_mel).astype(np.float32),
+        energy=rng.randn(B, T_mel).astype(np.float32),
+        sids=np.zeros(B, np.int64),
+        speech=(0.1 * rng.randn(B, T_mel * hop)).astype(np.float32),
+    )
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _flat_params(module):
+    return torch.cat([p.detach().flatten() for p in module.parameters()])
+
+
+def check_training_path(dev, steps: int = 5, warmup: int = 2):
+    """``make_jets_train_step`` at full width on the bench.py batch: warm-up,
+    then ``steps`` timed steps with the kernels' launches counted; finite
+    metrics, both models changed; the alignment loops timed on their own;
+    then one small step on the card against the CPU."""
+    from viet_tts_torch.config import jets_lambdas
+    from viet_tts_torch.ops import flash_attention as fa
+    from viet_tts_torch.ops.forward_sum import beta_binomial_log_prior, jets_forward_sum_loss
+    from viet_tts_torch.ops.mas import viterbi_decode
+    from viet_tts_torch.train.gan import make_jets_train_step
+
+    model, disc, mel_loss, train_conf, hop = build_gan()
+    n_gen = sum(p.numel() for p in model.parameters())
+    n_disc = sum(p.numel() for p in disc.parameters())
+    model.to(dev)
+    disc.to(dev)
+    gen_state, disc_state = gan_states(model, disc, train_conf)
+    step = make_jets_train_step(model, disc, mel_loss, jets_lambdas(train_conf), hop)
+    batch = synthetic_batch(TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL, hop, dev)
+    rng = torch.Generator().manual_seed(SEED)
+    before = (_flat_params(model), _flat_params(disc))
+    for _ in range(warmup):
+        step(gen_state, disc_state, batch, rng)
+    torch.cuda.synchronize()
+
+    fa.attention_fwd.launches = 0
+    fa.attention_bwd_dq.launches = 0
+    fa.attention_bwd_dkv.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        gen_state, disc_state, metrics = step(gen_state, disc_state, batch, rng)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {"flash_attention_fwd": fa.attention_fwd.launches,
+                "flash_attention_bwd_q": fa.attention_bwd_dq.launches,
+                "flash_attention_bwd_kv": fa.attention_bwd_dkv.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    values = {k: v.item() for k, v in metrics.items()}
+    changed = [(a - b).abs().max().item() for a, b in
+               zip(before, (_flat_params(model), _flat_params(disc)))]
+    expect = 10 * steps  # 4 encoder + 6 decoder layers a step, each kernel
+    if launches != dict.fromkeys(launches, expect):
+        raise AssertionError(f"training launches {launches}, expected {expect} each")
+    if not all(np.isfinite(v) for v in values.values()) or min(changed) <= 0.0:
+        raise AssertionError(f"metrics {values}, max parameter change {changed}")
+    median = sorted(times)[len(times) // 2]
+    log(f"training path: JETS {n_gen} + MSMPD {n_disc} parameters, batch B={TRAIN_B} "
+        f"T_text={TRAIN_T_TEXT} T_mel={TRAIN_T_MEL}, segment {model.segment_size} frames; "
+        f"step host seconds {[round(x, 4) for x in times]} (median {median:.4f}); "
+        f"peak {peak_gb:.2f} GB; launches over {steps} steps {launches}; "
+        f"metrics after {warmup + steps} steps {values}; max parameter change "
+        f"gen {changed[0]:.3e} disc {changed[1]:.3e}")
+
+    # the alignment loops alone (MAS and the forward-sum CTC: one small
+    # launch sequence per mel frame), on the step's shapes
+    log_p = torch.log_softmax(torch.randn(TRAIN_B, TRAIN_T_MEL, TRAIN_T_TEXT, device=dev,
+                                          generator=torch.Generator(dev).manual_seed(0)), -1)
+    lens_t, lens_m = batch["text_lengths"], batch["feats_lengths"]
+
+    def ctc():
+        x = log_p.detach().requires_grad_()
+        prior = beta_binomial_log_prior(lens_t, lens_m, TRAIN_T_TEXT, TRAIN_T_MEL)
+        jets_forward_sum_loss(x, lens_t, lens_m, bb_prior=prior).backward()
+
+    align = {}
+    for name, fn in (("viterbi_decode", lambda: viterbi_decode(log_p, lens_t, lens_m)),
+                     ("forward_sum fwd+bwd", ctc)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        align[name] = (time.perf_counter() - t0) / 3
+    log(f"alignment loops at ({TRAIN_B}, {TRAIN_T_MEL}, {TRAIN_T_TEXT}): "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in align.items()))
+    check_training_against_cpu(dev)
+    return launches, {"step_s": median, "peak_gb": peak_gb}, (step, gen_state,
+                                                              disc_state, batch, rng)
+
+
+def check_training_against_cpu(dev):
+    """One step at full width on a small batch (B=2, T_text=16, T_mel=64,
+    segment 32 frames), dropout 0, from the same weights and the same
+    given segment starts, on the card (kernels) and on the CPU (plain
+    versions): the nine metrics and both models' gradient norms within
+    rel 1e-3."""
+    from viet_tts_torch.config import JETS_DROPOUT_KEYS, jets_lambdas
+    from viet_tts_torch.train.gan import make_jets_train_step
+
+    hp = dict.fromkeys(JETS_DROPOUT_KEYS, 0.0)
+    hp["segment_size"] = 32
+    results = []
+    for device in (dev, torch.device("cpu")):
+        model, disc, mel_loss, train_conf, hop = build_gan(hp)
+        model.to(device)
+        disc.to(device)
+        gen_state, disc_state = gan_states(model, disc, train_conf)
+        step = make_jets_train_step(model, disc, mel_loss, jets_lambdas(train_conf), hop)
+        batch = synthetic_batch(2, 16, 64, hop, device)
+        starts = torch.tensor([5, 17], device=device)
+        gen_state, disc_state, metrics = step(gen_state, disc_state, batch,
+                                              torch.Generator().manual_seed(0), starts)
+        results.append({**{k: v.item() for k, v in metrics.items()},
+                        "gen_grad_norm": gen_state.grad_norm.item(),
+                        "disc_grad_norm": disc_state.grad_norm.item()})
+    card, cpu = results
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    if max(rel.values()) > 1e-3:
+        raise AssertionError(f"training step card vs CPU: {card} vs {cpu}, rel {rel}")
+    log(f"training step card (kernels) vs CPU (plain), B=2 T_mel=64: max rel diff "
+        f"{max(rel.values()):.3e} (tol 1e-3) over {sorted(rel)}")
+
+
+# --------------------------------------------------------------------------
+# --profile: where the time of one __call__ and of one training step goes
 # --------------------------------------------------------------------------
 
 # kernel-name fragments -> the layer each kernel belongs to (first match wins)
 KERNEL_GROUPS = (
     ("K1 flash_fwd_kernel", ("flash_fwd_kernel",)),
+    ("K3a flash_bwd_q_kernel", ("flash_bwd_q_kernel",)),
+    ("K3b flash_bwd_kv_kernel", ("flash_bwd_kv_kernel",)),
     ("K2 mrf_conv_kernel", ("mrf_conv_kernel",)),
-    ("cuBLAS matmul (attention projections, GST)", ("cublas", "gemv", "sgemm")),
-    ("cuDNN (vocoder ch>64 stages, transposed convs, FFN, predictors)", ("cudnn",)),
+    ("cuBLAS matmul (attention projections, GST, STFT-mel)", ("cublas", "gemv", "sgemm")),
+    ("cuDNN (convs: vocoder, discriminators, FFN, predictors)", ("cudnn",)),
 )
+OTHER = "other kernels (elementwise, norms, copies, reductions, FFT)"
 
 
-def profile_main_path(tts, repeats: int = 5) -> None:
-    """Host time of ``repeats`` fp32 ``__call__``s of 16 sentences, then one
-    under ``torch.profiler``: device time by kernel group and the device's
-    busy share of the call (one stream, so kernels do not overlap)."""
+def profile_call(fn, label: str, out_name: str, repeats: int = 5) -> None:
+    """Host time of ``repeats`` calls of ``fn``, then one under
+    ``torch.profiler``: device time by kernel group and the device's busy
+    share of the call (one stream, so kernels do not overlap); the
+    per-kernel table goes to ``OUT_DIR/<out_name>``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -419,18 +777,19 @@ def profile_main_path(tts, repeats: int = 5) -> None:
     for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tts(SENTENCES)
+        fn()
+        torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    log(f"profile: __call__(16) fp32 host seconds {[round(t, 4) for t in times]} "
+    log(f"profile: {label} host seconds {[round(t, 4) for t in times]} "
         f"(median {sorted(times)[len(times) // 2]:.4f})")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tts(SENTENCES)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
-    groups["other kernels (elementwise, norms, copies)"] = 0.0
+    groups[OTHER] = 0.0
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -442,13 +801,14 @@ def profile_main_path(tts, repeats: int = 5) -> None:
                 groups[name] += us
                 break
         else:
-            groups["other kernels (elementwise, norms, copies)"] += us
+            groups[OTHER] += us
     busy = sum(groups.values())
-    log(f"profile: one __call__(16) under the profiler: wall {wall_us / 1e3:.3f} ms, "
-        f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f} %)")
+    log(f"profile: one {label} under the profiler: wall {wall_us / 1e3:.3f} ms, "
+        f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f} %), "
+        f"{sum(r[1] for r in rows)} kernel launches")
     for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"profile:   {us / 1e3:9.3f} ms  {100 * us / max(busy, 1e-9):5.1f} %  {name}")
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, out_name), "w") as f:
         f.write("device_us\tcount\tkernel\n")
         for us, count, key in sorted(rows, reverse=True):
             f.write(f"{us:.1f}\t{count}\t{key}\n")
@@ -460,9 +820,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, time five fp32 __call__s of 16 "
-                         "sentences and profile one (device time by kernel "
-                         "group, busy share; per-kernel table in "
-                         "chiprun_out/chip_smoke_profile.txt)")
+                         "sentences and five training steps, and profile one "
+                         "of each (device time by kernel group, busy share; "
+                         "per-kernel tables in the output directory, "
+                         "chip_smoke_profile*.txt)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -489,14 +850,28 @@ def main() -> int:
         f"chiprun_out/chip_smoke_build.log)")
 
     k1 = check_flash_attention(dev)
+    k1_train = check_flash_training(dev)
     k2 = check_fused_mrf(dev, frames=1008)
     ckpt = build_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
     launches, tts = check_main_path(dev, ckpt)
+    train_launches, train_figures, (step, *step_args) = check_training_path(dev)
     if args.profile:
-        profile_main_path(tts)
+        profile_call(lambda: tts(SENTENCES), "fp32 __call__(16)", "chip_smoke_profile.txt")
+        profile_call(lambda: step(*step_args), "training step",
+                     "chip_smoke_profile_train.txt")
     for entry in (k1, k2):
         entry["launches"] = launches[entry["name"]]
-    print(json.dumps({"kernels": [k1, k2]}))
+    k1["name_detail"] = "forward, with attention-weight dropout in training"
+    k1["train_step"] = {
+        "per": f"one training step, fp32, dropout {ATTN_DROPOUT} (4 calls at "
+               f"({TRAIN_B}, {TRAIN_T_TEXT}) + 6 at ({TRAIN_B}, {TRAIN_T_MEL}))",
+        "launches": train_launches["flash_attention_fwd"], **k1_train["fwd"]}
+    k3 = k3_entries(k1_train)
+    for entry in k3:
+        entry["launches"] = train_launches[entry["name"]]
+    log(f"training step: host median {train_figures['step_s']:.4f} s, "
+        f"peak {train_figures['peak_gb']:.2f} GB")
+    print(json.dumps({"kernels": [k1, k2, *k3]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

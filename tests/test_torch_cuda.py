@@ -49,6 +49,63 @@ def test_flash_attention_kernel_matches_plain(cuda_device, T, dtype, atol):
     assert ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item() <= 1e-5
 
 
+def _attention_case(device, T, dtype, seed):
+    B, H, D = 3, 2, 128
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32))
+                  .to(device, dtype) for _ in range(4))
+    pad = torch.arange(T)[None] >= torch.tensor([T, T // 2 + 1, 0])[:, None]
+    return q, k, v, g, pad.to(device), D ** -0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [64, 512, 45])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dropout_p", [0.0, 0.2])
+def test_flash_training_kernels_match_plain(cuda_device, T, dtype, atol, dropout_p):
+    """K1 with attention-weight dropout, then K3a (dq) and K3b (dk, dv) on
+    the kernel's own ctx and lse, against the plain versions under the same
+    seed, with a ragged and a fully padded row."""
+    q, k, v, g, pad, scale = _attention_case(cuda_device, T, dtype, seed=T + 1)
+    seed = 987654321012345
+    ctx, lse = fa.attention_fwd(q, k, v, scale, pad, dropout_p, seed)
+    ref_ctx, ref_lse = fa.attention_fwd_plain(q, k, v, scale, pad, dropout_p, seed)
+    padf = pad.float()
+    before = (fa.attention_bwd_dq.launches, fa.attention_bwd_dkv.launches)
+    got = fa.attention_bwd(q, k, v, padf, ctx, lse, g, seed, scale, dropout_p)
+    assert (fa.attention_bwd_dq.launches, fa.attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fa.attention_bwd_plain(q, k, v, padf, ctx, lse, g, seed, scale, dropout_p)
+    torch.cuda.synchronize()
+    assert (ctx - ref_ctx).abs().max().item() <= atol
+    assert ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item() <= 1e-5
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert (a - b).abs().max().item() <= atol, name
+
+
+@pytest.mark.cuda
+def test_flash_autograd_function_launches_the_kernels(cuda_device):
+    """The public op on CUDA tensors: one K1 launch forward, one K3a and one
+    K3b launch backward, and the gradients of the plain path on the same
+    seed."""
+    q, k, v, g, pad, scale = _attention_case(cuda_device, 96, torch.float32, seed=5)
+    counts = (fa.attention_fwd.launches, fa.attention_bwd_dq.launches,
+              fa.attention_bwd_dkv.launches)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, scale, pad_mask=pad, dropout_p=0.2, dropout_seed=7)
+    (out * g.reshape(out.shape)).sum().backward()
+    assert (fa.attention_fwd.launches, fa.attention_bwd_dq.launches,
+            fa.attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref, _ = fa.attention_fwd_plain(*ref_leaves, scale, pad, 0.2, 7)
+    (ref.reshape(out.shape) * g.reshape(out.shape)).sum().backward()
+    torch.cuda.synchronize()
+    assert (out - ref.reshape(out.shape)).abs().max().item() <= 1e-4
+    for a, b in zip(leaves, ref_leaves):
+        assert (a.grad - b.grad).abs().max().item() <= 1e-4
+
+
 def _mrf_weights(C, device, seed):
     rng = np.random.RandomState(seed)
     out = ([], [], [], [])

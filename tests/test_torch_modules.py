@@ -76,6 +76,7 @@ def test_decoder_stack_matches(models, attn):
     jm = type(jm)(n_symbols=N_SYMBOLS, n_channels=N_MELS, hparams=hp)
     tm2 = TorchJETS(N_SYMBOLS, N_MELS, hp)
     tm2.load_state_dict(tm.state_dict())
+    tm2.eval()  # a new module is in training mode, where dropout acts
     x, lens = _lengths_case()
     valid = np.arange(x.shape[1])[None] < lens[:, None]
     want = _jax_call(jm, variables,

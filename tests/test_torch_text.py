@@ -80,7 +80,12 @@ def test_config_dicts_equal_yaml():
         models = yaml.safe_load(f)
     with open(REPO / "config" / "preprocessing_config.yaml", encoding="utf8") as f:
         audio = yaml.safe_load(f)
+    with open(REPO / "config" / "train_config.yaml", encoding="utf8") as f:
+        train = yaml.safe_load(f)
     assert port_config.jets_generator_params() == models["jets"]["generator_params"]
+    assert port_config.jets_discriminator_params() == models["jets"]["discriminator_params"]
+    assert port_config.jets_train_conf() == train["jets"]
+    assert port_config.GRAD_CLIP_THRESH == train["grad_clip_thresh"]
     assert port_config.default_audio() == audio
     assert port_config.upsample_factor(audio) == 256
 
@@ -120,4 +125,5 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(tmp_path, monkeypatch):
         OneStageTTS(str(tmp_path))
     assert resolve_device("cpu") == torch.device("cpu")
     assert os.path.isdir(REPO / "viet_tts_torch" / "csrc")
-    assert np.all([p.suffix == ".cu" for p in (REPO / "viet_tts_torch" / "csrc").iterdir()])
+    assert np.all([p.suffix in (".cu", ".cuh")
+                   for p in (REPO / "viet_tts_torch" / "csrc").iterdir()])

@@ -6,7 +6,8 @@ reference torch key names: ``viet_tts_torch.convert.reference_state_dict``
 then the JAX package's ``train/torch_import.py:import_jets``. (Building the
 JAX variables this way also skips a ~20 s XLA compile of the JAX init.)
 ``convert.jets_from_jax`` carries them back. Inputs come from numpy with a
-fixed seed and are handed to both sides.
+fixed seed and are handed to both sides. The same holds for a tiny
+HiFi-GAN discriminator (``TINY_DISC``, ``flax_msmpd_params``).
 """
 
 from __future__ import annotations
@@ -16,8 +17,13 @@ import pytest
 import torch
 
 from viet_tts_tpu.models.jets import JETS as JaxJETS
-from viet_tts_tpu.train.torch_import import import_jets
+from viet_tts_tpu.train.torch_import import (
+    conv1d_params,
+    import_jets,
+    import_msmpd_discriminator,
+)
 from viet_tts_torch.convert import reference_state_dict
+from viet_tts_torch.models.hifigan.discriminator import MultiScaleMultiPeriodDiscriminator
 from viet_tts_torch.models.jets import JETS as TorchJETS
 from viet_tts_torch.nn.utils import seeded_init_
 
@@ -55,6 +61,11 @@ SMALL_HP = {
     "attn_implementation": "flash",
     "fused_mrf": True,
 }
+
+# tests/test_jets.py's tiny discriminator
+TINY_DISC = dict(scales=1, periods=(2, 3),
+                 scale_params={"channels": 8, "max_downsample_channels": 16},
+                 period_params={"channels": 4, "max_downsample_channels": 8})
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -101,3 +112,49 @@ def t(x, dtype=None) -> torch.Tensor:
     """numpy -> torch (CPU)."""
     x = torch.from_numpy(np.array(x))
     return x if dtype is None else x.to(dtype)
+
+
+def flax_msmpd_params(port_sd, periods):
+    """The JAX ``MultiScaleMultiPeriodDiscriminator`` params of a port
+    discriminator, through the JAX package's importer.
+
+    The weight-normed pairs are folded first (``reference_state_dict``, as
+    the JETS tests do): the importer's ``effective_weight`` takes the norm
+    over three axes with ``torch.norm``, which recent PyTorch refuses for the
+    period discriminators' 4-D weights. Two faults of
+    ``import_msmpd_discriminator`` itself are worked around, the importer
+    being left as it is: it reads a scale discriminator's layer index from
+    the wrong field of the key (``layers`` instead of the number after it)
+    and raises on every ``msd.`` key, so the scale discriminators go through
+    its per-conv helper ``conv1d_params``; and it names a period
+    discriminator by its index (``period_0``) and its last conv
+    ``conv_post`` / ``wn_post``, where the flax module has the period
+    (``period_2``) and ``output_conv`` / ``wn_out``."""
+    sd = reference_state_dict(port_sd)
+    msd = {}
+    s = 0
+    while f"msd.discriminators.{s}.layers.0.0.weight" in sd:
+        n = len({k.split(".")[4] for k in sd if k.startswith(f"msd.discriminators.{s}.")})
+        names = ["layer_0", *(f"layer_{i}" for i in range(1, n - 2)),
+                 "layer_pre_out", "layer_out"]
+        msd[f"scale_{s}"] = {
+            name: conv1d_params(sd, f"msd.discriminators.{s}.layers.{li}"
+                                + ("" if name == "layer_out" else ".0"), weight_norm=True)
+            for li, name in enumerate(names)}
+        s += 1
+    imported = import_msmpd_discriminator({k: v for k, v in sd.items()
+                                           if k.startswith("mpd.")})
+    mpd = {}
+    for i, p in enumerate(periods):
+        per = dict(imported["mpd"][f"period_{i}"])
+        per["output_conv"] = per.pop("conv_post")
+        per["wn_out"] = {"output_conv/kernel/scale":
+                         per.pop("wn_post")["conv_post/kernel/scale"]}
+        mpd[f"period_{p}"] = per
+    return {"msd": msd, "mpd": mpd}
+
+
+def port_tiny_disc(seed=0) -> MultiScaleMultiPeriodDiscriminator:
+    """The port's ``TINY_DISC`` discriminator with seeded weights."""
+    disc = MultiScaleMultiPeriodDiscriminator(**TINY_DISC)
+    return seeded_init_(disc, torch.Generator().manual_seed(seed))

@@ -1,9 +1,11 @@
-"""JETS hyper-parameters and audio settings, carried as Python dicts.
+"""JETS hyper-parameters, training and audio settings, carried as Python
+dicts.
 
-Copied from ``config/model_config.yaml`` (section ``jets.generator_params``)
-and ``config/preprocessing_config.yaml`` so that the port runs where
-``pyyaml`` is not installed. ``tests/test_torch_text.py`` holds both dicts
-equal to the YAML files.
+Copied from ``config/model_config.yaml`` (section ``jets``: generator and
+discriminator params), ``config/train_config.yaml`` (section ``jets`` and
+``grad_clip_thresh``) and ``config/preprocessing_config.yaml`` so that the
+port runs where ``pyyaml`` is not installed. ``tests/test_torch_text.py``
+holds every dict equal to the YAML files.
 """
 
 from __future__ import annotations
@@ -93,6 +95,98 @@ JETS_GENERATOR_PARAMS: Dict[str, Any] = {
     "generator_use_weight_norm": True,
     "segment_size": 64,
 }
+
+
+JETS_DISCRIMINATOR_PARAMS: Dict[str, Any] = {
+    "scales": 1,
+    "scale_downsample_pooling": "AvgPool1d",
+    "scale_downsample_pooling_params": {"kernel_size": 4, "stride": 2, "padding": 2},
+    "scale_discriminator_params": {
+        "in_channels": 1,
+        "out_channels": 1,
+        "kernel_sizes": [15, 41, 5, 3],
+        "channels": 128,
+        "max_downsample_channels": 1024,
+        "max_groups": 16,
+        "bias": True,
+        "downsample_scales": [2, 2, 4, 4, 1],
+        "nonlinear_activation": "LeakyReLU",
+        "nonlinear_activation_params": {"negative_slope": 0.1},
+        "use_weight_norm": True,
+        "use_spectral_norm": False,
+    },
+    "follow_official_norm": False,
+    "periods": [2, 3, 5, 7, 11],
+    "period_discriminator_params": {
+        "in_channels": 1,
+        "out_channels": 1,
+        "kernel_sizes": [5, 3],
+        "channels": 32,
+        "downsample_scales": [3, 3, 3, 3, 1],
+        "max_downsample_channels": 1024,
+        "bias": True,
+        "nonlinear_activation": "LeakyReLU",
+        "nonlinear_activation_params": {"negative_slope": 0.1},
+        "use_weight_norm": True,
+        "use_spectral_norm": False,
+    },
+}
+
+JETS_TRAIN: Dict[str, Any] = {
+    "loss": {
+        "generator_adv_loss_params": {"average_by_discriminators": False,
+                                      "loss_type": "mse"},
+        "discriminator_adv_loss_params": {"average_by_discriminators": False,
+                                          "loss_type": "mse"},
+        "feat_match_loss_params": {
+            "average_by_discriminators": False,
+            "average_by_layers": False,
+            "include_final_outputs": True,
+        },
+        "lambda_adv": 1.0,
+        "lambda_mel": 45.0,
+        "lambda_feat_match": 2.0,
+        "lambda_var": 1.0,
+        "lambda_align": 2.0,
+    },
+    "optimizer": {
+        "gen_optim_conf": {"lr": 2.0e-4, "betas": [0.8, 0.99], "eps": 1.0e-9,
+                           "weight_decay": 0.0},
+        "gen_scheduler_conf": {"gamma": 0.999875},
+        "dis_optim_conf": {"lr": 2.0e-4, "betas": [0.8, 0.99], "eps": 1.0e-9,
+                           "weight_decay": 0.0},
+        "dis_scheduler_conf": {"gamma": 0.999875},
+    },
+}
+
+GRAD_CLIP_THRESH = 1.0  # train_config.yaml: grad_clip_thresh
+
+# every dropout rate that models/jets/model.py reads from the generator params
+JETS_DROPOUT_KEYS = tuple(
+    [f"transformer_{kind}_{rate}" for kind in ("enc", "dec")
+     for rate in ("dropout_rate", "positional_dropout_rate", "attn_dropout_rate")]
+    + ["duration_predictor_dropout_rate", "pitch_predictor_dropout",
+       "energy_predictor_dropout", "pitch_embed_dropout", "energy_embed_dropout"])
+
+
+def jets_discriminator_params() -> Dict[str, Any]:
+    return copy.deepcopy(JETS_DISCRIMINATOR_PARAMS)
+
+
+def jets_train_conf() -> Dict[str, Any]:
+    return copy.deepcopy(JETS_TRAIN)
+
+
+def jets_lambdas(train_conf: Dict[str, Any]) -> Dict[str, float]:
+    """The generator loss weights, by the JAX trainer's names and defaults."""
+    loss = train_conf["loss"]
+    return {
+        "adv": loss.get("lambda_adv", 1.0),
+        "mel": loss.get("lambda_mel", 45.0),
+        "fm": loss.get("lambda_feat_match", 2.0),
+        "var": loss.get("lambda_var", 1.0),
+        "align": loss.get("lambda_align", 2.0),
+    }
 
 
 def jets_generator_params() -> Dict[str, Any]:

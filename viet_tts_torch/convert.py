@@ -6,6 +6,14 @@
 ``train/torch_import.py:import_jets``, and the port's parameter names are
 the reference/espnet torch names that importer reads.
 
+``msmpd_from_jax(params)`` does the same for the JAX
+``MultiScaleMultiPeriodDiscriminator`` params; the port's names are the
+reference's espnet names that ``import_msmpd_discriminator`` reads. Both
+keep flax's weight-norm parametrisation: the port's ``weight_g`` is flax's
+``scale`` and ``weight_v`` its kernel, so gradients map one to one through
+the same layout changes (the GST BatchNorm statistics ride along from
+``batch_stats``).
+
 ``reference_state_dict(state_dict)`` folds every weight-normed
 ``(weight_g, weight_v)`` pair into its effective ``weight``: the port's
 transposed convs normalise per output channel (as the JAX module does),
@@ -24,7 +32,7 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def _t(x: Any) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
 
 
 def _linear(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
@@ -182,6 +190,43 @@ def jets_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> StateDi
     for name in ("t_conv1", "t_conv2", "f_conv1", "f_conv2", "f_conv3"):
         _conv1d(sd, f"alignment_module.{name}", params["alignment_module"][name])
     _hifigan(sd, "generator", params["generator"], hparams)
+    return sd
+
+
+def _wn_conv2d(sd: StateDict, prefix: str, conv: Dict[str, Any],
+               scale: Any) -> None:
+    """flax Conv (kh, kw, in, out) + WeightNorm scale -> port WNConv
+    {weight_v (out, in, kh, kw), weight_g (out, 1, 1, 1), bias}."""
+    kernel = np.asarray(conv["kernel"])
+    sd[f"{prefix}.weight_v"] = _t(np.transpose(kernel, (3, 2, 0, 1)))
+    sd[f"{prefix}.weight_g"] = _t(np.asarray(scale).reshape(-1, 1, 1, 1))
+    sd[f"{prefix}.bias"] = _t(conv["bias"])
+
+
+def msmpd_from_jax(params: Dict[str, Any]) -> StateDict:
+    """JAX ``MultiScaleMultiPeriodDiscriminator`` params (numpy leaves) ->
+    the port's state_dict. Period discriminators go in ascending period
+    order, the order of the config's ``periods``."""
+    sd: StateDict = {}
+    msd = params["msd"]
+    for s in range(len(msd)):
+        scale = msd[f"scale_{s}"]
+        names = (["layer_0"] + [f"layer_{i}" for i in range(1, len(scale) - 2)]
+                 + ["layer_pre_out", "layer_out"])
+        for li, name in enumerate(names):
+            prefix = f"msd.discriminators.{s}.layers.{li}"
+            if name != "layer_out":
+                prefix += ".0"
+            _wn_conv1d(sd, prefix, scale[name])
+    periods = sorted(params["mpd"], key=lambda k: int(k.split("_")[1]))
+    for i, key in enumerate(periods):
+        per = params["mpd"][key]
+        n = sum(1 for k in per if k.startswith("conv_"))
+        for li in range(n):
+            _wn_conv2d(sd, f"mpd.discriminators.{i}.convs.{li}.0", per[f"conv_{li}"],
+                       per[f"wn_{li}"][f"conv_{li}/kernel/scale"])
+        _wn_conv2d(sd, f"mpd.discriminators.{i}.output_conv", per["output_conv"],
+                   per["wn_out"]["output_conv/kernel/scale"])
     return sd
 
 

@@ -1,5 +1,6 @@
 // Kernel K1: plain scaled-dot multi-head attention forward with an online
-// softmax (flash attention), for Hopper (sm_90a). Inference (dropout 0).
+// softmax (flash attention), for Hopper (sm_90a), with optional
+// attention-weight dropout (training).
 //
 // Replaces the TPU kernel viet_tts_tpu/ops/pallas_attention.py
 // `_plain_kernel` (launched by `_plain_pallas` through `_call_flash`).
@@ -27,11 +28,21 @@
 // query whose keys are all padding gets the uniform average over all Tp
 // keys, as in the dense softmax. Key slots past Tp (the ragged last tile)
 // get -inf and weigh nothing.
+//
+// Dropout (dropout_p > 0) follows the JAX package's semantics: the
+// denominator l accumulates the UNdropped weights (dropout acts after the
+// softmax), and the context sums p * keep / (1 - p) * v. The keep bits come
+// from dropout_hash.cuh, addressed per (batch row, head, query, key), so the
+// backward kernels (flash_attention_bwd.cu) regenerate them with their own
+// tilings. With dropout_p = 0 no bit is drawn and the kernel is the
+// inference kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -58,7 +69,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ pad,
                      float* __restrict__ out, float* __restrict__ lse, int H,
-                     int Tq, int Tp, float scale) {
+                     int Tq, int Tp, float scale, uint32_t drop_thresh,
+                     float inv_keep, int use_dropout, uint64_t seed) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int DP = D + 1;
   constexpr int SP = kBK + 1;
@@ -80,6 +92,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t row_stride = (size_t)H * D;
   const size_t base = (size_t)b * Tq * row_stride + (size_t)h * D;
   const float* padb = pad + (size_t)b * Tq;
+  const uint32_t drop_key = vt_dropout_key(seed, b, h);
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -157,8 +170,13 @@ __global__ void __launch_bounds__(kThreads)
       float sum = 0.f;
       for (int c = part; c < kBK; c += 4) {
         const float p = expf(S[r * SP + c] - m_new);
-        S[r * SP + c] = p;
-        sum += p;
+        sum += p;  // the denominator takes the undropped weight
+        float pv = p;
+        if (use_dropout)
+          pv = vt_dropout_keep(drop_key, q0 + r, k0 + c, drop_thresh)
+                   ? p * inv_keep
+                   : 0.f;
+        S[r * SP + c] = pv;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -208,7 +226,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* pad, float* out, float* lse, int B, int Tq,
-                   int Tp, int H, float scale, cudaStream_t stream) {
+                   int Tp, int H, float scale, uint32_t thresh, float inv_keep,
+                   int use_dropout, uint64_t seed, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -217,7 +236,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pad, out, lse, H, Tq, Tp, scale);
+      static_cast<const T*>(v), pad, out, lse, H, Tq, Tp, scale, thresh,
+      inv_keep, use_dropout, seed);
   return cudaGetLastError();
 }
 
@@ -225,15 +245,18 @@ template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v,
                        const float* pad, float* out, float* lse, int B,
                        int Tq, int Tp, int H, int D, float scale,
-                       cudaStream_t stream) {
+                       uint32_t thresh, float inv_keep, int use_dropout,
+                       uint64_t seed, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, pad, out, lse, B, Tq, Tp, H, scale, stream);
+      return launch<T, 32>(q, k, v, pad, out, lse, B, Tq, Tp, H, scale,
+                           thresh, inv_keep, use_dropout, seed, stream);
     case 64:
-      return launch<T, 64>(q, k, v, pad, out, lse, B, Tq, Tp, H, scale, stream);
+      return launch<T, 64>(q, k, v, pad, out, lse, B, Tq, Tp, H, scale,
+                           thresh, inv_keep, use_dropout, seed, stream);
     case 128:
       return launch<T, 128>(q, k, v, pad, out, lse, B, Tq, Tp, H, scale,
-                            stream);
+                            thresh, inv_keep, use_dropout, seed, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -246,18 +269,26 @@ extern "C" {
 // q, k, v: (B, T, H, D) contiguous, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
 // pad: (B, T) fp32, 1.0 at padding keys. Tp >= T: keys in [T, Tp) are
 // treated as zero rows with pad = 1. out: (B, T, H, D) fp32. lse: (B, H, T)
-// fp32. Returns the launch's cudaError_t (0 = success).
+// fp32. dropout_p in [0, 1): attention-weight dropout keyed by `seed`
+// (dropout_hash.cuh; B, H and T below 2^16). Returns the launch's
+// cudaError_t (0 = success).
 int vt_flash_attn_fwd(const void* q, const void* k, const void* v,
                       const float* pad, float* out, float* lse, int B, int T,
                       int Tp, int H, int D, int is_bf16, float scale,
-                      void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || Tp < T) return (int)cudaErrorInvalidValue;
+                      double dropout_p, uint64_t seed, void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0 || Tp < T || T >= 65536 || B >= 65536 ||
+      H >= 65536 || !(dropout_p >= 0.0 && dropout_p < 1.0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int use_dropout = dropout_p > 0.0;
+  const uint32_t thresh = vt_dropout_thresh(dropout_p);
+  const float inv_keep = (float)(1.0 / (1.0 - dropout_p));
   if (is_bf16)
     return (int)dispatch_d<__nv_bfloat16>(q, k, v, pad, out, lse, B, T, Tp, H,
-                                          D, scale, s);
+                                          D, scale, thresh, inv_keep,
+                                          use_dropout, seed, s);
   return (int)dispatch_d<float>(q, k, v, pad, out, lse, B, T, Tp, H, D, scale,
-                                s);
+                                thresh, inv_keep, use_dropout, seed, s);
 }
 
 const char* vt_error_string(int err) {

@@ -4,6 +4,10 @@ Counterpart of ``viet_tts_tpu/models/fastspeech2/layers.py:ReferenceEncoder``
 (espnet ``gst/style_encoder.py``). Parameter names follow espnet
 (``convs.{3i}`` Conv2d, ``convs.{3i+1}`` BatchNorm2d, ``gru``), as
 ``train/torch_import.py:_gst_params`` reads them.
+
+The BatchNorms follow flax's ``nn.BatchNorm`` (``FlaxBatchNorm2d``): in
+training mode they normalise with the batch statistics and update the
+running ones as 0.99 old + 0.01 batch, the variance biased, eps 1e-5.
 """
 
 from __future__ import annotations
@@ -14,11 +18,37 @@ import torch
 from torch import nn
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d with flax's ``nn.BatchNorm`` defaults
+    (``use_running_average=not train``): running = 0.99 * running + 0.01 *
+    batch, with the BIASED batch variance in the running variance (torch's
+    module keeps the unbiased one and takes momentum 0.1), eps 1e-5. The
+    parameter and buffer names are torch's, so the state_dict is unchanged;
+    in eval mode it is torch's module."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = x.var(dim=(0, 2, 3), unbiased=False)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        shape = (1, -1, 1, 1)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+
+
 class ReferenceEncoder(nn.Module):
     """Strided Conv2d + BatchNorm + ReLU stack, then a GRU over time:
     mel (B, T, idim) -> final hidden state (B, gru_units).
 
-    BatchNorm uses its running statistics (inference). The conv output
+    BatchNorm: ``FlaxBatchNorm2d`` (batch statistics in training mode,
+    running statistics in eval mode). The conv output
     (B, C, T', F') is flattened per frame in espnet's channel-major
     (C, F') order; the JAX module flattens (F', C) and
     ``torch_import._torch_gru_params`` permutes the GRU's input columns
@@ -41,7 +71,7 @@ class ReferenceEncoder(nn.Module):
             convs += [
                 nn.Conv2d(cin, conv_chans_list[i], conv_kernel_size,
                           stride=conv_stride, padding=pad, bias=False),
-                nn.BatchNorm2d(conv_chans_list[i]),
+                FlaxBatchNorm2d(conv_chans_list[i]),
                 nn.ReLU(),
             ]
             f_dim = (f_dim - conv_kernel_size + 2 * pad) // conv_stride + 1
@@ -56,6 +86,11 @@ class ReferenceEncoder(nn.Module):
             w_hh = getattr(self.gru, f"weight_hh_l{layer}")
             b_ih = getattr(self.gru, f"bias_ih_l{layer}")
             b_hh = getattr(self.gru, f"bias_hh_l{layer}")
+            # flax's GRUCell has no hidden r/z biases: torch's take no
+            # gradient, so training leaves them where the converter put them
+            # (0) and out of the clipping norm, as the JAX step does
+            H = self.gru.hidden_size
+            b_hh = torch.cat([b_hh[: 2 * H].detach(), b_hh[2 * H:]])
             gi = nn.functional.linear(x, w_ih, b_ih)  # (B, T, 3H)
             h = x.new_zeros(B, self.gru.hidden_size)
             outs = []

@@ -238,7 +238,13 @@ class HiFiGANGenerator(nn.Module):
         return n_convs * k_avg * ch * ch * 4 < 4e6
 
     def _fused_stage(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        """Stage i's residual trio through K2, on (B, C, T)."""
+        """Stage i's residual trio through K2, on (B, C, T). K2 has no
+        backward (nor has the JAX package's fused stage): raise rather than
+        run without gradients when autograd would need one."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise RuntimeError(
+                "fused_mrf (kernel K2) is inference-only and has no backward: "
+                "turn fused_mrf off for training, or run under torch.no_grad()")
         n = len(self.resblock_kernel_sizes)
         w1s, b1s, w2s, b2s = [], [], [], []
         for j in range(n):

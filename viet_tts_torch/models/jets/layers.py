@@ -2,7 +2,8 @@
 
 Counterpart of ``viet_tts_tpu/models/jets/layers.py``. Parameter names
 follow espnet's torch modules, as ``train/torch_import.py:import_jets``
-reads them. Activations are (B, T, C) at every public function.
+reads them. Activations are (B, T, C) at every public function. Dropout
+layers sit where the flax modules have them and act in ``.train()`` mode.
 """
 
 from __future__ import annotations
@@ -89,8 +90,8 @@ class StyleEncoder(nn.Module):
 
 class AlignmentModule(nn.Module):
     """Learned text/mel alignment scores (JETS ``alignments.py``): log-softmax
-    over text of -||feat_t - text_s||2. Only the training forward uses it;
-    the inference graph holds its weights."""
+    over text of -||feat_t - text_s||2, (B, T_feats, T_text). Only the
+    training forward uses it; the inference graph holds its weights."""
 
     def __init__(self, adim: int, odim: int):
         super().__init__()
@@ -119,16 +120,16 @@ class AlignmentModule(nn.Module):
 
 
 def _conv_relu_norm_stack(idim: int, n_layers: int, n_chans: int,
-                          kernel_size: int) -> nn.ModuleList:
+                          kernel_size: int, dropout: float) -> nn.ModuleList:
     """espnet predictor stack ``conv.{i}`` = (Conv1d, ReLU, LayerNorm,
-    Dropout) on (B, C, T); dropout is inference's identity."""
+    Dropout) on (B, C, T)."""
     return nn.ModuleList(
         nn.Sequential(
             nn.Conv1d(idim if i == 0 else n_chans, n_chans, kernel_size,
                       padding=(kernel_size - 1) // 2),
             nn.ReLU(),
             ChannelLayerNorm(n_chans, eps=LN_EPS),
-            nn.Identity(),
+            nn.Dropout(dropout),
         )
         for i in range(n_layers)
     )
@@ -138,10 +139,12 @@ class EspnetDurationPredictor(nn.Module):
     """Log-domain duration predictor; masks applied only at the output."""
 
     def __init__(self, idim: int, n_layers: int = 2, n_chans: int = 256,
-                 kernel_size: int = 3, offset: float = 1.0):
+                 kernel_size: int = 3, dropout: float = 0.1,
+                 offset: float = 1.0):
         super().__init__()
         self.offset = offset
-        self.conv = _conv_relu_norm_stack(idim, n_layers, n_chans, kernel_size)
+        self.conv = _conv_relu_norm_stack(idim, n_layers, n_chans, kernel_size,
+                                          dropout)
         self.linear = nn.Linear(n_chans, 1)
 
     def forward(self, xs: torch.Tensor,
@@ -162,9 +165,10 @@ class EspnetVariancePredictor(nn.Module):
     """Pitch/energy predictor (espnet fastspeech2 VariancePredictor)."""
 
     def __init__(self, idim: int, n_layers: int = 2, n_chans: int = 256,
-                 kernel_size: int = 3, odim: int = 1):
+                 kernel_size: int = 3, dropout: float = 0.5, odim: int = 1):
         super().__init__()
-        self.conv = _conv_relu_norm_stack(idim, n_layers, n_chans, kernel_size)
+        self.conv = _conv_relu_norm_stack(idim, n_layers, n_chans, kernel_size,
+                                          dropout)
         self.linear = nn.Linear(n_chans, odim)
 
     def forward(self, xs: torch.Tensor,
@@ -180,14 +184,14 @@ class EspnetVariancePredictor(nn.Module):
 
 class VarianceEmbed(nn.Sequential):
     """Continuous-value conv embedding for pitch/energy: ``0`` = Conv1d(1,
-    adim, k), ``1`` = dropout (identity at inference)."""
+    adim, k), ``1`` = dropout."""
 
-    def __init__(self, adim: int, kernel_size: int = 1):
+    def __init__(self, adim: int, kernel_size: int = 1, dropout: float = 0.0):
         super().__init__(
             nn.Conv1d(1, adim, kernel_size, padding=(kernel_size - 1) // 2),
-            nn.Identity(),
+            nn.Dropout(dropout),
         )
 
     def forward(self, v: torch.Tensor) -> torch.Tensor:
         """v: (B, T, 1) -> (B, T, adim)."""
-        return self[0](v.transpose(1, 2)).transpose(1, 2)
+        return self[1](self[0](v.transpose(1, 2)).transpose(1, 2))

@@ -1,16 +1,20 @@
-"""JETS: FastSpeech2 + HiFi-GAN in one graph, inference half.
+"""JETS: FastSpeech2 + HiFi-GAN in one graph.
 
-Counterpart of ``viet_tts_tpu/models/jets/model.py`` (``inference``,
-``inference_hidden``, ``decode_hidden``). The module tree and parameter
-names follow the reference's espnet-composed torch ``JETS``, so
+Counterpart of ``viet_tts_tpu/models/jets/model.py``: ``forward`` is the
+training forward (the flax ``__call__`` with ``train=True``: alignment
+module, MAS, duration-averaged pitch and energy, Gaussian upsampling, a
+random segment into the vocoder) returning the reference's 10-tuple;
+``inference``, ``inference_hidden`` and ``decode_hidden`` the one-graph
+text-to-waveform inference. The module tree and parameter names follow the
+reference's espnet-composed torch ``JETS``, so
 ``train/torch_import.py:import_jets`` reads this model's state_dict (after
-``convert.reference_state_dict``). The training forward (alignment, MAS,
-random segments) belongs to the training slice; the alignment module's
-weights are held here already.
+``convert.reference_state_dict``).
 
 ``hparams["attn_implementation"] = "flash"`` routes the encoder and decoder
-self-attention to kernel K1; ``hparams["fused_mrf"] = True`` routes the
-HiFi-GAN stages with ch <= 64 to kernel K2.
+self-attention to kernels K1 (forward, with in-kernel dropout in training)
+and K3 (backward); ``hparams["fused_mrf"] = True`` routes the HiFi-GAN
+stages with ch <= 64 to kernel K2, which has no backward (training keeps it
+off, as the JAX package does). Dropout follows ``.train()`` / ``.eval()``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,13 @@ from viet_tts_torch.models.jets.layers import (
 )
 from viet_tts_torch.nn.espnet_transformer import EspnetTransformerEncoder
 from viet_tts_torch.nn.utils import pad_mask_from_lengths
-from viet_tts_torch.ops.duration import gaussian_upsample, length_regulator
+from viet_tts_torch.ops.duration import (
+    average_by_duration,
+    gaussian_upsample,
+    length_regulator,
+)
+from viet_tts_torch.ops.mas import viterbi_decode
+from viet_tts_torch.ops.segments import get_random_segments
 
 
 class JETS(nn.Module):
@@ -43,6 +53,9 @@ class JETS(nn.Module):
         self.n_speakers = n_speakers
         self.use_gst = bool(hp.get("use_gst", False))
         self.use_gaussian_upsample = bool(hp.get("use_gaussian_upsample", True))
+        self.segment_size = int(hp.get("segment_size", 64))
+        self.stop_grad_pitch = bool(hp.get("stop_gradient_from_pitch_predictor", True))
+        self.stop_grad_energy = bool(hp.get("stop_gradient_from_energy_predictor", False))
         attn = str(hp.get("attn_implementation", "shift"))
 
         def make_stack(kind: str, n_sym: Optional[int]):
@@ -61,6 +74,10 @@ class JETS(nn.Module):
                 normalize_before=hp.get(f"{part}_normalize_before", True),
                 use_scaled_pos_enc=hp.get("use_scaled_pos_enc", True),
                 attn_implementation=attn,
+                dropout=hp.get(f"transformer_{kind}_dropout_rate", 0.2),
+                positional_dropout=hp.get(
+                    f"transformer_{kind}_positional_dropout_rate", 0.2),
+                attn_dropout=hp.get(f"transformer_{kind}_attn_dropout_rate", 0.2),
             )
 
         self.encoder = make_stack("enc", n_symbols + 1)
@@ -79,22 +96,26 @@ class JETS(nn.Module):
             n_layers=hp.get("duration_predictor_layers", 2),
             n_chans=hp.get("duration_predictor_chans", 256),
             kernel_size=hp.get("duration_predictor_kernel_size", 3),
+            dropout=hp.get("duration_predictor_dropout_rate", 0.1),
         )
         self.pitch_predictor = EspnetVariancePredictor(
             adim,
             n_layers=hp.get("pitch_predictor_layers", 5),
             n_chans=hp.get("pitch_predictor_chans", 256),
             kernel_size=hp.get("pitch_predictor_kernel_size", 5),
+            dropout=hp.get("pitch_predictor_dropout", 0.5),
         )
-        self.pitch_embed = VarianceEmbed(adim, hp.get("pitch_embed_kernel_size", 1))
+        self.pitch_embed = VarianceEmbed(adim, hp.get("pitch_embed_kernel_size", 1),
+                                         hp.get("pitch_embed_dropout", 0.0))
         self.energy_predictor = EspnetVariancePredictor(
             adim,
             n_layers=hp.get("energy_predictor_layers", 2),
             n_chans=hp.get("energy_predictor_chans", 256),
             kernel_size=hp.get("energy_predictor_kernel_size", 3),
+            dropout=hp.get("energy_predictor_dropout", 0.5),
         )
-        self.energy_embed = VarianceEmbed(adim,
-                                          hp.get("energy_embed_kernel_size", 1))
+        self.energy_embed = VarianceEmbed(adim, hp.get("energy_embed_kernel_size", 1),
+                                          hp.get("energy_embed_dropout", 0.0))
         self.alignment_module = AlignmentModule(adim, n_channels)
         self.generator = HiFiGANGenerator(
             in_channels=adim,
@@ -124,6 +145,54 @@ class JETS(nn.Module):
         if self.n_speakers > 1 and sids is not None:
             hs = hs + self.sid_emb(sids.reshape(-1))[:, None]
         return hs
+
+    def forward(self, text: torch.Tensor, text_lengths: torch.Tensor,
+                feats: torch.Tensor, feats_lengths: torch.Tensor,
+                pitch: torch.Tensor, energy: torch.Tensor,
+                sids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                start_idxs: Optional[torch.Tensor] = None) -> Tuple:
+        """Training forward -> (wav_segments (B, 1, S*up), bin_loss,
+        log_p_attn, start_idxs, d_outs, ds, p_outs, ps, e_outs, es).
+
+        text (B, T_text) ids; feats (B, T_feats, n_mels); pitch and energy
+        (B, T_feats, 1) frame values. ``generator`` (a CPU
+        ``torch.Generator``) draws the flash route's dropout seeds and the
+        segment starts; ``start_idxs`` (B,) given instead of drawn takes
+        the segments there. The JAX module's "noise" and "dropout" rng
+        streams cannot be reproduced; its ``nn.Dropout``s are this
+        module's, drawing from torch's generator of the device."""
+        T_text = text.shape[1]
+        text_pad = pad_mask_from_lengths(text_lengths, T_text)
+        mel_valid = ~pad_mask_from_lengths(feats_lengths, feats.shape[1])
+
+        hs, _ = self.encoder(text, ~text_pad, generator)
+        hs = self._condition(hs, feats, sids)
+
+        log_p_attn = self.alignment_module(hs, feats, text_pad)
+        ds, bin_loss = viterbi_decode(log_p_attn, text_lengths, feats_lengths)
+        ps = average_by_duration(ds, pitch[..., 0], text_lengths, feats_lengths)[..., None]
+        es = average_by_duration(ds, energy[..., 0], text_lengths, feats_lengths)[..., None]
+
+        p_outs = self.pitch_predictor(hs.detach() if self.stop_grad_pitch else hs,
+                                      text_pad)
+        e_outs = self.energy_predictor(hs.detach() if self.stop_grad_energy else hs,
+                                       text_pad)
+        d_outs = self.duration_predictor(hs, text_pad)
+
+        hs = hs + self.pitch_embed(ps) + self.energy_embed(es)
+        if self.use_gaussian_upsample:
+            hs = gaussian_upsample(hs, ds, h_masks=mel_valid, d_masks=~text_pad)
+        else:
+            hs = length_regulator(hs, ds.to(torch.int64), feats.shape[1])
+        zs, _ = self.decoder(hs, mel_valid, generator)
+
+        z_segments, z_start_idxs = get_random_segments(
+            zs.transpose(1, 2), feats_lengths, self.segment_size, generator,
+            start_idxs)
+        wav = self.generator(z_segments.transpose(1, 2))  # (B, S*up, 1)
+        return (wav.transpose(1, 2), bin_loss, log_p_attn, z_start_idxs,
+                d_outs, ds, p_outs, ps, e_outs, es)
 
     @torch.no_grad()
     def inference(self, sids: torch.Tensor, text: torch.Tensor,

@@ -69,3 +69,26 @@ def gaussian_upsample(hs: torch.Tensor, ds: torch.Tensor,
     p_attn = torch.exp(energy - energy.max(dim=2, keepdim=True).values)
     p_attn = p_attn / torch.clamp(p_attn.sum(dim=2, keepdim=True), min=1e-20)
     return (p_attn @ hs.to(torch.float32)).to(hs.dtype)
+
+
+def average_by_duration(ds: torch.Tensor, xs: torch.Tensor,
+                        text_lens: Optional[torch.Tensor] = None,
+                        feats_lens: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Mean of frame values per token segment: ds (B, N) durations, xs
+    (B, T) frame values -> (B, N); 0 for a token of duration 0."""
+    B, N = ds.shape
+    T = xs.shape[1]
+    ds = ds.to(torch.int64)
+    if text_lens is not None:
+        ds = ds * (torch.arange(N, device=ds.device)[None, :] < text_lens[:, None])
+    cum = torch.cumsum(ds, dim=-1)
+    start = cum - ds
+    t = torch.arange(T, device=ds.device)
+    seg = (t[None, None, :] >= start[:, :, None]) & (t[None, None, :] < cum[:, :, None])
+    if feats_lens is not None:
+        seg = seg & (t[None, None, :] < feats_lens[:, None, None])
+    sums = torch.einsum("bnt,bt->bn", seg.to(xs.dtype), xs)
+    counts = seg.sum(dim=-1)
+    return torch.where(counts > 0, sums / torch.clamp(counts, min=1),
+                       torch.zeros_like(sums))

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` into ``build/viet_tts_torch/<name>-<hash>.so`` under the
-checkout (the hash is of the source, so an edited kernel is rebuilt). All
+checkout (the hash is of the source and of the shared ``csrc/*.cuh``
+headers, so an edited kernel is rebuilt). All
 sources are compiled together, one ``nvcc`` process each, the first time
 any kernel is asked for. Nothing here runs at import time: the CPU tests
 import every module, and this machine may have no ``nvcc``.
@@ -33,13 +34,31 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
+_U64 = ctypes.c_uint64
 
 # C signatures of each source's entry points: name -> (restype, argtypes)
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "flash_attention": {
-        # q, k, v, pad, out, lse, B, T, Tp, H, D, is_bf16, scale, stream
+        # q, k, v, pad, out, lse, B, T, Tp, H, D, is_bf16, scale,
+        # dropout_p, seed, stream
         "vt_flash_attn_fwd": (
-            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+        ),
+        "vt_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "flash_attention_bwd": {
+        # q, k, v, g, pad, lse, delta, dq, B, T, Tp, H, D, is_bf16, scale,
+        # dropout_p, seed, stream
+        "vt_flash_attn_bwd_q": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+        ),
+        # q, k, v, g, pad, lse, delta, dk, dv, B, T, Tp, H, D, is_bf16, scale,
+        # dropout_p, seed, stream
+        "vt_flash_attn_bwd_kv": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
         ),
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -71,8 +90,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
