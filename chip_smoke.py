@@ -31,10 +31,26 @@ Phases (any failure exits non-zero; no phase is caught):
     after them (10 of each of K1, K3a, K3b a step), finite metrics, both
     models changed; the MAS and forward-sum loops timed alone; one small
     full-width step on the card against the CPU;
- 7. with ``--profile`` only: five timed fp32 calls of 16 sentences and
-    five training steps, one of each under ``torch.profiler``, device time
-    by kernel group;
- 8. one JSON line ``{"kernels": [...]}``, then the card's line, then
+ 7. kernels K4 (xl3), K5 (xl2) and K6 (xl), the FS2 conformer's
+    Transformer-XL attention, against their plain versions at the serving
+    shapes (H=8, D=48, E=384: K4 at the encoder's text bucket and at
+    T=512, K5 at (16, 1008), K6 at (4, 2048); ragged lengths with a fully
+    padded row, and no pad mask), fp32 and bf16, with times, and
+    ``scaled_dot_product_attention`` with the position term as its mask;
+ 8. the two-stage path: full-width FastSpeech2-conformer (flash attention)
+    and HiFi-GAN V1, seeded random weights, saved as two port checkpoints,
+    served by ``TwoStageTTS(..., fused_vocoder=True)``: 16 sentences at
+    1008 frames in fp32 and with ``half=True``, 4 sentences at
+    ``max_mel_frames=2048``, then the HTTP server with ``--model_type
+    FASTSPEECH2`` semantics (``/health``, two ``/synthesize``, one
+    ``/synthesize_stream``). Launches are zeroed and asserted per call (K4 6
+    and K5 6 at 1008 frames, K4 6 and K6 6 at 2048, K2 36); a small input
+    on each attention route is checked against the CPU; the host median of
+    5 fp32 calls and the acoustic / vocoder split;
+ 9. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
+    training steps and five two-stage calls, one of each under
+    ``torch.profiler``, device time by kernel group;
+10. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Times are CUDA-event times over repeated launches after a warm-up. bound_ms
@@ -749,6 +765,344 @@ def check_training_against_cpu(dev):
         f"{max(rel.values()):.3e} (tol 1e-3) over {sorted(rel)}")
 
 
+
+# --------------------------------------------------------------------------
+# phase 7: K4, K5, K6 (the FS2 conformer's XL attention)
+# --------------------------------------------------------------------------
+
+FS2_H, FS2_D = 8, 48  # config/model_config.yaml fastspeech2: 384 wide, 8 heads
+
+
+def xl_inputs(dev, B: int, T: int, seed: int):
+    """One XL attention's inputs in its three parameterisations (fp32, on
+    the card), built as the conformer builds them: q, k, v, biases and
+    pos_proj drawn from a seed; the raw sinusoid table."""
+    from viet_tts_torch.nn.utils import sinusoid_position_table
+    from viet_tts_torch.ops.xl_attention import xl_pos_queries, xl_pos_query_stream
+
+    H, D = FS2_H, FS2_D
+    E = H * D
+    gen = torch.Generator().manual_seed(seed)
+    f = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
+    q, k, v = f(B, T, H, D), f(B, T, H, D), f(B, T, H, D)
+    u, vb = 0.3 * f(H, D), 0.3 * f(H, D)
+    pos_kernel = f(E, E) / np.sqrt(E)
+    table = torch.from_numpy(sinusoid_position_table(T, E)).to(dev)
+    qv = q + vb
+    gA, gB = xl_pos_queries(qv, pos_kernel)
+    return dict(qc=q + u, k=k, v=v, qv=qv, p=(table @ pos_kernel).reshape(T, H, D),
+                g=xl_pos_query_stream(qv, pos_kernel), gA=gA, gB=gB, table=table)
+
+
+XL_ENTRIES = {
+    # kind: (wrapper, plain, stream names, name, replaces)
+    "xl3": ("xl3_fwd", "xl3_fwd_plain", ("qc", "k", "v", "qv", "p"), "flash_xl3_fwd",
+            "viet_tts_tpu/ops/pallas_attention.py:1512"),
+    "xl2": ("xl2_fwd", "xl2_fwd_plain", ("qc", "k", "v", "g", "table"), "flash_xl2_fwd",
+            "viet_tts_tpu/ops/pallas_attention.py:1173"),
+    "xl": ("xl_fwd", "xl_fwd_plain", ("qc", "k", "v", "gA", "gB", "table"), "flash_xl_fwd",
+           "viet_tts_tpu/ops/pallas_attention.py:792"),
+}
+
+
+def _xl_work(kind: str, args, lens, T: int):
+    """(bytes, FLOP) the function needs: every input read once in its
+    dtype, ctx and lse written once in fp32; the dot products over the live
+    keys of each row (content D, position D for xl3 or E for xl2 / xl, and
+    the weighted sum D wide; a row with no live key needs none)."""
+    B, _, H, D = args[0].shape
+    E = D if kind == "xl3" else args[3].shape[-1]
+    nbytes = sum(a.numel() * a.element_size() for a in args) + 4.0 * (
+        B * T * H * D + B * H * T + B * T)
+    flops = 2.0 * H * T * float(np.sum(lens)) * (D + E + D)
+    return nbytes, flops
+
+
+def check_xl_kernels(dev, t_text: int):
+    """K4 / K5 / K6 against their plain versions at the serving shapes,
+    fp32 (TF32 off) within 1e-4 and bf16 within 2e-2, ragged lengths with a
+    fully padded row and no pad mask; times of the kernel, the plain
+    version and SDPA with the position term as an additive mask. Returns
+    the kernel-line entries (fp32, no pad mask: what the serving path runs)."""
+    from viet_tts_torch.ops import flash_xl_attention as fx
+    from viet_tts_torch.ops.xl_attention import xl_attention_scores
+
+    cases = [("xl3", 16, t_text), ("xl3", 16, 512), ("xl2", 16, 1008), ("xl", 4, 2048)]
+    entries = {}
+    for kind, B, T in cases:
+        wrapper, plain_name, names, name, replaces = XL_ENTRIES[kind]
+        fwd, plain = getattr(fx, wrapper), getattr(fx, plain_name)
+        base = xl_inputs(dev, B, T, seed=T + B)
+        rng = np.random.RandomState(T)
+        lens = rng.randint(1, T + 1, B)
+        lens[0], lens[-1] = T, 0  # one full row, one fully padded row
+        ragged = (torch.arange(T)[None] >= torch.from_numpy(lens)[:, None]).to(dev)
+        scale = 1.0 / np.sqrt(FS2_H * FS2_D)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = [base[n].to(dtype) for n in names]
+            peak = FP32_FLOP_PER_MS if dtype == torch.float32 else BF16_FLOP_PER_MS
+            for pad, pad_name, live in ((ragged, "ragged", lens),
+                                        (None, "no pad mask", np.full(B, T))):
+                ctx, lse = fwd(*args, scale, pad)
+                ref, ref_lse = plain(*args, scale, pad)
+                torch.cuda.synchronize()
+                err = (ctx - ref).abs().max().item()
+                lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item()
+                lse_tol = 1e-5 if dtype == torch.float32 else 1e-3
+                label = f"{name} (B={B}, T={T}) {str(dtype)[6:]} {pad_name}"
+                if not (torch.isfinite(ctx).all() and err <= tol and lse_err <= lse_tol):
+                    raise AssertionError(f"{label}: max_abs_err {err} (tol {tol}), "
+                                         f"lse rel err {lse_err} (tol {lse_tol})")
+                del ref, ref_lse
+                iters = 20 if T <= 512 else 5
+                k_ms = cuda_ms(lambda: fwd(*args, scale, pad), iters)
+                p_ms = cuda_ms(lambda: plain(*args, scale, pad), 3, warmup=1)
+                # SDPA's mask: scale * the position term (from the dense
+                # oracle, on the two-stream inputs), MASK_NEG at padded keys
+                t0 = time.perf_counter()
+                zeros = torch.zeros_like(base["qc"])
+                mask = xl_attention_scores(zeros, zeros, base["gA"], base["gB"],
+                                           base["table"], scale)
+                if pad is not None:
+                    mask = mask.masked_fill(pad[:, None, None, :], fx.MASK_NEG)
+                mask = mask.to(dtype)
+                torch.cuda.synchronize()
+                build_ms = (time.perf_counter() - t0) * 1e3
+                qh, kh, vh = (base[n].to(dtype).permute(0, 2, 1, 3) for n in ("qc", "k", "v"))
+                l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, scale=scale), iters)
+                del mask, qh, kh, vh, zeros
+                nbytes, flops = _xl_work(kind, args, live, T)
+                b_ms, kind_b = bound(nbytes, flops, peak)
+                log(f"{label}: max_abs_err {err:.3e} (tol {tol}) lse {lse_err:.1e} "
+                    f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
+                    f"(mask built in {build_ms:.1f} ms) bound_ms {b_ms:.4f} ({kind_b}) "
+                    f"{flops / k_ms / 1e9:.2f} TFLOP/s")
+                entry = entries.setdefault(kind, {
+                    "name": name, "route": "cuda",
+                    "source": "viet_tts_torch/csrc/flash_xl_attention.cu",
+                    "replaces": replaces, "max_abs_err": 0.0, "tol": 1e-4})
+                if dtype == torch.float32:
+                    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                serving_shape = (kind != "xl3" or T == t_text)
+                if dtype == torch.float32 and pad is None and serving_shape:
+                    entry.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                                 bound_by=kind_b, library_mask_build_ms=build_ms,
+                                 per=f"one launch at (B={B}, H={FS2_H}, T={T}, D={FS2_D}"
+                                     + ("" if kind == "xl3" else f", E={FS2_H * FS2_D}")
+                                     + "), fp32, no pad mask (the serving path's)",
+                                 library="F.scaled_dot_product_attention with scale * "
+                                         "pos as an additive mask")
+            del args
+        del base
+        torch.cuda.empty_cache()
+    return entries
+
+
+# --------------------------------------------------------------------------
+# phase 8: the two-stage path (FastSpeech2-conformer + HiFi-GAN)
+# --------------------------------------------------------------------------
+
+
+def build_two_stage(root: str):
+    """Full-width FastSpeech2-conformer (attn_implementation flash) and
+    HiFi-GAN V1, seeded random weights, saved as two port checkpoints."""
+    from viet_tts_torch import config
+    from viet_tts_torch.infer.api import default_conf, save_checkpoint
+    from viet_tts_torch.models.fastspeech2.model import FastSpeech2
+    from viet_tts_torch.models.hifigan import HiFiGANGenerator
+    from viet_tts_torch.nn.utils import seeded_init_
+    from viet_tts_torch.text import NUM_SYMBOLS
+
+    conf = default_conf()
+    hp = conf["models"]["fastspeech2"]
+    hp["attn_implementation"] = "flash"
+    n_mels = conf["audio"]["mel"]["channels"]
+    gen = torch.Generator().manual_seed(SEED)
+    acoustic = seeded_init_(FastSpeech2(NUM_SYMBOLS, n_mels, hp, config.DEFAULT_STATS,
+                                        n_speakers=1, n_accents=2), gen)
+    hifi = conf["models"]["hifigan"]
+    vocoder = seeded_init_(HiFiGANGenerator(
+        in_channels=n_mels, channels=hifi["upsample_initial_channel"],
+        upsample_scales=hifi["upsample_rates"],
+        upsample_kernel_sizes=hifi["upsample_kernel_sizes"],
+        resblock_kernel_sizes=hifi["resblock_kernel_sizes"],
+        resblock_dilations=hifi["resblock_dilation_sizes"]), gen)
+    with torch.no_grad():
+        for up in vocoder.upsamples:  # audio-scale output (see phase 5)
+            up[1].weight_g.fill_(1.0)
+    bc = hp["building_block"]["conformer"]
+    log(f"FastSpeech2-conformer full width: {sum(p.numel() for p in acoustic.parameters())} "
+        f"parameters (d_model {hp['encoder_hidden']}, {bc['encoder_head']} heads, "
+        f"{hp['encoder_layers']} + {hp['decoder_layers']} layers, conv k="
+        f"{bc['conv_kernel_size']}, CVAE, postnet); HiFi-GAN V1 "
+        f"{sum(p.numel() for p in vocoder.parameters())} parameters")
+    ac_dir, voc_dir = os.path.join(root, "acoustic"), os.path.join(root, "vocoder")
+    save_checkpoint(ac_dir, acoustic, conf, stats=config.DEFAULT_STATS)
+    save_checkpoint(voc_dir, vocoder, {"audio": conf["audio"],
+                                       "models": {"hifigan": hifi}})
+    return ac_dir, voc_dir
+
+
+def _fs2_counts():
+    from viet_tts_torch.ops import flash_attention as fa
+    from viet_tts_torch.ops import flash_xl_attention as fx
+    from viet_tts_torch.ops import fused_mrf as fm
+
+    return {"flash_xl3_fwd": fx.xl3_fwd.launches, "flash_xl2_fwd": fx.xl2_fwd.launches,
+            "flash_xl_fwd": fx.xl_fwd.launches, "fused_mrf_stage": fm.fused_mrf_stage.launches,
+            "flash_attention_fwd": fa.attention_fwd.launches}
+
+
+def _zero_fs2_counts():
+    from viet_tts_torch.ops import flash_attention as fa
+    from viet_tts_torch.ops import flash_xl_attention as fx
+    from viet_tts_torch.ops import fused_mrf as fm
+
+    for fn in (fx.xl3_fwd, fx.xl2_fwd, fx.xl_fwd, fm.fused_mrf_stage, fa.attention_fwd):
+        fn.launches = 0
+
+
+def _counted_call(fn, expect: dict, label: str):
+    """Run ``fn`` once with the launch counts measured around it; assert
+    each count in ``expect``. Returns (result, host seconds)."""
+    before = _fs2_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {k: v - before[k] for k, v in _fs2_counts().items()}
+    if any(got[k] != n for k, n in expect.items()):
+        raise AssertionError(f"{label}: launches {got}, expected {expect}")
+    log(f"two-stage {label}: {secs:.4f} s, launches {got}")
+    return out, secs
+
+
+def _check_waves(waves, n: int, label: str):
+    if len(waves) != n or not all(np.isfinite(w).all() for w in waves):
+        raise AssertionError(f"{label}: waveforms not finite / wrong count")
+    if not all(w.size % 256 == 0 for w in waves):
+        raise AssertionError(f"{label}: waveform lengths not whole frames")
+
+
+def check_two_stage_path(dev, ac_dir: str, voc_dir: str):
+    """TwoStageTTS at 1008 frames (fp32 and half) and at 2048, then the
+    server; launches asserted per call; card vs CPU on a small input."""
+    from viet_tts_torch.infer.api import TwoStageTTS
+    from viet_tts_torch.infer.server import serve
+
+    tts = TwoStageTTS(ac_dir, voc_dir, fused_vocoder=True)
+    tts_half = TwoStageTTS(ac_dir, voc_dir, fused_vocoder=True, half=True)
+    tts_long = TwoStageTTS(ac_dir, voc_dir, fused_vocoder=True, max_mel_frames=2048)
+    for model in (tts, tts_half, tts_long):  # warm-up: cuDNN autotune, allocator
+        model(SENTENCES[:2])
+    torch.cuda.synchronize()
+    per_call = {"flash_xl3_fwd": 6, "fused_mrf_stage": 36, "flash_attention_fwd": 0}
+    _zero_fs2_counts()
+    torch.cuda.reset_peak_memory_stats()
+    waves, call_s = _counted_call(lambda: tts(SENTENCES),
+                                  {**per_call, "flash_xl2_fwd": 6, "flash_xl_fwd": 0},
+                                  "fp32 __call__(16) at 1008 frames")
+    waves_half, half_s = _counted_call(lambda: tts_half(SENTENCES),
+                                       {**per_call, "flash_xl2_fwd": 6, "flash_xl_fwd": 0},
+                                       "bf16 __call__(16) at 1008 frames")
+    waves_long, long_s = _counted_call(lambda: tts_long(SENTENCES[:4]),
+                                       {**per_call, "flash_xl2_fwd": 0, "flash_xl_fwd": 6},
+                                       "fp32 __call__(4) at 2048 frames")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    httpd = serve(tts, port=0, model_name="FASTSPEECH2")
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        with urllib.request.urlopen(f"{base}/health", timeout=60) as r:
+            codes = [r.status]
+            health = json.load(r)
+        for text in SENTENCES[5:7]:
+            code, body = post(f"{base}/synthesize", {"text": text})
+            codes.append(code)
+            if body[:4] != b"RIFF":
+                raise AssertionError("/synthesize did not return a WAV")
+        # random weights give some sentences no frame at all: stream the
+        # one with the most
+        longest = SENTENCES[int(np.argmax([w.size for w in waves]))]
+        t0 = time.perf_counter()
+        code, stream_body = post(f"{base}/synthesize_stream", {"text": longest})
+        stream_s = time.perf_counter() - t0
+        codes.append(code)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    launches = _fs2_counts()
+    _check_waves(waves, len(SENTENCES), "fp32")
+    _check_waves(waves_half, len(SENTENCES), "bf16")
+    _check_waves(waves_long, 4, "2048 frames")
+    if codes != [200] * 4 or health != {"status": "ok", "model": "FASTSPEECH2"}:
+        raise AssertionError(f"HTTP codes {codes}, health {health}")
+    if len(stream_body) % 2 or not stream_body:
+        raise AssertionError("/synthesize_stream returned no PCM")
+    log(f"two-stage path: peak {peak_gb:.2f} GB over the three calls; server HTTP {codes}, "
+        f"/synthesize_stream {stream_s:.3f} s, {len(stream_body) // 2} samples; launches "
+        f"over the phase {launches}; mel frames per sentence "
+        f"{[w.size // 256 for w in waves]}")
+
+    # host time: median of 5 fp32 calls, and the acoustic / vocoder split
+    times, ac_times, voc_times = [], [], []
+    with torch.no_grad():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tts(SENTENCES)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            mel, _ = tts._mel(SENTENCES, 0, 0, None, 1.0, 1.0, 1.0)
+            torch.cuda.synchronize()
+            ac_times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            tts._vocode(mel)
+            torch.cuda.synchronize()
+            voc_times.append(time.perf_counter() - t0)
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    log(f"two-stage fp32 __call__(16) at 1008 frames: host median of 5 {med(times):.4f} s "
+        f"({[round(x, 4) for x in times]}); acoustic stage median {med(ac_times):.4f} s, "
+        f"vocoder stage median {med(voc_times):.4f} s")
+
+    check_two_stage_against_cpu(dev, tts)
+    return launches, tts, {"call_s": med(times), "half_s": half_s, "long_s": long_s,
+                           "acoustic_s": med(ac_times), "vocoder_s": med(voc_times)}
+
+
+def check_two_stage_against_cpu(dev, tts):
+    """The acoustic model on the card (kernels) against the same model on
+    the CPU (plain versions), 2 sentences, at 64, 600 and 1100 frames (the
+    decoder on each of the xl3, xl2 and xl routes), mel within 1e-3 and
+    equal mel_lens; then the vocoder on the 64-frame mel."""
+    cpu_ac = copy.deepcopy(tts.acoustic).to("cpu")
+    cpu_voc = copy.deepcopy(tts.vocoder).to("cpu")
+    ids, lens, _ = tts.encode_texts(SENTENCES[:2])
+    feats = torch.zeros(2, 64, tts.n_mels)
+    args = (torch.zeros(2, dtype=torch.int64), torch.as_tensor(ids), torch.as_tensor(lens))
+    aids = torch.zeros(2, dtype=torch.int64)
+    for frames in (64, 600, 1100):
+        mel_gpu, len_gpu, _ = tts.acoustic.inference(
+            *(a.to(dev) for a in args), frames, feats=feats.to(dev), aids=aids.to(dev))
+        mel_cpu, len_cpu, _ = cpu_ac.inference(*args, frames, feats=feats, aids=aids)
+        err = (mel_gpu.cpu() - mel_cpu).abs().max().item()
+        if not torch.equal(len_gpu.cpu(), len_cpu) or err > 1e-3:
+            raise AssertionError(f"two-stage card vs CPU at {frames} frames: lengths "
+                                 f"{len_gpu.tolist()} vs {len_cpu.tolist()}, max_abs_err {err}")
+        log(f"two-stage acoustic card (kernels) vs CPU (plain), 2 sentences x {frames} "
+            f"frames: max_abs_err {err:.3e} (tol 1e-3), peak |mel| "
+            f"{mel_cpu.abs().max().item():.3f}")
+        if frames == 64:
+            with torch.no_grad():
+                wav_err = (tts._vocode(mel_cpu.to(dev)).cpu()
+                           - cpu_voc(mel_cpu)[..., 0]).abs().max().item()
+            if wav_err > 1e-3:
+                raise AssertionError(f"vocoder card vs CPU: max_abs_err {wav_err}")
+            log(f"two-stage vocoder card vs CPU on that mel: max_abs_err {wav_err:.3e}")
+
+
 # --------------------------------------------------------------------------
 # --profile: where the time of one __call__ and of one training step goes
 # --------------------------------------------------------------------------
@@ -759,6 +1113,10 @@ KERNEL_GROUPS = (
     ("K3a flash_bwd_q_kernel", ("flash_bwd_q_kernel",)),
     ("K3b flash_bwd_kv_kernel", ("flash_bwd_kv_kernel",)),
     ("K2 mrf_conv_kernel", ("mrf_conv_kernel",)),
+    ("K4 xl3_fwd_kernel", ("xl3_fwd_kernel",)),
+    ("K5 xl2_fwd_kernel (rotating)", ("xl2_fwd_kernel<float, 48, true>",
+                                       "xl2_fwd_kernel<__nv_bfloat16, 48, true>")),
+    ("K6 xl2_fwd_kernel (two streams)", ("xl2_fwd_kernel",)),
     ("cuBLAS matmul (attention projections, GST, STFT-mel)", ("cublas", "gemv", "sgemm")),
     ("cuDNN (convs: vocoder, discriminators, FFN, predictors)", ("cudnn",)),
 )
@@ -820,8 +1178,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, time five fp32 __call__s of 16 "
-                         "sentences and five training steps, and profile one "
-                         "of each (device time by kernel group, busy share; "
+                         "sentences, five training steps and five two-stage "
+                         "calls, and profile one of each (device time by "
+                         "kernel group, busy share; "
                          "per-kernel tables in the output directory, "
                          "chip_smoke_profile*.txt)")
     args = ap.parse_args()
@@ -855,10 +1214,15 @@ def main() -> int:
     ckpt = build_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
     launches, tts = check_main_path(dev, ckpt)
     train_launches, train_figures, (step, *step_args) = check_training_path(dev)
+    xl = check_xl_kernels(dev, t_text=tts.encode_texts(SENTENCES)[2])
+    ac_dir, voc_dir = build_two_stage(os.path.join(REPO, "build", "chip_smoke_fs2"))
+    fs2_launches, tts2, fs2_figures = check_two_stage_path(dev, ac_dir, voc_dir)
     if args.profile:
         profile_call(lambda: tts(SENTENCES), "fp32 __call__(16)", "chip_smoke_profile.txt")
         profile_call(lambda: step(*step_args), "training step",
                      "chip_smoke_profile_train.txt")
+        profile_call(lambda: tts2(SENTENCES), "two-stage fp32 __call__(16)",
+                     "chip_smoke_profile_fs2.txt")
     for entry in (k1, k2):
         entry["launches"] = launches[entry["name"]]
     k1["name_detail"] = "forward, with attention-weight dropout in training"
@@ -869,9 +1233,18 @@ def main() -> int:
     k3 = k3_entries(k1_train)
     for entry in k3:
         entry["launches"] = train_launches[entry["name"]]
+    k2["two_stage_launches"] = fs2_launches["fused_mrf_stage"]
+    xl_entries = [xl[kind] for kind in ("xl3", "xl2", "xl")]
+    for entry in xl_entries:
+        entry["launches"] = fs2_launches[entry["name"]]
+        entry["launches_per"] = ("the two-stage phase: three __call__s, two /synthesize, "
+                                 "one /synthesize_stream")
     log(f"training step: host median {train_figures['step_s']:.4f} s, "
         f"peak {train_figures['peak_gb']:.2f} GB")
-    print(json.dumps({"kernels": [k1, k2, *k3]}))
+    log(f"two-stage: fp32 __call__(16) host median {fs2_figures['call_s']:.4f} s "
+        f"(acoustic {fs2_figures['acoustic_s']:.4f} s, vocoder {fs2_figures['vocoder_s']:.4f} s), "
+        f"bf16 {fs2_figures['half_s']:.4f} s, 2048 frames x 4 {fs2_figures['long_s']:.4f} s")
+    print(json.dumps({"kernels": [k1, k2, *k3, *xl_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -11,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from viet_tts_torch.nn.utils import sinusoid_position_table
 from viet_tts_torch.ops import flash_attention as fa
+from viet_tts_torch.ops import flash_xl_attention as fx
 from viet_tts_torch.ops import fused_mrf as fm
+from viet_tts_torch.ops.xl_attention import xl_pos_queries, xl_pos_query_stream
 
 KS = (3, 7, 11)
 DILS = ((1, 3, 5),) * 3
@@ -133,3 +136,75 @@ def test_fused_mrf_kernel_matches_plain(cuda_device, C, seq_len):
     torch.cuda.synchronize()
     assert not got[:, seq_len:].any()
     assert (got - want).abs().max().item() <= 1e-4
+
+
+def xl_case(device, B, T, H=8, D=48, seed=0, pad_rows=True):
+    """The three XL parameterisations of one attention (fp32, on device):
+    qc, k, v, qv (B, T, H, D), p (T, H, D), g, gA, gB (B, T, H, E) and the
+    table (T, E), E = H * D, with the conformer's scales; pad_mask with a
+    full, a ragged and a fully padded row (or None)."""
+    E = H * D
+    rng = np.random.RandomState(seed)
+    f = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device)
+    q, k, v = f(B, T, H, D), f(B, T, H, D), f(B, T, H, D)
+    u, vb = 0.3 * f(H, D), 0.3 * f(H, D)
+    pos_kernel = f(E, E) / np.sqrt(E)
+    table = torch.from_numpy(sinusoid_position_table(T, E)).to(device)
+    qv = q + vb
+    gA, gB = xl_pos_queries(qv, pos_kernel)
+    streams = dict(qc=q + u, k=k, v=v, qv=qv, p=(table @ pos_kernel).reshape(T, H, D),
+                   g=xl_pos_query_stream(qv, pos_kernel), gA=gA, gB=gB, table=table)
+    pad = None
+    if pad_rows:
+        lens = torch.tensor([T, T // 2 + 1, 0][:B] + [T] * max(B - 3, 0))
+        pad = (torch.arange(T)[None] >= lens[:, None]).to(device)
+    return streams, pad, 1.0 / np.sqrt(E)
+
+
+XL_KERNELS = {
+    "xl3": (fx.xl3_fwd, fx.xl3_fwd_plain, ("qc", "k", "v", "qv", "p")),
+    "xl2": (fx.xl2_fwd, fx.xl2_fwd_plain, ("qc", "k", "v", "g", "table")),
+    "xl": (fx.xl_fwd, fx.xl_fwd_plain, ("qc", "k", "v", "gA", "gB", "table")),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T", [("xl3", 64), ("xl3", 45), ("xl3", 300), ("xl3", 512),
+                                    ("xl2", 540), ("xl2", 1008), ("xl", 1100)])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("pad_rows", [True, False])
+def test_xl_kernels_match_plain(cuda_device, kind, T, dtype, atol, pad_rows):
+    """K4 (xl3), K5 (xl2) and K6 (xl) against their plain versions on the
+    same inputs: ragged rows and a fully padded one, or no pad mask; fp32
+    within 1e-4 (TF32 off), bf16 streams within 2e-2; the logsumexp within
+    rel 1e-5 in fp32 and 1e-3 in bf16 (K5 rounds its rotated stream to bf16,
+    and a one-ulp difference between the kernel's sincosf and the plain
+    version's sin / cos can flip that rounding)."""
+    streams, pad, scale = xl_case(cuda_device, 3, T, seed=T, pad_rows=pad_rows)
+    fwd, plain, names = XL_KERNELS[kind]
+    args = [streams[n].to(dtype) for n in names]
+    before = fwd.launches
+    ctx, lse = fwd(*args, scale, pad)
+    assert fwd.launches == before + 1
+    ref, ref_lse = plain(*args, scale, pad)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ctx).all()
+    assert (ctx - ref).abs().max().item() <= atol
+    lse_tol = 1e-5 if dtype == torch.float32 else 1e-3
+    assert ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item() <= lse_tol
+
+
+@pytest.mark.cuda
+def test_xl_routes_agree_on_the_card(cuda_device):
+    """The three kernels compute one function: at T=300 (fp32) K5 and K6
+    agree with K4 on the real rows (the fully padded row differs by design:
+    xl3 averages over T keys, xl2 / xl over the 32-padded length)."""
+    T = 300
+    streams, pad, scale = xl_case(cuda_device, 3, T, seed=11)
+    s = streams
+    c3, _ = fx.xl3_fwd(s["qc"], s["k"], s["v"], s["qv"], s["p"], scale, pad)
+    c2, _ = fx.xl2_fwd(s["qc"], s["k"], s["v"], s["g"], s["table"], scale, pad)
+    c1, _ = fx.xl_fwd(s["qc"], s["k"], s["v"], s["gA"], s["gB"], s["table"], scale, pad)
+    torch.cuda.synchronize()
+    assert (c2[:2] - c3[:2]).abs().max().item() <= 1e-4
+    assert (c1[:2] - c3[:2]).abs().max().item() <= 1e-4

@@ -158,3 +158,103 @@ def port_tiny_disc(seed=0) -> MultiScaleMultiPeriodDiscriminator:
     """The port's ``TINY_DISC`` discriminator with seeded weights."""
     disc = MultiScaleMultiPeriodDiscriminator(**TINY_DISC)
     return seeded_init_(disc, torch.Generator().manual_seed(seed))
+
+
+# --------------------------------------------------------------------------
+# FastSpeech2 (conformer) and a standalone HiFi-GAN
+# --------------------------------------------------------------------------
+
+FS2_STATS = {
+    "pitch": {"min": -3.0, "max": 8.0, "mean": 0.0, "std": 1.0},
+    "energy": {"min": -3.0, "max": 8.0, "mean": 0.0, "std": 1.0},
+}
+
+# a HiFi-GAN V1 geometry at 64 channels: the full (3, 7, 11) x (1, 3, 5) MRF
+TINY_HIFI = {
+    "upsample_rates": [8, 8, 2, 2],
+    "upsample_kernel_sizes": [16, 16, 4, 4],
+    "upsample_initial_channel": 64,
+    "resblock_kernel_sizes": [3, 7, 11],
+    "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+}
+
+
+def fs2_hparams(attn_implementation="flash", mask_attn_keys=False):
+    """``tests/test_fastspeech2.py:tiny_hparams("conformer")`` with the
+    attention route and key masking chosen."""
+    from tests.test_fastspeech2 import tiny_hparams
+
+    hp = tiny_hparams("conformer")
+    hp["attn_implementation"] = attn_implementation
+    hp["building_block"]["conformer"]["mask_attn_keys"] = mask_attn_keys
+    return hp
+
+
+def _randomise_batchnorms(model, gen):
+    for m in model.modules():
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.1)
+            m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+
+
+@torch.no_grad()
+def port_fs2(hp, n_speakers=2, seed=0):
+    """The port's FastSpeech2 on the CPU with seeded weights, in eval mode.
+    The attention projections' biases are 0: the reference layers have
+    none, and the importer that carries the weights to JAX sets them to 0."""
+    from viet_tts_torch.models.fastspeech2.model import FastSpeech2
+
+    gen = torch.Generator().manual_seed(seed)
+    model = seeded_init_(FastSpeech2(N_SYMBOLS, N_MELS, hp, FS2_STATS, n_speakers), gen)
+    for name, p in model.named_parameters():
+        if ".attention." in name and name.endswith("linear.bias"):
+            p.zero_()
+    _randomise_batchnorms(model, gen)
+    return model.eval()
+
+
+def jax_fs2(model, hp, n_speakers=2):
+    """(JAX FastSpeech2 module, its {params, batch_stats}) holding
+    ``model``'s weights, through the reference names and
+    ``import_fastspeech2``."""
+    from viet_tts_tpu.models.fastspeech2 import FastSpeech2 as JaxFastSpeech2
+    from viet_tts_tpu.train.torch_import import import_fastspeech2
+
+    jm = JaxFastSpeech2(n_symbols=N_SYMBOLS, n_channels=N_MELS, hparams=hp,
+                        stats=FS2_STATS, n_speakers=n_speakers, n_accents=2)
+    return jm, import_fastspeech2(reference_state_dict(model.state_dict()), hp)
+
+
+def hifigan_kwargs(hifi):
+    return dict(
+        in_channels=N_MELS, channels=hifi["upsample_initial_channel"],
+        upsample_scales=tuple(hifi["upsample_rates"]),
+        upsample_kernel_sizes=tuple(hifi["upsample_kernel_sizes"]),
+        resblock_kernel_sizes=tuple(hifi["resblock_kernel_sizes"]),
+        resblock_dilations=tuple(map(tuple, hifi["resblock_dilation_sizes"])))
+
+
+@torch.no_grad()
+def port_hifigan(hifi=TINY_HIFI, seed=1):
+    """The port's standalone HiFi-GAN, seeded, unit-norm transposed convs
+    (see ``port_jets``)."""
+    from viet_tts_torch.models.hifigan import HiFiGANGenerator
+
+    model = seeded_init_(HiFiGANGenerator(**hifigan_kwargs(hifi)),
+                         torch.Generator().manual_seed(seed))
+    for up in model.upsamples:
+        up[1].weight_g.fill_(1.0)
+    return model.eval()
+
+
+def jax_hifigan(model, hifi=TINY_HIFI):
+    """(JAX HiFiGANGenerator, its params) through ``import_hifigan_generator``."""
+    from viet_tts_tpu.models.hifigan import HiFiGANGenerator as JaxHiFiGAN
+    from viet_tts_tpu.train.torch_import import import_hifigan_generator
+
+    kw = hifigan_kwargs(hifi)
+    params = import_hifigan_generator(
+        reference_state_dict(model.state_dict()), upsample_scales=kw["upsample_scales"],
+        resblock_kernel_sizes=kw["resblock_kernel_sizes"],
+        resblock_dilations=kw["resblock_dilations"])
+    return JaxHiFiGAN(**kw), params

@@ -1,11 +1,13 @@
-"""JETS hyper-parameters, training and audio settings, carried as Python
+"""Model hyper-parameters, training and audio settings, carried as Python
 dicts.
 
-Copied from ``config/model_config.yaml`` (section ``jets``: generator and
-discriminator params), ``config/train_config.yaml`` (section ``jets`` and
-``grad_clip_thresh``) and ``config/preprocessing_config.yaml`` so that the
-port runs where ``pyyaml`` is not installed. ``tests/test_torch_text.py``
-holds every dict equal to the YAML files.
+Copied from ``config/model_config.yaml`` (sections ``jets``: generator and
+discriminator params; ``fastspeech2``; ``hifigan``), ``config/train_config.yaml``
+(section ``jets`` and ``grad_clip_thresh``) and
+``config/preprocessing_config.yaml`` so that the port runs where ``pyyaml``
+is not installed; ``DEFAULT_STATS`` is ``viet_tts_tpu/infer/api.py``'s.
+``tests/test_torch_text.py`` and ``tests/test_torch_fastspeech2.py`` hold
+every dict equal to its source.
 """
 
 from __future__ import annotations
@@ -159,6 +161,94 @@ JETS_TRAIN: Dict[str, Any] = {
     },
 }
 
+FASTSPEECH2: Dict[str, Any] = {
+    "max_seq_len": 1000,
+    "encoder_layers": 6,
+    "encoder_hidden": 384,
+    "decoder_layers": 6,
+    "decoder_hidden": 384,
+    "use_cvae": True,
+    "vcae": {
+        "conv_layers": 6,
+        "conv_chans_list": [32, 32, 64, 64, 128, 128],
+        "conv_kernel_size": 3,
+        "conv_stride": 2,
+        "gru_layers": 1,
+        "gru_units": 256,
+    },
+    "use_postnet": True,
+    "building_block": {
+        "block_type": "conformer",
+        "transformer": {
+            "encoder_head": 2,
+            "decoder_head": 2,
+            "conv_filter_size": 1024,
+            "conv_kernel_size": [9, 1],
+            "encoder_dropout": 0.2,
+            "decoder_dropout": 0.2,
+        },
+        "conformer": {
+            "encoder_head": 8,
+            "decoder_head": 8,
+            "ffn_expansion_factor": 4,
+            "conv_kernel_size": 31,
+            "conv_expansion_factor": 2,
+            "half_step_residual": True,
+            "encoder_dropout": 0.1,
+            "decoder_dropout": 0.1,
+            "mask_attn_keys": False,
+        },
+    },
+    "variance": {
+        "learn_alignment": True,
+        "duration_modelling": {
+            "use_gaussian": True,
+            "aligner_temperature": 0.0005,
+            "binarization_start_steps": 6000,
+        },
+        "variance_predictor": {
+            "filter_size": 256,
+            "kernel_size": 3,
+            "dropout": 0.5,
+            "dur_predictor_layers": 2,
+            "dur_predictor_kernel": 3,
+            "pit_predictor_layers": 2,
+            "pit_predictor_kernel": 5,
+            "ener_predictor_layers": 2,
+            "ener_predictor_kernel": 5,
+            "ffn_padding": "SAME",
+            "ffn_act": "gelu",
+        },
+        "variance_embedding": {
+            "n_bins": 256,
+            "pitch_feature": "phoneme_level",
+            "pitch_quantization": "linear",
+            "energy_feature": "phoneme_level",
+            "energy_quantization": "linear",
+        },
+    },
+    "postnet": {"embedding_dim": 512, "conv_layers": 5, "kernel_size": 5},
+}
+
+HIFIGAN: Dict[str, Any] = {
+    "use_spk": False,
+    "segment_size": 64,
+    "resblock": 1,
+    "num_freq": 1025,
+    "upsample_rates": [8, 8, 2, 2],
+    "upsample_kernel_sizes": [16, 16, 4, 4],
+    "upsample_initial_channel": 512,
+    "resblock_kernel_sizes": [3, 7, 11],
+    "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+}
+
+# viet_tts_tpu/infer/api.py:DEFAULT_STATS: pitch / energy statistics when a
+# checkpoint has no stats.json
+DEFAULT_STATS: Dict[str, Any] = {
+    "pitch": {"min": -3.0, "max": 8.0, "mean": 0.0, "std": 1.0},
+    "energy": {"min": -3.0, "max": 8.0, "mean": 0.0, "std": 1.0},
+}
+
 GRAD_CLIP_THRESH = 1.0  # train_config.yaml: grad_clip_thresh
 
 # every dropout rate that models/jets/model.py reads from the generator params
@@ -192,6 +282,16 @@ def jets_lambdas(train_conf: Dict[str, Any]) -> Dict[str, float]:
 def jets_generator_params() -> Dict[str, Any]:
     """A fresh copy of the JETS generator params (callers may edit it)."""
     return copy.deepcopy(JETS_GENERATOR_PARAMS)
+
+
+def fastspeech2_params() -> Dict[str, Any]:
+    """A fresh copy of the FastSpeech2 section (callers may edit it)."""
+    return copy.deepcopy(FASTSPEECH2)
+
+
+def hifigan_params() -> Dict[str, Any]:
+    """A fresh copy of the standalone HiFi-GAN section."""
+    return copy.deepcopy(HIFIGAN)
 
 
 def default_audio() -> Dict[str, Any]:

@@ -6,6 +6,11 @@
 ``train/torch_import.py:import_jets``, and the port's parameter names are
 the reference/espnet torch names that importer reads.
 
+``fastspeech2_from_jax(variables, hparams)`` and ``hifigan_from_jax(params,
+hifi_conf)`` do the same for the JAX ``FastSpeech2`` (conformer block) and a
+standalone ``HiFiGANGenerator``, the inverses of ``import_fastspeech2`` and
+``import_hifigan_generator``.
+
 ``msmpd_from_jax(params)`` does the same for the JAX
 ``MultiScaleMultiPeriodDiscriminator`` params; the port's names are the
 reference's espnet names that ``import_msmpd_discriminator`` reads. Both
@@ -110,20 +115,24 @@ def _predictor(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
     _linear(sd, f"{prefix}.linear", p["linear"])
 
 
-def _gst(sd: StateDict, prefix: str, p: Dict[str, Any], s: Dict[str, Any]) -> None:
-    ref, ref_s = p["ref_enc"], s["ref_enc"]
+def _batchnorm(sd: StateDict, prefix: str, p: Dict[str, Any], s: Dict[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+    sd[f"{prefix}.running_mean"] = _t(s["mean"])
+    sd[f"{prefix}.running_var"] = _t(s["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def _reference_encoder(sd: StateDict, prefix: str, ref: Dict[str, Any],
+                       ref_s: Dict[str, Any]) -> None:
+    """JAX ``ReferenceEncoder`` {conv_i, bn_i, GRUCell_l} -> espnet names
+    (``convs.{3i}``, ``convs.{3i+1}``, ``gru``)."""
     i = 0
     while f"conv_{i}" in ref:
         kernel = np.asarray(ref[f"conv_{i}"]["kernel"])  # (kh, kw, in, out)
-        sd[f"{prefix}.ref_enc.convs.{3 * i}.weight"] = _t(np.transpose(kernel, (3, 2, 0, 1)))
-        bn = f"{prefix}.ref_enc.convs.{3 * i + 1}"
-        sd[f"{bn}.weight"] = _t(ref[f"bn_{i}"]["scale"])
-        sd[f"{bn}.bias"] = _t(ref[f"bn_{i}"]["bias"])
-        sd[f"{bn}.running_mean"] = _t(ref_s[f"bn_{i}"]["mean"])
-        sd[f"{bn}.running_var"] = _t(ref_s[f"bn_{i}"]["var"])
-        sd[f"{bn}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+        sd[f"{prefix}.convs.{3 * i}.weight"] = _t(np.transpose(kernel, (3, 2, 0, 1)))
+        _batchnorm(sd, f"{prefix}.convs.{3 * i + 1}", ref[f"bn_{i}"], ref_s[f"bn_{i}"])
         i += 1
-    f_dim = None
     layer = 0
     while f"GRUCell_{layer}" in ref:
         g = {k: {kk: np.asarray(vv) for kk, vv in v.items()}
@@ -138,7 +147,7 @@ def _gst(sd: StateDict, prefix: str, p: Dict[str, Any], s: Dict[str, Any]) -> No
             f_dim = in_dim // C
             perm = np.arange(in_dim).reshape(f_dim, C).T.reshape(-1)
             w_ir, w_iz, w_in = w_ir[perm], w_iz[perm], w_in[perm]
-        gp = f"{prefix}.ref_enc.gru"
+        gp = f"{prefix}.gru"
         sd[f"{gp}.weight_ih_l{layer}"] = _t(np.concatenate([w_ir, w_iz, w_in], axis=1).T)
         sd[f"{gp}.weight_hh_l{layer}"] = _t(np.concatenate(
             [g["hr"]["kernel"], g["hz"]["kernel"], g["hn"]["kernel"]], axis=1).T)
@@ -148,27 +157,34 @@ def _gst(sd: StateDict, prefix: str, p: Dict[str, Any], s: Dict[str, Any]) -> No
         sd[f"{gp}.bias_hh_l{layer}"] = _t(np.concatenate(
             [np.zeros(H, np.float32), np.zeros(H, np.float32), g["hn"]["bias"]]))
         layer += 1
+
+
+def _gst(sd: StateDict, prefix: str, p: Dict[str, Any], s: Dict[str, Any]) -> None:
+    _reference_encoder(sd, f"{prefix}.ref_enc", p["ref_enc"], s["ref_enc"])
     sd[f"{prefix}.stl.gst_embs"] = _t(p["stl"]["gst_embs"])
     for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
         _linear(sd, f"{prefix}.stl.mha.{name}", p["stl"][name])
 
 
-def _hifigan(sd: StateDict, prefix: str, p: Dict[str, Any], hp: Dict[str, Any]) -> None:
-    _wn_conv1d(sd, f"{prefix}.input_conv", p["input_conv"])
+def _hifigan(sd: StateDict, prefix: str, p: Dict[str, Any], n_upsamples: int,
+             resblock_dilations) -> None:
+    """JAX ``HiFiGANGenerator`` params -> the reference names, under
+    ``prefix`` ("" for a standalone generator)."""
+    pre = f"{prefix}." if prefix else ""
+    _wn_conv1d(sd, f"{pre}input_conv", p["input_conv"])
     if "global_conv" in p:
-        _wn_conv1d(sd, f"{prefix}.global_conv", p["global_conv"])
-    dils = hp.get("generator_resblock_dilations", ((1, 3, 5),) * 3)
-    n = len(hp.get("generator_resblock_kernel_sizes", (3, 7, 11)))
-    for i in range(len(hp.get("generator_upsample_scales", (8, 8, 2, 2)))):
-        _wn_conv_transpose1d(sd, f"{prefix}.upsamples.{i}.1", p[f"upsample_{i}"])
+        _wn_conv1d(sd, f"{pre}global_conv", p["global_conv"])
+    n = len(resblock_dilations)
+    for i in range(n_upsamples):
+        _wn_conv_transpose1d(sd, f"{pre}upsamples.{i}.1", p[f"upsample_{i}"])
         for j in range(n):
             blk = p[f"block_{i}_{j}"]
-            for d in range(len(dils[j])):
-                bp = f"{prefix}.blocks.{i * n + j}"
+            for d in range(len(resblock_dilations[j])):
+                bp = f"{pre}blocks.{i * n + j}"
                 _wn_conv1d(sd, f"{bp}.convs1.{d}.1", blk[f"conv1_{d}"])
                 if f"conv2_{d}" in blk:
                     _wn_conv1d(sd, f"{bp}.convs2.{d}.1", blk[f"conv2_{d}"])
-    _wn_conv1d(sd, f"{prefix}.output_conv.1", p["output_conv"])
+    _wn_conv1d(sd, f"{pre}output_conv.1", p["output_conv"])
 
 
 def jets_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> StateDict:
@@ -189,7 +205,110 @@ def jets_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> StateDi
     _conv1d(sd, "energy_embed.0", params["energy_embed"]["conv"])
     for name in ("t_conv1", "t_conv2", "f_conv1", "f_conv2", "f_conv3"):
         _conv1d(sd, f"alignment_module.{name}", params["alignment_module"][name])
-    _hifigan(sd, "generator", params["generator"], hparams)
+    _hifigan(sd, "generator", params["generator"],
+             len(hparams.get("generator_upsample_scales", (8, 8, 2, 2))),
+             hparams.get("generator_resblock_dilations", ((1, 3, 5),) * 3))
+    return sd
+
+
+def hifigan_from_jax(params: Dict[str, Any], hifi_conf: Dict[str, Any]) -> StateDict:
+    """JAX standalone ``HiFiGANGenerator`` params (numpy leaves) -> the port
+    ``HiFiGANGenerator`` state_dict; ``hifi_conf`` is the ``hifigan``
+    section of the model config (``config.hifigan_params()``)."""
+    sd: StateDict = {}
+    _hifigan(sd, "", params, len(hifi_conf["upsample_rates"]),
+             hifi_conf["resblock_dilation_sizes"])
+    return sd
+
+
+def _fs2_predictor(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    """JAX Duration/VariancePredictor -> the reference's ``conv.{i}.1``
+    (Conv1d) and ``conv.{i}.3`` (LayerNorm), ``linear``."""
+    convs = p["conv"]
+    i = 0
+    while f"conv_{i}" in convs:
+        _conv1d(sd, f"{prefix}.conv.{i}.1", convs[f"conv_{i}"])
+        _layernorm(sd, f"{prefix}.conv.{i}.3", convs[f"ln_{i}"])
+        i += 1
+    _linear(sd, f"{prefix}.linear", p["linear"])
+    if "pos_embed_alpha" in p:
+        sd[f"{prefix}.pos_embed_alpha"] = _t(np.asarray(p["pos_embed_alpha"]).reshape(1))
+
+
+def _conformer_ffn(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    _layernorm(sd, f"{prefix}.sequential.0", p["LayerNorm_0"])
+    _linear(sd, f"{prefix}.sequential.1.linear", p["Dense_0"])
+    _linear(sd, f"{prefix}.sequential.4.linear", p["Dense_1"])
+
+
+def _conformer_stack(sd: StateDict, prefix: str, p: Dict[str, Any],
+                     s: Dict[str, Any]) -> None:
+    """JAX ConformerEncoder / ConformerDecoder -> ``layer_stack.{i}``
+    (``torch_import.py:_conformer_block_params``, inverted)."""
+    if "src_word_emb" in p:
+        sd[f"{prefix}.src_word_emb.weight"] = _t(p["src_word_emb"]["embedding"])
+    i = 0
+    while f"layer_{i}" in p:
+        lp, block = p[f"layer_{i}"], f"{prefix}.layer_stack.{i}"
+        _conformer_ffn(sd, f"{block}.sequential.0.module", lp["ff1"])
+        mhsa = f"{block}.sequential.1.module"
+        _layernorm(sd, f"{mhsa}.layer_norm", lp["mhsa_ln"])
+        att = lp["mhsa"]
+        for name in ("query_proj", "key_proj", "value_proj", "out_proj"):
+            _linear(sd, f"{mhsa}.attention.{name}.linear", att[name])
+        _linear(sd, f"{mhsa}.attention.pos_proj.linear", att["pos_proj"])
+        sd[f"{mhsa}.attention.u_bias"] = _t(att["u_bias"])
+        sd[f"{mhsa}.attention.v_bias"] = _t(att["v_bias"])
+        conv, cp = f"{block}.sequential.2.module.sequential", lp["conv"]
+        _layernorm(sd, f"{conv}.0", cp["LayerNorm_0"])
+        _conv1d(sd, f"{conv}.2.conv", cp["pw_conv1"])
+        _conv1d(sd, f"{conv}.4.conv", cp["dw_conv"])
+        _batchnorm(sd, f"{conv}.5", cp["bn"], s[f"layer_{i}"]["conv"]["bn"])
+        _conv1d(sd, f"{conv}.7.conv", cp["pw_conv2"])
+        _conformer_ffn(sd, f"{block}.sequential.3.module", lp["ff2"])
+        _layernorm(sd, f"{block}.sequential.4", lp["final_ln"])
+        i += 1
+
+
+def fastspeech2_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> StateDict:
+    """JAX ``FastSpeech2`` variables {params, batch_stats} (numpy leaves,
+    conformer block) -> the port ``FastSpeech2`` state_dict (fp32 CPU
+    tensors), under the reference names that ``import_fastspeech2`` reads."""
+    if hparams["building_block"]["block_type"] != "conformer":
+        raise NotImplementedError("the port has the conformer building block only")
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: StateDict = {}
+    _conformer_stack(sd, "encoder", params["encoder"], stats["encoder"])
+    _conformer_stack(sd, "decoder", params["decoder"], stats["decoder"])
+    spk = params["speaker_emb"]
+    if "cvae" in spk:
+        _reference_encoder(sd, "speaker_emb.encoder", spk["encoder"],
+                           stats["speaker_emb"]["encoder"])
+        for tag in ("acc", "spk"):
+            sd[f"speaker_emb.cvae.embedding_layer_{tag}.weight"] = _t(
+                spk["cvae"][f"embedding_layer_{tag}"]["embedding"])
+            _linear(sd, f"speaker_emb.cvae.linear_model_{tag}.0", spk["cvae"][f"linear_{tag}"])
+            _linear(sd, f"speaker_emb.cvae.mu_layer_{tag}.linear", spk["cvae"][f"mu_{tag}"])
+            _linear(sd, f"speaker_emb.cvae.logvar_layer_{tag}.linear",
+                    spk["cvae"][f"logvar_{tag}"])
+    elif "kernel" in spk:
+        _linear(sd, "speaker_emb", spk)
+    else:
+        sd["speaker_emb.weight"] = _t(spk["embedding"])
+    va = params["variance_adaptor"]
+    for name in ("duration_predictor", "pitch_predictor", "energy_predictor"):
+        _fs2_predictor(sd, f"variance_adaptor.{name}", va[name])
+    for name in ("pitch_embedding", "energy_embedding"):
+        sd[f"variance_adaptor.{name}.weight"] = _t(va[name]["embedding"])
+    _linear(sd, "feats_linear", params["feats_linear"])
+    if "postnet" in params:
+        i = 0
+        while f"conv_{i}" in params["postnet"]:
+            _conv1d(sd, f"postnet.convolutions.{i}.0.conv", params["postnet"][f"conv_{i}"])
+            _batchnorm(sd, f"postnet.convolutions.{i}.1", params["postnet"][f"bn_{i}"],
+                       stats["postnet"][f"bn_{i}"])
+            i += 1
     return sd
 
 

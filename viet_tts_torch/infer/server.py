@@ -1,8 +1,11 @@
-"""Minimal HTTP serving front-end (stdlib only) over ``OneStageTTS``.
+"""Minimal HTTP serving front-end (stdlib only) over ``OneStageTTS`` or
+``TwoStageTTS``.
 
 Counterpart of ``viet_tts_tpu/infer/server.py``:
 
     python -m viet_tts_torch.infer.server -c ckpt_dir --port 8000
+    python -m viet_tts_torch.infer.server --model_type FASTSPEECH2 \
+        -a acoustic_ckpt_dir -v vocoder_ckpt_dir --max_mel_frames 2048
 
 API:
     GET  /health               -> {"status": "ok", "model": "..."}
@@ -130,11 +133,16 @@ def serve(tts, host: str = "127.0.0.1", port: int = 8000,
 def _main():
     import argparse
 
-    from viet_tts_torch.infer.api import OneStageTTS
+    from viet_tts_torch.infer.api import OneStageTTS, TwoStageTTS
 
     ap = argparse.ArgumentParser(description="HTTP TTS serving endpoint (PyTorch)")
     ap.add_argument("--model_type", default="JETS")
-    ap.add_argument("-c", "--checkpoint", required=True)
+    ap.add_argument("-c", "--checkpoint", default=None,
+                    help="one-stage (JETS) checkpoint directory")
+    ap.add_argument("-a", "--acoustic_checkpoint", default=None,
+                    help="two-stage acoustic (FASTSPEECH2) checkpoint directory")
+    ap.add_argument("-v", "--vocoder_checkpoint", default=None,
+                    help="two-stage HiFi-GAN checkpoint directory")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--half", action="store_true")
@@ -142,9 +150,18 @@ def _main():
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args()
-    tts = OneStageTTS(args.checkpoint, model_type=args.model_type,
-                      half=args.half, max_mel_frames=args.max_mel_frames,
-                      device=args.device)
+    if args.model_type.upper() in ("FASTSPEECH2", "ADASPEECH", "MATCHA"):
+        if not (args.acoustic_checkpoint and args.vocoder_checkpoint):
+            ap.error(f"--model_type {args.model_type} needs -a and -v")
+        tts = TwoStageTTS(args.acoustic_checkpoint, args.vocoder_checkpoint,
+                          model_type=args.model_type, half=args.half,
+                          max_mel_frames=args.max_mel_frames, device=args.device)
+    else:
+        if not args.checkpoint:
+            ap.error(f"--model_type {args.model_type} needs -c")
+        tts = OneStageTTS(args.checkpoint, model_type=args.model_type,
+                          half=args.half, max_mel_frames=args.max_mel_frames,
+                          device=args.device)
     httpd = ThreadingHTTPServer((args.host, args.port),
                                 make_handler(tts, args.model_type))
     print(f"serving {args.model_type} on http://{args.host}:{args.port}")

@@ -1,30 +1,43 @@
-"""FastSpeech2 layers the JETS slice needs: the GST ``ReferenceEncoder``.
+"""FastSpeech2 layers: predictors, postnet, CVAE speaker / accent
+conditioning and the GST ``ReferenceEncoder``.
 
-Counterpart of ``viet_tts_tpu/models/fastspeech2/layers.py:ReferenceEncoder``
-(espnet ``gst/style_encoder.py``). Parameter names follow espnet
-(``convs.{3i}`` Conv2d, ``convs.{3i+1}`` BatchNorm2d, ``gru``), as
-``train/torch_import.py:_gst_params`` reads them.
+Counterpart of ``viet_tts_tpu/models/fastspeech2/layers.py``
+(``ConvReluNormStack``, ``DurationPredictor``, ``VariancePredictor``,
+``Postnet``, ``ReferenceEncoder``, ``CVAENet``, ``AccentEncoderNetwork``;
+the ``AlignmentEncoder`` comes with the training slice). Parameter names
+follow the reference torch model (``models/tts/fastspeech2/layers.py``) as
+``train/torch_import.py`` reads them: predictor convs ``conv.{i}.1`` with
+their LayerNorm at ``conv.{i}.3``, postnet ``convolutions.{i}.0.conv`` and
+``.1`` (BatchNorm), CVAE heads ``cvae.linear_model_{acc,spk}.0`` and
+``cvae.{mu,logvar}_layer_{acc,spk}.linear``; the reference encoder's are
+espnet's (``convs.{3i}`` Conv2d, ``convs.{3i+1}`` BatchNorm2d, ``gru``), as
+``_gst_params`` / ``_accent_encoder_params`` read them. Activations are
+(B, T, C).
 
-The BatchNorms follow flax's ``nn.BatchNorm`` (``FlaxBatchNorm2d``): in
-training mode they normalise with the batch statistics and update the
-running ones as 0.99 old + 0.01 batch, the variance biased, eps 1e-5.
+The BatchNorms follow flax's ``nn.BatchNorm``: in training mode they
+normalise with the batch statistics and update the running ones as 0.99 old
++ 0.01 batch, the variance biased, eps 1e-5; in eval mode they are torch's.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
+from viet_tts_torch.nn.utils import ChannelLayerNorm
 
-class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d with flax's ``nn.BatchNorm`` defaults
-    (``use_running_average=not train``): running = 0.99 * running + 0.01 *
+
+class _FlaxBatchNorm:
+    """Training-mode forward of flax's ``nn.BatchNorm`` for torch's
+    BatchNorm classes (channel axis 1): running = 0.99 * running + 0.01 *
     batch, with the BIASED batch variance in the running variance (torch's
     module keeps the unbiased one and takes momentum 0.1), eps 1e-5. The
-    parameter and buffer names are torch's, so the state_dict is unchanged;
-    in eval mode it is torch's module."""
+    parameter and buffer names are torch's; in eval mode it is torch's
+    module."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=0.01)
@@ -32,15 +45,159 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = x.var(dim=(0, 2, 3), unbiased=False)
+        dims = (0, *range(2, x.dim()))
+        mean = x.mean(dim=dims)
+        var = x.var(dim=dims, unbiased=False)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
             self.num_batches_tracked.add_(1)
-        shape = (1, -1, 1, 1)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
         inv = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+
+
+class FlaxBatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    """BatchNorm1d on (B, C, T) with flax's training semantics."""
+
+
+class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """BatchNorm2d on (B, C, H, W) with flax's training semantics."""
+
+
+class LinearNorm(nn.Module):
+    """A Linear under ``.linear`` (the reference's ``LinearNorm``)."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True):
+        super().__init__()
+        self.linear = nn.Linear(d_in, d_out, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x)
+
+
+class ConvNorm(nn.Module):
+    """A Conv1d on (B, C, T) under ``.conv`` (the reference's
+    ``ConvNorm``), 'SAME' padding for odd kernels."""
+
+    def __init__(self, d_in: int, d_out: int, kernel_size: int = 1, groups: int = 1,
+                 bias: bool = True):
+        super().__init__()
+        self.conv = nn.Conv1d(d_in, d_out, kernel_size, padding=(kernel_size - 1) // 2,
+                              groups=groups, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+def fairseq_sinusoid_table(num_embeddings: int, dim: int, padding_idx: int = 0) -> np.ndarray:
+    """fairseq's table: [sin | cos] halves, row ``padding_idx`` zeroed."""
+    half = dim // 2
+    freq = np.exp(np.arange(half, dtype=np.float64) * -(math.log(10000.0) / (half - 1)))
+    ang = np.arange(num_embeddings, dtype=np.float64)[:, None] * freq[None, :]
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=1)
+    if dim % 2 == 1:
+        emb = np.concatenate([emb, np.zeros((num_embeddings, 1))], axis=1)
+    emb[padding_idx] = 0.0
+    return emb.astype(np.float32)
+
+
+def fairseq_positions(ref: torch.Tensor, padding_idx: int = 0) -> torch.Tensor:
+    """Position ids from a reference signal: entries that are not
+    ``padding_idx`` numbered from padding_idx + 1, the others padding_idx."""
+    mask = (ref != padding_idx).to(torch.int64)
+    return torch.cumsum(mask, dim=1) * mask + padding_idx
+
+
+class ConvReluNormStack(nn.ModuleList):
+    """[Conv1d -> ReLU -> LayerNorm(eps 1e-12, over channels) -> Dropout] x
+    n on (B, T, C), each layer's output zeroed at ``pad_mask``."""
+
+    def __init__(self, in_chans: int, n_chans: int, n_layers: int, kernel_size: int,
+                 dropout: float):
+        super().__init__(
+            nn.Sequential(
+                nn.Identity(),
+                nn.Conv1d(in_chans if i == 0 else n_chans, n_chans, kernel_size,
+                          padding=(kernel_size - 1) // 2),
+                nn.ReLU(),
+                ChannelLayerNorm(n_chans, eps=1e-12),
+                nn.Dropout(dropout),
+            )
+            for i in range(n_layers)
+        )
+
+    def forward(self, x: torch.Tensor,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x.transpose(1, 2)
+        keep = None if pad_mask is None else (~pad_mask)[:, None, :].to(x.dtype)
+        for layer in self:
+            x = layer(x)
+            if keep is not None:
+                x = x * keep
+        return x.transpose(1, 2)
+
+
+class DurationPredictor(nn.Module):
+    """Log-domain duration predictor: (B, T, C) -> (B, T), 0 at padding."""
+
+    def __init__(self, in_chans: int, n_chans: int = 256, n_layers: int = 2,
+                 kernel_size: int = 3, dropout: float = 0.5):
+        super().__init__()
+        self.conv = ConvReluNormStack(in_chans, n_chans, n_layers, kernel_size, dropout)
+        self.linear = nn.Linear(n_chans, 1)
+
+    def forward(self, xs: torch.Tensor,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = self.linear(self.conv(xs, pad_mask))[..., 0]
+        return out if pad_mask is None else out * (~pad_mask).to(out.dtype)
+
+
+class VariancePredictor(nn.Module):
+    """Pitch / energy predictor: the input plus alpha times fairseq's
+    position table at its own positions, then the conv stack (unmasked) and
+    a linear head: (B, T, C) -> (B, T)."""
+
+    def __init__(self, in_chans: int, n_chans: int = 256, n_layers: int = 2,
+                 kernel_size: int = 5, dropout: float = 0.5):
+        super().__init__()
+        self.pos_embed_alpha = nn.Parameter(torch.ones(1))
+        self.register_buffer("table", torch.from_numpy(fairseq_sinusoid_table(4096, in_chans)),
+                             persistent=False)
+        self.conv = ConvReluNormStack(in_chans, n_chans, n_layers, kernel_size, dropout)
+        self.linear = nn.Linear(n_chans, 1)
+
+    def seeded_init_(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.pos_embed_alpha.fill_(1.0)
+
+    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        xs = xs + self.pos_embed_alpha * self.table[fairseq_positions(xs[..., 0])]
+        return self.linear(self.conv(xs))[..., 0]
+
+
+class Postnet(nn.Module):
+    """(conv_layers - 1) x [Conv1d + BatchNorm + tanh] + [Conv1d +
+    BatchNorm] on (B, T, n_channels); the caller adds the residual."""
+
+    def __init__(self, n_channels: int, embedding_dim: int = 512, conv_layers: int = 5,
+                 kernel_size: int = 5):
+        super().__init__()
+        dims = [n_channels] + [embedding_dim] * (conv_layers - 1) + [n_channels]
+        self.convolutions = nn.ModuleList(
+            nn.Sequential(ConvNorm(dims[i], dims[i + 1], kernel_size),
+                          FlaxBatchNorm1d(dims[i + 1]))
+            for i in range(conv_layers)
+        )
+        self.dropout = nn.Dropout(0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.transpose(1, 2)
+        last = len(self.convolutions) - 1
+        for i, layer in enumerate(self.convolutions):
+            x = layer(x)
+            x = self.dropout(x if i == last else torch.tanh(x))
+        return x.transpose(1, 2)
 
 
 class ReferenceEncoder(nn.Module):
@@ -111,3 +268,52 @@ class ReferenceEncoder(nn.Module):
         B, C, Tp, Fp = x.shape
         x = x.transpose(1, 2).reshape(B, Tp, C * Fp)
         return self._gru(x)
+
+
+class CVAENet(nn.Module):
+    """Conditional-VAE accent and speaker heads over the reference
+    embedding: (z_acc, y_acc, z_spk, y_spk, (mu_acc, logvar_acc, mu_spk,
+    logvar_spk)); z is the mean in eval mode and a reparameterised sample
+    in training mode."""
+
+    def __init__(self, n_accents: int, n_speakers: int, in_dim: int, y_dim: int = 10,
+                 z_dim: int = 192):
+        super().__init__()
+        for tag, n in (("acc", n_accents), ("spk", n_speakers)):
+            setattr(self, f"embedding_layer_{tag}", nn.Embedding(n, y_dim))
+            setattr(self, f"linear_model_{tag}",
+                    nn.Sequential(nn.Linear(in_dim + y_dim, 256), nn.Tanh()))
+            setattr(self, f"mu_layer_{tag}", LinearNorm(256, z_dim))
+            setattr(self, f"logvar_layer_{tag}", LinearNorm(256, z_dim))
+
+    def _head(self, x: torch.Tensor, label: torch.Tensor, tag: str):
+        y = getattr(self, f"embedding_layer_{tag}")(label)
+        h = getattr(self, f"linear_model_{tag}")(torch.cat([x, y], dim=1))
+        mu = getattr(self, f"mu_layer_{tag}")(h)
+        logvar = getattr(self, f"logvar_layer_{tag}")(h)
+        z = mu + torch.randn_like(mu) * torch.exp(0.5 * logvar) if self.training else mu
+        return z, y, mu, logvar
+
+    def forward(self, x: torch.Tensor, label_acc: torch.Tensor, label_spk: torch.Tensor):
+        z_acc, y_acc, mu_acc, logvar_acc = self._head(x, label_acc, "acc")
+        z_spk, y_spk, mu_spk, logvar_spk = self._head(x, label_spk, "spk")
+        return z_acc, y_acc, z_spk, y_spk, (mu_acc, logvar_acc, mu_spk, logvar_spk)
+
+
+class AccentEncoderNetwork(nn.Module):
+    """``ReferenceEncoder`` (mel) -> ``CVAENet`` accent / speaker latents,
+    each ``z_dim`` wide."""
+
+    def __init__(self, n_speakers: int, n_accents: int, z_dim: int, idim: int = 80,
+                 conv_layers: int = 6,
+                 conv_chans_list: Sequence[int] = (32, 32, 64, 64, 128, 128),
+                 conv_kernel_size: int = 3, conv_stride: int = 2, gru_layers: int = 1,
+                 gru_units: int = 256):
+        super().__init__()
+        self.encoder = ReferenceEncoder(idim, conv_layers, conv_chans_list, conv_kernel_size,
+                                        conv_stride, gru_layers, gru_units)
+        self.cvae = CVAENet(n_accents, n_speakers, gru_units, 10, z_dim)
+
+    def forward(self, speech: torch.Tensor, acc_labels: torch.Tensor,
+                spk_labels: torch.Tensor):
+        return self.cvae(self.encoder(speech), acc_labels, spk_labels)

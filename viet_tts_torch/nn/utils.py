@@ -1,11 +1,27 @@
-"""Shared helpers for neural blocks: masks and seeded initialisation."""
+"""Shared helpers for neural blocks: positions, masks and seeded
+initialisation."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
+
+
+def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
+    """The FastSpeech2 sinusoid table (n_position, d_hid), fp32: angle(pos,
+    i) = pos / 10000^(2*(i//2)/d_hid), sin on even dims, cos on odd
+    (``viet_tts_tpu/nn/utils.py:sinusoid_position_table``; computed in
+    float64). Not espnet's table of ``nn/espnet_transformer.py``."""
+    pos = np.arange(n_position, dtype=np.float64)[:, None]
+    i = np.arange(d_hid, dtype=np.float64)[None, :]
+    angle = pos / np.power(10000.0, 2.0 * (i // 2) / d_hid)
+    table = np.zeros((n_position, d_hid), dtype=np.float64)
+    table[:, 0::2] = np.sin(angle[:, 0::2])
+    table[:, 1::2] = np.cos(angle[:, 1::2])
+    return table.astype(np.float32)
 
 
 def pad_mask_from_lengths(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -47,10 +63,10 @@ def seeded_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         own = getattr(type(m), "seeded_init_", None)
         if own is not None:
             own(m, generator)
-        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+        elif isinstance(m, (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
         elif isinstance(m, nn.Embedding):

@@ -62,6 +62,27 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         ),
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
+    "flash_xl_attention": {
+        # qc, k, v, qv, p, pad, out, lse, B, T, H, D, is_bf16, scale,
+        # dropout_p, seed, stream
+        "vt_flash_xl3_fwd": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+        ),
+        # qc, k, v, g, table, pad, out, lse, B, T, Tp, H, D, E, is_bf16,
+        # scale, dropout_p, seed, stream
+        "vt_flash_xl2_fwd": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+        ),
+        # qc, k, v, gA, gB, table, pad, out, lse, B, T, Tp, H, D, E, is_bf16,
+        # scale, dropout_p, seed, stream
+        "vt_flash_xl_fwd": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+        ),
+        "vt_error_string": (ctypes.c_char_p, [_I]),
+    },
     "fused_mrf": {
         # src, w, bias, res, hout, accin, accout, acc_div, B, T, C, seq_len,
         # K, dil, slope, stream
