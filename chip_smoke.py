@@ -47,10 +47,25 @@ Phases (any failure exits non-zero; no phase is caught):
     and K5 6 at 1008 frames, K4 6 and K6 6 at 2048, K2 36); a small input
     on each attention route is checked against the CPU; the host median of
     5 fp32 calls and the acoustic / vocoder split;
- 9. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
-    training steps and five two-stage calls, one of each under
-    ``torch.profiler``, device time by kernel group;
-10. one JSON line ``{"kernels": [...]}``, then the card's line, then
+ 9. kernels K4 and K5 with attention-weight dropout and their backward (K4
+    bwd; K5 bwd-q, bwd-kv) against their plain versions under one seed at
+    the FS2 training shapes (B=8, H=8, D=48: K4 at T=64 and 512, K5 at
+    1008 with E=384), fp32 and bf16, dropout 0 and 0.1, ragged lengths with
+    a fully padded row and no pad mask, with times and SDPA's backward with
+    the position term as its mask;
+10. the FS2 training path: ``make_fs2_train_step`` on full-width
+    FastSpeech2-conformer (flash attention, every dropout as configured,
+    MAS durations, CVAE, Postnet) with the bench.py batch (B=8, T_text=64,
+    beta-binomial prior) at T_mel 1008 (decoder on K5) and 512 (on K4): two
+    warm-up and three timed steps each, launch counts zeroed before and read
+    after them and held exactly (K4 fwd 6, K4 bwd 6, K5 fwd 6, bwd-q 6,
+    bwd-kv 6 a step at 1008; K4 fwd 12, K4 bwd 12 at 512), finite losses;
+    one bf16 mixed-precision step; one small full-width step on the card
+    against the CPU;
+11. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
+    JETS training steps, five two-stage calls and five FS2 training steps,
+    one of each under ``torch.profiler``, device time by kernel group;
+12. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Times are CUDA-event times over repeated launches after a warm-up. bound_ms
@@ -1104,6 +1119,393 @@ def check_two_stage_against_cpu(dev, tts):
 
 
 # --------------------------------------------------------------------------
+# phase 9: K4 / K5 with dropout and their backward at the training shapes
+# --------------------------------------------------------------------------
+
+XL_TRAIN_DROPOUT = 0.1  # model_config.yaml fastspeech2: conformer encoder/decoder_dropout
+FS2_TRAIN_T_MELS = (1008, 512)  # decoder on K5 (pads to 1024) / on K4
+# (kind, T): the encoder's text bucket and the decoder at 512 on K4, the
+# decoder at 1008 on K5; B = 8, H = 8, D = 48 (E = 384)
+XL_TRAIN_CASES = (("xl3", TRAIN_T_TEXT), ("xl3", TRAIN_T_MEL), ("xl2", 1008))
+XL_TRAIN_REPLACES = {
+    "flash_xl3_bwd": "viet_tts_tpu/ops/pallas_attention.py:1465",
+    "flash_xl2_bwd_q": "viet_tts_tpu/ops/pallas_attention.py:1060",
+    "flash_xl2_bwd_kv": "viet_tts_tpu/ops/pallas_attention.py:1108",
+}
+
+
+def _xl_train_work(kind: str, args, lens, T: int):
+    """(bytes, FLOP) of each training kernel of ``kind`` at these inputs:
+    every input read once in its dtype (the cotangent g in the stream
+    dtype, pad, lse and delta in fp32), every output written once in fp32;
+    the dot products over the live keys L of each row only (a pair needs
+    one of the past / future position terms): forward content D +
+    position P + weighted sum D; K4 bwd eight D-wide products (s, pos, g v,
+    dqc, dk, dv, dqv, dp); K5 bwd-q s, pos, g v, dqc and the E-wide dgA /
+    dgB (3D + 2E); K5 bwd-kv s, pos, g v, dk, dv (4D + E)."""
+    B, _, H, D = args[0].shape
+    esz = args[0].element_size()
+    row, stat = B * T * H * D, B * H * T
+    P = D if kind == "xl3" else args[3].shape[-1]
+    ins = sum(a.numel() * a.element_size() for a in args) + 4.0 * B * T
+    pairs = 2.0 * H * T * float(np.sum(lens))
+    work = {"fwd": (ins + 4.0 * (row + stat), pairs * (2 * D + P))}
+    bwd_in = ins + esz * row + 8.0 * stat
+    if kind == "xl3":
+        work["flash_xl3_bwd"] = (bwd_in + 4.0 * (4 * row + T * H * D), pairs * 8 * D)
+    else:
+        work["flash_xl2_bwd_q"] = (bwd_in + 4.0 * (row + B * T * H * P),
+                                   pairs * (3 * D + 2 * P))
+        work["flash_xl2_bwd_kv"] = (bwd_in + 4.0 * 2 * row, pairs * (4 * D + P))
+    return work
+
+
+def _library_xl(base, pad, scale: float, dtype, dropout_p: float, gout):
+    """SDPA with scale * the position term (built from the dense oracle on
+    the two-stream inputs) as an additive mask, MASK_NEG at padded keys:
+    (mask build ms, forward call, its backward through autograd on a
+    retained graph). A yardstick only: no path of the port calls it."""
+    from viet_tts_torch.ops.flash_attention import MASK_NEG
+    from viet_tts_torch.ops.xl_attention import xl_attention_scores
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zeros = torch.zeros_like(base["qc"])
+    mask = xl_attention_scores(zeros, zeros, base["gA"], base["gB"], base["table"], scale)
+    if pad is not None:
+        mask = mask.masked_fill(pad[:, None, None, :], MASK_NEG)
+    mask = mask.to(dtype)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    qh, kh, vh = (base[n].to(dtype).permute(0, 2, 1, 3).contiguous() for n in ("qc", "k", "v"))
+    gh = gout.to(dtype).permute(0, 2, 1, 3).contiguous()
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=dropout_p,
+                                         scale=scale)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              dropout_p=dropout_p, scale=scale)
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, gh, retain_graph=True)
+
+    return build_ms, fwd, bwd
+
+
+def _max_err(got, want):
+    """(max abs error, max abs error / max(1, max |plain|)) over outputs."""
+    errs = [((a - b).abs().max().item(), max(1.0, b.abs().max().item()))
+            for a, b in zip(got, want) if b is not None]
+    return max(e for e, _ in errs), max(e / s for e, s in errs)
+
+
+def check_xl_training(dev):
+    """K4 / K5 forward with attention-weight dropout and K4 bwd, K5 bwd-q,
+    K5 bwd-kv against their plain versions under one seed at the FS2
+    training shapes (B=8, H=8, D=48, E=384; K4 at T=64 and 512, K5 at
+    1008), fp32 (TF32 off, each gradient within 1e-4 of the plain one,
+    scaled by its largest value where that exceeds 1) and bf16 (2e-2),
+    dropout 0 and 0.1, ragged lengths with a fully padded row and no pad
+    mask (the path's: ``mask_attn_keys: false``); K5 bwd-kv with the table's
+    gradient too. Times per launch at the path's call (fp32, dropout 0.1,
+    no pad mask). Returns {kernel name: figures at the decoder's shape}."""
+    from viet_tts_torch.ops import flash_attention as fa
+    from viet_tts_torch.ops import flash_xl_attention as fx
+
+    scale = 1.0 / np.sqrt(FS2_H * FS2_D)
+    figures = {}
+    for kind, T in XL_TRAIN_CASES:
+        B = TRAIN_B
+        base = xl_inputs(dev, B, T, seed=T + 3)
+        rng = np.random.RandomState(T + 1)
+        lens = rng.randint(1, T + 1, B)
+        lens[0], lens[-1] = T, 0  # one full row, one fully padded row
+        ragged = (torch.arange(T)[None] >= torch.from_numpy(lens)[:, None]).to(dev)
+        gout = torch.randn(B, T, FS2_H, FS2_D, generator=torch.Generator().manual_seed(T)).to(dev)
+        names = ("qc", "k", "v", "qv", "p") if kind == "xl3" else ("qc", "k", "v", "g", "table")
+        fwd, plain_fwd = ((fx.xl3_fwd, fx.xl3_fwd_plain) if kind == "xl3"
+                          else (fx.xl2_fwd, fx.xl2_fwd_plain))
+        if kind == "xl3":
+            bwds = {"flash_xl3_bwd": (fx.xl3_bwd, fx.xl3_bwd_plain, {})}
+        else:
+            bwds = {"flash_xl2_bwd_q": (fx.xl2_bwd_dq, fx.xl2_bwd_dq_plain, {}),
+                    "flash_xl2_bwd_kv": (fx.xl2_bwd_dkv, fx.xl2_bwd_dkv_plain,
+                                         {"want_dtab": True})}
+        fwd_name = f"flash_{kind}_fwd"
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = [base[n].to(dtype) for n in names]
+            peak = FP32_FLOP_PER_MS if dtype == torch.float32 else BF16_FLOP_PER_MS
+            for pad, pad_name, live in ((ragged, "ragged", lens),
+                                        (None, "no pad mask", np.full(B, T))):
+                padf = pad.float() if pad is not None else torch.zeros(B, T, device=dev)
+                for p in (0.0, XL_TRAIN_DROPOUT):
+                    seed = 7919 * T + int(p * 10)
+                    ctx, lse = fwd(*args, scale, pad, p, seed)
+                    ref, _ = plain_fwd(*args, scale, pad, p, seed)
+                    delta, g = fa.backward_inputs(ctx, gout, dtype)
+                    bargs = (*args, padf, lse, delta, g, scale, p, seed)
+                    errs = {fwd_name: ((ctx - ref).abs().max().item(),) * 2}
+                    del ref
+                    for name, (kern, plain, kw) in bwds.items():
+                        got = kern(*bargs, **kw)
+                        want = plain(*bargs, **kw)
+                        torch.cuda.synchronize()
+                        if not all(torch.isfinite(x).all() for x in got if x is not None):
+                            raise AssertionError(f"{name} T={T}: gradient not finite")
+                        errs[name] = _max_err(got, want)
+                        del got, want
+                    label = f"T={T} {str(dtype)[6:]} {pad_name} dropout={p}"
+                    bad = {n: e for n, e in errs.items() if e[1] > tol}
+                    if bad:
+                        raise AssertionError(f"XL training {label}: max abs err (abs, scaled) "
+                                             f"{bad} (tol {tol})")
+                    log(f"XL training {label}: " + ", ".join(
+                        f"{n} {e[0]:.3e} (scaled {e[1]:.3e})" for n, e in errs.items())
+                        + f" (tol {tol})")
+                    path_call = dtype == torch.float32 and pad is None and p == XL_TRAIN_DROPOUT
+                    if not path_call:
+                        continue
+                    iters = 20 if T <= 512 else 5
+                    build_ms, lib_fwd, lib_bwd = _library_xl(base, pad, scale, dtype, p, gout)
+                    l_fwd, l_bwd = cuda_ms(lib_fwd, iters), cuda_ms(lib_bwd, iters)
+                    work = _xl_train_work(kind, args, live, T)
+                    timed = {fwd_name: (lambda: fwd(*args, scale, pad, p, seed),
+                                        lambda: plain_fwd(*args, scale, pad, p, seed), l_fwd)}
+                    for name, (kern, plain, _) in bwds.items():
+                        timed[name] = (lambda k=kern: k(*bargs), lambda q=plain: q(*bargs), l_bwd)
+                    for name, (k_fn, p_fn, l_ms) in timed.items():
+                        k_ms = cuda_ms(k_fn, iters)
+                        p_ms = cuda_ms(p_fn, 3, warmup=1)
+                        nbytes, flops = work["fwd" if name == fwd_name else name]
+                        b_ms, kind_b = bound(nbytes, flops, peak)
+                        log(f"  {name} (B={B}, T={T}): kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+                            f"library_ms {l_ms:.4f} (mask built in {build_ms:.1f} ms) bound_ms "
+                            f"{b_ms:.4f} ({kind_b}) {flops / k_ms / 1e9:.2f} TFLOP/s")
+                        entry = figures.setdefault(name, {})
+                        entry.setdefault("per_shape", {})[f"T={T}"] = dict(
+                            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                            bound_by=kind_b, library_mask_build_ms=build_ms)
+                        if T != TRAIN_T_TEXT:  # the decoder's shape heads the entry
+                            entry.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                         bound_ms=b_ms, bound_by=kind_b,
+                                         library_mask_build_ms=build_ms,
+                                         per=f"one launch at (B={B}, H={FS2_H}, T={T}, "
+                                             f"D={FS2_D}" + ("" if kind == "xl3" else
+                                                             f", E={FS2_H * FS2_D}")
+                                             + f"), fp32, dropout {p}, no pad mask (the "
+                                             "training path's)")
+                for name, e in errs.items():
+                    if dtype == torch.float32:
+                        entry = figures.setdefault(name, {})
+                        entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), e[0])
+            del args
+        del base
+        torch.cuda.empty_cache()
+    return figures
+
+
+# --------------------------------------------------------------------------
+# phase 10: the FS2 training path
+# --------------------------------------------------------------------------
+
+XL_COUNTED = ("flash_xl3_fwd", "flash_xl3_bwd", "flash_xl2_fwd", "flash_xl2_bwd_q",
+              "flash_xl2_bwd_kv", "flash_xl_fwd", "flash_attention_fwd")
+
+
+def _xl_wrappers():
+    from viet_tts_torch.ops import flash_attention as fa
+    from viet_tts_torch.ops import flash_xl_attention as fx
+
+    return dict(zip(XL_COUNTED, (fx.xl3_fwd, fx.xl3_bwd, fx.xl2_fwd, fx.xl2_bwd_dq,
+                                 fx.xl2_bwd_dkv, fx.xl_fwd, fa.attention_fwd)))
+
+
+def build_fs2_train(zero_dropout: bool = False):
+    """Full-width FastSpeech2-conformer (config/model_config.yaml:16-79,
+    attn_implementation flash, every dropout as configured unless
+    ``zero_dropout``), two speakers and two accents as bench.py has them,
+    seeded random weights on the CPU; its loss and the FS2 training config
+    (config/train_config.yaml)."""
+    from viet_tts_torch import config
+    from viet_tts_torch.models.fastspeech2.loss import FastSpeech2Loss
+    from viet_tts_torch.models.fastspeech2.model import FastSpeech2
+    from viet_tts_torch.nn.utils import seeded_init_
+    from viet_tts_torch.text import NUM_SYMBOLS
+
+    hp = config.fastspeech2_params()
+    hp["attn_implementation"] = "flash"
+    if zero_dropout:
+        conf = hp["building_block"]["conformer"]
+        conf["encoder_dropout"] = conf["decoder_dropout"] = 0.0
+        hp["variance"]["variance_predictor"]["dropout"] = 0.0
+    train_conf = config.fastspeech2_train_conf()
+    gen = torch.Generator().manual_seed(SEED)
+    model = seeded_init_(FastSpeech2(NUM_SYMBOLS, 80, hp, config.DEFAULT_STATS, n_speakers=2,
+                                     n_accents=2), gen)
+    if zero_dropout:
+        model.postnet.dropout.p = 0.0
+    crit = FastSpeech2Loss(config.fastspeech2_loss_conf(train_conf, hp))
+    return model, crit, train_conf
+
+
+def fs2_state(model, train_conf):
+    """The FS2 optimizer: AdamW (lr, betas, eps, weight decay of the
+    training config) behind global-norm clipping at grad_clip_thresh."""
+    from viet_tts_torch.config import GRAD_CLIP_THRESH
+    from viet_tts_torch.train.state import TrainState, adamw_with_clip
+
+    opt = train_conf["optimizer"]
+    return TrainState.create(model, adamw_with_clip(
+        model.parameters(), opt["lr"], opt["betas"], opt["eps"], opt["weight_decay"],
+        GRAD_CLIP_THRESH))
+
+
+def fs2_batch(B: int, T_text: int, T_mel: int, dev):
+    """bench.py:_fs2_train_setup's batch (full lengths, numpy seed 0, two
+    speakers' ids at 0) with the data pipeline's beta-binomial prior in
+    ``duration`` in place of its uniform noise."""
+    from viet_tts_torch.ops.prior import beta_binomial_prior
+    from viet_tts_torch.text import NUM_SYMBOLS
+
+    rng = np.random.RandomState(0)
+    prior = beta_binomial_prior(T_text, T_mel).astype(np.float32)
+    batch = dict(
+        text=rng.randint(1, NUM_SYMBOLS, (B, T_text)).astype(np.int64),
+        text_lengths=np.full(B, T_text, np.int64),
+        feats=rng.randn(B, T_mel, 80).astype(np.float32),
+        feats_lengths=np.full(B, T_mel, np.int64),
+        duration=np.broadcast_to(prior, (B, T_mel, T_text)).copy(),
+        pitch=rng.randn(B, T_mel).astype(np.float32),
+        energy=rng.randn(B, T_mel).astype(np.float32),
+        sids=np.zeros(B, np.int64), aids=np.zeros(B, np.int64),
+        word_ids=np.zeros((B, T_text), np.int64),
+    )
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def fs2_step_launches(T_mel: int):
+    """Launches of each XL kernel in one FS2 training step: 6 encoder
+    layers on K4 (forward and backward), 6 decoder layers on K4 up to 512
+    padded frames, on K5 (forward, bwd-q, bwd-kv) up to 1024."""
+    from viet_tts_torch.ops.flash_xl_attention import xl3_padded_time
+
+    counts = dict.fromkeys(XL_COUNTED, 0)
+    counts["flash_xl3_fwd"] = counts["flash_xl3_bwd"] = 6
+    if xl3_padded_time(T_mel) <= 512:
+        counts["flash_xl3_fwd"] = counts["flash_xl3_bwd"] = 12
+    else:
+        for name in ("flash_xl2_fwd", "flash_xl2_bwd_q", "flash_xl2_bwd_kv"):
+            counts[name] = 6
+    return counts
+
+
+def check_fs2_training_path(dev, steps: int = 3, warmup: int = 2):
+    """``make_fs2_train_step`` at full width (every dropout as configured,
+    MAS durations, CVAE, Postnet) on the bench.py batch at T_mel 1008
+    (decoder on K5) and 512 (on K4): ``warmup`` then ``steps`` timed steps
+    each, the XL kernels' launches zeroed before and read after the timed
+    steps and held to the exact count per step; finite losses, the
+    parameters changed; one bf16 mixed-precision step; then a small step
+    on the card against the CPU."""
+    from viet_tts_torch.train.steps import make_fs2_train_step
+
+    model, crit, train_conf = build_fs2_train()
+    n_params = sum(p.numel() for p in model.parameters())
+    model.to(dev)
+    state = fs2_state(model, train_conf)
+    step = make_fs2_train_step(model, crit)
+    rng = torch.Generator().manual_seed(SEED)
+    wrappers = _xl_wrappers()
+    before = _flat_params(model)
+    launches = dict.fromkeys(XL_COUNTED, 0)
+    figures = {}
+    batches = {}
+    for T_mel in FS2_TRAIN_T_MELS:
+        batch = batches[T_mel] = fs2_batch(TRAIN_B, TRAIN_T_TEXT, T_mel, dev)
+        for _ in range(warmup):
+            step(state, batch, rng)
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, rng)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        got = {name: fn.launches for name, fn in wrappers.items()}
+        expect = {k: n * steps for k, n in fs2_step_launches(T_mel).items()}
+        if got != expect:
+            raise AssertionError(f"FS2 training T_mel={T_mel}: launches {got}, expected {expect}")
+        values = {k: v.item() for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in values.values()):
+            raise AssertionError(f"FS2 training T_mel={T_mel}: metrics {values}")
+        for name in launches:
+            launches[name] += got[name]
+        med = sorted(times)[len(times) // 2]
+        figures[T_mel] = {"step_s": med, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"FS2 training path T_mel={T_mel}: {n_params} parameters, batch B={TRAIN_B} "
+            f"T_text={TRAIN_T_TEXT}; step host seconds {[round(x, 4) for x in times]} "
+            f"(median {med:.4f}); peak {figures[T_mel]['peak_gb']:.2f} GB; launches over "
+            f"{steps} steps {got}; metrics at step {state.step} {values}")
+    changed = (before - _flat_params(model)).abs().max().item()
+    if changed <= 0.0:
+        raise AssertionError("FS2 training: the parameters did not change")
+
+    mp_step = make_fs2_train_step(model, crit, mixed_precision=True)
+    batch = batches[FS2_TRAIN_T_MELS[0]]
+    mp_step(state, batch, rng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = mp_step(state, batch, rng)
+    torch.cuda.synchronize()
+    mp_s = time.perf_counter() - t0
+    values = {k: v.item() for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in values.values()):
+        raise AssertionError(f"FS2 bf16 mixed-precision step: metrics {values}")
+    if not all(p.dtype == torch.float32 for p in model.parameters()):
+        raise AssertionError("FS2 bf16 mixed-precision step: master weights not fp32")
+    figures["mixed_precision_s"] = mp_s
+    log(f"FS2 bf16 mixed-precision step at T_mel={FS2_TRAIN_T_MELS[0]}: {mp_s:.4f} s, "
+        f"metrics {values}; max parameter change over the phase {changed:.3e}")
+    check_fs2_training_against_cpu(dev)
+    return launches, figures, (step, state, batch, rng)
+
+
+def check_fs2_training_against_cpu(dev):
+    """One step at full width on a small batch (B=2, T_text=16, T_mel=600:
+    encoder on K4, decoder on K5), every dropout 0 and the same CVAE
+    noise, from the same weights, on the card (kernels) and on the CPU
+    (plain versions): every loss and the gradient norm within rel 1e-3."""
+    from viet_tts_torch.train.steps import make_fs2_train_step
+
+    from viet_tts_torch.config import fastspeech2_params
+
+    B, T_text, T_mel = 2, 16, 600
+    z_dim = fastspeech2_params()["encoder_hidden"] // 2  # the CVAE's latent width
+    gen = torch.Generator().manual_seed(5)
+    eps = tuple(torch.randn(B, z_dim, generator=gen) for _ in range(2))
+    results = []
+    for device in (dev, torch.device("cpu")):
+        model, crit, train_conf = build_fs2_train(zero_dropout=True)
+        model.to(device)
+        state = fs2_state(model, train_conf)
+        step = make_fs2_train_step(model, crit)
+        batch = fs2_batch(B, T_text, T_mel, device)
+        state, metrics = step(state, batch, torch.Generator().manual_seed(0), cvae_eps=eps)
+        results.append({**{k: v.item() for k, v in metrics.items()},
+                        "grad_norm": state.grad_norm.item()})
+    card, cpu = results
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    if max(rel.values()) > 1e-3:
+        raise AssertionError(f"FS2 training step card vs CPU: {card} vs {cpu}, rel {rel}")
+    log(f"FS2 training step card (kernels) vs CPU (plain), B={B} T_mel={T_mel}: max rel "
+        f"diff {max(rel.values()):.3e} (tol 1e-3) over {sorted(rel)}")
+
+
+# --------------------------------------------------------------------------
 # --profile: where the time of one __call__ and of one training step goes
 # --------------------------------------------------------------------------
 
@@ -1114,6 +1516,9 @@ KERNEL_GROUPS = (
     ("K3b flash_bwd_kv_kernel", ("flash_bwd_kv_kernel",)),
     ("K2 mrf_conv_kernel", ("mrf_conv_kernel",)),
     ("K4 xl3_fwd_kernel", ("xl3_fwd_kernel",)),
+    ("K4 bwd (xl3_bwd_q / kv / reduce)", ("xl3_bwd_",)),
+    ("K5 bwd-q (xl2_bwd_q + carry)", ("xl2_bwd_q_kernel", "xl2_bwd_carry")),
+    ("K5 bwd-kv (xl2_bwd_kv + dtab)", ("xl2_bwd_kv_kernel", "xl2_bwd_dtab")),
     ("K5 xl2_fwd_kernel (rotating)", ("xl2_fwd_kernel<float, 48, true>",
                                        "xl2_fwd_kernel<__nv_bfloat16, 48, true>")),
     ("K6 xl2_fwd_kernel (two streams)", ("xl2_fwd_kernel",)),
@@ -1178,11 +1583,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, time five fp32 __call__s of 16 "
-                         "sentences, five training steps and five two-stage "
-                         "calls, and profile one of each (device time by "
-                         "kernel group, busy share; "
-                         "per-kernel tables in the output directory, "
-                         "chip_smoke_profile*.txt)")
+                         "sentences, five JETS training steps, five two-stage "
+                         "calls and five FS2 training steps at T_mel 1008, and "
+                         "profile one of each (device time by kernel group, "
+                         "busy share; per-kernel tables in the output "
+                         "directory, chip_smoke_profile*.txt)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1217,12 +1622,18 @@ def main() -> int:
     xl = check_xl_kernels(dev, t_text=tts.encode_texts(SENTENCES)[2])
     ac_dir, voc_dir = build_two_stage(os.path.join(REPO, "build", "chip_smoke_fs2"))
     fs2_launches, tts2, fs2_figures = check_two_stage_path(dev, ac_dir, voc_dir)
+    xl_train = check_xl_training(dev)
+    fs2_train_launches, fs2_train_figures, (fs2_step, *fs2_step_args) = \
+        check_fs2_training_path(dev)
     if args.profile:
         profile_call(lambda: tts(SENTENCES), "fp32 __call__(16)", "chip_smoke_profile.txt")
         profile_call(lambda: step(*step_args), "training step",
                      "chip_smoke_profile_train.txt")
         profile_call(lambda: tts2(SENTENCES), "two-stage fp32 __call__(16)",
                      "chip_smoke_profile_fs2.txt")
+        profile_call(lambda: fs2_step(*fs2_step_args),
+                     f"FS2 training step (T_mel {FS2_TRAIN_T_MELS[0]})",
+                     "chip_smoke_profile_fs2_train.txt")
     for entry in (k1, k2):
         entry["launches"] = launches[entry["name"]]
     k1["name_detail"] = "forward, with attention-weight dropout in training"
@@ -1239,12 +1650,30 @@ def main() -> int:
         entry["launches"] = fs2_launches[entry["name"]]
         entry["launches_per"] = ("the two-stage phase: three __call__s, two /synthesize, "
                                  "one /synthesize_stream")
+    train_per = (f"the FS2 training phase's timed steps: 3 at T_mel {FS2_TRAIN_T_MELS[0]} "
+                 f"and 3 at {FS2_TRAIN_T_MELS[1]}")
+    for entry in xl_entries[:2]:
+        entry["name_detail"] = "forward, with attention-weight dropout in training"
+        entry["train_step"] = {"launches": fs2_train_launches[entry["name"]],
+                               "launches_per": train_per, **xl_train[entry["name"]]}
+    xl_bwd_entries = [
+        {"name": name, "route": "cuda", "source": "viet_tts_torch/csrc/flash_xl_attention_bwd.cu",
+         "replaces": XL_TRAIN_REPLACES[name], "launches": fs2_train_launches[name],
+         "launches_per": train_per, "tol": 1e-4,
+         "library": "F.scaled_dot_product_attention backward (dq, dk and dv together) "
+                    "with scale * pos as an additive mask, on a retained graph",
+         **xl_train[name]}
+        for name in ("flash_xl3_bwd", "flash_xl2_bwd_q", "flash_xl2_bwd_kv")]
     log(f"training step: host median {train_figures['step_s']:.4f} s, "
         f"peak {train_figures['peak_gb']:.2f} GB")
     log(f"two-stage: fp32 __call__(16) host median {fs2_figures['call_s']:.4f} s "
         f"(acoustic {fs2_figures['acoustic_s']:.4f} s, vocoder {fs2_figures['vocoder_s']:.4f} s), "
         f"bf16 {fs2_figures['half_s']:.4f} s, 2048 frames x 4 {fs2_figures['long_s']:.4f} s")
-    print(json.dumps({"kernels": [k1, k2, *k3, *xl_entries]}))
+    for T_mel in FS2_TRAIN_T_MELS:
+        log(f"FS2 training step at T_mel {T_mel}: host median "
+            f"{fs2_train_figures[T_mel]['step_s']:.4f} s, peak "
+            f"{fs2_train_figures[T_mel]['peak_gb']:.2f} GB")
+    print(json.dumps({"kernels": [k1, k2, *k3, *xl_entries, *xl_bwd_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -208,3 +208,79 @@ def test_xl_routes_agree_on_the_card(cuda_device):
     torch.cuda.synchronize()
     assert (c2[:2] - c3[:2]).abs().max().item() <= 1e-4
     assert (c1[:2] - c3[:2]).abs().max().item() <= 1e-4
+
+
+XL_TRAIN_CASES = [("xl3", 64), ("xl3", 45), ("xl3", 300), ("xl2", 100), ("xl2", 540)]
+XL_TRAIN_FNS = {  # kind: (stream names, forward, plain forward, backward pairs)
+    "xl3": (("qc", "k", "v", "qv", "p"), fx.xl3_fwd, fx.xl3_fwd_plain,
+            [(fx.xl3_bwd, fx.xl3_bwd_plain, {})]),
+    "xl2": (("qc", "k", "v", "g", "table"), fx.xl2_fwd, fx.xl2_fwd_plain,
+            [(fx.xl2_bwd_dq, fx.xl2_bwd_dq_plain, {}),
+             (fx.xl2_bwd_dkv, fx.xl2_bwd_dkv_plain, {"want_dtab": True})]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T", XL_TRAIN_CASES)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+def test_xl_training_kernels_match_plain(cuda_device, kind, T, dtype, atol, dropout_p):
+    """K4 / K5 forward with attention-weight dropout against the plain
+    forward, then K4 bwd (dqc, dk, dv, dqv, dp) or K5 bwd-q (dqc, dg2) and
+    bwd-kv (dk, dv, dtab) against their plain versions on the kernel's own
+    context and lse (so that a bf16 rounding of the forward cannot move the
+    gradients' reference), under one seed, with a ragged and a fully padded
+    row; each gradient within atol of the plain one, scaled by its largest
+    value where that exceeds 1."""
+    streams, pad, scale = xl_case(cuda_device, 3, T, seed=T + 7)
+    names, fwd, plain_fwd, bwds = XL_TRAIN_FNS[kind]
+    seed = 123456789012345
+    args = [streams[n].to(dtype) for n in names]
+    ctx, lse = fwd(*args, scale, pad, dropout_p, seed)
+    ref_ctx, _ = plain_fwd(*args, scale, pad, dropout_p, seed)
+    gout = torch.from_numpy(np.random.RandomState(3).randn(*ctx.shape).astype(np.float32))
+    delta, g = fa.backward_inputs(ctx, gout.to(ctx.device), dtype)
+    bwd_args = (*args, pad.float(), lse, delta, g, scale, dropout_p, seed)
+    torch.cuda.synchronize()
+    assert (ctx - ref_ctx).abs().max().item() <= atol
+    for kern, plain, kw in bwds:
+        before = kern.launches
+        got = kern(*bwd_args, **kw)
+        assert kern.launches == before + 1
+        want = plain(*bwd_args, **kw)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.shape == b.shape, (kern.__name__, i)
+            assert torch.isfinite(a).all(), (kern.__name__, i)
+            err = (a - b).abs().max().item()
+            assert err <= atol * max(1.0, b.abs().max().item()), (kern.__name__, i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T", [("xl3", 200), ("xl2", 600)])
+def test_xl_autograd_functions_launch_the_kernels(cuda_device, kind, T):
+    """The public ops on CUDA tensors that need gradients: one forward and
+    one backward launch per kernel (K4 fwd + K4 bwd; K5 fwd + bwd-q +
+    bwd-kv), and the gradients of autograd through the plain versions on
+    the same seed. The table of xl2 needs no gradient: dtab is skipped."""
+    streams, pad, scale = xl_case(cuda_device, 3, T, seed=T)
+    names = ("qc", "k", "v", "qv", "p") if kind == "xl3" else ("qc", "k", "v", "g", "table")
+    fns = ((fx.xl3_fwd, fx.xl3_bwd) if kind == "xl3"
+           else (fx.xl2_fwd, fx.xl2_bwd_dq, fx.xl2_bwd_dkv))
+    public = fx.flash_xl3_attention if kind == "xl3" else fx.flash_xl2_attention
+    plain = fx.xl3_fwd_plain if kind == "xl3" else fx.xl2_fwd_plain
+    n_grad = 5 if kind == "xl3" else 4
+    counts = [f.launches for f in fns]
+    leaves = [streams[n].clone().requires_grad_(i < n_grad) for i, n in enumerate(names)]
+    out = public(*leaves, scale, pad_mask=pad, dropout_p=0.1, dropout_seed=11)
+    gout = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(out.device)
+    (out * gout).sum().backward()
+    assert [f.launches for f in fns] == [c + 1 for c in counts]
+    ref_leaves = [streams[n].clone().requires_grad_(i < n_grad) for i, n in enumerate(names)]
+    ref, _ = plain(*ref_leaves, scale, pad, 0.1, 11)
+    (ref.reshape(out.shape) * gout).sum().backward()
+    torch.cuda.synchronize()
+    assert (out - ref.reshape(out.shape)).abs().max().item() <= 1e-4
+    for name, a, b in zip(names[:n_grad], leaves, ref_leaves):
+        err = (a.grad - b.grad).abs().max().item()
+        assert err <= 1e-4 * max(1.0, b.grad.abs().max().item()), (name, err)

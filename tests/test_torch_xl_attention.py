@@ -199,8 +199,9 @@ def test_reference_xl2_kernel_is_nan_at_540_where_the_port_is_dense():
 
 
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
-    """On CPU tensors each wrapper is its plain version, counts no launch,
-    and refuses attention-weight dropout (the training slice's)."""
+    """On CPU tensors each wrapper is its plain version and counts no
+    launch, with attention-weight dropout too (keyed by the seed); a rate
+    outside [0, 1) is refused."""
     q, k, v, u, vb, pk, table, pad = _case(40, B=2)
     args = _port_inputs("xl2", q, k, v, u, vb, pk, table)
     before = (fx.xl3_fwd.launches, fx.xl2_fwd.launches, fx.xl_fwd.launches)
@@ -209,5 +210,9 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     assert torch.equal(ctx, ref) and torch.equal(lse, ref_lse)
     assert lse.shape == (2, H, 40) and ctx.dtype == torch.float32
     assert (fx.xl3_fwd.launches, fx.xl2_fwd.launches, fx.xl_fwd.launches) == before
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fx.xl2_fwd(*args, 0.2, _t(pad), dropout_p=0.1)
+    dropped, _ = fx.xl2_fwd(*args, 0.2, _t(pad), dropout_p=0.1, seed=9)
+    assert torch.equal(dropped, fx.xl2_fwd_plain(*args, 0.2, _t(pad), 0.1, 9)[0])
+    assert not torch.equal(dropped, ctx)
+    assert (fx.xl3_fwd.launches, fx.xl2_fwd.launches, fx.xl_fwd.launches) == before
+    with pytest.raises(ValueError, match="dropout_p"):
+        fx.xl2_fwd(*args, 0.2, _t(pad), dropout_p=1.0)

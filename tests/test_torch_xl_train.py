@@ -1,0 +1,216 @@
+"""The backward of the FS2 conformer's Transformer-XL attention: the plain
+versions of kernels K4 bwd (xl3) and K5 bwd-q / bwd-kv (xl2), through the
+port's ``torch.autograd.Function``s, against the JAX package's custom VJPs
+on the CPU.
+
+The JAX ops run as their own tests run them on the CPU: through the dense
+lowering (``_xl3_bwd_dense`` / ``_xl2_bwd_dense``, the VJP of the dense
+oracle) and through the Pallas backward kernels in interpret mode, at
+B = H = 1 and T <= 128. Dropout bits cannot match JAX (the TPU draws them
+from its on-core PRNG), so dropout is held to its properties and to
+autograd through the dense forward under the same mask. (The CUDA kernels
+against these plain versions, on the card: ``tests/test_torch_cuda.py``.)
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+import viet_tts_tpu.ops.pallas_attention as pa
+from viet_tts_tpu.nn.utils import sinusoid_position_table
+from viet_tts_tpu.ops import xl_attention as jxl
+from viet_tts_torch.nn.conformer import RelativeMultiHeadAttention
+from viet_tts_torch.ops import flash_xl_attention as fx
+from viet_tts_torch.ops import xl_attention as txl
+
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
+H, D = 1, 16
+E = H * D
+ATOL = 1e-5  # fp32, the same dense formulas in another summation order
+SCALE = 1.0 / np.sqrt(E)
+
+
+def _case(T, lens, seed):
+    """Numpy inputs of one attention in the xl3 and xl2 parameterisations,
+    a cotangent of its output and the pad mask (None when ``lens`` is)."""
+    B = 1 if lens is None else len(lens)
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(B, T, H, D).astype(np.float32) for _ in range(3))
+    u, vb = (0.3 * rng.randn(H, D).astype(np.float32) for _ in range(2))
+    pk = (rng.randn(E, H * D) / np.sqrt(E)).astype(np.float32)
+    table = sinusoid_position_table(T, E)
+    g = rng.randn(B, T, H * D).astype(np.float32)
+    pad = None if lens is None else np.arange(T)[None] >= np.asarray(lens)[:, None]
+    streams = {
+        "xl3": (q + u, k, v, q + vb, (table @ pk).reshape(T, H, D)),
+        "xl2": (q + u, k, v, np.asarray(jxl.xl_pos_query_stream(q + vb, pk)), table),
+    }
+    return streams, g, pad
+
+
+JAX_FN = {"xl3": pa.flash_xl3_attention, "xl2": pa.flash_xl2_attention}
+PORT_FN = {"xl3": fx.flash_xl3_attention, "xl2": fx.flash_xl2_attention}
+
+
+def _jax_grads(kind, args, g, pad, interpret):
+    """(output, gradients of the five stream arguments) of the JAX op."""
+    fn = JAX_FN[kind]
+
+    def run(*a):
+        out, vjp = jax.vjp(lambda *x: fn(*x, SCALE, pad_mask=pad), *a)
+        return out, vjp(g)
+
+    if interpret:
+        with pltpu.force_tpu_interpret_mode():
+            out, grads = run(*args)
+    else:
+        out, grads = jax.jit(run)(*args)
+    return np.asarray(out), [np.asarray(x) for x in grads]
+
+
+def _port_grads(kind, args, g, pad, dropout_p=0.0, seed=None):
+    leaves = [torch.from_numpy(np.array(x)).requires_grad_() for x in args]
+    out = PORT_FN[kind](*leaves, SCALE, None if pad is None else torch.from_numpy(pad),
+                        dropout_p, seed)
+    (out * torch.from_numpy(g)).sum().backward()
+    return out.detach().numpy(), [x.grad.numpy() for x in leaves]
+
+
+@pytest.mark.parametrize("kind", ["xl3", "xl2"])
+@pytest.mark.parametrize("T,lens", [(48, [41]), (128, None)])
+def test_backward_matches_jax_dense_and_interpreted_kernels(kind, T, lens):
+    """The five stream gradients (xl3: qc, k, v, qv, p; xl2: qc, k, v, g,
+    table) of the port's autograd function against ``jax.vjp`` of the JAX
+    op through its dense lowering and through the Pallas backward kernels in
+    interpret mode: T = 48 with a ragged row (padded to 128 by xl3, to 64 by
+    xl2; xl3 left-pads p), T = 128 with no pad mask."""
+    streams, g, pad = _case(T, lens, seed=T + len(kind))
+    args = streams[kind]
+    got_out, got = _port_grads(kind, args, g, pad)
+    for interpret in (False, True):
+        want_out, want = _jax_grads(kind, args, g, pad, interpret)
+        np.testing.assert_allclose(got_out, want_out, atol=ATOL)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert np.abs(b).max() > 1e-3
+            np.testing.assert_allclose(a, b, atol=ATOL,
+                                       err_msg=f"{kind} grad {i} interpret={interpret}")
+
+
+@pytest.mark.parametrize("kind", ["xl3", "xl2"])
+def test_fully_padded_row_takes_the_dense_gradient(kind):
+    """A batch row whose keys are all padding: the port's gradients are the
+    dense VJP's (uniform weights 1/n, n = T for xl3, the 32-padded length
+    for xl2: dv = sum_q g / n, every other gradient 0 on that row).
+
+    The reference's interpreted Pallas backward differs there, as its plain
+    backward does (``test_torch_flash_train.py``): its lse, -1e9 + log n,
+    rounds to -1e9 in fp32, so exp(l - lse) is 1 per key and its dv on that
+    row is n times the dense one."""
+    T = 40
+    streams, g, pad = _case(T, [T - 9, 0], seed=3)
+    args = streams[kind]
+    got_out, got = _port_grads(kind, args, g, pad)
+    want_out, want = _jax_grads(kind, args, g, pad, interpret=False)
+    np.testing.assert_allclose(got_out, want_out, atol=ATOL)
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(a, b, atol=ATOL, err_msg=f"{kind} grad {i}")
+    n = T if kind == "xl3" else fx.padded_time(T)
+    dv_row = g[1].reshape(T, H, D).sum(axis=0) / n
+    np.testing.assert_allclose(got[2][1], np.broadcast_to(dv_row, (T, H, D)), atol=1e-6)
+    _, kernel = _jax_grads(kind, args, g, pad, interpret=True)
+    np.testing.assert_allclose(kernel[2][1], n * got[2][1], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(kernel[2][0], got[2][0], atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", ["xl3", "xl2"])
+def test_dropout_backward_is_autograd_of_the_masked_dense_forward(kind):
+    """With dropout the autograd function's backward (the plain K4 bwd /
+    K5 bwd, mask regenerated from the seed) equals autograd through the
+    plain forward under the same seed, a ragged and a fully padded row
+    included; and its table gradient (xl2) too."""
+    T, p, seed = 45, 0.1, 2024
+    streams, g, pad = _case(T, [T - 7, 0], seed=8)
+    args = streams[kind]
+    got_out, got = _port_grads(kind, args, g, pad, dropout_p=p, seed=seed)
+    leaves = [torch.from_numpy(np.array(x)).requires_grad_() for x in args]
+    plain = fx.xl3_fwd_plain if kind == "xl3" else fx.xl2_fwd_plain
+    ctx, _ = plain(*leaves, SCALE, torch.from_numpy(pad), p, seed)
+    out = ctx.reshape(got_out.shape)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_array_equal(got_out, out.detach().numpy())
+    for i, (a, x) in enumerate(zip(got, leaves)):
+        np.testing.assert_allclose(a, x.grad.numpy(), rtol=5e-5, atol=1e-6,
+                                   err_msg=f"{kind} grad {i}")
+
+
+@pytest.mark.parametrize("kind", ["xl3", "xl2"])
+def test_dropout_forward_properties(kind):
+    """Deterministic in the seed, different across seeds, the kept share of
+    the weights near 1 - p, and the mean over 40 seeds near the
+    no-dropout output (the JAX test's bound for K1)."""
+    T, p = 40, 0.1
+    streams, _, pad = _case(T, [T, T - 11], seed=21)
+    args = [torch.from_numpy(np.array(x)) for x in streams[kind]]
+    tpad = torch.from_numpy(pad)
+
+    def run(seed, rate):
+        return PORT_FN[kind](*args, SCALE, tpad, rate, seed)
+
+    a, b, c = run(3, p), run(3, p), run(4, p)
+    assert torch.equal(a, b)
+    assert (a - c).abs().max().item() > 1e-4
+    base = run(None, 0.0).numpy()
+    mean = np.mean([run(s, p).numpy() for s in range(40)], axis=0)
+    err = np.abs(mean - base).mean() / (np.abs(base).mean() + 1e-9)
+    assert err < 0.25, err
+    # with v the identity the context is the dropped weights themselves
+    eye = torch.eye(T, D * H).reshape(1, T, H, D).expand(2, T, H, D).contiguous()
+    args_eye = list(args)
+    args_eye[2] = eye
+    fwd = fx.xl3_fwd if kind == "xl3" else fx.xl2_fwd
+    dropped, _ = fwd(*args_eye, SCALE, tpad, p, 5)
+    full, _ = fwd(*args_eye, SCALE, tpad, 0.0, 0)
+    kept = (dropped[..., : min(T, D)] != 0).float().mean().item()
+    assert abs(kept - (1.0 - p)) < 0.05, kept
+    nz = dropped != 0
+    np.testing.assert_allclose(dropped[nz].numpy(), full[nz].numpy() / (1.0 - p), rtol=1e-5)
+
+
+def test_cpu_wrappers_count_no_launch_and_k6_refuses_gradients():
+    """On CPU tensors the backward wrappers are their plain versions and
+    count no launch; the two-stream op (K6) raises where autograd would
+    need its backward, which is still to be ported."""
+    T = 40
+    streams, g, pad = _case(T, [T, 20], seed=4)
+    before = (fx.xl3_bwd.launches, fx.xl2_bwd_dq.launches, fx.xl2_bwd_dkv.launches)
+    _port_grads("xl3", streams["xl3"], g, pad)
+    _port_grads("xl2", streams["xl2"], g, pad)
+    assert (fx.xl3_bwd.launches, fx.xl2_bwd_dq.launches, fx.xl2_bwd_dkv.launches) == before
+    qc, k, v, q_v, _ = (torch.from_numpy(np.array(x)) for x in streams["xl3"])
+    pk = torch.eye(E)
+    gA, gB = txl.xl_pos_queries(q_v, pk)
+    table = torch.from_numpy(sinusoid_position_table(T, E))
+    qc.requires_grad_()
+    with pytest.raises(NotImplementedError, match="K6 bwd"):
+        fx.flash_xl_attention(qc, k, v, gA, gB, table, SCALE)
+    with torch.no_grad():
+        assert fx.flash_xl_attention(qc, k, v, gA, gB, table, SCALE).shape == (2, T, E)
+
+
+def test_conformer_refuses_training_past_the_xl2_route():
+    """In training, a padded length above 1024 would route to K6, whose
+    backward is still to be ported: the attention raises and names it; in
+    eval mode it serves as before."""
+    attn = RelativeMultiHeadAttention(32, 2, 0.1, "flash")
+    x = torch.randn(1, 1025, 32)
+    table = torch.randn(1025, 32)
+    with pytest.raises(NotImplementedError, match="K6 bwd"):
+        attn(x, table)
+    attn.eval()
+    with torch.no_grad():
+        assert attn(x, table).shape == (1, 1025, 32)

@@ -200,16 +200,25 @@ def _randomise_batchnorms(model, gen):
 @torch.no_grad()
 def port_fs2(hp, n_speakers=2, seed=0):
     """The port's FastSpeech2 on the CPU with seeded weights, in eval mode.
-    The attention projections' biases are 0: the reference layers have
-    none, and the importer that carries the weights to JAX sets them to 0."""
+    The biases of the attention projections and of the aligner's speaker
+    projections are 0: the reference layers have none, and the importer
+    that carries the weights to JAX sets them to 0."""
     from viet_tts_torch.models.fastspeech2.model import FastSpeech2
 
     gen = torch.Generator().manual_seed(seed)
-    model = seeded_init_(FastSpeech2(N_SYMBOLS, N_MELS, hp, FS2_STATS, n_speakers), gen)
-    for name, p in model.named_parameters():
-        if ".attention." in name and name.endswith("linear.bias"):
-            p.zero_()
+    model = FastSpeech2(N_SYMBOLS, N_MELS, hp, FS2_STATS, n_speakers)
+    # the aligner's weights are drawn last, so that the other modules keep
+    # the weights they had before the model held an aligner
+    va = model.variance_adaptor
+    aligner = va._modules.pop("aligner", None)
+    seeded_init_(model, gen)
     _randomise_batchnorms(model, gen)
+    if aligner is not None:
+        va.aligner = seeded_init_(aligner, gen)
+    for name, p in model.named_parameters():
+        if ((".attention." in name or "spk_proj" in name)
+                and name.endswith("linear.bias")):
+            p.zero_()
     return model.eval()
 
 

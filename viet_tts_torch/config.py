@@ -251,6 +251,18 @@ DEFAULT_STATS: Dict[str, Any] = {
 
 GRAD_CLIP_THRESH = 1.0  # train_config.yaml: grad_clip_thresh
 
+# train_config.yaml: fastspeech2
+FASTSPEECH2_TRAIN: Dict[str, Any] = {
+    "loss": {
+        "linbuild": {"start": 0.0001, "stop": 0.0005, "n_up": 10000, "n_stop": 35000},
+        "dur_loss_lambda": {"pdur": 1.0, "wdur": 0.0, "sdur": 0.0},
+        "binarization_loss_warmup_steps": 10000,
+        "binarization_loss_enable_steps": 18000,
+    },
+    "optimizer": {"lr": 2.0e-4, "betas": [0.8, 0.99], "eps": 1.0e-9, "weight_decay": 0.0},
+    "scheduler": {"gamma": 0.999875},
+}
+
 # every dropout rate that models/jets/model.py reads from the generator params
 JETS_DROPOUT_KEYS = tuple(
     [f"transformer_{kind}_{rate}" for kind in ("enc", "dec")
@@ -277,6 +289,19 @@ def jets_lambdas(train_conf: Dict[str, Any]) -> Dict[str, float]:
         "var": loss.get("lambda_var", 1.0),
         "align": loss.get("lambda_align", 2.0),
     }
+
+
+def fastspeech2_train_conf() -> Dict[str, Any]:
+    return copy.deepcopy(FASTSPEECH2_TRAIN)
+
+
+def fastspeech2_loss_conf(train_conf: Dict[str, Any],
+                          hparams: Dict[str, Any]) -> Dict[str, Any]:
+    """``FastSpeech2Loss``'s config: the task's loss section plus the model's
+    pitch / energy feature levels (as the JAX trainer builds it)."""
+    ve = hparams["variance"]["variance_embedding"]
+    return dict(copy.deepcopy(train_conf["loss"]), pitch_feature_level=ve["pitch_feature"],
+                energy_feature_level=ve["energy_feature"])
 
 
 def jets_generator_params() -> Dict[str, Any]:

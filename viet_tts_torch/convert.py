@@ -301,6 +301,15 @@ def fastspeech2_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> 
         _fs2_predictor(sd, f"variance_adaptor.{name}", va[name])
     for name in ("pitch_embedding", "energy_embedding"):
         sd[f"variance_adaptor.{name}.weight"] = _t(va[name]["embedding"])
+    if "aligner" in va:
+        # the names _aligner_params reads (torch_import.py)
+        al = va["aligner"]
+        for jname, tname in (("key_conv1", "key_proj.0"), ("key_conv2", "key_proj.2"),
+                             ("query_conv1", "query_proj.0"), ("query_conv2", "query_proj.2"),
+                             ("query_conv3", "query_proj.4")):
+            _conv1d(sd, f"variance_adaptor.aligner.{tname}.conv", al[jname])
+        for name in ("key_spk_proj", "query_spk_proj"):
+            _linear(sd, f"variance_adaptor.aligner.{name}.linear", al[name])
     _linear(sd, "feats_linear", params["feats_linear"])
     if "postnet" in params:
         i = 0

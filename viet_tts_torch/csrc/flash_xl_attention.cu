@@ -56,8 +56,12 @@
 // every product on the fp32 CUDA cores (ceiling 67 TFLOP/s), with register
 // tiles fed from shared memory; no (T, T) matrix reaches device memory.
 //
-// Attention-weight dropout comes with the training slice: the entries take a
-// rate and a seed and refuse any rate but 0.
+// Attention-weight dropout (training, dropout_p > 0) follows the JAX
+// package's semantics, as K1 does: the softmax denominator takes the
+// undropped weights, the context sums p * keep / (1 - p) * v. The keep bit of
+// weight (i, j) is dropout_hash.cuh's keep(seed, b, h, i, j), which depends on
+// no tile size, so the backward kernels (flash_xl_attention_bwd.cu) draw the
+// same bits with their own tilings. With dropout_p = 0 no bit is drawn.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,10 +69,44 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dropout_hash.cuh"
+#include "xl_rotation.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr float kMaskNeg = -1.0e9f;
+
+struct DropArgs {
+  uint32_t thresh;
+  float inv_keep;
+  int use;
+  uint64_t seed;
+};
+
+DropArgs drop_args(double dropout_p, uint64_t seed) {
+  DropArgs a;
+  a.thresh = vt_dropout_thresh(dropout_p);
+  a.inv_keep = (float)(1.0 / (1.0 - dropout_p));
+  a.use = dropout_p > 0.0;
+  a.seed = seed;
+  return a;
+}
+
+// Dropout on a tile of softmax numerators S (BQ, BK), row stride SP, after
+// the online-softmax step has summed them: each weight is kept and scaled
+// by 1 / (1 - p), or zeroed. Query i0 + r, key j0 + c.
+template <int BQ, int BK>
+__device__ __forceinline__ void drop_tile(float* S, int SP, const DropArgs& drop,
+                                          uint32_t key, int i0, int j0,
+                                          int tid) {
+  for (int i = tid; i < BQ * BK; i += kThreads) {
+    const int r = i / BK, c = i % BK;
+    S[r * SP + c] = vt_dropout_keep(key, i0 + r, j0 + c, drop.thresh)
+                        ? S[r * SP + c] * drop.inv_keep
+                        : 0.f;
+  }
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -146,7 +184,7 @@ __global__ void __launch_bounds__(kThreads)
                    const T* __restrict__ v, const T* __restrict__ qv,
                    const T* __restrict__ p, const float* __restrict__ pad,
                    float* __restrict__ out, float* __restrict__ lse, int H,
-                   int Tq, float scale) {
+                   int Tq, float scale, DropArgs drop) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int DP = D + 1;
   constexpr int SP = kBK3 + 1;
@@ -171,6 +209,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t rs = (size_t)H * D;  // row stride of (B, T, H, D)
   const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
   const float* padb = pad + (size_t)b * Tq;
+  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
 
   for (int i = tid; i < (kBQ3 + 1) * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -287,6 +326,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     softmax_step<kBQ3, kBK3>(S, SP, m_s, l_s, c_s, tid);
     __syncthreads();
+    if (drop.use) {
+      drop_tile<kBQ3, kBK3>(S, SP, drop, drop_key, i0, j0, tid);
+      __syncthreads();
+    }
 
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
@@ -357,7 +400,7 @@ __global__ void __launch_bounds__(kThreads)
                    const T* __restrict__ gb, const T* __restrict__ table,
                    const float* __restrict__ pad, float* __restrict__ out,
                    float* __restrict__ lse, int H, int Tq, int Tp, int E,
-                   float scale, float freq_coef) {
+                   float scale, float freq_coef, DropArgs drop) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int DS = D + 4;
   constexpr int SP = kBK2 + 1;
@@ -385,6 +428,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t rse = (size_t)H * E;  // row stride of (B, T, H, E)
   const size_t base_e = (size_t)b * Tq * rse + (size_t)h * E;
   const float* padb = pad + (size_t)b * Tq;
+  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
 
   for (int i = tid; i < kBQ2 * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -398,10 +442,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < kBQ2 * half; i += kThreads) {
       const int r = i / half, m = i % half;
       const int qi = i0 + r;
-      const float w = expf((float)m * freq_coef);
-      float sa, ca, sb, cb;
-      sincosf((((float)Tq - 1.0f) - (float)qi) * w, &sa, &ca);
-      sincosf(-((float)qi + 2.0f) * w, &sb, &cb);
+      const VtXl2Angles ang = vt_xl2_angles(Tq, qi, m, freq_coef);
+      const float ca = ang.ca, sa = ang.sa, cb = ang.cb, sb = ang.sb;
       float ge = 0.f, go = 0.f, ne = 0.f, no = 0.f;
       if (qi < Tq) {
         const size_t off = base_e + (size_t)qi * rse + 2 * m;
@@ -413,10 +455,11 @@ __global__ void __launch_bounds__(kThreads)
         ne = to_float(ga[off]);
         no = to_float(ga[off + 1]);
       }
-      GA[r * ES + 2 * m] = round_to<T>(ge * ca - go * sa);
-      GA[r * ES + 2 * m + 1] = round_to<T>(ge * sa + go * ca);
-      GB[r * ES + 2 * m] = round_to<T>(ne * cb - no * sb);
-      GB[r * ES + 2 * m + 1] = round_to<T>(ne * sb + no * cb);
+      const float2 a2 = vt_rot(ge, go, ca, sa), b2 = vt_rot(ne, no, cb, sb);
+      GA[r * ES + 2 * m] = round_to<T>(a2.x);
+      GA[r * ES + 2 * m + 1] = round_to<T>(a2.y);
+      GB[r * ES + 2 * m] = round_to<T>(b2.x);
+      GB[r * ES + 2 * m + 1] = round_to<T>(b2.y);
     }
   } else {
     for (int i = tid; i < kBQ2 * E; i += kThreads) {
@@ -532,6 +575,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     softmax_step<kBQ2, kBK2>(S, SP, m_s, l_s, c_s, tid);
     __syncthreads();
+    if (drop.use) {
+      drop_tile<kBQ2, kBK2>(S, SP, drop, drop_key, i0, j0, tid);
+      __syncthreads();
+    }
 
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
@@ -576,7 +623,7 @@ template <typename T, int D>
 cudaError_t launch_xl3(const void* qc, const void* k, const void* v,
                        const void* qv, const void* p, const float* pad,
                        float* out, float* lse, int B, int Tq, int H,
-                       float scale, cudaStream_t stream) {
+                       float scale, DropArgs drop, cudaStream_t stream) {
   constexpr size_t smem = xl3_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       xl3_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -586,7 +633,7 @@ cudaError_t launch_xl3(const void* qc, const void* k, const void* v,
   xl3_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(qc), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(qv),
-      static_cast<const T*>(p), pad, out, lse, H, Tq, scale);
+      static_cast<const T*>(p), pad, out, lse, H, Tq, scale, drop);
   return cudaGetLastError();
 }
 
@@ -594,7 +641,7 @@ template <typename T, int D, bool ROTATE>
 cudaError_t launch_xl2(const void* qc, const void* k, const void* v,
                        const void* ga, const void* gb, const void* table,
                        const float* pad, float* out, float* lse, int B, int Tq,
-                       int Tp, int H, int E, float scale,
+                       int Tp, int H, int E, float scale, DropArgs drop,
                        cudaStream_t stream) {
   const size_t smem = xl2_smem_bytes<D>(E);
   cudaError_t err = cudaFuncSetAttribute(
@@ -607,64 +654,37 @@ cudaError_t launch_xl2(const void* qc, const void* k, const void* v,
       static_cast<const T*>(qc), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(ga),
       static_cast<const T*>(gb), static_cast<const T*>(table), pad, out, lse,
-      H, Tq, Tp, E, scale, freq_coef);
+      H, Tq, Tp, E, scale, freq_coef, drop);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_xl3(int D, const void* qc, const void* k, const void* v,
-                         const void* qv, const void* p, const float* pad,
-                         float* out, float* lse, int B, int Tq, int H,
-                         float scale, cudaStream_t s) {
-  switch (D) {
-    case 48:
-      return launch_xl3<T, 48>(qc, k, v, qv, p, pad, out, lse, B, Tq, H, scale,
-                               s);
-    case 64:
-      return launch_xl3<T, 64>(qc, k, v, qv, p, pad, out, lse, B, Tq, H, scale,
-                               s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T, bool ROTATE>
-cudaError_t dispatch_xl2(int D, const void* qc, const void* k, const void* v,
-                         const void* ga, const void* gb, const void* table,
-                         const float* pad, float* out, float* lse, int B,
-                         int Tq, int Tp, int H, int E, float scale,
-                         cudaStream_t s) {
-  switch (D) {
-    case 48:
-      return launch_xl2<T, 48, ROTATE>(qc, k, v, ga, gb, table, pad, out, lse,
-                                       B, Tq, Tp, H, E, scale, s);
-    case 64:
-      return launch_xl2<T, 64, ROTATE>(qc, k, v, ga, gb, table, pad, out, lse,
-                                       B, Tq, Tp, H, E, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 bool bad_sizes(int B, int T, int H, double dropout_p) {
   return B <= 0 || H <= 0 || T <= 0 || B >= 65536 || H >= 65536 ||
-         T >= 65536 || dropout_p != 0.0;
+         T >= 65536 || !(dropout_p >= 0.0 && dropout_p < 1.0);
 }
 
 template <bool ROTATE>
 int xl2_entry(const void* qc, const void* k, const void* v, const void* ga,
               const void* gb, const void* table, const float* pad, float* out,
               float* lse, int B, int T, int Tp, int H, int D, int E,
-              int is_bf16, float scale, double dropout_p, void* stream) {
+              int is_bf16, float scale, double dropout_p, uint64_t seed,
+              void* stream) {
   if (bad_sizes(B, T, H, dropout_p) || Tp < T || E <= 0 || E % kEC != 0 ||
       xl2_smem_bytes<64>(E) > 232448)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)dispatch_xl2<__nv_bfloat16, ROTATE>(
-        D, qc, k, v, ga, gb, table, pad, out, lse, B, T, Tp, H, E, scale, s);
-  return (int)dispatch_xl2<float, ROTATE>(D, qc, k, v, ga, gb, table, pad, out,
-                                          lse, B, T, Tp, H, E, scale, s);
+  const DropArgs drop = drop_args(dropout_p, seed);
+#define VT_XL2(TYPE, DIM)                                                    \
+  launch_xl2<TYPE, DIM, ROTATE>(qc, k, v, ga, gb, table, pad, out, lse, B, T, \
+                                Tp, H, E, scale, drop, s)
+  switch (D * 2 + (is_bf16 ? 1 : 0)) {
+    case 96: return (int)VT_XL2(float, 48);
+    case 97: return (int)VT_XL2(__nv_bfloat16, 48);
+    case 128: return (int)VT_XL2(float, 64);
+    case 129: return (int)VT_XL2(__nv_bfloat16, 64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VT_XL2
 }
 
 }  // namespace
@@ -673,21 +693,27 @@ extern "C" {
 
 // K4. qc, k, v, qv: (B, T, H, D) contiguous, fp32 (is_bf16 = 0) or bf16;
 // p: (T, H, D) in the same dtype; pad: (B, T) fp32, 1.0 at padding keys;
-// out: (B, T, H, D) fp32; lse: (B, H, T) fp32. dropout_p must be 0 (the
-// seed is unused until the training slice). Returns the cudaError_t.
+// out: (B, T, H, D) fp32; lse: (B, H, T) fp32. dropout_p in [0, 1):
+// attention-weight dropout keyed by `seed` (dropout_hash.cuh). Returns the
+// cudaError_t.
 int vt_flash_xl3_fwd(const void* qc, const void* k, const void* v,
                      const void* qv, const void* p, const float* pad,
                      float* out, float* lse, int B, int T, int H, int D,
                      int is_bf16, float scale, double dropout_p, uint64_t seed,
                      void* stream) {
-  (void)seed;
   if (bad_sizes(B, T, H, dropout_p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)dispatch_xl3<__nv_bfloat16>(D, qc, k, v, qv, p, pad, out, lse,
-                                            B, T, H, scale, s);
-  return (int)dispatch_xl3<float>(D, qc, k, v, qv, p, pad, out, lse, B, T, H,
-                                  scale, s);
+  const DropArgs drop = drop_args(dropout_p, seed);
+#define VT_XL3(TYPE, DIM) \
+  launch_xl3<TYPE, DIM>(qc, k, v, qv, p, pad, out, lse, B, T, H, scale, drop, s)
+  switch (D * 2 + (is_bf16 ? 1 : 0)) {
+    case 96: return (int)VT_XL3(float, 48);
+    case 97: return (int)VT_XL3(__nv_bfloat16, 48);
+    case 128: return (int)VT_XL3(float, 64);
+    case 129: return (int)VT_XL3(__nv_bfloat16, 64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VT_XL3
 }
 
 // K5. qc, k, v: (B, T, H, D); g: (B, T, H, E) unrotated; table: (T, E); all
@@ -698,20 +724,20 @@ int vt_flash_xl2_fwd(const void* qc, const void* k, const void* v,
                      float* out, float* lse, int B, int T, int Tp, int H,
                      int D, int E, int is_bf16, float scale, double dropout_p,
                      uint64_t seed, void* stream) {
-  (void)seed;
   return xl2_entry<true>(qc, k, v, g, nullptr, table, pad, out, lse, B, T, Tp,
-                         H, D, E, is_bf16, scale, dropout_p, stream);
+                         H, D, E, is_bf16, scale, dropout_p, seed, stream);
 }
 
-// K6. gA, gB: (B, T, H, E) pre-rotated; other arguments as K5.
+// K6. gA, gB: (B, T, H, E) pre-rotated; other arguments as K5, but
+// dropout_p must be 0: K6 has no backward yet, so it serves inference only.
 int vt_flash_xl_fwd(const void* qc, const void* k, const void* v,
                     const void* ga, const void* gb, const void* table,
                     const float* pad, float* out, float* lse, int B, int T,
                     int Tp, int H, int D, int E, int is_bf16, float scale,
                     double dropout_p, uint64_t seed, void* stream) {
-  (void)seed;
+  if (dropout_p != 0.0) return (int)cudaErrorInvalidValue;
   return xl2_entry<false>(qc, k, v, ga, gb, table, pad, out, lse, B, T, Tp, H,
-                          D, E, is_bf16, scale, dropout_p, stream);
+                          D, E, is_bf16, scale, dropout_p, seed, stream);
 }
 
 const char* vt_error_string(int err) {

@@ -1,0 +1,1290 @@
+// Kernels K4 bwd (xl3) and K5 bwd-q / bwd-kv (xl2): the backward of the
+// FS2 conformer's Transformer-XL attention (flash_xl_attention.cu), for
+// Hopper (sm_90a), with the forward's attention-weight dropout.
+//
+// Replace the TPU kernels of viet_tts_tpu/ops/pallas_attention.py:
+//   K4 bwd     `_xl3_bwd_kernel` (launched by `_xl3_bwd_pallas`);
+//   K5 bwd-q   `_xl2_bwd_q_kernel` (`_xl2_bwd_pallas` through `_call_bwd_q`);
+//   K5 bwd-kv  `_xl2_bwd_kv_kernel` (`_xl2_bwd_pallas` through `_call_bwd_kv`).
+// With the forward's logits l_ij = (qc_i . k_j + pos_ij) * scale, its
+// logsumexp lse_i and delta_i = sum_d g_id out_id (computed outside, as the
+// JAX package does):
+//   p   = exp(l - lse)                          (0 at padding keys)
+//   ds  = p * (dp * m / keep - delta) * scale   (0 at padding keys)
+//   dqc = ds k,   dk = ds^T qc,   dv = (p * m / keep)^T g,
+// dp = g v^T, m the forward's keep bit (dropout_hash.cuh). The position term
+// takes the rest of ds, split by the XL select into its past part dsA
+// (j <= i) and its future part dsB (j >= i + 2):
+//   K4: pos_ij = qv_i . p_{T-1-i+j} (past), qv_{i+1} . p_{j-i-2} (future), so
+//       dqv_i = sum_j dsA_ij p_{T-1-i+j} + sum_j dsB_{i-1,j} p_{j-i-1} and
+//       dp_c  = sum_{b,i,j} [T-1-i+j = c] dsA_ij qv_i
+//             + sum_{b,i,j} [j-i-2 = c] dsB_ij qv_{i+1}, a sum along the
+//       diagonals of every (query, key) tile and over the batch;
+//   K5: pos_ij = gA_i . t_j (past), gB_i . t_j (future) with gA_i =
+//       rot(g_i, A_i), gB_i = rot(g_{i+1}, B_i) (xl_rotation.cuh), so
+//       dg_i = rot^-1(sum_j dsA_ij t_j, A_i) + rot^-1(sum_j dsB_{i-1,j} t_j,
+//       B_{i-1}) and dt_j = sum_{b,h,i} dsA_ij gA_i + dsB_ij gB_i.
+//
+// Design. On the TPU the grids run in order and carry sums from one grid
+// step to the next in VMEM: K4 keeps the whole (T, T) tile and accumulates
+// dp over the batch axis of its grid; K5's bwd-q keeps the whole-T query
+// tile. Here blocks run in parallel, so a loop inside each block takes the
+// place of the sequential axis, no two blocks write one output, and sums
+// across blocks go through fp32 partials and a second pass: no atomics, the
+// result is deterministic.
+//  - K4 is one entry of three passes: `xl3_bwd_q_kernel`, one block per
+//    (64-query tile, head, batch row) walking the 64-key tiles, gives dqc,
+//    the two parts of dqv, and the tile's dp partial (each diagonal of a
+//    (query, key) tile is one offset c, summed over its <= 64 pairs and
+//    added into the block's own (T, D) slice); `xl3_bwd_kv_kernel`, one
+//    block per (64-key tile, head, batch row) walking the query tiles,
+//    gives dk and dv; `xl3_bwd_reduce_kernel` sums the dp partials over
+//    batch rows and query tiles and adds row i-1's future part into dqv_i.
+//    Both main kernels stage the 127-row band of p that a tile's offsets
+//    j - i reach, as the forward does.
+//  - K5 bwd-q: one block per (16-query tile, head, batch row) keeps the
+//    rotated gA, gB and the dgA, dgB accumulators (16, E) in shared memory
+//    (4 x 16 x 388 x 4 B = 99 KB at E = 384; the TPU's whole-T tile would
+//    need megabytes) and walks the 64-key tiles, the table staged in
+//    64-column chunks. The last row's dgB belongs to the next tile's first
+//    row: it goes to a small carry buffer that `xl2_bwd_carry_kernel` adds.
+//  - K5 bwd-kv: one block per (64-key tile, head, batch row) walks 32-query
+//    tiles, rotating each tile's gA and gB as the forward does, and gives dk
+//    and dv; with `want_dtab` it also adds each (key tile, query tile)'s dt
+//    into the block's (64, E) slice of a per-(b, h) partial, which
+//    `xl2_bwd_dtab_kernel` sums. The conformer's table is the constant
+//    sinusoid table, so training never asks for dt.
+//
+// What bounds them on the H100: at the decoder's training shapes (B=8, H=8,
+// D=48; K4 at T=512, K5 at T=1008, E=384) the data needs 2*B*H*T^2*8D =
+// 12.9 GFLOP for K4 bwd (s, the position term, g v, dqc, dk, dv, dqv, dp),
+// 2*B*H*T^2*(3D + 2E) = 119 GFLOP for K5 bwd-q and 2*B*H*T^2*(4D + E) = 75
+// GFLOP for K5 bwd-kv, against tens to hundreds of MB: bound by operations.
+// This first version runs every product on the fp32 CUDA cores (67
+// TFLOP/s), with register tiles fed from shared memory.
+//
+// Padding follows the forward. K4: keys past T are never formed (the
+// reference scores them 2*MASK_NEG: weight exactly 0). K5: the Tp - T tail
+// keys are virtual (dead, v = 0). A batch row whose keys are all padding
+// has the uniform softmax, 1/T (K4) or 1/Tp (K5), and lse = -1e9 + log n
+// rounds to -1e9 in fp32, where exp(l - lse) would give 1: these kernels
+// detect the row and use the uniform weight, the dense gradient (the TPU
+// kernels' dv is n times too large there, as K3 notes for K1). bf16 streams
+// mirror `_mx`: p m / keep and ds are rounded to bf16 before the products
+// they feed, with fp32 accumulation; every gradient is written in fp32.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+#include <stdint.h>
+#include <type_traits>
+
+#include "dropout_hash.cuh"
+#include "xl_rotation.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// The stream dtype's rounding of an fp32 intermediate (the JAX `_mx`).
+template <typename T>
+__device__ __forceinline__ float to_stream(float x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+struct DropArgs {
+  uint32_t thresh;
+  float inv_keep;
+  int use;
+  uint64_t seed;
+};
+
+DropArgs drop_args(double dropout_p, uint64_t seed) {
+  DropArgs a;
+  a.thresh = vt_dropout_thresh(dropout_p);
+  a.inv_keep = (float)(1.0 / (1.0 - dropout_p));
+  a.use = dropout_p > 0.0;
+  a.seed = seed;
+  return a;
+}
+
+// m / keep of weight (i, j): 1 without dropout, else 1 / (1 - p) or 0.
+__device__ __forceinline__ float keep_scale(const DropArgs& drop, uint32_t key,
+                                            int i, int j) {
+  if (!drop.use) return 1.f;
+  return vt_dropout_keep(key, i, j, drop.thresh) ? drop.inv_keep : 0.f;
+}
+
+// True when batch row b has no live key (block-wide; every thread calls).
+__device__ __forceinline__ bool row_all_dead(const float* padb, int Tq) {
+  int live = 0;
+  for (int j = threadIdx.x; j < Tq; j += blockDim.x) live |= padb[j] <= 0.5f;
+  return !__syncthreads_or(live);
+}
+
+// Rows r0 .. r0 + n - 1 of a (B, T, H, X) stream (row stride rs, this
+// (b, h)'s offset base) into dst (n, ld) as fp32; rows outside [0, Tq) are 0.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
+                                          size_t base, size_t rs, int r0,
+                                          int n, int Tq, int X) {
+  for (int i = threadIdx.x; i < n * X; i += kThreads) {
+    const int r = i / X, x = i % X, row = r0 + r;
+    dst[r * ld + x] = (row >= 0 && row < Tq)
+                          ? to_float(src[base + (size_t)row * rs + x])
+                          : 0.f;
+  }
+}
+
+// Per-row lse and delta of rows r0 .. r0 + n - 1 (0 past Tq).
+__device__ __forceinline__ void load_row_stats(float* lse_s, float* del_s,
+                                               const float* lse,
+                                               const float* delta,
+                                               size_t rbase, int r0, int n,
+                                               int Tq) {
+  for (int r = threadIdx.x; r < n; r += kThreads) {
+    const bool in = r0 + r < Tq;
+    lse_s[r] = in ? lse[rbase + r0 + r] : 0.f;
+    del_s[r] = in ? delta[rbase + r0 + r] : 0.f;
+  }
+}
+
+// 1.0 for keys j0 .. j0 + n - 1 that are padding or past Tq.
+__device__ __forceinline__ void load_dead(float* dead_s, const float* padb,
+                                          int j0, int n, int Tq) {
+  for (int c = threadIdx.x; c < n; c += kThreads) {
+    const int key = j0 + c;
+    dead_s[c] = (key >= Tq || padb[key] > 0.5f) ? 1.f : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4 bwd: xl3, projected table
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ3 = 64;
+constexpr int kBK3 = 64;
+constexpr int kBand = kBQ3 + kBK3 - 1;  // offsets j - i one tile reaches
+
+// Rows c0 .. c0 + 126 of the head-h slice of p (T, H, D) into a band
+// (127, ld); rows outside [0, Tq) are never selected and stay 0.
+template <typename T>
+__device__ __forceinline__ void load_band(float* dst, int ld, const T* p,
+                                          int c0, int Tq, int H, int h,
+                                          int D) {
+  for (int i = threadIdx.x; i < kBand * D; i += kThreads) {
+    const int u = i / D, d = i % D, c = c0 + u;
+    dst[u * ld + d] =
+        (c >= 0 && c < Tq) ? to_float(p[((size_t)c * H + h) * D + d]) : 0.f;
+  }
+}
+
+// Shared memory of both K4 bwd main kernels: QC, GS, KS, VS (64, D+1);
+// QV (65, D+1); the past and future bands (127, D+1); two (64, 65) score
+// tiles; lse, delta, dead (64 each).
+template <int D>
+constexpr size_t xl3_bwd_smem_bytes() {
+  return sizeof(float) * (4 * 64 * (D + 1) + 65 * (D + 1) +
+                          2 * kBand * (D + 1) + 2 * 64 * 65 + 3 * 64);
+}
+
+// The forward's four products on one (64 query, 64 key) tile, as the
+// forward kernel computes them (same order of summation): thread (ty, tx)
+// holds queries 4 ty + a and keys 4 tx + c. s = qc . k, pos = the XL select
+// of qv . band (past) and qv_{+1} . band (future), dv = g . v.
+template <int D>
+__device__ __forceinline__ void xl3_tile_products(
+    const float* QC, const float* QV, const float* GS, const float* KS,
+    const float* VS, const float* PP, const float* PF, bool need_past,
+    bool need_fut, int i0, int j0, int ty, int tx, float s[4][4],
+    float pos[4][4], float dv[4][4]) {
+  constexpr int DP = D + 1;
+  const int u0 = 4 * tx - 4 * ty + kBQ3 - 4;  // band row of (a, c) = u0+c-a+3
+  float sp[4][4], sf[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[a][c] = sp[a][c] = sf[a][c] = dv[a][c] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; ++d) {
+    float q4[4], g4[4], k4[4], v4[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      q4[a] = QC[(ty * 4 + a) * DP + d];
+      g4[a] = GS[(ty * 4 + a) * DP + d];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      k4[c] = KS[(tx * 4 + c) * DP + d];
+      v4[c] = VS[(tx * 4 + c) * DP + d];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[a][c] = fmaf(q4[a], k4[c], s[a][c]);
+        dv[a][c] = fmaf(g4[a], v4[c], dv[a][c]);
+      }
+    float qv5[5];
+#pragma unroll
+    for (int a = 0; a < 5; ++a) qv5[a] = QV[(ty * 4 + a) * DP + d];
+    if (need_past) {
+      float band[7];
+#pragma unroll
+      for (int t = 0; t < 7; ++t) band[t] = PP[(u0 + t) * DP + d];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          sp[a][c] = fmaf(qv5[a], band[c - a + 3], sp[a][c]);
+    }
+    if (need_fut) {
+      float band[7];
+#pragma unroll
+      for (int t = 0; t < 7; ++t) band[t] = PF[(u0 + t) * DP + d];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          sf[a][c] = fmaf(qv5[a + 1], band[c - a + 3], sf[a][c]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int qi = i0 + ty * 4 + a;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kj = j0 + tx * 4 + c;
+      pos[a][c] = kj <= qi ? sp[a][c] : (kj >= qi + 2 ? sf[a][c] : 0.f);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    xl3_bwd_q_kernel(const T* __restrict__ qc, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ qv,
+                     const T* __restrict__ p, const T* __restrict__ g,
+                     const float* __restrict__ pad,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dqc,
+                     float* __restrict__ dqv_a, float* __restrict__ dqv_b,
+                     float* __restrict__ dp_part, int H, int Tq, float scale,
+                     DropArgs drop) {
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr int DP = D + 1;
+  constexpr int SP = kBK3 + 1;
+  constexpr int DJ = D / 16;
+
+  extern __shared__ __align__(16) float smem[];
+  float* QC = smem;
+  float* GS = QC + kBQ3 * DP;
+  float* KS = GS + kBQ3 * DP;
+  float* VS = KS + kBK3 * DP;
+  float* QV = VS + kBK3 * DP;
+  float* PP = QV + (kBQ3 + 1) * DP;
+  float* PF = PP + kBand * DP;
+  float* dS = PF + kBand * DP;
+  float* lse_s = dS + 2 * kBQ3 * SP;
+  float* del_s = lse_s + kBQ3;
+  float* dead_s = del_s + kBQ3;
+
+  const int tid = threadIdx.x;
+  const int i0 = blockIdx.x * kBQ3;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t rs = (size_t)H * D;
+  const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
+  const float* padb = pad + (size_t)b * Tq;
+  const size_t rbase = ((size_t)b * H + h) * Tq;
+  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
+  // this block's (T, D) slice of the dp partials (B, n_qtiles, H, T, D)
+  float* part =
+      dp_part + (((size_t)b * gridDim.x + blockIdx.x) * H + h) * Tq * D;
+
+  // a fully padded batch row has ds = 0 everywhere: dqc, dqv and its dp
+  // share are 0
+  const bool all_dead = row_all_dead(padb, Tq);
+
+  load_rows(QC, DP, qc, base, rs, i0, kBQ3, Tq, D);
+  load_rows(GS, DP, g, base, rs, i0, kBQ3, Tq, D);
+  load_rows(QV, DP, qv, base, rs, i0, kBQ3 + 1, Tq, D);
+  load_row_stats(lse_s, del_s, lse, delta, rbase, i0, kBQ3, Tq);
+
+  const int ty = tid / 16, tx = tid % 16;
+  float acc_q[4][DJ], acc_a[4][DJ], acc_b[4][DJ];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc_q[a][j] = acc_a[a][j] = acc_b[a][j] = 0.f;
+
+  for (int j0 = 0; j0 < Tq && !all_dead; j0 += kBK3) {
+    const bool need_past = j0 <= i0 + kBQ3 - 1;
+    const bool need_fut = j0 + kBK3 - 1 >= i0 + 2;
+    const int c_past = Tq - 1 - i0 - (kBQ3 - 1) + j0;
+    const int c_fut = j0 - i0 - (kBQ3 - 1) - 2;
+    __syncthreads();  // the previous tile's KS / VS / bands / dS are read
+    load_rows(KS, DP, k, base, rs, j0, kBK3, Tq, D);
+    load_rows(VS, DP, v, base, rs, j0, kBK3, Tq, D);
+    load_dead(dead_s, padb, j0, kBK3, Tq);
+    if (need_past) load_band(PP, DP, p, c_past, Tq, H, h, D);
+    if (need_fut) load_band(PF, DP, p, c_fut, Tq, H, h, D);
+    __syncthreads();
+
+    float s[4][4], pos[4][4], dv[4][4];
+    xl3_tile_products<D>(QC, QV, GS, KS, VS, PP, PF, need_past, need_fut, i0,
+                         j0, ty, tx, s, pos, dv);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = ty * 4 + a, qi = i0 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = tx * 4 + c;
+        float ds = 0.f;
+        if (qi < Tq && dead_s[col] == 0.f) {
+          const float pr = expf((s[a][c] + pos[a][c]) * scale - lse_s[r]);
+          const float m = keep_scale(drop, drop_key, qi, j0 + col);
+          ds = to_stream<T>(pr * (dv[a][c] * m - del_s[r]) * scale);
+        }
+        dS[r * SP + col] = ds;
+      }
+    }
+    __syncthreads();
+
+    // dqc += ds k; dqv (own row) += dsA band_past; dqv (next row) += dsB
+    // band_fut. Thread (ty, tx): rows 4 ty + a, features tx + 16 j.
+#pragma unroll 2
+    for (int col = 0; col < kBK3; ++col) {
+      const int kj = j0 + col;
+      float w[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) w[a] = dS[(ty * 4 + a) * SP + col];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const float kk = KS[col * DP + tx + 16 * j];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) acc_q[a][j] = fmaf(w[a], kk, acc_q[a][j]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int r = ty * 4 + a, qi = i0 + r, u = col - r + kBQ3 - 1;
+        if (need_past && kj <= qi) {
+#pragma unroll
+          for (int j = 0; j < DJ; ++j)
+            acc_a[a][j] = fmaf(w[a], PP[u * DP + tx + 16 * j], acc_a[a][j]);
+        } else if (need_fut && kj >= qi + 2) {
+#pragma unroll
+          for (int j = 0; j < DJ; ++j)
+            acc_b[a][j] = fmaf(w[a], PF[u * DP + tx + 16 * j], acc_b[a][j]);
+        }
+      }
+    }
+
+    // dp partial: diagonal u of the tile (pairs (a, u - 63 + a)) is the
+    // offset j - i = j0 - i0 + u - 63, wholly past, the zero diagonal or
+    // wholly future, and lands on c_past + u or c_fut + u. Past diagonals
+    // first, then future ones: two diagonals of the two kinds may share an
+    // offset c, and one thread at a time owns an address.
+    for (int fut = 0; fut < 2; ++fut) {
+      if (fut) __syncthreads();
+      if (fut ? !need_fut : !need_past) continue;
+      const int c0 = fut ? c_fut : c_past;
+      for (int idx = tid; idx < kBand * D; idx += kThreads) {
+        const int u = idx / D, d = idx % D;
+        const int rel = j0 - i0 + u - (kBQ3 - 1);
+        const int c = c0 + u;
+        if ((fut ? rel < 2 : rel > 0) || c < 0 || c >= Tq) continue;
+        const int a_lo = u < kBQ3 - 1 ? kBQ3 - 1 - u : 0;
+        const int a_hi = u > kBK3 - 1 ? kBand - 1 - u : kBQ3 - 1;
+        float sum = 0.f;
+        for (int a = a_lo; a <= a_hi; ++a)
+          sum = fmaf(dS[a * SP + u - (kBQ3 - 1) + a], QV[(a + fut) * DP + d],
+                     sum);
+        part[(size_t)c * D + d] += sum;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int qi = i0 + ty * 4 + a;
+    if (qi >= Tq) continue;
+    const size_t off = base + (size_t)qi * rs;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      dqc[off + tx + 16 * j] = acc_q[a][j];
+      dqv_a[off + tx + 16 * j] = acc_a[a][j];
+      dqv_b[off + tx + 16 * j] = acc_b[a][j];
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    xl3_bwd_kv_kernel(const T* __restrict__ qc, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ qv,
+                      const T* __restrict__ p, const T* __restrict__ g,
+                      const float* __restrict__ pad,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv_out, int H, int Tq, float scale,
+                      DropArgs drop) {
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr int DP = D + 1;
+  constexpr int SP = kBQ3 + 1;
+  constexpr int DJ = D / 16;
+
+  extern __shared__ __align__(16) float smem[];
+  float* QC = smem;
+  float* GS = QC + kBQ3 * DP;
+  float* KS = GS + kBQ3 * DP;
+  float* VS = KS + kBK3 * DP;
+  float* QV = VS + kBK3 * DP;
+  float* PP = QV + (kBQ3 + 1) * DP;
+  float* PF = PP + kBand * DP;
+  float* Pt = PF + kBand * DP;  // (key, query): p * m / keep
+  float* dSt = Pt + kBK3 * SP;  // (key, query): ds
+  float* lse_s = dSt + kBK3 * SP;
+  float* del_s = lse_s + kBQ3;
+  float* dead_s = del_s + kBQ3;
+
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * kBK3;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t rs = (size_t)H * D;
+  const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
+  const float* padb = pad + (size_t)b * Tq;
+  const size_t rbase = ((size_t)b * H + h) * Tq;
+  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
+  const float p_uniform = 1.f / (float)Tq;  // a fully padded row's weight
+
+  const bool all_dead = row_all_dead(padb, Tq);
+
+  load_rows(KS, DP, k, base, rs, j0, kBK3, Tq, D);
+  load_rows(VS, DP, v, base, rs, j0, kBK3, Tq, D);
+  load_dead(dead_s, padb, j0, kBK3, Tq);
+
+  // scores: queries 4 ty + a, keys 4 tx + c; accumulators: keys 4 ty + i,
+  // features tx + 16 j
+  const int ty = tid / 16, tx = tid % 16;
+  float acc_k[4][DJ], acc_v[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+
+  for (int i0 = 0; i0 < Tq; i0 += kBQ3) {
+    const bool need_past = j0 <= i0 + kBQ3 - 1;
+    const bool need_fut = j0 + kBK3 - 1 >= i0 + 2;
+    __syncthreads();  // the previous tile's QC / GS / QV / bands / Pt are read
+    load_rows(QC, DP, qc, base, rs, i0, kBQ3, Tq, D);
+    load_rows(GS, DP, g, base, rs, i0, kBQ3, Tq, D);
+    load_rows(QV, DP, qv, base, rs, i0, kBQ3 + 1, Tq, D);
+    load_row_stats(lse_s, del_s, lse, delta, rbase, i0, kBQ3, Tq);
+    if (need_past)
+      load_band(PP, DP, p, Tq - 1 - i0 - (kBQ3 - 1) + j0, Tq, H, h, D);
+    if (need_fut) load_band(PF, DP, p, j0 - i0 - (kBQ3 - 1) - 2, Tq, H, h, D);
+    __syncthreads();
+
+    float s[4][4], pos[4][4], dv[4][4];
+    xl3_tile_products<D>(QC, QV, GS, KS, VS, PP, PF, need_past, need_fut, i0,
+                         j0, ty, tx, s, pos, dv);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = ty * 4 + a, qi = i0 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = tx * 4 + c, kj = j0 + col;
+        float pv = 0.f, ds = 0.f;
+        if (qi < Tq && kj < Tq) {
+          const bool dead = dead_s[col] != 0.f;
+          const float m = keep_scale(drop, drop_key, qi, kj);
+          float pr;
+          if (all_dead)
+            pr = p_uniform;  // the dense gradient (see the header)
+          else
+            pr = dead ? 0.f
+                      : expf((s[a][c] + pos[a][c]) * scale - lse_s[r]);
+          pv = to_stream<T>(pr * m);
+          if (!dead) ds = to_stream<T>(pr * (dv[a][c] * m - del_s[r]) * scale);
+        }
+        Pt[col * SP + r] = pv;
+        dSt[col * SP + r] = ds;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int r = 0; r < kBQ3; ++r) {
+      float wp[4], ws[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wp[i] = Pt[(ty * 4 + i) * SP + r];
+        ws[i] = dSt[(ty * 4 + i) * SP + r];
+      }
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const float gg = GS[r * DP + tx + 16 * j];
+        const float qq = QC[r * DP + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc_v[i][j] = fmaf(wp[i], gg, acc_v[i][j]);
+          acc_k[i][j] = fmaf(ws[i], qq, acc_k[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kj = j0 + ty * 4 + i;
+    if (kj >= Tq) continue;
+    const size_t off = base + (size_t)kj * rs;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      dk[off + tx + 16 * j] = acc_k[i][j];
+      dv_out[off + tx + 16 * j] = acc_v[i][j];
+    }
+  }
+}
+
+// dp (T, H, D) = the sum of the partials over batch rows and query tiles;
+// dqv_i += dqv_b_{i-1} (row i-1's future term read qv_i).
+__global__ void __launch_bounds__(kThreads)
+    xl3_bwd_reduce_kernel(const float* __restrict__ dp_part,
+                          float* __restrict__ dp, float* __restrict__ dqv,
+                          const float* __restrict__ dqv_b, int B, int nq,
+                          int H, int Tq, int D) {
+  const size_t n_dp = (size_t)Tq * H * D;
+  const size_t n_qv = (size_t)B * Tq * H * D;
+  const size_t rs = (size_t)H * D;
+  for (size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
+       idx < n_dp + n_qv; idx += (size_t)gridDim.x * kThreads) {
+    if (idx < n_dp) {
+      const size_t c = idx / rs, h = (idx / D) % H, d = idx % D;
+      float sum = 0.f;
+      for (int bq = 0; bq < B * nq; ++bq)
+        sum += dp_part[((size_t)bq * H + h) * Tq * D + c * D + d];
+      dp[idx] = sum;
+    } else {
+      const size_t j = idx - n_dp;
+      if ((j / rs) % Tq >= 1) dqv[j] += dqv_b[j - rs];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5 bwd: xl2, one position stream rotated in the kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kBQq = 16;  // bwd-q query rows per block
+constexpr int kBQk = 32;  // bwd-kv query rows per tile
+constexpr int kBK2 = 64;  // keys per tile
+constexpr int kEC = 64;   // table columns staged at a time
+constexpr int kTS = kEC + 4;
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b,
+                                      float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// The rotated streams gA, gB of query rows i0 .. i0 + n - 1 into GA, GB
+// (n, ES), rounded to the stream dtype, exactly as the forward kernel
+// builds them; rows past Tq (and g_{i+1} past Tq) are zero rows.
+template <typename T>
+__device__ __forceinline__ void rotate_rows(float* GA, float* GB, int ES,
+                                            const T* g, size_t base_e,
+                                            size_t rse, int i0, int n, int Tq,
+                                            int E, float freq_coef) {
+  const int half = E / 2;
+  for (int i = threadIdx.x; i < n * half; i += kThreads) {
+    const int r = i / half, m = i % half, qi = i0 + r;
+    const VtXl2Angles ang = vt_xl2_angles(Tq, qi, m, freq_coef);
+    float ge = 0.f, go = 0.f, ne = 0.f, no = 0.f;
+    if (qi < Tq) {
+      const size_t off = base_e + (size_t)qi * rse + 2 * m;
+      ge = to_float(g[off]);
+      go = to_float(g[off + 1]);
+    }
+    if (qi + 1 < Tq) {
+      const size_t off = base_e + (size_t)(qi + 1) * rse + 2 * m;
+      ne = to_float(g[off]);
+      no = to_float(g[off + 1]);
+    }
+    const float2 a2 = vt_rot(ge, go, ang.ca, ang.sa);
+    const float2 b2 = vt_rot(ne, no, ang.cb, ang.sb);
+    GA[r * ES + 2 * m] = to_stream<T>(a2.x);
+    GA[r * ES + 2 * m + 1] = to_stream<T>(a2.y);
+    GB[r * ES + 2 * m] = to_stream<T>(b2.x);
+    GB[r * ES + 2 * m + 1] = to_stream<T>(b2.y);
+  }
+}
+
+// Columns e0 .. e0 + 63 of table rows j0 .. j0 + 63 into TS (64, kTS).
+template <typename T>
+__device__ __forceinline__ void load_table_chunk(float* TS, const T* table,
+                                                 int j0, int e0, int Tq,
+                                                 int E) {
+  for (int i = threadIdx.x; i < kBK2 * kEC; i += kThreads) {
+    const int r = i / kEC, e = i % kEC;
+    TS[r * kTS + e] =
+        (j0 + r < Tq) ? to_float(table[(size_t)(j0 + r) * E + e0 + e]) : 0.f;
+  }
+}
+
+template <int D>
+size_t xl2_bwd_q_smem_bytes(int E) {
+  // GA, GB, dGA, dGB (16, E+4); QC, GS (16, D+4); KS, VS (64, D+4);
+  // TS (64, 68); dS (16, 65); lse, delta (16); dead (64)
+  return sizeof(float) * (4 * kBQq * (E + 4) + 2 * kBQq * (D + 4) +
+                          2 * kBK2 * (D + 4) + kBK2 * kTS + kBQq * (kBK2 + 1) +
+                          2 * kBQq + kBK2);
+}
+
+template <int D>
+size_t xl2_bwd_kv_smem_bytes(int E) {
+  // GA, GB (32, E+4); QC, GS (32, D+4); KS, VS (64, D+4); TS (64, 68);
+  // Pt, dSt (64, 33); lse, delta (32); dead (64)
+  return sizeof(float) * (2 * kBQk * (E + 4) + 2 * kBQk * (D + 4) +
+                          2 * kBK2 * (D + 4) + kBK2 * kTS +
+                          2 * kBK2 * (kBQk + 1) + 2 * kBQk + kBK2);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    xl2_bwd_q_kernel(const T* __restrict__ qc, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ g2,
+                     const T* __restrict__ table, const T* __restrict__ g,
+                     const float* __restrict__ pad,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dqc,
+                     float* __restrict__ dg, float* __restrict__ carry, int H,
+                     int Tq, int E, float scale, float freq_coef,
+                     DropArgs drop) {
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr int DS = D + 4;
+  constexpr int SP = kBK2 + 1;
+  constexpr int DJ = D / 16;
+  const int ES = E + 4;
+
+  extern __shared__ __align__(16) float smem[];
+  float* GA = smem;
+  float* GB = GA + kBQq * ES;
+  float* dGA = GB + kBQq * ES;
+  float* dGB = dGA + kBQq * ES;
+  float* QC = dGB + kBQq * ES;
+  float* GS = QC + kBQq * DS;
+  float* KS = GS + kBQq * DS;
+  float* VS = KS + kBK2 * DS;
+  float* TS = VS + kBK2 * DS;
+  float* dS = TS + kBK2 * kTS;
+  float* lse_s = dS + kBQq * SP;
+  float* del_s = lse_s + kBQq;
+  float* dead_s = del_s + kBQq;
+
+  const int tid = threadIdx.x;
+  const int i0 = blockIdx.x * kBQq;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t rs = (size_t)H * D;
+  const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
+  const size_t rse = (size_t)H * E;
+  const size_t base_e = (size_t)b * Tq * rse + (size_t)h * E;
+  const float* padb = pad + (size_t)b * Tq;
+  const size_t rbase = ((size_t)b * H + h) * Tq;
+  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
+
+  const bool all_dead = row_all_dead(padb, Tq);
+
+  load_rows(QC, DS, qc, base, rs, i0, kBQq, Tq, D);
+  load_rows(GS, DS, g, base, rs, i0, kBQq, Tq, D);
+  load_row_stats(lse_s, del_s, lse, delta, rbase, i0, kBQq, Tq);
+  rotate_rows(GA, GB, ES, g2, base_e, rse, i0, kBQq, Tq, E, freq_coef);
+  for (int i = tid; i < kBQq * ES; i += kThreads) dGA[i] = dGB[i] = 0.f;
+
+  // thread (r, tx): query row r, keys tx + 16 c (scores), features
+  // tx + 16 j (dqc), table columns tx + 16 c of a chunk (dgA, dgB)
+  const int r = tid / 16, tx = tid % 16, qi = i0 + r;
+  float acc_q[DJ];
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) acc_q[j] = 0.f;
+
+  for (int j0 = 0; j0 < Tq && !all_dead; j0 += kBK2) {
+    const bool need_past = j0 <= i0 + kBQq - 1;
+    const bool need_fut = j0 + kBK2 - 1 >= i0 + 2;
+    __syncthreads();  // the previous tile's KS / VS / TS / dS are read
+    load_rows(KS, DS, k, base, rs, j0, kBK2, Tq, D);
+    load_rows(VS, DS, v, base, rs, j0, kBK2, Tq, D);
+    load_dead(dead_s, padb, j0, kBK2, Tq);
+    __syncthreads();
+
+    float s[4], dv[4], pa[4], pb[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[c] = dv[c] = pa[c] = pb[c] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      const float4 q4 = *reinterpret_cast<const float4*>(&QC[r * DS + d]);
+      const float4 g4 = *reinterpret_cast<const float4*>(&GS[r * DS + d]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = (tx + 16 * c) * DS + d;
+        s[c] = dot4(q4, *reinterpret_cast<const float4*>(&KS[row]), s[c]);
+        dv[c] = dot4(g4, *reinterpret_cast<const float4*>(&VS[row]), dv[c]);
+      }
+    }
+    for (int e0 = 0; e0 < E; e0 += kEC) {
+      __syncthreads();  // the previous chunk of TS is read
+      load_table_chunk(TS, table, j0, e0, Tq, E);
+      __syncthreads();
+#pragma unroll 4
+      for (int e = 0; e < kEC; e += 4) {
+        const float4 a4 = *reinterpret_cast<const float4*>(&GA[r * ES + e0 + e]);
+        const float4 b4 = *reinterpret_cast<const float4*>(&GB[r * ES + e0 + e]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float4 t4 =
+              *reinterpret_cast<const float4*>(&TS[(tx + 16 * c) * kTS + e]);
+          if (need_past) pa[c] = dot4(a4, t4, pa[c]);
+          if (need_fut) pb[c] = dot4(b4, t4, pb[c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = tx + 16 * c, kj = j0 + col;
+      float ds = 0.f;
+      if (qi < Tq && dead_s[col] == 0.f) {
+        const float pos = kj <= qi ? pa[c] : (kj >= qi + 2 ? pb[c] : 0.f);
+        const float pr = expf((s[c] + pos) * scale - lse_s[r]);
+        const float m = keep_scale(drop, drop_key, qi, kj);
+        ds = to_stream<T>(pr * (dv[c] * m - del_s[r]) * scale);
+      }
+      dS[r * SP + col] = ds;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int col = 0; col < kBK2; ++col) {
+      const float w = dS[r * SP + col];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j)
+        acc_q[j] = fmaf(w, KS[col * DS + tx + 16 * j], acc_q[j]);
+    }
+    // dgA += dsA t, dgB += dsB t over this key tile, chunk by chunk of the
+    // table; one thread owns each (r, e) of the accumulators
+    for (int e0 = 0; e0 < E; e0 += kEC) {
+      __syncthreads();  // TS is free
+      load_table_chunk(TS, table, j0, e0, Tq, E);
+      __syncthreads();
+      float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int col = 0; col < kBK2; ++col) {
+        const int kj = j0 + col;
+        const float w = dS[r * SP + col];
+        if (kj <= qi) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            sa[c] = fmaf(w, TS[col * kTS + tx + 16 * c], sa[c]);
+        } else if (kj >= qi + 2) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            sb[c] = fmaf(w, TS[col * kTS + tx + 16 * c], sb[c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dGA[r * ES + e0 + tx + 16 * c] += sa[c];
+        dGB[r * ES + e0 + tx + 16 * c] += sb[c];
+      }
+    }
+  }
+
+  if (qi < Tq) {
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dqc[base + (size_t)qi * rs + tx + 16 * j] = acc_q[j];
+  }
+  __syncthreads();
+  // dg_i = rot^-1(dgA_i, A_i) + rot^-1(dgB_{i-1}, B_{i-1}); the tile's last
+  // row's dgB goes to the carry of the next tile's first row
+  const int half = E / 2;
+  float* carry_row = carry + (((size_t)b * gridDim.x + blockIdx.x) * H + h) * E;
+  for (int i = tid; i < kBQq * half; i += kThreads) {
+    const int rr = i / half, m = i % half, row = i0 + rr;
+    if (row >= Tq) continue;
+    const VtXl2Angles ang = vt_xl2_angles(Tq, row, m, freq_coef);
+    float2 out = vt_rot_inv(dGA[rr * ES + 2 * m], dGA[rr * ES + 2 * m + 1],
+                            ang.ca, ang.sa);
+    if (rr >= 1) {
+      const VtXl2Angles prev = vt_xl2_angles(Tq, row - 1, m, freq_coef);
+      const float2 fb = vt_rot_inv(dGB[(rr - 1) * ES + 2 * m],
+                                   dGB[(rr - 1) * ES + 2 * m + 1], prev.cb,
+                                   prev.sb);
+      out.x += fb.x;
+      out.y += fb.y;
+    }
+    dg[base_e + (size_t)row * rse + 2 * m] = out.x;
+    dg[base_e + (size_t)row * rse + 2 * m + 1] = out.y;
+    if (rr == kBQq - 1) {
+      const float2 fb = vt_rot_inv(dGB[rr * ES + 2 * m],
+                                   dGB[rr * ES + 2 * m + 1], ang.cb, ang.sb);
+      carry_row[2 * m] = fb.x;
+      carry_row[2 * m + 1] = fb.y;
+    }
+  }
+}
+
+// dg at each tile's first row += the previous tile's carry.
+__global__ void __launch_bounds__(kThreads)
+    xl2_bwd_carry_kernel(const float* __restrict__ carry,
+                         float* __restrict__ dg, int B, int nq, int H, int Tq,
+                         int E) {
+  const size_t n = (size_t)B * (nq - 1) * H * E;
+  for (size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x; idx < n;
+       idx += (size_t)gridDim.x * kThreads) {
+    const size_t e = idx % E, h = (idx / E) % H, t = (idx / ((size_t)E * H)) % (nq - 1),
+                 b = idx / ((size_t)E * H * (nq - 1));
+    const size_t row = (t + 1) * kBQq;
+    if (row >= (size_t)Tq) continue;
+    dg[((b * Tq + row) * H + h) * E + e] +=
+        carry[((b * nq + t) * H + h) * E + e];
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    xl2_bwd_kv_kernel(const T* __restrict__ qc, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ g2,
+                      const T* __restrict__ table, const T* __restrict__ g,
+                      const float* __restrict__ pad,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv_out,
+                      float* __restrict__ dtab_part, int H, int Tq, int Tp,
+                      int E, float scale, float freq_coef, DropArgs drop) {
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr int DS = D + 4;
+  constexpr int SP = kBQk + 1;
+  constexpr int DJ = D / 16;
+  const int ES = E + 4;
+
+  extern __shared__ __align__(16) float smem[];
+  float* GA = smem;
+  float* GB = GA + kBQk * ES;
+  float* QC = GB + kBQk * ES;
+  float* GS = QC + kBQk * DS;
+  float* KS = GS + kBQk * DS;
+  float* VS = KS + kBK2 * DS;
+  float* TS = VS + kBK2 * DS;
+  float* Pt = TS + kBK2 * kTS;  // (key, query): p * m / keep
+  float* dSt = Pt + kBK2 * SP;  // (key, query): ds
+  float* lse_s = dSt + kBK2 * SP;
+  float* del_s = lse_s + kBQk;
+  float* dead_s = del_s + kBQk;
+
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * kBK2;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t rs = (size_t)H * D;
+  const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
+  const size_t rse = (size_t)H * E;
+  const size_t base_e = (size_t)b * Tq * rse + (size_t)h * E;
+  const float* padb = pad + (size_t)b * Tq;
+  const size_t rbase = ((size_t)b * H + h) * Tq;
+  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
+  const float p_uniform = 1.f / (float)Tp;  // a fully padded row's weight
+  // this block's (64, E) slice of the dt partials (B * H, T, E), or null
+  float* tpart = dtab_part == nullptr
+                     ? nullptr
+                     : dtab_part + ((size_t)b * H + h) * Tq * E;
+
+  const bool all_dead = row_all_dead(padb, Tq);
+
+  load_rows(KS, DS, k, base, rs, j0, kBK2, Tq, D);
+  load_rows(VS, DS, v, base, rs, j0, kBK2, Tq, D);
+  load_dead(dead_s, padb, j0, kBK2, Tq);
+
+  // scores: queries 2 ty + a, keys tx + 16 c; accumulators: keys 4 ty + i,
+  // features tx + 16 j
+  const int ty = tid / 16, tx = tid % 16;
+  float acc_k[4][DJ], acc_v[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+
+  for (int i0 = 0; i0 < Tq; i0 += kBQk) {
+    const bool need_past = j0 <= i0 + kBQk - 1;
+    const bool need_fut = j0 + kBK2 - 1 >= i0 + 2;
+    __syncthreads();  // the previous tile's GA / GB / QC / GS / Pt are read
+    load_rows(QC, DS, qc, base, rs, i0, kBQk, Tq, D);
+    load_rows(GS, DS, g, base, rs, i0, kBQk, Tq, D);
+    load_row_stats(lse_s, del_s, lse, delta, rbase, i0, kBQk, Tq);
+    rotate_rows(GA, GB, ES, g2, base_e, rse, i0, kBQk, Tq, E, freq_coef);
+    __syncthreads();
+
+    float s[2][4], dv[2][4], pa[2][4], pb[2][4];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[a][c] = dv[a][c] = pa[a][c] = pb[a][c] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float4 q4[2], g4[2];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        q4[a] = *reinterpret_cast<const float4*>(&QC[(ty * 2 + a) * DS + d]);
+        g4[a] = *reinterpret_cast<const float4*>(&GS[(ty * 2 + a) * DS + d]);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = (tx + 16 * c) * DS + d;
+        const float4 k4 = *reinterpret_cast<const float4*>(&KS[row]);
+        const float4 v4 = *reinterpret_cast<const float4*>(&VS[row]);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          s[a][c] = dot4(q4[a], k4, s[a][c]);
+          dv[a][c] = dot4(g4[a], v4, dv[a][c]);
+        }
+      }
+    }
+    for (int e0 = 0; e0 < E; e0 += kEC) {
+      __syncthreads();  // the previous chunk of TS is read
+      load_table_chunk(TS, table, j0, e0, Tq, E);
+      __syncthreads();
+#pragma unroll 4
+      for (int e = 0; e < kEC; e += 4) {
+        float4 t4[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          t4[c] = *reinterpret_cast<const float4*>(&TS[(tx + 16 * c) * kTS + e]);
+        if (need_past) {
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            const float4 a4 =
+                *reinterpret_cast<const float4*>(&GA[(ty * 2 + a) * ES + e0 + e]);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) pa[a][c] = dot4(a4, t4[c], pa[a][c]);
+          }
+        }
+        if (need_fut) {
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            const float4 b4 =
+                *reinterpret_cast<const float4*>(&GB[(ty * 2 + a) * ES + e0 + e]);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) pb[a][c] = dot4(b4, t4[c], pb[a][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = ty * 2 + a, qi = i0 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = tx + 16 * c, kj = j0 + col;
+        float pv = 0.f, ds = 0.f;
+        if (qi < Tq && kj < Tq) {
+          const bool dead = dead_s[col] != 0.f;
+          const float m = keep_scale(drop, drop_key, qi, kj);
+          float pr;
+          if (all_dead) {
+            pr = p_uniform;  // the dense gradient (see the header)
+          } else if (dead) {
+            pr = 0.f;
+          } else {
+            const float pos =
+                kj <= qi ? pa[a][c] : (kj >= qi + 2 ? pb[a][c] : 0.f);
+            pr = expf((s[a][c] + pos) * scale - lse_s[r]);
+          }
+          pv = to_stream<T>(pr * m);
+          if (!dead) ds = to_stream<T>(pr * (dv[a][c] * m - del_s[r]) * scale);
+        }
+        Pt[col * SP + r] = pv;
+        dSt[col * SP + r] = ds;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int r = 0; r < kBQk; ++r) {
+      float wp[4], ws[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wp[i] = Pt[(ty * 4 + i) * SP + r];
+        ws[i] = dSt[(ty * 4 + i) * SP + r];
+      }
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const float gg = GS[r * DS + tx + 16 * j];
+        const float qq = QC[r * DS + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc_v[i][j] = fmaf(wp[i], gg, acc_v[i][j]);
+          acc_k[i][j] = fmaf(ws[i], qq, acc_k[i][j]);
+        }
+      }
+    }
+    if (tpart != nullptr) {
+      // dt_j += sum_i dsA_ij gA_i + dsB_ij gB_i over this query tile; one
+      // thread owns each (key, column) of the block's slice
+      for (int idx = tid; idx < kBK2 * E; idx += kThreads) {
+        const int c = idx / E, e = idx % E, kj = j0 + c;
+        if (kj >= Tq) continue;
+        float sum = 0.f;
+        for (int r = 0; r < kBQk; ++r) {
+          const int qi = i0 + r;
+          const float w = dSt[c * SP + r];
+          if (kj <= qi)
+            sum = fmaf(w, GA[r * ES + e], sum);
+          else if (kj >= qi + 2)
+            sum = fmaf(w, GB[r * ES + e], sum);
+        }
+        tpart[(size_t)kj * E + e] += sum;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kj = j0 + ty * 4 + i;
+    if (kj >= Tq) continue;
+    const size_t off = base + (size_t)kj * rs;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      dk[off + tx + 16 * j] = acc_k[i][j];
+      dv_out[off + tx + 16 * j] = acc_v[i][j];
+    }
+  }
+}
+
+// dt (T, E) = the sum of the per-(b, h) partials.
+__global__ void __launch_bounds__(kThreads)
+    xl2_bwd_dtab_kernel(const float* __restrict__ dtab_part,
+                        float* __restrict__ dtab, int BH, int Tq, int E) {
+  const size_t n = (size_t)Tq * E;
+  for (size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x; idx < n;
+       idx += (size_t)gridDim.x * kThreads) {
+    float sum = 0.f;
+    for (int bh = 0; bh < BH; ++bh) sum += dtab_part[(size_t)bh * n + idx];
+    dtab[idx] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+int grid_for(size_t n) {
+  const size_t blocks = (n + kThreads - 1) / kThreads;
+  return (int)(blocks < 132 * 8 ? (blocks > 0 ? blocks : 1) : 132 * 8);
+}
+
+template <typename T, int D>
+cudaError_t launch_xl3_bwd(const void* qc, const void* k, const void* v,
+                           const void* qv, const void* p, const void* g,
+                           const float* pad, const float* lse,
+                           const float* delta, float* dqc, float* dk,
+                           float* dv, float* dqv, float* dqv_b,
+                           float* dp_part, float* dp, int B, int Tq, int H,
+                           float scale, DropArgs drop, cudaStream_t stream) {
+  constexpr size_t smem = xl3_bwd_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      xl3_bwd_q_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(xl3_bwd_kv_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const int nq = (Tq + kBQ3 - 1) / kBQ3;
+  const T* Qc = static_cast<const T*>(qc);
+  const T* K = static_cast<const T*>(k);
+  const T* V = static_cast<const T*>(v);
+  const T* Qv = static_cast<const T*>(qv);
+  const T* P = static_cast<const T*>(p);
+  const T* G = static_cast<const T*>(g);
+  xl3_bwd_q_kernel<T, D><<<dim3(nq, H, B), kThreads, smem, stream>>>(
+      Qc, K, V, Qv, P, G, pad, lse, delta, dqc, dqv, dqv_b, dp_part, H, Tq,
+      scale, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  xl3_bwd_kv_kernel<T, D><<<dim3((Tq + kBK3 - 1) / kBK3, H, B), kThreads, smem,
+                            stream>>>(Qc, K, V, Qv, P, G, pad, lse, delta, dk,
+                                      dv, H, Tq, scale, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  xl3_bwd_reduce_kernel<<<grid_for((size_t)(1 + B) * Tq * H * D), kThreads, 0,
+                          stream>>>(dp_part, dp, dqv, dqv_b, B, nq, H, Tq, D);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_xl2_bwd_q(const void* qc, const void* k, const void* v,
+                             const void* g2, const void* table, const void* g,
+                             const float* pad, const float* lse,
+                             const float* delta, float* dqc, float* dg,
+                             float* carry, int B, int Tq, int H, int E,
+                             float scale, DropArgs drop, cudaStream_t stream) {
+  const size_t smem = xl2_bwd_q_smem_bytes<D>(E);
+  cudaError_t err = cudaFuncSetAttribute(
+      xl2_bwd_q_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const float freq_coef = (float)(-2.0 * log(10000.0) / (double)E);
+  const int nq = (Tq + kBQq - 1) / kBQq;
+  xl2_bwd_q_kernel<T, D><<<dim3(nq, H, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(qc), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g2),
+      static_cast<const T*>(table), static_cast<const T*>(g), pad, lse, delta,
+      dqc, dg, carry, H, Tq, E, scale, freq_coef, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nq == 1) return err;
+  xl2_bwd_carry_kernel<<<grid_for((size_t)B * (nq - 1) * H * E), kThreads, 0,
+                         stream>>>(carry, dg, B, nq, H, Tq, E);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_xl2_bwd_kv(const void* qc, const void* k, const void* v,
+                              const void* g2, const void* table, const void* g,
+                              const float* pad, const float* lse,
+                              const float* delta, float* dk, float* dv,
+                              float* dtab_part, float* dtab, int B, int Tq,
+                              int Tp, int H, int E, float scale, DropArgs drop,
+                              cudaStream_t stream) {
+  const size_t smem = xl2_bwd_kv_smem_bytes<D>(E);
+  cudaError_t err = cudaFuncSetAttribute(
+      xl2_bwd_kv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const float freq_coef = (float)(-2.0 * log(10000.0) / (double)E);
+  xl2_bwd_kv_kernel<T, D><<<dim3((Tq + kBK2 - 1) / kBK2, H, B), kThreads,
+                            smem, stream>>>(
+      static_cast<const T*>(qc), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g2),
+      static_cast<const T*>(table), static_cast<const T*>(g), pad, lse, delta,
+      dk, dv, dtab_part, H, Tq, Tp, E, scale, freq_coef, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || dtab_part == nullptr) return err;
+  xl2_bwd_dtab_kernel<<<grid_for((size_t)Tq * E), kThreads, 0, stream>>>(
+      dtab_part, dtab, B * H, Tq, E);
+  return cudaGetLastError();
+}
+
+bool bad_args(int B, int T, int H, double dropout_p) {
+  return B <= 0 || H <= 0 || T <= 0 || T >= 65536 || B >= 65536 ||
+         H >= 65536 || !(dropout_p >= 0.0 && dropout_p < 1.0);
+}
+
+bool bad_e(int E) {
+  return E <= 0 || E % kEC != 0 || xl2_bwd_q_smem_bytes<64>(E) > 232448 ||
+         xl2_bwd_kv_smem_bytes<64>(E) > 232448;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K4 bwd. qc, k, v, qv, g: (B, T, H, D) contiguous, fp32 (is_bf16 = 0) or
+// bf16; p: (T, H, D), same dtype; pad: (B, T) fp32, 1.0 at padding keys;
+// lse, delta: (B, H, T) fp32; dropout_p and seed: the forward's. Outputs,
+// fp32: dqc, dk, dv, dqv (B, T, H, D); dp (T, H, D). Scratch, fp32: dqv_b
+// (B, T, H, D) and dp_part (B, ceil(T / 64), H, T, D), zero-filled by the
+// caller. Returns the first cudaError_t of the three launches.
+int vt_flash_xl3_bwd(const void* qc, const void* k, const void* v,
+                     const void* qv, const void* p, const void* g,
+                     const float* pad, const float* lse, const float* delta,
+                     float* dqc, float* dk, float* dv, float* dqv, float* dp,
+                     float* dqv_b, float* dp_part, int B, int T, int H, int D,
+                     int is_bf16, float scale, double dropout_p, uint64_t seed,
+                     void* stream) {
+  if (bad_args(B, T, H, dropout_p)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DropArgs drop = drop_args(dropout_p, seed);
+#define VT_XL3B(TYPE, DIM)                                                  \
+  launch_xl3_bwd<TYPE, DIM>(qc, k, v, qv, p, g, pad, lse, delta, dqc, dk, dv, \
+                            dqv, dqv_b, dp_part, dp, B, T, H, scale, drop, s)
+  switch (D * 2 + (is_bf16 ? 1 : 0)) {
+    case 96: return (int)VT_XL3B(float, 48);
+    case 97: return (int)VT_XL3B(__nv_bfloat16, 48);
+    case 128: return (int)VT_XL3B(float, 64);
+    case 129: return (int)VT_XL3B(__nv_bfloat16, 64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VT_XL3B
+}
+
+// K5 bwd-q. qc, k, v, g: (B, T, H, D); g2: (B, T, H, E) the forward's
+// unrotated position stream; table: (T, E); all one dtype. pad, lse, delta,
+// dropout_p, seed as K4 bwd. Outputs, fp32: dqc (B, T, H, D), dg2
+// (B, T, H, E). Scratch: carry (B, ceil(T / 16), H, E) fp32. E a multiple
+// of 64.
+int vt_flash_xl2_bwd_q(const void* qc, const void* k, const void* v,
+                       const void* g2, const void* table, const void* g,
+                       const float* pad, const float* lse, const float* delta,
+                       float* dqc, float* dg2, float* carry, int B, int T,
+                       int H, int D, int E, int is_bf16, float scale,
+                       double dropout_p, uint64_t seed, void* stream) {
+  if (bad_args(B, T, H, dropout_p) || bad_e(E)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DropArgs drop = drop_args(dropout_p, seed);
+#define VT_XL2Q(TYPE, DIM)                                                    \
+  launch_xl2_bwd_q<TYPE, DIM>(qc, k, v, g2, table, g, pad, lse, delta, dqc,  \
+                              dg2, carry, B, T, H, E, scale, drop, s)
+  switch (D * 2 + (is_bf16 ? 1 : 0)) {
+    case 96: return (int)VT_XL2Q(float, 48);
+    case 97: return (int)VT_XL2Q(__nv_bfloat16, 48);
+    case 128: return (int)VT_XL2Q(float, 64);
+    case 129: return (int)VT_XL2Q(__nv_bfloat16, 64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VT_XL2Q
+}
+
+// K5 bwd-kv. Inputs as K5 bwd-q; Tp >= T the forward's padded length (the
+// keys in [T, Tp) are virtual). Outputs, fp32: dk, dv (B, T, H, D); with
+// dtab_part non-null (scratch (B * H, T, E) fp32, zero-filled by the
+// caller) also dtab (T, E).
+int vt_flash_xl2_bwd_kv(const void* qc, const void* k, const void* v,
+                        const void* g2, const void* table, const void* g,
+                        const float* pad, const float* lse,
+                        const float* delta, float* dk, float* dv,
+                        float* dtab_part, float* dtab, int B, int T, int Tp,
+                        int H, int D, int E, int is_bf16, float scale,
+                        double dropout_p, uint64_t seed, void* stream) {
+  if (bad_args(B, T, H, dropout_p) || bad_e(E) || Tp < T)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DropArgs drop = drop_args(dropout_p, seed);
+#define VT_XL2KV(TYPE, DIM)                                                   \
+  launch_xl2_bwd_kv<TYPE, DIM>(qc, k, v, g2, table, g, pad, lse, delta, dk,  \
+                               dv, dtab_part, dtab, B, T, Tp, H, E, scale,   \
+                               drop, s)
+  switch (D * 2 + (is_bf16 ? 1 : 0)) {
+    case 96: return (int)VT_XL2KV(float, 48);
+    case 97: return (int)VT_XL2KV(__nv_bfloat16, 48);
+    case 128: return (int)VT_XL2KV(float, 64);
+    case 129: return (int)VT_XL2KV(__nv_bfloat16, 64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VT_XL2KV
+}
+
+const char* vt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

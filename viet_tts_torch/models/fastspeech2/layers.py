@@ -3,13 +3,15 @@ conditioning and the GST ``ReferenceEncoder``.
 
 Counterpart of ``viet_tts_tpu/models/fastspeech2/layers.py``
 (``ConvReluNormStack``, ``DurationPredictor``, ``VariancePredictor``,
-``Postnet``, ``ReferenceEncoder``, ``CVAENet``, ``AccentEncoderNetwork``;
-the ``AlignmentEncoder`` comes with the training slice). Parameter names
+``AlignmentEncoder``, ``Postnet``, ``ReferenceEncoder``, ``CVAENet``,
+``AccentEncoderNetwork``). Parameter names
 follow the reference torch model (``models/tts/fastspeech2/layers.py``) as
 ``train/torch_import.py`` reads them: predictor convs ``conv.{i}.1`` with
 their LayerNorm at ``conv.{i}.3``, postnet ``convolutions.{i}.0.conv`` and
 ``.1`` (BatchNorm), CVAE heads ``cvae.linear_model_{acc,spk}.0`` and
-``cvae.{mu,logvar}_layer_{acc,spk}.linear``; the reference encoder's are
+``cvae.{mu,logvar}_layer_{acc,spk}.linear``, aligner ``key_proj.{0,2}.conv``,
+``query_proj.{0,2,4}.conv`` and ``{key,query}_spk_proj.linear`` (as
+``_aligner_params`` reads them); the reference encoder's are
 espnet's (``convs.{3i}`` Conv2d, ``convs.{3i+1}`` BatchNorm2d, ``gru``), as
 ``_gst_params`` / ``_accent_encoder_params`` read them. Activations are
 (B, T, C).
@@ -172,8 +174,49 @@ class VariancePredictor(nn.Module):
             self.pos_embed_alpha.fill_(1.0)
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
-        xs = xs + self.pos_embed_alpha * self.table[fairseq_positions(xs[..., 0])]
+        table = self.table[fairseq_positions(xs[..., 0])].to(xs.dtype)
+        xs = xs + self.pos_embed_alpha * table
         return self.linear(self.conv(xs))[..., 0]
+
+
+class AlignmentEncoder(nn.Module):
+    """One-TTS-Alignment text / mel aligner: key and query conv stacks,
+    negative squared L2 distances scaled by ``temperature``, log-softmax
+    over text plus the log of the beta-binomial prior.
+
+    (queries (B, T_mel, n_mel), keys (B, T_text, c_text), text pad mask,
+    prior (B, T_mel, T_text), speaker vector (B, spk_dim)) -> (soft
+    attention (B, 1, T_mel, T_text), its unnormalised log (B, 1, T_mel,
+    T_text)); padded text columns are -1e9 before the softmax."""
+
+    def __init__(self, n_mel: int, c_text: int, n_att_channels: int, spk_dim: int,
+                 temperature: float = 0.0005):
+        super().__init__()
+        self.temperature = temperature
+        self.key_proj = nn.Sequential(ConvNorm(c_text, 2 * c_text, 3), nn.ReLU(),
+                                      ConvNorm(2 * c_text, n_att_channels))
+        self.query_proj = nn.Sequential(ConvNorm(n_mel, 2 * n_mel, 3), nn.ReLU(),
+                                        ConvNorm(2 * n_mel, n_mel), nn.ReLU(),
+                                        ConvNorm(n_mel, n_att_channels))
+        self.key_spk_proj = LinearNorm(spk_dim, c_text)
+        self.query_spk_proj = LinearNorm(spk_dim, n_mel)
+
+    def forward(self, queries: torch.Tensor, keys: torch.Tensor,
+                text_pad_mask: Optional[torch.Tensor], attn_prior: torch.Tensor,
+                speaker_embed: Optional[torch.Tensor] = None):
+        if speaker_embed is not None:
+            keys = keys + self.key_spk_proj(speaker_embed)[:, None]
+            queries = queries + self.query_spk_proj(speaker_embed)[:, None]
+        k = self.key_proj(keys.transpose(1, 2)).transpose(1, 2)
+        q = self.query_proj(queries.transpose(1, 2)).transpose(1, 2)
+        sq = (q ** 2).sum(-1)[:, :, None]
+        sk = (k ** 2).sum(-1)[:, None, :]
+        attn = -self.temperature * (sq + sk - 2.0 * torch.einsum("bmc,btc->bmt", q, k))
+        attn = torch.log_softmax(attn, dim=-1) + torch.log(attn_prior + 1e-8)
+        attn_logprob = attn
+        if text_pad_mask is not None:
+            attn = attn.masked_fill(text_pad_mask[:, None, :], -1.0e9)
+        return torch.softmax(attn, dim=-1)[:, None], attn_logprob[:, None]
 
 
 class Postnet(nn.Module):
@@ -274,7 +317,9 @@ class CVAENet(nn.Module):
     """Conditional-VAE accent and speaker heads over the reference
     embedding: (z_acc, y_acc, z_spk, y_spk, (mu_acc, logvar_acc, mu_spk,
     logvar_spk)); z is the mean in eval mode and a reparameterised sample
-    in training mode."""
+    z = mu + eps exp(logvar / 2) in training mode, eps = (eps_acc, eps_spk)
+    given, or drawn from ``generator`` (a CPU ``torch.Generator``; torch's
+    default one when None)."""
 
     def __init__(self, n_accents: int, n_speakers: int, in_dim: int, y_dim: int = 10,
                  z_dim: int = 192):
@@ -286,17 +331,23 @@ class CVAENet(nn.Module):
             setattr(self, f"mu_layer_{tag}", LinearNorm(256, z_dim))
             setattr(self, f"logvar_layer_{tag}", LinearNorm(256, z_dim))
 
-    def _head(self, x: torch.Tensor, label: torch.Tensor, tag: str):
+    def _head(self, x: torch.Tensor, label: torch.Tensor, tag: str, eps, generator):
         y = getattr(self, f"embedding_layer_{tag}")(label)
         h = getattr(self, f"linear_model_{tag}")(torch.cat([x, y], dim=1))
         mu = getattr(self, f"mu_layer_{tag}")(h)
         logvar = getattr(self, f"logvar_layer_{tag}")(h)
-        z = mu + torch.randn_like(mu) * torch.exp(0.5 * logvar) if self.training else mu
+        if not self.training:
+            return mu, y, mu, logvar
+        if eps is None:
+            eps = torch.randn(mu.shape, generator=generator)
+        z = mu + eps.to(device=mu.device, dtype=mu.dtype) * torch.exp(0.5 * logvar)
         return z, y, mu, logvar
 
-    def forward(self, x: torch.Tensor, label_acc: torch.Tensor, label_spk: torch.Tensor):
-        z_acc, y_acc, mu_acc, logvar_acc = self._head(x, label_acc, "acc")
-        z_spk, y_spk, mu_spk, logvar_spk = self._head(x, label_spk, "spk")
+    def forward(self, x: torch.Tensor, label_acc: torch.Tensor, label_spk: torch.Tensor,
+                eps=None, generator: Optional[torch.Generator] = None):
+        eps_acc, eps_spk = (None, None) if eps is None else eps
+        z_acc, y_acc, mu_acc, logvar_acc = self._head(x, label_acc, "acc", eps_acc, generator)
+        z_spk, y_spk, mu_spk, logvar_spk = self._head(x, label_spk, "spk", eps_spk, generator)
         return z_acc, y_acc, z_spk, y_spk, (mu_acc, logvar_acc, mu_spk, logvar_spk)
 
 
@@ -315,5 +366,6 @@ class AccentEncoderNetwork(nn.Module):
         self.cvae = CVAENet(n_accents, n_speakers, gru_units, 10, z_dim)
 
     def forward(self, speech: torch.Tensor, acc_labels: torch.Tensor,
-                spk_labels: torch.Tensor):
-        return self.cvae(self.encoder(speech), acc_labels, spk_labels)
+                spk_labels: torch.Tensor, eps=None,
+                generator: Optional[torch.Generator] = None):
+        return self.cvae(self.encoder(speech), acc_labels, spk_labels, eps, generator)

@@ -17,7 +17,9 @@ function (``attn_implementation``):
 - "flash": kernels K4 / K5 / K6 (``ops/flash_xl_attention.py``), routed by
   padded length as the JAX module routes them: xl3 while the 128-padded T
   is at most 512, xl2 while the 32-padded T is at most 1024, xl beyond.
-Attention-weight dropout on the flash route comes with the training slice.
+  In training the attention-weight dropout runs inside K4 / K5, keyed by a
+  seed drawn per call from the caller's ``generator``; a length past the
+  xl2 route raises in training, K6's backward being still to be ported.
 
 ``mask_attn_keys=False`` is the reference's behaviour: its ``nn.Sequential``
 drops the mask, so self-attention sees the padding keys and only the block
@@ -109,24 +111,37 @@ class RelativeMultiHeadAttention(nn.Module):
             for p in (self.u_bias, self.v_bias):
                 p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0) * bound)
 
-    def _flash(self, q, k, v, table, pad_mask):
+    def _flash(self, q, k, v, table, pad_mask, generator):
         T, H, D = q.shape[1], self.num_heads, self.d_head
         qc, qv = q + self.u_bias, q + self.v_bias
         scale = 1.0 / math.sqrt(self.d_model)
         pos_kernel = self.pos_proj.linear.weight.t()  # (E, H*D), flax's kernel
+        drop_p, seed = 0.0, None
+        if self.training and self.dropout.p > 0.0:
+            drop_p = self.dropout.p
+            # a per-call seed for the in-kernel mask, drawn on the host
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
         if xl3_padded_time(T) <= XL3_MAX_T:
             p = (table @ pos_kernel).reshape(T, H, D)
-            return flash_xl3_attention(qc, k, v, qv, p, scale, pad_mask)
+            return flash_xl3_attention(qc, k, v, qv, p, scale, pad_mask, drop_p, seed)
         if padded_time(T) <= XL2_MAX_T:
             g = xl_pos_query_stream(qv, pos_kernel)
-            return flash_xl2_attention(qc, k, v, g, table, scale, pad_mask)
+            return flash_xl2_attention(qc, k, v, g, table, scale, pad_mask, drop_p, seed)
+        if self.training:
+            raise NotImplementedError(
+                f"flash XL attention trains up to a padded length of {XL2_MAX_T} (got "
+                f"T={T}): the two-stream route's backward (K6 bwd, "
+                "pallas_attention.py:_xl_bwd_pallas) is still to be ported")
         gA, gB = xl_pos_queries(qv, pos_kernel)
         return flash_xl_attention(qc, k, v, gA, gB, table, scale, pad_mask)
 
     def forward(self, x: torch.Tensor, table: torch.Tensor,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, T, d_model), table (T, d_model) the raw sinusoid table,
-        pad_mask (B, T) True at padding keys (or None)."""
+        pad_mask (B, T) True at padding keys (or None). ``generator`` draws
+        the flash route's dropout seeds in training (torch's default
+        generator when None)."""
         B, T, _ = x.shape
         H, D = self.num_heads, self.d_head
         q = self.query_proj(x).reshape(B, T, H, D)
@@ -134,11 +149,7 @@ class RelativeMultiHeadAttention(nn.Module):
         v = self.value_proj(x).reshape(B, T, H, D)
         impl = self.attn_implementation
         if impl == "flash":
-            if self.training and self.dropout.p > 0.0:
-                raise NotImplementedError(
-                    "flash XL attention with attention dropout comes with the FS2 "
-                    "training slice")
-            return self.out_proj(self._flash(q, k, v, table, pad_mask))
+            return self.out_proj(self._flash(q, k, v, table, pad_mask, generator))
         if impl == "dense":
             gA, gB = xl_pos_queries(q + self.v_bias, self.pos_proj.linear.weight.t())
             score = xl_attention_scores(q + self.u_bias, k, gA, gB, table,
@@ -223,11 +234,13 @@ class ConformerBlock(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, table: torch.Tensor,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         ff1, mhsa, conv, ff2, final_ln = self.sequential
         x = x + self.ff_factor * ff1.module(x)
         attn_out = mhsa.module.attention(mhsa.module.layer_norm(x), table,
-                                         pad_mask if self.mask_attn_keys else None)
+                                         pad_mask if self.mask_attn_keys else None,
+                                         generator)
         x = x + self.dropout(attn_out)
         x = x + conv.module(x)
         x = x + self.ff_factor * ff2.module(x)
@@ -263,11 +276,12 @@ class _ConformerStack(nn.Module):
         table = _table_np(max(self.max_seq_len + 1, T), self.d_model)[:T]
         return torch.from_numpy(table).to(device=like.device, dtype=like.dtype)
 
-    def _blocks(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def _blocks(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
         table = self.table(x.shape[1], x)
         x = x + table[None]
         for block in self.layer_stack:
-            x = block(x, table, pad_mask)
+            x = block(x, table, pad_mask, generator)
         return x
 
 
@@ -280,17 +294,19 @@ class ConformerEncoder(_ConformerStack):
         super().__init__(n_layers, d_model, max_seq_len, **kwargs)
         self.src_word_emb = nn.Embedding(n_symbols + 1, d_model)
 
-    def forward(self, src_seq: torch.Tensor,
-                pad_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, src_seq: torch.Tensor, pad_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         emb = self.src_word_emb(src_seq) * (src_seq != 0)[..., None].to(
             self.src_word_emb.weight.dtype)
-        return self._blocks(emb, pad_mask), emb
+        return self._blocks(emb, pad_mask, generator), emb
 
 
 class ConformerDecoder(_ConformerStack):
     """Positions + blocks over frame features: (x, pad_mask) -> (hidden,
     pad_mask)."""
 
-    def forward(self, x: torch.Tensor,
-                pad_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self._blocks(x, pad_mask), pad_mask
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._blocks(x, pad_mask, generator), pad_mask

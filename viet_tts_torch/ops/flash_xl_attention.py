@@ -1,11 +1,15 @@
 """Transformer-XL flash attention of the FS2 conformer: kernels K4 (xl3),
-K5 (xl2) and K6 (xl), forward, with their plain versions.
+K5 (xl2) and K6 (xl) forward, the K4 and K5 backward, their plain versions
+and the autograd functions around them.
 
 Counterpart of the XL flavours of ``viet_tts_tpu/ops/pallas_attention.py``:
-``flash_xl3_attention`` (TPU kernel ``_xl3_kernel``), ``flash_xl2_attention``
-(``_xl2_kernel``) and ``flash_xl_attention`` (``_xl_kernel``). The three
-compute one function, softmax((qc k^T + shift(qv p^T)) * scale) v, from
-three parameterisations of the position term (``ops/xl_attention.py``):
+``flash_xl3_attention`` (TPU kernels ``_xl3_kernel`` / ``_xl3_bwd_kernel``,
+custom VJP ``_xl3_op``), ``flash_xl2_attention`` (``_xl2_kernel`` /
+``_xl2_bwd_q_kernel`` / ``_xl2_bwd_kv_kernel``, ``_xl2_op``) and
+``flash_xl_attention`` (``_xl_kernel``; its backward is still to be
+ported). The three compute one function, softmax((qc k^T + shift(qv p^T))
+* scale) v, from three parameterisations of the position term
+(``ops/xl_attention.py``):
 
 - xl3: qc = q + u_bias, k, v, qv = q + v_bias (B, T, H, D) and the
   projected table p = pos_proj(table) (T, H, D); the TPU pads T to a
@@ -17,11 +21,15 @@ three parameterisations of the position term (``ops/xl_attention.py``):
 - xl: the pre-rotated streams gA, gB (B, T, H, E) and the table; longer T.
 
 Each public function keeps the JAX one's arguments and result: (B, T, H*D)
-in qc's dtype. ``xl3_fwd`` / ``xl2_fwd`` / ``xl_fwd`` return the context
-(B, T, H, D) in fp32 with the per-row logsumexp (B, H, T), which a backward
-pass needs: the kernel on CUDA tensors, the plain version
-(``*_fwd_plain``, the JAX package's dense oracle on the padded inputs) on
-CPU tensors, never one for the other.
+in qc's dtype; xl3 and xl2 are differentiable (``torch.autograd.Function``:
+the forward saves its inputs, the context and the logsumexp, the backward
+computes delta = rowsum(g * out) outside the kernels, as ``_xl3_bwd`` /
+``_xl2_bwd`` do, and launches the backward kernels). ``xl3_fwd`` /
+``xl2_fwd`` / ``xl_fwd`` return the context (B, T, H, D) in fp32 with the
+per-row logsumexp (B, H, T); ``xl3_bwd``, ``xl2_bwd_dq`` and ``xl2_bwd_dkv``
+the gradients in fp32: the kernel on CUDA tensors, the plain version
+(``*_plain``: the dense formulas, the JAX package's dense oracle on the
+padded inputs and its VJP) on CPU tensors, never one for the other.
 
 Padding, as the JAX wrappers do it:
 - xl3 appends zero rows up to tp (a multiple of 128), LEFT-pads p by
@@ -29,11 +37,17 @@ Padding, as the JAX wrappers do it:
   keys are all padding averages over the T real keys;
 - xl2 and xl append zero rows up to tp (a multiple of 32) and mark the
   tail as padded keys (MASK_NEG): such a row averages over all tp keys.
-xl2 rotates with the real T (``t_sem``), not tp.
+xl2 rotates with the real T (``t_sem``), not tp. The backward of a row
+whose keys are all padding is the dense gradient (uniform weights), not
+the TPU kernels' (see ``csrc/flash_xl_attention_bwd.cu``).
 
-Attention-weight dropout belongs to the training slice: the kernels' C
-entries take ``dropout_p`` and a seed and refuse any rate but 0, as do the
-wrappers.
+Attention-weight dropout (xl3 and xl2; training): the keep bit of weight
+(i, j) of batch row b, head h is ``flash_attention.dropout_keep_mask``'s
+counter hash, the one K1 and K3 draw, so the forward, the backward and the
+plain versions share the mask. It cannot reproduce the TPU's on-core PRNG
+bits; the semantics are the JAX package's (the softmax denominator takes
+the undropped weights, the context p * m / keep). K6 serves inference only
+and refuses dropout.
 """
 
 from __future__ import annotations
@@ -44,13 +58,20 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from viet_tts_torch.ops.flash_attention import MASK_NEG, _pad_tensor, padded_time
+from viet_tts_torch.ops.flash_attention import (
+    MASK_NEG,
+    _pad_tensor,
+    backward_inputs,
+    dropout_keep_mask,
+    padded_time,
+)
 from viet_tts_torch.runtime import kernels
 
 XL3_MAX_T = 512  # pallas_attention.py:_XL3_MAX_T (a TPU VMEM limit)
 XL2_MAX_T = 1024  # pallas_attention.py:_XL2_MAX_T
 _HEAD_DIMS = (48, 64)  # head dims the kernels are built for
 _MAX_E = 640  # the xl2/xl kernels keep two (32, E) fp32 tiles in shared memory
+_MAX_E_BWD = 512  # K5 bwd-kv keeps two (32, E) tiles and more beside them
 
 
 def xl3_padded_time(t: int) -> int:
@@ -74,16 +95,29 @@ def _hm(x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
     return x.to(cd).float().permute(0, 2, 1, 3)
 
 
-def _softmax_ctx(logits: torch.Tensor, vh: torch.Tensor, cd: torch.dtype):
-    """(ctx (B, H, T, D) fp32, lse (B, H, T)) of fp32 logits; the weights
-    are rounded to the stream dtype before the product, as in the JAX
-    dense path."""
+def _keep_scale(seed: int, B: int, H: int, rows: int, cols: int, dropout_p: float,
+                device) -> Optional[torch.Tensor]:
+    """(B, H, rows, cols) fp32 m / keep of the dropout mask (None without
+    dropout)."""
+    if dropout_p == 0.0:
+        return None
+    keep = dropout_keep_mask(seed, B, H, rows, cols, dropout_p, device)
+    return keep.to(torch.float32) * (1.0 / (1.0 - dropout_p))
+
+
+def _softmax_ctx(logits: torch.Tensor, vh: torch.Tensor, cd: torch.dtype,
+                 m: Optional[torch.Tensor] = None):
+    """(ctx (B, H, T, D) fp32, lse (B, H, T)) of fp32 logits; dropout (m =
+    keep / (1 - p)) after the softmax; the weights are rounded to the stream
+    dtype before the product, as in the JAX dense path."""
     attn = torch.softmax(logits, dim=-1)
     lse = torch.logsumexp(logits, dim=-1)
+    if m is not None:
+        attn = attn * m[..., : logits.shape[-2], : logits.shape[-1]]
     return torch.einsum("bhqk,bhkd->bhqd", attn.to(cd).float(), vh), lse
 
 
-def _xl_dense(qch, kh, vh, gA, gB, table, pad, scale: float, cd):
+def _xl_dense(qch, kh, vh, gA, gB, table, pad, scale: float, cd, m=None):
     """``pallas_attention.py:_xl_dense`` on head-major fp32 operands: the
     content and both position products, the past / zero / future select,
     padded keys at MASK_NEG."""
@@ -97,7 +131,7 @@ def _xl_dense(qch, kh, vh, gA, gB, table, pad, scale: float, cd):
     logits = (content + pos) * scale
     logits = torch.where(pad[:, None, None, :] > 0.5, torch.full_like(logits, MASK_NEG),
                          logits)
-    return _softmax_ctx(logits, vh, cd)
+    return _softmax_ctx(logits, vh, cd, m)
 
 
 def _out(ctx: torch.Tensor, lse: torch.Tensor, T: int):
@@ -105,11 +139,12 @@ def _out(ctx: torch.Tensor, lse: torch.Tensor, T: int):
 
 
 # --------------------------------------------------------------------------
-# plain versions
+# plain versions: forward
 # --------------------------------------------------------------------------
 
 
-def xl3_fwd_plain(qc, k, v, qv, p, scale: float, pad_mask=None):
+def xl3_fwd_plain(qc, k, v, qv, p, scale: float, pad_mask=None, dropout_p: float = 0.0,
+                  seed: int = 0):
     """``flash_xl3_attention`` as the JAX package computes it off the TPU
     (``_xl3_dense``): qc, k, v, qv (B, T, H, D), p (T, H, D) -> (ctx
     (B, T, H, D) fp32, lse (B, H, T) fp32)."""
@@ -132,7 +167,8 @@ def xl3_fwd_plain(qc, k, v, qv, p, scale: float, pad_mask=None):
     logits = torch.where(pad[:, None, None, :] > 0.5, torch.full_like(logits, MASK_NEG),
                          logits)
     logits = torch.where(j >= T, torch.full_like(logits, 2.0 * MASK_NEG), logits)
-    return _out(*_softmax_ctx(logits, vh, cd), T)
+    m = _keep_scale(seed, B, H, tp, tp, dropout_p, qc.device)
+    return _out(*_softmax_ctx(logits, vh, cd, m), T)
 
 
 def xl2_rotations(T: int, tp: int, E: int, device=None):
@@ -150,29 +186,40 @@ def xl2_rotations(T: int, tp: int, E: int, device=None):
 
 
 def _rotate(g: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Rotate the (2m, 2m+1) pairs of g (..., tp, E) by per-row angles."""
+    """Rotate the (2m, 2m+1) pairs of g (..., tp, E) by per-row angles;
+    ``_rotate(g, c, -s)`` is the inverse (the transpose)."""
     ge, go = g[..., 0::2], g[..., 1::2]
     return torch.stack([ge * c - go * s, ge * s + go * c], dim=-1).flatten(-2)
 
 
-def xl2_fwd_plain(qc, k, v, g, table, scale: float, pad_mask=None):
+def _xl2_streams(gh: torch.Tensor, T: int, cd: torch.dtype):
+    """(gA, gB, rotations) of the head-major unrotated stream gh
+    (B, H, rows, E): rotated per row and rounded to the stream dtype, as
+    the kernel rounds them."""
+    rows, E = gh.shape[2], gh.shape[3]
+    ca, sa, cb, sb = xl2_rotations(T, rows, E, gh.device)
+    gA = _rotate(gh, ca, sa).to(cd).float()
+    g_next = torch.cat([gh[:, :, 1:], torch.zeros_like(gh[:, :, :1])], dim=2)
+    gB = _rotate(g_next, cb, sb).to(cd).float()
+    return gA, gB, (ca, sa, cb, sb)
+
+
+def xl2_fwd_plain(qc, k, v, g, table, scale: float, pad_mask=None, dropout_p: float = 0.0,
+                  seed: int = 0):
     """``flash_xl2_attention`` as the JAX package computes it off the TPU
     (``_xl2_dense``): qc, k, v (B, T, H, D), the unrotated g (B, T, H, E),
     table (T, E). The rotated streams are rounded to the stream dtype, as
     the kernel rounds them. (The JAX wrapper also de-interleaves the sin/cos
     pairs, a layout for TPU lanes that leaves every dot product as it is.)"""
     B, T, H, D = qc.shape
-    E = g.shape[-1]
     cd = _compute_dtype(qc)
     tp = padded_time(T)
     pad = F.pad(_pad_tensor(pad_mask, B, T, qc.device), (0, tp - T), value=1.0)
     qch, kh, vh, gh = (_hm(_pad_rows(x, tp - T), cd) for x in (qc, k, v, g))
     tab = _pad_rows(table.to(cd).float()[None], tp - T)[0]
-    ca, sa, cb, sb = xl2_rotations(T, tp, E, qc.device)
-    gA = _rotate(gh, ca, sa).to(cd).float()
-    g_next = torch.cat([gh[:, :, 1:], torch.zeros_like(gh[:, :, :1])], dim=2)
-    gB = _rotate(g_next, cb, sb).to(cd).float()
-    return _out(*_xl_dense(qch, kh, vh, gA, gB, tab, pad, scale, cd), T)
+    gA, gB, _ = _xl2_streams(gh, T, cd)
+    m = _keep_scale(seed, B, H, tp, tp, dropout_p, qc.device)
+    return _out(*_xl_dense(qch, kh, vh, gA, gB, tab, pad, scale, cd, m), T)
 
 
 def xl_fwd_plain(qc, k, v, gA, gB, table, scale: float, pad_mask=None):
@@ -188,6 +235,131 @@ def xl_fwd_plain(qc, k, v, gA, gB, table, scale: float, pad_mask=None):
 
 
 # --------------------------------------------------------------------------
+# plain versions: backward
+# --------------------------------------------------------------------------
+
+
+def _weights_and_ds(logits, pad, lse, dpv, delta, m, n_keys: int, scale: float, cd):
+    """The FA2 terms of a dense backward, fp32: (p m / keep, ds), both
+    rounded to the stream dtype as the kernels round them. logits, dpv
+    (B, H, rows, keys); pad (B, keys) 1.0 at dead keys; lse, delta
+    (B, H, rows). A batch row whose keys are all dead has the uniform weight
+    1 / n_keys, the dense gradient (exp(l - lse) would give 1 there: lse =
+    -1e9 + log n rounds to -1e9 in fp32)."""
+    dead = pad[:, None, None, :] > 0.5
+    p = torch.exp(torch.where(dead, torch.full_like(logits, MASK_NEG), logits)
+                  - lse[..., None])
+    p = torch.where(dead.all(dim=-1, keepdim=True), torch.full_like(p, 1.0 / n_keys), p)
+    p_v = p
+    if m is not None:
+        dpv = dpv * m
+        p_v = p * m
+    ds = torch.where(dead, torch.zeros_like(p), p * (dpv - delta[..., None]) * scale)
+    return p_v.to(cd).float(), ds.to(cd).float()
+
+
+def xl3_bwd_plain(qc, k, v, qv, p, pad, lse, delta, g, scale: float,
+                  dropout_p: float = 0.0, seed: int = 0):
+    """(dqc, dk, dv, dqv (B, T, H, D), dp (T, H, D)), fp32: the plain
+    version of K4 bwd (``_xl3_bwd_dense``, the VJP of ``_xl3_dense``).
+    qc, k, v, qv, g (the cotangent, stream dtype) (B, T, H, D); p (T, H, D);
+    pad (B, T) fp32; lse, delta (B, H, T) fp32. Tail keys past T weigh
+    exactly 0 in the reference, so only the T real keys are formed: the past
+    term reads p at T-1-i+j, the future term qv_{i+1} against p at j-i-2."""
+    B, T, H, D = qc.shape
+    cd = _compute_dtype(qc)
+    qch, kh, vh, qvh, gh = (_hm(x, cd) for x in (qc, k, v, qv, g))
+    ph = p.to(cd).float().permute(1, 0, 2)  # (H, T, D)
+    x = torch.einsum("bhid,hcd->bhic", qvh, ph)
+    x2 = torch.cat([x[:, :, 1:], torch.zeros_like(x[:, :, :1])], dim=2)
+    i = torch.arange(T, device=qc.device)[:, None]
+    j = torch.arange(T, device=qc.device)[None, :]
+    past, fut = j <= i, j >= i + 2
+    idx_past = ((T - 1 - i + j) % T).expand(x.shape)
+    idx_fut = ((j - i - 2) % T).expand(x.shape)
+    pos = torch.where(past, torch.gather(x, -1, idx_past),
+                      torch.where(fut, torch.gather(x2, -1, idx_fut), torch.zeros_like(x)))
+    logits = (torch.einsum("bhqd,bhkd->bhqk", qch, kh) + pos) * scale
+    dpv = torch.einsum("bhqd,bhkd->bhqk", gh, vh)
+    m = _keep_scale(seed, B, H, T, T, dropout_p, qc.device)
+    p_v, ds = _weights_and_ds(logits, pad, lse, dpv, delta, m, T, scale, cd)
+    dqc = torch.einsum("bhqk,bhkd->bqhd", ds, kh)
+    dk = torch.einsum("bhqk,bhqd->bkhd", ds, qch)
+    dv = torch.einsum("bhqk,bhqd->bkhd", p_v, gh)
+    zero = torch.zeros_like(ds)
+    # ds by offset c: dx[i, c] for the past term, dx2[i, c] for the future
+    # term (the gradient of X = qv p^T and of its row shift)
+    dx = torch.zeros_like(ds).scatter_add_(-1, idx_past, torch.where(past, ds, zero))
+    dx2 = torch.zeros_like(ds).scatter_add_(-1, idx_fut, torch.where(fut, ds, zero))
+    dqv_next = torch.einsum("bhic,hcd->bhid", dx2, ph)
+    dqv = torch.einsum("bhic,hcd->bhid", dx, ph) + torch.cat(
+        [torch.zeros_like(dqv_next[:, :, :1]), dqv_next[:, :, :-1]], dim=2)
+    qv_next = torch.cat([qvh[:, :, 1:], torch.zeros_like(qvh[:, :, :1])], dim=2)
+    dp = (torch.einsum("bhic,bhid->chd", dx, qvh)
+          + torch.einsum("bhic,bhid->chd", dx2, qv_next))
+    return dqc, dk, dv, dqv.permute(0, 2, 1, 3), dp
+
+
+def _xl2_bwd_terms(qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p, seed):
+    """Dense terms of the xl2 backward on the T real query rows and the tp
+    padded keys: (qch, kh, gh, gA, gB, tab, rotations, p m / keep, ds, past
+    mask, future mask)."""
+    B, T, H, D = qc.shape
+    cd = _compute_dtype(qc)
+    tp = padded_time(T)
+    padp = F.pad(pad, (0, tp - T), value=1.0)
+    qch, gh, g2h = (_hm(x, cd) for x in (qc, g, g2))
+    kh, vh = (_hm(_pad_rows(x, tp - T), cd) for x in (k, v))
+    tab = _pad_rows(table.to(cd).float()[None], tp - T)[0]
+    gA, gB, rot = _xl2_streams(g2h, T, cd)
+    i = torch.arange(T, device=qc.device)[:, None]
+    j = torch.arange(tp, device=qc.device)[None, :]
+    past, fut = j <= i, j >= i + 2
+    pa = torch.einsum("bhqe,ke->bhqk", gA, tab)
+    pb = torch.einsum("bhqe,ke->bhqk", gB, tab)
+    pos = torch.where(past, pa, torch.where(fut, pb, torch.zeros_like(pb)))
+    logits = (torch.einsum("bhqd,bhkd->bhqk", qch, kh) + pos) * scale
+    dpv = torch.einsum("bhqd,bhkd->bhqk", gh, vh)
+    m = _keep_scale(seed, B, H, T, tp, dropout_p, qc.device)
+    p_v, ds = _weights_and_ds(logits, padp, lse, dpv, delta, m, tp, scale, cd)
+    return qch, kh, gh, gA, gB, tab, rot, p_v, ds, past, fut
+
+
+def xl2_bwd_dq_plain(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
+                     dropout_p: float = 0.0, seed: int = 0):
+    """(dqc (B, T, H, D), dg2 (B, T, H, E)), fp32: the plain version of K5
+    bwd-q (``_xl2_bwd_dense``). g2 the unrotated position stream, g the
+    cotangent; other arguments as ``xl3_bwd_plain``. dg2_i = rot^-1(dgA_i)
+    + rot^-1(dgB_{i-1}): row i-1's gB consumed g2_i."""
+    qch, kh, gh, gA, gB, tab, (ca, sa, cb, sb), _, ds, past, fut = _xl2_bwd_terms(
+        qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p, seed)
+    zero = torch.zeros_like(ds)
+    dqc = torch.einsum("bhqk,bhkd->bqhd", ds, kh)
+    dgA = torch.einsum("bhqk,ke->bhqe", torch.where(past, ds, zero), tab)
+    dgB = _rotate(torch.einsum("bhqk,ke->bhqe", torch.where(fut, ds, zero), tab), cb, -sb)
+    dg2 = _rotate(dgA, ca, -sa) + torch.cat(
+        [torch.zeros_like(dgB[:, :, :1]), dgB[:, :, :-1]], dim=2)
+    return dqc, dg2.permute(0, 2, 1, 3)
+
+
+def xl2_bwd_dkv_plain(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
+                      dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
+    """(dk, dv (B, T, H, D), dtab (T, E) or None), fp32: the plain version
+    of K5 bwd-kv; dtab_j = sum_{b,h,i} dsA_ij gA_i + dsB_ij gB_i."""
+    T = qc.shape[1]
+    qch, _, gh, gA, gB, _, _, p_v, ds, past, fut = _xl2_bwd_terms(
+        qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p, seed)
+    dk = torch.einsum("bhqk,bhqd->bkhd", ds, qch)[:, :T]
+    dv = torch.einsum("bhqk,bhqd->bkhd", p_v, gh)[:, :T]
+    dtab = None
+    if want_dtab:
+        zero = torch.zeros_like(ds)
+        dtab = (torch.einsum("bhqk,bhqe->ke", torch.where(past, ds, zero), gA)
+                + torch.einsum("bhqk,bhqe->ke", torch.where(fut, ds, zero), gB))[:T]
+    return dk, dv, dtab
+
+
+# --------------------------------------------------------------------------
 # the kernels' wrappers
 # --------------------------------------------------------------------------
 
@@ -196,13 +368,6 @@ def _device_of(x: torch.Tensor) -> str:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"XL flash attention runs on cuda or cpu, not {x.device}")
     return x.device.type
-
-
-def _check_dropout(dropout_p: float) -> None:
-    if dropout_p != 0.0:
-        raise NotImplementedError(
-            "attention-weight dropout in the XL kernels comes with the FS2 "
-            "training slice; serving runs them at dropout 0")
 
 
 def _check(qc: torch.Tensor, *same: torch.Tensor) -> None:
@@ -218,46 +383,68 @@ def _check(qc: torch.Tensor, *same: torch.Tensor) -> None:
         raise ValueError("the kernels take B, H, T < 65536")
 
 
-def _table(table: torch.Tensor, qc: torch.Tensor, E: int) -> torch.Tensor:
+def _check_rates(dropout_p: float) -> None:
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+
+
+def _table(table: torch.Tensor, qc: torch.Tensor, E: int, max_e: int = _MAX_E) -> torch.Tensor:
     T = qc.shape[1]
     if table.shape != (T, E):
         raise ValueError(f"table must be (T, E) = {(T, E)}, got {tuple(table.shape)}")
-    if E % 64 or E > _MAX_E:
-        raise ValueError(f"the xl2/xl kernels take E a multiple of 64 up to {_MAX_E}, not {E}")
+    if E % 64 or E > max_e:
+        raise ValueError(f"the kernels take E a multiple of 64 up to {max_e}, not {E}")
     return table.to(device=qc.device, dtype=qc.dtype).contiguous()
+
+
+def _proj_table(p: torch.Tensor, qc: torch.Tensor) -> torch.Tensor:
+    B, T, H, D = qc.shape
+    if p.shape != (T, H, D):
+        raise ValueError(f"p must be (T, H, D) = {(T, H, D)}, got {tuple(p.shape)}")
+    return p.to(device=qc.device, dtype=qc.dtype).contiguous()
+
+
+def _pad_arg(pad_mask, B: int, T: int, device) -> torch.Tensor:
+    pad = _pad_tensor(pad_mask, B, T, device).contiguous()
+    if pad.shape != (B, T):
+        raise ValueError(f"pad_mask must be (B, T) = {(B, T)}, got {tuple(pad.shape)}")
+    return pad
 
 
 def _launch_args(qc: torch.Tensor, pad_mask):
     B, T, H, D = qc.shape
-    pad = _pad_tensor(pad_mask, B, T, qc.device).contiguous()
-    if pad.shape != (B, T):
-        raise ValueError(f"pad_mask must be (B, T) = {(B, T)}, got {tuple(pad.shape)}")
+    pad = _pad_arg(pad_mask, B, T, qc.device)
     out = torch.empty(B, T, H, D, dtype=torch.float32, device=qc.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=qc.device)
-    stream = torch.cuda.current_stream(qc.device).cuda_stream
-    return pad, out, lse, stream
+    return pad, out, lse, _stream(qc)
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _seed(seed: int) -> int:
+    return int(seed) & ((1 << 64) - 1)
 
 
 def xl3_fwd(qc, k, v, qv, p, scale: float, pad_mask=None, dropout_p: float = 0.0,
             seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ctx (B, T, H, D) fp32, lse (B, H, T)): kernel K4 on CUDA tensors, the
     plain version on CPU tensors."""
-    _check_dropout(dropout_p)
+    _check_rates(dropout_p)
     if _device_of(qc) == "cpu":
-        return xl3_fwd_plain(qc, k, v, qv, p, scale, pad_mask)
+        return xl3_fwd_plain(qc, k, v, qv, p, scale, pad_mask, dropout_p, seed)
     _check(qc, k, v, qv)
     B, T, H, D = qc.shape
-    if p.shape != (T, H, D):
-        raise ValueError(f"p must be (T, H, D) = {(T, H, D)}, got {tuple(p.shape)}")
     qc, k, v, qv = (x.contiguous() for x in (qc, k, v, qv))
-    p = p.to(device=qc.device, dtype=qc.dtype).contiguous()
+    p = _proj_table(p, qc)
     pad, out, lse, stream = _launch_args(qc, pad_mask)
     lib = kernels.library("flash_xl_attention")
     err = lib.vt_flash_xl3_fwd(
         qc.data_ptr(), k.data_ptr(), v.data_ptr(), qv.data_ptr(), p.data_ptr(),
         pad.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, H, D,
-        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p),
-        int(seed) & ((1 << 64) - 1), stream)
+        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
+        stream)
     kernels.check(lib, err, "XL3 flash attention kernel")
     xl3_fwd.launches += 1
     return out, lse
@@ -270,9 +457,9 @@ def xl2_fwd(qc, k, v, g, table, scale: float, pad_mask=None, dropout_p: float = 
             seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ctx (B, T, H, D) fp32, lse (B, H, T)): kernel K5 on CUDA tensors, the
     plain version on CPU tensors."""
-    _check_dropout(dropout_p)
+    _check_rates(dropout_p)
     if _device_of(qc) == "cpu":
-        return xl2_fwd_plain(qc, k, v, g, table, scale, pad_mask)
+        return xl2_fwd_plain(qc, k, v, g, table, scale, pad_mask, dropout_p, seed)
     _check(qc, k, v, g)
     B, T, H, D = qc.shape
     E = g.shape[-1]
@@ -283,8 +470,8 @@ def xl2_fwd(qc, k, v, g, table, scale: float, pad_mask=None, dropout_p: float = 
     err = lib.vt_flash_xl2_fwd(
         qc.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), table.data_ptr(),
         pad.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, padded_time(T), H, D, E,
-        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p),
-        int(seed) & ((1 << 64) - 1), stream)
+        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
+        stream)
     kernels.check(lib, err, "XL2 flash attention kernel")
     xl2_fwd.launches += 1
     return out, lse
@@ -293,11 +480,11 @@ def xl2_fwd(qc, k, v, g, table, scale: float, pad_mask=None, dropout_p: float = 
 xl2_fwd.launches = 0
 
 
-def xl_fwd(qc, k, v, gA, gB, table, scale: float, pad_mask=None, dropout_p: float = 0.0,
-           seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+def xl_fwd(qc, k, v, gA, gB, table, scale: float, pad_mask=None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ctx (B, T, H, D) fp32, lse (B, H, T)): kernel K6 on CUDA tensors, the
-    plain version on CPU tensors."""
-    _check_dropout(dropout_p)
+    plain version on CPU tensors. No dropout: K6's backward is still to be
+    ported, so K6 serves inference only."""
     if _device_of(qc) == "cpu":
         return xl_fwd_plain(qc, k, v, gA, gB, table, scale, pad_mask)
     _check(qc, k, v, gA, gB)
@@ -312,14 +499,171 @@ def xl_fwd(qc, k, v, gA, gB, table, scale: float, pad_mask=None, dropout_p: floa
     err = lib.vt_flash_xl_fwd(
         qc.data_ptr(), k.data_ptr(), v.data_ptr(), gA.data_ptr(), gB.data_ptr(),
         table.data_ptr(), pad.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T,
-        padded_time(T), H, D, E, int(qc.dtype == torch.bfloat16), float(scale),
-        float(dropout_p), int(seed) & ((1 << 64) - 1), stream)
+        padded_time(T), H, D, E, int(qc.dtype == torch.bfloat16), float(scale), 0.0, 0,
+        stream)
     kernels.check(lib, err, "XL flash attention kernel")
     xl_fwd.launches += 1
     return out, lse
 
 
 xl_fwd.launches = 0
+
+
+def _bwd_inputs(qc, pad, lse, delta, g, *streams):
+    """Contiguous kernel operands of a backward, checked: (pad, lse, delta,
+    g, *streams)."""
+    B, T, H, D = qc.shape
+    _check(qc, g, *streams)
+    if lse.shape != (B, H, T) or delta.shape != (B, H, T):
+        raise ValueError(f"lse and delta must be (B, H, T) = {(B, H, T)}")
+    pad = _pad_arg(pad, B, T, qc.device)
+    return (pad, lse.float().contiguous(), delta.float().contiguous(), g.contiguous(),
+            *(x.contiguous() for x in streams))
+
+
+def xl3_bwd(qc, k, v, qv, p, pad, lse, delta, g, scale: float, dropout_p: float = 0.0,
+            seed: int = 0):
+    """(dqc, dk, dv, dqv (B, T, H, D), dp (T, H, D)) fp32 of ``xl3_fwd`` for
+    the cotangent g (stream dtype) of its context, with delta = rowsum(g *
+    out): kernel K4 bwd on CUDA tensors, the plain version on CPU tensors."""
+    _check_rates(dropout_p)
+    if _device_of(qc) == "cpu":
+        return xl3_bwd_plain(qc, k, v, qv, p, pad, lse, delta, g, scale, dropout_p, seed)
+    pad, lse, delta, g, qc, k, v, qv = _bwd_inputs(qc, pad, lse, delta, g, qc, k, v, qv)
+    p = _proj_table(p, qc)
+    B, T, H, D = qc.shape
+    f32 = dict(dtype=torch.float32, device=qc.device)
+    dqc, dk, dv, dqv, dqv_b = (torch.empty(B, T, H, D, **f32) for _ in range(5))
+    dp = torch.empty(T, H, D, **f32)
+    dp_part = torch.zeros(B, (T + 63) // 64, H, T, D, **f32)
+    lib = kernels.library("flash_xl_attention_bwd")
+    err = lib.vt_flash_xl3_bwd(
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(), qv.data_ptr(), p.data_ptr(), g.data_ptr(),
+        pad.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqc.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dqv.data_ptr(), dp.data_ptr(), dqv_b.data_ptr(), dp_part.data_ptr(),
+        B, T, H, D, int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p),
+        _seed(seed), _stream(qc))
+    kernels.check(lib, err, "XL3 flash attention backward kernel")
+    xl3_bwd.launches += 1
+    return dqc, dk, dv, dqv, dp
+
+
+xl3_bwd.launches = 0
+
+
+def xl2_bwd_dq(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
+               dropout_p: float = 0.0, seed: int = 0):
+    """(dqc (B, T, H, D), dg2 (B, T, H, E)) fp32: kernel K5 bwd-q on CUDA
+    tensors, the plain version on CPU tensors."""
+    _check_rates(dropout_p)
+    if _device_of(qc) == "cpu":
+        return xl2_bwd_dq_plain(qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p,
+                                seed)
+    pad, lse, delta, g, qc, k, v, g2 = _bwd_inputs(qc, pad, lse, delta, g, qc, k, v, g2)
+    B, T, H, D = qc.shape
+    E = g2.shape[-1]
+    table = _table(table, qc, E, _MAX_E_BWD)
+    f32 = dict(dtype=torch.float32, device=qc.device)
+    dqc = torch.empty(B, T, H, D, **f32)
+    dg2 = torch.empty(B, T, H, E, **f32)
+    carry = torch.empty(B, (T + 15) // 16, H, E, **f32)
+    lib = kernels.library("flash_xl_attention_bwd")
+    err = lib.vt_flash_xl2_bwd_q(
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(), g2.data_ptr(), table.data_ptr(),
+        g.data_ptr(), pad.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqc.data_ptr(),
+        dg2.data_ptr(), carry.data_ptr(), B, T, H, D, E, int(qc.dtype == torch.bfloat16),
+        float(scale), float(dropout_p), _seed(seed), _stream(qc))
+    kernels.check(lib, err, "XL2 flash attention bwd_q kernel")
+    xl2_bwd_dq.launches += 1
+    return dqc, dg2
+
+
+xl2_bwd_dq.launches = 0
+
+
+def xl2_bwd_dkv(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
+                dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
+    """(dk, dv (B, T, H, D), dtab (T, E) or None) fp32: kernel K5 bwd-kv on
+    CUDA tensors, the plain version on CPU tensors. dtab only with
+    ``want_dtab`` (the conformer's table is a constant)."""
+    _check_rates(dropout_p)
+    if _device_of(qc) == "cpu":
+        return xl2_bwd_dkv_plain(qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p,
+                                 seed, want_dtab)
+    pad, lse, delta, g, qc, k, v, g2 = _bwd_inputs(qc, pad, lse, delta, g, qc, k, v, g2)
+    B, T, H, D = qc.shape
+    E = g2.shape[-1]
+    table = _table(table, qc, E, _MAX_E_BWD)
+    f32 = dict(dtype=torch.float32, device=qc.device)
+    dk = torch.empty(B, T, H, D, **f32)
+    dv = torch.empty(B, T, H, D, **f32)
+    dtab = dtab_part = None
+    if want_dtab:
+        dtab = torch.empty(T, E, **f32)
+        dtab_part = torch.zeros(B * H, T, E, **f32)
+    lib = kernels.library("flash_xl_attention_bwd")
+    err = lib.vt_flash_xl2_bwd_kv(
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(), g2.data_ptr(), table.data_ptr(),
+        g.data_ptr(), pad.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), None if dtab_part is None else dtab_part.data_ptr(),
+        None if dtab is None else dtab.data_ptr(), B, T, padded_time(T), H, D, E,
+        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
+        _stream(qc))
+    kernels.check(lib, err, "XL2 flash attention bwd_kv kernel")
+    xl2_bwd_dkv.launches += 1
+    return dk, dv, dtab
+
+
+xl2_bwd_dkv.launches = 0
+
+
+# --------------------------------------------------------------------------
+# autograd: the JAX package's custom VJPs
+# --------------------------------------------------------------------------
+
+
+class _XL3Attention(torch.autograd.Function):
+    """``_xl3_op`` with its custom VJP: the forward (K4) saves its inputs,
+    the context and lse; the backward computes delta and launches K4 bwd."""
+
+    @staticmethod
+    def forward(ctx, qc, k, v, qv, p, pad, scale, dropout_p, seed):
+        out, lse = xl3_fwd(qc, k, v, qv, p, scale, pad, dropout_p, seed)
+        ctx.save_for_backward(qc, k, v, qv, p, pad, out, lse)
+        ctx.scale, ctx.dropout_p, ctx.seed = scale, dropout_p, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        qc, k, v, qv, p, pad, out, lse = ctx.saved_tensors
+        delta, g = backward_inputs(out, gout, v.dtype)
+        grads = xl3_bwd(qc, k, v, qv, p, pad, lse, delta, g, ctx.scale, ctx.dropout_p,
+                        ctx.seed)
+        return (*(gr.to(x.dtype) for gr, x in zip(grads, (qc, k, v, qv, p))),
+                None, None, None, None)
+
+
+class _XL2Attention(torch.autograd.Function):
+    """``_xl2_op`` with its custom VJP: the forward (K5) saves its inputs,
+    the context and lse; the backward computes delta and launches K5 bwd-q
+    and bwd-kv (dtab only when the table needs a gradient)."""
+
+    @staticmethod
+    def forward(ctx, qc, k, v, g2, table, pad, scale, dropout_p, seed):
+        out, lse = xl2_fwd(qc, k, v, g2, table, scale, pad, dropout_p, seed)
+        ctx.save_for_backward(qc, k, v, g2, table, pad, out, lse)
+        ctx.scale, ctx.dropout_p, ctx.seed = scale, dropout_p, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        qc, k, v, g2, table, pad, out, lse = ctx.saved_tensors
+        delta, g = backward_inputs(out, gout, v.dtype)
+        args = (qc, k, v, g2, table, pad, lse, delta, g, ctx.scale, ctx.dropout_p, ctx.seed)
+        dqc, dg2 = xl2_bwd_dq(*args)
+        dk, dv, dtab = xl2_bwd_dkv(*args, want_dtab=ctx.needs_input_grad[4])
+        return (dqc.to(qc.dtype), dk.to(k.dtype), dv.to(v.dtype), dg2.to(g2.dtype),
+                None if dtab is None else dtab.to(table.dtype), None, None, None, None)
 
 
 # --------------------------------------------------------------------------
@@ -333,21 +677,40 @@ def _merge(ctx: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def flash_xl3_attention(qc, k, v, qv, p, scale: float,
-                        pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        pad_mask: Optional[torch.Tensor] = None, dropout_p: float = 0.0,
+                        dropout_seed: Optional[int] = None) -> torch.Tensor:
     """Projected-table XL attention: qc = q + u_bias, qv = q + v_bias
-    (B, T, H, D), p = pos_proj(table) as (T, H, D) -> (B, T, H*D)."""
-    return _merge(xl3_fwd(qc, k, v, qv, p, scale, pad_mask)[0], qc)
+    (B, T, H, D), p = pos_proj(table) as (T, H, D) -> (B, T, H*D).
+    Differentiable (K4 bwd); ``dropout_seed`` keys the attention-weight
+    dropout mask (0 when None)."""
+    B, T = qc.shape[:2]
+    pad = _pad_tensor(pad_mask, B, T, qc.device)
+    seed = 0 if dropout_seed is None else int(dropout_seed)
+    return _merge(_XL3Attention.apply(qc, k, v, qv, p, pad, float(scale), float(dropout_p),
+                                      seed), qc)
 
 
 def flash_xl2_attention(qc, k, v, g, table, scale: float,
-                        pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        pad_mask: Optional[torch.Tensor] = None, dropout_p: float = 0.0,
+                        dropout_seed: Optional[int] = None) -> torch.Tensor:
     """Single-stream XL attention: g = K_h(q + v_bias) (B, T, H, E)
-    unrotated, table (T, E) raw sinusoids -> (B, T, H*D)."""
-    return _merge(xl2_fwd(qc, k, v, g, table, scale, pad_mask)[0], qc)
+    unrotated, table (T, E) raw sinusoids -> (B, T, H*D). Differentiable
+    (K5 bwd-q and bwd-kv); dropout as ``flash_xl3_attention``."""
+    B, T = qc.shape[:2]
+    pad = _pad_tensor(pad_mask, B, T, qc.device)
+    seed = 0 if dropout_seed is None else int(dropout_seed)
+    return _merge(_XL2Attention.apply(qc, k, v, g, table, pad, float(scale),
+                                      float(dropout_p), seed), qc)
 
 
 def flash_xl_attention(qc, k, v, gA, gB, table, scale: float,
                        pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Two-stream XL attention: gA, gB (B, T, H, E) from ``xl_pos_queries``
-    -> (B, T, H*D)."""
+    -> (B, T, H*D). Forward only: it raises where autograd would need its
+    backward (kernel K6 bwd, still to be ported)."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (qc, k, v, gA, gB, table)):
+        raise NotImplementedError(
+            "flash_xl_attention has no backward yet: the TPU kernel's backward "
+            "(pallas_attention.py:_xl_bwd_pallas, K6 bwd) is still to be ported")
     return _merge(xl_fwd(qc, k, v, gA, gB, table, scale, pad_mask)[0], qc)

@@ -1,7 +1,8 @@
-"""Batched forward-sum (alignment CTC) loss for JETS.
+"""Batched forward-sum (alignment CTC) losses of JETS and FastSpeech2.
 
 Counterpart of ``viet_tts_tpu/ops/forward_sum.py`` (``ctc_forward_sum``,
-``jets_forward_sum_loss``, ``beta_binomial_log_prior``). The CTC targets
+``jets_forward_sum_loss``, ``beta_binomial_log_prior``, ``forward_sum_loss``,
+``bin_loss``). The CTC targets
 are always 1..N (every text token distinct), so the forward algorithm is a
 3-band log-domain recursion; the JAX package runs it as a ``lax.scan``
 over mel frames, here it is a Python loop over frames with batched tensor
@@ -114,3 +115,31 @@ def beta_binomial_log_prior(text_lens: torch.Tensor, feats_lens: torch.Tensor,
     logp = log_binom + betaln(k + alpha, n - k + beta) - betaln(alpha, beta)
     valid = (t < T) & (k < n)
     return torch.where(valid, logp, torch.full_like(logp, NEG))
+
+
+def forward_sum_loss(attn_logprob: torch.Tensor, in_lens: torch.Tensor,
+                     out_lens: torch.Tensor, blank_logprob: float = -1.0) -> torch.Tensor:
+    """FastSpeech2 ForwardSumLoss: attn_logprob (B, 1, T_mel, T_text)
+    unnormalised log attention. A blank column at ``blank_logprob`` is
+    prepended, the (text_len + 1) valid columns are log-softmaxed, and the
+    per-sample CTC NLL is divided by text_len (torch CTCLoss "mean") and
+    averaged over the batch."""
+    x = attn_logprob[:, 0]
+    B, T_mel, T_text = x.shape
+    in_lens = in_lens.to(x.device)
+    x = torch.cat([torch.full((B, T_mel, 1), blank_logprob, dtype=x.dtype, device=x.device),
+                   x], dim=-1)
+    col_valid = torch.arange(T_text + 1, device=x.device)[None, :] <= in_lens[:, None]
+    neg = torch.full((), NEG, dtype=x.dtype, device=x.device)
+    masked = torch.where(col_valid[:, None, :], x, neg)
+    logz = torch.logsumexp(masked, dim=-1, keepdim=True)
+    log_probs = torch.where(col_valid[:, None, :], masked - logz, neg)
+    nll = ctc_forward_sum(log_probs, in_lens, out_lens)
+    return (nll / torch.clamp(in_lens, min=1)).mean()
+
+
+def bin_loss(hard_attention: torch.Tensor, soft_attention: torch.Tensor) -> torch.Tensor:
+    """Binarization loss: -sum(log soft where hard = 1) / sum(hard)."""
+    log_soft = torch.log(torch.clamp(soft_attention, min=1e-12))
+    total = (hard_attention * log_soft).sum()
+    return -total / torch.clamp(hard_attention.sum(), min=1.0)

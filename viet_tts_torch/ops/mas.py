@@ -1,7 +1,7 @@
 """Batched monotonic alignment search (MAS) on the device.
 
 Counterpart of ``viet_tts_tpu/ops/mas.py`` (``monotonic_alignment``,
-``viterbi_decode``). The JAX package runs the Viterbi DP as two
+``viterbi_decode``, ``binarize_attention``). The JAX package runs the Viterbi DP as two
 ``lax.scan``s over mel frames; here they are two Python loops over frames
 whose bodies are batched over (batch, text) tensor ops on the device, with
 no gradient. At T_mel = 512 that is some ten small launches a frame:
@@ -76,3 +76,14 @@ def viterbi_decode(log_p_attn: torch.Tensor, text_lens: torch.Tensor,
     per_frame = (path * log_p_attn).sum(dim=(1, 2))
     bin_loss = -(per_frame / torch.clamp(feats_lens.to(per_frame.device), min=1)).mean()
     return ds, bin_loss
+
+
+def binarize_attention(attn: torch.Tensor, in_lens: torch.Tensor,
+                       out_lens: torch.Tensor) -> torch.Tensor:
+    """FastSpeech2's hard alignment of soft attention probabilities:
+    attn (B, 1, T_mel, T_text) -> (B, 1, T_mel, T_text) 0/1 path of the
+    MAS through log(max(attn, 1e-30)), no gradient. in_lens text lengths,
+    out_lens mel lengths."""
+    log_attn = torch.log(torch.clamp(attn[:, 0].detach().float(), min=1e-30))
+    path, _ = monotonic_alignment(log_attn, in_lens, out_lens)
+    return path[:, None]

@@ -83,6 +83,24 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         ),
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
+    "flash_xl_attention_bwd": {
+        # qc, k, v, qv, p, g, pad, lse, delta, dqc, dk, dv, dqv, dp, dqv_b,
+        # dp_part, B, T, H, D, is_bf16, scale, dropout_p, seed, stream
+        "vt_flash_xl3_bwd": (
+            _I, [_P] * 16 + [_I, _I, _I, _I, _I, _F, _D, _U64, _P]
+        ),
+        # qc, k, v, g2, table, g, pad, lse, delta, dqc, dg2, carry, B, T, H,
+        # D, E, is_bf16, scale, dropout_p, seed, stream
+        "vt_flash_xl2_bwd_q": (
+            _I, [_P] * 12 + [_I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+        ),
+        # qc, k, v, g2, table, g, pad, lse, delta, dk, dv, dtab_part, dtab,
+        # B, T, Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream
+        "vt_flash_xl2_bwd_kv": (
+            _I, [_P] * 13 + [_I, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+        ),
+        "vt_error_string": (ctypes.c_char_p, [_I]),
+    },
     "fused_mrf": {
         # src, w, bias, res, hout, accin, accout, acc_div, B, T, C, seq_len,
         # K, dil, slope, stream
