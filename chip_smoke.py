@@ -62,10 +62,31 @@ Phases (any failure exits non-zero; no phase is caught):
     bwd-kv 6 a step at 1008; K4 fwd 12, K4 bwd 12 at 512), finite losses;
     one bf16 mixed-precision step; one small full-width step on the card
     against the CPU;
-11. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
-    JETS training steps, five two-stage calls and five FS2 training steps,
-    one of each under ``torch.profiler``, device time by kernel group;
-12. one JSON line ``{"kernels": [...]}``, then the card's line, then
+11. kernel K7 (the JETS conformer's espnet "latest" rel-pos attention:
+    forward, bwd-q, bwd-kv) against its plain versions (H=2, D=128,
+    E=256): the forward at the serving shapes (16, text bucket) and
+    (16, 1008), all three at the training shapes (8, 64) and (8, 512) with
+    dropout 0 and 0.2; fp32 and bf16, ragged lengths with a fully padded
+    row and no pad mask; with times and SDPA with the position term as its
+    mask (and its backward); K6's forward at D=128, E=256 (the legacy
+    rel-pos route) at the serving shapes;
+12. JETS-conformer serving: full-width JETS with espnet rel-pos conformer
+    encoder and decoder (4 + 6 layers, conv kernels 7 / 31), seeded random
+    weights, saved as a port checkpoint, served by ``OneStageTTS(ckpt,
+    fused_vocoder=True)``: 16 sentences in fp32 and with ``half=True``,
+    then the HTTP server (``/health``, one ``/synthesize``, one
+    ``/synthesize_stream``); launches held per call (K7 fwd 10, K2 36); a
+    small input against the CPU; the host median of 5 fp32 calls;
+13. the JETS-conformer training step: ``make_jets_train_step`` with the
+    full MSMPD on the bench.py batch (B=8, T_text=64, T_mel=512), two
+    warm-up and three timed steps with the launches held exactly (K7 fwd,
+    bwd-q and bwd-kv 10 each a step), finite metrics, both models changed,
+    peak memory; one small full-width step on the card against the CPU;
+14. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
+    JETS training steps, five two-stage calls, five FS2 training steps and
+    five of each JETS-conformer path, one of each under
+    ``torch.profiler``, device time by kernel group;
+15. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Times are CUDA-event times over repeated launches after a warm-up. bound_ms
@@ -747,17 +768,18 @@ def check_training_path(dev, steps: int = 5, warmup: int = 2):
                                                               disc_state, batch, rng)
 
 
-def check_training_against_cpu(dev):
+def check_training_against_cpu(dev, hp_overrides=None):
     """One step at full width on a small batch (B=2, T_text=16, T_mel=64,
     segment 32 frames), dropout 0, from the same weights and the same
     given segment starts, on the card (kernels) and on the CPU (plain
     versions): the nine metrics and both models' gradient norms within
-    rel 1e-3."""
+    rel 1e-3. ``hp_overrides`` picks the stacks (the conformer's)."""
     from viet_tts_torch.config import JETS_DROPOUT_KEYS, jets_lambdas
     from viet_tts_torch.train.gan import make_jets_train_step
 
     hp = dict.fromkeys(JETS_DROPOUT_KEYS, 0.0)
     hp["segment_size"] = 32
+    hp.update(hp_overrides or {})
     results = []
     for device in (dev, torch.device("cpu")):
         model, disc, mel_loss, train_conf, hop = build_gan(hp)
@@ -776,7 +798,8 @@ def check_training_against_cpu(dev):
     rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
     if max(rel.values()) > 1e-3:
         raise AssertionError(f"training step card vs CPU: {card} vs {cpu}, rel {rel}")
-    log(f"training step card (kernels) vs CPU (plain), B=2 T_mel=64: max rel diff "
+    log(f"training step {hp_overrides or ''} card (kernels) vs CPU (plain), B=2 T_mel=64: "
+        f"max rel diff "
         f"{max(rel.values()):.3e} (tol 1e-3) over {sorted(rel)}")
 
 
@@ -788,14 +811,13 @@ def check_training_against_cpu(dev):
 FS2_H, FS2_D = 8, 48  # config/model_config.yaml fastspeech2: 384 wide, 8 heads
 
 
-def xl_inputs(dev, B: int, T: int, seed: int):
+def xl_inputs(dev, B: int, T: int, seed: int, H: int = FS2_H, D: int = FS2_D):
     """One XL attention's inputs in its three parameterisations (fp32, on
     the card), built as the conformer builds them: q, k, v, biases and
     pos_proj drawn from a seed; the raw sinusoid table."""
     from viet_tts_torch.nn.utils import sinusoid_position_table
     from viet_tts_torch.ops.xl_attention import xl_pos_queries, xl_pos_query_stream
 
-    H, D = FS2_H, FS2_D
     E = H * D
     gen = torch.Generator().manual_seed(seed)
     f = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
@@ -978,19 +1000,19 @@ def _zero_fs2_counts():
         fn.launches = 0
 
 
-def _counted_call(fn, expect: dict, label: str):
-    """Run ``fn`` once with the launch counts measured around it; assert
-    each count in ``expect``. Returns (result, host seconds)."""
-    before = _fs2_counts()
+def _counted_call(fn, expect: dict, label: str, counts=_fs2_counts):
+    """Run ``fn`` once with the launch counts (``counts()``) measured around
+    it; assert each count in ``expect``. Returns (result, host seconds)."""
+    before = counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    got = {k: v - before[k] for k, v in _fs2_counts().items()}
+    got = {k: v - before[k] for k, v in counts().items()}
     if any(got[k] != n for k, n in expect.items()):
         raise AssertionError(f"{label}: launches {got}, expected {expect}")
-    log(f"two-stage {label}: {secs:.4f} s, launches {got}")
+    log(f"{label}: {secs:.4f} s, launches {got}")
     return out, secs
 
 
@@ -1018,13 +1040,13 @@ def check_two_stage_path(dev, ac_dir: str, voc_dir: str):
     torch.cuda.reset_peak_memory_stats()
     waves, call_s = _counted_call(lambda: tts(SENTENCES),
                                   {**per_call, "flash_xl2_fwd": 6, "flash_xl_fwd": 0},
-                                  "fp32 __call__(16) at 1008 frames")
+                                  "two-stage fp32 __call__(16) at 1008 frames")
     waves_half, half_s = _counted_call(lambda: tts_half(SENTENCES),
                                        {**per_call, "flash_xl2_fwd": 6, "flash_xl_fwd": 0},
-                                       "bf16 __call__(16) at 1008 frames")
+                                       "two-stage bf16 __call__(16) at 1008 frames")
     waves_long, long_s = _counted_call(lambda: tts_long(SENTENCES[:4]),
                                        {**per_call, "flash_xl2_fwd": 0, "flash_xl_fwd": 6},
-                                       "fp32 __call__(4) at 2048 frames")
+                                       "two-stage fp32 __call__(4) at 2048 frames")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     httpd = serve(tts, port=0, model_name="FASTSPEECH2")
     try:
@@ -1160,18 +1182,25 @@ def _xl_train_work(kind: str, args, lens, T: int):
     return work
 
 
-def _library_xl(base, pad, scale: float, dtype, dropout_p: float, gout):
-    """SDPA with scale * the position term (built from the dense oracle on
-    the two-stream inputs) as an additive mask, MASK_NEG at padded keys:
-    (mask build ms, forward call, its backward through autograd on a
-    retained graph). A yardstick only: no path of the port calls it."""
-    from viet_tts_torch.ops.flash_attention import MASK_NEG
+def _xl_pos(base, scale: float):
+    """scale * the XL position term (B, H, T, T), from the dense oracle on
+    the two-stream inputs."""
     from viet_tts_torch.ops.xl_attention import xl_attention_scores
+
+    zeros = torch.zeros_like(base["qc"])
+    return xl_attention_scores(zeros, zeros, base["gA"], base["gB"], base["table"], scale)
+
+
+def _library_sdpa(pos_fn, base, pad, scale: float, dtype, dropout_p: float, gout):
+    """SDPA with ``pos_fn(base, scale)`` (scale * the position term) as an
+    additive mask, MASK_NEG at padded keys: (mask build ms, forward call,
+    its backward through autograd on a retained graph). A yardstick only:
+    no path of the port calls it."""
+    from viet_tts_torch.ops.flash_attention import MASK_NEG
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    zeros = torch.zeros_like(base["qc"])
-    mask = xl_attention_scores(zeros, zeros, base["gA"], base["gB"], base["table"], scale)
+    mask = pos_fn(base, scale)
     if pad is not None:
         mask = mask.masked_fill(pad[:, None, None, :], MASK_NEG)
     mask = mask.to(dtype)
@@ -1267,7 +1296,8 @@ def check_xl_training(dev):
                     if not path_call:
                         continue
                     iters = 20 if T <= 512 else 5
-                    build_ms, lib_fwd, lib_bwd = _library_xl(base, pad, scale, dtype, p, gout)
+                    build_ms, lib_fwd, lib_bwd = _library_sdpa(_xl_pos, base, pad, scale, dtype,
+                                                              p, gout)
                     l_fwd, l_bwd = cuda_ms(lib_fwd, iters), cuda_ms(lib_bwd, iters)
                     work = _xl_train_work(kind, args, live, T)
                     timed = {fwd_name: (lambda: fwd(*args, scale, pad, p, seed),
@@ -1506,6 +1536,425 @@ def check_fs2_training_against_cpu(dev):
 
 
 # --------------------------------------------------------------------------
+# phase 11: K7 (the JETS conformer's rel-pos attention) and K6 at D=128
+# --------------------------------------------------------------------------
+
+REL_H, REL_D = 2, 128  # config/model_config.yaml jets: adim 256, aheads 2
+REL_E = REL_H * REL_D
+SERVE_B, SERVE_T_MEL = 16, 1008  # OneStageTTS: 16 sentences, max_mel_frames
+REL_REPLACES = {
+    "flash_rel_fwd": "viet_tts_tpu/ops/pallas_attention.py:314",
+    "flash_rel_bwd_q": "viet_tts_tpu/ops/pallas_attention.py:542",
+    "flash_rel_bwd_kv": "viet_tts_tpu/ops/pallas_attention.py:577",
+}
+
+
+def rel_inputs(dev, B: int, T: int, seed: int):
+    """One rel-pos attention's inputs (fp32, on the card), built as the
+    conformer builds them: q, k, v, the biases and linear_pos drawn from a
+    seed; g the rotated position queries; the negative half of the
+    symmetric table."""
+    from viet_tts_torch.nn.espnet_conformer import rel_positional_table
+    from viet_tts_torch.ops.espnet_attention import neg_rel_table, rel_pos_queries_latest
+
+    H, D, E = REL_H, REL_D, REL_E
+    gen = torch.Generator().manual_seed(seed)
+    f = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
+    q, k, v = f(B, T, H, D), f(B, T, H, D), f(B, T, H, D)
+    u, w = 0.3 * f(H, D), 0.3 * f(H, D)
+    pos_kernel = f(E, E) / np.sqrt(E)
+    sym = torch.from_numpy(rel_positional_table(T, E)).to(dev)
+    return dict(qc=q + u, k=k, v=v, g=rel_pos_queries_latest(q + w, pos_kernel),
+                table=neg_rel_table(sym).contiguous())
+
+
+def _rel_work(args, lens, T: int):
+    """(bytes, FLOP) of each K7 kernel at these inputs: every input read
+    once in its dtype (the cotangent in the stream dtype; pad, lse and
+    delta in fp32), every output written once in fp32; the dot products
+    over the live keys of each row: forward the [qc|g].[k|t] logits (D + E)
+    and the weighted sum (D); bwd-q the logits, g_out . v, dqc and dg
+    (3D + 2E); bwd-kv the logits, g_out . v, dk and dv (4D + E)."""
+    B, _, H, D = args[0].shape
+    E = args[3].shape[-1]
+    esz = args[0].element_size()
+    row, stat, erow = B * T * H * D, B * H * T, B * T * H * E
+    ins = sum(a.numel() * a.element_size() for a in args) + 4.0 * B * T
+    pairs = 2.0 * H * T * float(np.sum(lens))
+    bwd_in = ins + esz * row + 8.0 * stat
+    return {"flash_rel_fwd": (ins + 4.0 * (row + stat), pairs * (2 * D + E)),
+            "flash_rel_bwd_q": (bwd_in + 4.0 * (row + erow), pairs * (3 * D + 2 * E)),
+            "flash_rel_bwd_kv": (bwd_in + 8.0 * row, pairs * (4 * D + E))}
+
+
+def _rel_pos(base, scale: float):
+    """scale * the rel-pos position term g . table^T (B, H, T, T)."""
+    return torch.einsum("bqhe,ke->bhqk", base["g"], base["table"]) * scale
+
+
+def check_rel_kernels(dev, t_text: int):
+    """K7 fwd, bwd-q and bwd-kv against their plain versions, fp32 (TF32
+    off; each gradient within 1e-4, scaled by its largest value where that
+    exceeds 1) and bf16 (2e-2), ragged lengths with a fully padded row and
+    no pad mask: the forward at the serving shapes (16, text bucket) and
+    (16, 1008), the three kernels at the training shapes (8, 64) and
+    (8, 512) with dropout 0 and 0.2 (bwd-kv with the table's gradient too);
+    K6's forward at D=128, E=256 (the legacy rel-pos route) at the serving
+    shapes. Times of the kernel, the plain version and SDPA with the
+    position term as its mask. Returns (the K7 kernel-line entries, K6's
+    figures at the JETS width)."""
+    from viet_tts_torch.ops import flash_attention as fa
+    from viet_tts_torch.ops import flash_rel_attention as fr
+    from viet_tts_torch.ops import flash_xl_attention as fx
+
+    scale = REL_D ** -0.5
+    names = ("qc", "k", "v", "g", "table")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    serve = dict.fromkeys(keys, 0.0)
+    step = {n: dict.fromkeys(keys, 0.0) for n in REL_REPLACES}
+    errs = dict.fromkeys(REL_REPLACES, 0.0)
+    kinds = {n: set() for n in REL_REPLACES}
+    k6 = {}
+    # (B, T, layers a call or step, training?)
+    cases = [(SERVE_B, t_text, 4, False), (SERVE_B, SERVE_T_MEL, 6, False),
+             (TRAIN_B, TRAIN_T_TEXT, 4, True), (TRAIN_B, TRAIN_T_MEL, 6, True)]
+    for B, T, n_layers, training in cases:
+        base = rel_inputs(dev, B, T, seed=T + B)
+        rng = np.random.RandomState(T + 3)
+        lens = rng.randint(1, T + 1, B)
+        lens[0], lens[-1] = T, 0  # one full row, one fully padded row
+        ragged = (torch.arange(T)[None] >= torch.from_numpy(lens)[:, None]).to(dev)
+        gout = torch.randn(B, T, REL_H, REL_D, generator=torch.Generator().manual_seed(T)).to(dev)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = [base[n].to(dtype) for n in names]
+            peak = FP32_FLOP_PER_MS if dtype == torch.float32 else BF16_FLOP_PER_MS
+            for pad, pad_name, live in ((ragged, "ragged", lens),
+                                        (None, "no pad mask", np.full(B, T))):
+                padf = pad.float() if pad is not None else torch.zeros(B, T, device=dev)
+                for p in ((0.0, ATTN_DROPOUT) if training else (0.0,)):
+                    seed = 104729 * T + int(p * 10)
+                    ctx, lse = fr.rel_fwd(*args, scale, pad, p, seed)
+                    ref, ref_lse = fr.rel_fwd_plain(*args, scale, pad, p, seed)
+                    lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item()
+                    err = {"flash_rel_fwd": ((ctx - ref).abs().max().item(),) * 2}
+                    del ref, ref_lse
+                    bargs = None
+                    if training:
+                        delta, gs = fa.backward_inputs(ctx, gout, dtype)
+                        bargs = (*args, padf, lse, delta, gs, scale, p, seed)
+                        for name, kern, plain, kw in (
+                                ("flash_rel_bwd_q", fr.rel_bwd_dq, fr.rel_bwd_dq_plain, {}),
+                                ("flash_rel_bwd_kv", fr.rel_bwd_dkv, fr.rel_bwd_dkv_plain,
+                                 {"want_dtab": True})):
+                            got, want = kern(*bargs, **kw), plain(*bargs, **kw)
+                            torch.cuda.synchronize()
+                            if not all(torch.isfinite(x).all() for x in got):
+                                raise AssertionError(f"{name} T={T}: gradient not finite")
+                            err[name] = _max_err(got, want)
+                            del got, want
+                    label = f"K7 (B={B}, T={T}) {str(dtype)[6:]} {pad_name} dropout={p}"
+                    bad = {n: e for n, e in err.items() if e[1] > tol}
+                    if bad or not torch.isfinite(ctx).all() or lse_err > 1e-5:
+                        raise AssertionError(f"{label}: max abs err (abs, scaled) {err} "
+                                             f"(tol {tol}), lse rel err {lse_err}")
+                    log(f"{label}: " + ", ".join(
+                        f"{n} {e[0]:.3e} (scaled {e[1]:.3e})" for n, e in err.items())
+                        + f" (tol {tol}); lse {lse_err:.1e}")
+                    if dtype == torch.float32:
+                        for n, e in err.items():
+                            errs[n] = max(errs[n], e[0])
+                    # the kernel line: fp32; serving with the pad mask (the
+                    # path passes one), training with dropout and no pad
+                    # mask (the bench.py batch has full lengths)
+                    timed_case = dtype == torch.float32 and (
+                        (not training and pad is not None)
+                        or (training and pad is None and p == ATTN_DROPOUT))
+                    if not timed_case:
+                        continue
+                    iters = 20 if T <= 512 else 5
+                    build_ms, lib_fwd, lib_bwd = _library_sdpa(_rel_pos, base, pad, scale, dtype,
+                                                              p, gout)
+                    timed = {"flash_rel_fwd": (
+                        lambda: fr.rel_fwd(*args, scale, pad, p, seed),
+                        lambda: fr.rel_fwd_plain(*args, scale, pad, p, seed), lib_fwd)}
+                    if training:
+                        timed["flash_rel_bwd_q"] = (lambda: fr.rel_bwd_dq(*bargs),
+                                                    lambda: fr.rel_bwd_dq_plain(*bargs), lib_bwd)
+                        timed["flash_rel_bwd_kv"] = (lambda: fr.rel_bwd_dkv(*bargs),
+                                                     lambda: fr.rel_bwd_dkv_plain(*bargs),
+                                                     lib_bwd)
+                    work = _rel_work(args, live, T)
+                    l_bwd = cuda_ms(lib_bwd, iters) if training else 0.0
+                    for name, (k_fn, p_fn, l_fn) in timed.items():
+                        k_ms = cuda_ms(k_fn, iters)
+                        p_ms = cuda_ms(p_fn, 3, warmup=1)
+                        l_ms = l_bwd if l_fn is lib_bwd else cuda_ms(l_fn, iters)
+                        nbytes, flops = work[name]
+                        b_ms, kind_b = bound(nbytes, flops, peak)
+                        log(f"  {name} (B={B}, T={T}): kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+                            f"library_ms {l_ms:.4f} (mask built in {build_ms:.1f} ms) bound_ms "
+                            f"{b_ms:.4f} ({kind_b}) {flops / k_ms / 1e9:.2f} TFLOP/s; "
+                            f"x{n_layers} a {'step' if training else 'call'}")
+                        acc = step[name] if training else serve
+                        for key, val in zip(keys, (k_ms, p_ms, l_ms, b_ms)):
+                            acc[key] += n_layers * val
+                        kinds[name].add(kind_b)
+            del args
+        if not training:  # K6 at the JETS width: the legacy rel-pos route
+            xl = xl_inputs(dev, B, T, seed=T + 11, H=REL_H, D=REL_D)
+            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+                xargs = [xl[n].to(dtype) for n in ("qc", "k", "v", "gA", "gB", "table")]
+                for pad in (ragged, None):
+                    ctx, _ = fx.xl_fwd(*xargs, scale, pad)
+                    ref, _ = fx.xl_fwd_plain(*xargs, scale, pad)
+                    e = (ctx - ref).abs().max().item()
+                    if not (torch.isfinite(ctx).all() and e <= tol):
+                        raise AssertionError(f"K6 at D=128 (B={B}, T={T}) {dtype}: "
+                                             f"max_abs_err {e} (tol {tol})")
+                    if dtype == torch.float32:
+                        k6["max_abs_err"] = max(k6.get("max_abs_err", 0.0), e)
+                    del ref
+                if dtype == torch.float32 and T == SERVE_T_MEL:
+                    k_ms = cuda_ms(lambda: fx.xl_fwd(*xargs, scale, ragged), 5)
+                    p_ms = cuda_ms(lambda: fx.xl_fwd_plain(*xargs, scale, ragged), 3, warmup=1)
+                    build_ms, lib_fwd, _ = _library_sdpa(_xl_pos, xl, ragged, scale, dtype,
+                                                         0.0, gout)
+                    l_ms = cuda_ms(lib_fwd, 5)
+                    nbytes, flops = _xl_work("xl", xargs, lens, T)
+                    b_ms, kind_b = bound(nbytes, flops)
+                    k6.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                              bound_by=kind_b, library_mask_build_ms=build_ms,
+                              per=f"one launch at (B={B}, H={REL_H}, T={T}, D={REL_D}, "
+                                  f"E={REL_E}), fp32, ragged pad mask")
+                    del lib_fwd
+                del xargs
+            log(f"K6 at D=128, E=256 (B={B}, T={T}): fp32 and bf16, ragged and no pad "
+                f"mask, within tolerance; {k6}")
+            del xl
+        del base
+        torch.cuda.empty_cache()
+    per_serve = (f"one OneStageTTS.__call__ of {SERVE_B} sentences, fp32 (4 calls at "
+                 f"({SERVE_B}, {t_text}) + 6 at ({SERVE_B}, {SERVE_T_MEL}), H={REL_H}, "
+                 f"D={REL_D}, E={REL_E}, ragged pad mask)")
+    per_step = (f"one training step, fp32, attention dropout {ATTN_DROPOUT} (4 calls at "
+                f"({TRAIN_B}, {TRAIN_T_TEXT}) + 6 at ({TRAIN_B}, {TRAIN_T_MEL}), H={REL_H}, "
+                f"D={REL_D}, E={REL_E})")
+    entries = {}
+    for name, replaces in REL_REPLACES.items():
+        fig = serve if name == "flash_rel_fwd" else step[name]
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": ("viet_tts_torch/csrc/flash_rel_attention.cu" if name == "flash_rel_fwd"
+                       else "viet_tts_torch/csrc/flash_rel_attention_bwd.cu"),
+            "replaces": replaces, "max_abs_err": errs[name], "tol": 1e-4,
+            "bound_by": "operations" if "operations" in kinds[name] else "bytes",
+            "per": per_serve if name == "flash_rel_fwd" else per_step,
+            "library": ("F.scaled_dot_product_attention with scale * g.table^T as an "
+                        "additive mask" + ("" if name == "flash_rel_fwd" else
+                                           ", backward (dq, dk and dv together) on a "
+                                           "retained graph")),
+            **fig}
+    entries["flash_rel_fwd"]["train_step"] = {"per": per_step, **step["flash_rel_fwd"]}
+    return entries, k6
+
+
+# --------------------------------------------------------------------------
+# phase 12: JETS-conformer serving
+# --------------------------------------------------------------------------
+
+CONFORMER_HP = {"encoder_type": "conformer", "decoder_type": "conformer"}
+
+
+def _jc_wrappers():
+    from viet_tts_torch.ops import flash_attention as fa
+    from viet_tts_torch.ops import flash_rel_attention as fr
+    from viet_tts_torch.ops import fused_mrf as fm
+
+    return {"flash_rel_fwd": fr.rel_fwd, "flash_rel_bwd_q": fr.rel_bwd_dq,
+            "flash_rel_bwd_kv": fr.rel_bwd_dkv, "fused_mrf_stage": fm.fused_mrf_stage,
+            "flash_attention_fwd": fa.attention_fwd}
+
+
+def _counts():
+    return {name: fn.launches for name, fn in _jc_wrappers().items()}
+
+
+def build_conformer_checkpoint(ckpt_dir: str) -> str:
+    """Full-width JETS with espnet "latest" rel-pos conformer stacks
+    (config/model_config.yaml:234-326 with encoder_type / decoder_type
+    conformer: adim 256, 2 heads, 4 + 6 layers, conv kernels 7 / 31,
+    macaron, conv1d FFN, GST, HiFi-GAN V1), flash attention, seeded random
+    weights, saved as a port checkpoint."""
+    from viet_tts_torch.infer.api import default_conf, save_checkpoint
+    from viet_tts_torch.models.jets import JETS
+    from viet_tts_torch.nn.utils import seeded_init_
+    from viet_tts_torch.text import NUM_SYMBOLS
+
+    conf = default_conf()
+    hp = conf["models"]["jets"]["generator_params"]
+    hp.update(CONFORMER_HP, attn_implementation="flash")
+    model = JETS(NUM_SYMBOLS, conf["audio"]["mel"]["channels"], hp)
+    seeded_init_(model, torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        for up in model.generator.upsamples:  # audio-scale output (see phase 5)
+            up[1].weight_g.fill_(1.0)
+    log(f"JETS-conformer full width: {sum(p.numel() for p in model.parameters())} "
+        f"parameters, adim {hp['adim']}, {hp['aheads']} heads, {hp['elayers']} + "
+        f"{hp['dlayers']} conformer layers ({hp['conformer_rel_pos_type']} rel-pos, conv k="
+        f"{hp['conformer_enc_kernel_size']} / {hp['conformer_dec_kernel_size']})")
+    save_checkpoint(ckpt_dir, model, conf)
+    return ckpt_dir
+
+
+def check_conformer_serving(dev, ckpt_dir: str):
+    """OneStageTTS on the conformer checkpoint: 16 sentences in fp32 and in
+    bf16, then the HTTP server; every call's launches held (K7 fwd 10 = 4
+    encoder + 6 decoder layers, K2 36, no K1 and no backward); the host
+    median of 5 fp32 calls; a small input on the card against the CPU."""
+    from viet_tts_torch.infer.api import OneStageTTS
+    from viet_tts_torch.infer.server import serve
+
+    tts = OneStageTTS(ckpt_dir, fused_vocoder=True)
+    tts_half = OneStageTTS(ckpt_dir, fused_vocoder=True, half=True)
+    for model in (tts, tts_half):  # warm-up: cuDNN autotune, allocator
+        model(SENTENCES[:2])
+    torch.cuda.synchronize()
+    per_call = {"flash_rel_fwd": 10, "fused_mrf_stage": 36, "flash_attention_fwd": 0,
+                "flash_rel_bwd_q": 0, "flash_rel_bwd_kv": 0}
+    for fn in _jc_wrappers().values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    n = len(SENTENCES)
+    waves, call_s = _counted_call(lambda: tts(SENTENCES), per_call,
+                                  f"JETS-conformer fp32 __call__({n})", _counts)
+    waves_half, half_s = _counted_call(lambda: tts_half(SENTENCES), per_call,
+                                       f"JETS-conformer bf16 __call__({n})", _counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check_waves(waves, len(SENTENCES), "JETS-conformer fp32")
+    _check_waves(waves_half, len(SENTENCES), "JETS-conformer bf16")
+    before = _counts()
+    httpd = serve(tts, port=0, model_name="JETS")
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        with urllib.request.urlopen(f"{base}/health", timeout=60) as r:
+            codes = [r.status]
+            health = json.load(r)
+        # random weights may give a sentence no frame at all: use the one
+        # with the most
+        longest = SENTENCES[int(np.argmax([w.size for w in waves]))]
+        code, body = post(f"{base}/synthesize", {"text": longest})
+        codes.append(code)
+        if body[:4] != b"RIFF":
+            raise AssertionError("JETS-conformer /synthesize did not return a WAV")
+        t0 = time.perf_counter()
+        code, stream_body = post(f"{base}/synthesize_stream", {"text": longest})
+        stream_s = time.perf_counter() - t0
+        codes.append(code)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    server = {k: v - before[k] for k, v in _counts().items()}
+    if codes != [200] * 3 or health.get("status") != "ok":
+        raise AssertionError(f"JETS-conformer HTTP codes {codes}, health {health}")
+    if len(stream_body) % 2 or not stream_body:
+        raise AssertionError("JETS-conformer /synthesize_stream returned no PCM")
+    # one /synthesize (a batch of one) and one stream (its acoustic half
+    # once, then one vocoder window per chunk)
+    if (server["flash_rel_fwd"] != 20 or server["fused_mrf_stage"] < 72
+            or server["fused_mrf_stage"] % 36 or server["flash_attention_fwd"]):
+        raise AssertionError(f"JETS-conformer server launches {server}")
+    launches = _counts()
+    log(f"JETS-conformer serving: peak {peak_gb:.2f} GB; server HTTP {codes}, "
+        f"/synthesize_stream {stream_s:.3f} s, {len(stream_body) // 2} samples, launches "
+        f"{server}; over the phase {launches}; mel frames per sentence "
+        f"{[w.size // 256 for w in waves]}")
+
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tts(SENTENCES)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = sorted(times)[len(times) // 2]
+    log(f"JETS-conformer fp32 __call__({n}): host median of 5 {med:.4f} s "
+        f"({[round(x, 4) for x in times]}); bf16 call {half_s:.4f} s")
+
+    cpu_model = copy.deepcopy(tts.model).to("cpu")
+    ids, lens, _ = tts.encode_texts(SENTENCES[:2])
+    sids = torch.zeros(2, dtype=torch.int64)
+    frames = 64
+    wav_gpu, len_gpu = tts.model.inference(sids.to(dev), torch.as_tensor(ids, device=dev),
+                                           torch.as_tensor(lens, device=dev), frames)
+    wav_cpu, len_cpu = cpu_model.inference(sids, torch.as_tensor(ids), torch.as_tensor(lens),
+                                           frames)
+    err = (wav_gpu.cpu() - wav_cpu).abs().max().item()
+    if not torch.equal(len_gpu.cpu(), len_cpu) or err > 1e-3:
+        raise AssertionError(f"JETS-conformer card vs CPU: lengths {len_gpu.tolist()} vs "
+                             f"{len_cpu.tolist()}, max_abs_err {err}")
+    log(f"JETS-conformer card (kernels) vs CPU (plain) on 2 sentences x {frames} frames: "
+        f"max_abs_err {err:.3e} (tol 1e-3), peak |wav| {wav_cpu.abs().max().item():.3f}")
+    return launches, tts, {"call_s": med, "half_s": half_s, "peak_gb": peak_gb}
+
+
+# --------------------------------------------------------------------------
+# phase 13: the JETS-conformer training step
+# --------------------------------------------------------------------------
+
+
+def check_conformer_training(dev, steps: int = 3, warmup: int = 2):
+    """``make_jets_train_step`` on the full-width JETS-conformer and the full
+    MSMPD (every dropout as configured, attention 0.2 inside K7) with the
+    bench.py batch (B=8, T_text=64, T_mel=512): ``warmup`` then ``steps``
+    timed steps with the launches held exactly (K7 fwd, bwd-q and bwd-kv
+    10 each a step, no K1 / K3), finite metrics, both models changed, peak
+    memory; then one small full-width step on the card against the CPU."""
+    from viet_tts_torch.config import jets_lambdas
+    from viet_tts_torch.train.gan import make_jets_train_step
+
+    model, disc, mel_loss, train_conf, hop = build_gan(CONFORMER_HP)
+    model.to(dev)
+    disc.to(dev)
+    gen_state, disc_state = gan_states(model, disc, train_conf)
+    step = make_jets_train_step(model, disc, mel_loss, jets_lambdas(train_conf), hop)
+    batch = synthetic_batch(TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL, hop, dev)
+    rng = torch.Generator().manual_seed(SEED)
+    before = (_flat_params(model), _flat_params(disc))
+    for _ in range(warmup):
+        step(gen_state, disc_state, batch, rng)
+    torch.cuda.synchronize()
+    for fn in _jc_wrappers().values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        gen_state, disc_state, metrics = step(gen_state, disc_state, batch, rng)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect = {"flash_rel_fwd": 10 * steps, "flash_rel_bwd_q": 10 * steps,
+              "flash_rel_bwd_kv": 10 * steps, "fused_mrf_stage": 0, "flash_attention_fwd": 0}
+    if launches != expect:
+        raise AssertionError(f"JETS-conformer training launches {launches}, expected {expect}")
+    values = {k: v.item() for k, v in metrics.items()}
+    changed = [(a - b).abs().max().item() for a, b in
+               zip(before, (_flat_params(model), _flat_params(disc)))]
+    if not all(np.isfinite(v) for v in values.values()) or min(changed) <= 0.0:
+        raise AssertionError(f"JETS-conformer metrics {values}, parameter change {changed}")
+    median = sorted(times)[len(times) // 2]
+    log(f"JETS-conformer training: {sum(p.numel() for p in model.parameters())} parameters, "
+        f"batch B={TRAIN_B} T_text={TRAIN_T_TEXT} T_mel={TRAIN_T_MEL}; step host seconds "
+        f"{[round(x, 4) for x in times]} (median {median:.4f}); peak {peak_gb:.2f} GB; "
+        f"launches over {steps} steps {launches}; metrics {values}; max parameter change "
+        f"gen {changed[0]:.3e} disc {changed[1]:.3e}")
+    check_training_against_cpu(dev, CONFORMER_HP)
+    return launches, {"step_s": median, "peak_gb": peak_gb}, (step, gen_state, disc_state,
+                                                              batch, rng)
+
+
+# --------------------------------------------------------------------------
 # --profile: where the time of one __call__ and of one training step goes
 # --------------------------------------------------------------------------
 
@@ -1522,6 +1971,9 @@ KERNEL_GROUPS = (
     ("K5 xl2_fwd_kernel (rotating)", ("xl2_fwd_kernel<float, 48, true>",
                                        "xl2_fwd_kernel<__nv_bfloat16, 48, true>")),
     ("K6 xl2_fwd_kernel (two streams)", ("xl2_fwd_kernel",)),
+    ("K7 rel_fwd_kernel", ("rel_fwd_kernel",)),
+    ("K7 bwd-q rel_bwd_q_kernel", ("rel_bwd_q_kernel",)),
+    ("K7 bwd-kv (rel_bwd_kv + dtab)", ("rel_bwd_kv_kernel", "rel_bwd_dtab")),
     ("cuBLAS matmul (attention projections, GST, STFT-mel)", ("cublas", "gemv", "sgemm")),
     ("cuDNN (convs: vocoder, discriminators, FFN, predictors)", ("cudnn",)),
 )
@@ -1584,8 +2036,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, time five fp32 __call__s of 16 "
                          "sentences, five JETS training steps, five two-stage "
-                         "calls and five FS2 training steps at T_mel 1008, and "
-                         "profile one of each (device time by kernel group, "
+                         "calls, five FS2 training steps at T_mel 1008, five "
+                         "JETS-conformer calls and five JETS-conformer steps, "
+                         "and profile one of each (device time by kernel group, "
                          "busy share; per-kernel tables in the output "
                          "directory, chip_smoke_profile*.txt)")
     args = ap.parse_args()
@@ -1625,6 +2078,12 @@ def main() -> int:
     xl_train = check_xl_training(dev)
     fs2_train_launches, fs2_train_figures, (fs2_step, *fs2_step_args) = \
         check_fs2_training_path(dev)
+    t_text = tts.encode_texts(SENTENCES)[2]
+    rel, k6_jets = check_rel_kernels(dev, t_text)
+    jc_ckpt = build_conformer_checkpoint(os.path.join(REPO, "build", "chip_smoke_jets_conformer"))
+    jc_launches, jc_tts, jc_figures = check_conformer_serving(dev, jc_ckpt)
+    jc_train_launches, jc_train_figures, (jc_step, *jc_step_args) = \
+        check_conformer_training(dev)
     if args.profile:
         profile_call(lambda: tts(SENTENCES), "fp32 __call__(16)", "chip_smoke_profile.txt")
         profile_call(lambda: step(*step_args), "training step",
@@ -1634,6 +2093,10 @@ def main() -> int:
         profile_call(lambda: fs2_step(*fs2_step_args),
                      f"FS2 training step (T_mel {FS2_TRAIN_T_MELS[0]})",
                      "chip_smoke_profile_fs2_train.txt")
+        profile_call(lambda: jc_tts(SENTENCES), "JETS-conformer fp32 __call__(16)",
+                     "chip_smoke_profile_jets_conformer.txt")
+        profile_call(lambda: jc_step(*jc_step_args), "JETS-conformer training step",
+                     "chip_smoke_profile_jets_conformer_train.txt")
     for entry in (k1, k2):
         entry["launches"] = launches[entry["name"]]
     k1["name_detail"] = "forward, with attention-weight dropout in training"
@@ -1664,6 +2127,18 @@ def main() -> int:
                     "with scale * pos as an additive mask, on a retained graph",
          **xl_train[name]}
         for name in ("flash_xl3_bwd", "flash_xl2_bwd_q", "flash_xl2_bwd_kv")]
+    xl_entries[2]["jets_width"] = k6_jets
+    rel_entries = [rel[name] for name in REL_REPLACES]
+    rel_entries[0]["launches"] = jc_launches["flash_rel_fwd"]
+    rel_entries[0]["launches_per"] = ("the JETS-conformer serving phase: two __call__s of 16 "
+                                      "sentences, one /synthesize, one /synthesize_stream")
+    rel_entries[0]["name_detail"] = "forward, with attention-weight dropout in training"
+    rel_entries[0]["train_step"]["launches"] = jc_train_launches["flash_rel_fwd"]
+    train_per_jc = "the JETS-conformer training phase's 3 timed steps"
+    rel_entries[0]["train_step"]["launches_per"] = train_per_jc
+    for entry in rel_entries[1:]:
+        entry["launches"] = jc_train_launches[entry["name"]]
+        entry["launches_per"] = train_per_jc
     log(f"training step: host median {train_figures['step_s']:.4f} s, "
         f"peak {train_figures['peak_gb']:.2f} GB")
     log(f"two-stage: fp32 __call__(16) host median {fs2_figures['call_s']:.4f} s "
@@ -1673,7 +2148,11 @@ def main() -> int:
         log(f"FS2 training step at T_mel {T_mel}: host median "
             f"{fs2_train_figures[T_mel]['step_s']:.4f} s, peak "
             f"{fs2_train_figures[T_mel]['peak_gb']:.2f} GB")
-    print(json.dumps({"kernels": [k1, k2, *k3, *xl_entries, *xl_bwd_entries]}))
+    log(f"JETS-conformer: fp32 __call__(16) host median {jc_figures['call_s']:.4f} s, bf16 "
+        f"{jc_figures['half_s']:.4f} s; training step host median "
+        f"{jc_train_figures['step_s']:.4f} s, peak {jc_train_figures['peak_gb']:.2f} GB")
+    print(json.dumps({"kernels": [k1, k2, *k3, *xl_entries, *xl_bwd_entries,
+                                  *rel_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

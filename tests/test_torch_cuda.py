@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from viet_tts_torch.nn.espnet_conformer import rel_positional_table
 from viet_tts_torch.nn.utils import sinusoid_position_table
 from viet_tts_torch.ops import flash_attention as fa
+from viet_tts_torch.ops import flash_rel_attention as fr
 from viet_tts_torch.ops import flash_xl_attention as fx
 from viet_tts_torch.ops import fused_mrf as fm
+from viet_tts_torch.ops.espnet_attention import neg_rel_table, rel_pos_queries_latest
 from viet_tts_torch.ops.xl_attention import xl_pos_queries, xl_pos_query_stream
 
 KS = (3, 7, 11)
@@ -282,5 +285,132 @@ def test_xl_autograd_functions_launch_the_kernels(cuda_device, kind, T):
     torch.cuda.synchronize()
     assert (out - ref.reshape(out.shape)).abs().max().item() <= 1e-4
     for name, a, b in zip(names[:n_grad], leaves, ref_leaves):
+        err = (a.grad - b.grad).abs().max().item()
+        assert err <= 1e-4 * max(1.0, b.grad.abs().max().item()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [64, 300])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("pad_rows", [True, False])
+def test_xl_kernel_k6_at_the_jets_width(cuda_device, T, dtype, atol, pad_rows):
+    """K6 at D = 128, E = 256 (the JETS conformer's legacy rel-pos route,
+    2 heads of adim 256) against its plain version."""
+    streams, pad, scale = xl_case(cuda_device, 3, T, H=2, D=128, seed=T + 2,
+                                  pad_rows=pad_rows)
+    fwd, plain, names = XL_KERNELS["xl"]
+    args = [streams[n].to(dtype) for n in names]
+    before = fwd.launches
+    ctx, lse = fwd(*args, scale, pad)
+    assert fwd.launches == before + 1
+    ref, _ = plain(*args, scale, pad)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ctx).all()
+    assert (ctx - ref).abs().max().item() <= atol
+
+
+def rel_case(device, B, T, H=2, D=128, seed=0, pad_rows=True):
+    """One espnet 'latest' rel-pos attention at the JETS width (fp32, on
+    device): qc, k, v (B, T, H, D), the rotated position queries g
+    (B, T, H, E) and the negative half of the symmetric table (T, E),
+    E = H * D; pad_mask with a full, a ragged and a fully padded row (or
+    None)."""
+    E = H * D
+    rng = np.random.RandomState(seed)
+    f = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device)
+    q, k, v = f(B, T, H, D), f(B, T, H, D), f(B, T, H, D)
+    u, w = 0.3 * f(H, D), 0.3 * f(H, D)
+    pos_kernel = f(E, E) / np.sqrt(E)
+    sym = torch.from_numpy(rel_positional_table(T, E)).to(device)
+    streams = dict(qc=q + u, k=k, v=v, g=rel_pos_queries_latest(q + w, pos_kernel),
+                   table=neg_rel_table(sym).contiguous())
+    pad = None
+    if pad_rows:
+        lens = torch.tensor([T, T // 2 + 1, 0][:B] + [T] * max(B - 3, 0))
+        pad = (torch.arange(T)[None] >= lens[:, None]).to(device)
+    return streams, pad, D ** -0.5
+
+
+REL_NAMES = ("qc", "k", "v", "g", "table")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [64, 45, 300])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("pad_rows", [True, False])
+@pytest.mark.parametrize("dropout_p", [0.0, 0.2])
+def test_rel_kernels_match_plain(cuda_device, T, dtype, atol, pad_rows, dropout_p):
+    """K7 forward with attention-weight dropout against the plain forward,
+    then K7 bwd-q (dqc, dg) and bwd-kv (dk, dv, dtable) against their plain
+    versions on the kernel's own context and lse, under one seed, with a
+    ragged and a fully padded row or no pad mask; each within atol of the
+    plain one, scaled by its largest value where that exceeds 1."""
+    streams, pad, scale = rel_case(cuda_device, 3, T, seed=T + 9, pad_rows=pad_rows)
+    args = [streams[n].to(dtype) for n in REL_NAMES]
+    seed = 246813579024681
+    before = [f.launches for f in (fr.rel_fwd, fr.rel_bwd_dq, fr.rel_bwd_dkv)]
+    ctx, lse = fr.rel_fwd(*args, scale, pad, dropout_p, seed)
+    ref_ctx, ref_lse = fr.rel_fwd_plain(*args, scale, pad, dropout_p, seed)
+    gout = torch.from_numpy(np.random.RandomState(4).randn(*ctx.shape).astype(np.float32))
+    delta, g = fa.backward_inputs(ctx, gout.to(ctx.device), dtype)
+    padf = pad.float() if pad is not None else torch.zeros(3, T, device=cuda_device)
+    bwd_args = (*args, padf, lse, delta, g, scale, dropout_p, seed)
+    got = [*fr.rel_bwd_dq(*bwd_args), *fr.rel_bwd_dkv(*bwd_args, want_dtab=True)]
+    assert [f.launches for f in (fr.rel_fwd, fr.rel_bwd_dq, fr.rel_bwd_dkv)] == [
+        c + 1 for c in before]
+    want = [*fr.rel_bwd_dq_plain(*bwd_args), *fr.rel_bwd_dkv_plain(*bwd_args, want_dtab=True)]
+    torch.cuda.synchronize()
+    assert torch.isfinite(ctx).all()
+    assert (ctx - ref_ctx).abs().max().item() <= atol
+    assert ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item() <= 1e-5
+    for name, a, b in zip(("dqc", "dg", "dk", "dv", "dtable"), got, want):
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        err = (a - b).abs().max().item()
+        assert err <= atol * max(1.0, b.abs().max().item()), (name, err)
+
+
+@pytest.mark.cuda
+def test_rel_dropout_mask_is_the_plain_mask_bit_for_bit(cuda_device):
+    """With v the identity, K7's context is the dropped weights themselves:
+    its zeros are exactly where ``dropout_keep_mask`` drops; with one-hot
+    cotangent rows, bwd-kv's dv is the dropped weights transposed, with the
+    same zeros."""
+    T, p, seed = 64, 0.2, 77
+    streams, pad, scale = rel_case(cuda_device, 3, T, seed=5, pad_rows=False)
+    B, H, D = 3, 2, 128
+    eye = torch.eye(T, D, device=cuda_device)[None, :, None, :].expand(B, T, H, D).contiguous()
+    args = [streams["qc"], streams["k"], eye, streams["g"], streams["table"]]
+    ctx, lse = fr.rel_fwd(*args, scale, None, p, seed)
+    keep = fa.dropout_keep_mask(seed, B, H, T, T, p, cuda_device)  # (B, H, i, j)
+    torch.cuda.synchronize()
+    assert torch.equal(ctx[..., :T].permute(0, 2, 1, 3) != 0, keep)
+    delta, g = fa.backward_inputs(ctx, eye, torch.float32)
+    _, dv, _ = fr.rel_bwd_dkv(*args, torch.zeros(B, T, device=cuda_device), lse, delta, g,
+                              scale, p, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(dv[..., :T].permute(0, 2, 3, 1) != 0, keep)
+
+
+@pytest.mark.cuda
+def test_rel_autograd_function_launches_the_kernels(cuda_device):
+    """The public op on CUDA tensors that need gradients: one K7 forward,
+    bwd-q and bwd-kv launch each, and the gradients of autograd through the
+    plain forward on the same seed. The table needs no gradient here."""
+    T = 200
+    streams, pad, scale = rel_case(cuda_device, 3, T, seed=T)
+    fns = (fr.rel_fwd, fr.rel_bwd_dq, fr.rel_bwd_dkv)
+    counts = [f.launches for f in fns]
+    leaves = [streams[n].clone().requires_grad_(n != "table") for n in REL_NAMES]
+    out = fr.flash_rel_attention(*leaves, scale, pad_mask=pad, dropout_p=0.2, dropout_seed=3)
+    gout = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(out.device)
+    (out * gout).sum().backward()
+    assert [f.launches for f in fns] == [c + 1 for c in counts]
+    ref_leaves = [streams[n].clone().requires_grad_(n != "table") for n in REL_NAMES]
+    ref, _ = fr.rel_fwd_plain(*ref_leaves, scale, pad, 0.2, 3)
+    (ref.reshape(out.shape) * gout).sum().backward()
+    torch.cuda.synchronize()
+    assert (out - ref.reshape(out.shape)).abs().max().item() <= 1e-4
+    for name, a, b in zip(REL_NAMES[:4], leaves, ref_leaves):
         err = (a.grad - b.grad).abs().max().item()
         assert err <= 1e-4 * max(1.0, b.grad.abs().max().item()), (name, err)

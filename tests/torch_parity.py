@@ -87,15 +87,12 @@ def port_jets(hp=SMALL_HP, n_speakers=1, seed=0) -> TorchJETS:
     JAX package's init), which shrinks the waveform to ~1e-5 and would make
     any tolerance vacuous; a unit norm per output channel keeps it at audio
     scale. BatchNorm running statistics are drawn too, so the GST path
-    checks them."""
+    (and the conformer stacks' conv modules) check them."""
     gen = torch.Generator().manual_seed(seed)
     model = seeded_init_(TorchJETS(N_SYMBOLS, N_MELS, hp, n_speakers=n_speakers), gen)
     for up in model.generator.upsamples:
         up[1].weight_g.fill_(1.0)
-    for m in model.modules():
-        if isinstance(m, torch.nn.BatchNorm2d):
-            m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.1)
-            m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+    _randomise_batchnorms(model, gen)
     return model.eval()
 
 

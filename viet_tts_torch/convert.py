@@ -2,9 +2,10 @@
 
 ``jets_from_jax(variables, hparams)`` turns the JAX ``JETS`` variables
 (``{"params", "batch_stats"}`` as numpy arrays) into this package's
-``JETS`` state_dict. It is the inverse of the JAX package's
-``train/torch_import.py:import_jets``, and the port's parameter names are
-the reference/espnet torch names that importer reads.
+``JETS`` state_dict, transformer or conformer stacks (the conformer's
+conv-module BatchNorm statistics from ``batch_stats``). It is the inverse
+of the JAX package's ``train/torch_import.py:import_jets``, and the port's
+parameter names are the reference/espnet torch names that importer reads.
 
 ``fastspeech2_from_jax(variables, hparams)`` and ``hifigan_from_jax(params,
 hifi_conf)`` do the same for the JAX ``FastSpeech2`` (conformer block) and a
@@ -106,6 +107,38 @@ def _transformer_stack(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
         _layernorm(sd, f"{prefix}.after_norm", p["after_norm"])
 
 
+def _espnet_conformer_stack(sd: StateDict, prefix: str, p: Dict[str, Any],
+                            s: Dict[str, Any], ffn_type: str) -> None:
+    """JAX EspnetConformerEncoder (params, batch_stats) -> espnet names
+    (``torch_import.py:_espnet_conformer_stack_params``, inverted)."""
+    if "embed" in p:
+        sd[f"{prefix}.embed.0.weight"] = _t(p["embed"]["embedding"])
+    ffn = _conv1d if ffn_type == "conv1d" else _linear
+    i = 0
+    while f"layer_{i}" in p:
+        lp, tp = p[f"layer_{i}"], f"{prefix}.encoders.{i}"
+        att = lp["self_attn"]
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
+            _linear(sd, f"{tp}.self_attn.{name}", att[name])
+        for name in ("pos_bias_u", "pos_bias_v"):
+            sd[f"{tp}.self_attn.{name}"] = _t(att[name])
+        for flax_name, torch_name in (("ff", "feed_forward"),
+                                      ("ff_macaron", "feed_forward_macaron")):
+            if f"{flax_name}_w_1" in lp:
+                _layernorm(sd, f"{tp}.norm_{flax_name}", lp[f"norm_{flax_name}"])
+                ffn(sd, f"{tp}.{torch_name}.w_1", lp[f"{flax_name}_w_1"])
+                ffn(sd, f"{tp}.{torch_name}.w_2", lp[f"{flax_name}_w_2"])
+        for name in ("norm_mha", "norm_conv", "norm_final"):
+            _layernorm(sd, f"{tp}.{name}", lp[name])
+        cm = lp["conv_module"]
+        for name in ("pointwise_conv1", "depthwise_conv", "pointwise_conv2"):
+            _conv1d(sd, f"{tp}.conv_module.{name}", cm[name])
+        _batchnorm(sd, f"{tp}.conv_module.norm", cm["norm"],
+                   s[f"layer_{i}"]["conv_module"]["norm"])
+        i += 1
+    _layernorm(sd, f"{prefix}.after_norm", p["after_norm"])
+
+
 def _predictor(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
     i = 0
     while f"conv_{i}" in p:
@@ -193,8 +226,12 @@ def jets_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> StateDi
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: StateDict = {}
-    _transformer_stack(sd, "encoder", params["encoder"])
-    _transformer_stack(sd, "decoder", params["decoder"])
+    for part in ("encoder", "decoder"):
+        if hparams.get(f"{part}_type", "transformer") == "conformer":
+            _espnet_conformer_stack(sd, part, params[part], stats.get(part, {}),
+                                    hparams.get("positionwise_layer_type", "conv1d"))
+        else:
+            _transformer_stack(sd, part, params[part])
     if "gst" in params:
         _gst(sd, "gst", params["gst"], stats["gst"])
     if "sid_emb" in params:

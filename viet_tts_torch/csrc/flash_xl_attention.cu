@@ -670,7 +670,8 @@ int xl2_entry(const void* qc, const void* k, const void* v, const void* ga,
               int is_bf16, float scale, double dropout_p, uint64_t seed,
               void* stream) {
   if (bad_sizes(B, T, H, dropout_p) || Tp < T || E <= 0 || E % kEC != 0 ||
-      xl2_smem_bytes<64>(E) > 232448)
+      xl2_smem_bytes<64>(E) > 232448 ||
+      (D == 128 && (ROTATE || xl2_smem_bytes<128>(E) > 232448)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DropArgs drop = drop_args(dropout_p, seed);
@@ -682,8 +683,18 @@ int xl2_entry(const void* qc, const void* k, const void* v, const void* ga,
     case 97: return (int)VT_XL2(__nv_bfloat16, 48);
     case 128: return (int)VT_XL2(float, 64);
     case 129: return (int)VT_XL2(__nv_bfloat16, 64);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  // D = 128 (the JETS conformer's legacy rel-pos flavour, E = 256): the
+  // two-stream kernel K6 only
+  if constexpr (!ROTATE) {
+    switch (D * 2 + (is_bf16 ? 1 : 0)) {
+      case 256: return (int)VT_XL2(float, 128);
+      case 257: return (int)VT_XL2(__nv_bfloat16, 128);
+      default: break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 #undef VT_XL2
 }
 
@@ -728,8 +739,9 @@ int vt_flash_xl2_fwd(const void* qc, const void* k, const void* v,
                          H, D, E, is_bf16, scale, dropout_p, seed, stream);
 }
 
-// K6. gA, gB: (B, T, H, E) pre-rotated; other arguments as K5, but
-// dropout_p must be 0: K6 has no backward yet, so it serves inference only.
+// K6. gA, gB: (B, T, H, E) pre-rotated; other arguments as K5, and D may
+// also be 128; dropout_p must be 0: K6 has no backward yet, so it serves
+// inference only.
 int vt_flash_xl_fwd(const void* qc, const void* k, const void* v,
                     const void* ga, const void* gb, const void* table,
                     const float* pad, float* out, float* lse, int B, int T,

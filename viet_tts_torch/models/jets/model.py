@@ -10,9 +10,13 @@ reference's espnet-composed torch ``JETS``, so
 ``train/torch_import.py:import_jets`` reads this model's state_dict (after
 ``convert.reference_state_dict``).
 
-``hparams["attn_implementation"] = "flash"`` routes the encoder and decoder
-self-attention to kernels K1 (forward, with in-kernel dropout in training)
-and K3 (backward); ``hparams["fused_mrf"] = True`` routes the HiFi-GAN
+The encoder and decoder are espnet transformer stacks, or, with
+``encoder_type`` / ``decoder_type: conformer``, espnet rel-pos conformer
+stacks (``nn/espnet_conformer.py``). ``hparams["attn_implementation"] =
+"flash"`` routes their self-attention to kernels K1 (forward, with in-kernel
+dropout in training) and K3 (backward) on the transformer, K7 (forward,
+bwd-q, bwd-kv) on the "latest" conformer and K6's forward on the "legacy"
+one (serving only); ``hparams["fused_mrf"] = True`` routes the HiFi-GAN
 stages with ch <= 64 to kernel K2, which has no backward (training keeps it
 off, as the JAX package does). Dropout follows ``.train()`` / ``.eval()``.
 """
@@ -32,6 +36,7 @@ from viet_tts_torch.models.jets.layers import (
     StyleEncoder,
     VarianceEmbed,
 )
+from viet_tts_torch.nn.espnet_conformer import EspnetConformerEncoder
 from viet_tts_torch.nn.espnet_transformer import EspnetTransformerEncoder
 from viet_tts_torch.nn.utils import pad_mask_from_lengths
 from viet_tts_torch.ops.duration import (
@@ -60,10 +65,29 @@ class JETS(nn.Module):
 
         def make_stack(kind: str, n_sym: Optional[int]):
             part = "encoder" if kind == "enc" else "decoder"
-            if hp.get(f"{part}_type", "transformer") != "transformer":
-                raise NotImplementedError(
-                    f"{part}_type={hp[f'{part}_type']!r} is not ported yet "
-                    "(only the transformer stack)")
+            stack = hp.get(f"{part}_type", "transformer")
+            if stack == "conformer":
+                return EspnetConformerEncoder(
+                    d_model=adim,
+                    num_heads=hp["aheads"],
+                    linear_units=hp["eunits" if kind == "enc" else "dunits"],
+                    num_blocks=hp["elayers" if kind == "enc" else "dlayers"],
+                    n_symbols=n_sym,
+                    kernel_size=hp.get(f"conformer_{kind}_kernel_size",
+                                       7 if kind == "enc" else 31),
+                    dropout=hp.get(f"transformer_{kind}_dropout_rate", 0.2),
+                    positional_dropout=hp.get(
+                        f"transformer_{kind}_positional_dropout_rate", 0.2),
+                    attn_dropout=hp.get(f"transformer_{kind}_attn_dropout_rate", 0.2),
+                    macaron=hp.get("use_macaron_style_in_conformer", True),
+                    ffn_type=hp.get("positionwise_layer_type", "conv1d"),
+                    ffn_kernel=hp.get("positionwise_conv_kernel_size", 1),
+                    legacy=hp.get("conformer_rel_pos_type", "latest") == "legacy",
+                    attn_implementation=attn,
+                )
+            if stack != "transformer":
+                raise ValueError(f"{part}_type must be transformer or conformer, "
+                                 f"not {stack!r}")
             return EspnetTransformerEncoder(
                 d_model=adim,
                 num_heads=hp["aheads"],

@@ -70,6 +70,7 @@ from viet_tts_torch.runtime import kernels
 XL3_MAX_T = 512  # pallas_attention.py:_XL3_MAX_T (a TPU VMEM limit)
 XL2_MAX_T = 1024  # pallas_attention.py:_XL2_MAX_T
 _HEAD_DIMS = (48, 64)  # head dims the kernels are built for
+_XL_HEAD_DIMS = (48, 64, 128)  # K6 also at the JETS width (legacy rel-pos)
 _MAX_E = 640  # the xl2/xl kernels keep two (32, E) fp32 tiles in shared memory
 _MAX_E_BWD = 512  # K5 bwd-kv keeps two (32, E) tiles and more beside them
 
@@ -370,15 +371,15 @@ def _device_of(x: torch.Tensor) -> str:
     return x.device.type
 
 
-def _check(qc: torch.Tensor, *same: torch.Tensor) -> None:
+def _check(qc: torch.Tensor, *same: torch.Tensor, head_dims=_HEAD_DIMS) -> None:
     if qc.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"XL flash attention takes fp32 or bf16, not {qc.dtype}")
     B, T, H, D = qc.shape
     for x in same:
         if x.shape[:3] != qc.shape[:3] or x.dtype != qc.dtype or x.device != qc.device:
             raise ValueError("the streams must share (B, T, H), dtype and device")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head dim {D} not built {_HEAD_DIMS}")
+    if D not in head_dims:
+        raise ValueError(f"head dim {D} not built {head_dims}")
     if max(B, H, T) >= 1 << 16:
         raise ValueError("the kernels take B, H, T < 65536")
 
@@ -487,7 +488,7 @@ def xl_fwd(qc, k, v, gA, gB, table, scale: float, pad_mask=None
     ported, so K6 serves inference only."""
     if _device_of(qc) == "cpu":
         return xl_fwd_plain(qc, k, v, gA, gB, table, scale, pad_mask)
-    _check(qc, k, v, gA, gB)
+    _check(qc, k, v, gA, gB, head_dims=_XL_HEAD_DIMS)
     B, T, H, D = qc.shape
     E = gA.shape[-1]
     if gB.shape != gA.shape:
@@ -509,11 +510,11 @@ def xl_fwd(qc, k, v, gA, gB, table, scale: float, pad_mask=None
 xl_fwd.launches = 0
 
 
-def _bwd_inputs(qc, pad, lse, delta, g, *streams):
+def _bwd_inputs(qc, pad, lse, delta, g, *streams, head_dims=_HEAD_DIMS):
     """Contiguous kernel operands of a backward, checked: (pad, lse, delta,
     g, *streams)."""
     B, T, H, D = qc.shape
-    _check(qc, g, *streams)
+    _check(qc, g, *streams, head_dims=head_dims)
     if lse.shape != (B, H, T) or delta.shape != (B, H, T):
         raise ValueError(f"lse and delta must be (B, H, T) = {(B, H, T)}")
     pad = _pad_arg(pad, B, T, qc.device)
@@ -707,10 +708,14 @@ def flash_xl_attention(qc, k, v, gA, gB, table, scale: float,
                        pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Two-stream XL attention: gA, gB (B, T, H, E) from ``xl_pos_queries``
     -> (B, T, H*D). Forward only: it raises where autograd would need its
-    backward (kernel K6 bwd, still to be ported)."""
+    backward (kernel K6 bwd, still to be ported). The streams are cast to
+    the compute dtype (bf16 when qc is bf16, else fp32), as the JAX wrapper
+    casts them: the rotated gA, gB arrive in fp32 from a bf16 model."""
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (qc, k, v, gA, gB, table)):
         raise NotImplementedError(
             "flash_xl_attention has no backward yet: the TPU kernel's backward "
             "(pallas_attention.py:_xl_bwd_pallas, K6 bwd) is still to be ported")
-    return _merge(xl_fwd(qc, k, v, gA, gB, table, scale, pad_mask)[0], qc)
+    cd = _compute_dtype(qc)
+    streams = (x.to(cd) for x in (qc, k, v, gA, gB))
+    return _merge(xl_fwd(*streams, table, scale, pad_mask)[0], qc)

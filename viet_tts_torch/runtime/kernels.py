@@ -101,6 +101,27 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         ),
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
+    "flash_rel_attention": {
+        # qc, k, v, g, table, pad, out, lse, B, T, Tp, H, D, E, is_bf16,
+        # scale, dropout_p, seed, stream
+        "vt_flash_rel_fwd": (
+            _I, [_P] * 8 + [_I] * 7 + [_F, _D, _U64, _P]
+        ),
+        "vt_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "flash_rel_attention_bwd": {
+        # qc, k, v, g, table, gout, pad, lse, delta, dqc, dg, B, T, Tp, H, D,
+        # E, is_bf16, scale, dropout_p, seed, stream
+        "vt_flash_rel_bwd_q": (
+            _I, [_P] * 11 + [_I] * 7 + [_F, _D, _U64, _P]
+        ),
+        # qc, k, v, g, table, gout, pad, lse, delta, dk, dv, dtab_part, dtab,
+        # B, T, Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream
+        "vt_flash_rel_bwd_kv": (
+            _I, [_P] * 13 + [_I] * 7 + [_F, _D, _U64, _P]
+        ),
+        "vt_error_string": (ctypes.c_char_p, [_I]),
+    },
     "fused_mrf": {
         # src, w, bias, res, hout, accin, accout, acc_div, B, T, C, seq_len,
         # K, dil, slope, stream
