@@ -82,11 +82,34 @@ Phases (any failure exits non-zero; no phase is caught):
     warm-up and three timed steps with the launches held exactly (K7 fwd,
     bwd-q and bwd-kv 10 each a step), finite metrics, both models changed,
     peak memory; one small full-width step on the card against the CPU;
-14. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
+14. kernel K6 with attention-weight dropout and its backward (bwd-q,
+    bwd-kv) against their plain versions under one seed at the training
+    shapes of the JETS legacy rel-pos conformer (B=8, H=2, D=128, E=256;
+    T=64 and 512, dropout 0 and 0.2) and of the FS2 decoder past the xl2
+    route (B=4, T=2048, H=8, D=48, E=384; dropout 0 and 0.1), fp32 and
+    bf16, ragged lengths with a fully padded row and no pad mask, bwd-kv
+    with the table's gradient; with times and SDPA (and its backward) with
+    the position term as its mask;
+15. JETS-conformer serving in the legacy rel-pos flavour
+    (``conformer_rel_pos_type: legacy``, K6 at D=128): as phase 12, with
+    the launches held per call (K6 fwd 10, K2 36, no K1 and no K7);
+16. the legacy JETS-conformer training step: as phase 13 (every dropout
+    as configured, attention 0.2 inside K6), the launches held exactly
+    (K6 fwd, bwd-q and bwd-kv 10 each a step; no K1, K3 or K7); one small
+    full-width step on the card against the CPU;
+17. FS2 training past the xl2 route: ``make_fs2_train_step`` (the model
+    of phase 10, every dropout as configured) at B=4, T_text=128,
+    T_mel=2048: two warm-up and three timed steps with the launches held
+    exactly (encoder on K4: fwd and bwd 6 a step; decoder on K6: fwd,
+    bwd-q, bwd-kv 6 each), finite losses, the parameters changed; one
+    full-width step at T_mel 1040 (decoder on K6) on the card against the
+    CPU;
+18. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
     JETS training steps, five two-stage calls, five FS2 training steps and
-    five of each JETS-conformer path, one of each under
-    ``torch.profiler``, device time by kernel group;
-15. one JSON line ``{"kernels": [...]}``, then the card's line, then
+    five of each JETS-conformer path (both flavours) and of the FS2 step
+    at T_mel 2048, one of each under ``torch.profiler``, device time by
+    kernel group;
+19. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Times are CUDA-event times over repeated launches after a warm-up. bound_ms
@@ -1163,8 +1186,9 @@ def _xl_train_work(kind: str, args, lens, T: int):
     the dot products over the live keys L of each row only (a pair needs
     one of the past / future position terms): forward content D +
     position P + weighted sum D; K4 bwd eight D-wide products (s, pos, g v,
-    dqc, dk, dv, dqv, dp); K5 bwd-q s, pos, g v, dqc and the E-wide dgA /
-    dgB (3D + 2E); K5 bwd-kv s, pos, g v, dk, dv (4D + E)."""
+    dqc, dk, dv, dqv, dp); K5 / K6 bwd-q s, pos, g v, dqc and the E-wide
+    dgA / dgB (3D + 2E; K5 writes one dg2, K6 dgA and dgB); K5 / K6 bwd-kv
+    s, pos, g v, dk, dv (4D + E)."""
     B, _, H, D = args[0].shape
     esz = args[0].element_size()
     row, stat = B * T * H * D, B * H * T
@@ -1176,9 +1200,10 @@ def _xl_train_work(kind: str, args, lens, T: int):
     if kind == "xl3":
         work["flash_xl3_bwd"] = (bwd_in + 4.0 * (4 * row + T * H * D), pairs * 8 * D)
     else:
-        work["flash_xl2_bwd_q"] = (bwd_in + 4.0 * (row + B * T * H * P),
-                                   pairs * (3 * D + 2 * P))
-        work["flash_xl2_bwd_kv"] = (bwd_in + 4.0 * 2 * row, pairs * (4 * D + P))
+        name, n_pos = ("flash_xl2", 1) if kind == "xl2" else ("flash_xl", 2)
+        work[f"{name}_bwd_q"] = (bwd_in + 4.0 * (row + n_pos * B * T * H * P),
+                                 pairs * (3 * D + 2 * P))
+        work[f"{name}_bwd_kv"] = (bwd_in + 4.0 * 2 * row, pairs * (4 * D + P))
     return work
 
 
@@ -1336,11 +1361,132 @@ def check_xl_training(dev):
 
 
 # --------------------------------------------------------------------------
+# phase 14: K6 with dropout and its backward at the training shapes
+# --------------------------------------------------------------------------
+
+FS2_LONG_B, FS2_LONG_T_TEXT, FS2_LONG_T_MEL = 4, 128, 2048  # a bucket past XL2_MAX_T
+# (model, B, T, H, D, the path's dropout, layers a step): the JETS legacy
+# rel-pos encoder and decoder on the bench.py batch, the FS2 decoder past the
+# xl2 route
+K6_TRAIN_CASES = (
+    ("JETS", TRAIN_B, TRAIN_T_TEXT, 2, 128, ATTN_DROPOUT, 4),
+    ("JETS", TRAIN_B, TRAIN_T_MEL, 2, 128, ATTN_DROPOUT, 6),
+    ("FS2", FS2_LONG_B, FS2_LONG_T_MEL, FS2_H, FS2_D, XL_TRAIN_DROPOUT, 6),
+)
+K6_BWD_REPLACES = {
+    "flash_xl_bwd_q": "viet_tts_tpu/ops/pallas_attention.py:449",
+    "flash_xl_bwd_kv": "viet_tts_tpu/ops/pallas_attention.py:488",
+}
+
+
+def check_xl_k6_training(dev):
+    """K6 forward with attention-weight dropout, K6 bwd-q and bwd-kv against
+    their plain versions under one seed at the training shapes (the JETS
+    legacy conformer: B=8, H=2, D=128, E=256 at T=64 and 512, scale
+    1/sqrt(D); the FS2 decoder: B=4, H=8, D=48, E=384 at T=2048, scale
+    1/sqrt(E)), fp32 (TF32 off, each gradient within 1e-4 of the plain one,
+    scaled by its largest value where that exceeds 1) and bf16 (2e-2),
+    dropout 0 and the path's (0.2 JETS, 0.1 FS2), ragged lengths with a
+    fully padded row and no pad mask (the paths' batches have full
+    lengths); bwd-kv with the table's gradient too. Times per launch at the
+    paths' calls (fp32, the path's dropout, no pad mask). Returns {kernel
+    name: figures, headed by the JETS decoder's shape (8, 512)}."""
+    from viet_tts_torch.ops import flash_attention as fa
+    from viet_tts_torch.ops import flash_xl_attention as fx
+
+    names = ("qc", "k", "v", "gA", "gB", "table")
+    bwds = {"flash_xl_bwd_q": (fx.xl_bwd_dq, fx.xl_bwd_dq_plain, {}),
+            "flash_xl_bwd_kv": (fx.xl_bwd_dkv, fx.xl_bwd_dkv_plain, {"want_dtab": True})}
+    figures = {}
+    for model, B, T, H, D, path_p, n_layers in K6_TRAIN_CASES:
+        E = H * D
+        scale = D ** -0.5 if model == "JETS" else 1.0 / np.sqrt(E)
+        base = xl_inputs(dev, B, T, seed=T + D, H=H, D=D)
+        rng = np.random.RandomState(T + D)
+        lens = rng.randint(1, T + 1, B)
+        lens[0], lens[-1] = T, 0  # one full row, one fully padded row
+        ragged = (torch.arange(T)[None] >= torch.from_numpy(lens)[:, None]).to(dev)
+        gout = torch.randn(B, T, H, D, generator=torch.Generator().manual_seed(T + 1)).to(dev)
+        shape = f"{model} (B={B}, T={T}, H={H}, D={D}, E={E})"
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = [base[n].to(dtype) for n in names]
+            peak = FP32_FLOP_PER_MS if dtype == torch.float32 else BF16_FLOP_PER_MS
+            for pad, pad_name, live in ((ragged, "ragged", lens),
+                                        (None, "no pad mask", np.full(B, T))):
+                padf = pad.float() if pad is not None else torch.zeros(B, T, device=dev)
+                for p in (0.0, path_p):
+                    seed = 15485863 * T + int(p * 10)
+                    ctx, lse = fx.xl_fwd(*args, scale, pad, p, seed)
+                    ref, ref_lse = fx.xl_fwd_plain(*args, scale, pad, p, seed)
+                    lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item()
+                    errs = {"flash_xl_fwd": ((ctx - ref).abs().max().item(),) * 2}
+                    finite = torch.isfinite(ctx).all().item()
+                    del ref, ref_lse
+                    delta, g = fa.backward_inputs(ctx, gout, dtype)
+                    bargs = (*args, padf, lse, delta, g, scale, p, seed)
+                    for name, (kern, plain, kw) in bwds.items():
+                        got = kern(*bargs, **kw)
+                        want = plain(*bargs, **kw)
+                        torch.cuda.synchronize()
+                        finite = finite and all(torch.isfinite(x).all().item() for x in got)
+                        errs[name] = _max_err(got, want)
+                        del got, want
+                    label = f"K6 training {shape} {str(dtype)[6:]} {pad_name} dropout={p}"
+                    lse_tol = 1e-5 if dtype == torch.float32 else 1e-3
+                    bad = {n: e for n, e in errs.items() if e[1] > tol}
+                    if bad or not finite or lse_err > lse_tol:
+                        raise AssertionError(f"{label}: max abs err (abs, scaled) {errs} (tol "
+                                             f"{tol}), finite {finite}, lse rel err {lse_err}")
+                    log(f"{label}: " + ", ".join(
+                        f"{n} {e[0]:.3e} (scaled {e[1]:.3e})" for n, e in errs.items())
+                        + f" (tol {tol}); lse {lse_err:.1e}")
+                    if dtype == torch.float32:
+                        for n, e in errs.items():
+                            entry = figures.setdefault(n, {})
+                            entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), e[0])
+                    if not (dtype == torch.float32 and pad is None and p == path_p):
+                        continue
+                    iters = 20 if T <= 512 else 5
+                    build_ms, lib_fwd, lib_bwd = _library_sdpa(_xl_pos, base, pad, scale, dtype,
+                                                              p, gout)
+                    l_fwd, l_bwd = cuda_ms(lib_fwd, iters), cuda_ms(lib_bwd, iters)
+                    del lib_fwd, lib_bwd
+                    work = _xl_train_work("xl", args, live, T)
+                    timed = {"flash_xl_fwd": (lambda: fx.xl_fwd(*args, scale, pad, p, seed),
+                                              lambda: fx.xl_fwd_plain(*args, scale, pad, p, seed),
+                                              l_fwd, work["fwd"])}
+                    for name, (kern, plain, _) in bwds.items():
+                        timed[name] = (lambda k=kern: k(*bargs), lambda q=plain: q(*bargs),
+                                       l_bwd, work[name])
+                    for name, (k_fn, p_fn, l_ms, (nbytes, flops)) in timed.items():
+                        k_ms = cuda_ms(k_fn, iters)
+                        p_ms = cuda_ms(p_fn, 3, warmup=1)
+                        b_ms, kind_b = bound(nbytes, flops, peak)
+                        log(f"  {name} {shape}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+                            f"library_ms {l_ms:.4f} (mask built in {build_ms:.1f} ms) bound_ms "
+                            f"{b_ms:.4f} ({kind_b}) {flops / k_ms / 1e9:.2f} TFLOP/s; "
+                            f"x{n_layers} a step")
+                        fig = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                                   bound_by=kind_b, library_mask_build_ms=build_ms,
+                                   per=f"one launch at {shape}, fp32, dropout {p}, no pad mask "
+                                       f"(the training path's; {n_layers} a step)")
+                        entry = figures.setdefault(name, {})
+                        entry.setdefault("per_shape", {})[shape] = fig
+                        if model == "JETS" and T == TRAIN_T_MEL:  # the head of the entry
+                            entry.update(fig)
+            del args
+        del base
+        torch.cuda.empty_cache()
+    return figures
+
+
+# --------------------------------------------------------------------------
 # phase 10: the FS2 training path
 # --------------------------------------------------------------------------
 
 XL_COUNTED = ("flash_xl3_fwd", "flash_xl3_bwd", "flash_xl2_fwd", "flash_xl2_bwd_q",
-              "flash_xl2_bwd_kv", "flash_xl_fwd", "flash_attention_fwd")
+              "flash_xl2_bwd_kv", "flash_xl_fwd", "flash_xl_bwd_q", "flash_xl_bwd_kv",
+              "flash_attention_fwd")
 
 
 def _xl_wrappers():
@@ -1348,7 +1494,8 @@ def _xl_wrappers():
     from viet_tts_torch.ops import flash_xl_attention as fx
 
     return dict(zip(XL_COUNTED, (fx.xl3_fwd, fx.xl3_bwd, fx.xl2_fwd, fx.xl2_bwd_dq,
-                                 fx.xl2_bwd_dkv, fx.xl_fwd, fa.attention_fwd)))
+                                 fx.xl2_bwd_dkv, fx.xl_fwd, fx.xl_bwd_dq, fx.xl_bwd_dkv,
+                                 fa.attention_fwd)))
 
 
 def build_fs2_train(zero_dropout: bool = False):
@@ -1416,17 +1563,19 @@ def fs2_batch(B: int, T_text: int, T_mel: int, dev):
 
 def fs2_step_launches(T_mel: int):
     """Launches of each XL kernel in one FS2 training step: 6 encoder
-    layers on K4 (forward and backward), 6 decoder layers on K4 up to 512
-    padded frames, on K5 (forward, bwd-q, bwd-kv) up to 1024."""
-    from viet_tts_torch.ops.flash_xl_attention import xl3_padded_time
+    layers on K4 (forward and backward; the text stays within its 512
+    frames), 6 decoder layers on K4 up to 512 padded frames, on K5
+    (forward, bwd-q, bwd-kv) up to 1024, on K6 (the same three) beyond."""
+    from viet_tts_torch.ops.flash_xl_attention import padded_time, xl3_padded_time
 
     counts = dict.fromkeys(XL_COUNTED, 0)
     counts["flash_xl3_fwd"] = counts["flash_xl3_bwd"] = 6
     if xl3_padded_time(T_mel) <= 512:
         counts["flash_xl3_fwd"] = counts["flash_xl3_bwd"] = 12
     else:
-        for name in ("flash_xl2_fwd", "flash_xl2_bwd_q", "flash_xl2_bwd_kv"):
-            counts[name] = 6
+        kind = "xl2" if padded_time(T_mel) <= 1024 else "xl"
+        for name in ("fwd", "bwd_q", "bwd_kv"):
+            counts[f"flash_{kind}_{name}"] = 6
     return counts
 
 
@@ -1504,16 +1653,17 @@ def check_fs2_training_path(dev, steps: int = 3, warmup: int = 2):
     return launches, figures, (step, state, batch, rng)
 
 
-def check_fs2_training_against_cpu(dev):
-    """One step at full width on a small batch (B=2, T_text=16, T_mel=600:
-    encoder on K4, decoder on K5), every dropout 0 and the same CVAE
-    noise, from the same weights, on the card (kernels) and on the CPU
-    (plain versions): every loss and the gradient norm within rel 1e-3."""
+def check_fs2_training_against_cpu(dev, T_mel: int = 600):
+    """One step at full width on a small batch (B=2, T_text=16; T_mel=600:
+    encoder on K4, decoder on K5; T_mel=1040: decoder on K6), every dropout
+    0 and the same CVAE noise, from the same weights, on the card (kernels)
+    and on the CPU (plain versions): every loss and the gradient norm
+    within rel 1e-3."""
     from viet_tts_torch.train.steps import make_fs2_train_step
 
     from viet_tts_torch.config import fastspeech2_params
 
-    B, T_text, T_mel = 2, 16, 600
+    B, T_text = 2, 16
     z_dim = fastspeech2_params()["encoder_hidden"] // 2  # the CVAE's latent width
     gen = torch.Generator().manual_seed(5)
     eps = tuple(torch.randn(B, z_dim, generator=gen) for _ in range(2))
@@ -1533,6 +1683,54 @@ def check_fs2_training_against_cpu(dev):
         raise AssertionError(f"FS2 training step card vs CPU: {card} vs {cpu}, rel {rel}")
     log(f"FS2 training step card (kernels) vs CPU (plain), B={B} T_mel={T_mel}: max rel "
         f"diff {max(rel.values()):.3e} (tol 1e-3) over {sorted(rel)}")
+
+
+# --------------------------------------------------------------------------
+# phase 17: FS2 training past the xl2 route
+# --------------------------------------------------------------------------
+
+
+def check_fs2_long_training(dev, step, state, rng, steps: int = 3, warmup: int = 2):
+    """``make_fs2_train_step`` (phase 10's model, optimizer and step, every
+    dropout as configured) at B=4, T_text=128, T_mel=2048, a padded length
+    above 1024: the decoder runs on K6 (fwd, bwd-q, bwd-kv), the encoder on
+    K4. ``warmup`` then ``steps`` timed steps with the XL kernels' launches
+    held exactly; finite losses, the parameters changed, peak memory; then
+    one full-width step at T_mel 1040 on the card against the CPU."""
+    model = state.module
+    wrappers = _xl_wrappers()
+    before = _flat_params(model)
+    batch = fs2_batch(FS2_LONG_B, FS2_LONG_T_TEXT, FS2_LONG_T_MEL, dev)
+    for _ in range(warmup):
+        state, _ = step(state, batch, rng)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, rng)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    expect = {k: n * steps for k, n in fs2_step_launches(FS2_LONG_T_MEL).items()}
+    if got != expect:
+        raise AssertionError(f"FS2 training T_mel={FS2_LONG_T_MEL}: launches {got}, "
+                             f"expected {expect}")
+    values = {k: v.item() for k, v in metrics.items()}
+    changed = (before - _flat_params(model)).abs().max().item()
+    if not all(np.isfinite(v) for v in values.values()) or changed <= 0.0:
+        raise AssertionError(f"FS2 training T_mel={FS2_LONG_T_MEL}: metrics {values}, "
+                             f"parameter change {changed}")
+    med = sorted(times)[len(times) // 2]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"FS2 training path B={FS2_LONG_B} T_text={FS2_LONG_T_TEXT} T_mel={FS2_LONG_T_MEL}: "
+        f"step host seconds {[round(x, 4) for x in times]} (median {med:.4f}); peak "
+        f"{peak_gb:.2f} GB; launches over {steps} steps {got}; metrics {values}; max "
+        f"parameter change {changed:.3e}")
+    check_fs2_training_against_cpu(dev, T_mel=1040)
+    return got, {"step_s": med, "peak_gb": peak_gb}, (step, state, batch, rng)
 
 
 # --------------------------------------------------------------------------
@@ -1763,28 +1961,43 @@ def check_rel_kernels(dev, t_text: int):
 # --------------------------------------------------------------------------
 
 CONFORMER_HP = {"encoder_type": "conformer", "decoder_type": "conformer"}
+# the attention kernels of each rel-pos flavour: K7 ("latest"), K6 ("legacy")
+JC_KERNELS = {"latest": ("flash_rel_fwd", "flash_rel_bwd_q", "flash_rel_bwd_kv"),
+              "legacy": ("flash_xl_fwd", "flash_xl_bwd_q", "flash_xl_bwd_kv")}
+
+
+def _conformer_hp(flavour: str):
+    return dict(CONFORMER_HP, conformer_rel_pos_type=flavour)
+
+
+def _jc_label(flavour: str) -> str:
+    return "JETS-conformer" + ("" if flavour == "latest" else " (legacy rel-pos)")
 
 
 def _jc_wrappers():
     from viet_tts_torch.ops import flash_attention as fa
     from viet_tts_torch.ops import flash_rel_attention as fr
+    from viet_tts_torch.ops import flash_xl_attention as fx
     from viet_tts_torch.ops import fused_mrf as fm
 
     return {"flash_rel_fwd": fr.rel_fwd, "flash_rel_bwd_q": fr.rel_bwd_dq,
-            "flash_rel_bwd_kv": fr.rel_bwd_dkv, "fused_mrf_stage": fm.fused_mrf_stage,
-            "flash_attention_fwd": fa.attention_fwd}
+            "flash_rel_bwd_kv": fr.rel_bwd_dkv, "flash_xl_fwd": fx.xl_fwd,
+            "flash_xl_bwd_q": fx.xl_bwd_dq, "flash_xl_bwd_kv": fx.xl_bwd_dkv,
+            "fused_mrf_stage": fm.fused_mrf_stage, "flash_attention_fwd": fa.attention_fwd,
+            "flash_attention_bwd_q": fa.attention_bwd_dq,
+            "flash_attention_bwd_kv": fa.attention_bwd_dkv}
 
 
 def _counts():
     return {name: fn.launches for name, fn in _jc_wrappers().items()}
 
 
-def build_conformer_checkpoint(ckpt_dir: str) -> str:
-    """Full-width JETS with espnet "latest" rel-pos conformer stacks
-    (config/model_config.yaml:234-326 with encoder_type / decoder_type
-    conformer: adim 256, 2 heads, 4 + 6 layers, conv kernels 7 / 31,
-    macaron, conv1d FFN, GST, HiFi-GAN V1), flash attention, seeded random
-    weights, saved as a port checkpoint."""
+def build_conformer_checkpoint(ckpt_dir: str, flavour: str = "latest") -> str:
+    """Full-width JETS with espnet rel-pos conformer stacks of the given
+    flavour (config/model_config.yaml:234-326 with encoder_type /
+    decoder_type conformer: adim 256, 2 heads, 4 + 6 layers, conv kernels
+    7 / 31, macaron, conv1d FFN, GST, HiFi-GAN V1), flash attention, seeded
+    random weights, saved as a port checkpoint."""
     from viet_tts_torch.infer.api import default_conf, save_checkpoint
     from viet_tts_torch.models.jets import JETS
     from viet_tts_torch.nn.utils import seeded_init_
@@ -1792,13 +2005,13 @@ def build_conformer_checkpoint(ckpt_dir: str) -> str:
 
     conf = default_conf()
     hp = conf["models"]["jets"]["generator_params"]
-    hp.update(CONFORMER_HP, attn_implementation="flash")
+    hp.update(_conformer_hp(flavour), attn_implementation="flash")
     model = JETS(NUM_SYMBOLS, conf["audio"]["mel"]["channels"], hp)
     seeded_init_(model, torch.Generator().manual_seed(SEED))
     with torch.no_grad():
         for up in model.generator.upsamples:  # audio-scale output (see phase 5)
             up[1].weight_g.fill_(1.0)
-    log(f"JETS-conformer full width: {sum(p.numel() for p in model.parameters())} "
+    log(f"{_jc_label(flavour)} full width: {sum(p.numel() for p in model.parameters())} "
         f"parameters, adim {hp['adim']}, {hp['aheads']} heads, {hp['elayers']} + "
         f"{hp['dlayers']} conformer layers ({hp['conformer_rel_pos_type']} rel-pos, conv k="
         f"{hp['conformer_enc_kernel_size']} / {hp['conformer_dec_kernel_size']})")
@@ -1806,32 +2019,35 @@ def build_conformer_checkpoint(ckpt_dir: str) -> str:
     return ckpt_dir
 
 
-def check_conformer_serving(dev, ckpt_dir: str):
+def check_conformer_serving(dev, ckpt_dir: str, flavour: str = "latest"):
     """OneStageTTS on the conformer checkpoint: 16 sentences in fp32 and in
-    bf16, then the HTTP server; every call's launches held (K7 fwd 10 = 4
-    encoder + 6 decoder layers, K2 36, no K1 and no backward); the host
-    median of 5 fp32 calls; a small input on the card against the CPU."""
+    bf16, then the HTTP server; every call's launches held (the flavour's
+    attention forward, K7 or K6, 10 = 4 encoder + 6 decoder layers, K2 36,
+    no other attention kernel and no backward); the host median of 5 fp32
+    calls; a small input on the card against the CPU."""
     from viet_tts_torch.infer.api import OneStageTTS
     from viet_tts_torch.infer.server import serve
 
+    name = _jc_label(flavour)
+    fwd_name = JC_KERNELS[flavour][0]
     tts = OneStageTTS(ckpt_dir, fused_vocoder=True)
     tts_half = OneStageTTS(ckpt_dir, fused_vocoder=True, half=True)
     for model in (tts, tts_half):  # warm-up: cuDNN autotune, allocator
         model(SENTENCES[:2])
     torch.cuda.synchronize()
-    per_call = {"flash_rel_fwd": 10, "fused_mrf_stage": 36, "flash_attention_fwd": 0,
-                "flash_rel_bwd_q": 0, "flash_rel_bwd_kv": 0}
+    per_call = dict.fromkeys(_jc_wrappers(), 0)
+    per_call.update({fwd_name: 10, "fused_mrf_stage": 36})
     for fn in _jc_wrappers().values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     n = len(SENTENCES)
     waves, call_s = _counted_call(lambda: tts(SENTENCES), per_call,
-                                  f"JETS-conformer fp32 __call__({n})", _counts)
+                                  f"{name} fp32 __call__({n})", _counts)
     waves_half, half_s = _counted_call(lambda: tts_half(SENTENCES), per_call,
-                                       f"JETS-conformer bf16 __call__({n})", _counts)
+                                       f"{name} bf16 __call__({n})", _counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    _check_waves(waves, len(SENTENCES), "JETS-conformer fp32")
-    _check_waves(waves_half, len(SENTENCES), "JETS-conformer bf16")
+    _check_waves(waves, len(SENTENCES), f"{name} fp32")
+    _check_waves(waves_half, len(SENTENCES), f"{name} bf16")
     before = _counts()
     httpd = serve(tts, port=0, model_name="JETS")
     try:
@@ -1845,7 +2061,7 @@ def check_conformer_serving(dev, ckpt_dir: str):
         code, body = post(f"{base}/synthesize", {"text": longest})
         codes.append(code)
         if body[:4] != b"RIFF":
-            raise AssertionError("JETS-conformer /synthesize did not return a WAV")
+            raise AssertionError(f"{name} /synthesize did not return a WAV")
         t0 = time.perf_counter()
         code, stream_body = post(f"{base}/synthesize_stream", {"text": longest})
         stream_s = time.perf_counter() - t0
@@ -1855,16 +2071,17 @@ def check_conformer_serving(dev, ckpt_dir: str):
         httpd.server_close()
     server = {k: v - before[k] for k, v in _counts().items()}
     if codes != [200] * 3 or health.get("status") != "ok":
-        raise AssertionError(f"JETS-conformer HTTP codes {codes}, health {health}")
+        raise AssertionError(f"{name} HTTP codes {codes}, health {health}")
     if len(stream_body) % 2 or not stream_body:
-        raise AssertionError("JETS-conformer /synthesize_stream returned no PCM")
+        raise AssertionError(f"{name} /synthesize_stream returned no PCM")
     # one /synthesize (a batch of one) and one stream (its acoustic half
     # once, then one vocoder window per chunk)
-    if (server["flash_rel_fwd"] != 20 or server["fused_mrf_stage"] < 72
-            or server["fused_mrf_stage"] % 36 or server["flash_attention_fwd"]):
-        raise AssertionError(f"JETS-conformer server launches {server}")
+    others = [k for k in server if k not in (fwd_name, "fused_mrf_stage") and server[k]]
+    if (server[fwd_name] != 20 or server["fused_mrf_stage"] < 72
+            or server["fused_mrf_stage"] % 36 or others):
+        raise AssertionError(f"{name} server launches {server}")
     launches = _counts()
-    log(f"JETS-conformer serving: peak {peak_gb:.2f} GB; server HTTP {codes}, "
+    log(f"{name} serving: peak {peak_gb:.2f} GB; server HTTP {codes}, "
         f"/synthesize_stream {stream_s:.3f} s, {len(stream_body) // 2} samples, launches "
         f"{server}; over the phase {launches}; mel frames per sentence "
         f"{[w.size // 256 for w in waves]}")
@@ -1877,7 +2094,7 @@ def check_conformer_serving(dev, ckpt_dir: str):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     med = sorted(times)[len(times) // 2]
-    log(f"JETS-conformer fp32 __call__({n}): host median of 5 {med:.4f} s "
+    log(f"{name} fp32 __call__({n}): host median of 5 {med:.4f} s "
         f"({[round(x, 4) for x in times]}); bf16 call {half_s:.4f} s")
 
     cpu_model = copy.deepcopy(tts.model).to("cpu")
@@ -1890,9 +2107,9 @@ def check_conformer_serving(dev, ckpt_dir: str):
                                            frames)
     err = (wav_gpu.cpu() - wav_cpu).abs().max().item()
     if not torch.equal(len_gpu.cpu(), len_cpu) or err > 1e-3:
-        raise AssertionError(f"JETS-conformer card vs CPU: lengths {len_gpu.tolist()} vs "
+        raise AssertionError(f"{name} card vs CPU: lengths {len_gpu.tolist()} vs "
                              f"{len_cpu.tolist()}, max_abs_err {err}")
-    log(f"JETS-conformer card (kernels) vs CPU (plain) on 2 sentences x {frames} frames: "
+    log(f"{name} card (kernels) vs CPU (plain) on 2 sentences x {frames} frames: "
         f"max_abs_err {err:.3e} (tol 1e-3), peak |wav| {wav_cpu.abs().max().item():.3f}")
     return launches, tts, {"call_s": med, "half_s": half_s, "peak_gb": peak_gb}
 
@@ -1902,17 +2119,19 @@ def check_conformer_serving(dev, ckpt_dir: str):
 # --------------------------------------------------------------------------
 
 
-def check_conformer_training(dev, steps: int = 3, warmup: int = 2):
-    """``make_jets_train_step`` on the full-width JETS-conformer and the full
-    MSMPD (every dropout as configured, attention 0.2 inside K7) with the
-    bench.py batch (B=8, T_text=64, T_mel=512): ``warmup`` then ``steps``
-    timed steps with the launches held exactly (K7 fwd, bwd-q and bwd-kv
-    10 each a step, no K1 / K3), finite metrics, both models changed, peak
+def check_conformer_training(dev, flavour: str = "latest", steps: int = 3, warmup: int = 2):
+    """``make_jets_train_step`` on the full-width JETS-conformer of the given
+    rel-pos flavour and the full MSMPD (every dropout as configured,
+    attention 0.2 inside K7 or K6) with the bench.py batch (B=8, T_text=64,
+    T_mel=512): ``warmup`` then ``steps`` timed steps with the launches
+    held exactly (the flavour's fwd, bwd-q and bwd-kv 10 each a step, no
+    other attention kernel), finite metrics, both models changed, peak
     memory; then one small full-width step on the card against the CPU."""
     from viet_tts_torch.config import jets_lambdas
     from viet_tts_torch.train.gan import make_jets_train_step
 
-    model, disc, mel_loss, train_conf, hop = build_gan(CONFORMER_HP)
+    name = _jc_label(flavour)
+    model, disc, mel_loss, train_conf, hop = build_gan(_conformer_hp(flavour))
     model.to(dev)
     disc.to(dev)
     gen_state, disc_state = gan_states(model, disc, train_conf)
@@ -1934,22 +2153,22 @@ def check_conformer_training(dev, steps: int = 3, warmup: int = 2):
         times.append(time.perf_counter() - t0)
     launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expect = {"flash_rel_fwd": 10 * steps, "flash_rel_bwd_q": 10 * steps,
-              "flash_rel_bwd_kv": 10 * steps, "fused_mrf_stage": 0, "flash_attention_fwd": 0}
+    expect = dict.fromkeys(launches, 0)
+    expect.update(dict.fromkeys(JC_KERNELS[flavour], 10 * steps))
     if launches != expect:
-        raise AssertionError(f"JETS-conformer training launches {launches}, expected {expect}")
+        raise AssertionError(f"{name} training launches {launches}, expected {expect}")
     values = {k: v.item() for k, v in metrics.items()}
     changed = [(a - b).abs().max().item() for a, b in
                zip(before, (_flat_params(model), _flat_params(disc)))]
     if not all(np.isfinite(v) for v in values.values()) or min(changed) <= 0.0:
-        raise AssertionError(f"JETS-conformer metrics {values}, parameter change {changed}")
+        raise AssertionError(f"{name} metrics {values}, parameter change {changed}")
     median = sorted(times)[len(times) // 2]
-    log(f"JETS-conformer training: {sum(p.numel() for p in model.parameters())} parameters, "
+    log(f"{name} training: {sum(p.numel() for p in model.parameters())} parameters, "
         f"batch B={TRAIN_B} T_text={TRAIN_T_TEXT} T_mel={TRAIN_T_MEL}; step host seconds "
         f"{[round(x, 4) for x in times]} (median {median:.4f}); peak {peak_gb:.2f} GB; "
         f"launches over {steps} steps {launches}; metrics {values}; max parameter change "
         f"gen {changed[0]:.3e} disc {changed[1]:.3e}")
-    check_training_against_cpu(dev, CONFORMER_HP)
+    check_training_against_cpu(dev, _conformer_hp(flavour))
     return launches, {"step_s": median, "peak_gb": peak_gb}, (step, gen_state, disc_state,
                                                               batch, rng)
 
@@ -1957,6 +2176,12 @@ def check_conformer_training(dev, steps: int = 3, warmup: int = 2):
 # --------------------------------------------------------------------------
 # --profile: where the time of one __call__ and of one training step goes
 # --------------------------------------------------------------------------
+
+def _two_stream(kernel: str):
+    """The K6 (two-stream) instances of a template that K5 shares."""
+    return tuple(f"{kernel}<{t}, {d}, false>" for t in ("float", "__nv_bfloat16")
+                 for d in (48, 64, 128))
+
 
 # kernel-name fragments -> the layer each kernel belongs to (first match wins)
 KERNEL_GROUPS = (
@@ -1966,6 +2191,8 @@ KERNEL_GROUPS = (
     ("K2 mrf_conv_kernel", ("mrf_conv_kernel",)),
     ("K4 xl3_fwd_kernel", ("xl3_fwd_kernel",)),
     ("K4 bwd (xl3_bwd_q / kv / reduce)", ("xl3_bwd_",)),
+    ("K6 bwd-q (xl2_bwd_q, two streams)", _two_stream("xl2_bwd_q_kernel")),
+    ("K6 bwd-kv (xl2_bwd_kv, two streams)", _two_stream("xl2_bwd_kv_kernel")),
     ("K5 bwd-q (xl2_bwd_q + carry)", ("xl2_bwd_q_kernel", "xl2_bwd_carry")),
     ("K5 bwd-kv (xl2_bwd_kv + dtab)", ("xl2_bwd_kv_kernel", "xl2_bwd_dtab")),
     ("K5 xl2_fwd_kernel (rotating)", ("xl2_fwd_kernel<float, 48, true>",
@@ -2036,9 +2263,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, time five fp32 __call__s of 16 "
                          "sentences, five JETS training steps, five two-stage "
-                         "calls, five FS2 training steps at T_mel 1008, five "
-                         "JETS-conformer calls and five JETS-conformer steps, "
-                         "and profile one of each (device time by kernel group, "
+                         "calls, five FS2 training steps at T_mel 1008 and five "
+                         "at 2048, five JETS-conformer calls and five "
+                         "JETS-conformer steps of each rel-pos flavour, and "
+                         "profile one of each (device time by kernel group, "
                          "busy share; per-kernel tables in the output "
                          "directory, chip_smoke_profile*.txt)")
     args = ap.parse_args()
@@ -2084,6 +2312,15 @@ def main() -> int:
     jc_launches, jc_tts, jc_figures = check_conformer_serving(dev, jc_ckpt)
     jc_train_launches, jc_train_figures, (jc_step, *jc_step_args) = \
         check_conformer_training(dev)
+    k6_train = check_xl_k6_training(dev)
+    jl_ckpt = build_conformer_checkpoint(os.path.join(REPO, "build", "chip_smoke_jets_legacy"),
+                                         "legacy")
+    jl_launches, jl_tts, jl_figures = check_conformer_serving(dev, jl_ckpt, "legacy")
+    jl_train_launches, jl_train_figures, (jl_step, *jl_step_args) = \
+        check_conformer_training(dev, "legacy")
+    fs2_state_, fs2_rng = fs2_step_args[0], fs2_step_args[2]
+    fs2_long_launches, fs2_long_figures, (fs2_long_step, *fs2_long_args) = \
+        check_fs2_long_training(dev, fs2_step, fs2_state_, fs2_rng)
     if args.profile:
         profile_call(lambda: tts(SENTENCES), "fp32 __call__(16)", "chip_smoke_profile.txt")
         profile_call(lambda: step(*step_args), "training step",
@@ -2097,6 +2334,13 @@ def main() -> int:
                      "chip_smoke_profile_jets_conformer.txt")
         profile_call(lambda: jc_step(*jc_step_args), "JETS-conformer training step",
                      "chip_smoke_profile_jets_conformer_train.txt")
+        profile_call(lambda: jl_tts(SENTENCES), "JETS-conformer legacy fp32 __call__(16)",
+                     "chip_smoke_profile_jets_legacy.txt")
+        profile_call(lambda: jl_step(*jl_step_args), "JETS-conformer legacy training step",
+                     "chip_smoke_profile_jets_legacy_train.txt")
+        profile_call(lambda: fs2_long_step(*fs2_long_args),
+                     f"FS2 training step (B={FS2_LONG_B}, T_mel {FS2_LONG_T_MEL})",
+                     "chip_smoke_profile_fs2_long_train.txt")
     for entry in (k1, k2):
         entry["launches"] = launches[entry["name"]]
     k1["name_detail"] = "forward, with attention-weight dropout in training"
@@ -2128,6 +2372,26 @@ def main() -> int:
          **xl_train[name]}
         for name in ("flash_xl3_bwd", "flash_xl2_bwd_q", "flash_xl2_bwd_kv")]
     xl_entries[2]["jets_width"] = k6_jets
+    k6_paths = {"jets_legacy_training": jl_train_launches,
+                "fs2_2048_training": fs2_long_launches}
+    k6_per = ("the legacy JETS-conformer training phase's 3 timed steps (10 a step) and the "
+              f"FS2 T_mel {FS2_LONG_T_MEL} training phase's 3 timed steps (6 a step)")
+    xl_entries[2]["name_detail"] = "forward, with attention-weight dropout in training"
+    xl_entries[2]["legacy_serving_launches"] = jl_launches["flash_xl_fwd"]
+    xl_entries[2]["train_step"] = {
+        "launches": sum(c["flash_xl_fwd"] for c in k6_paths.values()), "launches_per": k6_per,
+        "launches_by_path": {k: c["flash_xl_fwd"] for k, c in k6_paths.items()},
+        **k6_train["flash_xl_fwd"]}
+    k6_bwd_entries = [
+        {"name": name, "route": "cuda",
+         "source": "viet_tts_torch/csrc/flash_xl_attention_bwd.cu",
+         "replaces": K6_BWD_REPLACES[name],
+         "launches": sum(c[name] for c in k6_paths.values()), "launches_per": k6_per,
+         "launches_by_path": {k: c[name] for k, c in k6_paths.items()}, "tol": 1e-4,
+         "library": "F.scaled_dot_product_attention backward (dq, dk and dv together) "
+                    "with scale * pos as an additive mask, on a retained graph",
+         **k6_train[name]}
+        for name in K6_BWD_REPLACES]
     rel_entries = [rel[name] for name in REL_REPLACES]
     rel_entries[0]["launches"] = jc_launches["flash_rel_fwd"]
     rel_entries[0]["launches_per"] = ("the JETS-conformer serving phase: two __call__s of 16 "
@@ -2148,11 +2412,16 @@ def main() -> int:
         log(f"FS2 training step at T_mel {T_mel}: host median "
             f"{fs2_train_figures[T_mel]['step_s']:.4f} s, peak "
             f"{fs2_train_figures[T_mel]['peak_gb']:.2f} GB")
-    log(f"JETS-conformer: fp32 __call__(16) host median {jc_figures['call_s']:.4f} s, bf16 "
-        f"{jc_figures['half_s']:.4f} s; training step host median "
-        f"{jc_train_figures['step_s']:.4f} s, peak {jc_train_figures['peak_gb']:.2f} GB")
+    for label, serve_fig, train_fig in (
+            ("JETS-conformer", jc_figures, jc_train_figures),
+            ("JETS-conformer legacy", jl_figures, jl_train_figures)):
+        log(f"{label}: fp32 __call__(16) host median {serve_fig['call_s']:.4f} s, bf16 "
+            f"{serve_fig['half_s']:.4f} s; training step host median "
+            f"{train_fig['step_s']:.4f} s, peak {train_fig['peak_gb']:.2f} GB")
+    log(f"FS2 training step at B={FS2_LONG_B} T_mel {FS2_LONG_T_MEL}: host median "
+        f"{fs2_long_figures['step_s']:.4f} s, peak {fs2_long_figures['peak_gb']:.2f} GB")
     print(json.dumps({"kernels": [k1, k2, *k3, *xl_entries, *xl_bwd_entries,
-                                  *rel_entries]}))
+                                  *k6_bwd_entries, *rel_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -116,12 +116,13 @@ def test_flash_routes_by_padded_length(monkeypatch):
     while the 32-padded T is at most 1024, xl beyond (the JAX module's
     thresholds), and each gives the shift path's answer."""
     from viet_tts_torch.ops import flash_xl_attention as fx
+    from viet_tts_torch.ops import xl_attention as txl
 
     calls = []
     for name in ("flash_xl3_attention", "flash_xl2_attention", "flash_xl_attention"):
-        fn = getattr(tc, name)
-        monkeypatch.setattr(tc, name, lambda *a, _fn=fn, _n=name, **k: (calls.append(_n),
-                                                                          _fn(*a, **k))[1])
+        fn = getattr(txl, name)
+        monkeypatch.setattr(txl, name, lambda *a, _fn=fn, _n=name, **k: (calls.append(_n),
+                                                                           _fn(*a, **k))[1])
     flash = _seeded(tc.RelativeMultiHeadAttention(D_MODEL, HEADS, 0.1, "flash"))
     shift = _seeded(tc.RelativeMultiHeadAttention(D_MODEL, HEADS, 0.1, "shift"))
     for T_, want in ((512, "flash_xl3_attention"), (513, "flash_xl2_attention"),

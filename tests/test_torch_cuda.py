@@ -309,6 +309,102 @@ def test_xl_kernel_k6_at_the_jets_width(cuda_device, T, dtype, atol, pad_rows):
     assert (ctx - ref).abs().max().item() <= atol
 
 
+# (B, T, H, D): the JETS legacy rel-pos training shapes (E = 256) and the
+# FS2 decoder past the xl2 route (E = 384)
+XL_K6_TRAIN_CASES = [(8, 64, 2, 128), (8, 512, 2, 128), (4, 2048, 8, 48)]
+XL_NAMES = ("qc", "k", "v", "gA", "gB", "table")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,D", XL_K6_TRAIN_CASES)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("pad_rows", [True, False])
+def test_xl_k6_training_kernels_match_plain(cuda_device, B, T, H, D, dtype, atol, pad_rows):
+    """K6 forward with attention-weight dropout 0.2 against the plain
+    forward, then K6 bwd-q (dqc, dgA, dgB) and bwd-kv (dk, dv, and dtab with
+    ``want_dtab``) against their plain versions on the kernel's own context
+    and lse, under one seed, with a ragged and a fully padded row or no pad
+    mask; each gradient within atol of the plain one, scaled by its largest
+    value where that exceeds 1."""
+    streams, pad, scale = xl_case(cuda_device, B, T, H=H, D=D, seed=T + D, pad_rows=pad_rows)
+    p, seed = 0.2, 987654321
+    args = [streams[n].to(dtype) for n in XL_NAMES]
+    before = fx.xl_fwd.launches
+    ctx, lse = fx.xl_fwd(*args, scale, pad, p, seed)
+    assert fx.xl_fwd.launches == before + 1
+    ref_ctx, _ = fx.xl_fwd_plain(*args, scale, pad, p, seed)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ctx).all()
+    assert (ctx - ref_ctx).abs().max().item() <= atol
+    del ref_ctx
+    gout = torch.from_numpy(np.random.RandomState(T).randn(*ctx.shape).astype(np.float32))
+    delta, g = fa.backward_inputs(ctx, gout.to(ctx.device), dtype)
+    padf = pad.float() if pad is not None else torch.zeros(B, T, device=cuda_device)
+    bwd_args = (*args, padf, lse, delta, g, scale, p, seed)
+    for kern, plain, kw in ((fx.xl_bwd_dq, fx.xl_bwd_dq_plain, {}),
+                            (fx.xl_bwd_dkv, fx.xl_bwd_dkv_plain, {"want_dtab": True})):
+        before = kern.launches
+        got = kern(*bwd_args, **kw)
+        assert kern.launches == before + 1
+        want = plain(*bwd_args, **kw)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.shape == b.shape, (kern.__name__, i)
+            assert torch.isfinite(a).all(), (kern.__name__, i)
+            err = (a - b).abs().max().item()
+            assert err <= atol * max(1.0, b.abs().max().item()), (kern.__name__, i, err)
+        del got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,D", [(8, 48), (2, 128)])
+def test_xl_k6_dropout_mask_is_the_plain_mask_bit_for_bit(cuda_device, H, D):
+    """With v the identity, K6's context is the dropped weights themselves:
+    its zeros are exactly where ``dropout_keep_mask`` drops (the two-stream
+    tiles draw the keep bit of the same (b, h, i, j) as the plain version);
+    with one-hot cotangent rows, bwd-kv's dv is the dropped weights
+    transposed, with the same zeros."""
+    T, p, seed = 64, 0.2, 77
+    streams, _, scale = xl_case(cuda_device, 3, T, H=H, D=D, seed=5, pad_rows=False)
+    B = 3
+    eye = torch.eye(T, D, device=cuda_device)[None, :, None, :].expand(B, T, H, D).contiguous()
+    args = [streams["qc"], streams["k"], eye, streams["gA"], streams["gB"], streams["table"]]
+    ctx, lse = fx.xl_fwd(*args, scale, None, p, seed)
+    keep = fa.dropout_keep_mask(seed, B, H, T, T, p, cuda_device)  # (B, H, i, j)
+    torch.cuda.synchronize()
+    n = min(T, D)
+    assert torch.equal(ctx[..., :n].permute(0, 2, 1, 3) != 0, keep[..., :n])
+    delta, g = fa.backward_inputs(ctx, eye, torch.float32)
+    _, dv, _ = fx.xl_bwd_dkv(*args, torch.zeros(B, T, device=cuda_device), lse, delta, g,
+                             scale, p, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(dv[..., :n].permute(0, 2, 3, 1) != 0, keep[:, :, :n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H,D", [(300, 2, 128), (1100, 8, 48)])
+def test_xl_k6_autograd_function_launches_the_kernels(cuda_device, T, H, D):
+    """The public two-stream op on CUDA tensors that need gradients (the
+    table too): one K6 forward, bwd-q and bwd-kv launch each, and the
+    gradients of autograd through the plain forward on the same seed."""
+    streams, pad, scale = xl_case(cuda_device, 3, T, H=H, D=D, seed=T)
+    fns = (fx.xl_fwd, fx.xl_bwd_dq, fx.xl_bwd_dkv)
+    counts = [f.launches for f in fns]
+    leaves = [streams[n].clone().requires_grad_() for n in XL_NAMES]
+    out = fx.flash_xl_attention(*leaves, scale, pad_mask=pad, dropout_p=0.2, dropout_seed=5)
+    gout = torch.randn(out.shape, generator=torch.Generator().manual_seed(4)).to(out.device)
+    (out * gout).sum().backward()
+    assert [f.launches for f in fns] == [c + 1 for c in counts]
+    ref_leaves = [streams[n].clone().requires_grad_() for n in XL_NAMES]
+    ref, _ = fx.xl_fwd_plain(*ref_leaves, scale, pad, 0.2, 5)
+    (ref.reshape(out.shape) * gout).sum().backward()
+    torch.cuda.synchronize()
+    assert (out - ref.reshape(out.shape)).abs().max().item() <= 1e-4
+    for name, a, b in zip(XL_NAMES, leaves, ref_leaves):
+        err = (a.grad - b.grad).abs().max().item()
+        assert err <= 1e-4 * max(1.0, b.grad.abs().max().item()), (name, err)
+
+
 def rel_case(device, B, T, H=2, D=128, seed=0, pad_rows=True):
     """One espnet 'latest' rel-pos attention at the JETS width (fp32, on
     device): qc, k, v (B, T, H, D), the rotated position queries g

@@ -197,7 +197,8 @@ def test_encoder_matches_flax(flavour, route):
 
 
 @pytest.mark.parametrize("flavour,route,ffn_type", [("latest", "flash", "conv1d"),
-                                                   ("legacy", "dense", "linear")])
+                                                   ("legacy", "dense", "linear"),
+                                                   ("legacy", "flash", "conv1d")])
 def test_decoder_training_forward_and_batch_stats(flavour, route, ffn_type):
     """The embedding-free stack (the decoder's, conv kernel 31) in training
     mode with every dropout at 0: outputs and the conv modules' BatchNorm
@@ -225,22 +226,24 @@ def test_decoder_training_forward_and_batch_stats(flavour, route, ffn_type):
 
 
 def test_flash_routes_in_training():
-    """In training the latest flash route runs K7's autograd function (its
-    gradients reach every parameter); the legacy flash route raises, naming
-    K6 bwd, and serves in eval mode."""
+    """In training both flash routes run their autograd functions (K7's for
+    "latest", K6's for "legacy", which raised here until K6's backward was
+    ported), with the attention-weight dropout inside the kernel: the loss
+    is finite and a gradient reaches every parameter of the stack."""
     x = torch.randn(2, T, DM, generator=torch.Generator().manual_seed(7))
     valid = torch.from_numpy(_valid((T, 20)))
-    latest = _port_encoder(False, "flash", n_symbols=None).train()
-    out, _ = latest(x, valid, torch.Generator().manual_seed(0))
-    out.square().mean().backward()
-    attn = latest.encoders[0].self_attn
-    for p in (attn.pos_bias_u, attn.pos_bias_v, attn.linear_pos.weight, attn.linear_q.weight):
-        assert p.grad is not None and p.grad.abs().max() > 0
-    legacy = _port_encoder(True, "flash", n_symbols=None).train()
-    with pytest.raises(NotImplementedError, match="K6 bwd"):
-        legacy(x, valid)
-    with torch.no_grad():
-        assert legacy.eval()(x, valid)[0].shape == (2, T, DM)
+    for legacy in (False, True):
+        enc = _port_encoder(legacy, "flash", n_symbols=None)
+        for m in enc.modules():
+            if isinstance(m, tec.RelPositionMultiHeadedAttention):
+                m.dropout_rate = 0.2
+        out, _ = enc.train()(x, valid, torch.Generator().manual_seed(0))
+        loss = out.square().mean()
+        assert torch.isfinite(loss)
+        loss.backward()
+        for name, p in enc.named_parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all(), (legacy, name)
+            assert p.grad.abs().max() > 0, (legacy, name)
 
 
 @pytest.mark.parametrize("flavour", FLAVOURS)

@@ -4,7 +4,9 @@ conformer``, attention on the flash route, so on kernel K7's plain versions
 here) against the JAX package's JETS, on the same weights: inference (the
 waveform and exact durations), the serving entry points on the CPU, the
 converter's round trip, and one ``make_jets_train_step`` (gradients,
-metrics, BatchNorm statistics) with every dropout at 0.
+metrics, BatchNorm statistics) with every dropout at 0, on the "latest"
+stacks and on the "legacy" ones (``conformer_rel_pos_type: legacy``,
+attention on kernel K6's plain versions).
 
 Weights go port -> JAX through ``import_jets`` and back through
 ``convert.jets_from_jax``. The JAX side runs its flash attention through
@@ -172,11 +174,12 @@ def test_one_stage_tts_and_server_on_cpu(tmp_path):
         httpd.server_close()
 
 
-@pytest.fixture(scope="module")
-def step_case():
+@pytest.fixture(scope="module", params=["latest", "legacy"])
+def step_case(request):
     """The port's training forward and one ``make_jets_train_step`` on the
-    conformer JETS, and the JAX reference (``test_torch_jets_train.py``)."""
-    hp = CONF_TRAIN_HP
+    conformer JETS of each rel-pos flavour, and the JAX reference
+    (``test_torch_jets_train.py``)."""
+    hp = dict(CONF_TRAIN_HP, conformer_rel_pos_type=request.param)
     jm, variables = jax_jets(port_jets(hp), hp)
     variables = jax.tree_util.tree_map(np.asarray, variables)
     model = TorchJETS(N_SYMBOLS, N_MELS, hp)
@@ -207,14 +210,14 @@ def step_case():
     }
     disc_after = flax_msmpd_params(disc.state_dict(), TINY_DISC["periods"])
     ref = _jax_reference(jm, variables, dparams, disc_after, batch)
-    return port, ref, variables
+    return port, ref, variables, hp
 
 
 def test_training_forward_matches(step_case):
     """The 10-tuple of ``JETS.forward`` against ``JETS.__call__(train=True)``
     on the conformer stacks: durations exact, the waveform within 1e-4, the
     rest within 1e-5."""
-    port, (_, _, outs, _, _), _ = step_case
+    port, (_, _, outs, _, _), _, _ = step_case
     names = ("wav", "bin_loss", "log_p_attn", "start_idxs", "d_outs", "ds", "p_outs",
              "ps", "e_outs", "es")
     got, want = dict(zip(names, port["fwd"])), dict(zip(names, outs))
@@ -231,11 +234,10 @@ def test_training_forward_matches(step_case):
 
 def test_step_gradients_match(step_case):
     """Every generator gradient of the step (the conformer stacks' through
-    K7's plain bwd-q / bwd-kv) against the JAX step's, per tensor within
-    1e-4 * max|g| + 1e-7 after clipping."""
-    port, (_, _, _, _, g_grads), variables = step_case
-    want = jets_from_jax({"params": g_grads, "batch_stats": variables["batch_stats"]},
-                         CONF_TRAIN_HP)
+    K7's or K6's plain bwd-q / bwd-kv) against the JAX step's, per tensor
+    within 1e-4 * max|g| + 1e-7 after clipping."""
+    port, (_, _, _, _, g_grads), variables, hp = step_case
+    want = jets_from_jax({"params": g_grads, "batch_stats": variables["batch_stats"]}, hp)
     want = {k: v.numpy() for k, v in want.items() if k in port["gen_grads"]}
     assert any(".self_attn.pos_bias_v" in k for k in want)
     _check_grads(port["gen_grads"], want, port["gen_norm"], list(want))
@@ -245,7 +247,7 @@ def test_step_metrics_and_batch_stats_match(step_case):
     """The nine metrics of one step at rel 1e-5, and the BatchNorm running
     statistics after it (the conformer conv modules' and the GST's) against
     the JAX step's batch_stats at 1e-6."""
-    port, (metrics, stats, _, _, _), _ = step_case
+    port, (metrics, stats, _, _, _), _, hp = step_case
     assert set(port["metrics"]) == set(metrics) == set(METRICS)
     for name in METRICS:
         np.testing.assert_allclose(port["metrics"][name], metrics[name], rtol=1e-5,
@@ -259,7 +261,7 @@ def test_step_metrics_and_batch_stats_match(step_case):
                     port["bn"][f"{part}.encoders.{i}.conv_module.norm.{stat}"],
                     s["conv_module"]["norm"][jname], atol=1e-6, err_msg=f"{part} {layer}")
             n_conv += 1
-    assert n_conv == CONF_TRAIN_HP["elayers"] + CONF_TRAIN_HP["dlayers"]
+    assert n_conv == hp["elayers"] + hp["dlayers"]
     ref = stats["gst"]["ref_enc"]
     for i in range(len(ref)):
         for stat, jname in (("running_mean", "mean"), ("running_var", "var")):

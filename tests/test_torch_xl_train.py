@@ -1,12 +1,13 @@
 """The backward of the FS2 conformer's Transformer-XL attention: the plain
-versions of kernels K4 bwd (xl3) and K5 bwd-q / bwd-kv (xl2), through the
-port's ``torch.autograd.Function``s, against the JAX package's custom VJPs
-on the CPU.
+versions of kernels K4 bwd (xl3), K5 bwd-q / bwd-kv (xl2) and K6 bwd-q /
+bwd-kv (xl), through the port's ``torch.autograd.Function``s, against the
+JAX package's custom VJPs on the CPU; the conformer attention in training
+on K6's route (T = 1040, past the xl2 route), and ``xl_attention``.
 
 The JAX ops run as their own tests run them on the CPU: through the dense
-lowering (``_xl3_bwd_dense`` / ``_xl2_bwd_dense``, the VJP of the dense
-oracle) and through the Pallas backward kernels in interpret mode, at
-B = H = 1 and T <= 128. Dropout bits cannot match JAX (the TPU draws them
+lowering (``_xl3_bwd_dense`` / ``_xl2_bwd_dense`` / ``_xl_bwd_dense``, the
+VJP of the dense oracle) and through the Pallas backward kernels in
+interpret mode, at B <= 2, H = 1 and T <= 128. Dropout bits cannot match JAX (the TPU draws them
 from its on-core PRNG), so dropout is held to its properties and to
 autograd through the dense forward under the same mask. (The CUDA kernels
 against these plain versions, on the card: ``tests/test_torch_cuda.py``.)
@@ -21,6 +22,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 import viet_tts_tpu.ops.pallas_attention as pa
+from viet_tts_tpu.nn.conformer import RelativeMultiHeadAttention as JaxRelMHA
 from viet_tts_tpu.nn.utils import sinusoid_position_table
 from viet_tts_tpu.ops import xl_attention as jxl
 from viet_tts_torch.nn.conformer import RelativeMultiHeadAttention
@@ -36,8 +38,9 @@ SCALE = 1.0 / np.sqrt(E)
 
 
 def _case(T, lens, seed):
-    """Numpy inputs of one attention in the xl3 and xl2 parameterisations,
-    a cotangent of its output and the pad mask (None when ``lens`` is)."""
+    """Numpy inputs of one attention in the xl3, xl2 and xl
+    parameterisations, a cotangent of its output and the pad mask (None when
+    ``lens`` is)."""
     B = 1 if lens is None else len(lens)
     rng = np.random.RandomState(seed)
     q, k, v = (rng.randn(B, T, H, D).astype(np.float32) for _ in range(3))
@@ -49,16 +52,22 @@ def _case(T, lens, seed):
     streams = {
         "xl3": (q + u, k, v, q + vb, (table @ pk).reshape(T, H, D)),
         "xl2": (q + u, k, v, np.asarray(jxl.xl_pos_query_stream(q + vb, pk)), table),
+        "xl": (q + u, k, v, *(np.asarray(x) for x in jxl.xl_pos_queries(q + vb, pk)), table),
     }
     return streams, g, pad
 
 
-JAX_FN = {"xl3": pa.flash_xl3_attention, "xl2": pa.flash_xl2_attention}
-PORT_FN = {"xl3": fx.flash_xl3_attention, "xl2": fx.flash_xl2_attention}
+KINDS = ["xl3", "xl2", "xl"]
+JAX_FN = {"xl3": pa.flash_xl3_attention, "xl2": pa.flash_xl2_attention,
+          "xl": pa.flash_xl_attention}
+PORT_FN = {"xl3": fx.flash_xl3_attention, "xl2": fx.flash_xl2_attention,
+           "xl": fx.flash_xl_attention}
+PLAIN_FWD = {"xl3": fx.xl3_fwd_plain, "xl2": fx.xl2_fwd_plain, "xl": fx.xl_fwd_plain}
+FWD = {"xl3": fx.xl3_fwd, "xl2": fx.xl2_fwd, "xl": fx.xl_fwd}
 
 
 def _jax_grads(kind, args, g, pad, interpret):
-    """(output, gradients of the five stream arguments) of the JAX op."""
+    """(output, gradients of the stream arguments) of the JAX op."""
     fn = JAX_FN[kind]
 
     def run(*a):
@@ -81,14 +90,15 @@ def _port_grads(kind, args, g, pad, dropout_p=0.0, seed=None):
     return out.detach().numpy(), [x.grad.numpy() for x in leaves]
 
 
-@pytest.mark.parametrize("kind", ["xl3", "xl2"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("T,lens", [(48, [41]), (128, None)])
 def test_backward_matches_jax_dense_and_interpreted_kernels(kind, T, lens):
-    """The five stream gradients (xl3: qc, k, v, qv, p; xl2: qc, k, v, g,
-    table) of the port's autograd function against ``jax.vjp`` of the JAX
-    op through its dense lowering and through the Pallas backward kernels in
-    interpret mode: T = 48 with a ragged row (padded to 128 by xl3, to 64 by
-    xl2; xl3 left-pads p), T = 128 with no pad mask."""
+    """The stream gradients (xl3: qc, k, v, qv, p; xl2: qc, k, v, g, table;
+    xl: qc, k, v, gA, gB, table) of the port's autograd function against
+    ``jax.vjp`` of the JAX op through its dense lowering and through the
+    Pallas backward kernels in interpret mode: T = 48 with a ragged row
+    (padded to 128 by xl3, to 64 by xl2 and xl; xl3 left-pads p), T = 128
+    with no pad mask."""
     streams, g, pad = _case(T, lens, seed=T + len(kind))
     args = streams[kind]
     got_out, got = _port_grads(kind, args, g, pad)
@@ -101,11 +111,11 @@ def test_backward_matches_jax_dense_and_interpreted_kernels(kind, T, lens):
                                        err_msg=f"{kind} grad {i} interpret={interpret}")
 
 
-@pytest.mark.parametrize("kind", ["xl3", "xl2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_fully_padded_row_takes_the_dense_gradient(kind):
     """A batch row whose keys are all padding: the port's gradients are the
     dense VJP's (uniform weights 1/n, n = T for xl3, the 32-padded length
-    for xl2: dv = sum_q g / n, every other gradient 0 on that row).
+    for xl2 and xl: dv = sum_q g / n, every other gradient 0 on that row).
 
     The reference's interpreted Pallas backward differs there, as its plain
     backward does (``test_torch_flash_train.py``): its lse, -1e9 + log n,
@@ -127,19 +137,18 @@ def test_fully_padded_row_takes_the_dense_gradient(kind):
     np.testing.assert_allclose(kernel[2][0], got[2][0], atol=ATOL)
 
 
-@pytest.mark.parametrize("kind", ["xl3", "xl2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_dropout_backward_is_autograd_of_the_masked_dense_forward(kind):
     """With dropout the autograd function's backward (the plain K4 bwd /
-    K5 bwd, mask regenerated from the seed) equals autograd through the
-    plain forward under the same seed, a ragged and a fully padded row
-    included; and its table gradient (xl2) too."""
+    K5 bwd / K6 bwd, mask regenerated from the seed) equals autograd through
+    the plain forward under the same seed, a ragged and a fully padded row
+    included; and its table gradient (xl2, xl) too."""
     T, p, seed = 45, 0.1, 2024
     streams, g, pad = _case(T, [T - 7, 0], seed=8)
     args = streams[kind]
     got_out, got = _port_grads(kind, args, g, pad, dropout_p=p, seed=seed)
     leaves = [torch.from_numpy(np.array(x)).requires_grad_() for x in args]
-    plain = fx.xl3_fwd_plain if kind == "xl3" else fx.xl2_fwd_plain
-    ctx, _ = plain(*leaves, SCALE, torch.from_numpy(pad), p, seed)
+    ctx, _ = PLAIN_FWD[kind](*leaves, SCALE, torch.from_numpy(pad), p, seed)
     out = ctx.reshape(got_out.shape)
     (out * torch.from_numpy(g)).sum().backward()
     np.testing.assert_array_equal(got_out, out.detach().numpy())
@@ -148,7 +157,7 @@ def test_dropout_backward_is_autograd_of_the_masked_dense_forward(kind):
                                    err_msg=f"{kind} grad {i}")
 
 
-@pytest.mark.parametrize("kind", ["xl3", "xl2"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_dropout_forward_properties(kind):
     """Deterministic in the seed, different across seeds, the kept share of
     the weights near 1 - p, and the mean over 40 seeds near the
@@ -172,7 +181,7 @@ def test_dropout_forward_properties(kind):
     eye = torch.eye(T, D * H).reshape(1, T, H, D).expand(2, T, H, D).contiguous()
     args_eye = list(args)
     args_eye[2] = eye
-    fwd = fx.xl3_fwd if kind == "xl3" else fx.xl2_fwd
+    fwd = FWD[kind]
     dropped, _ = fwd(*args_eye, SCALE, tpad, p, 5)
     full, _ = fwd(*args_eye, SCALE, tpad, 0.0, 0)
     kept = (dropped[..., : min(T, D)] != 0).float().mean().item()
@@ -182,35 +191,117 @@ def test_dropout_forward_properties(kind):
 
 
 def test_cpu_wrappers_count_no_launch_and_k6_refuses_gradients():
-    """On CPU tensors the backward wrappers are their plain versions and
-    count no launch; the two-stream op (K6) raises where autograd would
-    need its backward, which is still to be ported."""
+    """On CPU tensors the backward wrappers of K4, K5 and K6 are their plain
+    versions and count no launch. (Until K6's backward was ported, the
+    two-stream op refused gradients here; it now trains, and its gradients
+    match autograd through the plain forward.)"""
     T = 40
     streams, g, pad = _case(T, [T, 20], seed=4)
-    before = (fx.xl3_bwd.launches, fx.xl2_bwd_dq.launches, fx.xl2_bwd_dkv.launches)
-    _port_grads("xl3", streams["xl3"], g, pad)
-    _port_grads("xl2", streams["xl2"], g, pad)
-    assert (fx.xl3_bwd.launches, fx.xl2_bwd_dq.launches, fx.xl2_bwd_dkv.launches) == before
-    qc, k, v, q_v, _ = (torch.from_numpy(np.array(x)) for x in streams["xl3"])
-    pk = torch.eye(E)
-    gA, gB = txl.xl_pos_queries(q_v, pk)
-    table = torch.from_numpy(sinusoid_position_table(T, E))
-    qc.requires_grad_()
-    with pytest.raises(NotImplementedError, match="K6 bwd"):
-        fx.flash_xl_attention(qc, k, v, gA, gB, table, SCALE)
+    wrappers = (fx.xl3_bwd, fx.xl2_bwd_dq, fx.xl2_bwd_dkv, fx.xl_bwd_dq, fx.xl_bwd_dkv,
+                fx.xl_fwd)
+    before = [w.launches for w in wrappers]
+    for kind in KINDS:
+        _port_grads(kind, streams[kind], g, pad)
+    _, got = _port_grads("xl", streams["xl"], g, pad)
+    assert [w.launches for w in wrappers] == before
+    leaves = [torch.from_numpy(np.array(x)).requires_grad_() for x in streams["xl"]]
+    ctx, _ = fx.xl_fwd_plain(*leaves, SCALE, torch.from_numpy(pad))
+    (ctx.reshape(g.shape) * torch.from_numpy(g)).sum().backward()
+    for i, (a, x) in enumerate(zip(got, leaves)):
+        assert np.abs(a).max() > 1e-3
+        np.testing.assert_allclose(a, x.grad.numpy(), rtol=5e-5, atol=1e-6, err_msg=f"grad {i}")
+
+
+def _jax_attention(T, d_model, heads):
+    """The JAX conformer attention (flash route, dropout 0) and its
+    variables holding a port attention's weights."""
+    port = RelativeMultiHeadAttention(d_model, heads, 0.0, "flash")
+    gen = torch.Generator().manual_seed(T)
     with torch.no_grad():
-        assert fx.flash_xl_attention(qc, k, v, gA, gB, table, SCALE).shape == (2, T, E)
+        for prm in port.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=gen) / np.sqrt(d_model))
+    sd = {k: v.numpy() for k, v in port.state_dict().items()}
+    params = {name: {"kernel": sd[f"{name}.linear.weight"].T, "bias": sd[f"{name}.linear.bias"]}
+              for name in ("query_proj", "key_proj", "value_proj", "out_proj")}
+    params["pos_proj"] = {"kernel": sd["pos_proj.linear.weight"].T}
+    params["u_bias"], params["v_bias"] = sd["u_bias"], sd["v_bias"]
+    jm = JaxRelMHA(d_model, heads, dropout=0.0, attn_implementation="flash")
+    return port, jm, {"params": params}
 
 
 def test_conformer_refuses_training_past_the_xl2_route():
-    """In training, a padded length above 1024 would route to K6, whose
-    backward is still to be ported: the attention raises and names it; in
-    eval mode it serves as before."""
-    attn = RelativeMultiHeadAttention(32, 2, 0.1, "flash")
-    x = torch.randn(1, 1025, 32)
-    table = torch.randn(1025, 32)
-    with pytest.raises(NotImplementedError, match="K6 bwd"):
-        attn(x, table)
-    attn.eval()
-    with torch.no_grad():
-        assert attn(x, table).shape == (1, 1025, 32)
+    """In training, a padded length above 1024 routes the conformer attention
+    to K6 (T = 1040, padded to 1056). It used to raise there, K6 having no
+    backward; now it trains: the output and the gradients of the input and
+    of every parameter against ``jax.vjp`` of the JAX module's flash route
+    (dropout 0, train=True; the JAX side through its dense lowering), and
+    with dropout 0.1 a finite gradient reaches every parameter."""
+    T, d_model, heads = 1040, 32, 2
+    port, jm, variables = _jax_attention(T, d_model, heads)
+    rng = np.random.RandomState(9)
+    x = rng.randn(1, T, d_model).astype(np.float32)
+    table = sinusoid_position_table(T, d_model)
+    gout = rng.randn(1, T, d_model).astype(np.float32)
+    pad = np.arange(T)[None] >= T - 13
+
+    @jax.jit
+    def run(v, xx):
+        out, vjp = jax.vjp(lambda a, b: jm.apply(a, b, table[None], pad_mask=pad, train=True),
+                           v, xx)
+        return out, vjp(gout)
+
+    want, (want_vars, want_x) = run(variables, x)
+    port.train()
+    xt = torch.from_numpy(x).requires_grad_()
+    out = port(xt, torch.from_numpy(table), torch.from_numpy(pad))
+    (out * torch.from_numpy(gout)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=ATOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_x), atol=ATOL)
+    jp = want_vars["params"]
+    pairs = {"u_bias": jp["u_bias"], "v_bias": jp["v_bias"],
+             "pos_proj.linear.weight": np.asarray(jp["pos_proj"]["kernel"]).T}
+    for name in ("query_proj", "key_proj", "value_proj", "out_proj"):
+        pairs[f"{name}.linear.weight"] = np.asarray(jp[name]["kernel"]).T
+        pairs[f"{name}.linear.bias"] = jp[name]["bias"]
+    grads = dict(port.named_parameters())
+    for name, ref in pairs.items():
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(grads[name].grad.numpy(), ref,
+                                   atol=ATOL * max(1.0, np.abs(ref).max()), err_msg=name)
+    drop = RelativeMultiHeadAttention(d_model, heads, 0.1, "flash").train()
+    drop.load_state_dict(port.state_dict())
+    drop(torch.from_numpy(x), torch.from_numpy(table), None,
+         torch.Generator().manual_seed(1)).square().mean().backward()
+    for name, prm in drop.named_parameters():
+        assert torch.isfinite(prm.grad).all() and prm.grad.abs().max() > 0, name
+
+
+@pytest.mark.parametrize("implementation,T", [("dense", 40), ("flash", 40), ("flash", 600),
+                                              ("flash", 1040)])
+def test_xl_attention_matches_jax(implementation, T):
+    """``xl_attention`` against the JAX function on the dense route and on
+    the flash route at a length of each kernel (xl3, xl2, xl): the output
+    and the gradients of q, k and v (``jax.vjp``; the JAX flash route
+    through its dense lowering), with a ragged and a fully padded row."""
+    rng = np.random.RandomState(T)
+    B = 2
+    q, k, v = (rng.randn(B, T, H, D).astype(np.float32) for _ in range(3))
+    u, vb = (0.3 * rng.randn(H, D).astype(np.float32) for _ in range(2))
+    pk = (rng.randn(E, H * D) / np.sqrt(E)).astype(np.float32)
+    table = sinusoid_position_table(T, E)
+    pad = np.arange(T)[None] >= np.array([T - 5, 0])[:, None]
+    gout = rng.randn(B, T, H * D).astype(np.float32)
+    @jax.jit
+    def run(*a):
+        out, vjp = jax.vjp(lambda *x: jxl.xl_attention(*x, u, vb, pk, table, SCALE, pad,
+                                                       implementation), *a)
+        return out, vjp(gout)
+
+    want, want_grads = run(q, k, v)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    got = txl.xl_attention(*leaves, *(torch.from_numpy(x) for x in (u, vb, pk, table)), SCALE,
+                           torch.from_numpy(pad), implementation)
+    (got * torch.from_numpy(gout)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=ATOL)
+    for name, a, b in zip("qkv", leaves, want_grads):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), atol=ATOL, err_msg=name)

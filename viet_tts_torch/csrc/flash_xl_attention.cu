@@ -1,6 +1,6 @@
 // Kernels K4, K5 and K6: Transformer-XL relative-position attention forward
-// (the FS2 conformer's self-attention) with an online softmax, for Hopper
-// (sm_90a).
+// (the FS2 conformer's self-attention; K6 also the JETS conformer's legacy
+// rel-pos flavour) with an online softmax, for Hopper (sm_90a).
 //
 // Replace the TPU kernels of viet_tts_tpu/ops/pallas_attention.py:
 //   K4 `_xl3_kernel` (launched by `_xl3_pallas`), the projected-table form;
@@ -739,15 +739,15 @@ int vt_flash_xl2_fwd(const void* qc, const void* k, const void* v,
                          H, D, E, is_bf16, scale, dropout_p, seed, stream);
 }
 
-// K6. gA, gB: (B, T, H, E) pre-rotated; other arguments as K5, and D may
-// also be 128; dropout_p must be 0: K6 has no backward yet, so it serves
-// inference only.
+// K6. gA, gB: (B, T, H, E) pre-rotated; other arguments as K5 (dropout
+// included: the two-stream tiles draw the keep bit of the same (b, h, i, j)
+// as K5's, and flash_xl_attention_bwd.cu's K6 bwd-q / bwd-kv draw it
+// again), and D may also be 128.
 int vt_flash_xl_fwd(const void* qc, const void* k, const void* v,
                     const void* ga, const void* gb, const void* table,
                     const float* pad, float* out, float* lse, int B, int T,
                     int Tp, int H, int D, int E, int is_bf16, float scale,
                     double dropout_p, uint64_t seed, void* stream) {
-  if (dropout_p != 0.0) return (int)cudaErrorInvalidValue;
   return xl2_entry<false>(qc, k, v, ga, gb, table, pad, out, lse, B, T, Tp, H,
                           D, E, is_bf16, scale, dropout_p, seed, stream);
 }

@@ -1,11 +1,14 @@
-// Kernels K4 bwd (xl3) and K5 bwd-q / bwd-kv (xl2): the backward of the
-// FS2 conformer's Transformer-XL attention (flash_xl_attention.cu), for
+// Kernels K4 bwd (xl3), K5 bwd-q / bwd-kv (xl2) and K6 bwd-q / bwd-kv (xl):
+// the backward of the Transformer-XL attention (flash_xl_attention.cu) of
+// the FS2 conformer and of the JETS conformer's legacy rel-pos flavour, for
 // Hopper (sm_90a), with the forward's attention-weight dropout.
 //
 // Replace the TPU kernels of viet_tts_tpu/ops/pallas_attention.py:
 //   K4 bwd     `_xl3_bwd_kernel` (launched by `_xl3_bwd_pallas`);
 //   K5 bwd-q   `_xl2_bwd_q_kernel` (`_xl2_bwd_pallas` through `_call_bwd_q`);
-//   K5 bwd-kv  `_xl2_bwd_kv_kernel` (`_xl2_bwd_pallas` through `_call_bwd_kv`).
+//   K5 bwd-kv  `_xl2_bwd_kv_kernel` (`_xl2_bwd_pallas` through `_call_bwd_kv`);
+//   K6 bwd-q   `_xl_bwd_q_kernel` (`_xl_bwd_pallas` through `_call_bwd_q`);
+//   K6 bwd-kv  `_xl_bwd_kv_kernel` (`_xl_bwd_pallas` through `_call_bwd_kv`).
 // With the forward's logits l_ij = (qc_i . k_j + pos_ij) * scale, its
 // logsumexp lse_i and delta_i = sum_d g_id out_id (computed outside, as the
 // JAX package does):
@@ -20,15 +23,18 @@
 //       dp_c  = sum_{b,i,j} [T-1-i+j = c] dsA_ij qv_i
 //             + sum_{b,i,j} [j-i-2 = c] dsB_ij qv_{i+1}, a sum along the
 //       diagonals of every (query, key) tile and over the batch;
-//   K5: pos_ij = gA_i . t_j (past), gB_i . t_j (future) with gA_i =
-//       rot(g_i, A_i), gB_i = rot(g_{i+1}, B_i) (xl_rotation.cuh), so
-//       dg_i = rot^-1(sum_j dsA_ij t_j, A_i) + rot^-1(sum_j dsB_{i-1,j} t_j,
-//       B_{i-1}) and dt_j = sum_{b,h,i} dsA_ij gA_i + dsB_ij gB_i.
+//   K5 / K6: pos_ij = gA_i . t_j (past), gB_i . t_j (future), so
+//       dgA_i = sum_j dsA_ij t_j, dgB_i = sum_j dsB_ij t_j and
+//       dt_j = sum_{b,h,i} dsA_ij gA_i + dsB_ij gB_i. K6 takes gA and gB
+//       as inputs and returns dgA and dgB. K5 builds them from one stream,
+//       gA_i = rot(g_i, A_i), gB_i = rot(g_{i+1}, B_i) (xl_rotation.cuh),
+//       so its dg_i = rot^-1(dgA_i, A_i) + rot^-1(dgB_{i-1}, B_{i-1}).
 //
 // Design. On the TPU the grids run in order and carry sums from one grid
 // step to the next in VMEM: K4 keeps the whole (T, T) tile and accumulates
 // dp over the batch axis of its grid; K5's bwd-q keeps the whole-T query
-// tile. Here blocks run in parallel, so a loop inside each block takes the
+// tile; K5 and K6 bwd-kv carry dt across the batch and head axes of their
+// grids. Here blocks run in parallel, so a loop inside each block takes the
 // place of the sequential axis, no two blocks write one output, and sums
 // across blocks go through fp32 partials and a second pass: no atomics, the
 // result is deterministic.
@@ -42,36 +48,45 @@
 //    batch rows and query tiles and adds row i-1's future part into dqv_i.
 //    Both main kernels stage the 127-row band of p that a tile's offsets
 //    j - i reach, as the forward does.
-//  - K5 bwd-q: one block per (16-query tile, head, batch row) keeps the
-//    rotated gA, gB and the dgA, dgB accumulators (16, E) in shared memory
-//    (4 x 16 x 388 x 4 B = 99 KB at E = 384; the TPU's whole-T tile would
-//    need megabytes) and walks the 64-key tiles, the table staged in
-//    64-column chunks. The last row's dgB belongs to the next tile's first
-//    row: it goes to a small carry buffer that `xl2_bwd_carry_kernel` adds.
-//  - K5 bwd-kv: one block per (64-key tile, head, batch row) walks 32-query
-//    tiles, rotating each tile's gA and gB as the forward does, and gives dk
-//    and dv; with `want_dtab` it also adds each (key tile, query tile)'s dt
-//    into the block's (64, E) slice of a per-(b, h) partial, which
-//    `xl2_bwd_dtab_kernel` sums. The conformer's table is the constant
+//  - K5 / K6 bwd-q (`xl2_bwd_q_kernel`, ROTATE for K5): one block per
+//    (16-query tile, head, batch row) keeps gA, gB and the dgA, dgB
+//    accumulators (16, E) in shared memory (4 x 16 x 388 x 4 B = 99 KB at
+//    E = 384; the TPU's whole-T tile would need megabytes) and walks the
+//    64-key tiles, the table staged in 64-column chunks. K5 rotates its
+//    tiles in the kernel, and the last row's dgB belongs to the next tile's
+//    first row: it goes to a small carry buffer that `xl2_bwd_carry_kernel`
+//    adds. K6 reads gA and gB and writes dgA and dgB as they are: no
+//    rotation and no carry.
+//  - K5 / K6 bwd-kv (`xl2_bwd_kv_kernel`): one block per (64-key tile, head,
+//    batch row) walks 32-query tiles (K5 rotating each tile's gA and gB as
+//    the forward does, K6 reading them) and gives dk and dv; with
+//    `want_dtab` it also adds each (key tile, query tile)'s dt into the
+//    block's (64, E) slice of a per-(b, h) partial, which
+//    `xl2_bwd_dtab_kernel` sums. The conformers' table is the constant
 //    sinusoid table, so training never asks for dt.
+//  - A key tile wholly in the past of a query tile (every pair j <= i)
+//    forms only the gA . t products, one wholly in the future only gB . t.
+//  - K6 also runs at D = 128 (the JETS conformer, E = 256): bwd-q then
+//    needs 173 KB of shared memory and bwd-kv 203 KB, one block an SM.
 //
-// What bounds them on the H100: at the decoder's training shapes (B=8, H=8,
+// What bounds them on the H100: at the training shapes (FS2: B=8, H=8,
 // D=48; K4 at T=512, K5 at T=1008, E=384) the data needs 2*B*H*T^2*8D =
 // 12.9 GFLOP for K4 bwd (s, the position term, g v, dqc, dk, dv, dqv, dp),
 // 2*B*H*T^2*(3D + 2E) = 119 GFLOP for K5 bwd-q and 2*B*H*T^2*(4D + E) = 75
-// GFLOP for K5 bwd-kv, against tens to hundreds of MB: bound by operations.
-// This first version runs every product on the fp32 CUDA cores (67
-// TFLOP/s), with register tiles fed from shared memory.
+// GFLOP for K5 bwd-kv (K6 the same), against tens to hundreds of MB: bound
+// by operations. This first version runs every product on the fp32 CUDA
+// cores (67 TFLOP/s), with register tiles fed from shared memory.
 //
 // Padding follows the forward. K4: keys past T are never formed (the
-// reference scores them 2*MASK_NEG: weight exactly 0). K5: the Tp - T tail
-// keys are virtual (dead, v = 0). A batch row whose keys are all padding
-// has the uniform softmax, 1/T (K4) or 1/Tp (K5), and lse = -1e9 + log n
-// rounds to -1e9 in fp32, where exp(l - lse) would give 1: these kernels
-// detect the row and use the uniform weight, the dense gradient (the TPU
-// kernels' dv is n times too large there, as K3 notes for K1). bf16 streams
-// mirror `_mx`: p m / keep and ds are rounded to bf16 before the products
-// they feed, with fp32 accumulation; every gradient is written in fp32.
+// reference scores them 2*MASK_NEG: weight exactly 0). K5 / K6: the Tp - T
+// tail keys are virtual (dead, v = 0). A batch row whose keys are all
+// padding has the uniform softmax, 1/T (K4) or 1/Tp (K5, K6), and lse =
+// -1e9 + log n rounds to -1e9 in fp32, where exp(l - lse) would give 1:
+// these kernels detect the row and use the uniform weight, the dense
+// gradient (the TPU kernels' dv is n times too large there, as K3 notes
+// for K1). bf16 streams mirror `_mx`: p m / keep and ds are rounded to
+// bf16 before the products they feed, with fp32 accumulation; every
+// gradient is written in fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -583,7 +598,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K5 bwd: xl2, one position stream rotated in the kernel
+// K5 bwd (ROTATE: one position stream rotated in the kernel) and K6 bwd
+// (two pre-rotated streams)
 // ---------------------------------------------------------------------------
 
 constexpr int kBQq = 16;  // bwd-q query rows per block
@@ -662,17 +678,19 @@ size_t xl2_bwd_kv_smem_bytes(int E) {
                           2 * kBK2 * (kBQk + 1) + 2 * kBQk + kBK2);
 }
 
-template <typename T, int D>
+// ga: K5's unrotated stream g2 (ROTATE) or K6's gA; gb: K6's gB (unused
+// by K5). dg: K5's dg2 or K6's dgA; dgb: K6's dgB; carry: K5's only.
+template <typename T, int D, bool ROTATE>
 __global__ void __launch_bounds__(kThreads)
     xl2_bwd_q_kernel(const T* __restrict__ qc, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ g2,
-                     const T* __restrict__ table, const T* __restrict__ g,
-                     const float* __restrict__ pad,
+                     const T* __restrict__ v, const T* __restrict__ ga,
+                     const T* __restrict__ gb, const T* __restrict__ table,
+                     const T* __restrict__ g, const float* __restrict__ pad,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dqc,
-                     float* __restrict__ dg, float* __restrict__ carry, int H,
-                     int Tq, int E, float scale, float freq_coef,
-                     DropArgs drop) {
+                     float* __restrict__ dg, float* __restrict__ dgb,
+                     float* __restrict__ carry, int H, int Tq, int E,
+                     float scale, float freq_coef, DropArgs drop) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int DS = D + 4;
   constexpr int SP = kBK2 + 1;
@@ -711,7 +729,12 @@ __global__ void __launch_bounds__(kThreads)
   load_rows(QC, DS, qc, base, rs, i0, kBQq, Tq, D);
   load_rows(GS, DS, g, base, rs, i0, kBQq, Tq, D);
   load_row_stats(lse_s, del_s, lse, delta, rbase, i0, kBQq, Tq);
-  rotate_rows(GA, GB, ES, g2, base_e, rse, i0, kBQq, Tq, E, freq_coef);
+  if constexpr (ROTATE) {
+    rotate_rows(GA, GB, ES, ga, base_e, rse, i0, kBQq, Tq, E, freq_coef);
+  } else {
+    load_rows(GA, ES, ga, base_e, rse, i0, kBQq, Tq, E);
+    load_rows(GB, ES, gb, base_e, rse, i0, kBQq, Tq, E);
+  }
   for (int i = tid; i < kBQq * ES; i += kThreads) dGA[i] = dGB[i] = 0.f;
 
   // thread (r, tx): query row r, keys tx + 16 c (scores), features
@@ -815,6 +838,17 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < DJ; ++j) dqc[base + (size_t)qi * rs + tx + 16 * j] = acc_q[j];
   }
   __syncthreads();
+  if constexpr (!ROTATE) {
+    // K6: dgA and dgB are the accumulators themselves
+    for (int i = tid; i < kBQq * E; i += kThreads) {
+      const int rr = i / E, e = i % E, row = i0 + rr;
+      if (row >= Tq) continue;
+      const size_t off = base_e + (size_t)row * rse + e;
+      dg[off] = dGA[rr * ES + e];
+      dgb[off] = dGB[rr * ES + e];
+    }
+    return;
+  }
   // dg_i = rot^-1(dgA_i, A_i) + rot^-1(dgB_{i-1}, B_{i-1}); the tile's last
   // row's dgB goes to the carry of the next tile's first row
   const int half = E / 2;
@@ -861,11 +895,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+// ga, gb as in xl2_bwd_q_kernel.
+template <typename T, int D, bool ROTATE>
 __global__ void __launch_bounds__(kThreads)
     xl2_bwd_kv_kernel(const T* __restrict__ qc, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ g2,
-                      const T* __restrict__ table, const T* __restrict__ g,
+                      const T* __restrict__ v, const T* __restrict__ ga,
+                      const T* __restrict__ gb, const T* __restrict__ table,
+                      const T* __restrict__ g,
                       const float* __restrict__ pad,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk,
@@ -931,7 +967,12 @@ __global__ void __launch_bounds__(kThreads)
     load_rows(QC, DS, qc, base, rs, i0, kBQk, Tq, D);
     load_rows(GS, DS, g, base, rs, i0, kBQk, Tq, D);
     load_row_stats(lse_s, del_s, lse, delta, rbase, i0, kBQk, Tq);
-    rotate_rows(GA, GB, ES, g2, base_e, rse, i0, kBQk, Tq, E, freq_coef);
+    if constexpr (ROTATE) {
+      rotate_rows(GA, GB, ES, ga, base_e, rse, i0, kBQk, Tq, E, freq_coef);
+    } else {
+      load_rows(GA, ES, ga, base_e, rse, i0, kBQk, Tq, E);
+      load_rows(GB, ES, gb, base_e, rse, i0, kBQk, Tq, E);
+    }
     __syncthreads();
 
     float s[2][4], dv[2][4], pa[2][4], pb[2][4];
@@ -1131,35 +1172,39 @@ cudaError_t launch_xl3_bwd(const void* qc, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ROTATE>
 cudaError_t launch_xl2_bwd_q(const void* qc, const void* k, const void* v,
-                             const void* g2, const void* table, const void* g,
+                             const void* ga, const void* gb,
+                             const void* table, const void* g,
                              const float* pad, const float* lse,
                              const float* delta, float* dqc, float* dg,
-                             float* carry, int B, int Tq, int H, int E,
-                             float scale, DropArgs drop, cudaStream_t stream) {
+                             float* dgb, float* carry, int B, int Tq, int H,
+                             int E, float scale, DropArgs drop,
+                             cudaStream_t stream) {
   const size_t smem = xl2_bwd_q_smem_bytes<D>(E);
   cudaError_t err = cudaFuncSetAttribute(
-      xl2_bwd_q_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      xl2_bwd_q_kernel<T, D, ROTATE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const float freq_coef = (float)(-2.0 * log(10000.0) / (double)E);
   const int nq = (Tq + kBQq - 1) / kBQq;
-  xl2_bwd_q_kernel<T, D><<<dim3(nq, H, B), kThreads, smem, stream>>>(
+  xl2_bwd_q_kernel<T, D, ROTATE><<<dim3(nq, H, B), kThreads, smem, stream>>>(
       static_cast<const T*>(qc), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g2),
-      static_cast<const T*>(table), static_cast<const T*>(g), pad, lse, delta,
-      dqc, dg, carry, H, Tq, E, scale, freq_coef, drop);
+      static_cast<const T*>(v), static_cast<const T*>(ga),
+      static_cast<const T*>(gb), static_cast<const T*>(table),
+      static_cast<const T*>(g), pad, lse, delta, dqc, dg, dgb, carry, H, Tq,
+      E, scale, freq_coef, drop);
   err = cudaGetLastError();
-  if (err != cudaSuccess || nq == 1) return err;
+  if (err != cudaSuccess || !ROTATE || nq == 1) return err;
   xl2_bwd_carry_kernel<<<grid_for((size_t)B * (nq - 1) * H * E), kThreads, 0,
                          stream>>>(carry, dg, B, nq, H, Tq, E);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ROTATE>
 cudaError_t launch_xl2_bwd_kv(const void* qc, const void* k, const void* v,
-                              const void* g2, const void* table, const void* g,
+                              const void* ga, const void* gb,
+                              const void* table, const void* g,
                               const float* pad, const float* lse,
                               const float* delta, float* dk, float* dv,
                               float* dtab_part, float* dtab, int B, int Tq,
@@ -1167,16 +1212,17 @@ cudaError_t launch_xl2_bwd_kv(const void* qc, const void* k, const void* v,
                               cudaStream_t stream) {
   const size_t smem = xl2_bwd_kv_smem_bytes<D>(E);
   cudaError_t err = cudaFuncSetAttribute(
-      xl2_bwd_kv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      xl2_bwd_kv_kernel<T, D, ROTATE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const float freq_coef = (float)(-2.0 * log(10000.0) / (double)E);
-  xl2_bwd_kv_kernel<T, D><<<dim3((Tq + kBK2 - 1) / kBK2, H, B), kThreads,
-                            smem, stream>>>(
+  xl2_bwd_kv_kernel<T, D, ROTATE><<<dim3((Tq + kBK2 - 1) / kBK2, H, B),
+                                    kThreads, smem, stream>>>(
       static_cast<const T*>(qc), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g2),
-      static_cast<const T*>(table), static_cast<const T*>(g), pad, lse, delta,
-      dk, dv, dtab_part, H, Tq, Tp, E, scale, freq_coef, drop);
+      static_cast<const T*>(v), static_cast<const T*>(ga),
+      static_cast<const T*>(gb), static_cast<const T*>(table),
+      static_cast<const T*>(g), pad, lse, delta, dk, dv, dtab_part, H, Tq, Tp,
+      E, scale, freq_coef, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess || dtab_part == nullptr) return err;
   xl2_bwd_dtab_kernel<<<grid_for((size_t)Tq * E), kThreads, 0, stream>>>(
@@ -1189,9 +1235,85 @@ bool bad_args(int B, int T, int H, double dropout_p) {
          H >= 65536 || !(dropout_p >= 0.0 && dropout_p < 1.0);
 }
 
-bool bad_e(int E) {
-  return E <= 0 || E % kEC != 0 || xl2_bwd_q_smem_bytes<64>(E) > 232448 ||
-         xl2_bwd_kv_smem_bytes<64>(E) > 232448;
+// E a multiple of 64 whose shared memory fits a block at head dim D.
+bool bad_e(int E, int D) {
+  if (E <= 0 || E % kEC != 0) return true;
+  const size_t q = D == 128 ? xl2_bwd_q_smem_bytes<128>(E)
+                            : xl2_bwd_q_smem_bytes<64>(E);
+  const size_t kv = D == 128 ? xl2_bwd_kv_smem_bytes<128>(E)
+                             : xl2_bwd_kv_smem_bytes<64>(E);
+  return q > 232448 || kv > 232448;
+}
+
+// One K5 (ROTATE) or K6 bwd-q launch at the built head dims: 48 and 64,
+// and 128 for K6 (the JETS conformer's legacy rel-pos flavour).
+template <bool ROTATE>
+int xl2_bwd_q_entry(const void* qc, const void* k, const void* v,
+                    const void* ga, const void* gb, const void* table,
+                    const void* g, const float* pad, const float* lse,
+                    const float* delta, float* dqc, float* dg, float* dgb,
+                    float* carry, int B, int T, int H, int D, int E,
+                    int is_bf16, float scale, double dropout_p, uint64_t seed,
+                    void* stream) {
+  if (bad_args(B, T, H, dropout_p) || bad_e(E, D))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DropArgs drop = drop_args(dropout_p, seed);
+#define VT_XL2Q(TYPE, DIM)                                                  \
+  launch_xl2_bwd_q<TYPE, DIM, ROTATE>(qc, k, v, ga, gb, table, g, pad, lse, \
+                                      delta, dqc, dg, dgb, carry, B, T, H,  \
+                                      E, scale, drop, s)
+  switch (D * 2 + (is_bf16 ? 1 : 0)) {
+    case 96: return (int)VT_XL2Q(float, 48);
+    case 97: return (int)VT_XL2Q(__nv_bfloat16, 48);
+    case 128: return (int)VT_XL2Q(float, 64);
+    case 129: return (int)VT_XL2Q(__nv_bfloat16, 64);
+    default: break;
+  }
+  if constexpr (!ROTATE) {
+    switch (D * 2 + (is_bf16 ? 1 : 0)) {
+      case 256: return (int)VT_XL2Q(float, 128);
+      case 257: return (int)VT_XL2Q(__nv_bfloat16, 128);
+      default: break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+#undef VT_XL2Q
+}
+
+// One K5 (ROTATE) or K6 bwd-kv launch, head dims as xl2_bwd_q_entry.
+template <bool ROTATE>
+int xl2_bwd_kv_entry(const void* qc, const void* k, const void* v,
+                     const void* ga, const void* gb, const void* table,
+                     const void* g, const float* pad, const float* lse,
+                     const float* delta, float* dk, float* dv,
+                     float* dtab_part, float* dtab, int B, int T, int Tp,
+                     int H, int D, int E, int is_bf16, float scale,
+                     double dropout_p, uint64_t seed, void* stream) {
+  if (bad_args(B, T, H, dropout_p) || bad_e(E, D) || Tp < T)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DropArgs drop = drop_args(dropout_p, seed);
+#define VT_XL2KV(TYPE, DIM)                                                 \
+  launch_xl2_bwd_kv<TYPE, DIM, ROTATE>(qc, k, v, ga, gb, table, g, pad, lse, \
+                                       delta, dk, dv, dtab_part, dtab, B, T, \
+                                       Tp, H, E, scale, drop, s)
+  switch (D * 2 + (is_bf16 ? 1 : 0)) {
+    case 96: return (int)VT_XL2KV(float, 48);
+    case 97: return (int)VT_XL2KV(__nv_bfloat16, 48);
+    case 128: return (int)VT_XL2KV(float, 64);
+    case 129: return (int)VT_XL2KV(__nv_bfloat16, 64);
+    default: break;
+  }
+  if constexpr (!ROTATE) {
+    switch (D * 2 + (is_bf16 ? 1 : 0)) {
+      case 256: return (int)VT_XL2KV(float, 128);
+      case 257: return (int)VT_XL2KV(__nv_bfloat16, 128);
+      default: break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+#undef VT_XL2KV
 }
 
 }  // namespace
@@ -1238,20 +1360,9 @@ int vt_flash_xl2_bwd_q(const void* qc, const void* k, const void* v,
                        float* dqc, float* dg2, float* carry, int B, int T,
                        int H, int D, int E, int is_bf16, float scale,
                        double dropout_p, uint64_t seed, void* stream) {
-  if (bad_args(B, T, H, dropout_p) || bad_e(E)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DropArgs drop = drop_args(dropout_p, seed);
-#define VT_XL2Q(TYPE, DIM)                                                    \
-  launch_xl2_bwd_q<TYPE, DIM>(qc, k, v, g2, table, g, pad, lse, delta, dqc,  \
-                              dg2, carry, B, T, H, E, scale, drop, s)
-  switch (D * 2 + (is_bf16 ? 1 : 0)) {
-    case 96: return (int)VT_XL2Q(float, 48);
-    case 97: return (int)VT_XL2Q(__nv_bfloat16, 48);
-    case 128: return (int)VT_XL2Q(float, 64);
-    case 129: return (int)VT_XL2Q(__nv_bfloat16, 64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef VT_XL2Q
+  return xl2_bwd_q_entry<true>(qc, k, v, g2, nullptr, table, g, pad, lse,
+                               delta, dqc, dg2, nullptr, carry, B, T, H, D, E,
+                               is_bf16, scale, dropout_p, seed, stream);
 }
 
 // K5 bwd-kv. Inputs as K5 bwd-q; Tp >= T the forward's padded length (the
@@ -1265,22 +1376,40 @@ int vt_flash_xl2_bwd_kv(const void* qc, const void* k, const void* v,
                         float* dtab_part, float* dtab, int B, int T, int Tp,
                         int H, int D, int E, int is_bf16, float scale,
                         double dropout_p, uint64_t seed, void* stream) {
-  if (bad_args(B, T, H, dropout_p) || bad_e(E) || Tp < T)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DropArgs drop = drop_args(dropout_p, seed);
-#define VT_XL2KV(TYPE, DIM)                                                   \
-  launch_xl2_bwd_kv<TYPE, DIM>(qc, k, v, g2, table, g, pad, lse, delta, dk,  \
-                               dv, dtab_part, dtab, B, T, Tp, H, E, scale,   \
-                               drop, s)
-  switch (D * 2 + (is_bf16 ? 1 : 0)) {
-    case 96: return (int)VT_XL2KV(float, 48);
-    case 97: return (int)VT_XL2KV(__nv_bfloat16, 48);
-    case 128: return (int)VT_XL2KV(float, 64);
-    case 129: return (int)VT_XL2KV(__nv_bfloat16, 64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef VT_XL2KV
+  return xl2_bwd_kv_entry<true>(qc, k, v, g2, nullptr, table, g, pad, lse,
+                                delta, dk, dv, dtab_part, dtab, B, T, Tp, H,
+                                D, E, is_bf16, scale, dropout_p, seed, stream);
+}
+
+// K6 bwd-q. qc, k, v, g: (B, T, H, D); gA, gB: (B, T, H, E) the forward's
+// pre-rotated streams; table: (T, E); all one dtype; D in {48, 64, 128}.
+// pad, lse, delta, dropout_p, seed as K4 bwd. Outputs, fp32: dqc
+// (B, T, H, D), dgA and dgB (B, T, H, E).
+int vt_flash_xl_bwd_q(const void* qc, const void* k, const void* v,
+                      const void* ga, const void* gb, const void* table,
+                      const void* g, const float* pad, const float* lse,
+                      const float* delta, float* dqc, float* dga, float* dgb,
+                      int B, int T, int H, int D, int E, int is_bf16,
+                      float scale, double dropout_p, uint64_t seed,
+                      void* stream) {
+  return xl2_bwd_q_entry<false>(qc, k, v, ga, gb, table, g, pad, lse, delta,
+                                dqc, dga, dgb, nullptr, B, T, H, D, E,
+                                is_bf16, scale, dropout_p, seed, stream);
+}
+
+// K6 bwd-kv. Inputs as K6 bwd-q, Tp as K5 bwd-kv. Outputs, fp32: dk, dv
+// (B, T, H, D); with dtab_part non-null (scratch (B * H, T, E) fp32,
+// zero-filled by the caller) also dtab (T, E).
+int vt_flash_xl_bwd_kv(const void* qc, const void* k, const void* v,
+                       const void* ga, const void* gb, const void* table,
+                       const void* g, const float* pad, const float* lse,
+                       const float* delta, float* dk, float* dv,
+                       float* dtab_part, float* dtab, int B, int T, int Tp,
+                       int H, int D, int E, int is_bf16, float scale,
+                       double dropout_p, uint64_t seed, void* stream) {
+  return xl2_bwd_kv_entry<false>(qc, k, v, ga, gb, table, g, pad, lse, delta,
+                                 dk, dv, dtab_part, dtab, B, T, Tp, H, D, E,
+                                 is_bf16, scale, dropout_p, seed, stream);
 }
 
 const char* vt_error_string(int err) {

@@ -15,8 +15,8 @@ The encoder and decoder are espnet transformer stacks, or, with
 stacks (``nn/espnet_conformer.py``). ``hparams["attn_implementation"] =
 "flash"`` routes their self-attention to kernels K1 (forward, with in-kernel
 dropout in training) and K3 (backward) on the transformer, K7 (forward,
-bwd-q, bwd-kv) on the "latest" conformer and K6's forward on the "legacy"
-one (serving only); ``hparams["fused_mrf"] = True`` routes the HiFi-GAN
+bwd-q, bwd-kv) on the "latest" conformer and K6 (forward, bwd-q, bwd-kv) on
+the "legacy" one; ``hparams["fused_mrf"] = True`` routes the HiFi-GAN
 stages with ch <= 64 to kernel K2, which has no backward (training keeps it
 off, as the JAX package does). Dropout follows ``.train()`` / ``.eval()``.
 """

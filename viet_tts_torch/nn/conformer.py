@@ -14,12 +14,12 @@ not read: it sets those biases to 0). Activations are (B, T, C).
 function (``attn_implementation``):
 - "shift": the reference's padded-reshape relative shift;
 - "dense": the factorised logits of ``ops/xl_attention.py``;
-- "flash": kernels K4 / K5 / K6 (``ops/flash_xl_attention.py``), routed by
-  padded length as the JAX module routes them: xl3 while the 128-padded T
-  is at most 512, xl2 while the 32-padded T is at most 1024, xl beyond.
-  In training the attention-weight dropout runs inside K4 / K5, keyed by a
-  seed drawn per call from the caller's ``generator``; a length past the
-  xl2 route raises in training, K6's backward being still to be ported.
+- "flash": kernels K4 / K5 / K6 through ``ops/xl_attention.py:xl_attention``,
+  routed by padded length as the JAX module routes them: xl3 while the
+  128-padded T is at most 512, xl2 while the 32-padded T is at most 1024,
+  xl beyond. In training the attention-weight dropout runs inside the
+  kernels, keyed by a seed drawn per call from the caller's ``generator``;
+  each route has its backward kernels.
 
 ``mask_attn_keys=False`` is the reference's behaviour: its ``nn.Sequential``
 drops the mask, so self-attention sees the padding keys and only the block
@@ -39,20 +39,12 @@ from torch import nn
 
 from viet_tts_torch.models.fastspeech2.layers import ConvNorm, FlaxBatchNorm1d, LinearNorm
 from viet_tts_torch.nn.utils import sinusoid_position_table
-from viet_tts_torch.ops.flash_attention import MASK_NEG, padded_time
-from viet_tts_torch.ops.flash_xl_attention import (
-    XL2_MAX_T,
-    XL3_MAX_T,
-    flash_xl2_attention,
-    flash_xl3_attention,
-    flash_xl_attention,
-    xl3_padded_time,
-)
+from viet_tts_torch.ops.flash_attention import MASK_NEG
 from viet_tts_torch.ops.xl_attention import (
     relative_shift,
+    xl_attention,
     xl_attention_scores,
     xl_pos_queries,
-    xl_pos_query_stream,
 )
 
 LN_EPS = 1e-6  # flax nn.LayerNorm
@@ -112,28 +104,11 @@ class RelativeMultiHeadAttention(nn.Module):
                 p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0) * bound)
 
     def _flash(self, q, k, v, table, pad_mask, generator):
-        T, H, D = q.shape[1], self.num_heads, self.d_head
-        qc, qv = q + self.u_bias, q + self.v_bias
-        scale = 1.0 / math.sqrt(self.d_model)
+        drop_p = self.dropout.p if self.training else 0.0
         pos_kernel = self.pos_proj.linear.weight.t()  # (E, H*D), flax's kernel
-        drop_p, seed = 0.0, None
-        if self.training and self.dropout.p > 0.0:
-            drop_p = self.dropout.p
-            # a per-call seed for the in-kernel mask, drawn on the host
-            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
-        if xl3_padded_time(T) <= XL3_MAX_T:
-            p = (table @ pos_kernel).reshape(T, H, D)
-            return flash_xl3_attention(qc, k, v, qv, p, scale, pad_mask, drop_p, seed)
-        if padded_time(T) <= XL2_MAX_T:
-            g = xl_pos_query_stream(qv, pos_kernel)
-            return flash_xl2_attention(qc, k, v, g, table, scale, pad_mask, drop_p, seed)
-        if self.training:
-            raise NotImplementedError(
-                f"flash XL attention trains up to a padded length of {XL2_MAX_T} (got "
-                f"T={T}): the two-stream route's backward (K6 bwd, "
-                "pallas_attention.py:_xl_bwd_pallas) is still to be ported")
-        gA, gB = xl_pos_queries(qv, pos_kernel)
-        return flash_xl_attention(qc, k, v, gA, gB, table, scale, pad_mask)
+        return xl_attention(q, k, v, self.u_bias, self.v_bias, pos_kernel, table,
+                            1.0 / math.sqrt(self.d_model), pad_mask, "flash", drop_p,
+                            generator)
 
     def forward(self, x: torch.Tensor, table: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,

@@ -18,13 +18,13 @@ function (``attn_implementation``):
   the legacy one is the XL shift, ``ops/xl_attention.py:relative_shift``);
 - "dense": the factorised logits (``ops/espnet_attention.py`` for "latest",
   ``ops/xl_attention.py`` for "legacy");
-- "flash": "latest" on kernel K7 (``ops/flash_rel_attention.py``, with the
-  attention-weight dropout inside the kernel in training, keyed by a seed
-  drawn per call on the host from the caller's ``generator``), "legacy" on
-  kernel K6's forward (``ops/flash_xl_attention.py:flash_xl_attention``),
-  which serves only: its backward is still to be ported, so training on
-  that route raises. The flash route skips the shift route's post-softmax
-  zeroing of invalid keys, a no-op for any row with a valid key.
+- "flash": "latest" on kernel K7 (``ops/flash_rel_attention.py``), "legacy"
+  on kernel K6 (``ops/flash_xl_attention.py:flash_xl_attention``), both
+  with their backward kernels and the attention-weight dropout inside the
+  kernel in training, keyed by a seed drawn per call on the host from the
+  caller's ``generator``. The flash route skips the shift route's
+  post-softmax zeroing of invalid keys, a no-op for any row with a valid
+  key.
 
 Dropout sits where the flax modules have it. On the shift route the
 position table takes the positional dropout too; the factorised routes
@@ -121,24 +121,20 @@ class RelPositionMultiHeadedAttention(nn.Module):
         pos_kernel = self.linear_pos.weight.t()  # (E, H*D), flax's kernel
         flash = self.attn_implementation == "flash"
         pad_mask = None if valid_mask is None else ~valid_mask
+        drop_p, seed = 0.0, None
+        if flash and self.training and self.dropout_rate > 0.0:
+            drop_p = self.dropout_rate
+            # a per-call seed for the in-kernel mask, drawn on the host
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
         if self.legacy:
             gA, gB = xl_pos_queries(qv, pos_kernel)
             if not flash:
                 return xl_attention_scores(qc, k, gA, gB, table, scale)
-            if self.training:
-                raise NotImplementedError(
-                    "the legacy rel-pos flash route trains on K6, whose backward "
-                    "(K6 bwd, pallas_attention.py:_xl_bwd_pallas) is still to be ported")
-            return flash_xl_attention(qc, k, v, gA, gB, table, scale, pad_mask)
+            return flash_xl_attention(qc, k, v, gA, gB, table, scale, pad_mask, drop_p, seed)
         g = rel_pos_queries_latest(qv, pos_kernel)
         neg = neg_rel_table(table)
         if not flash:
             return espnet_rel_scores_latest(qc, k, g, neg, scale)
-        drop_p, seed = 0.0, None
-        if self.training and self.dropout_rate > 0.0:
-            drop_p = self.dropout_rate
-            # a per-call seed for the in-kernel mask, drawn on the host
-            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
         return flash_rel_attention(qc, k, v, g, neg, scale, pad_mask, drop_p, seed)
 
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,

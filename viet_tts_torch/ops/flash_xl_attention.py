@@ -1,15 +1,16 @@
-"""Transformer-XL flash attention of the FS2 conformer: kernels K4 (xl3),
-K5 (xl2) and K6 (xl) forward, the K4 and K5 backward, their plain versions
-and the autograd functions around them.
+"""Transformer-XL flash attention of the FS2 conformer (and of the JETS
+conformer's legacy rel-pos flavour): kernels K4 (xl3), K5 (xl2) and K6 (xl)
+forward and backward, their plain versions and the autograd functions
+around them.
 
 Counterpart of the XL flavours of ``viet_tts_tpu/ops/pallas_attention.py``:
 ``flash_xl3_attention`` (TPU kernels ``_xl3_kernel`` / ``_xl3_bwd_kernel``,
 custom VJP ``_xl3_op``), ``flash_xl2_attention`` (``_xl2_kernel`` /
 ``_xl2_bwd_q_kernel`` / ``_xl2_bwd_kv_kernel``, ``_xl2_op``) and
-``flash_xl_attention`` (``_xl_kernel``; its backward is still to be
-ported). The three compute one function, softmax((qc k^T + shift(qv p^T))
-* scale) v, from three parameterisations of the position term
-(``ops/xl_attention.py``):
+``flash_xl_attention`` (``_xl_kernel`` / ``_xl_bwd_q_kernel`` /
+``_xl_bwd_kv_kernel``, ``_xl_op``). The three compute one function,
+softmax((qc k^T + shift(qv p^T)) * scale) v, from three parameterisations
+of the position term (``ops/xl_attention.py``):
 
 - xl3: qc = q + u_bias, k, v, qv = q + v_bias (B, T, H, D) and the
   projected table p = pos_proj(table) (T, H, D); the TPU pads T to a
@@ -21,15 +22,17 @@ ported). The three compute one function, softmax((qc k^T + shift(qv p^T))
 - xl: the pre-rotated streams gA, gB (B, T, H, E) and the table; longer T.
 
 Each public function keeps the JAX one's arguments and result: (B, T, H*D)
-in qc's dtype; xl3 and xl2 are differentiable (``torch.autograd.Function``:
+in qc's dtype; all three are differentiable (``torch.autograd.Function``:
 the forward saves its inputs, the context and the logsumexp, the backward
 computes delta = rowsum(g * out) outside the kernels, as ``_xl3_bwd`` /
-``_xl2_bwd`` do, and launches the backward kernels). ``xl3_fwd`` /
-``xl2_fwd`` / ``xl_fwd`` return the context (B, T, H, D) in fp32 with the
-per-row logsumexp (B, H, T); ``xl3_bwd``, ``xl2_bwd_dq`` and ``xl2_bwd_dkv``
-the gradients in fp32: the kernel on CUDA tensors, the plain version
-(``*_plain``: the dense formulas, the JAX package's dense oracle on the
-padded inputs and its VJP) on CPU tensors, never one for the other.
+``_xl2_bwd`` / ``_xl_bwd`` do, and launches the backward kernels).
+``xl3_fwd`` / ``xl2_fwd`` / ``xl_fwd`` return the context (B, T, H, D) in
+fp32 with the per-row logsumexp (B, H, T); ``xl3_bwd``, ``xl2_bwd_dq``,
+``xl2_bwd_dkv``, ``xl_bwd_dq`` and ``xl_bwd_dkv`` the gradients in fp32:
+the kernel on CUDA tensors, the plain version (``*_plain``: the dense
+formulas, the JAX package's dense oracle on the padded inputs and its VJP)
+on CPU tensors, never one for the other. K6 also runs at D = 128 (the JETS
+conformer's width).
 
 Padding, as the JAX wrappers do it:
 - xl3 appends zero rows up to tp (a multiple of 128), LEFT-pads p by
@@ -41,13 +44,12 @@ xl2 rotates with the real T (``t_sem``), not tp. The backward of a row
 whose keys are all padding is the dense gradient (uniform weights), not
 the TPU kernels' (see ``csrc/flash_xl_attention_bwd.cu``).
 
-Attention-weight dropout (xl3 and xl2; training): the keep bit of weight
-(i, j) of batch row b, head h is ``flash_attention.dropout_keep_mask``'s
-counter hash, the one K1 and K3 draw, so the forward, the backward and the
-plain versions share the mask. It cannot reproduce the TPU's on-core PRNG
-bits; the semantics are the JAX package's (the softmax denominator takes
-the undropped weights, the context p * m / keep). K6 serves inference only
-and refuses dropout.
+Attention-weight dropout (training): the keep bit of weight (i, j) of
+batch row b, head h is ``flash_attention.dropout_keep_mask``'s counter
+hash, the one K1 and K3 draw, so the forward, the backward and the plain
+versions share the mask. It cannot reproduce the TPU's on-core PRNG bits;
+the semantics are the JAX package's (the softmax denominator takes the
+undropped weights, the context p * m / keep).
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ XL2_MAX_T = 1024  # pallas_attention.py:_XL2_MAX_T
 _HEAD_DIMS = (48, 64)  # head dims the kernels are built for
 _XL_HEAD_DIMS = (48, 64, 128)  # K6 also at the JETS width (legacy rel-pos)
 _MAX_E = 640  # the xl2/xl kernels keep two (32, E) fp32 tiles in shared memory
-_MAX_E_BWD = 512  # K5 bwd-kv keeps two (32, E) tiles and more beside them
+_MAX_E_BWD = 512  # K5 / K6 bwd-kv keep two (32, E) tiles and more beside them
 
 
 def xl3_padded_time(t: int) -> int:
@@ -223,7 +225,8 @@ def xl2_fwd_plain(qc, k, v, g, table, scale: float, pad_mask=None, dropout_p: fl
     return _out(*_xl_dense(qch, kh, vh, gA, gB, tab, pad, scale, cd, m), T)
 
 
-def xl_fwd_plain(qc, k, v, gA, gB, table, scale: float, pad_mask=None):
+def xl_fwd_plain(qc, k, v, gA, gB, table, scale: float, pad_mask=None,
+                 dropout_p: float = 0.0, seed: int = 0):
     """``flash_xl_attention`` as the JAX package computes it off the TPU
     (``_xl_dense``): the pre-rotated gA, gB (B, T, H, E) and table (T, E)."""
     B, T, H, D = qc.shape
@@ -232,7 +235,8 @@ def xl_fwd_plain(qc, k, v, gA, gB, table, scale: float, pad_mask=None):
     pad = F.pad(_pad_tensor(pad_mask, B, T, qc.device), (0, tp - T), value=1.0)
     qch, kh, vh, gAh, gBh = (_hm(_pad_rows(x, tp - T), cd) for x in (qc, k, v, gA, gB))
     tab = _pad_rows(table.to(cd).float()[None], tp - T)[0]
-    return _out(*_xl_dense(qch, kh, vh, gAh, gBh, tab, pad, scale, cd), T)
+    m = _keep_scale(seed, B, H, tp, tp, dropout_p, qc.device)
+    return _out(*_xl_dense(qch, kh, vh, gAh, gBh, tab, pad, scale, cd, m), T)
 
 
 # --------------------------------------------------------------------------
@@ -301,18 +305,18 @@ def xl3_bwd_plain(qc, k, v, qv, p, pad, lse, delta, g, scale: float,
     return dqc, dk, dv, dqv.permute(0, 2, 1, 3), dp
 
 
-def _xl2_bwd_terms(qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p, seed):
-    """Dense terms of the xl2 backward on the T real query rows and the tp
-    padded keys: (qch, kh, gh, gA, gB, tab, rotations, p m / keep, ds, past
-    mask, future mask)."""
+def _xl_bwd_terms(qc, k, v, gA, gB, table, pad, lse, delta, g, scale, dropout_p, seed):
+    """Dense terms of the xl2 / xl backward on the T real query rows and the
+    tp padded keys, from the head-major fp32 streams gA, gB (B, H, T, E):
+    (qch, kh, gh, tab, p m / keep, ds, past mask, future mask). A padded
+    query row would add nothing: its cotangent is 0."""
     B, T, H, D = qc.shape
     cd = _compute_dtype(qc)
     tp = padded_time(T)
     padp = F.pad(pad, (0, tp - T), value=1.0)
-    qch, gh, g2h = (_hm(x, cd) for x in (qc, g, g2))
+    qch, gh = (_hm(x, cd) for x in (qc, g))
     kh, vh = (_hm(_pad_rows(x, tp - T), cd) for x in (k, v))
     tab = _pad_rows(table.to(cd).float()[None], tp - T)[0]
-    gA, gB, rot = _xl2_streams(g2h, T, cd)
     i = torch.arange(T, device=qc.device)[:, None]
     j = torch.arange(tp, device=qc.device)[None, :]
     past, fut = j <= i, j >= i + 2
@@ -323,7 +327,30 @@ def _xl2_bwd_terms(qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p, se
     dpv = torch.einsum("bhqd,bhkd->bhqk", gh, vh)
     m = _keep_scale(seed, B, H, T, tp, dropout_p, qc.device)
     p_v, ds = _weights_and_ds(logits, padp, lse, dpv, delta, m, tp, scale, cd)
+    return qch, kh, gh, tab, p_v, ds, past, fut
+
+
+def _xl2_bwd_terms(qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p, seed):
+    """``_xl_bwd_terms`` of xl2's unrotated stream g2: (qch, kh, gh, gA, gB,
+    tab, rotations, p m / keep, ds, past mask, future mask)."""
+    cd = _compute_dtype(qc)
+    gA, gB, rot = _xl2_streams(_hm(g2, cd), qc.shape[1], cd)
+    qch, kh, gh, tab, p_v, ds, past, fut = _xl_bwd_terms(
+        qc, k, v, gA, gB, table, pad, lse, delta, g, scale, dropout_p, seed)
     return qch, kh, gh, gA, gB, tab, rot, p_v, ds, past, fut
+
+
+def _bwd_dkv(qch, gh, gA, gB, p_v, ds, past, fut, T: int, want_dtab: bool):
+    """(dk, dv (B, T, H, D), dtab (T, E) or None) of the dense terms:
+    dtab_j = sum_{b,h,i} dsA_ij gA_i + dsB_ij gB_i."""
+    dk = torch.einsum("bhqk,bhqd->bkhd", ds, qch)[:, :T]
+    dv = torch.einsum("bhqk,bhqd->bkhd", p_v, gh)[:, :T]
+    dtab = None
+    if want_dtab:
+        zero = torch.zeros_like(ds)
+        dtab = (torch.einsum("bhqk,bhqe->ke", torch.where(past, ds, zero), gA)
+                + torch.einsum("bhqk,bhqe->ke", torch.where(fut, ds, zero), gB))[:T]
+    return dk, dv, dtab
 
 
 def xl2_bwd_dq_plain(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
@@ -347,17 +374,35 @@ def xl2_bwd_dkv_plain(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
                       dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
     """(dk, dv (B, T, H, D), dtab (T, E) or None), fp32: the plain version
     of K5 bwd-kv; dtab_j = sum_{b,h,i} dsA_ij gA_i + dsB_ij gB_i."""
-    T = qc.shape[1]
     qch, _, gh, gA, gB, _, _, p_v, ds, past, fut = _xl2_bwd_terms(
         qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p, seed)
-    dk = torch.einsum("bhqk,bhqd->bkhd", ds, qch)[:, :T]
-    dv = torch.einsum("bhqk,bhqd->bkhd", p_v, gh)[:, :T]
-    dtab = None
-    if want_dtab:
-        zero = torch.zeros_like(ds)
-        dtab = (torch.einsum("bhqk,bhqe->ke", torch.where(past, ds, zero), gA)
-                + torch.einsum("bhqk,bhqe->ke", torch.where(fut, ds, zero), gB))[:T]
-    return dk, dv, dtab
+    return _bwd_dkv(qch, gh, gA, gB, p_v, ds, past, fut, qc.shape[1], want_dtab)
+
+
+def xl_bwd_dq_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
+                    dropout_p: float = 0.0, seed: int = 0):
+    """(dqc (B, T, H, D), dgA, dgB (B, T, H, E)), fp32: the plain version of
+    K6 bwd-q (``_xl_bwd_dense``, the VJP of ``_xl_dense``). gA, gB the
+    pre-rotated position streams, g the cotangent; other arguments as
+    ``xl3_bwd_plain``."""
+    gAh, gBh = (_hm(x, _compute_dtype(qc)) for x in (gA, gB))
+    _, kh, _, tab, _, ds, past, fut = _xl_bwd_terms(
+        qc, k, v, gAh, gBh, table, pad, lse, delta, g, scale, dropout_p, seed)
+    zero = torch.zeros_like(ds)
+    dqc = torch.einsum("bhqk,bhkd->bqhd", ds, kh)
+    dgA = torch.einsum("bhqk,ke->bqhe", torch.where(past, ds, zero), tab)
+    dgB = torch.einsum("bhqk,ke->bqhe", torch.where(fut, ds, zero), tab)
+    return dqc, dgA, dgB
+
+
+def xl_bwd_dkv_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
+                     dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
+    """(dk, dv (B, T, H, D), dtab (T, E) or None), fp32: the plain version
+    of K6 bwd-kv."""
+    gAh, gBh = (_hm(x, _compute_dtype(qc)) for x in (gA, gB))
+    qch, _, gh, _, p_v, ds, past, fut = _xl_bwd_terms(
+        qc, k, v, gAh, gBh, table, pad, lse, delta, g, scale, dropout_p, seed)
+    return _bwd_dkv(qch, gh, gAh, gBh, p_v, ds, past, fut, qc.shape[1], want_dtab)
 
 
 # --------------------------------------------------------------------------
@@ -481,13 +526,13 @@ def xl2_fwd(qc, k, v, g, table, scale: float, pad_mask=None, dropout_p: float = 
 xl2_fwd.launches = 0
 
 
-def xl_fwd(qc, k, v, gA, gB, table, scale: float, pad_mask=None
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
+def xl_fwd(qc, k, v, gA, gB, table, scale: float, pad_mask=None, dropout_p: float = 0.0,
+           seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ctx (B, T, H, D) fp32, lse (B, H, T)): kernel K6 on CUDA tensors, the
-    plain version on CPU tensors. No dropout: K6's backward is still to be
-    ported, so K6 serves inference only."""
+    plain version on CPU tensors."""
+    _check_rates(dropout_p)
     if _device_of(qc) == "cpu":
-        return xl_fwd_plain(qc, k, v, gA, gB, table, scale, pad_mask)
+        return xl_fwd_plain(qc, k, v, gA, gB, table, scale, pad_mask, dropout_p, seed)
     _check(qc, k, v, gA, gB, head_dims=_XL_HEAD_DIMS)
     B, T, H, D = qc.shape
     E = gA.shape[-1]
@@ -500,8 +545,8 @@ def xl_fwd(qc, k, v, gA, gB, table, scale: float, pad_mask=None
     err = lib.vt_flash_xl_fwd(
         qc.data_ptr(), k.data_ptr(), v.data_ptr(), gA.data_ptr(), gB.data_ptr(),
         table.data_ptr(), pad.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T,
-        padded_time(T), H, D, E, int(qc.dtype == torch.bfloat16), float(scale), 0.0, 0,
-        stream)
+        padded_time(T), H, D, E, int(qc.dtype == torch.bfloat16), float(scale),
+        float(dropout_p), _seed(seed), stream)
     kernels.check(lib, err, "XL flash attention kernel")
     xl_fwd.launches += 1
     return out, lse
@@ -618,6 +663,85 @@ def xl2_bwd_dkv(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
 xl2_bwd_dkv.launches = 0
 
 
+def _xl_bwd_operands(qc, k, v, gA, gB, table, pad, lse, delta, g):
+    """Checked, contiguous operands of K6 bwd-q / bwd-kv: (pad, lse, delta,
+    g, qc, k, v, gA, gB, table)."""
+    pad, lse, delta, g, qc, k, v = _bwd_inputs(qc, pad, lse, delta, g, qc, k, v,
+                                               head_dims=_XL_HEAD_DIMS)
+    _check(qc, gA, gB, head_dims=_XL_HEAD_DIMS)
+    if gB.shape != gA.shape:
+        raise ValueError("gA and gB must have one shape")
+    table = _table(table, qc, gA.shape[-1], _MAX_E_BWD)
+    return pad, lse, delta, g, qc, k, v, gA.contiguous(), gB.contiguous(), table
+
+
+def xl_bwd_dq(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
+              dropout_p: float = 0.0, seed: int = 0):
+    """(dqc (B, T, H, D), dgA, dgB (B, T, H, E)) fp32: kernel K6 bwd-q on
+    CUDA tensors, the plain version on CPU tensors."""
+    _check_rates(dropout_p)
+    if _device_of(qc) == "cpu":
+        return xl_bwd_dq_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale, dropout_p,
+                               seed)
+    pad, lse, delta, g, qc, k, v, gA, gB, table = _xl_bwd_operands(
+        qc, k, v, gA, gB, table, pad, lse, delta, g)
+    B, T, H, D = qc.shape
+    E = gA.shape[-1]
+    f32 = dict(dtype=torch.float32, device=qc.device)
+    dqc = torch.empty(B, T, H, D, **f32)
+    dgA = torch.empty(B, T, H, E, **f32)
+    dgB = torch.empty(B, T, H, E, **f32)
+    lib = kernels.library("flash_xl_attention_bwd")
+    err = lib.vt_flash_xl_bwd_q(
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(), gA.data_ptr(), gB.data_ptr(),
+        table.data_ptr(), g.data_ptr(), pad.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dqc.data_ptr(), dgA.data_ptr(), dgB.data_ptr(), B, T, H, D, E,
+        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
+        _stream(qc))
+    kernels.check(lib, err, "XL flash attention bwd_q kernel")
+    xl_bwd_dq.launches += 1
+    return dqc, dgA, dgB
+
+
+xl_bwd_dq.launches = 0
+
+
+def xl_bwd_dkv(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
+               dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
+    """(dk, dv (B, T, H, D), dtab (T, E) or None) fp32: kernel K6 bwd-kv on
+    CUDA tensors, the plain version on CPU tensors. dtab only with
+    ``want_dtab`` (the conformers' table is a constant)."""
+    _check_rates(dropout_p)
+    if _device_of(qc) == "cpu":
+        return xl_bwd_dkv_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale,
+                                dropout_p, seed, want_dtab)
+    pad, lse, delta, g, qc, k, v, gA, gB, table = _xl_bwd_operands(
+        qc, k, v, gA, gB, table, pad, lse, delta, g)
+    B, T, H, D = qc.shape
+    E = gA.shape[-1]
+    f32 = dict(dtype=torch.float32, device=qc.device)
+    dk = torch.empty(B, T, H, D, **f32)
+    dv = torch.empty(B, T, H, D, **f32)
+    dtab = dtab_part = None
+    if want_dtab:
+        dtab = torch.empty(T, E, **f32)
+        dtab_part = torch.zeros(B * H, T, E, **f32)
+    lib = kernels.library("flash_xl_attention_bwd")
+    err = lib.vt_flash_xl_bwd_kv(
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(), gA.data_ptr(), gB.data_ptr(),
+        table.data_ptr(), g.data_ptr(), pad.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), None if dtab_part is None else dtab_part.data_ptr(),
+        None if dtab is None else dtab.data_ptr(), B, T, padded_time(T), H, D, E,
+        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
+        _stream(qc))
+    kernels.check(lib, err, "XL flash attention bwd_kv kernel")
+    xl_bwd_dkv.launches += 1
+    return dk, dv, dtab
+
+
+xl_bwd_dkv.launches = 0
+
+
 # --------------------------------------------------------------------------
 # autograd: the JAX package's custom VJPs
 # --------------------------------------------------------------------------
@@ -667,6 +791,32 @@ class _XL2Attention(torch.autograd.Function):
                 None if dtab is None else dtab.to(table.dtype), None, None, None, None)
 
 
+class _XLAttention(torch.autograd.Function):
+    """``_xl_op`` with its custom VJP: the forward (K6) saves its inputs,
+    the context and lse; the backward computes delta, casts the cotangent
+    to v's dtype and launches K6 bwd-q and bwd-kv (dtab only when the table
+    needs a gradient)."""
+
+    @staticmethod
+    def forward(ctx, qc, k, v, gA, gB, table, pad, scale, dropout_p, seed):
+        out, lse = xl_fwd(qc, k, v, gA, gB, table, scale, pad, dropout_p, seed)
+        ctx.save_for_backward(qc, k, v, gA, gB, table, pad, out, lse)
+        ctx.scale, ctx.dropout_p, ctx.seed = scale, dropout_p, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        qc, k, v, gA, gB, table, pad, out, lse = ctx.saved_tensors
+        delta, g = backward_inputs(out, gout, v.dtype)
+        args = (qc, k, v, gA, gB, table, pad, lse, delta, g, ctx.scale, ctx.dropout_p,
+                ctx.seed)
+        dqc, dgA, dgB = xl_bwd_dq(*args)
+        dk, dv, dtab = xl_bwd_dkv(*args, want_dtab=ctx.needs_input_grad[5])
+        return (dqc.to(qc.dtype), dk.to(k.dtype), dv.to(v.dtype), dgA.to(gA.dtype),
+                dgB.to(gB.dtype), None if dtab is None else dtab.to(table.dtype),
+                None, None, None, None)
+
+
 # --------------------------------------------------------------------------
 # the JAX package's public entry points
 # --------------------------------------------------------------------------
@@ -705,17 +855,17 @@ def flash_xl2_attention(qc, k, v, g, table, scale: float,
 
 
 def flash_xl_attention(qc, k, v, gA, gB, table, scale: float,
-                       pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       pad_mask: Optional[torch.Tensor] = None, dropout_p: float = 0.0,
+                       dropout_seed: Optional[int] = None) -> torch.Tensor:
     """Two-stream XL attention: gA, gB (B, T, H, E) from ``xl_pos_queries``
-    -> (B, T, H*D). Forward only: it raises where autograd would need its
-    backward (kernel K6 bwd, still to be ported). The streams are cast to
-    the compute dtype (bf16 when qc is bf16, else fp32), as the JAX wrapper
-    casts them: the rotated gA, gB arrive in fp32 from a bf16 model."""
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (qc, k, v, gA, gB, table)):
-        raise NotImplementedError(
-            "flash_xl_attention has no backward yet: the TPU kernel's backward "
-            "(pallas_attention.py:_xl_bwd_pallas, K6 bwd) is still to be ported")
+    -> (B, T, H*D). Differentiable (K6 bwd-q and bwd-kv); dropout as
+    ``flash_xl3_attention``. The streams are cast to the compute dtype
+    (bf16 when qc is bf16, else fp32), as the JAX wrapper casts them: the
+    rotated gA, gB arrive in fp32 from a bf16 model."""
+    B, T = qc.shape[:2]
+    pad = _pad_tensor(pad_mask, B, T, qc.device)
+    seed = 0 if dropout_seed is None else int(dropout_seed)
     cd = _compute_dtype(qc)
     streams = (x.to(cd) for x in (qc, k, v, gA, gB))
-    return _merge(xl_fwd(*streams, table, scale, pad_mask)[0], qc)
+    return _merge(_XLAttention.apply(*streams, table, pad, float(scale), float(dropout_p),
+                                     seed), qc)

@@ -20,14 +20,25 @@ products against the raw table::
 with ``gA_i = rot(K_h (q_i + v), (T-1-i) w)`` and
 ``gB_i = rot(K_h (q_{i+1} + v), -(i+2) w)``. Layouts are the JAX package's:
 streams (B, T, H, D) or (B, T, H, E), ``pos_kernel`` the (E, H*D) kernel
-(``pos_proj.weight.t()`` here), ``table`` (T, E).
+(``pos_proj.weight.t()`` here), ``table`` (T, E). ``xl_attention`` is the
+whole attention, on the dense route or on the flash kernels.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from viet_tts_torch.ops.flash_attention import MASK_NEG, padded_time
+from viet_tts_torch.ops.flash_xl_attention import (
+    XL2_MAX_T,
+    XL3_MAX_T,
+    flash_xl2_attention,
+    flash_xl3_attention,
+    flash_xl_attention,
+    xl3_padded_time,
+)
 
 
 def _pair_frequencies(d_model: int, device=None) -> torch.Tensor:
@@ -101,6 +112,49 @@ def xl_attention_reference(qc: torch.Tensor, k: torch.Tensor, q_v: torch.Tensor,
     content = torch.einsum("bqhd,bkhd->bhqk", qc, k)
     pos = torch.einsum("bqhd,khd->bhqk", q_v, p)
     return (content + relative_shift(pos)) * scale
+
+
+def xl_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, u_bias: torch.Tensor,
+                 v_bias: torch.Tensor, pos_kernel: torch.Tensor, table: torch.Tensor,
+                 scale: float, pad_mask: Optional[torch.Tensor] = None,
+                 implementation: str = "dense", dropout_p: float = 0.0,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The whole factorised XL attention: q, k, v (B, T, H, D) -> (B, T, H*D).
+
+    u_bias, v_bias (H, D); pos_kernel (E, H*D); table (T, E); pad_mask
+    (B, T) True at padding keys (MASK_NEG). ``implementation`` "dense" forms
+    the three-matmul logits and a plain softmax (no dropout, as in the JAX
+    function); "flash" runs the kernels routed by padded length: xl3 (K4)
+    while the 128-padded T is at most 512, xl2 (K5) while the 32-padded T
+    is at most 1024, xl (K6) beyond. With ``dropout_p`` > 0 the flash route
+    drops attention weights inside the kernel, keyed by a seed drawn per
+    call on the host from ``generator`` (torch's default generator when
+    None, where the JAX function, given no ``dropout_rng``, keys every call
+    with seed 0)."""
+    qc = q + u_bias
+    if implementation == "flash":
+        seed = None
+        if dropout_p > 0.0:
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+        B, T, H, D = q.shape
+        if xl3_padded_time(T) <= XL3_MAX_T:
+            p = (table @ pos_kernel).reshape(T, H, D)
+            return flash_xl3_attention(qc, k, v, q + v_bias, p, scale, pad_mask, dropout_p,
+                                       seed)
+        if padded_time(T) <= XL2_MAX_T:
+            g = xl_pos_query_stream(q + v_bias, pos_kernel)
+            return flash_xl2_attention(qc, k, v, g, table, scale, pad_mask, dropout_p, seed)
+        gA, gB = xl_pos_queries(q + v_bias, pos_kernel)
+        return flash_xl_attention(qc, k, v, gA, gB, table, scale, pad_mask, dropout_p, seed)
+    if implementation != "dense":
+        raise ValueError(f"unknown implementation {implementation!r}")
+    gA, gB = xl_pos_queries(q + v_bias, pos_kernel)
+    scores = xl_attention_scores(qc, k, gA, gB, table, scale)
+    if pad_mask is not None:
+        scores = scores.masked_fill(pad_mask[:, None, None, :], MASK_NEG)
+    attn = torch.softmax(scores, dim=-1)
+    B, T, H, D = q.shape
+    return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, T, H * D)
 
 
 def relative_shift(pos: torch.Tensor) -> torch.Tensor:

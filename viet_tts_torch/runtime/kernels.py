@@ -99,6 +99,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "vt_flash_xl2_bwd_kv": (
             _I, [_P] * 13 + [_I, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
         ),
+        # qc, k, v, gA, gB, table, g, pad, lse, delta, dqc, dgA, dgB, B, T,
+        # H, D, E, is_bf16, scale, dropout_p, seed, stream
+        "vt_flash_xl_bwd_q": (
+            _I, [_P] * 13 + [_I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+        ),
+        # qc, k, v, gA, gB, table, g, pad, lse, delta, dk, dv, dtab_part,
+        # dtab, B, T, Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream
+        "vt_flash_xl_bwd_kv": (
+            _I, [_P] * 14 + [_I, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+        ),
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_rel_attention": {
