@@ -52,7 +52,10 @@ Phases (any failure exits non-zero; no phase is caught):
     the FS2 training shapes (B=8, H=8, D=48: K4 at T=64 and 512, K5 at
     1008 with E=384), fp32 and bf16, dropout 0 and 0.1, ragged lengths with
     a fully padded row and no pad mask, with times and SDPA's backward with
-    the position term as its mask;
+    the position term as its mask; K5 bwd-q (tensor cores) also beside its
+    TF32 and bf16 bounds, and beside a yardstick of the same function
+    (``library_ms_pos_grad``: SDPA's backward with the mask's gradient,
+    then the two masked products of that gradient with the table);
 10. the FS2 training path: ``make_fs2_train_step`` on full-width
     FastSpeech2-conformer (flash attention, every dropout as configured,
     MAS durations, CVAE, Postnet) with the bench.py batch (B=8, T_text=64,
@@ -89,7 +92,7 @@ Phases (any failure exits non-zero; no phase is caught):
     route (B=4, T=2048, H=8, D=48, E=384; dropout 0 and 0.1), fp32 and
     bf16, ragged lengths with a fully padded row and no pad mask, bwd-kv
     with the table's gradient; with times and SDPA (and its backward) with
-    the position term as its mask;
+    the position term as its mask; K6 bwd-q as K5 bwd-q in phase 9;
 15. JETS-conformer serving in the legacy rel-pos flavour
     (``conformer_rel_pos_type: legacy``, K6 at D=128): as phase 12, with
     the launches held per call (K6 fwd 10, K2 36, no K1 and no K7);
@@ -108,14 +111,20 @@ Phases (any failure exits non-zero; no phase is caught):
     JETS training steps, five two-stage calls, five FS2 training steps and
     five of each JETS-conformer path (both flavours) and of the FS2 step
     at T_mel 2048, one of each under ``torch.profiler``, device time by
-    kernel group;
+    kernel group (bwd-q as its Q1 and Q2 kernels);
 19. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
-Times are CUDA-event times over repeated launches after a warm-up. bound_ms
+Each phase logs its host seconds (``phase time:``): the driver runs this
+script under a time limit. Times are CUDA-event times over repeated
+launches after a warm-up. bound_ms
 is the larger of bytes / 3.35 TB/s and operations / the card's peak for the
 work's type (fp32 work at the 67 TFLOP/s CUDA-core rate, bf16 at 989), per
-the H100 SXM data sheet; the card's power limit is printed beside them.
+the H100 SXM data sheet. The tensor-core bwd-q kernels take the bound of
+the work they do on the tensor cores: fp32 streams under 3xTF32 run three
+TF32 products a term, so 3 * operations / 495 TFLOP/s; they also report
+the CUDA-core (67), one-TF32-product (495) and bf16 (989) figures beside
+it. The card's power limit is printed beside them.
 """
 
 from __future__ import annotations
@@ -138,6 +147,7 @@ SEED = 1234
 
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 FP32_FLOP_PER_MS = 67e12 / 1e3  # CUDA cores
+TF32_FLOP_PER_MS = 495e12 / 1e3  # dense tensor cores
 BF16_FLOP_PER_MS = 989e12 / 1e3  # dense tensor cores
 
 SENTENCES = [
@@ -177,6 +187,15 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def phase_timed(label: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, logging its host seconds: the script has a time
+    limit, and this says which phase spends it."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"phase time: {label} {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def bound(nbytes: float, flops: float, flop_per_ms: float = FP32_FLOP_PER_MS):
@@ -1247,6 +1266,76 @@ def _library_sdpa(pos_fn, base, pad, scale: float, dtype, dropout_p: float, gout
     return build_ms, fwd, bwd
 
 
+def _library_pos_grad(base, pad, scale: float, dtype, dropout_p: float, gout):
+    """The same function as bwd-q, composed from library calls: SDPA's
+    backward with scale * the XL position term as an additive mask that is
+    a leaf taking a gradient, then the two masked products of that
+    gradient with the table (dgA = (dpos o past) t, dgB = (dpos o future)
+    t). Returns the closure to time. A yardstick only: no path of the port
+    calls it."""
+    from viet_tts_torch.ops.flash_attention import MASK_NEG
+
+    T = base["qc"].shape[1]
+    mask = _xl_pos(base, scale)
+    if pad is not None:
+        mask = mask.masked_fill(pad[:, None, None, :], MASK_NEG)
+    mask = mask.to(dtype).detach().requires_grad_()
+    leaves = [base[n].to(dtype).permute(0, 2, 1, 3).contiguous().requires_grad_()
+              for n in ("qc", "k", "v")]
+    gh = gout.to(dtype).permute(0, 2, 1, 3).contiguous()
+    table = base["table"].to(dtype)
+    i = torch.arange(T, device=table.device)[:, None]
+    j = torch.arange(T, device=table.device)[None, :]
+    past, fut = j <= i, j >= i + 2
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=dropout_p,
+                                         scale=scale)
+
+    def bwd_pos():
+        *_, dmask = torch.autograd.grad(out, [*leaves, mask], gh, retain_graph=True)
+        dpos = dmask * scale
+        zero = torch.zeros((), dtype=dtype, device=table.device)
+        return (torch.where(past, dpos, zero) @ table, torch.where(fut, dpos, zero) @ table)
+
+    return bwd_pos
+
+
+# bwd-q kernels redesigned for the tensor cores (3xTF32 for fp32 streams)
+TC_REDESIGNED = ("flash_xl2_bwd_q", "flash_xl_bwd_q")
+
+
+def _tensor_core_bound(nbytes: float, flops: float, dtype):
+    """A redesigned bwd-q's bound: the work it does on the tensor cores,
+    three TF32 products a term for fp32 streams (3xTF32), one for bf16."""
+    return bound(nbytes, 3 * flops if dtype == torch.float32 else flops, TF32_FLOP_PER_MS)
+
+
+def _tensor_core_figures(k_ms: float, b_ms: float, nbytes: float, flops: float, base, pad,
+                         scale, dtype, p: float, gout, iters: int) -> dict:
+    """A redesigned bwd-q's other yardsticks beside its bound b_ms: the
+    bound of the function's operations on the fp32 CUDA cores, at one TF32
+    product a term and at the bf16 rate, the share of each bound that the
+    kernel reaches, and the pos-grad yardstick's time."""
+    b32, _ = bound(nbytes, flops, FP32_FLOP_PER_MS)
+    btf, _ = bound(nbytes, flops, TF32_FLOP_PER_MS)
+    bbf, _ = bound(nbytes, flops, BF16_FLOP_PER_MS)
+    lib_pos = cuda_ms(_library_pos_grad(base, pad, scale, dtype, p, gout), iters)
+    torch.cuda.empty_cache()
+    return dict(bound_ms_fp32=b32, bound_ms_tf32=btf, bound_ms_bf16=bbf,
+                share_of_bound=b_ms / k_ms, share_of_fp32_bound=b32 / k_ms,
+                share_of_tf32_bound=btf / k_ms, share_of_bf16_bound=bbf / k_ms,
+                library_ms_pos_grad=lib_pos)
+
+
+def _log_tc(name: str, fig: dict) -> None:
+    log(f"    {name}: share of bound_ms (3xTF32) {100 * fig['share_of_bound']:.1f} %; "
+        f"fp32 CUDA-core bound {fig['bound_ms_fp32']:.4f} ms "
+        f"({100 * fig['share_of_fp32_bound']:.1f} %), one TF32 product "
+        f"{fig['bound_ms_tf32']:.4f} ({100 * fig['share_of_tf32_bound']:.1f} %), bf16 "
+        f"{fig['bound_ms_bf16']:.4f} ({100 * fig['share_of_bf16_bound']:.1f} %); "
+        f"library_ms_pos_grad {fig['library_ms_pos_grad']:.4f} (SDPA backward with the "
+        f"mask's gradient + the two masked table products)")
+
+
 def _max_err(got, want):
     """(max abs error, max abs error / max(1, max |plain|)) over outputs."""
     errs = [((a - b).abs().max().item(), max(1.0, b.abs().max().item()))
@@ -1325,26 +1414,33 @@ def check_xl_training(dev):
                                                               p, gout)
                     l_fwd, l_bwd = cuda_ms(lib_fwd, iters), cuda_ms(lib_bwd, iters)
                     work = _xl_train_work(kind, args, live, T)
-                    timed = {fwd_name: (lambda: fwd(*args, scale, pad, p, seed),
-                                        lambda: plain_fwd(*args, scale, pad, p, seed), l_fwd)}
+                    to_time = {fwd_name: (lambda: fwd(*args, scale, pad, p, seed),
+                                          lambda: plain_fwd(*args, scale, pad, p, seed), l_fwd)}
                     for name, (kern, plain, _) in bwds.items():
-                        timed[name] = (lambda k=kern: k(*bargs), lambda q=plain: q(*bargs), l_bwd)
-                    for name, (k_fn, p_fn, l_ms) in timed.items():
+                        to_time[name] = (lambda k=kern: k(*bargs), lambda q=plain: q(*bargs),
+                                         l_bwd)
+                    for name, (k_fn, p_fn, l_ms) in to_time.items():
                         k_ms = cuda_ms(k_fn, iters)
                         p_ms = cuda_ms(p_fn, 3, warmup=1)
                         nbytes, flops = work["fwd" if name == fwd_name else name]
-                        b_ms, kind_b = bound(nbytes, flops, peak)
+                        b_ms, kind_b = (_tensor_core_bound(nbytes, flops, dtype)
+                                        if name in TC_REDESIGNED else bound(nbytes, flops, peak))
                         log(f"  {name} (B={B}, T={T}): kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
                             f"library_ms {l_ms:.4f} (mask built in {build_ms:.1f} ms) bound_ms "
                             f"{b_ms:.4f} ({kind_b}) {flops / k_ms / 1e9:.2f} TFLOP/s")
+                        tc = {}
+                        if name in TC_REDESIGNED:
+                            tc = _tensor_core_figures(k_ms, b_ms, nbytes, flops, base, pad,
+                                                      scale, dtype, p, gout, iters)
+                            _log_tc(name, tc)
                         entry = figures.setdefault(name, {})
                         entry.setdefault("per_shape", {})[f"T={T}"] = dict(
                             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                            bound_by=kind_b, library_mask_build_ms=build_ms)
+                            bound_by=kind_b, library_mask_build_ms=build_ms, **tc)
                         if T != TRAIN_T_TEXT:  # the decoder's shape heads the entry
                             entry.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                                          bound_ms=b_ms, bound_by=kind_b,
-                                         library_mask_build_ms=build_ms,
+                                         library_mask_build_ms=build_ms, **tc,
                                          per=f"one launch at (B={B}, H={FS2_H}, T={T}, "
                                              f"D={FS2_D}" + ("" if kind == "xl3" else
                                                              f", E={FS2_H * FS2_D}")
@@ -1452,22 +1548,30 @@ def check_xl_k6_training(dev):
                     l_fwd, l_bwd = cuda_ms(lib_fwd, iters), cuda_ms(lib_bwd, iters)
                     del lib_fwd, lib_bwd
                     work = _xl_train_work("xl", args, live, T)
-                    timed = {"flash_xl_fwd": (lambda: fx.xl_fwd(*args, scale, pad, p, seed),
-                                              lambda: fx.xl_fwd_plain(*args, scale, pad, p, seed),
-                                              l_fwd, work["fwd"])}
+                    to_time = {"flash_xl_fwd": (lambda: fx.xl_fwd(*args, scale, pad, p, seed),
+                                                lambda: fx.xl_fwd_plain(*args, scale, pad, p,
+                                                                        seed),
+                                                l_fwd, work["fwd"])}
                     for name, (kern, plain, _) in bwds.items():
-                        timed[name] = (lambda k=kern: k(*bargs), lambda q=plain: q(*bargs),
-                                       l_bwd, work[name])
-                    for name, (k_fn, p_fn, l_ms, (nbytes, flops)) in timed.items():
+                        to_time[name] = (lambda k=kern: k(*bargs), lambda q=plain: q(*bargs),
+                                         l_bwd, work[name])
+                    for name, (k_fn, p_fn, l_ms, (nbytes, flops)) in to_time.items():
                         k_ms = cuda_ms(k_fn, iters)
                         p_ms = cuda_ms(p_fn, 3, warmup=1)
-                        b_ms, kind_b = bound(nbytes, flops, peak)
+                        b_ms, kind_b = (_tensor_core_bound(nbytes, flops, dtype)
+                                        if name in TC_REDESIGNED else bound(nbytes, flops, peak))
                         log(f"  {name} {shape}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
                             f"library_ms {l_ms:.4f} (mask built in {build_ms:.1f} ms) bound_ms "
                             f"{b_ms:.4f} ({kind_b}) {flops / k_ms / 1e9:.2f} TFLOP/s; "
                             f"x{n_layers} a step")
+                        if name in TC_REDESIGNED:
+                            tc = _tensor_core_figures(k_ms, b_ms, nbytes, flops, base, pad,
+                                                      scale, dtype, p, gout, iters)
+                            _log_tc(name, tc)
+                        else:
+                            tc = {}
                         fig = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                                   bound_by=kind_b, library_mask_build_ms=build_ms,
+                                   bound_by=kind_b, library_mask_build_ms=build_ms, **tc,
                                    per=f"one launch at {shape}, fp32, dropout {p}, no pad mask "
                                        f"(the training path's; {n_layers} a step)")
                         entry = figures.setdefault(name, {})
@@ -1872,18 +1976,19 @@ def check_rel_kernels(dev, t_text: int):
                     iters = 20 if T <= 512 else 5
                     build_ms, lib_fwd, lib_bwd = _library_sdpa(_rel_pos, base, pad, scale, dtype,
                                                               p, gout)
-                    timed = {"flash_rel_fwd": (
+                    to_time = {"flash_rel_fwd": (
                         lambda: fr.rel_fwd(*args, scale, pad, p, seed),
                         lambda: fr.rel_fwd_plain(*args, scale, pad, p, seed), lib_fwd)}
                     if training:
-                        timed["flash_rel_bwd_q"] = (lambda: fr.rel_bwd_dq(*bargs),
-                                                    lambda: fr.rel_bwd_dq_plain(*bargs), lib_bwd)
-                        timed["flash_rel_bwd_kv"] = (lambda: fr.rel_bwd_dkv(*bargs),
-                                                     lambda: fr.rel_bwd_dkv_plain(*bargs),
-                                                     lib_bwd)
+                        to_time["flash_rel_bwd_q"] = (lambda: fr.rel_bwd_dq(*bargs),
+                                                      lambda: fr.rel_bwd_dq_plain(*bargs),
+                                                      lib_bwd)
+                        to_time["flash_rel_bwd_kv"] = (lambda: fr.rel_bwd_dkv(*bargs),
+                                                       lambda: fr.rel_bwd_dkv_plain(*bargs),
+                                                       lib_bwd)
                     work = _rel_work(args, live, T)
                     l_bwd = cuda_ms(lib_bwd, iters) if training else 0.0
-                    for name, (k_fn, p_fn, l_fn) in timed.items():
+                    for name, (k_fn, p_fn, l_fn) in to_time.items():
                         k_ms = cuda_ms(k_fn, iters)
                         p_ms = cuda_ms(p_fn, 3, warmup=1)
                         l_ms = l_bwd if l_fn is lib_bwd else cuda_ms(l_fn, iters)
@@ -2191,9 +2296,12 @@ KERNEL_GROUPS = (
     ("K2 mrf_conv_kernel", ("mrf_conv_kernel",)),
     ("K4 xl3_fwd_kernel", ("xl3_fwd_kernel",)),
     ("K4 bwd (xl3_bwd_q / kv / reduce)", ("xl3_bwd_",)),
-    ("K6 bwd-q (xl2_bwd_q, two streams)", _two_stream("xl2_bwd_q_kernel")),
+    # bwd-q's kernels are K5's and K6's alike (a step runs one of the two);
+    # K5 adds the rotation passes
+    ("K5 / K6 bwd-q Q1 (xl2_bwd_q1_pos + q1_ds; K5 + rotate)",
+     ("xl2_bwd_q1_", "xl2_bwd_rotate")),
+    ("K5 / K6 bwd-q Q2 (xl2_bwd_q2; K5 + unrotate)", ("xl2_bwd_q2_", "xl2_bwd_unrotate")),
     ("K6 bwd-kv (xl2_bwd_kv, two streams)", _two_stream("xl2_bwd_kv_kernel")),
-    ("K5 bwd-q (xl2_bwd_q + carry)", ("xl2_bwd_q_kernel", "xl2_bwd_carry")),
     ("K5 bwd-kv (xl2_bwd_kv + dtab)", ("xl2_bwd_kv_kernel", "xl2_bwd_dtab")),
     ("K5 xl2_fwd_kernel (rotating)", ("xl2_fwd_kernel<float, 48, true>",
                                        "xl2_fwd_kernel<__nv_bfloat16, 48, true>")),
@@ -2294,33 +2402,35 @@ def main() -> int:
     log(f"kernels built in {build_s:.1f} s (ptxas report in "
         f"chiprun_out/chip_smoke_build.log)")
 
-    k1 = check_flash_attention(dev)
-    k1_train = check_flash_training(dev)
-    k2 = check_fused_mrf(dev, frames=1008)
+    k1 = phase_timed("2", check_flash_attention, dev)
+    k1_train = phase_timed("3", check_flash_training, dev)
+    k2 = phase_timed("4", check_fused_mrf, dev, frames=1008)
     ckpt = build_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
-    launches, tts = check_main_path(dev, ckpt)
-    train_launches, train_figures, (step, *step_args) = check_training_path(dev)
-    xl = check_xl_kernels(dev, t_text=tts.encode_texts(SENTENCES)[2])
-    ac_dir, voc_dir = build_two_stage(os.path.join(REPO, "build", "chip_smoke_fs2"))
-    fs2_launches, tts2, fs2_figures = check_two_stage_path(dev, ac_dir, voc_dir)
-    xl_train = check_xl_training(dev)
-    fs2_train_launches, fs2_train_figures, (fs2_step, *fs2_step_args) = \
-        check_fs2_training_path(dev)
+    launches, tts = phase_timed("5", check_main_path, dev, ckpt)
+    train_launches, train_figures, (step, *step_args) = phase_timed("6", check_training_path, dev)
     t_text = tts.encode_texts(SENTENCES)[2]
-    rel, k6_jets = check_rel_kernels(dev, t_text)
+    xl = phase_timed("7", check_xl_kernels, dev, t_text=t_text)
+    ac_dir, voc_dir = build_two_stage(os.path.join(REPO, "build", "chip_smoke_fs2"))
+    fs2_launches, tts2, fs2_figures = phase_timed("8", check_two_stage_path, dev, ac_dir,
+                                                  voc_dir)
+    xl_train = phase_timed("9", check_xl_training, dev)
+    fs2_train_launches, fs2_train_figures, (fs2_step, *fs2_step_args) = \
+        phase_timed("10", check_fs2_training_path, dev)
+    rel, k6_jets = phase_timed("11", check_rel_kernels, dev, t_text)
     jc_ckpt = build_conformer_checkpoint(os.path.join(REPO, "build", "chip_smoke_jets_conformer"))
-    jc_launches, jc_tts, jc_figures = check_conformer_serving(dev, jc_ckpt)
+    jc_launches, jc_tts, jc_figures = phase_timed("12", check_conformer_serving, dev, jc_ckpt)
     jc_train_launches, jc_train_figures, (jc_step, *jc_step_args) = \
-        check_conformer_training(dev)
-    k6_train = check_xl_k6_training(dev)
+        phase_timed("13", check_conformer_training, dev)
+    k6_train = phase_timed("14", check_xl_k6_training, dev)
     jl_ckpt = build_conformer_checkpoint(os.path.join(REPO, "build", "chip_smoke_jets_legacy"),
                                          "legacy")
-    jl_launches, jl_tts, jl_figures = check_conformer_serving(dev, jl_ckpt, "legacy")
+    jl_launches, jl_tts, jl_figures = phase_timed("15", check_conformer_serving, dev, jl_ckpt,
+                                                  "legacy")
     jl_train_launches, jl_train_figures, (jl_step, *jl_step_args) = \
-        check_conformer_training(dev, "legacy")
+        phase_timed("16", check_conformer_training, dev, "legacy")
     fs2_state_, fs2_rng = fs2_step_args[0], fs2_step_args[2]
     fs2_long_launches, fs2_long_figures, (fs2_long_step, *fs2_long_args) = \
-        check_fs2_long_training(dev, fs2_step, fs2_state_, fs2_rng)
+        phase_timed("17", check_fs2_long_training, dev, fs2_step, fs2_state_, fs2_rng)
     if args.profile:
         profile_call(lambda: tts(SENTENCES), "fp32 __call__(16)", "chip_smoke_profile.txt")
         profile_call(lambda: step(*step_args), "training step",
@@ -2392,6 +2502,17 @@ def main() -> int:
                     "with scale * pos as an additive mask, on a retained graph",
          **k6_train[name]}
         for name in K6_BWD_REPLACES]
+    for entry in (*xl_bwd_entries, *k6_bwd_entries):
+        if entry["name"] in TC_REDESIGNED:
+            entry["redesigned"] = ("PR 7: tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 "
+                                   "streams); Q1 (position logits, then ds and dqc) and Q2 "
+                                   "(dgA, dgB) kernels; bound_ms is the tensor cores' bound of "
+                                   "that work, 3 * operations / 495 TFLOP/s for fp32 streams; "
+                                   "bound_ms_fp32 the fp32 CUDA cores', bound_ms_tf32 one TF32 "
+                                   "product a term, bound_ms_bf16 the bf16 rate")
+            entry["library_pos_grad"] = (
+                "SDPA backward with scale * pos as a mask leaf that takes a gradient, plus "
+                "the two masked products of that gradient with the table (dgA, dgB)")
     rel_entries = [rel[name] for name in REL_REPLACES]
     rel_entries[0]["launches"] = jc_launches["flash_rel_fwd"]
     rel_entries[0]["launches_per"] = ("the JETS-conformer serving phase: two __call__s of 16 "

@@ -356,6 +356,73 @@ def test_xl_k6_training_kernels_match_plain(cuda_device, B, T, H, D, dtype, atol
         del got, want
 
 
+# (kind, H, D): K5 at (D, E) = (48, 384) and (64, 512), K6 at those and
+# (128, 256); E = H * D
+XL_BWD_Q_WIDTHS = [("xl2", 8, 48), ("xl2", 8, 64), ("xl", 8, 48), ("xl", 8, 64),
+                   ("xl", 2, 128)]
+XL_BWD_Q_FNS = {  # kind: (stream names, forward, bwd-q, plain bwd-q)
+    "xl2": (("qc", "k", "v", "g", "table"), fx.xl2_fwd, fx.xl2_bwd_dq, fx.xl2_bwd_dq_plain),
+    "xl": (XL_NAMES, fx.xl_fwd, fx.xl_bwd_dq, fx.xl_bwd_dq_plain),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,H,D", XL_BWD_Q_WIDTHS)
+@pytest.mark.parametrize("T", [45, 63, 65, 127, 129, 1008, 1040, 2048])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("pad_rows", [True, False])
+def test_xl_bwd_q_tensor_core_kernels_match_plain(cuda_device, kind, H, D, T, dtype, atol,
+                                                  dropout_p, pad_rows):
+    """K5 / K6 bwd-q (the tensor-core kernels: position logits, ds and dqc,
+    then dgA / dgB) against their plain versions on the kernel forward's
+    lse, at lengths that are not multiples of the 64-row tiles (K5's row
+    shift of dgB crosses every tile boundary), each accepted head width,
+    with a ragged and a fully padded row or no pad mask; each gradient
+    within atol of the plain one, scaled by its largest value where that
+    exceeds 1; one launch count a call."""
+    B = 3
+    streams, pad, scale = xl_case(cuda_device, B, T, H=H, D=D, seed=T + D + 1,
+                                  pad_rows=pad_rows)
+    names, fwd, kern, plain = XL_BWD_Q_FNS[kind]
+    seed = 24681357 + T
+    args = [streams[n].to(dtype) for n in names]
+    ctx, lse = fwd(*args, scale, pad, dropout_p, seed)
+    gout = torch.from_numpy(np.random.RandomState(T + 5).randn(*ctx.shape).astype(np.float32))
+    delta, g = fa.backward_inputs(ctx, gout.to(ctx.device), dtype)
+    padf = pad.float() if pad is not None else torch.zeros(B, T, device=cuda_device)
+    bwd_args = (*args, padf, lse, delta, g, scale, dropout_p, seed)
+    before = kern.launches
+    got = kern(*bwd_args)
+    assert kern.launches == before + 1
+    want = plain(*bwd_args)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape, i
+        assert torch.isfinite(a).all(), i
+        err = (a - b).abs().max().item()
+        assert err <= atol * max(1.0, b.abs().max().item()), (i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["xl2", "xl"])
+def test_xl_bwd_q_takes_batch_times_heads_past_one_grid_dimension(cuda_device, kind):
+    """B * H = 65536, beyond a grid's y and z limit of 65535: the wrappers
+    take B and H below 2^16 each, and so do the bwd-q kernels."""
+    B, T, H = 8192, 5, 8
+    streams, pad, scale = xl_case(cuda_device, B, T, H=H, seed=3, pad_rows=False)
+    names, fwd, kern, plain = XL_BWD_Q_FNS[kind]
+    args = [streams[n] for n in names]
+    ctx, lse = fwd(*args, scale, pad, 0.1, 11)
+    gout = torch.from_numpy(np.random.RandomState(4).randn(*ctx.shape).astype(np.float32))
+    delta, g = fa.backward_inputs(ctx, gout.to(ctx.device), torch.float32)
+    bwd_args = (*args, torch.zeros(B, T, device=cuda_device), lse, delta, g, scale, 0.1, 11)
+    got, want = kern(*bwd_args), plain(*bwd_args)
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * max(1.0, b.abs().max().item()), (i, err)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,D", [(8, 48), (2, 128)])
 def test_xl_k6_dropout_mask_is_the_plain_mask_bit_for_bit(cuda_device, H, D):

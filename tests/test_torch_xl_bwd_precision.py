@@ -1,0 +1,143 @@
+"""Why the tensor-core K5 / K6 bwd-q kernels multiply fp32 streams in
+3xTF32 and not in plain TF32 (``viet_tts_torch/csrc/flash_xl_attention_bwd.cu``).
+
+A TF32 operand keeps 10 of fp32's 23 mantissa bits. The kernels split each
+fp32 operand into two TF32 values, x = hi + lo (hi: x rounded to nearest,
+ties away from zero, as ``cvt.rna.tf32.f32`` rounds, done on the bit
+pattern; lo: the exact rest x - hi with its 13 low bits cleared), and form
+a b as hi_a hi_b + hi_a lo_b + lo_a hi_b. This test rounds the same way
+(``tf32``, ``tf32_trunc``) and runs the plain K5 bwd-q's dense formulas with
+its E-wide products (the position logits gA t^T, gB t^T and the position
+gradients dsA t, dsB t) emulated both ways, at the FS2 width E = 384 and a
+small T: 3xTF32 stays within the port's fp32 limit of 1e-4 (scaled by the
+largest gradient where that exceeds 1) of the fp32 plain version, and one
+TF32 product does not. No JAX here: the emulation and the plain version
+are both the port's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from viet_tts_torch.nn.utils import sinusoid_position_table
+from viet_tts_torch.ops import flash_xl_attention as fx
+from viet_tts_torch.ops.flash_attention import backward_inputs, padded_time
+from viet_tts_torch.ops.xl_attention import xl_pos_query_stream
+
+B, T, H, D = 2, 40, 8, 48
+E = H * D  # 384, the FS2 conformer's d_model
+SCALE = 1.0 / np.sqrt(E)
+TOL = 1e-4  # the kernels' fp32 limit against their plain versions
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: fp32 rounded to 10 mantissa bits, to nearest
+    with ties away from zero (add half an ulp of TF32 to the magnitude's bit
+    pattern, then clear the 13 dropped bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """fp32 with its 13 low mantissa bits cleared (toward zero)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mm_fp32(a, b):
+    return a @ b
+
+
+def mm_tf32(a, b):
+    return tf32(a) @ tf32(b)
+
+
+def mm_3xtf32(a, b):
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32_trunc(a - ah), tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _inputs(seed: int):
+    rng = np.random.RandomState(seed)
+    f = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    q, k, v = f(B, T, H, D), f(B, T, H, D), f(B, T, H, D)
+    qc = q + 0.3 * f(H, D)
+    qv = q + 0.3 * f(H, D)
+    g2 = xl_pos_query_stream(qv, f(E, E) / np.sqrt(E))
+    table = torch.from_numpy(sinusoid_position_table(T, E))
+    lens = torch.tensor([T, T // 2 + 1])
+    pad = (torch.arange(T)[None] >= lens[:, None]).float()
+    return qc, k, v, g2, table, pad
+
+
+def _k5_bwd_q(qc, k, v, g2, table, pad, lse, delta, g, mm):
+    """The plain K5 bwd-q (``xl2_bwd_dq_plain``, fp32, no dropout) with its
+    E-wide products through ``mm``: (dqc (B, T, H, D), dg2 (B, T, H, E)).
+    ``xl2_bwd_dq_plain`` is the source of truth: this copy of its formulas
+    shares its private helpers, and ``test_emulation_hook_is_the_plain_version``
+    holds the two together."""
+    cd = torch.float32
+    gA, gB, (ca, sa, cb, sb) = fx._xl2_streams(fx._hm(g2, cd), T, cd)
+    tp = padded_time(T)
+    padp = F.pad(pad, (0, tp - T), value=1.0)
+    qch, gh = fx._hm(qc, cd), fx._hm(g, cd)
+    kh, vh = (fx._hm(fx._pad_rows(x, tp - T), cd) for x in (k, v))
+    tab = fx._pad_rows(table.float()[None], tp - T)[0]
+    i = torch.arange(T)[:, None]
+    j = torch.arange(tp)[None, :]
+    past, fut = j <= i, j >= i + 2
+    pos = torch.where(past, mm(gA, tab.T), torch.where(fut, mm(gB, tab.T), 0.0))
+    logits = (qch @ kh.transpose(-1, -2) + pos) * SCALE
+    _, ds = fx._weights_and_ds(logits, padp, lse, gh @ vh.transpose(-1, -2), delta, None,
+                               tp, SCALE, cd)
+    dqc = (ds @ kh).permute(0, 2, 1, 3)
+    dgA = mm(torch.where(past, ds, 0.0), tab)
+    dgB = fx._rotate(mm(torch.where(fut, ds, 0.0), tab), cb, -sb)
+    dg2 = fx._rotate(dgA, ca, -sa) + torch.cat([torch.zeros_like(dgB[:, :, :1]),
+                                                 dgB[:, :, :-1]], dim=2)
+    return dqc, dg2.permute(0, 2, 1, 3)
+
+
+def _scaled_err(got, want) -> float:
+    return max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+               for a, b in zip(got, want))
+
+
+@pytest.fixture(scope="module")
+def case():
+    qc, k, v, g2, table, pad = _inputs(seed=7)
+    ctx, lse = fx.xl2_fwd_plain(qc, k, v, g2, table, SCALE, pad > 0.5)
+    gout = torch.from_numpy(np.random.RandomState(8).randn(*ctx.shape).astype(np.float32))
+    delta, g = backward_inputs(ctx, gout, torch.float32)
+    args = (qc, k, v, g2, table, pad, lse, delta, g)
+    return args, fx.xl2_bwd_dq_plain(*args, SCALE)
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """Ties round away from zero, both signs; 10 mantissa bits survive."""
+    one_tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12])
+    assert torch.equal(tf32(one_tie), torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0]))
+    x = torch.randn(1000)
+    for r in (tf32(x), tf32_trunc(x)):
+        assert ((r.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((tf32(x) - x).abs() <= x.abs() * 2.0 ** -11).all()
+    lo = x - tf32(x)  # exact in fp32; the split's rest is 2^-10 of hi or less
+    assert ((tf32(x) + tf32_trunc(lo) - x).abs() <= x.abs() * 2.0 ** -20).all()
+
+
+def test_emulation_hook_is_the_plain_version(case):
+    """With fp32 products the hooked formulas give the plain K5 bwd-q."""
+    args, plain = case
+    assert _scaled_err(_k5_bwd_q(*args, mm_fp32), plain) <= 1e-6
+
+
+def test_3xtf32_holds_the_fp32_limit_and_one_tf32_product_does_not(case):
+    args, plain = case
+    err_3x = _scaled_err(_k5_bwd_q(*args, mm_3xtf32), plain)
+    err_1x = _scaled_err(_k5_bwd_q(*args, mm_tf32), plain)
+    assert err_3x <= TOL, err_3x
+    assert err_1x > TOL, err_1x
+    assert err_1x > 50 * err_3x, (err_1x, err_3x)

@@ -48,15 +48,77 @@
 //    batch rows and query tiles and adds row i-1's future part into dqv_i.
 //    Both main kernels stage the 127-row band of p that a tile's offsets
 //    j - i reach, as the forward does.
-//  - K5 / K6 bwd-q (`xl2_bwd_q_kernel`, ROTATE for K5): one block per
-//    (16-query tile, head, batch row) keeps gA, gB and the dgA, dgB
-//    accumulators (16, E) in shared memory (4 x 16 x 388 x 4 B = 99 KB at
-//    E = 384; the TPU's whole-T tile would need megabytes) and walks the
-//    64-key tiles, the table staged in 64-column chunks. K5 rotates its
-//    tiles in the kernel, and the last row's dgB belongs to the next tile's
-//    first row: it goes to a small carry buffer that `xl2_bwd_carry_kernel`
-//    adds. K6 reads gA and gB and writes dgA and dgB as they are: no
-//    rotation and no carry.
+//  - K5 / K6 bwd-q run on the tensor cores, in two kernels so that no
+//    E-wide accumulator lives inside the flash loop (Q1, Q2 below; K5 adds
+//    an elementwise rotation before and its inverse after): at E = 384 the
+//    E-wide products are 84 % of the work, and on the fp32 CUDA cores alone
+//    they bound it above SDPA's whole backward. Every product is
+//    `mma.sync.m16n8k8` TF32 with fp32
+//    accumulation. fp32 streams take 3xTF32: x = hi + lo, hi rounded to
+//    nearest (ties away, cvt.rna's rounding, done with integer ops: the cvt
+//    instruction issues at a quarter of the rate), lo the exact rest with
+//    its low 13 bits cleared, a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b; one
+//    TF32 product keeps ~3 digits over E = 384 and misses the fp32 limit
+//    of 1e-4 (tests/test_torch_xl_bwd_precision.py). bf16 streams are
+//    exact in TF32 (8 mantissa bits of 11), and so is ds, rounded to bf16
+//    as `_mx` does: one TF32 product per term, exact, with the fp32 path's
+//    code. (Deviation from m16n8k16 bf16: one code path for both dtypes;
+//    the training path runs fp32.)
+//    * Q1 is two launches. `xl2_bwd_q1_pos_kernel`: the position logits of
+//      every (64-query, 64-key) tile, pos = gA t^T (past) / gB t^T (future)
+//      / 0, into a (B, H, T, Ts) fp32 scratch S (Ts = T rounded up to 128);
+//      a tile wholly in the past forms only gA t^T, one in the future only
+//      gB t^T; gA, gB and the table staged once a (query tile, key tile),
+//      in 32-column chunks by cp.async two stages deep. It is its own
+//      kernel because a query tile's E-wide rows (gA and gB, 196 KB at 64
+//      rows, E = 384, fp32) cannot stay beside a staged table tile; the
+//      cost is one write and one read of S (264 MB at (8, 8, 1008), 0.16
+//      ms at 3.35 TB/s). `xl2_bwd_q1_ds_kernel`: one block a (64-query
+//      tile, head, batch row), four warps of 16 rows, walking the 64-key
+//      tiles (k, v by cp.async two stages deep; qc, g staged once): s =
+//      pos + qc k^T, dp = g v^T, ds in the accumulators' layout, written
+//      over the logits in S, and dqc += ds k with ds as the A operand
+//      straight from the registers (see the fragments' permutation).
+//    * Q2, `xl2_bwd_q2_kernel`: dgA = (ds o past) t and dgB = (ds o
+//      future) t as a tensor-core product; one block a (64-query tile,
+//      64-column table tile, A or B, (b, h)) walks only the 32-key chunks
+//      its mask reaches (j <= i, j >= i + 2: half the dense work), masking
+//      ds as its fragments load on the chunks across the diagonal.
+//    * K5: `xl2_bwd_rotate_kernel` writes gA, gB (stream dtype, rounded as
+//      the forward rounds them) before Q1; Q2 writes dgA into dg2 and dgB
+//      into a scratch, and `xl2_bwd_unrotate_kernel` forms dg2_i =
+//      rot^-1(dgA_i, A_i) + rot^-1(dgB_{i-1}, B_{i-1}) in place. K6 reads
+//      gA, gB and writes dgA, dgB.
+//    * The wrapper allocates S (and K5's gA, gB and dgB) with torch.empty;
+//      the kernels allocate nothing. S adds 0.26 GB at (8, 8, 1008) and
+//      0.54 GB at (4, 8, 2048); K5's streams another 0.30 GB at (8, 8, 1008).
+//    * Budget, each instance at 128 threads a block (ptxas -v, sm_90a, the
+//      CUDA toolkit of the H100 machine; no spill in any instance; blocks an
+//      SM = the least of what registers and shared memory allow):
+//        kernel        dtype  D      smem B    regs  blocks/SM
+//        q1_pos        fp32   -      61,440    123   3
+//        q1_pos        bf16   -      30,720    114   4
+//        q1_ds         fp32   48     86,016    168   2
+//        q1_ds         fp32   64    110,592    231   2
+//        q1_ds         fp32   128   208,896    254   1
+//        q1_ds         bf16   48     43,008    164   3
+//        q1_ds         bf16   64     55,296    168   3
+//        q1_ds         bf16   128   104,448    228   2
+//        q2            fp32   -      37,888     88   5
+//        q2            bf16   -      29,696    117   4
+//        rotate / unrotate (256 threads): no shared memory, 28-30 registers
+//        (a 32-byte frame for sincosf's slow path).
+//      Tiles: q1_pos (64 queries, 64 keys), E in chunks of 32; q1_ds (64
+//      queries) by 64-key tiles; q2 (64 queries, 64 table columns) by
+//      32-key chunks. Shared memory does not depend on E; E a multiple of
+//      64 (q2's column tile). What bounds them, measured (H100, PR 7):
+//      q1_pos and q2 issue about 40 other instructions (the fragment loads
+//      and the hi / lo split) for every 24 mma.sync of a 3xTF32 k-step, and
+//      run at ~25 % of the TF32 rate; tiles of 128 x 64 and 128 x 128, three
+//      cp.async stages and an L2-friendlier grid order for q2 each moved
+//      them by under 5 %, so neither L2 traffic nor load latency is the
+//      limit. q1_ds splits every k and v element in all four warps. The next
+//      step is wgmma with the operands split once into shared memory.
 //  - K5 / K6 bwd-kv (`xl2_bwd_kv_kernel`): one block per (64-key tile, head,
 //    batch row) walks 32-query tiles (K5 rotating each tile's gA and gB as
 //    the forward does, K6 reading them) and gives dk and dv; with
@@ -66,16 +128,19 @@
 //    sinusoid table, so training never asks for dt.
 //  - A key tile wholly in the past of a query tile (every pair j <= i)
 //    forms only the gA . t products, one wholly in the future only gB . t.
-//  - K6 also runs at D = 128 (the JETS conformer, E = 256): bwd-q then
-//    needs 173 KB of shared memory and bwd-kv 203 KB, one block an SM.
+//  - K6 also runs at D = 128 (the JETS conformer, E = 256): bwd-kv then
+//    needs 203 KB of shared memory, one block an SM.
 //
 // What bounds them on the H100: at the training shapes (FS2: B=8, H=8,
 // D=48; K4 at T=512, K5 at T=1008, E=384) the data needs 2*B*H*T^2*8D =
 // 12.9 GFLOP for K4 bwd (s, the position term, g v, dqc, dk, dv, dqv, dp),
 // 2*B*H*T^2*(3D + 2E) = 119 GFLOP for K5 bwd-q and 2*B*H*T^2*(4D + E) = 75
 // GFLOP for K5 bwd-kv (K6 the same), against tens to hundreds of MB: bound
-// by operations. This first version runs every product on the fp32 CUDA
-// cores (67 TFLOP/s), with register tiles fed from shared memory.
+// by operations. K4 bwd and K5 / K6 bwd-kv run every product on the fp32
+// CUDA cores (67 TFLOP/s), with register tiles fed from shared memory;
+// K5 / K6 bwd-q on the tensor cores (495 TFLOP/s TF32, three products a
+// term for fp32 streams: 0.72 ms for K5 bwd-q at (8, 1008) if the tensor
+// cores were the only limit; see the budget above for what is).
 //
 // Padding follows the forward. K4: keys past T are never formed (the
 // reference scores them 2*MASK_NEG: weight exactly 0). K5 / K6: the Tp - T
@@ -91,6 +156,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
@@ -113,6 +179,15 @@ __device__ __forceinline__ float to_stream(float x) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     return __bfloat162float(__float2bfloat16_rn(x));
   return x;
+}
+
+// An fp32 value as a stream element.
+template <typename T>
+__device__ __forceinline__ T from_float(float x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __float2bfloat16_rn(x);
+  else
+    return x;
 }
 
 struct DropArgs {
@@ -602,10 +677,9 @@ __global__ void __launch_bounds__(kThreads)
 // (two pre-rotated streams)
 // ---------------------------------------------------------------------------
 
-constexpr int kBQq = 16;  // bwd-q query rows per block
 constexpr int kBQk = 32;  // bwd-kv query rows per tile
-constexpr int kBK2 = 64;  // keys per tile
-constexpr int kEC = 64;   // table columns staged at a time
+constexpr int kBK2 = 64;  // bwd-kv keys per tile
+constexpr int kEC = 64;   // bwd-kv table columns staged at a time
 constexpr int kTS = kEC + 4;
 
 __device__ __forceinline__ float dot4(const float4& a, const float4& b,
@@ -661,15 +735,6 @@ __device__ __forceinline__ void load_table_chunk(float* TS, const T* table,
 }
 
 template <int D>
-size_t xl2_bwd_q_smem_bytes(int E) {
-  // GA, GB, dGA, dGB (16, E+4); QC, GS (16, D+4); KS, VS (64, D+4);
-  // TS (64, 68); dS (16, 65); lse, delta (16); dead (64)
-  return sizeof(float) * (4 * kBQq * (E + 4) + 2 * kBQq * (D + 4) +
-                          2 * kBK2 * (D + 4) + kBK2 * kTS + kBQq * (kBK2 + 1) +
-                          2 * kBQq + kBK2);
-}
-
-template <int D>
 size_t xl2_bwd_kv_smem_bytes(int E) {
   // GA, GB (32, E+4); QC, GS (32, D+4); KS, VS (64, D+4); TS (64, 68);
   // Pt, dSt (64, 33); lse, delta (32); dead (64)
@@ -678,224 +743,646 @@ size_t xl2_bwd_kv_smem_bytes(int E) {
                           2 * kBK2 * (kBQk + 1) + 2 * kBQk + kBK2);
 }
 
-// ga: K5's unrotated stream g2 (ROTATE) or K6's gA; gb: K6's gB (unused
-// by K5). dg: K5's dg2 or K6's dgA; dgb: K6's dgB; carry: K5's only.
-template <typename T, int D, bool ROTATE>
+// ---------------------------------------------------------------------------
+// K5 / K6 bwd-q on the tensor cores: Q1 (pos, then ds and dqc) and Q2 (dgA,
+// dgB), with K5's rotations before and after (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kTC = 64;           // Q1 ds: query rows and keys a tile; Q2: table columns
+constexpr int kKC = 32;           // contraction chunk of the pos and Q2 kernels
+constexpr int kTCThreads = 128;   // Q1 ds: four warps of 16 query rows
+// Q1 pos: (query rows, keys) a block, cp.async stages; a warp a 32 x 32 tile
+constexpr int kPosBM = 64, kPosBN = 64, kPosStages = 2;
+constexpr int kPosThreads = (kPosBM / 32) * (kPosBN / 32) * 32;
+// Q2: query rows a block (by kTC table columns), cp.async stages
+constexpr int kQ2BM = 64, kQ2Stages = 2;
+constexpr int kMaxGridZ = 65535;  // a grid's z limit
+constexpr int kQ2Threads = (kQ2BM / 32) * (kTC / 32) * 32;
+// S's row length Ts: T rounded up to a multiple of every key tile
+constexpr int kTsAlign = 128;
+static_assert(kTsAlign % kPosBN == 0 && kTsAlign % kTC == 0, "Ts covers whole key tiles");
+
+// Row stride of a staged tile of X columns read by 64-bit fragment loads:
+// an 8-element pad keeps every row 16-byte aligned for cp.async and, in
+// fp32, puts the 8 rows of a fragment on distinct banks.
+__host__ __device__ constexpr int tile_ld(int x) { return x + 8; }
+// ... and of one read by scalar loads down its rows (k by n): 16 bytes of
+// pad, 4 fp32 words, so that rows 2t and 2t+1 of a fragment miss each
+// other's banks.
+template <typename T, int X>
+__host__ __device__ constexpr int tile_ld_nn() {
+  return X + 16 / (int)sizeof(T);
+}
+
+// The scratch of ds (and first of the position logits): (B, H, T, Ts), Ts
+// the key tiles' cover of T.
+inline int ds_cols(int Tq) { return (Tq + kTsAlign - 1) / kTsAlign * kTsAlign; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows r0 .. r0 + R - 1 (zero rows from nrows on) and columns c0 .. c0 + C
+// - 1 of a row-major matrix (row stride `stride` elements) into dst (R, ld),
+// 16 bytes a copy by NT threads; the caller commits the group.
+template <typename T, int R, int C, int NT>
+__device__ __forceinline__ void cp_tile(T* dst, int ld, const T* src,
+                                        size_t stride, int r0, int nrows,
+                                        int c0) {
+  constexpr int V = 16 / (int)sizeof(T);
+  constexpr int PER_ROW = C / V;
+  static_assert(C % V == 0, "a tile row is whole 16-byte copies");
+  for (int idx = threadIdx.x; idx < R * PER_ROW; idx += NT) {
+    const int r = idx / PER_ROW, c = (idx % PER_ROW) * V;
+    const bool in = r0 + r < nrows;
+    cp_async16(dst + r * ld + c,
+               in ? src + (size_t)(r0 + r) * stride + c0 + c : src,
+               in ? 16 : 0);
+  }
+}
+
+// x = hi + lo, each a TF32 value (3xTF32): hi is x rounded to nearest
+// (ties away, cvt.rna's rounding) on the bit pattern, lo the exact rest
+// x - hi with its 13 low bits cleared (truncated). Integer and fp32 ops at
+// the full rate, where cvt.rna.tf32.f32 issues at a quarter of it. Without
+// SPLIT x is a bf16 value, exact in TF32: hi = x.
+template <bool SPLIT>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  if constexpr (SPLIT) {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  }
+}
+
+// Two consecutive stream elements as fp32 (one 64- or 32-bit load).
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b on the tensor cores: 3xTF32 (lo hi + hi lo + hi hi, the small
+// terms first) with SPLIT, else one TF32 product (bf16 operands).
+template <bool SPLIT>
+__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4],
+                                     const uint32_t al[4],
+                                     const uint32_t bh[2],
+                                     const uint32_t bl[2]) {
+  if constexpr (SPLIT) {
+    mma_tf32(c, al, bh);
+    mma_tf32(c, ah, bl);
+  }
+  mma_tf32(c, ah, bh);
+}
+
+// Fragments of m16n8k8. The contraction order inside each 8-step is free,
+// so every operand takes the same permutation of it: the fragment's k slot
+// t is the tile's column (or row) k0 + 2t and slot t + 4 is k0 + 2t + 1.
+// Slots (t, t+4) are then two neighbouring elements, one 64-bit load, and
+// the accumulator layout (columns 2t, 2t+1) is an A fragment as it stands.
+
+// The A fragment (16 x 8, row-major) at rows m0.., columns k0.. of a staged
+// tile (ld elements a row): lane (g, t) holds rows g and g + 8, columns
+// k0 + 2t and k0 + 2t + 1, in slots (g, t), (g+8, t), (g, t+4), (g+8, t+4).
+template <bool SPLIT, typename T>
+__device__ __forceinline__ void frag_a(const T* A, int ld, int m0, int k0,
+                                       int lane, uint32_t ah[4],
+                                       uint32_t al[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const T* p = A + (m0 + g) * ld + k0 + 2 * t;
+  const float2 r0 = load2(p), r1 = load2(p + 8 * ld);
+  split_tf32<SPLIT>(r0.x, ah[0], al[0]);
+  split_tf32<SPLIT>(r1.x, ah[1], al[1]);
+  split_tf32<SPLIT>(r0.y, ah[2], al[2]);
+  split_tf32<SPLIT>(r1.y, ah[3], al[3]);
+}
+
+// The B fragment (8 x 8, k by n) at columns n0.., depth k0.. of a tile
+// staged with n as its rows (B^T row-major): lane (g, t) holds column
+// n0 + g at depths k0 + 2t, k0 + 2t + 1.
+template <bool SPLIT, typename T>
+__device__ __forceinline__ void frag_b_nt(const T* Bt, int ld, int n0, int k0,
+                                          int lane, uint32_t bh[2],
+                                          uint32_t bl[2]) {
+  const int g = lane >> 2, t = lane & 3;
+  const float2 r = load2(Bt + (n0 + g) * ld + k0 + 2 * t);
+  split_tf32<SPLIT>(r.x, bh[0], bl[0]);
+  split_tf32<SPLIT>(r.y, bh[1], bl[1]);
+}
+
+// The same fragment from a tile staged with k as its rows (B row-major).
+template <bool SPLIT, typename T>
+__device__ __forceinline__ void frag_b_nn(const T* Bm, int ld, int n0, int k0,
+                                          int lane, uint32_t bh[2],
+                                          uint32_t bl[2]) {
+  const int g = lane >> 2, t = lane & 3;
+  const T* p = Bm + (k0 + 2 * t) * ld + n0 + g;
+  split_tf32<SPLIT>(to_float(p[0]), bh[0], bl[0]);
+  split_tf32<SPLIT>(to_float(p[ld]), bh[1], bl[1]);
+}
+
+// Shared memory of each kernel.
+template <typename T>
+constexpr size_t xl2_bwd_pos_smem_bytes() {
+  // kPosStages stages of the gA, gB chunks (kPosBM, 32) and the table
+  // chunk (kPosBN, 32)
+  return sizeof(T) * kPosStages * (2 * kPosBM + kPosBN) * tile_ld(kKC);
+}
+template <typename T, int D>
+constexpr size_t xl2_bwd_ds_smem_bytes() {
+  // QC, GS (64, D) and two stages of KS, VS (64, D)
+  return sizeof(T) * 6 * kTC * tile_ld(D);
+}
+template <typename T>
+constexpr size_t xl2_bwd_dg_smem_bytes() {
+  // kQ2Stages stages of the ds chunk (kQ2BM, 32) fp32 and the table chunk
+  // (32, 64)
+  return kQ2Stages * (sizeof(float) * kQ2BM * tile_ld(kKC) +
+                      sizeof(T) * kKC * tile_ld_nn<T, kTC>());
+}
+
+// K5 only: gA_i = rot(g2_i, A_i), gB_i = rot(g2_{i+1}, B_i), rounded to the
+// stream dtype, as the forward kernel rotates them; one thread a pair.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    xl2_bwd_q_kernel(const T* __restrict__ qc, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ ga,
-                     const T* __restrict__ gb, const T* __restrict__ table,
-                     const T* __restrict__ g, const float* __restrict__ pad,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dqc,
-                     float* __restrict__ dg, float* __restrict__ dgb,
-                     float* __restrict__ carry, int H, int Tq, int E,
-                     float scale, float freq_coef, DropArgs drop) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int DS = D + 4;
-  constexpr int SP = kBK2 + 1;
-  constexpr int DJ = D / 16;
-  const int ES = E + 4;
+    xl2_bwd_rotate_kernel(const T* __restrict__ g2, T* __restrict__ ga,
+                          T* __restrict__ gb, int B, int H, int Tq, int E,
+                          float freq_coef) {
+  const int half = E / 2;
+  const size_t n = (size_t)B * Tq * H * half;
+  const size_t rse = (size_t)H * E;
+  for (size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x; idx < n;
+       idx += (size_t)gridDim.x * kThreads) {
+    const int m = (int)(idx % half);
+    const size_t bih = idx / half;  // (b, i, h)
+    const int qi = (int)((bih / H) % Tq);
+    const size_t off = bih * E + 2 * m;
+    const VtXl2Angles ang = vt_xl2_angles(Tq, qi, m, freq_coef);
+    const float2 a2 =
+        vt_rot(to_float(g2[off]), to_float(g2[off + 1]), ang.ca, ang.sa);
+    float ne = 0.f, no = 0.f;
+    if (qi + 1 < Tq) {
+      ne = to_float(g2[off + rse]);
+      no = to_float(g2[off + rse + 1]);
+    }
+    const float2 b2 = vt_rot(ne, no, ang.cb, ang.sb);
+    ga[off] = from_float<T>(a2.x);
+    ga[off + 1] = from_float<T>(a2.y);
+    gb[off] = from_float<T>(b2.x);
+    gb[off + 1] = from_float<T>(b2.y);
+  }
+}
 
-  extern __shared__ __align__(16) float smem[];
-  float* GA = smem;
-  float* GB = GA + kBQq * ES;
-  float* dGA = GB + kBQq * ES;
-  float* dGB = dGA + kBQq * ES;
-  float* QC = dGB + kBQq * ES;
-  float* GS = QC + kBQq * DS;
-  float* KS = GS + kBQq * DS;
-  float* VS = KS + kBK2 * DS;
-  float* TS = VS + kBK2 * DS;
-  float* dS = TS + kBK2 * kTS;
-  float* lse_s = dS + kBQq * SP;
-  float* del_s = lse_s + kBQq;
-  float* dead_s = del_s + kBQq;
+// Q1, first kernel: the position logits of every (kPosBM-query,
+// kPosBN-key) tile, pos_ij = gA_i . t_j (j <= i), gB_i . t_j (j >= i + 2),
+// 0 (j = i + 1), into the scratch S (B, H, T, Ts). A tile wholly in the
+// past forms only gA . t, one wholly in the future only gB . t. The E
+// contraction walks 32-column chunks of gA / gB and the table, staged once
+// each by cp.async kPosStages deep. A warp a 32 x 32 tile of the output.
+template <typename T>
+__global__ void __launch_bounds__(kPosThreads)
+    xl2_bwd_q1_pos_kernel(const T* __restrict__ ga, const T* __restrict__ gb,
+                          const T* __restrict__ table, float* __restrict__ S,
+                          int H, int Tq, int Ts, int E, int bh0) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LD = tile_ld(kKC);
+  constexpr int TA = kPosBM * LD, TB = kPosBN * LD;
+  constexpr int STAGE = 2 * TA + TB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);  // [stage][gA, gB, table]
 
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * kBQq;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t rs = (size_t)H * D;
-  const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
+  const int j0 = blockIdx.x * kPosBN, i0 = blockIdx.y * kPosBM;
+  const int bh = bh0 + blockIdx.z, b = bh / H, h = bh % H;
+  const bool need_past = j0 <= i0 + kPosBM - 1;
+  const bool need_fut = j0 + kPosBN - 1 >= i0 + 2;
   const size_t rse = (size_t)H * E;
   const size_t base_e = (size_t)b * Tq * rse + (size_t)h * E;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / (kPosBN / 32) * 32, wn = warp % (kPosBN / 32) * 32;
+
+  auto stage = [&](int s, int e0) {
+    T* st = sm + s * STAGE;
+    if (need_past)
+      cp_tile<T, kPosBM, kKC, kPosThreads>(st, LD, ga + base_e, rse, i0, Tq, e0);
+    if (need_fut)
+      cp_tile<T, kPosBM, kKC, kPosThreads>(st + TA, LD, gb + base_e, rse, i0, Tq,
+                                           e0);
+    cp_tile<T, kPosBN, kKC, kPosThreads>(st + 2 * TA, LD, table, E, j0, Tq, e0);
+  };
+
+  float acc_a[2][4][4], acc_b[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc_a[mi][ni][c] = acc_b[mi][ni][c] = 0.f;
+
+  const int n_chunks = E / kKC;
+#pragma unroll
+  for (int s = 0; s < kPosStages - 1; ++s) {
+    if (s < n_chunks) stage(s, s * kKC);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    cp_async_wait<kPosStages - 2>();
+    __syncthreads();  // chunk ch has landed; chunk ch - 1's stage is free
+    if (ch + kPosStages - 1 < n_chunks)
+      stage((ch + kPosStages - 1) % kPosStages, (ch + kPosStages - 1) * kKC);
+    cp_async_commit();
+    const T* st = sm + (ch % kPosStages) * STAGE;
+#pragma unroll
+    for (int k0 = 0; k0 < kKC; k0 += 8) {
+      uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        frag_b_nt<SPLIT>(st + 2 * TA, LD, wn + ni * 8, k0, lane, bhi[ni],
+                         blo[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        uint32_t ah[4], al[4];
+        if (need_past) {
+          frag_a<SPLIT>(st, LD, wm + mi * 16, k0, lane, ah, al);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            mma3<SPLIT>(acc_a[mi][ni], ah, al, bhi[ni], blo[ni]);
+        }
+        if (need_fut) {
+          frag_a<SPLIT>(st + TA, LD, wm + mi * 16, k0, lane, ah, al);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            mma3<SPLIT>(acc_b[mi][ni], ah, al, bhi[ni], blo[ni]);
+        }
+      }
+    }
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  float* Sb = S + (size_t)bh * Tq * Ts;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int qi = i0 + wm + mi * 16 + g + 8 * hf;
+      if (qi >= Tq) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int kj = j0 + wn + ni * 8 + 2 * t;
+        float out[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int c = 2 * hf + q;
+          out[q] = kj + q <= qi ? acc_a[mi][ni][c]
+                                : (kj + q >= qi + 2 ? acc_b[mi][ni][c] : 0.f);
+        }
+        *reinterpret_cast<float2*>(&Sb[(size_t)qi * Ts + kj]) =
+            make_float2(out[0], out[1]);
+      }
+    }
+}
+
+// Q1, second kernel: one block a (64-query tile, head, batch row), four
+// warps of 16 query rows each, walking the 64-key tiles (k, v staged by
+// cp.async two stages deep; qc and g staged once). Per key tile: s = pos +
+// qc k^T and dp = g v^T on the tensor cores (the position logits read from
+// S, the next tile's loaded into registers while this one computes), ds in
+// the accumulators' layout, written over the logits in S, and dqc += ds k
+// with ds as the A operand straight from the registers: the key order
+// inside each 8-key step is permuted (slot t <-> key 2t, slot t+4 <-> key
+// 2t+1) so that the accumulator layout is the A fragment's.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTCThreads)
+    xl2_bwd_q1_ds_kernel(const T* __restrict__ qc, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ g,
+                         const float* __restrict__ pad,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, float* __restrict__ S,
+                         float* __restrict__ dqc, int H, int Tq, int Ts,
+                         float scale, DropArgs drop) {
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LD = tile_ld(D);
+  constexpr int TILE = kTC * LD;
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* QC = reinterpret_cast<T*>(smem_raw);
+  T* GS = QC + TILE;
+  T* KV = GS + TILE;  // [stage][k, v]
+
+  const int i0 = blockIdx.x * kTC, h = blockIdx.y, b = blockIdx.z;
+  const size_t rs = (size_t)H * D;
+  const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
   const float* padb = pad + (size_t)b * Tq;
   const size_t rbase = ((size_t)b * H + h) * Tq;
+  float* Sb = S + rbase * Ts;
   const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
-
-  const bool all_dead = row_all_dead(padb, Tq);
-
-  load_rows(QC, DS, qc, base, rs, i0, kBQq, Tq, D);
-  load_rows(GS, DS, g, base, rs, i0, kBQq, Tq, D);
-  load_row_stats(lse_s, del_s, lse, delta, rbase, i0, kBQq, Tq);
-  if constexpr (ROTATE) {
-    rotate_rows(GA, GB, ES, ga, base_e, rse, i0, kBQq, Tq, E, freq_coef);
-  } else {
-    load_rows(GA, ES, ga, base_e, rse, i0, kBQq, Tq, E);
-    load_rows(GB, ES, gb, base_e, rse, i0, kBQq, Tq, E);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16;  // the warp's rows of the tile
+  int qi[2];
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    qi[hf] = i0 + r0 + g4 + 8 * hf;
+    const bool in = qi[hf] < Tq;
+    lse_r[hf] = in ? lse[rbase + qi[hf]] : 0.f;
+    del_r[hf] = in ? delta[rbase + qi[hf]] : 0.f;
   }
-  for (int i = tid; i < kBQq * ES; i += kThreads) dGA[i] = dGB[i] = 0.f;
 
-  // thread (r, tx): query row r, keys tx + 16 c (scores), features
-  // tx + 16 j (dqc), table columns tx + 16 c of a chunk (dgA, dgB)
-  const int r = tid / 16, tx = tid % 16, qi = i0 + r;
-  float acc_q[DJ];
-#pragma unroll
-  for (int j = 0; j < DJ; ++j) acc_q[j] = 0.f;
+  cp_tile<T, kTC, D, kTCThreads>(QC, LD, qc + base, rs, i0, Tq, 0);
+  cp_tile<T, kTC, D, kTCThreads>(GS, LD, g + base, rs, i0, Tq, 0);
+  cp_tile<T, kTC, D, kTCThreads>(KV, LD, k + base, rs, 0, Tq, 0);
+  cp_tile<T, kTC, D, kTCThreads>(KV + TILE, LD, v + base, rs, 0, Tq, 0);
+  cp_async_commit();
 
-  for (int j0 = 0; j0 < Tq && !all_dead; j0 += kBK2) {
-    const bool need_past = j0 <= i0 + kBQq - 1;
-    const bool need_fut = j0 + kBK2 - 1 >= i0 + 2;
-    __syncthreads();  // the previous tile's KS / VS / TS / dS are read
-    load_rows(KS, DS, k, base, rs, j0, kBK2, Tq, D);
-    load_rows(VS, DS, v, base, rs, j0, kBK2, Tq, D);
-    load_dead(dead_s, padb, j0, kBK2, Tq);
-    __syncthreads();
-
-    float s[4], dv[4], pa[4], pb[4];
+  // the position logits of this thread's accumulator slots, key tile j0
+  float pos[8][4];
+  auto load_pos = [&](int j0) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[c] = dv[c] = pa[c] = pb[c] = 0.f;
+    for (int hf = 0; hf < 2; ++hf) {
+      const bool in = qi[hf] < Tq;
+      const float* row = Sb + (size_t)(in ? qi[hf] : 0) * Ts + j0 + 2 * t4;
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      const float4 q4 = *reinterpret_cast<const float4*>(&QC[r * DS + d]);
-      const float4 g4 = *reinterpret_cast<const float4*>(&GS[r * DS + d]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = (tx + 16 * c) * DS + d;
-        s[c] = dot4(q4, *reinterpret_cast<const float4*>(&KS[row]), s[c]);
-        dv[c] = dot4(g4, *reinterpret_cast<const float4*>(&VS[row]), dv[c]);
+      for (int ni = 0; ni < 8; ++ni) {
+        const float2 p2 = in ? *reinterpret_cast<const float2*>(row + ni * 8)
+                             : make_float2(0.f, 0.f);
+        pos[ni][2 * hf] = p2.x;
+        pos[ni][2 * hf + 1] = p2.y;
       }
     }
-    for (int e0 = 0; e0 < E; e0 += kEC) {
-      __syncthreads();  // the previous chunk of TS is read
-      load_table_chunk(TS, table, j0, e0, Tq, E);
-      __syncthreads();
-#pragma unroll 4
-      for (int e = 0; e < kEC; e += 4) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&GA[r * ES + e0 + e]);
-        const float4 b4 = *reinterpret_cast<const float4*>(&GB[r * ES + e0 + e]);
+  };
+  load_pos(0);
+
+  float acc_q[ND][4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float4 t4 =
-              *reinterpret_cast<const float4*>(&TS[(tx + 16 * c) * kTS + e]);
-          if (need_past) pa[c] = dot4(a4, t4, pa[c]);
-          if (need_fut) pb[c] = dot4(b4, t4, pb[c]);
-        }
-      }
-    }
+  for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = tx + 16 * c, kj = j0 + col;
-      float ds = 0.f;
-      if (qi < Tq && dead_s[col] == 0.f) {
-        const float pos = kj <= qi ? pa[c] : (kj >= qi + 2 ? pb[c] : 0.f);
-        const float pr = expf((s[c] + pos) * scale - lse_s[r]);
-        const float m = keep_scale(drop, drop_key, qi, kj);
-        ds = to_stream<T>(pr * (dv[c] * m - del_s[r]) * scale);
-      }
-      dS[r * SP + col] = ds;
+    for (int c = 0; c < 4; ++c) acc_q[nd][c] = 0.f;
+
+  const int n_tiles = (Tq + kTC - 1) / kTC;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int j0 = kt * kTC;
+    if (kt + 1 < n_tiles) {
+      T* nxt = KV + ((kt + 1) & 1) * 2 * TILE;
+      cp_tile<T, kTC, D, kTCThreads>(nxt, LD, k + base, rs, j0 + kTC, Tq, 0);
+      cp_tile<T, kTC, D, kTCThreads>(nxt + TILE, LD, v + base, rs, j0 + kTC, Tq, 0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const T* KS = KV + (kt & 1) * 2 * TILE;
+    const T* VS = KS + TILE;
 
-#pragma unroll 4
-    for (int col = 0; col < kBK2; ++col) {
-      const float w = dS[r * SP + col];
+    float s[8][4], dp[8][4];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j)
-        acc_q[j] = fmaf(w, KS[col * DS + tx + 16 * j], acc_q[j]);
-    }
-    // dgA += dsA t, dgB += dsB t over this key tile, chunk by chunk of the
-    // table; one thread owns each (r, e) of the accumulators
-    for (int e0 = 0; e0 < E; e0 += kEC) {
-      __syncthreads();  // TS is free
-      load_table_chunk(TS, table, j0, e0, Tq, E);
-      __syncthreads();
-      float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int col = 0; col < kBK2; ++col) {
-        const int kj = j0 + col;
-        const float w = dS[r * SP + col];
-        if (kj <= qi) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            sa[c] = fmaf(w, TS[col * kTS + tx + 16 * c], sa[c]);
-        } else if (kj >= qi + 2) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            sb[c] = fmaf(w, TS[col * kTS + tx + 16 * c], sb[c]);
-        }
-      }
+    for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        dGA[r * ES + e0 + tx + 16 * c] += sa[c];
-        dGB[r * ES + e0 + tx + 16 * c] += sb[c];
+        s[ni][c] = pos[ni][c];
+        dp[ni][c] = 0.f;
+      }
+    if (kt + 1 < n_tiles) load_pos(j0 + kTC);  // in flight while we compute
+#pragma unroll
+    for (int k0 = 0; k0 < D; k0 += 8) {
+      uint32_t qh[4], ql[4], gh[4], gl[4];
+      frag_a<SPLIT>(QC, LD, r0, k0, lane, qh, ql);
+      frag_a<SPLIT>(GS, LD, r0, k0, lane, gh, gl);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        uint32_t bhi[2], blo[2];
+        frag_b_nt<SPLIT>(KS, LD, ni * 8, k0, lane, bhi, blo);
+        mma3<SPLIT>(s[ni], qh, ql, bhi, blo);
+        frag_b_nt<SPLIT>(VS, LD, ni * 8, k0, lane, bhi, blo);
+        mma3<SPLIT>(dp[ni], gh, gl, bhi, blo);
+      }
+    }
+
+    // ds (0 at dead keys and rows past T), in the accumulator layout
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const int kj = j0 + ni * 8 + 2 * t4;
+      bool dead[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        dead[q] = kj + q >= Tq || padb[kj + q] > 0.5f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int hf = c >> 1, q = c & 1;
+        float ds = 0.f;
+        if (!dead[q] && qi[hf] < Tq) {
+          const float pr = expf(s[ni][c] * scale - lse_r[hf]);
+          const float m = keep_scale(drop, drop_key, qi[hf], kj + q);
+          ds = to_stream<T>(pr * (dp[ni][c] * m - del_r[hf]) * scale);
+        }
+        s[ni][c] = ds;
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (qi[hf] < Tq)
+          *reinterpret_cast<float2*>(&Sb[(size_t)qi[hf] * Ts + kj]) =
+              make_float2(s[ni][2 * hf], s[ni][2 * hf + 1]);
+    }
+
+    // dqc += ds k: key step ni holds keys j0 + 8 ni + (2t, 2t+1) in slots
+    // (t, t+4) of the A fragment
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      uint32_t ah[4], al[4];
+      split_tf32<SPLIT>(s[ni][0], ah[0], al[0]);
+      split_tf32<SPLIT>(s[ni][2], ah[1], al[1]);
+      split_tf32<SPLIT>(s[ni][1], ah[2], al[2]);
+      split_tf32<SPLIT>(s[ni][3], ah[3], al[3]);
+      const T* krow = KS + (ni * 8 + 2 * t4) * LD + g4;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        uint32_t bhi[2], blo[2];
+        split_tf32<SPLIT>(to_float(krow[nd * 8]), bhi[0], blo[0]);
+        split_tf32<SPLIT>(to_float(krow[LD + nd * 8]), bhi[1], blo[1]);
+        mma3<SPLIT>(acc_q[nd], ah, al, bhi, blo);
+      }
+    }
+    __syncthreads();  // the stage is read before it is refilled
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (qi[hf] >= Tq) continue;
+    float* out = dqc + base + (size_t)qi[hf] * rs + 2 * t4;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<float2*>(out + nd * 8) =
+          make_float2(acc_q[nd][2 * hf], acc_q[nd][2 * hf + 1]);
+  }
+}
+
+// Q2: dgA = (ds o past) t and dgB = (ds o future) t, a tensor-core product
+// with the masks applied as the ds fragments are read. One block a
+// (kQ2BM-query tile, 64-column table tile, A or B, (b, h)), the table
+// tiles and A / B of one query tile adjacent in the grid so that they
+// share its ds rows in L2; it walks only the 32-key chunks its mask
+// reaches, j <= i (A) or j >= i + 2 (B), ds and the table staged by
+// cp.async kQ2Stages deep. A warp a 32 x 32 tile of the output. dg_out
+// gets dgA (K5: before its rotation), dgb_out dgB.
+template <typename T>
+__global__ void __launch_bounds__(kQ2Threads)
+    xl2_bwd_q2_kernel(const float* __restrict__ S, const T* __restrict__ table,
+                      float* __restrict__ dg_out, float* __restrict__ dgb_out,
+                      int H, int Tq, int Ts, int E, int bh0) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LDA = tile_ld(kKC);
+  constexpr int LDB = tile_ld_nn<T, kTC>();  // table chunk (32 keys, 64 columns)
+  constexpr int TA = kQ2BM * LDA, TB = kKC * LDB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* As = reinterpret_cast<float*>(smem_raw);          // [stage] ds
+  T* Bs = reinterpret_cast<T*>(As + kQ2Stages * TA);       // [stage] table
+
+  const int e0 = (blockIdx.x >> 1) * kTC;
+  const bool fut = blockIdx.x & 1;
+  const int i0 = blockIdx.y * kQ2BM;
+  const int bh = bh0 + blockIdx.z, b = bh / H, h = bh % H;
+  const float* Sb = S + (size_t)bh * Tq * Ts;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / (kTC / 32) * 32, wn = warp % (kTC / 32) * 32;
+  const int g4 = lane >> 2, t4 = lane & 3;
+
+  // key chunks: past [0, min(i0 + BM, T)), future [i0 + 2, T)
+  const int jlo = fut ? (i0 + 2) / kKC * kKC : 0;
+  const int jhi = fut ? Tq : min(i0 + kQ2BM, Tq);
+  const int n_chunks = jhi > jlo ? (jhi - jlo + kKC - 1) / kKC : 0;
+
+  auto stage = [&](int s, int jc) {
+    cp_tile<float, kQ2BM, kKC, kQ2Threads>(As + s * TA, LDA, Sb, Ts, i0, Tq, jc);
+    cp_tile<T, kKC, kTC, kQ2Threads>(Bs + s * TB, LDB, table, E, jc, Tq, e0);
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kQ2Stages - 1; ++s) {
+    if (s < n_chunks) stage(s, jlo + s * kKC);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int jc = jlo + ch * kKC;
+    cp_async_wait<kQ2Stages - 2>();
+    __syncthreads();  // chunk ch has landed; chunk ch - 1's stage is free
+    if (ch + kQ2Stages - 1 < n_chunks)
+      stage((ch + kQ2Stages - 1) % kQ2Stages, jc + (kQ2Stages - 1) * kKC);
+    cp_async_commit();
+    const float* A = As + (ch % kQ2Stages) * TA;
+    const T* Bm = Bs + (ch % kQ2Stages) * TB;
+    // a chunk across the mask's edge masks its ds as the fragments load:
+    // slot c of (mi, k0) holds key - query = rel0 + k0 - 16 mi + (c >> 1)
+    // - 8 (c & 1)
+    const bool edge = fut ? jc < i0 + kQ2BM + 1 : jc + kKC - 1 > i0;
+    const int rel0 = jc + 2 * t4 - (i0 + wm + g4);
+#pragma unroll
+    for (int k0 = 0; k0 < kKC; k0 += 8) {
+      uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        frag_b_nn<SPLIT>(Bm, LDB, wn + ni * 8, k0, lane, bhi[ni], blo[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* p = A + (wm + mi * 16 + g4) * LDA + k0 + 2 * t4;
+        const float2 r0 = load2(p), r1 = load2(p + 8 * LDA);
+        float x[4] = {r0.x, r1.x, r0.y, r1.y};  // slots (g, t) (g+8, t) (g, t+4) (g+8, t+4)
+        if (edge) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int rel = rel0 + k0 - 16 * mi + (c >> 1) - 8 * (c & 1);
+            if (fut ? rel < 2 : rel > 0) x[c] = 0.f;
+          }
+        }
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) split_tf32<SPLIT>(x[c], ah[c], al[c]);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma3<SPLIT>(acc[mi][ni], ah, al, bhi[ni], blo[ni]);
       }
     }
   }
 
-  if (qi < Tq) {
+  float* out = fut ? dgb_out : dg_out;
+  const size_t rse = (size_t)H * E;
+  const size_t base_e = (size_t)b * Tq * rse + (size_t)h * E;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dqc[base + (size_t)qi * rs + tx + 16 * j] = acc_q[j];
-  }
-  __syncthreads();
-  if constexpr (!ROTATE) {
-    // K6: dgA and dgB are the accumulators themselves
-    for (int i = tid; i < kBQq * E; i += kThreads) {
-      const int rr = i / E, e = i % E, row = i0 + rr;
-      if (row >= Tq) continue;
-      const size_t off = base_e + (size_t)row * rse + e;
-      dg[off] = dGA[rr * ES + e];
-      dgb[off] = dGB[rr * ES + e];
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int qi = i0 + wm + mi * 16 + g4 + 8 * hf;
+      if (qi >= Tq) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        *reinterpret_cast<float2*>(
+            &out[base_e + (size_t)qi * rse + e0 + wn + ni * 8 + 2 * t4]) =
+            make_float2(acc[mi][ni][2 * hf], acc[mi][ni][2 * hf + 1]);
     }
-    return;
-  }
-  // dg_i = rot^-1(dgA_i, A_i) + rot^-1(dgB_{i-1}, B_{i-1}); the tile's last
-  // row's dgB goes to the carry of the next tile's first row
+}
+
+// K5 only: dg_i = rot^-1(dgA_i, A_i) + rot^-1(dgB_{i-1}, B_{i-1}), in place
+// over dg (which holds dgA); one thread a pair.
+__global__ void __launch_bounds__(kThreads)
+    xl2_bwd_unrotate_kernel(float* __restrict__ dg,
+                            const float* __restrict__ dgb, int B, int H, int Tq,
+                            int E, float freq_coef) {
   const int half = E / 2;
-  float* carry_row = carry + (((size_t)b * gridDim.x + blockIdx.x) * H + h) * E;
-  for (int i = tid; i < kBQq * half; i += kThreads) {
-    const int rr = i / half, m = i % half, row = i0 + rr;
-    if (row >= Tq) continue;
-    const VtXl2Angles ang = vt_xl2_angles(Tq, row, m, freq_coef);
-    float2 out = vt_rot_inv(dGA[rr * ES + 2 * m], dGA[rr * ES + 2 * m + 1],
-                            ang.ca, ang.sa);
-    if (rr >= 1) {
-      const VtXl2Angles prev = vt_xl2_angles(Tq, row - 1, m, freq_coef);
-      const float2 fb = vt_rot_inv(dGB[(rr - 1) * ES + 2 * m],
-                                   dGB[(rr - 1) * ES + 2 * m + 1], prev.cb,
-                                   prev.sb);
+  const size_t n = (size_t)B * Tq * H * half;
+  const size_t rse = (size_t)H * E;
+  for (size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x; idx < n;
+       idx += (size_t)gridDim.x * kThreads) {
+    const int m = (int)(idx % half);
+    const size_t bih = idx / half;
+    const int qi = (int)((bih / H) % Tq);
+    const size_t off = bih * E + 2 * m;
+    const VtXl2Angles ang = vt_xl2_angles(Tq, qi, m, freq_coef);
+    float2 out = vt_rot_inv(dg[off], dg[off + 1], ang.ca, ang.sa);
+    if (qi >= 1) {
+      const VtXl2Angles prev = vt_xl2_angles(Tq, qi - 1, m, freq_coef);
+      const float2 fb =
+          vt_rot_inv(dgb[off - rse], dgb[off - rse + 1], prev.cb, prev.sb);
       out.x += fb.x;
       out.y += fb.y;
     }
-    dg[base_e + (size_t)row * rse + 2 * m] = out.x;
-    dg[base_e + (size_t)row * rse + 2 * m + 1] = out.y;
-    if (rr == kBQq - 1) {
-      const float2 fb = vt_rot_inv(dGB[rr * ES + 2 * m],
-                                   dGB[rr * ES + 2 * m + 1], ang.cb, ang.sb);
-      carry_row[2 * m] = fb.x;
-      carry_row[2 * m + 1] = fb.y;
-    }
+    dg[off] = out.x;
+    dg[off + 1] = out.y;
   }
 }
 
-// dg at each tile's first row += the previous tile's carry.
-__global__ void __launch_bounds__(kThreads)
-    xl2_bwd_carry_kernel(const float* __restrict__ carry,
-                         float* __restrict__ dg, int B, int nq, int H, int Tq,
-                         int E) {
-  const size_t n = (size_t)B * (nq - 1) * H * E;
-  for (size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x; idx < n;
-       idx += (size_t)gridDim.x * kThreads) {
-    const size_t e = idx % E, h = (idx / E) % H, t = (idx / ((size_t)E * H)) % (nq - 1),
-                 b = idx / ((size_t)E * H * (nq - 1));
-    const size_t row = (t + 1) * kBQq;
-    if (row >= (size_t)Tq) continue;
-    dg[((b * Tq + row) * H + h) * E + e] +=
-        carry[((b * nq + t) * H + h) * E + e];
-  }
-}
-
-// ga, gb as in xl2_bwd_q_kernel.
+// ga, gb as in launch_xl2_bwd_q.
 template <typename T, int D, bool ROTATE>
 __global__ void __launch_bounds__(kThreads)
     xl2_bwd_kv_kernel(const T* __restrict__ qc, const T* __restrict__ k,
@@ -1172,32 +1659,78 @@ cudaError_t launch_xl3_bwd(const void* qc, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// K5 (ROTATE): rotate, Q1 pos, Q1 ds, Q2, unrotate; K6: Q1 pos, Q1 ds, Q2.
+// ga: K5's g2 or K6's gA; gb: K6's gB. dg: K5's dg2 or K6's dgA; dgb: K6's
+// dgB or K5's scratch for it. gab: K5's rotated streams (2, B, T, H, E) in
+// the stream dtype; s: the ds scratch (B, H, T, ds_cols(T)) fp32.
 template <typename T, int D, bool ROTATE>
 cudaError_t launch_xl2_bwd_q(const void* qc, const void* k, const void* v,
                              const void* ga, const void* gb,
                              const void* table, const void* g,
                              const float* pad, const float* lse,
                              const float* delta, float* dqc, float* dg,
-                             float* dgb, float* carry, int B, int Tq, int H,
-                             int E, float scale, DropArgs drop,
+                             float* dgb, void* gab, float* s, int B, int Tq,
+                             int H, int E, float scale, DropArgs drop,
                              cudaStream_t stream) {
-  const size_t smem = xl2_bwd_q_smem_bytes<D>(E);
+  constexpr size_t smem_pos = xl2_bwd_pos_smem_bytes<T>();
+  constexpr size_t smem_ds = xl2_bwd_ds_smem_bytes<T, D>();
+  constexpr size_t smem_dg = xl2_bwd_dg_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
-      xl2_bwd_q_kernel<T, D, ROTATE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      xl2_bwd_q1_pos_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_pos);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(xl2_bwd_q1_ds_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_ds);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(xl2_bwd_q2_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_dg);
   if (err != cudaSuccess) return err;
   const float freq_coef = (float)(-2.0 * log(10000.0) / (double)E);
-  const int nq = (Tq + kBQq - 1) / kBQq;
-  xl2_bwd_q_kernel<T, D, ROTATE><<<dim3(nq, H, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(qc), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(ga),
-      static_cast<const T*>(gb), static_cast<const T*>(table),
-      static_cast<const T*>(g), pad, lse, delta, dqc, dg, dgb, carry, H, Tq,
-      E, scale, freq_coef, drop);
+  const size_t n_pairs = (size_t)B * Tq * H * (E / 2);
+  const T* GA = static_cast<const T*>(ga);
+  const T* GB = static_cast<const T*>(gb);
+  const T* Tab = static_cast<const T*>(table);
+  if constexpr (ROTATE) {
+    T* ra = static_cast<T*>(gab);
+    T* rb = ra + (size_t)B * Tq * H * E;
+    xl2_bwd_rotate_kernel<T><<<grid_for(n_pairs), kThreads, 0, stream>>>(
+        GA, ra, rb, B, H, Tq, E, freq_coef);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    GA = ra;
+    GB = rb;
+  }
+  const int Ts = ds_cols(Tq), BH = B * H;
+  // Q1 pos and Q2 put (b, h) on grid.z: one launch for each kMaxGridZ of
+  // them (one launch unless B * H passes 65535).
+  for (int bh0 = 0; bh0 < BH; bh0 += kMaxGridZ) {
+    xl2_bwd_q1_pos_kernel<T>
+        <<<dim3((Tq + kPosBN - 1) / kPosBN, (Tq + kPosBM - 1) / kPosBM,
+                BH - bh0 < kMaxGridZ ? BH - bh0 : kMaxGridZ),
+           kPosThreads, smem_pos, stream>>>(GA, GB, Tab, s, H, Tq, Ts, E, bh0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  xl2_bwd_q1_ds_kernel<T, D>
+      <<<dim3((Tq + kTC - 1) / kTC, H, B), kTCThreads, smem_ds, stream>>>(
+          static_cast<const T*>(qc), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(g), pad, lse, delta,
+          s, dqc, H, Tq, Ts, scale, drop);
   err = cudaGetLastError();
-  if (err != cudaSuccess || !ROTATE || nq == 1) return err;
-  xl2_bwd_carry_kernel<<<grid_for((size_t)B * (nq - 1) * H * E), kThreads, 0,
-                         stream>>>(carry, dg, B, nq, H, Tq, E);
+  if (err != cudaSuccess) return err;
+  for (int bh0 = 0; bh0 < BH; bh0 += kMaxGridZ) {
+    xl2_bwd_q2_kernel<T>
+        <<<dim3(2 * E / kTC, (Tq + kQ2BM - 1) / kQ2BM,
+                BH - bh0 < kMaxGridZ ? BH - bh0 : kMaxGridZ),
+           kQ2Threads, smem_dg, stream>>>(s, Tab, dg, dgb, H, Tq, Ts, E, bh0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (!ROTATE) return cudaSuccess;
+  xl2_bwd_unrotate_kernel<<<grid_for(n_pairs), kThreads, 0, stream>>>(
+      dg, dgb, B, H, Tq, E, freq_coef);
   return cudaGetLastError();
 }
 
@@ -1235,34 +1768,34 @@ bool bad_args(int B, int T, int H, double dropout_p) {
          H >= 65536 || !(dropout_p >= 0.0 && dropout_p < 1.0);
 }
 
-// E a multiple of 64 whose shared memory fits a block at head dim D.
+// E a multiple of 64 whose bwd-kv shared memory fits a block at head dim D
+// (bwd-q's does not depend on E).
 bool bad_e(int E, int D) {
   if (E <= 0 || E % kEC != 0) return true;
-  const size_t q = D == 128 ? xl2_bwd_q_smem_bytes<128>(E)
-                            : xl2_bwd_q_smem_bytes<64>(E);
   const size_t kv = D == 128 ? xl2_bwd_kv_smem_bytes<128>(E)
                              : xl2_bwd_kv_smem_bytes<64>(E);
-  return q > 232448 || kv > 232448;
+  return kv > 232448;
 }
 
-// One K5 (ROTATE) or K6 bwd-q launch at the built head dims: 48 and 64,
-// and 128 for K6 (the JETS conformer's legacy rel-pos flavour).
+// One K5 (ROTATE) or K6 bwd-q call at the built head dims: 48 and 64, and
+// 128 for K6 (the JETS conformer's legacy rel-pos flavour).
 template <bool ROTATE>
 int xl2_bwd_q_entry(const void* qc, const void* k, const void* v,
                     const void* ga, const void* gb, const void* table,
                     const void* g, const float* pad, const float* lse,
                     const float* delta, float* dqc, float* dg, float* dgb,
-                    float* carry, int B, int T, int H, int D, int E,
+                    void* gab, float* s, int B, int T, int H, int D, int E,
                     int is_bf16, float scale, double dropout_p, uint64_t seed,
                     void* stream) {
-  if (bad_args(B, T, H, dropout_p) || bad_e(E, D))
+  if (bad_args(B, T, H, dropout_p) || bad_e(E, D) ||
+      (long long)B * H > INT_MAX - kMaxGridZ)  // int (b, h); no such batch fits
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropArgs drop = drop_args(dropout_p, seed);
 #define VT_XL2Q(TYPE, DIM)                                                  \
   launch_xl2_bwd_q<TYPE, DIM, ROTATE>(qc, k, v, ga, gb, table, g, pad, lse, \
-                                      delta, dqc, dg, dgb, carry, B, T, H,  \
-                                      E, scale, drop, s)
+                                      delta, dqc, dg, dgb, gab, s, B, T, H, \
+                                      E, scale, drop, st)
   switch (D * 2 + (is_bf16 ? 1 : 0)) {
     case 96: return (int)VT_XL2Q(float, 48);
     case 97: return (int)VT_XL2Q(__nv_bfloat16, 48);
@@ -1352,16 +1885,18 @@ int vt_flash_xl3_bwd(const void* qc, const void* k, const void* v,
 // K5 bwd-q. qc, k, v, g: (B, T, H, D); g2: (B, T, H, E) the forward's
 // unrotated position stream; table: (T, E); all one dtype. pad, lse, delta,
 // dropout_p, seed as K4 bwd. Outputs, fp32: dqc (B, T, H, D), dg2
-// (B, T, H, E). Scratch: carry (B, ceil(T / 16), H, E) fp32. E a multiple
-// of 64.
+// (B, T, H, E). Scratch: gab (2, B, T, H, E) in the stream dtype, dgb
+// (B, T, H, E) fp32, s (B, H, T, 128 * ceil(T / 128)) fp32. E a multiple of
+// 64. Returns the first cudaError_t of the five launches.
 int vt_flash_xl2_bwd_q(const void* qc, const void* k, const void* v,
                        const void* g2, const void* table, const void* g,
                        const float* pad, const float* lse, const float* delta,
-                       float* dqc, float* dg2, float* carry, int B, int T,
-                       int H, int D, int E, int is_bf16, float scale,
-                       double dropout_p, uint64_t seed, void* stream) {
+                       float* dqc, float* dg2, void* gab, float* dgb, float* s,
+                       int B, int T, int H, int D, int E, int is_bf16,
+                       float scale, double dropout_p, uint64_t seed,
+                       void* stream) {
   return xl2_bwd_q_entry<true>(qc, k, v, g2, nullptr, table, g, pad, lse,
-                               delta, dqc, dg2, nullptr, carry, B, T, H, D, E,
+                               delta, dqc, dg2, dgb, gab, s, B, T, H, D, E,
                                is_bf16, scale, dropout_p, seed, stream);
 }
 
@@ -1384,16 +1919,17 @@ int vt_flash_xl2_bwd_kv(const void* qc, const void* k, const void* v,
 // K6 bwd-q. qc, k, v, g: (B, T, H, D); gA, gB: (B, T, H, E) the forward's
 // pre-rotated streams; table: (T, E); all one dtype; D in {48, 64, 128}.
 // pad, lse, delta, dropout_p, seed as K4 bwd. Outputs, fp32: dqc
-// (B, T, H, D), dgA and dgB (B, T, H, E).
+// (B, T, H, D), dgA and dgB (B, T, H, E). Scratch: s as K5 bwd-q's.
+// Returns the first cudaError_t of the three launches.
 int vt_flash_xl_bwd_q(const void* qc, const void* k, const void* v,
                       const void* ga, const void* gb, const void* table,
                       const void* g, const float* pad, const float* lse,
                       const float* delta, float* dqc, float* dga, float* dgb,
-                      int B, int T, int H, int D, int E, int is_bf16,
+                      float* s, int B, int T, int H, int D, int E, int is_bf16,
                       float scale, double dropout_p, uint64_t seed,
                       void* stream) {
   return xl2_bwd_q_entry<false>(qc, k, v, ga, gb, table, g, pad, lse, delta,
-                                dqc, dga, dgb, nullptr, B, T, H, D, E,
+                                dqc, dga, dgb, nullptr, s, B, T, H, D, E,
                                 is_bf16, scale, dropout_p, seed, stream);
 }
 

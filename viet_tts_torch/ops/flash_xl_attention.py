@@ -597,10 +597,18 @@ def xl3_bwd(qc, k, v, qv, p, pad, lse, delta, g, scale: float, dropout_p: float 
 xl3_bwd.launches = 0
 
 
+def _ds_scratch(B: int, T: int, H: int, device) -> torch.Tensor:
+    """The bwd-q kernels' fp32 scratch (B, H, T, Ts) of the position logits
+    and then ds, Ts = T rounded up to a multiple of 128, which every key
+    tile of the kernels divides (``kTsAlign`` in the source)."""
+    return torch.empty(B, H, T, (T + 127) // 128 * 128, dtype=torch.float32, device=device)
+
+
 def xl2_bwd_dq(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
                dropout_p: float = 0.0, seed: int = 0):
     """(dqc (B, T, H, D), dg2 (B, T, H, E)) fp32: kernel K5 bwd-q on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (five launches: the rotations, Q1's position logits and ds, Q2,
+    the inverse rotations; one count), the plain version on CPU tensors."""
     _check_rates(dropout_p)
     if _device_of(qc) == "cpu":
         return xl2_bwd_dq_plain(qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p,
@@ -612,13 +620,16 @@ def xl2_bwd_dq(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
     f32 = dict(dtype=torch.float32, device=qc.device)
     dqc = torch.empty(B, T, H, D, **f32)
     dg2 = torch.empty(B, T, H, E, **f32)
-    carry = torch.empty(B, (T + 15) // 16, H, E, **f32)
+    gab = torch.empty(2, B, T, H, E, dtype=qc.dtype, device=qc.device)  # gA, gB
+    dgb = torch.empty(B, T, H, E, **f32)
+    s = _ds_scratch(B, T, H, qc.device)
     lib = kernels.library("flash_xl_attention_bwd")
     err = lib.vt_flash_xl2_bwd_q(
         qc.data_ptr(), k.data_ptr(), v.data_ptr(), g2.data_ptr(), table.data_ptr(),
         g.data_ptr(), pad.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqc.data_ptr(),
-        dg2.data_ptr(), carry.data_ptr(), B, T, H, D, E, int(qc.dtype == torch.bfloat16),
-        float(scale), float(dropout_p), _seed(seed), _stream(qc))
+        dg2.data_ptr(), gab.data_ptr(), dgb.data_ptr(), s.data_ptr(), B, T, H, D, E,
+        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
+        _stream(qc))
     kernels.check(lib, err, "XL2 flash attention bwd_q kernel")
     xl2_bwd_dq.launches += 1
     return dqc, dg2
@@ -678,7 +689,8 @@ def _xl_bwd_operands(qc, k, v, gA, gB, table, pad, lse, delta, g):
 def xl_bwd_dq(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
               dropout_p: float = 0.0, seed: int = 0):
     """(dqc (B, T, H, D), dgA, dgB (B, T, H, E)) fp32: kernel K6 bwd-q on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors (three launches: Q1's position logits and ds, Q2; one
+    count), the plain version on CPU tensors."""
     _check_rates(dropout_p)
     if _device_of(qc) == "cpu":
         return xl_bwd_dq_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale, dropout_p,
@@ -691,11 +703,12 @@ def xl_bwd_dq(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
     dqc = torch.empty(B, T, H, D, **f32)
     dgA = torch.empty(B, T, H, E, **f32)
     dgB = torch.empty(B, T, H, E, **f32)
+    s = _ds_scratch(B, T, H, qc.device)
     lib = kernels.library("flash_xl_attention_bwd")
     err = lib.vt_flash_xl_bwd_q(
         qc.data_ptr(), k.data_ptr(), v.data_ptr(), gA.data_ptr(), gB.data_ptr(),
         table.data_ptr(), g.data_ptr(), pad.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dqc.data_ptr(), dgA.data_ptr(), dgB.data_ptr(), B, T, H, D, E,
+        dqc.data_ptr(), dgA.data_ptr(), dgB.data_ptr(), s.data_ptr(), B, T, H, D, E,
         int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
         _stream(qc))
     kernels.check(lib, err, "XL flash attention bwd_q kernel")

@@ -89,20 +89,20 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "vt_flash_xl3_bwd": (
             _I, [_P] * 16 + [_I, _I, _I, _I, _I, _F, _D, _U64, _P]
         ),
-        # qc, k, v, g2, table, g, pad, lse, delta, dqc, dg2, carry, B, T, H,
-        # D, E, is_bf16, scale, dropout_p, seed, stream
+        # qc, k, v, g2, table, g, pad, lse, delta, dqc, dg2, gab, dgb, s, B,
+        # T, H, D, E, is_bf16, scale, dropout_p, seed, stream
         "vt_flash_xl2_bwd_q": (
-            _I, [_P] * 12 + [_I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+            _I, [_P] * 14 + [_I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
         ),
         # qc, k, v, g2, table, g, pad, lse, delta, dk, dv, dtab_part, dtab,
         # B, T, Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream
         "vt_flash_xl2_bwd_kv": (
             _I, [_P] * 13 + [_I, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
         ),
-        # qc, k, v, gA, gB, table, g, pad, lse, delta, dqc, dgA, dgB, B, T,
-        # H, D, E, is_bf16, scale, dropout_p, seed, stream
+        # qc, k, v, gA, gB, table, g, pad, lse, delta, dqc, dgA, dgB, s, B,
+        # T, H, D, E, is_bf16, scale, dropout_p, seed, stream
         "vt_flash_xl_bwd_q": (
-            _I, [_P] * 13 + [_I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+            _I, [_P] * 14 + [_I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
         ),
         # qc, k, v, gA, gB, table, g, pad, lse, delta, dk, dv, dtab_part,
         # dtab, B, T, Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream
