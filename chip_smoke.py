@@ -37,6 +37,8 @@ Phases (any failure exits non-zero; no phase is caught):
     T=512, K5 at (16, 1008), K6 at (4, 2048); ragged lengths with a fully
     padded row, and no pad mask), fp32 and bf16, with times, and
     ``scaled_dot_product_attention`` with the position term as its mask;
+    K5 / K6 (tensor cores; K5's time includes its rotation pass)
+    beside their tensor-core bound and the fp32, TF32 and bf16 figures;
  8. the two-stage path: full-width FastSpeech2-conformer (flash attention)
     and HiFi-GAN V1, seeded random weights, saved as two port checkpoints,
     served by ``TwoStageTTS(..., fused_vocoder=True)``: 16 sentences at
@@ -52,8 +54,9 @@ Phases (any failure exits non-zero; no phase is caught):
     the FS2 training shapes (B=8, H=8, D=48: K4 at T=64 and 512, K5 at
     1008 with E=384), fp32 and bf16, dropout 0 and 0.1, ragged lengths with
     a fully padded row and no pad mask, with times and SDPA's backward with
-    the position term as its mask; K5 bwd-q (tensor cores) also beside its
-    TF32 and bf16 bounds, and beside a yardstick of the same function
+    the position term as its mask; K5 forward and bwd-q (tensor cores) also
+    beside their TF32 and bf16 bounds, bwd-q beside a yardstick of the same
+    function
     (``library_ms_pos_grad``: SDPA's backward with the mask's gradient,
     then the two masked products of that gradient with the table);
 10. the FS2 training path: ``make_fs2_train_step`` on full-width
@@ -72,7 +75,7 @@ Phases (any failure exits non-zero; no phase is caught):
     dropout 0 and 0.2; fp32 and bf16, ragged lengths with a fully padded
     row and no pad mask; with times and SDPA with the position term as its
     mask (and its backward); K6's forward at D=128, E=256 (the legacy
-    rel-pos route) at the serving shapes;
+    rel-pos route) at the serving shapes, with its tensor-core bound;
 12. JETS-conformer serving: full-width JETS with espnet rel-pos conformer
     encoder and decoder (4 + 6 layers, conv kernels 7 / 31), seeded random
     weights, saved as a port checkpoint, served by ``OneStageTTS(ckpt,
@@ -92,7 +95,7 @@ Phases (any failure exits non-zero; no phase is caught):
     route (B=4, T=2048, H=8, D=48, E=384; dropout 0 and 0.1), fp32 and
     bf16, ragged lengths with a fully padded row and no pad mask, bwd-kv
     with the table's gradient; with times and SDPA (and its backward) with
-    the position term as its mask; K6 bwd-q as K5 bwd-q in phase 9;
+    the position term as its mask; K6 forward and bwd-q as K5's in phase 9;
 15. JETS-conformer serving in the legacy rel-pos flavour
     (``conformer_rel_pos_type: legacy``, K6 at D=128): as phase 12, with
     the launches held per call (K6 fwd 10, K2 36, no K1 and no K7);
@@ -111,7 +114,8 @@ Phases (any failure exits non-zero; no phase is caught):
     JETS training steps, five two-stage calls, five FS2 training steps and
     five of each JETS-conformer path (both flavours) and of the FS2 step
     at T_mel 2048, one of each under ``torch.profiler``, device time by
-    kernel group (bwd-q as its Q1 and Q2 kernels);
+    kernel group (bwd-q as its Q1 and Q2 kernels, K5's rotation pass on its
+    own);
 19. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -120,11 +124,12 @@ script under a time limit. Times are CUDA-event times over repeated
 launches after a warm-up. bound_ms
 is the larger of bytes / 3.35 TB/s and operations / the card's peak for the
 work's type (fp32 work at the 67 TFLOP/s CUDA-core rate, bf16 at 989), per
-the H100 SXM data sheet. The tensor-core bwd-q kernels take the bound of
-the work they do on the tensor cores: fp32 streams under 3xTF32 run three
-TF32 products a term, so 3 * operations / 495 TFLOP/s; they also report
-the CUDA-core (67), one-TF32-product (495) and bf16 (989) figures beside
-it. The card's power limit is printed beside them.
+the H100 SXM data sheet. The tensor-core kernels (K5 / K6 forward and
+bwd-q) take the bound of the work they do on the tensor cores: fp32
+streams under 3xTF32 run three TF32 products a term, so 3 * operations /
+495 TFLOP/s, bf16 streams one, operations / 495; they also report the
+CUDA-core (67), one-TF32-product (495) and bf16 (989) figures beside it.
+The card's power limit is printed beside them.
 """
 
 from __future__ import annotations
@@ -952,11 +957,15 @@ def check_xl_kernels(dev, t_text: int):
                     qh, kh, vh, attn_mask=mask, scale=scale), iters)
                 del mask, qh, kh, vh, zeros
                 nbytes, flops = _xl_work(kind, args, live, T)
-                b_ms, kind_b = bound(nbytes, flops, peak)
+                redesigned = name in TC_REDESIGNED
+                b_ms, kind_b = (_tensor_core_bound(nbytes, flops, dtype) if redesigned
+                                else bound(nbytes, flops, peak))
                 log(f"{label}: max_abs_err {err:.3e} (tol {tol}) lse {lse_err:.1e} "
                     f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
                     f"(mask built in {build_ms:.1f} ms) bound_ms {b_ms:.4f} ({kind_b}) "
                     f"{flops / k_ms / 1e9:.2f} TFLOP/s")
+                tc = (_tensor_core_figures(name, k_ms, b_ms, nbytes, flops) if redesigned
+                      else {})
                 entry = entries.setdefault(kind, {
                     "name": name, "route": "cuda",
                     "source": "viet_tts_torch/csrc/flash_xl_attention.cu",
@@ -966,7 +975,7 @@ def check_xl_kernels(dev, t_text: int):
                 serving_shape = (kind != "xl3" or T == t_text)
                 if dtype == torch.float32 and pad is None and serving_shape:
                     entry.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                                 bound_by=kind_b, library_mask_build_ms=build_ms,
+                                 bound_by=kind_b, library_mask_build_ms=build_ms, **tc,
                                  per=f"one launch at (B={B}, H={FS2_H}, T={T}, D={FS2_D}"
                                      + ("" if kind == "xl3" else f", E={FS2_H * FS2_D}")
                                      + "), fp32, no pad mask (the serving path's)",
@@ -1299,41 +1308,52 @@ def _library_pos_grad(base, pad, scale: float, dtype, dropout_p: float, gout):
     return bwd_pos
 
 
-# bwd-q kernels redesigned for the tensor cores (3xTF32 for fp32 streams)
-TC_REDESIGNED = ("flash_xl2_bwd_q", "flash_xl_bwd_q")
+# kernels redesigned for the tensor cores (3xTF32 for fp32 streams): the
+# note each carries on the kernels line
+TC_REDESIGNED = {
+    **dict.fromkeys(("flash_xl2_bwd_q", "flash_xl_bwd_q"), (
+        "tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 streams); Q1 (position "
+        "logits, then ds and dqc) and Q2 (dgA, dgB) kernels")),
+    **dict.fromkeys(("flash_xl2_fwd", "flash_xl_fwd"), (
+        "tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 streams, one TF32 product "
+        "for bf16); one flash kernel for K5 and K6 (64-query tiles, the E-wide position "
+        "product in 32-column chunks of gA / gB and the table, the online softmax and p v "
+        "in registers); K5 adds its rotation pass before it (timed in its ms)")),
+}
+TC_BOUND_NOTE = ("; bound_ms is the tensor cores' bound of that work, 3 * operations / 495 "
+                 "TFLOP/s for fp32 streams; bound_ms_fp32 the fp32 CUDA cores', "
+                 "bound_ms_tf32 one TF32 product a term, bound_ms_bf16 the bf16 rate")
 
 
 def _tensor_core_bound(nbytes: float, flops: float, dtype):
-    """A redesigned bwd-q's bound: the work it does on the tensor cores,
+    """A redesigned kernel's bound: the work it does on the tensor cores,
     three TF32 products a term for fp32 streams (3xTF32), one for bf16."""
     return bound(nbytes, 3 * flops if dtype == torch.float32 else flops, TF32_FLOP_PER_MS)
 
 
-def _tensor_core_figures(k_ms: float, b_ms: float, nbytes: float, flops: float, base, pad,
-                         scale, dtype, p: float, gout, iters: int) -> dict:
-    """A redesigned bwd-q's other yardsticks beside its bound b_ms: the
-    bound of the function's operations on the fp32 CUDA cores, at one TF32
-    product a term and at the bf16 rate, the share of each bound that the
-    kernel reaches, and the pos-grad yardstick's time."""
+def _tensor_core_figures(name: str, k_ms: float, b_ms: float, nbytes: float, flops: float,
+                         pos_grad=None, iters: int = 0) -> dict:
+    """A redesigned kernel's other yardsticks beside its bound b_ms, logged:
+    the bound of the function's operations on the fp32 CUDA cores, at one
+    TF32 product a term and at the bf16 rate, and the share of each bound
+    that the kernel reaches; for bwd-q also the time of the pos-grad
+    yardstick (``pos_grad``: the closure of ``_library_pos_grad``)."""
     b32, _ = bound(nbytes, flops, FP32_FLOP_PER_MS)
     btf, _ = bound(nbytes, flops, TF32_FLOP_PER_MS)
     bbf, _ = bound(nbytes, flops, BF16_FLOP_PER_MS)
-    lib_pos = cuda_ms(_library_pos_grad(base, pad, scale, dtype, p, gout), iters)
-    torch.cuda.empty_cache()
-    return dict(bound_ms_fp32=b32, bound_ms_tf32=btf, bound_ms_bf16=bbf,
-                share_of_bound=b_ms / k_ms, share_of_fp32_bound=b32 / k_ms,
-                share_of_tf32_bound=btf / k_ms, share_of_bf16_bound=bbf / k_ms,
-                library_ms_pos_grad=lib_pos)
-
-
-def _log_tc(name: str, fig: dict) -> None:
-    log(f"    {name}: share of bound_ms (3xTF32) {100 * fig['share_of_bound']:.1f} %; "
-        f"fp32 CUDA-core bound {fig['bound_ms_fp32']:.4f} ms "
-        f"({100 * fig['share_of_fp32_bound']:.1f} %), one TF32 product "
-        f"{fig['bound_ms_tf32']:.4f} ({100 * fig['share_of_tf32_bound']:.1f} %), bf16 "
-        f"{fig['bound_ms_bf16']:.4f} ({100 * fig['share_of_bf16_bound']:.1f} %); "
-        f"library_ms_pos_grad {fig['library_ms_pos_grad']:.4f} (SDPA backward with the "
-        f"mask's gradient + the two masked table products)")
+    fig = dict(bound_ms_fp32=b32, bound_ms_tf32=btf, bound_ms_bf16=bbf,
+               share_of_bound=b_ms / k_ms, share_of_fp32_bound=b32 / k_ms,
+               share_of_tf32_bound=btf / k_ms, share_of_bf16_bound=bbf / k_ms)
+    pos = ""
+    if pos_grad is not None:
+        fig["library_ms_pos_grad"] = cuda_ms(pos_grad, iters)
+        pos = (f"; library_ms_pos_grad {fig['library_ms_pos_grad']:.4f} (SDPA backward with "
+               f"the mask's gradient + the two masked table products)")
+    log(f"    {name}: share of bound_ms (tensor cores) {100 * fig['share_of_bound']:.1f} %; "
+        f"fp32 CUDA-core bound {b32:.4f} ms ({100 * fig['share_of_fp32_bound']:.1f} %), "
+        f"one TF32 product {btf:.4f} ({100 * fig['share_of_tf32_bound']:.1f} %), bf16 "
+        f"{bbf:.4f} ({100 * fig['share_of_bf16_bound']:.1f} %){pos}")
+    return fig
 
 
 def _max_err(got, want):
@@ -1430,9 +1450,11 @@ def check_xl_training(dev):
                             f"{b_ms:.4f} ({kind_b}) {flops / k_ms / 1e9:.2f} TFLOP/s")
                         tc = {}
                         if name in TC_REDESIGNED:
-                            tc = _tensor_core_figures(k_ms, b_ms, nbytes, flops, base, pad,
-                                                      scale, dtype, p, gout, iters)
-                            _log_tc(name, tc)
+                            pos_grad = (_library_pos_grad(base, pad, scale, dtype, p, gout)
+                                        if name.endswith("_bwd_q") else None)
+                            tc = _tensor_core_figures(name, k_ms, b_ms, nbytes, flops,
+                                                      pos_grad, iters)
+                            del pos_grad
                         entry = figures.setdefault(name, {})
                         entry.setdefault("per_shape", {})[f"T={T}"] = dict(
                             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
@@ -1564,12 +1586,13 @@ def check_xl_k6_training(dev):
                             f"library_ms {l_ms:.4f} (mask built in {build_ms:.1f} ms) bound_ms "
                             f"{b_ms:.4f} ({kind_b}) {flops / k_ms / 1e9:.2f} TFLOP/s; "
                             f"x{n_layers} a step")
+                        tc = {}
                         if name in TC_REDESIGNED:
-                            tc = _tensor_core_figures(k_ms, b_ms, nbytes, flops, base, pad,
-                                                      scale, dtype, p, gout, iters)
-                            _log_tc(name, tc)
-                        else:
-                            tc = {}
+                            pos_grad = (_library_pos_grad(base, pad, scale, dtype, p, gout)
+                                        if name.endswith("_bwd_q") else None)
+                            tc = _tensor_core_figures(name, k_ms, b_ms, nbytes, flops,
+                                                      pos_grad, iters)
+                            del pos_grad
                         fig = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                                    bound_by=kind_b, library_mask_build_ms=build_ms, **tc,
                                    per=f"one launch at {shape}, fp32, dropout {p}, no pad mask "
@@ -2007,16 +2030,19 @@ def check_rel_kernels(dev, t_text: int):
             xl = xl_inputs(dev, B, T, seed=T + 11, H=REL_H, D=REL_D)
             for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
                 xargs = [xl[n].to(dtype) for n in ("qc", "k", "v", "gA", "gB", "table")]
+                lse_tol = 1e-5 if dtype == torch.float32 else 1e-3
                 for pad in (ragged, None):
-                    ctx, _ = fx.xl_fwd(*xargs, scale, pad)
-                    ref, _ = fx.xl_fwd_plain(*xargs, scale, pad)
+                    ctx, lse = fx.xl_fwd(*xargs, scale, pad)
+                    ref, ref_lse = fx.xl_fwd_plain(*xargs, scale, pad)
                     e = (ctx - ref).abs().max().item()
-                    if not (torch.isfinite(ctx).all() and e <= tol):
+                    le = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item()
+                    if not (torch.isfinite(ctx).all() and e <= tol and le <= lse_tol):
                         raise AssertionError(f"K6 at D=128 (B={B}, T={T}) {dtype}: "
-                                             f"max_abs_err {e} (tol {tol})")
+                                             f"max_abs_err {e} (tol {tol}), lse rel err {le} "
+                                             f"(tol {lse_tol})")
                     if dtype == torch.float32:
                         k6["max_abs_err"] = max(k6.get("max_abs_err", 0.0), e)
-                    del ref
+                    del ref, ref_lse
                 if dtype == torch.float32 and T == SERVE_T_MEL:
                     k_ms = cuda_ms(lambda: fx.xl_fwd(*xargs, scale, ragged), 5)
                     p_ms = cuda_ms(lambda: fx.xl_fwd_plain(*xargs, scale, ragged), 3, warmup=1)
@@ -2024,9 +2050,11 @@ def check_rel_kernels(dev, t_text: int):
                                                          0.0, gout)
                     l_ms = cuda_ms(lib_fwd, 5)
                     nbytes, flops = _xl_work("xl", xargs, lens, T)
-                    b_ms, kind_b = bound(nbytes, flops)
+                    b_ms, kind_b = _tensor_core_bound(nbytes, flops, dtype)
+                    tc = _tensor_core_figures("flash_xl_fwd at D=128", k_ms, b_ms, nbytes,
+                                              flops)
                     k6.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                              bound_by=kind_b, library_mask_build_ms=build_ms,
+                              bound_by=kind_b, library_mask_build_ms=build_ms, **tc,
                               per=f"one launch at (B={B}, H={REL_H}, T={T}, D={REL_D}, "
                                   f"E={REL_E}), fp32, ragged pad mask")
                     del lib_fwd
@@ -2297,15 +2325,18 @@ KERNEL_GROUPS = (
     ("K4 xl3_fwd_kernel", ("xl3_fwd_kernel",)),
     ("K4 bwd (xl3_bwd_q / kv / reduce)", ("xl3_bwd_",)),
     # bwd-q's kernels are K5's and K6's alike (a step runs one of the two);
-    # K5 adds the rotation passes
-    ("K5 / K6 bwd-q Q1 (xl2_bwd_q1_pos + q1_ds; K5 + rotate)",
-     ("xl2_bwd_q1_", "xl2_bwd_rotate")),
+    # K5 adds the rotation pass (before its forward and its bwd-q) and the
+    # inverse rotation after bwd-q
+    ("K5 rotation pass (xl2_rotate: before fwd and bwd-q)", ("xl2_rotate_kernel",)),
+    ("K5 / K6 bwd-q Q1 (xl2_bwd_q1_pos + q1_ds)", ("xl2_bwd_q1_",)),
     ("K5 / K6 bwd-q Q2 (xl2_bwd_q2; K5 + unrotate)", ("xl2_bwd_q2_", "xl2_bwd_unrotate")),
     ("K6 bwd-kv (xl2_bwd_kv, two streams)", _two_stream("xl2_bwd_kv_kernel")),
     ("K5 bwd-kv (xl2_bwd_kv + dtab)", ("xl2_bwd_kv_kernel", "xl2_bwd_dtab")),
-    ("K5 xl2_fwd_kernel (rotating)", ("xl2_fwd_kernel<float, 48, true>",
-                                       "xl2_fwd_kernel<__nv_bfloat16, 48, true>")),
-    ("K6 xl2_fwd_kernel (two streams)", ("xl2_fwd_kernel",)),
+    # the forward's instances: <dtype, D, K5's flag, warps a block>
+    ("K5 xl2_fwd_kernel (tensor cores; after the rotation pass)",
+     tuple(f"xl2_fwd_kernel<{t}, {d}, true," for t in ("float", "__nv_bfloat16")
+           for d in (48, 64))),
+    ("K6 xl2_fwd_kernel (tensor cores, two streams)", ("xl2_fwd_kernel",)),
     ("K7 rel_fwd_kernel", ("rel_fwd_kernel",)),
     ("K7 bwd-q rel_bwd_q_kernel", ("rel_bwd_q_kernel",)),
     ("K7 bwd-kv (rel_bwd_kv + dtab)", ("rel_bwd_kv_kernel", "rel_bwd_dtab")),
@@ -2502,14 +2533,10 @@ def main() -> int:
                     "with scale * pos as an additive mask, on a retained graph",
          **k6_train[name]}
         for name in K6_BWD_REPLACES]
-    for entry in (*xl_bwd_entries, *k6_bwd_entries):
+    for entry in (*xl_entries, *xl_bwd_entries, *k6_bwd_entries):
         if entry["name"] in TC_REDESIGNED:
-            entry["redesigned"] = ("PR 7: tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 "
-                                   "streams); Q1 (position logits, then ds and dqc) and Q2 "
-                                   "(dgA, dgB) kernels; bound_ms is the tensor cores' bound of "
-                                   "that work, 3 * operations / 495 TFLOP/s for fp32 streams; "
-                                   "bound_ms_fp32 the fp32 CUDA cores', bound_ms_tf32 one TF32 "
-                                   "product a term, bound_ms_bf16 the bf16 rate")
+            entry["redesigned"] = TC_REDESIGNED[entry["name"]] + TC_BOUND_NOTE
+        if entry["name"].endswith("_bwd_q"):
             entry["library_pos_grad"] = (
                 "SDPA backward with scale * pos as a mask leaf that takes a gradient, plus "
                 "the two masked products of that gradient with the table (dgA, dgB)")

@@ -366,42 +366,53 @@ XL_BWD_Q_FNS = {  # kind: (stream names, forward, bwd-q, plain bwd-q)
 }
 
 
+# (dtype, atol, dropout_p, pad_rows): the cases each tensor-core test runs
+# at every (width, T), in a loop inside one test, so that a run without a
+# card collects (and skips) few items
+XL_TC_CASES = [(dtype, atol, p, pad_rows)
+               for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
+               for p in (0.0, 0.1) for pad_rows in (True, False)]
+XL_TC_LENGTHS = [45, 63, 65, 127, 129, 1008, 1040, 2048]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,H,D", XL_BWD_Q_WIDTHS)
-@pytest.mark.parametrize("T", [45, 63, 65, 127, 129, 1008, 1040, 2048])
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
-@pytest.mark.parametrize("pad_rows", [True, False])
-def test_xl_bwd_q_tensor_core_kernels_match_plain(cuda_device, kind, H, D, T, dtype, atol,
-                                                  dropout_p, pad_rows):
+@pytest.mark.parametrize("T", XL_TC_LENGTHS)
+def test_xl_bwd_q_tensor_core_kernels_match_plain(cuda_device, kind, H, D, T):
     """K5 / K6 bwd-q (the tensor-core kernels: position logits, ds and dqc,
     then dgA / dgB) against their plain versions on the kernel forward's
     lse, at lengths that are not multiples of the 64-row tiles (K5's row
     shift of dgB crosses every tile boundary), each accepted head width,
-    with a ragged and a fully padded row or no pad mask; each gradient
-    within atol of the plain one, scaled by its largest value where that
-    exceeds 1; one launch count a call."""
+    for every case of ``XL_TC_CASES`` (fp32 and bf16, dropout 0 and 0.1, a
+    ragged and a fully padded row or no pad mask); each gradient within
+    atol of the plain one, scaled by its largest value where that exceeds
+    1; one launch count a call."""
     B = 3
-    streams, pad, scale = xl_case(cuda_device, B, T, H=H, D=D, seed=T + D + 1,
-                                  pad_rows=pad_rows)
     names, fwd, kern, plain = XL_BWD_Q_FNS[kind]
     seed = 24681357 + T
-    args = [streams[n].to(dtype) for n in names]
-    ctx, lse = fwd(*args, scale, pad, dropout_p, seed)
-    gout = torch.from_numpy(np.random.RandomState(T + 5).randn(*ctx.shape).astype(np.float32))
-    delta, g = fa.backward_inputs(ctx, gout.to(ctx.device), dtype)
-    padf = pad.float() if pad is not None else torch.zeros(B, T, device=cuda_device)
-    bwd_args = (*args, padf, lse, delta, g, scale, dropout_p, seed)
-    before = kern.launches
-    got = kern(*bwd_args)
-    assert kern.launches == before + 1
-    want = plain(*bwd_args)
-    torch.cuda.synchronize()
-    for i, (a, b) in enumerate(zip(got, want)):
-        assert a.shape == b.shape, i
-        assert torch.isfinite(a).all(), i
-        err = (a - b).abs().max().item()
-        assert err <= atol * max(1.0, b.abs().max().item()), (i, err)
+    inputs = {pr: xl_case(cuda_device, B, T, H=H, D=D, seed=T + D + 1, pad_rows=pr)
+              for pr in (True, False)}
+    for dtype, atol, dropout_p, pad_rows in XL_TC_CASES:
+        case = (str(dtype), dropout_p, pad_rows)
+        streams, pad, scale = inputs[pad_rows]
+        args = [streams[n].to(dtype) for n in names]
+        ctx, lse = fwd(*args, scale, pad, dropout_p, seed)
+        gout = torch.from_numpy(np.random.RandomState(T + 5).randn(*ctx.shape)
+                                .astype(np.float32))
+        delta, g = fa.backward_inputs(ctx, gout.to(ctx.device), dtype)
+        padf = pad.float() if pad is not None else torch.zeros(B, T, device=cuda_device)
+        bwd_args = (*args, padf, lse, delta, g, scale, dropout_p, seed)
+        before = kern.launches
+        got = kern(*bwd_args)
+        assert kern.launches == before + 1, case
+        want = plain(*bwd_args)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.shape == b.shape, (case, i)
+            assert torch.isfinite(a).all(), (case, i)
+            err = (a - b).abs().max().item()
+            assert err <= atol * max(1.0, b.abs().max().item()), (case, i, err)
+        del got, want
 
 
 @pytest.mark.cuda
@@ -421,6 +432,68 @@ def test_xl_bwd_q_takes_batch_times_heads_past_one_grid_dimension(cuda_device, k
     for i, (a, b) in enumerate(zip(got, want)):
         err = (a - b).abs().max().item()
         assert err <= 1e-4 * max(1.0, b.abs().max().item()), (i, err)
+
+
+XL_FWD_FNS = {  # kind: (stream names, forward, plain forward)
+    "xl2": (("qc", "k", "v", "g", "table"), fx.xl2_fwd, fx.xl2_fwd_plain),
+    "xl": (XL_NAMES, fx.xl_fwd, fx.xl_fwd_plain),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,H,D", XL_BWD_Q_WIDTHS)
+@pytest.mark.parametrize("T", XL_TC_LENGTHS)
+def test_xl_fwd_tensor_core_kernel_matches_plain(cuda_device, kind, H, D, T):
+    """K5 / K6 forward (the tensor-core kernel; K5 after its rotation pass)
+    against the plain versions under one seed, at lengths that are not
+    multiples of the 64-row tiles (the diagonal tile and the last key tile
+    are partial), each accepted head width, for every case of
+    ``XL_TC_CASES``: ctx within atol, lse within rel 1e-5 in fp32 and 1e-3
+    in bf16 (a one-ulp sincosf difference can flip K5's bf16 rounding of
+    its rotated stream); one launch count a call."""
+    B = 3
+    names, fwd, plain = XL_FWD_FNS[kind]
+    seed = 13572468 + T
+    inputs = {pr: xl_case(cuda_device, B, T, H=H, D=D, seed=T + D + 2, pad_rows=pr)
+              for pr in (True, False)}
+    for dtype, atol, dropout_p, pad_rows in XL_TC_CASES:
+        case = (str(dtype), dropout_p, pad_rows)
+        streams, pad, scale = inputs[pad_rows]
+        args = [streams[n].to(dtype) for n in names]
+        before = fwd.launches
+        ctx, lse = fwd(*args, scale, pad, dropout_p, seed)
+        assert fwd.launches == before + 1, case
+        ref, ref_lse = plain(*args, scale, pad, dropout_p, seed)
+        torch.cuda.synchronize()
+        assert torch.isfinite(ctx).all() and torch.isfinite(lse).all(), case
+        err = (ctx - ref).abs().max().item()
+        assert err <= atol, (case, err)
+        lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item()
+        assert lse_err <= (1e-5 if dtype == torch.float32 else 1e-3), (case, lse_err)
+        del ctx, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [48, 64])
+def test_xl_k5_dropout_mask_is_the_plain_mask_bit_for_bit(cuda_device, D):
+    """With v the identity, K5's context is the dropped weights themselves:
+    its zeros are exactly where ``dropout_keep_mask`` drops; with one-hot
+    cotangent rows, bwd-kv's dv is the dropped weights transposed, with the
+    same zeros."""
+    B, T, H, p, seed = 3, 64, 8, 0.2, 78
+    streams, _, scale = xl_case(cuda_device, B, T, H=H, D=D, seed=6, pad_rows=False)
+    eye = torch.eye(T, D, device=cuda_device)[None, :, None, :].expand(B, T, H, D).contiguous()
+    args = [streams["qc"], streams["k"], eye, streams["g"], streams["table"]]
+    ctx, lse = fx.xl2_fwd(*args, scale, None, p, seed)
+    keep = fa.dropout_keep_mask(seed, B, H, T, T, p, cuda_device)  # (B, H, i, j)
+    torch.cuda.synchronize()
+    n = min(T, D)
+    assert torch.equal(ctx[..., :n].permute(0, 2, 1, 3) != 0, keep[..., :n])
+    delta, g = fa.backward_inputs(ctx, eye, torch.float32)
+    _, dv, _ = fx.xl2_bwd_dkv(*args, torch.zeros(B, T, device=cuda_device), lse, delta, g,
+                              scale, p, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(dv[..., :n].permute(0, 2, 3, 1) != 0, keep[:, :, :n])
 
 
 @pytest.mark.cuda

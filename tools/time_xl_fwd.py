@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Time the K5 / K6 forward kernels (``flash_xl2_fwd``, ``flash_xl_fwd``)
+of one or more checkouts on one NVIDIA card, in turns, at the shapes the
+serving and training paths run them.
+
+    python3 tools/time_xl_fwd.py                    # this checkout
+    python3 tools/time_xl_fwd.py OLD NEW NEW OLD    # checkouts in turns
+
+Each argument is the root of a checkout of this repository. Each runs in a
+process of its own, in the order given, and builds its kernels into its own
+``build/``. Every timed launch is first checked against its plain version
+(ctx within 1e-4 in fp32, 2e-2 in bf16). Times are CUDA-event means over
+10 launches after 2 warm-ups, fp32 with TF32 off, no pad mask, no dropout.
+The card's name and power limit come first, one line per (checkout, shape,
+dtype) follows, and the last line is a JSON object of the times.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+# (label, kind, B, T, H, D): K5 at the FS2 two-stage call's decoder shape,
+# K6 at the FS2 2048-frame decoder and at the JETS conformer's width
+SHAPES = (
+    ("K5 (16, 1008) D=48", "xl2", 16, 1008, 8, 48),
+    ("K6 (4, 2048) D=48", "xl", 4, 2048, 8, 48),
+    ("K6 (16, 1008) D=128", "xl", 16, 1008, 2, 128),
+)
+
+
+def worker() -> None:
+    """Time this checkout's kernels (the working directory's package)."""
+    sys.path.insert(0, os.getcwd())
+    import numpy as np
+    import torch
+
+    from viet_tts_torch.nn.utils import sinusoid_position_table
+    from viet_tts_torch.ops import flash_xl_attention as fx
+    from viet_tts_torch.ops.xl_attention import xl_pos_queries, xl_pos_query_stream
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    times = {}
+    for label, kind, B, T, H, D in SHAPES:
+        E = H * D
+        gen = torch.Generator().manual_seed(T + D)
+        f = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
+        q, k, v = f(B, T, H, D), f(B, T, H, D), f(B, T, H, D)
+        qc, qv = q + 0.3 * f(H, D), q + 0.3 * f(H, D)
+        pos_kernel = f(E, E) / np.sqrt(E)
+        table = torch.from_numpy(sinusoid_position_table(T, E)).to(dev)
+        if kind == "xl2":
+            streams = (qc, k, v, xl_pos_query_stream(qv, pos_kernel), table)
+            fwd, plain = fx.xl2_fwd, fx.xl2_fwd_plain
+        else:
+            streams = (qc, k, v, *xl_pos_queries(qv, pos_kernel), table)
+            fwd, plain = fx.xl_fwd, fx.xl_fwd_plain
+        scale = 1.0 / np.sqrt(E)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = [x.to(dtype) for x in streams]
+            ctx, _ = fwd(*args, scale)
+            ref, _ = plain(*args, scale)
+            err = (ctx - ref).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"{label} {dtype}: max_abs_err {err} (tol {tol})")
+            del ctx, ref
+            for _ in range(2):
+                fwd(*args, scale)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                fwd(*args, scale)
+            stop.record()
+            torch.cuda.synchronize()
+            times[f"{label} {str(dtype)[6:]}"] = start.elapsed_time(stop) / 10
+        del streams
+        torch.cuda.empty_cache()
+    print(json.dumps(times))
+
+
+def main() -> int:
+    if sys.argv[1:] == ["--worker"]:
+        worker()
+        return 0
+    checkouts = sys.argv[1:] or [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip()
+    print(smi, flush=True)
+    runs = []
+    for root in checkouts:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker"],
+                             cwd=os.path.abspath(root), check=True, capture_output=True,
+                             text=True).stdout
+        times = json.loads(out.strip().splitlines()[-1])
+        for key, ms in times.items():
+            print(f"{root}: {key} {ms:.4f} ms", flush=True)
+        runs.append({"checkout": root, "ms": times})
+    print(json.dumps({"device": smi, "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -37,24 +37,49 @@
 // exp(m * (-2 ln 10000 / E)): the TPU kernel's own formula
 // (`_xl2_cos_sin`), with the accurate expf and sincosf (angles reach
 // ~2000 rad). The pair layout is the interleaved one of the inputs; the TPU
-// de-interleaves it for its lanes, which changes no dot product. Row i's gB
-// needs g_{i+1}, which lies past the query tile for its last row: the block
-// reads it from device memory. The rotated (32, E) tiles of gA and gB stay in
-// shared memory for the block's whole key sweep: 2 * 32 * 388 * 4 B = 99 KB
-// (at bq = 64 they would need 199 KB of the 227 KB a block may have, so the
-// query tile is 32 rows); the table is staged per key tile in chunks of 64
-// columns. A key tile wholly past (or wholly future) of the query tile
-// computes only the term it selects. The wrapper pads T to Tp (a multiple
-// of 32) and marks the tail as padded keys; here the Tp - T tail keys are
-// virtual: they add (Tp - T) * exp(MASK_NEG - m) to the denominator and
-// nothing to the context, so a row whose keys are all padding averages v
-// over all Tp keys, as the TPU kernel and the dense path do.
+// de-interleaves it for its lanes, which changes no dot product. The
+// wrapper pads T to Tp (a multiple of 32) and marks the tail as padded
+// keys; here the Tp - T tail keys are virtual: they add (Tp - T) *
+// exp(MASK_NEG - m) to the denominator and nothing to the context, so a row
+// whose keys are all padding averages v over all Tp keys, as the TPU kernel
+// and the dense path do; keys past T inside a key tile score -inf.
 //
-// What bounds them on the H100: at the decoder shape (B=16, H=8, T=1008,
-// D=48, E=384) K5 does 2*B*H*T^2*(D + E + D) = 1.25e11 FLOP of dot products
-// against ~260 MB of inputs: bound by operations. This first version runs
-// every product on the fp32 CUDA cores (ceiling 67 TFLOP/s), with register
-// tiles fed from shared memory; no (T, T) matrix reaches device memory.
+// What bounds K5 / K6 on the H100: at the decoder shape (B=16, H=8,
+// T=1008, D=48, E=384) K5 does 2*B*H*T^2*(D + E + D) = 1.25e11 FLOP of dot
+// products against ~260 MB of inputs: bound by operations, 80 % of them the
+// E-wide position products. So every product runs on the tensor cores,
+// `mma.sync.m16n8k8` TF32 with fp32 accumulation (xl_mma.cuh): fp32
+// streams in 3xTF32 (one TF32 product misses the fp32 limits on ctx and
+// lse: tests/test_torch_xl_fwd_precision.py), bf16 streams in one TF32
+// product, exact for bf16 values (and p rounded to bf16, as the JAX `_mx`
+// rounds it; m16n8k16 bf16 would run twice the rate but a second code
+// path). The kernel (`xl2_fwd_kernel`, below) is one flash loop for both:
+// a block a (64-query tile, head, batch row), four warps of 16 rows
+// (eight, 128 rows, for fp32 at D = 128); a query tile's E-wide gA / gB
+// rows (196 KB at 64 rows, E = 384, fp32) do not stay in shared memory but
+// stream in 32-column chunks beside the key tile's table chunk, two stages
+// deep; a key tile forms only the position terms its
+// pairs select, and no (T, T) array reaches device memory. K5 first runs
+// the rotation pass (xl_mma.cuh's `xl2_rotate_kernel`, K5 bwd-q's too) into
+// a scratch gab (2, B, T, H, E) in the stream dtype that the wrapper
+// allocates: sincosf once a pair, not once a key tile. Budget (ptxas -v,
+// sm_90a, the CUDA toolkit of the H100 machine; blocks an SM = the least of
+// what registers and shared memory allow):
+//   dtype  D    warps  smem B    regs  blocks/SM
+//   fp32   48   4       82,944   168   2
+//   fp32   64   4       95,232   168   2   (192 bytes spilled; D = 64 is on
+//                                          no path the models run)
+//   fp32   128  8      199,680   255   1
+//   bf16   48   4       41,984   168   3
+//   bf16   64   4       48,128   168   3
+//   bf16   128  4       72,704   246   2
+//   rotation pass (256 threads): 28-29 registers, a 32-byte frame for
+//   sincosf's slow path.
+// What bounds it, measured (H100, tools/time_xl_fwd.py): at D = 48 eight
+// warps a block lost 12-32 % to four, three cp.async stages moved it <= 2 %,
+// 16-column chunks (which spill under a three-block register cap) lost
+// 10-75 %: not the loads' latency; like bwd-q, it reaches ~20-25 % of the
+// 3xTF32 bound, and wgmma is its next step.
 //
 // Attention-weight dropout (training, dropout_p > 0) follows the JAX
 // package's semantics, as K1 does: the softmax denominator takes the
@@ -63,35 +88,12 @@
 // no tile size, so the backward kernels (flash_xl_attention_bwd.cu) draw the
 // same bits with their own tilings. With dropout_p = 0 no bit is drawn.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <math.h>
-#include <stdint.h>
-
-#include "dropout_hash.cuh"
-#include "xl_rotation.cuh"
+#include "xl_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr float kMaskNeg = -1.0e9f;
-
-struct DropArgs {
-  uint32_t thresh;
-  float inv_keep;
-  int use;
-  uint64_t seed;
-};
-
-DropArgs drop_args(double dropout_p, uint64_t seed) {
-  DropArgs a;
-  a.thresh = vt_dropout_thresh(dropout_p);
-  a.inv_keep = (float)(1.0 / (1.0 - dropout_p));
-  a.use = dropout_p > 0.0;
-  a.seed = seed;
-  return a;
-}
 
 // Dropout on a tile of softmax numerators S (BQ, BK), row stride SP, after
 // the online-softmax step has summed them: each weight is kept and scaled
@@ -106,24 +108,6 @@ __device__ __forceinline__ void drop_tile(float* S, int SP, const DropArgs& drop
                         ? S[r * SP + c] * drop.inv_keep
                         : 0.f;
   }
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// A value rounded to the stream dtype (the TPU kernel casts the rotated
-// streams to the table's dtype before its matrix unit takes them).
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // One online-softmax step over a (BQ, BK) tile of logits in S (row stride
@@ -366,252 +350,261 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K5 (ROTATE) and K6: xl2 / xl, position streams against the raw table
+// K5 and K6 on the tensor cores (K5 after the rotation pass)
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ2 = 32;
-constexpr int kBK2 = 64;
-constexpr int kEC = 64;  // table columns staged at a time
-constexpr int kTS = kEC + 4;
+constexpr int kFBK = 64;  // keys a tile
+constexpr int kFKC = 32;  // E columns a chunk of the position product
 
-template <int D>
-size_t xl2_smem_bytes(int E) {
-  // GA, GB (BQ, E+4); QC (BQ, D+4); KS (BK, D+4); VS (BK, D);
-  // TS (BK, EC+4); S (BQ, BK+1); m / l / corr (BQ each). Rows of the float4
-  // operands are padded by 4 floats: 16-byte aligned, and the 8 threads of
-  // a quarter warp reading 8 rows hit 8 different bank groups.
-  return sizeof(float) * (2 * kBQ2 * (E + 4) + kBQ2 * (D + 4) +
-                          kBK2 * (D + 4) + kBK2 * D + kBK2 * kTS +
-                          kBQ2 * (kBK2 + 1) + 3 * kBQ2);
+// Warps a block, each 16 query rows: eight for fp32 at D = 128, where a
+// block's shared memory lets one block onto an SM, so that it runs eight
+// warps and not four; four elsewhere (two blocks an SM).
+template <typename T, int D>
+constexpr int xl2_fwd_warps() {
+  return sizeof(T) == 4 && D == 128 ? 8 : 4;
 }
 
-__device__ __forceinline__ float dot4(const float4& a, const float4& b,
-                                      float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+template <typename T, int D>
+constexpr size_t xl2_fwd_smem_bytes() {
+  // QC (BQ, D), KS (64, D) read by 64-bit fragment loads, VS (64, D) read
+  // down its rows, and two stages of a chunk: the stream's (BQ, 32) and the
+  // table's (64, 32). Independent of E.
+  constexpr int BQ = 16 * xl2_fwd_warps<T, D>();
+  return sizeof(T) * ((BQ + kFBK) * tile_ld(D) + kFBK * tile_ld_nn<T, D>() +
+                      2 * (BQ + kFBK) * tile_ld(kFKC));
 }
 
-template <typename T, int D, bool ROTATE>
-__global__ void __launch_bounds__(kThreads)
+// One block a (16 NW-query tile, head, batch row); warp w owns query rows
+// 16w .. 16w + 15 of the tile and walks the 64-key tiles. Per key tile:
+// s = qc k^T, then the position term, gA t^T where some j <= i and gB t^T
+// where some j >= i + 2, each over E in 32-column chunks of the stream and
+// the table, into a second accumulator that is added into s where its
+// select holds (a tile wholly in the past forms only gA t^T, one wholly in
+// the future only gB t^T; a tile across the diagonal both, one after the
+// other); then the online softmax in the accumulator layout (row max and
+// sum over the quad's four lanes), the keep bits, and o += p v with p as
+// the A operand straight from the registers (the permuted k order of
+// xl_mma.cuh). The chunks stream by cp.async two stages deep across the
+// key tiles; k (the next tile's, once every warp has read this one's) and
+// v (this tile's, once every warp is past the last p v) ride in the
+// chunks' groups. ROTATED only names the instance (K5's streams come from
+// the rotation pass) so that a profile tells K5's launches from K6's; the
+// body does not read it.
+template <typename T, int D, bool ROTATED, int NW = xl2_fwd_warps<T, D>()>
+__global__ void __launch_bounds__(32 * NW)
     xl2_fwd_kernel(const T* __restrict__ qc, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ ga,
                    const T* __restrict__ gb, const T* __restrict__ table,
                    const float* __restrict__ pad, float* __restrict__ out,
                    float* __restrict__ lse, int H, int Tq, int Tp, int E,
-                   float scale, float freq_coef, DropArgs drop) {
+                   float scale, DropArgs drop) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int DS = D + 4;
-  constexpr int SP = kBK2 + 1;
-  constexpr int DJ = D / 16;
-  const int ES = E + 4;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int BQ = 16 * NW, NT = 32 * NW;
+  constexpr int LD = tile_ld(D);
+  constexpr int LDV = tile_ld_nn<T, D>();
+  constexpr int LDC = tile_ld(kFKC);
+  constexpr int CA = BQ * LDC;    // a chunk's stream tile
+  constexpr int CB = kFBK * LDC;  // ... and its table tile
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* QC = reinterpret_cast<T*>(smem_raw);
+  T* KS = QC + BQ * LD;
+  T* VS = KS + kFBK * LD;
+  T* CS = VS + kFBK * LDV;  // [stage][stream chunk, table chunk]
 
-  extern __shared__ __align__(16) float smem[];
-  float* GA = smem;
-  float* GB = GA + kBQ2 * ES;
-  float* QC = GB + kBQ2 * ES;
-  float* KS = QC + kBQ2 * DS;
-  float* VS = KS + kBK2 * DS;
-  float* TS = VS + kBK2 * D;
-  float* S = TS + kBK2 * kTS;
-  float* m_s = S + kBQ2 * SP;
-  float* l_s = m_s + kBQ2;
-  float* c_s = l_s + kBQ2;
-
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * kBQ2;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int i0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const size_t rs = (size_t)H * D;
   const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
-  const size_t rse = (size_t)H * E;  // row stride of (B, T, H, E)
+  const size_t rse = (size_t)H * E;
   const size_t base_e = (size_t)b * Tq * rse + (size_t)h * E;
   const float* padb = pad + (size_t)b * Tq;
   const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16;  // the warp's rows of the tile
+  const int qi[2] = {i0 + r0 + g4, i0 + r0 + g4 + 8};
+  const int n_tiles = (Tq + kFBK - 1) / kFBK;
+  const int n_ch = E / kFKC;
 
-  for (int i = tid; i < kBQ2 * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    QC[r * DS + d] =
-        (i0 + r < Tq) ? to_float(qc[base + (size_t)(i0 + r) * rs + d]) : 0.f;
-  }
-  if (ROTATE) {
-    // gA_i = rot(g_i, (T-1-i) w), gB_i = rot(g_{i+1}, -(i+2) w); rows past
-    // the sequence are zero rows (the wrapper's padding)
-    const int half = E / 2;
-    for (int i = tid; i < kBQ2 * half; i += kThreads) {
-      const int r = i / half, m = i % half;
-      const int qi = i0 + r;
-      const VtXl2Angles ang = vt_xl2_angles(Tq, qi, m, freq_coef);
-      const float ca = ang.ca, sa = ang.sa, cb = ang.cb, sb = ang.sb;
-      float ge = 0.f, go = 0.f, ne = 0.f, no = 0.f;
-      if (qi < Tq) {
-        const size_t off = base_e + (size_t)qi * rse + 2 * m;
-        ge = to_float(ga[off]);
-        go = to_float(ga[off + 1]);
-      }
-      if (qi + 1 < Tq) {
-        const size_t off = base_e + (size_t)(qi + 1) * rse + 2 * m;
-        ne = to_float(ga[off]);
-        no = to_float(ga[off + 1]);
-      }
-      const float2 a2 = vt_rot(ge, go, ca, sa), b2 = vt_rot(ne, no, cb, sb);
-      GA[r * ES + 2 * m] = round_to<T>(a2.x);
-      GA[r * ES + 2 * m + 1] = round_to<T>(a2.y);
-      GB[r * ES + 2 * m] = round_to<T>(b2.x);
-      GB[r * ES + 2 * m + 1] = round_to<T>(b2.y);
+  // the position terms key tile j0 needs, each a pass of n_ch chunks
+  auto has_past = [&](int j0) { return j0 <= i0 + BQ - 1; };
+  auto has_fut = [&](int j0) { return j0 + kFBK - 1 >= i0 + 2; };
+  auto n_chunks = [&](int kt) {
+    return (has_past(kt * kFBK) + has_fut(kt * kFBK)) * n_ch;
+  };
+  // the next chunk to stage: chunk lc of key tile lkt (the past pass first)
+  int lkt = 0, lc = 0;
+  auto stage_next = [&](int stage) {
+    if (lkt >= n_tiles) return;
+    const int j0 = lkt * kFBK;
+    const bool past = lc < n_ch && has_past(j0);
+    const int e0 = (lc % n_ch) * kFKC;
+    T* dst = CS + stage * (CA + CB);
+    cp_tile<T, BQ, kFKC, NT>(dst, LDC, (past ? ga : gb) + base_e, rse, i0, Tq,
+                             e0);
+    cp_tile<T, kFBK, kFKC, NT>(dst + CA, LDC, table, E, j0, Tq, e0);
+    if (++lc == n_chunks(lkt)) {
+      lc = 0;
+      ++lkt;
     }
-  } else {
-    for (int i = tid; i < kBQ2 * E; i += kThreads) {
-      const int r = i / E, e = i % E;
-      const bool in = i0 + r < Tq;
-      const size_t off = base_e + (size_t)(i0 + r) * rse + e;
-      GA[r * ES + e] = in ? to_float(ga[off]) : 0.f;
-      GB[r * ES + e] = in ? to_float(gb[off]) : 0.f;
-    }
-  }
-  if (tid < kBQ2) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
+  };
 
-  // (ty, tx): query rows ty*2 + a, key columns tx + 16*c, accumulator
-  // columns tx + 16*j
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[2][DJ];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[a][j] = 0.f;
+  cp_tile<T, BQ, D, NT>(QC, LD, qc + base, rs, i0, Tq, 0);
+  cp_tile<T, kFBK, D, NT>(KS, LD, k + base, rs, 0, Tq, 0);
+  cp_tile<T, kFBK, D, NT>(VS, LDV, v + base, rs, 0, Tq, 0);
+  stage_next(0);
+  cp_async_commit();
 
-  for (int j0 = 0; j0 < Tq; j0 += kBK2) {
-    const bool need_past = j0 <= i0 + kBQ2 - 1;
-    const bool need_fut = j0 + kBK2 - 1 >= i0 + 2;
-    __syncthreads();
-    for (int i = tid; i < kBK2 * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      const bool in = j0 + r < Tq;
-      const size_t off = base + (size_t)(j0 + r) * rs + d;
-      KS[r * DS + d] = in ? to_float(k[off]) : 0.f;
-      VS[r * D + d] = in ? to_float(v[off]) : 0.f;
-    }
-    __syncthreads();
+  float o[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[nd][c] = 0.f;
+  // running max and this lane's part of the denominator, rows g4, g4 + 8
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  int st = 0;  // the stage of the chunk in hand
 
-    float s[2][4], pa[2][4], pb[2][4];
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = pa[a][c] = pb[a][c] = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      float4 q4[2], k4[4];
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-        q4[a] = *reinterpret_cast<const float4*>(&QC[(ty * 2 + a) * DS + d]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        k4[c] = *reinterpret_cast<const float4*>(&KS[(tx + 16 * c) * DS + d]);
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] = dot4(q4[a], k4[c], s[a][c]);
-    }
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int j0 = kt * kFBK;
+    const bool past = has_past(j0);
+    const int nc = n_chunks(kt);
+    float s[8][4], acc[8][4];
+    for (int c = 0; c < nc; ++c) {
+      cp_async_wait<0>();
+      __syncthreads();  // chunk c has landed; the other stage is free
+      stage_next(st ^ 1);
+      if (c == 0 && kt > 0)  // every warp is past tile kt - 1's p v
+        cp_tile<T, kFBK, D, NT>(VS, LDV, v + base, rs, j0, Tq, 0);
+      if (c == 1 && kt + 1 < n_tiles)  // every warp has read this tile's k
+        cp_tile<T, kFBK, D, NT>(KS, LD, k + base, rs, j0 + kFBK, Tq, 0);
+      cp_async_commit();
 
-    for (int e0 = 0; e0 < E; e0 += kEC) {
-      __syncthreads();  // the previous chunk of TS is read
-      for (int i = tid; i < kBK2 * kEC; i += kThreads) {
-        const int r = i / kEC, e = i % kEC;
-        TS[r * kTS + e] = (j0 + r < Tq)
-                              ? to_float(table[(size_t)(j0 + r) * E + e0 + e])
-                              : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int e = 0; e < kEC; e += 4) {
-        float4 t4[4];
+      if (c == 0) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          t4[c] = *reinterpret_cast<const float4*>(&TS[(tx + 16 * c) * kTS + e]);
-        if (need_past) {
+        for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-          for (int a = 0; a < 2; ++a) {
-            const float4 g4 =
-                *reinterpret_cast<const float4*>(&GA[(ty * 2 + a) * ES + e0 + e]);
+          for (int q = 0; q < 4; ++q) s[ni][q] = 0.f;
 #pragma unroll
-            for (int c = 0; c < 4; ++c) pa[a][c] = dot4(g4, t4[c], pa[a][c]);
-          }
-        }
-        if (need_fut) {
+        for (int k0 = 0; k0 < D; k0 += 8) {
+          uint32_t ah[4], al[4];
+          frag_a<SPLIT>(QC, LD, r0, k0, lane, ah, al);
 #pragma unroll
-          for (int a = 0; a < 2; ++a) {
-            const float4 g4 =
-                *reinterpret_cast<const float4*>(&GB[(ty * 2 + a) * ES + e0 + e]);
-#pragma unroll
-            for (int c = 0; c < 4; ++c) pb[a][c] = dot4(g4, t4[c], pb[a][c]);
+          for (int ni = 0; ni < 8; ++ni) {
+            uint32_t bh[2], bl[2];
+            frag_b_nt<SPLIT>(KS, LD, ni * 8, k0, lane, bh, bl);
+            mma3<SPLIT>(s[ni], ah, al, bh, bl);
           }
         }
       }
-    }
-
+      const int cc = c % n_ch;
+      if (cc == 0) {
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int r = ty * 2 + a, qi = i0 + r;
+        for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx + 16 * c, kj = j0 + col;
-        float val;
-        if (kj >= Tq) {
-          val = -INFINITY;  // the tail is added in closed form below
-        } else if (padb[kj] > 0.5f) {
-          val = kMaskNeg;
-        } else {
-          const float pos =
-              kj <= qi ? pa[a][c] : (kj >= qi + 2 ? pb[a][c] : 0.f);
-          val = (s[a][c] + pos) * scale;
-        }
-        S[r * SP + col] = val;
+          for (int q = 0; q < 4; ++q) acc[ni][q] = 0.f;
       }
-    }
-    __syncthreads();
-    softmax_step<kBQ2, kBK2>(S, SP, m_s, l_s, c_s, tid);
-    __syncthreads();
-    if (drop.use) {
-      drop_tile<kBQ2, kBK2>(S, SP, drop, drop_key, i0, j0, tid);
-      __syncthreads();
+      const T* A = CS + st * (CA + CB);
+#pragma unroll
+      for (int k0 = 0; k0 < kFKC; k0 += 8) {
+        uint32_t ah[4], al[4];
+        frag_a<SPLIT>(A, LDC, r0, k0, lane, ah, al);
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+          uint32_t bh[2], bl[2];
+          frag_b_nt<SPLIT>(A + CA, LDC, ni * 8, k0, lane, bh, bl);
+          mma3<SPLIT>(acc[ni], ah, al, bh, bl);
+        }
+      }
+      if (cc == n_ch - 1) {  // a term is complete: add it where it selects
+        const bool is_past = past && c < n_ch;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int kj = j0 + ni * 8 + 2 * t4 + (q & 1), i = qi[q >> 1];
+            if (is_past ? kj <= i : kj >= i + 2) s[ni][q] += acc[ni][q];
+          }
+      }
+      st ^= 1;
     }
 
+    // logits; keys past T weigh nothing (the Tp - T tail is added below)
+    float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const float corr = c_s[ty * 2 + a];
+    for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[a][j] *= corr;
+      for (int q = 0; q < 4; ++q) {
+        const int kj = j0 + ni * 8 + 2 * t4 + (q & 1);
+        float x;
+        if (kj >= Tq)
+          x = -INFINITY;
+        else if (padb[kj] > 0.5f)
+          x = kMaskNeg;
+        else
+          x = s[ni][q] * scale;
+        s[ni][q] = x;
+        mx[q >> 1] = fmaxf(mx[q >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+      // every tile holds a real key (logit >= MASK_NEG): mx is finite
+      corr[hf] = expf(m_r[hf] - mx[hf]);
+      m_r[hf] = mx[hf];
+      l_r[hf] *= corr[hf];
     }
-#pragma unroll 4
-    for (int c = 0; c < kBK2; ++c) {
-      const float p0 = S[(ty * 2) * SP + c];
-      const float p1 = S[(ty * 2 + 1) * SP + c];
+    // p = exp(logit - m): the denominator takes it undropped; p v takes
+    // p * keep / (1 - p), rounded to the stream dtype (the JAX `_mx`)
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vv = VS[c * D + tx + 16 * j];
-        acc[0][j] = fmaf(p0, vv, acc[0][j]);
-        acc[1][j] = fmaf(p1, vv, acc[1][j]);
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float p = expf(s[ni][q] - mx[q >> 1]);
+        l_r[q >> 1] += p;
+        const int kj = j0 + ni * 8 + 2 * t4 + (q & 1);
+        s[ni][q] = to_stream<T>(p * keep_scale(drop, drop_key, qi[q >> 1], kj));
+      }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) o[nd][q] *= corr[q >> 1];
+    // o += p v: key step ni holds keys j0 + 8 ni + (2t, 2t+1) in slots
+    // (t, t+4) of the A fragment, and frag_b_nn reads v's rows in that order
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      uint32_t ah[4], al[4];
+      split_tf32<SPLIT>(s[ni][0], ah[0], al[0]);
+      split_tf32<SPLIT>(s[ni][2], ah[1], al[1]);
+      split_tf32<SPLIT>(s[ni][1], ah[2], al[2]);
+      split_tf32<SPLIT>(s[ni][3], ah[3], al[3]);
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        uint32_t bh[2], bl[2];
+        frag_b_nn<SPLIT>(VS, LDV, nd * 8, ni * 8, lane, bh, bl);
+        mma3<SPLIT>(o[nd], ah, al, bh, bl);
       }
     }
   }
 
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int r = ty * 2 + a;
-    if (i0 + r >= Tq) continue;
-    const float m = m_s[r];
+  for (int hf = 0; hf < 2; ++hf) {
+    l_r[hf] += __shfl_xor_sync(0xffffffffu, l_r[hf], 1);
+    l_r[hf] += __shfl_xor_sync(0xffffffffu, l_r[hf], 2);
+    if (qi[hf] >= Tq) continue;
+    const float m = m_r[hf];
     // the Tp - T virtual tail keys: logit MASK_NEG, v = 0
-    const float l = l_s[r] + (float)(Tp - Tq) * expf(kMaskNeg - m);
+    const float l = l_r[hf] + (float)(Tp - Tq) * expf(kMaskNeg - m);
     const float inv = l > 0.f ? 1.f / fmaxf(l, 1e-30f) : 0.f;
-    float* ob = out + base + (size_t)(i0 + r) * rs;
+    float* orow = out + base + (size_t)qi[hf] * rs + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) ob[tx + 16 * j] = acc[a][j] * inv;
-    if (tx == 0)
-      lse[((size_t)b * H + h) * Tq + i0 + r] = m + logf(fmaxf(l, 1e-30f));
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<float2*>(orow + nd * 8) =
+          make_float2(o[nd][2 * hf] * inv, o[nd][2 * hf + 1] * inv);
+    if (t4 == 0)
+      lse[((size_t)b * H + h) * Tq + qi[hf]] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
@@ -637,24 +630,35 @@ cudaError_t launch_xl3(const void* qc, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// K5 (ROTATE): the rotation pass writes gA, gB into gab (2, B, T, H, E),
+// then the kernel reads them; K6: the kernel reads ga, gb.
 template <typename T, int D, bool ROTATE>
 cudaError_t launch_xl2(const void* qc, const void* k, const void* v,
                        const void* ga, const void* gb, const void* table,
-                       const float* pad, float* out, float* lse, int B, int Tq,
-                       int Tp, int H, int E, float scale, DropArgs drop,
-                       cudaStream_t stream) {
-  const size_t smem = xl2_smem_bytes<D>(E);
+                       void* gab, const float* pad, float* out, float* lse,
+                       int B, int Tq, int Tp, int H, int E, float scale,
+                       DropArgs drop, cudaStream_t stream) {
+  constexpr size_t smem = xl2_fwd_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       xl2_fwd_kernel<T, D, ROTATE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const float freq_coef = (float)(-2.0 * log(10000.0) / (double)E);
-  dim3 grid((Tq + kBQ2 - 1) / kBQ2, H, B);
-  xl2_fwd_kernel<T, D, ROTATE><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qc), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(ga),
-      static_cast<const T*>(gb), static_cast<const T*>(table), pad, out, lse,
-      H, Tq, Tp, E, scale, freq_coef, drop);
+  const T* GA = static_cast<const T*>(ga);
+  const T* GB = static_cast<const T*>(gb);
+  if constexpr (ROTATE) {
+    T* ra = static_cast<T*>(gab);
+    T* rb = ra + (size_t)B * Tq * H * E;
+    err = launch_xl2_rotate<T>(GA, ra, rb, B, H, Tq, E, stream);
+    if (err != cudaSuccess) return err;
+    GA = ra;
+    GB = rb;
+  }
+  constexpr int BQ = 16 * xl2_fwd_warps<T, D>();
+  xl2_fwd_kernel<T, D, ROTATE>
+      <<<dim3((Tq + BQ - 1) / BQ, H, B), 2 * BQ, smem, stream>>>(
+          static_cast<const T*>(qc), static_cast<const T*>(k),
+          static_cast<const T*>(v), GA, GB, static_cast<const T*>(table), pad,
+          out, lse, H, Tq, Tp, E, scale, drop);
   return cudaGetLastError();
 }
 
@@ -665,19 +669,19 @@ bool bad_sizes(int B, int T, int H, double dropout_p) {
 
 template <bool ROTATE>
 int xl2_entry(const void* qc, const void* k, const void* v, const void* ga,
-              const void* gb, const void* table, const float* pad, float* out,
-              float* lse, int B, int T, int Tp, int H, int D, int E,
+              const void* gb, const void* table, void* gab, const float* pad,
+              float* out, float* lse, int B, int T, int Tp, int H, int D, int E,
               int is_bf16, float scale, double dropout_p, uint64_t seed,
               void* stream) {
-  if (bad_sizes(B, T, H, dropout_p) || Tp < T || E <= 0 || E % kEC != 0 ||
-      xl2_smem_bytes<64>(E) > 232448 ||
-      (D == 128 && (ROTATE || xl2_smem_bytes<128>(E) > 232448)))
+  // E in whole 64-column steps (the chunks' 32 and the rotation's pairs)
+  if (bad_sizes(B, T, H, dropout_p) || Tp < T || E <= 0 || E % 64 != 0 ||
+      (D == 128 && ROTATE))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DropArgs drop = drop_args(dropout_p, seed);
 #define VT_XL2(TYPE, DIM)                                                    \
-  launch_xl2<TYPE, DIM, ROTATE>(qc, k, v, ga, gb, table, pad, out, lse, B, T, \
-                                Tp, H, E, scale, drop, s)
+  launch_xl2<TYPE, DIM, ROTATE>(qc, k, v, ga, gb, table, gab, pad, out, lse, \
+                                B, T, Tp, H, E, scale, drop, s)
   switch (D * 2 + (is_bf16 ? 1 : 0)) {
     case 96: return (int)VT_XL2(float, 48);
     case 97: return (int)VT_XL2(__nv_bfloat16, 48);
@@ -729,14 +733,16 @@ int vt_flash_xl3_fwd(const void* qc, const void* k, const void* v,
 
 // K5. qc, k, v: (B, T, H, D); g: (B, T, H, E) unrotated; table: (T, E); all
 // one dtype. Tp >= T: keys in [T, Tp) are padded zero rows. E a multiple of
-// 64. Other arguments as K4.
+// 64. Scratch: gab (2, B, T, H, E) in the stream dtype (the rotated gA,
+// gB). Other arguments as K4. Returns the first cudaError_t of the two
+// launches.
 int vt_flash_xl2_fwd(const void* qc, const void* k, const void* v,
-                     const void* g, const void* table, const float* pad,
-                     float* out, float* lse, int B, int T, int Tp, int H,
-                     int D, int E, int is_bf16, float scale, double dropout_p,
-                     uint64_t seed, void* stream) {
-  return xl2_entry<true>(qc, k, v, g, nullptr, table, pad, out, lse, B, T, Tp,
-                         H, D, E, is_bf16, scale, dropout_p, seed, stream);
+                     const void* g, const void* table, void* gab,
+                     const float* pad, float* out, float* lse, int B, int T,
+                     int Tp, int H, int D, int E, int is_bf16, float scale,
+                     double dropout_p, uint64_t seed, void* stream) {
+  return xl2_entry<true>(qc, k, v, g, nullptr, table, gab, pad, out, lse, B, T,
+                         Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream);
 }
 
 // K6. gA, gB: (B, T, H, E) pre-rotated; other arguments as K5 (dropout
@@ -748,8 +754,8 @@ int vt_flash_xl_fwd(const void* qc, const void* k, const void* v,
                     const float* pad, float* out, float* lse, int B, int T,
                     int Tp, int H, int D, int E, int is_bf16, float scale,
                     double dropout_p, uint64_t seed, void* stream) {
-  return xl2_entry<false>(qc, k, v, ga, gb, table, pad, out, lse, B, T, Tp, H,
-                          D, E, is_bf16, scale, dropout_p, seed, stream);
+  return xl2_entry<false>(qc, k, v, ga, gb, table, nullptr, pad, out, lse, B, T,
+                          Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream);
 }
 
 const char* vt_error_string(int err) {

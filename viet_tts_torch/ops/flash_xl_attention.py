@@ -17,8 +17,9 @@ of the position term (``ops/xl_attention.py``):
   multiple of 128 and shears X = qv p'^T in VMEM, so it is routed for
   padded T <= 512;
 - xl2: the unrotated stream g = K_h(q + v_bias) (B, T, H, E) and the raw
-  table (T, E); the per-row rotations happen in the kernel; T padded to a
-  multiple of 32, routed for 512 < padded T <= 1024;
+  table (T, E); the per-row rotations happen on the card (a rotation pass
+  into a scratch that K5's kernels read); T padded to a multiple of 32,
+  routed for 512 < padded T <= 1024;
 - xl: the pre-rotated streams gA, gB (B, T, H, E) and the table; longer T.
 
 Each public function keeps the JAX one's arguments and result: (B, T, H*D)
@@ -73,7 +74,7 @@ XL3_MAX_T = 512  # pallas_attention.py:_XL3_MAX_T (a TPU VMEM limit)
 XL2_MAX_T = 1024  # pallas_attention.py:_XL2_MAX_T
 _HEAD_DIMS = (48, 64)  # head dims the kernels are built for
 _XL_HEAD_DIMS = (48, 64, 128)  # K6 also at the JETS width (legacy rel-pos)
-_MAX_E = 640  # the xl2/xl kernels keep two (32, E) fp32 tiles in shared memory
+_MAX_E = 640  # the widest table the forwards take (their shared memory is E-free)
 _MAX_E_BWD = 512  # K5 / K6 bwd-kv keep two (32, E) tiles and more beside them
 
 
@@ -501,8 +502,9 @@ xl3_fwd.launches = 0
 
 def xl2_fwd(qc, k, v, g, table, scale: float, pad_mask=None, dropout_p: float = 0.0,
             seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(ctx (B, T, H, D) fp32, lse (B, H, T)): kernel K5 on CUDA tensors, the
-    plain version on CPU tensors."""
+    """(ctx (B, T, H, D) fp32, lse (B, H, T)): kernel K5 on CUDA tensors (two
+    launches: the rotation pass into a scratch of the rotated streams, then
+    the flash kernel; one count), the plain version on CPU tensors."""
     _check_rates(dropout_p)
     if _device_of(qc) == "cpu":
         return xl2_fwd_plain(qc, k, v, g, table, scale, pad_mask, dropout_p, seed)
@@ -512,12 +514,13 @@ def xl2_fwd(qc, k, v, g, table, scale: float, pad_mask=None, dropout_p: float = 
     table = _table(table, qc, E)
     qc, k, v, g = (x.contiguous() for x in (qc, k, v, g))
     pad, out, lse, stream = _launch_args(qc, pad_mask)
+    gab = torch.empty(2, B, T, H, E, dtype=qc.dtype, device=qc.device)  # gA, gB
     lib = kernels.library("flash_xl_attention")
     err = lib.vt_flash_xl2_fwd(
         qc.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), table.data_ptr(),
-        pad.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, padded_time(T), H, D, E,
-        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
-        stream)
+        gab.data_ptr(), pad.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T,
+        padded_time(T), H, D, E, int(qc.dtype == torch.bfloat16), float(scale),
+        float(dropout_p), _seed(seed), stream)
     kernels.check(lib, err, "XL2 flash attention kernel")
     xl2_fwd.launches += 1
     return out, lse

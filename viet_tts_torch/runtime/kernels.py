@@ -69,10 +69,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
             _I, [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _F, _D, _U64, _P]
         ),
-        # qc, k, v, g, table, pad, out, lse, B, T, Tp, H, D, E, is_bf16,
-        # scale, dropout_p, seed, stream
+        # qc, k, v, g, table, gab, pad, out, lse, B, T, Tp, H, D, E,
+        # is_bf16, scale, dropout_p, seed, stream
         "vt_flash_xl2_fwd": (
-            _I, [_P, _P, _P, _P, _P, _P, _P, _P,
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
         ),
         # qc, k, v, gA, gB, table, pad, out, lse, B, T, Tp, H, D, E, is_bf16,
