@@ -58,7 +58,10 @@ Phases (any failure exits non-zero; no phase is caught):
     beside their TF32 and bf16 bounds, bwd-q beside a yardstick of the same
     function
     (``library_ms_pos_grad``: SDPA's backward with the mask's gradient,
-    then the two masked products of that gradient with the table);
+    then the two masked products of that gradient with the table); the
+    tensor-core bwd-kv timed alone on the scratches of one Q1 and held
+    against its plain version there, beside Q1 without and with its second
+    write and the whole backward (bwd-q and bwd-kv on shared scratches);
 10. the FS2 training path: ``make_fs2_train_step`` on full-width
     FastSpeech2-conformer (flash attention, every dropout as configured,
     MAS durations, CVAE, Postnet) with the bench.py batch (B=8, T_text=64,
@@ -95,7 +98,8 @@ Phases (any failure exits non-zero; no phase is caught):
     route (B=4, T=2048, H=8, D=48, E=384; dropout 0 and 0.1), fp32 and
     bf16, ragged lengths with a fully padded row and no pad mask, bwd-kv
     with the table's gradient; with times and SDPA (and its backward) with
-    the position term as its mask; K6 forward and bwd-q as K5's in phase 9;
+    the position term as its mask; K6 forward, bwd-q and bwd-kv as K5's in
+    phase 9;
 15. JETS-conformer serving in the legacy rel-pos flavour
     (``conformer_rel_pos_type: legacy``, K6 at D=128): as phase 12, with
     the launches held per call (K6 fwd 10, K2 36, no K1 and no K7);
@@ -114,8 +118,8 @@ Phases (any failure exits non-zero; no phase is caught):
     JETS training steps, five two-stage calls, five FS2 training steps and
     five of each JETS-conformer path (both flavours) and of the FS2 step
     at T_mel 2048, one of each under ``torch.profiler``, device time by
-    kernel group (bwd-q as its Q1 and Q2 kernels, K5's rotation pass on its
-    own);
+    kernel group (bwd-q as its Q1 and Q2 kernels, bwd-kv on its own, K5's
+    rotation pass on its own);
 19. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -124,11 +128,14 @@ script under a time limit. Times are CUDA-event times over repeated
 launches after a warm-up. bound_ms
 is the larger of bytes / 3.35 TB/s and operations / the card's peak for the
 work's type (fp32 work at the 67 TFLOP/s CUDA-core rate, bf16 at 989), per
-the H100 SXM data sheet. The tensor-core kernels (K5 / K6 forward and
-bwd-q) take the bound of the work they do on the tensor cores: fp32
+the H100 SXM data sheet. The tensor-core kernels (K5 / K6 forward, bwd-q
+and bwd-kv) take the bound of the work they do on the tensor cores: fp32
 streams under 3xTF32 run three TF32 products a term, so 3 * operations /
 495 TFLOP/s, bf16 streams one, operations / 495; they also report the
 CUDA-core (67), one-TF32-product (495) and bf16 (989) figures beside it.
+bwd-kv's own work is bwd-q's two scratches read once and two D-wide
+products a pair (bound by those bytes); the bound of the function it
+computes, 4D + E a pair from the streams, stands beside it.
 The card's power limit is printed beside them.
 """
 
@@ -1215,8 +1222,11 @@ def _xl_train_work(kind: str, args, lens, T: int):
     one of the past / future position terms): forward content D +
     position P + weighted sum D; K4 bwd eight D-wide products (s, pos, g v,
     dqc, dk, dv, dqv, dp); K5 / K6 bwd-q s, pos, g v, dqc and the E-wide
-    dgA / dgB (3D + 2E; K5 writes one dg2, K6 dgA and dgB); K5 / K6 bwd-kv
-    s, pos, g v, dk, dv (4D + E)."""
+    dgA / dgB (3D + 2E; K5 writes one dg2, K6 dgA and dgB). K5 / K6 bwd-kv:
+    the work of the kernel, which reads bwd-q's two fp32 scratches (p m /
+    keep and ds over the T x T pairs) with qc and g and forms dk and dv (two
+    D-wide products a pair); and, as ``*_bwd_kv_function``, the function's
+    own work from the streams (s, pos, g v, dk, dv: 4D + E)."""
     B, _, H, D = args[0].shape
     esz = args[0].element_size()
     row, stat = B * T * H * D, B * H * T
@@ -1231,8 +1241,59 @@ def _xl_train_work(kind: str, args, lens, T: int):
         name, n_pos = ("flash_xl2", 1) if kind == "xl2" else ("flash_xl", 2)
         work[f"{name}_bwd_q"] = (bwd_in + 4.0 * (row + n_pos * B * T * H * P),
                                  pairs * (3 * D + 2 * P))
-        work[f"{name}_bwd_kv"] = (bwd_in + 4.0 * 2 * row, pairs * (4 * D + P))
+        work[f"{name}_bwd_kv"] = (2.0 * esz * row + 8.0 * B * H * T * T + 4.0 * 2 * row,
+                                  pairs * 2 * D)
+        work[f"{name}_bwd_kv_function"] = (bwd_in + 4.0 * 2 * row, pairs * (4 * D + P))
     return work
+
+
+def _bwd_kv_stages(kind: str, bargs, tol: float = 1e-4) -> dict:
+    """The K5 (``xl2``) / K6 backward's stages at one call of the training
+    path, as closures to time: Q1 without and with its second write (P),
+    the bwd-kv kernel alone on the scratches of one Q1 and its plain version
+    there (``xl_bwd_kv_plain``), and the whole backward (``xl2_bwd`` /
+    ``xl_bwd``); with the kernel alone's (max abs error, scaled) against
+    that plain version, which must be within ``tol`` (scaled by the largest
+    value where that exceeds 1). The stage helpers count no launch: these
+    are timings, not the path."""
+    from viet_tts_torch.ops import flash_xl_attention as fx
+
+    rotate = kind == "xl2"
+    *streams, pad, lse, delta, g, scale, p, seed = bargs
+    ops = (fx._xl2_ops if rotate else fx._xl_ops)(*streams, pad, lse, delta, g)
+    _, s, pm, _ = fx._bwd_q1(rotate, *ops, scale, p, seed, True)
+    stages = {
+        "kernel": lambda: fx._bwd_kv(ops[0], ops[9], s, pm),
+        "plain": lambda: fx.xl_bwd_kv_plain(ops[0], ops[9], s, pm),
+        "q1": lambda: fx._bwd_q1(rotate, *ops, scale, p, seed, False),
+        "q1_with_p": lambda: fx._bwd_q1(rotate, *ops, scale, p, seed, True),
+        "whole": lambda: (fx.xl2_bwd if rotate else fx.xl_bwd)(*bargs),
+    }
+    got, want = stages["kernel"](), stages["plain"]()
+    torch.cuda.synchronize()
+    stages["err"] = _max_err(got, want)
+    if not stages["err"][1] <= tol:
+        raise AssertionError(f"{kind} bwd-kv kernel alone against its plain version: max abs "
+                             f"err (abs, scaled) {stages['err']} (tol {tol})")
+    return stages
+
+
+def _bwd_kv_figures(name: str, stages: dict, function_work, iters: int) -> dict:
+    """bwd-kv's figures beside its kernel time, logged: Q1's time without
+    and with the second write, the whole backward's, and the bound of the
+    function's own work (``*_bwd_kv_function``) on the fp32 CUDA cores (the
+    bound of the CUDA-core kernel this one replaced) and under 3xTF32."""
+    nbytes, flops = function_work
+    fig = {f"{k}_ms": cuda_ms(stages[k], iters) for k in ("q1", "q1_with_p", "whole")}
+    fig["bound_ms_function"], _ = bound(nbytes, flops, FP32_FLOP_PER_MS)
+    fig["bound_ms_function_3xtf32"], _ = bound(nbytes, 3 * flops, TF32_FLOP_PER_MS)
+    fig["max_abs_err_kernel_alone"] = stages["err"][0]
+    log(f"    {name}: Q1 {fig['q1_ms']:.4f} ms, with the P write {fig['q1_with_p_ms']:.4f} "
+        f"(+{fig['q1_with_p_ms'] - fig['q1_ms']:.4f}); whole backward {fig['whole_ms']:.4f} ms; "
+        f"the function's bound {fig['bound_ms_function']:.4f} ms (fp32 cores, 4D + E a pair), "
+        f"{fig['bound_ms_function_3xtf32']:.4f} (3xTF32); kernel alone vs its plain version "
+        f"{stages['err'][0]:.3e} (scaled {stages['err'][1]:.3e})")
+    return fig
 
 
 def _xl_pos(base, scale: float):
@@ -1314,6 +1375,14 @@ TC_REDESIGNED = {
     **dict.fromkeys(("flash_xl2_bwd_q", "flash_xl_bwd_q"), (
         "tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 streams); Q1 (position "
         "logits, then ds and dqc) and Q2 (dgA, dgB) kernels")),
+    **dict.fromkeys(("flash_xl2_bwd_kv", "flash_xl_bwd_kv"), (
+        "tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 streams); reads bwd-q's "
+        "scratches (ds and p m / keep, which Q1 writes) instead of forming the logits "
+        "again: ms is the kernel alone, plain_ms its plain version on the same scratches, "
+        "bound_ms the bound of its own work (the two scratches' bytes, two D-wide "
+        "products a pair); bound_ms_function the function's 4D + E a pair on the fp32 "
+        "cores, q1_ms / q1_with_p_ms Q1 without and with the P write, whole_ms the whole "
+        "backward (bwd-q and bwd-kv on shared scratches)")),
     **dict.fromkeys(("flash_xl2_fwd", "flash_xl_fwd"), (
         "tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 streams, one TF32 product "
         "for bf16); one flash kernel for K5 and K6 (64-query tiles, the E-wide position "
@@ -1436,9 +1505,12 @@ def check_xl_training(dev):
                     work = _xl_train_work(kind, args, live, T)
                     to_time = {fwd_name: (lambda: fwd(*args, scale, pad, p, seed),
                                           lambda: plain_fwd(*args, scale, pad, p, seed), l_fwd)}
+                    stages = _bwd_kv_stages(kind, bargs) if kind == "xl2" else None
                     for name, (kern, plain, _) in bwds.items():
-                        to_time[name] = (lambda k=kern: k(*bargs), lambda q=plain: q(*bargs),
-                                         l_bwd)
+                        to_time[name] = ((stages["kernel"], stages["plain"], l_bwd)
+                                         if name.endswith("_bwd_kv") else
+                                         (lambda k=kern: k(*bargs), lambda q=plain: q(*bargs),
+                                          l_bwd))
                     for name, (k_fn, p_fn, l_ms) in to_time.items():
                         k_ms = cuda_ms(k_fn, iters)
                         p_ms = cuda_ms(p_fn, 3, warmup=1)
@@ -1455,6 +1527,10 @@ def check_xl_training(dev):
                             tc = _tensor_core_figures(name, k_ms, b_ms, nbytes, flops,
                                                       pos_grad, iters)
                             del pos_grad
+                        if name.endswith("_bwd_kv"):
+                            tc.update(_bwd_kv_figures(name, stages, work[f"{name}_function"],
+                                                      iters))
+                            errs[name] = max(errs[name], stages["err"])
                         entry = figures.setdefault(name, {})
                         entry.setdefault("per_shape", {})[f"T={T}"] = dict(
                             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
@@ -1468,6 +1544,7 @@ def check_xl_training(dev):
                                                              f", E={FS2_H * FS2_D}")
                                              + f"), fp32, dropout {p}, no pad mask (the "
                                              "training path's)")
+                    del stages
                 for name, e in errs.items():
                     if dtype == torch.float32:
                         entry = figures.setdefault(name, {})
@@ -1574,9 +1651,12 @@ def check_xl_k6_training(dev):
                                                 lambda: fx.xl_fwd_plain(*args, scale, pad, p,
                                                                         seed),
                                                 l_fwd, work["fwd"])}
-                    for name, (kern, plain, _) in bwds.items():
-                        to_time[name] = (lambda k=kern: k(*bargs), lambda q=plain: q(*bargs),
-                                         l_bwd, work[name])
+                    stages = _bwd_kv_stages("xl", bargs)
+                    to_time["flash_xl_bwd_q"] = (lambda: fx.xl_bwd_dq(*bargs),
+                                                 lambda: fx.xl_bwd_dq_plain(*bargs), l_bwd,
+                                                 work["flash_xl_bwd_q"])
+                    to_time["flash_xl_bwd_kv"] = (stages["kernel"], stages["plain"], l_bwd,
+                                                  work["flash_xl_bwd_kv"])
                     for name, (k_fn, p_fn, l_ms, (nbytes, flops)) in to_time.items():
                         k_ms = cuda_ms(k_fn, iters)
                         p_ms = cuda_ms(p_fn, 3, warmup=1)
@@ -1593,6 +1673,12 @@ def check_xl_k6_training(dev):
                             tc = _tensor_core_figures(name, k_ms, b_ms, nbytes, flops,
                                                       pos_grad, iters)
                             del pos_grad
+                        if name == "flash_xl_bwd_kv":
+                            tc.update(_bwd_kv_figures(name, stages, work[f"{name}_function"],
+                                                      iters))
+                            entry = figures.setdefault(name, {})
+                            entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0),
+                                                       stages["err"][0])
                         fig = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                                    bound_by=kind_b, library_mask_build_ms=build_ms, **tc,
                                    per=f"one launch at {shape}, fp32, dropout {p}, no pad mask "
@@ -1601,6 +1687,7 @@ def check_xl_k6_training(dev):
                         entry.setdefault("per_shape", {})[shape] = fig
                         if model == "JETS" and T == TRAIN_T_MEL:  # the head of the entry
                             entry.update(fig)
+                    del stages
             del args
         del base
         torch.cuda.empty_cache()
@@ -2310,12 +2397,6 @@ def check_conformer_training(dev, flavour: str = "latest", steps: int = 3, warmu
 # --profile: where the time of one __call__ and of one training step goes
 # --------------------------------------------------------------------------
 
-def _two_stream(kernel: str):
-    """The K6 (two-stream) instances of a template that K5 shares."""
-    return tuple(f"{kernel}<{t}, {d}, false>" for t in ("float", "__nv_bfloat16")
-                 for d in (48, 64, 128))
-
-
 # kernel-name fragments -> the layer each kernel belongs to (first match wins)
 KERNEL_GROUPS = (
     ("K1 flash_fwd_kernel", ("flash_fwd_kernel",)),
@@ -2330,8 +2411,9 @@ KERNEL_GROUPS = (
     ("K5 rotation pass (xl2_rotate: before fwd and bwd-q)", ("xl2_rotate_kernel",)),
     ("K5 / K6 bwd-q Q1 (xl2_bwd_q1_pos + q1_ds)", ("xl2_bwd_q1_",)),
     ("K5 / K6 bwd-q Q2 (xl2_bwd_q2; K5 + unrotate)", ("xl2_bwd_q2_", "xl2_bwd_unrotate")),
-    ("K6 bwd-kv (xl2_bwd_kv, two streams)", _two_stream("xl2_bwd_kv_kernel")),
-    ("K5 bwd-kv (xl2_bwd_kv + dtab)", ("xl2_bwd_kv_kernel", "xl2_bwd_dtab")),
+    # bwd-kv and dtab are K5's and K6's alike too
+    ("K5 / K6 bwd-kv (xl2_bwd_kv, from Q1's scratches; dtab)", ("xl2_bwd_kv_kernel",
+                                                                 "xl2_bwd_dtab")),
     # the forward's instances: <dtype, D, K5's flag, warps a block>
     ("K5 xl2_fwd_kernel (tensor cores; after the rotation pass)",
      tuple(f"xl2_fwd_kernel<{t}, {d}, true," for t in ("float", "__nv_bfloat16")

@@ -223,6 +223,56 @@ XL_TRAIN_FNS = {  # kind: (stream names, forward, plain forward, backward pairs)
 }
 
 
+XL_BWD_FNS = {  # kind: (whole backward, bwd-q, bwd-kv, checked operands, K5's rotation)
+    "xl2": (fx.xl2_bwd, fx.xl2_bwd_dq, fx.xl2_bwd_dkv, fx._xl2_ops, True),
+    "xl": (fx.xl_bwd, fx.xl_bwd_dq, fx.xl_bwd_dkv, fx._xl_ops, False),
+}
+
+
+def _check_bwd_split(kind, bwd_args, atol):
+    """K5 / K6's split backward on the card, for one case: the whole
+    backward (``xl2_bwd`` / ``xl_bwd``: one count each on bwd-q and bwd-kv)
+    against the separate calls, bit for bit (the same deterministic kernels
+    on the same inputs), with the table's gradient and without; the bwd-kv
+    and dtab kernels alone against their plain version (``xl_bwd_kv_plain``)
+    on Q1's own scratches, each within atol scaled by its largest value
+    where that exceeds 1; and the scratches against the plain ds and p m /
+    keep on the T real keys (a fully padded row's m / Tp included), and 0
+    from T to the end of the last 64-key tile."""
+    whole, dq, dkv, ops_of, rotate = XL_BWD_FNS[kind]
+    *streams, pad, lse, delta, g, scale, p, seed = bwd_args
+    for want_dtab in (True, False):
+        before = (dq.launches, dkv.launches)
+        got = whole(*bwd_args, want_dtab=want_dtab)
+        assert (dq.launches, dkv.launches) == (before[0] + 1, before[1] + 1)
+        q_out, kv_out = dq(*bwd_args), dkv(*bwd_args, want_dtab=want_dtab)
+        for i, (a, b) in enumerate(zip(got, (q_out[0], *kv_out[:2], *q_out[1:], kv_out[2]))):
+            assert (a is None) == (b is None), (kind, i, want_dtab)
+            assert a is None or torch.equal(a, b), (kind, i, want_dtab)
+        assert (got[-1] is None) == (not want_dtab)
+    ops = ops_of(*streams, pad, lse, delta, g)
+    _, s, pm, (ga, gb) = fx._bwd_q1(rotate, *ops, scale, p, seed, True)
+    got = (*fx._bwd_kv(ops[0], ops[9], s, pm), fx._bwd_dtab(s, ga, gb))
+    want = fx.xl_bwd_kv_plain(ops[0], ops[9], s, pm, ga, gb, want_dtab=True)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all(), (kind, i)
+        err = (a - b).abs().max().item()
+        assert err <= atol * max(1.0, b.abs().max().item()), (kind, "kv alone", i, err)
+    T = ops[0].shape[1]
+    if rotate:
+        p_v, ds = fx._xl2_bwd_terms(*bwd_args)[7:9]
+    else:
+        cd = fx._compute_dtype(ops[0])
+        p_v, ds = fx._xl_bwd_terms(*streams[:3], *(fx._hm(x, cd) for x in streams[3:5]),
+                                   *bwd_args[5:])[4:6]
+    edge = -(-T // 64) * 64
+    for name, x, ref in (("ds", s, ds), ("p m / keep", pm, p_v)):
+        err = (x[..., :T] - ref[..., :T]).abs().max().item()
+        assert err <= atol * max(1.0, ref.abs().max().item()), (kind, name, err)
+        assert not x[..., T:edge].any(), (kind, name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,T", XL_TRAIN_CASES)
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
@@ -234,7 +284,8 @@ def test_xl_training_kernels_match_plain(cuda_device, kind, T, dtype, atol, drop
     context and lse (so that a bf16 rounding of the forward cannot move the
     gradients' reference), under one seed, with a ragged and a fully padded
     row; each gradient within atol of the plain one, scaled by its largest
-    value where that exceeds 1."""
+    value where that exceeds 1. K5 also ``_check_bwd_split``, with that pad
+    mask and with none."""
     streams, pad, scale = xl_case(cuda_device, 3, T, seed=T + 7)
     names, fwd, plain_fwd, bwds = XL_TRAIN_FNS[kind]
     seed = 123456789012345
@@ -257,6 +308,12 @@ def test_xl_training_kernels_match_plain(cuda_device, kind, T, dtype, atol, drop
             assert torch.isfinite(a).all(), (kern.__name__, i)
             err = (a - b).abs().max().item()
             assert err <= atol * max(1.0, b.abs().max().item()), (kern.__name__, i, err)
+    if kind == "xl2":
+        _check_bwd_split(kind, bwd_args, atol)
+        ctx, lse = fwd(*args, scale, None, dropout_p, seed)
+        delta, g = fa.backward_inputs(ctx, gout.to(ctx.device), dtype)
+        _check_bwd_split(kind, (*args, torch.zeros_like(pad, dtype=torch.float32), lse, delta, g,
+                                scale, dropout_p, seed), atol)
 
 
 @pytest.mark.cuda
@@ -325,7 +382,8 @@ def test_xl_k6_training_kernels_match_plain(cuda_device, B, T, H, D, dtype, atol
     ``want_dtab``) against their plain versions on the kernel's own context
     and lse, under one seed, with a ragged and a fully padded row or no pad
     mask; each gradient within atol of the plain one, scaled by its largest
-    value where that exceeds 1."""
+    value where that exceeds 1. Then ``_check_bwd_split`` at dropout 0.2
+    and 0."""
     streams, pad, scale = xl_case(cuda_device, B, T, H=H, D=D, seed=T + D, pad_rows=pad_rows)
     p, seed = 0.2, 987654321
     args = [streams[n].to(dtype) for n in XL_NAMES]
@@ -354,6 +412,10 @@ def test_xl_k6_training_kernels_match_plain(cuda_device, B, T, H, D, dtype, atol
             err = (a - b).abs().max().item()
             assert err <= atol * max(1.0, b.abs().max().item()), (kern.__name__, i, err)
         del got, want
+    _check_bwd_split("xl", bwd_args, atol)
+    ctx, lse = fx.xl_fwd(*args, scale, pad, 0.0, seed)
+    delta, g = fa.backward_inputs(ctx, gout.to(ctx.device), dtype)
+    _check_bwd_split("xl", (*args, padf, lse, delta, g, scale, 0.0, seed), atol)
 
 
 # (kind, H, D): K5 at (D, E) = (48, 384) and (64, 512), K6 at those and
@@ -386,7 +448,8 @@ def test_xl_bwd_q_tensor_core_kernels_match_plain(cuda_device, kind, H, D, T):
     for every case of ``XL_TC_CASES`` (fp32 and bf16, dropout 0 and 0.1, a
     ragged and a fully padded row or no pad mask); each gradient within
     atol of the plain one, scaled by its largest value where that exceeds
-    1; one launch count a call."""
+    1; one launch count a call. Each case also ``_check_bwd_split`` (the
+    bwd-kv and dtab kernels at these lengths and widths)."""
     B = 3
     names, fwd, kern, plain = XL_BWD_Q_FNS[kind]
     seed = 24681357 + T
@@ -413,6 +476,7 @@ def test_xl_bwd_q_tensor_core_kernels_match_plain(cuda_device, kind, H, D, T):
             err = (a - b).abs().max().item()
             assert err <= atol * max(1.0, b.abs().max().item()), (case, i, err)
         del got, want
+        _check_bwd_split(kind, bwd_args, atol)
 
 
 @pytest.mark.cuda
@@ -479,21 +543,26 @@ def test_xl_k5_dropout_mask_is_the_plain_mask_bit_for_bit(cuda_device, D):
     """With v the identity, K5's context is the dropped weights themselves:
     its zeros are exactly where ``dropout_keep_mask`` drops; with one-hot
     cotangent rows, bwd-kv's dv is the dropped weights transposed, with the
-    same zeros."""
+    same zeros. The last batch row's keys are all padding: its weights are
+    the uniform m / Tp (bwd-kv's from the scratch Q1 writes)."""
     B, T, H, p, seed = 3, 64, 8, 0.2, 78
     streams, _, scale = xl_case(cuda_device, B, T, H=H, D=D, seed=6, pad_rows=False)
     eye = torch.eye(T, D, device=cuda_device)[None, :, None, :].expand(B, T, H, D).contiguous()
     args = [streams["qc"], streams["k"], eye, streams["g"], streams["table"]]
-    ctx, lse = fx.xl2_fwd(*args, scale, None, p, seed)
+    pad = torch.zeros(B, T, device=cuda_device)
+    pad[-1] = 1.0
+    ctx, lse = fx.xl2_fwd(*args, scale, pad > 0.5, p, seed)
     keep = fa.dropout_keep_mask(seed, B, H, T, T, p, cuda_device)  # (B, H, i, j)
     torch.cuda.synchronize()
     n = min(T, D)
     assert torch.equal(ctx[..., :n].permute(0, 2, 1, 3) != 0, keep[..., :n])
     delta, g = fa.backward_inputs(ctx, eye, torch.float32)
-    _, dv, _ = fx.xl2_bwd_dkv(*args, torch.zeros(B, T, device=cuda_device), lse, delta, g,
-                              scale, p, seed)
+    _, dv, _ = fx.xl2_bwd_dkv(*args, pad, lse, delta, g, scale, p, seed)
     torch.cuda.synchronize()
     assert torch.equal(dv[..., :n].permute(0, 2, 3, 1) != 0, keep[:, :, :n])
+    uniform = dv[-1][..., :n]
+    assert torch.allclose(uniform[uniform != 0],
+                          torch.tensor(1.0 / ((1.0 - p) * fa.padded_time(T)), device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -503,22 +572,27 @@ def test_xl_k6_dropout_mask_is_the_plain_mask_bit_for_bit(cuda_device, H, D):
     its zeros are exactly where ``dropout_keep_mask`` drops (the two-stream
     tiles draw the keep bit of the same (b, h, i, j) as the plain version);
     with one-hot cotangent rows, bwd-kv's dv is the dropped weights
-    transposed, with the same zeros."""
+    transposed, with the same zeros. The last batch row's keys are all
+    padding: its weights are the uniform m / Tp."""
     T, p, seed = 64, 0.2, 77
     streams, _, scale = xl_case(cuda_device, 3, T, H=H, D=D, seed=5, pad_rows=False)
     B = 3
     eye = torch.eye(T, D, device=cuda_device)[None, :, None, :].expand(B, T, H, D).contiguous()
     args = [streams["qc"], streams["k"], eye, streams["gA"], streams["gB"], streams["table"]]
-    ctx, lse = fx.xl_fwd(*args, scale, None, p, seed)
+    pad = torch.zeros(B, T, device=cuda_device)
+    pad[-1] = 1.0
+    ctx, lse = fx.xl_fwd(*args, scale, pad > 0.5, p, seed)
     keep = fa.dropout_keep_mask(seed, B, H, T, T, p, cuda_device)  # (B, H, i, j)
     torch.cuda.synchronize()
     n = min(T, D)
     assert torch.equal(ctx[..., :n].permute(0, 2, 1, 3) != 0, keep[..., :n])
     delta, g = fa.backward_inputs(ctx, eye, torch.float32)
-    _, dv, _ = fx.xl_bwd_dkv(*args, torch.zeros(B, T, device=cuda_device), lse, delta, g,
-                             scale, p, seed)
+    _, dv, _ = fx.xl_bwd_dkv(*args, pad, lse, delta, g, scale, p, seed)
     torch.cuda.synchronize()
     assert torch.equal(dv[..., :n].permute(0, 2, 3, 1) != 0, keep[:, :, :n])
+    uniform = dv[-1][..., :n]
+    assert torch.allclose(uniform[uniform != 0],
+                          torch.tensor(1.0 / ((1.0 - p) * fa.padded_time(T)), device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""Why the tensor-core K5 / K6 bwd-q kernels multiply fp32 streams in
-3xTF32 and not in plain TF32 (``viet_tts_torch/csrc/flash_xl_attention_bwd.cu``).
+"""Why the tensor-core K5 / K6 bwd-q and bwd-kv kernels multiply fp32
+streams in 3xTF32 and not in plain TF32
+(``viet_tts_torch/csrc/flash_xl_attention_bwd.cu``).
 
 A TF32 operand keeps 10 of fp32's 23 mantissa bits. The kernels split each
 fp32 operand into two TF32 values, x = hi + lo (hi: x rounded to nearest,
@@ -11,8 +12,11 @@ its E-wide products (the position logits gA t^T, gB t^T and the position
 gradients dsA t, dsB t) emulated both ways, at the FS2 width E = 384 and a
 small T: 3xTF32 stays within the port's fp32 limit of 1e-4 (scaled by the
 largest gradient where that exceeds 1) of the fp32 plain version, and one
-TF32 product does not. No JAX here: the emulation and the plain version
-are both the port's.
+TF32 product does not. The same holds for bwd-kv's two products, the
+T-long contractions over the query rows dk = ds^T qc and dv = (p m /
+keep)^T g, each on its own: one TF32 product misses the limit in dk and in
+dv, so the kernel runs both in 3xTF32. No JAX here: the emulation and the
+plain version are both the port's.
 """
 
 from __future__ import annotations
@@ -141,3 +145,36 @@ def test_3xtf32_holds_the_fp32_limit_and_one_tf32_product_does_not(case):
     assert err_3x <= TOL, err_3x
     assert err_1x > TOL, err_1x
     assert err_1x > 50 * err_3x, (err_1x, err_3x)
+
+
+@pytest.fixture(scope="module")
+def kv_case(case):
+    """The plain K5 bwd-kv (fp32, no dropout) on the ``case`` inputs, and
+    the dense terms its two products contract: (dk, dv) each (B, H, T, D),
+    and (qc, g, ds, p m / keep) head-major."""
+    args, _ = case
+    qch, _, gh, _, _, _, _, p_v, ds, _, _ = fx._xl2_bwd_terms(*args, SCALE, 0.0, 0)
+    plain = [x.permute(0, 2, 1, 3) for x in fx.xl2_bwd_dkv_plain(*args, SCALE)[:2]]
+    return plain, (qch, gh, ds, p_v)
+
+
+def _kv_products(terms, mm):
+    """bwd-kv's two products through ``mm``: (dk = ds^T qc, dv = (p m /
+    keep)^T g), each (B, H, T, D)."""
+    qch, gh, ds, p_v = terms
+    return (mm(ds.transpose(-1, -2), qch)[:, :, :T],
+            mm(p_v.transpose(-1, -2), gh)[:, :, :T])
+
+
+@pytest.mark.parametrize("product", ["dk", "dv"])
+def test_kv_products_need_3xtf32(kv_case, product):
+    """bwd-kv's product ``product`` in 3xTF32 holds the fp32 limit, in one
+    TF32 product it does not; with fp32 products the hook is the plain
+    K5 bwd-kv (``xl2_bwd_dkv_plain``, the source of truth)."""
+    plain, terms = kv_case
+    i = ("dk", "dv").index(product)
+    assert _scaled_err([_kv_products(terms, mm_fp32)[i]], [plain[i]]) <= 1e-6
+    err_3x = _scaled_err([_kv_products(terms, mm_3xtf32)[i]], [plain[i]])
+    err_1x = _scaled_err([_kv_products(terms, mm_tf32)[i]], [plain[i]])
+    assert err_3x <= TOL, err_3x
+    assert err_1x > TOL, err_1x

@@ -27,6 +27,7 @@ from viet_tts_tpu.nn.utils import sinusoid_position_table
 from viet_tts_tpu.ops import xl_attention as jxl
 from viet_tts_torch.nn.conformer import RelativeMultiHeadAttention
 from viet_tts_torch.ops import flash_xl_attention as fx
+from viet_tts_torch.ops.flash_attention import backward_inputs
 from viet_tts_torch.ops import xl_attention as txl
 
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
@@ -90,6 +91,47 @@ def _port_grads(kind, args, g, pad, dropout_p=0.0, seed=None):
     return out.detach().numpy(), [x.grad.numpy() for x in leaves]
 
 
+SPLIT_FNS = {  # kind: (the whole backward, its separate plain bwd-q and bwd-kv)
+    "xl2": (fx.xl2_bwd, fx.xl2_bwd_dq_plain, fx.xl2_bwd_dkv_plain),
+    "xl": (fx.xl_bwd, fx.xl_bwd_dq_plain, fx.xl_bwd_dkv_plain),
+}
+
+
+def _check_split(kind, args, g, pad, dropout_p=0.0, seed=0):
+    """The plain version of the kernels' split (the whole K5 / K6 backward
+    on CPU tensors: dk, dv and dtab by ``xl_bwd_kv_plain`` from the scratch
+    layout of ds and p m / keep) against the separate plain bwd-q and
+    bwd-kv on the forward's own lse, with the table's gradient and without;
+    and the scratch layout itself against the dense terms it holds."""
+    if kind not in SPLIT_FNS:
+        return
+    whole, plain_dq, plain_dkv = SPLIT_FNS[kind]
+    T = args[0].shape[1]
+    t = [torch.from_numpy(np.array(x)) for x in args]
+    tpad = None if pad is None else torch.from_numpy(pad)
+    ctx, lse = PLAIN_FWD[kind](*t, SCALE, tpad, dropout_p, seed)
+    delta, gs = backward_inputs(ctx, torch.from_numpy(g).reshape(ctx.shape), torch.float32)
+    padf = torch.zeros(len(t[0]), T) if tpad is None else tpad.float()
+    bargs = (*t, padf, lse, delta, gs, SCALE, dropout_p, seed)
+    dq = plain_dq(*bargs)
+    for want_dtab in (True, False):
+        got = whole(*bargs, want_dtab=want_dtab)
+        dkv = plain_dkv(*bargs, want_dtab=want_dtab)
+        want = (dq[0], *dkv[:2], *dq[1:], dkv[2])
+        assert (got[-1] is None) == (not want_dtab)
+        for i, (a, b) in enumerate(zip(got, want)):
+            if b is not None:
+                np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL,
+                                           err_msg=f"{kind} split {i} dtab={want_dtab}")
+    terms = (fx._xl2_bwd_terms(*bargs)[7:9] if kind == "xl2"
+             else fx._xl_bwd_terms(*t[:3], *(fx._hm(x, torch.float32) for x in t[3:5]),
+                                   *bargs[5:])[4:6])
+    for x in terms:
+        s = fx.xl_bwd_scratch_plain(x)
+        assert s.shape[-1] % 128 == 0 and not s[..., T:].any()
+        assert torch.equal(s[..., :T], x[..., :T])
+
+
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("T,lens", [(48, [41]), (128, None)])
 def test_backward_matches_jax_dense_and_interpreted_kernels(kind, T, lens):
@@ -98,10 +140,12 @@ def test_backward_matches_jax_dense_and_interpreted_kernels(kind, T, lens):
     ``jax.vjp`` of the JAX op through its dense lowering and through the
     Pallas backward kernels in interpret mode: T = 48 with a ragged row
     (padded to 128 by xl3, to 64 by xl2 and xl; xl3 left-pads p), T = 128
-    with no pad mask."""
+    with no pad mask. For xl2 and xl (whose autograd backward is the
+    kernels' split) also ``_check_split``."""
     streams, g, pad = _case(T, lens, seed=T + len(kind))
     args = streams[kind]
     got_out, got = _port_grads(kind, args, g, pad)
+    _check_split(kind, args, g, pad)
     for interpret in (False, True):
         want_out, want = _jax_grads(kind, args, g, pad, interpret)
         np.testing.assert_allclose(got_out, want_out, atol=ATOL)
@@ -120,11 +164,13 @@ def test_fully_padded_row_takes_the_dense_gradient(kind):
     The reference's interpreted Pallas backward differs there, as its plain
     backward does (``test_torch_flash_train.py``): its lse, -1e9 + log n,
     rounds to -1e9 in fp32, so exp(l - lse) is 1 per key and its dv on that
-    row is n times the dense one."""
+    row is n times the dense one. For xl2 and xl also ``_check_split``
+    (the split's dense dv comes from the scratch's uniform weights)."""
     T = 40
     streams, g, pad = _case(T, [T - 9, 0], seed=3)
     args = streams[kind]
     got_out, got = _port_grads(kind, args, g, pad)
+    _check_split(kind, args, g, pad)
     want_out, want = _jax_grads(kind, args, g, pad, interpret=False)
     np.testing.assert_allclose(got_out, want_out, atol=ATOL)
     for i, (a, b) in enumerate(zip(got, want)):
@@ -142,11 +188,13 @@ def test_dropout_backward_is_autograd_of_the_masked_dense_forward(kind):
     """With dropout the autograd function's backward (the plain K4 bwd /
     K5 bwd / K6 bwd, mask regenerated from the seed) equals autograd through
     the plain forward under the same seed, a ragged and a fully padded row
-    included; and its table gradient (xl2, xl) too."""
+    included; and its table gradient (xl2, xl) too; and (xl2, xl)
+    ``_check_split`` under the same seed."""
     T, p, seed = 45, 0.1, 2024
     streams, g, pad = _case(T, [T - 7, 0], seed=8)
     args = streams[kind]
     got_out, got = _port_grads(kind, args, g, pad, dropout_p=p, seed=seed)
+    _check_split(kind, args, g, pad, p, seed)
     leaves = [torch.from_numpy(np.array(x)).requires_grad_() for x in args]
     ctx, _ = PLAIN_FWD[kind](*leaves, SCALE, torch.from_numpy(pad), p, seed)
     out = ctx.reshape(got_out.shape)

@@ -48,22 +48,27 @@
 //    batch rows and query tiles and adds row i-1's future part into dqv_i.
 //    Both main kernels stage the 127-row band of p that a tile's offsets
 //    j - i reach, as the forward does.
-//  - K5 / K6 bwd-q run on the tensor cores, in two kernels so that no
-//    E-wide accumulator lives inside the flash loop (Q1, Q2 below; K5 adds
-//    an elementwise rotation before and its inverse after): at E = 384 the
-//    E-wide products are 84 % of the work, and on the fp32 CUDA cores alone
-//    they bound it above SDPA's whole backward. Every product is
-//    `mma.sync.m16n8k8` TF32 with fp32
+//  - The K5 / K6 backward runs on the tensor cores, in stages that share
+//    two fp32 scratches: Q1 and Q2 give bwd-q's dqc and dgA / dgB, then
+//    bwd-kv gives dk and dv, and dtab (only on demand) the table's
+//    gradient, from what Q1 left in the scratches (K5 adds an elementwise
+//    rotation before Q1 and its inverse after Q2). Q1 / Q2 are two kernels
+//    so that no E-wide accumulator lives inside the flash loop: at E = 384
+//    the E-wide products are 84 % of bwd-q's work. bwd-kv reads p m / keep
+//    and ds from the scratches instead of forming them again: the position
+//    logits are two thirds of its work at E = 384, and Q1 has formed them
+//    already. Every product is `mma.sync.m16n8k8` TF32 with fp32
 //    accumulation. fp32 streams take 3xTF32: x = hi + lo, hi rounded to
 //    nearest (ties away, cvt.rna's rounding, done with integer ops: the cvt
 //    instruction issues at a quarter of the rate), lo the exact rest with
 //    its low 13 bits cleared, a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b; one
-//    TF32 product keeps ~3 digits over E = 384 and misses the fp32 limit
-//    of 1e-4 (tests/test_torch_xl_bwd_precision.py). bf16 streams are
-//    exact in TF32 (8 mantissa bits of 11), and so is ds, rounded to bf16
-//    as `_mx` does: one TF32 product per term, exact, with the fp32 path's
-//    code. (Deviation from m16n8k16 bf16: one code path for both dtypes;
-//    the training path runs fp32.)
+//    TF32 product keeps ~3 digits and misses the fp32 limit of 1e-4, over
+//    E = 384 in bwd-q and over the T-long contractions of dk and dv
+//    (tests/test_torch_xl_bwd_precision.py). bf16 streams are exact in
+//    TF32 (8 mantissa bits of 11), and so are ds and p m / keep, rounded to
+//    bf16 as `_mx` does: one TF32 product per term, exact, with the fp32
+//    path's code. (Deviation from m16n8k16 bf16: one code path for both
+//    dtypes; the training path runs fp32.)
 //    * Q1 is two launches. `xl2_bwd_q1_pos_kernel`: the position logits of
 //      every (64-query, 64-key) tile, pos = gA t^T (past) / gB t^T (future)
 //      / 0, into a (B, H, T, Ts) fp32 scratch S (Ts = T rounded up to 128);
@@ -78,7 +83,9 @@
 //      tiles (k, v by cp.async two stages deep; qc, g staged once): s =
 //      pos + qc k^T, dp = g v^T, ds in the accumulators' layout, written
 //      over the logits in S, and dqc += ds k with ds as the A operand
-//      straight from the registers (see the fragments' permutation).
+//      straight from the registers (see the fragments' permutation). When
+//      bwd-kv follows it also writes P = p m / keep into a second scratch
+//      shaped like S (a fully padded batch row: m / Tp, the dense weight).
 //    * Q2, `xl2_bwd_q2_kernel`: dgA = (ds o past) t and dgB = (ds o
 //      future) t as a tensor-core product; one block a (64-query tile,
 //      64-column table tile, A or B, (b, h)) walks only the 32-key chunks
@@ -89,30 +96,53 @@
 //      into a scratch, and `xl2_bwd_unrotate_kernel` forms dg2_i =
 //      rot^-1(dgA_i, A_i) + rot^-1(dgB_{i-1}, B_{i-1}) in place. K6 reads
 //      gA, gB and writes dgA, dgB.
-//    * The wrapper allocates S (and K5's gA, gB and dgB) with torch.empty;
-//      the kernels allocate nothing. S adds 0.26 GB at (8, 8, 1008) and
-//      0.54 GB at (4, 8, 2048); K5's streams another 0.30 GB at (8, 8, 1008).
-//    * Budget, each instance at 128 threads a block (ptxas -v, sm_90a, the
-//      CUDA toolkit of the H100 machine; no spill in any instance; blocks an
-//      SM = the least of what registers and shared memory allow; unchanged
-//      since the helpers moved to xl_mma.cuh):
-//        kernel        dtype  D      smem B    regs  blocks/SM
-//        q1_pos        fp32   -      61,440    123   3
-//        q1_pos        bf16   -      30,720    114   4
-//        q1_ds         fp32   48     86,016    168   2
-//        q1_ds         fp32   64    110,592    231   2
-//        q1_ds         fp32   128   208,896    254   1
-//        q1_ds         bf16   48     43,008    164   3
-//        q1_ds         bf16   64     55,296    168   3
-//        q1_ds         bf16   128   104,448    228   2
-//        q2            fp32   -      37,888     88   5
-//        q2            bf16   -      29,696    117   4
+//    * bwd-kv, `xl2_bwd_kv_kernel`: dv = P^T g and dk = ds^T qc; one block
+//      a (64-key tile, head, batch row) walks the 32-row query chunks, P,
+//      ds, g and qc staged by cp.async three stages deep; eight warps, each
+//      one product for 32 keys and half of D, the keys as M so that the A
+//      fragment is the staged (query, key) tile read transposed. It forms
+//      two D-wide products a pair and reads the two scratches once: bound
+//      by their bytes (0.53 GB at (8, 8, 1008), 0.16 ms at 3.35 TB/s).
+//    * dtab, `xl2_bwd_dtab_kernel` (with `want_dtab` only: the conformers'
+//      table is the constant sinusoid table, so training never asks for
+//      it): dt = (ds o past)^T gA + (ds o future)^T gB, Q2's product
+//      transposed, the keys as M, the (b, h, query) rows as the
+//      contraction; one block a (64-key tile, 64-column tile, share of the
+//      (b, h)), the shares summed by `xl2_bwd_dtab_sum_kernel` when the
+//      (key, column) tiles alone would not fill the card.
+//    * The wrapper allocates S, P (and K5's gA, gB and dgB, and dtab's
+//      partials) with torch.empty; the kernels allocate nothing. S and P
+//      add 0.26 GB each at (8, 8, 1008) and 0.54 GB each at (4, 8, 2048);
+//      K5's streams another 0.30 GB at (8, 8, 1008).
+//    * Budget (ptxas -v, sm_90a, the CUDA toolkit of the H100 machine; no
+//      spill in any instance; blocks an SM = the least of what registers
+//      and shared memory allow; q1_ds takes the P write as a template flag,
+//      so that bwd-q alone runs none of its code):
+//        kernel        dtype  D      smem B    regs  blocks/SM  threads
+//        q1_pos        fp32   -      61,440    123   3          128
+//        q1_pos        bf16   -      30,720    114   4          128
+//        q1_ds         fp32   48     86,016    168   2          128
+//        q1_ds         fp32   64    110,592    231   2          128
+//        q1_ds         fp32   128   208,896    254   1          128
+//        q1_ds         bf16   48     43,008    164   3          128
+//        q1_ds         bf16   64     55,296    168   3          128
+//        q1_ds         bf16   128   104,448    228   2          128
+//        q1_ds, P      fp32   48 / 64 / 128    166 / 225 / 253  (as above)
+//        q1_ds, P      bf16   48 / 64 / 128    164 / 172 / 223  (64: 2)
+//        q2            fp32   -      37,888     88   5          128
+//        q2            bf16   -      29,696    117   4          128
+//        kv            fp32   48     92,160     96   2          256
+//        kv            fp32   64    104,448    102   2          256
+//        kv            fp32   128   153,600    146   1          256
+//        kv            bf16   48     73,728     80   3          256
+//        kv            bf16   64     79,872    104   2          256
+//        kv            bf16   128   104,448    124   2          256
+//        dtab          fp32   -      52,224     93   4          128
+//        dtab          bf16   -      35,840     90   5          128
 //        rotate (xl_mma.cuh) / unrotate (256 threads): no shared memory,
 //        28-30 registers (a 32-byte frame for sincosf's slow path).
-//      Tiles: q1_pos (64 queries, 64 keys), E in chunks of 32; q1_ds (64
-//      queries) by 64-key tiles; q2 (64 queries, 64 table columns) by
-//      32-key chunks. Shared memory does not depend on E; E a multiple of
-//      64 (q2's column tile). What bounds them, measured (H100, PR 7):
+//      Shared memory does not depend on E; E a multiple of 64 (the column
+//      tile of q2 and dtab). What bounds q1_pos and q2, measured (H100):
 //      q1_pos and q2 issue about 40 other instructions (the fragment loads
 //      and the hi / lo split) for every 24 mma.sync of a 3xTF32 k-step, and
 //      run at ~25 % of the TF32 rate; tiles of 128 x 64 and 128 x 128, three
@@ -120,28 +150,21 @@
 //      them by under 5 %, so neither L2 traffic nor load latency is the
 //      limit. q1_ds splits every k and v element in all four warps. The next
 //      step is wgmma with the operands split once into shared memory.
-//  - K5 / K6 bwd-kv (`xl2_bwd_kv_kernel`): one block per (64-key tile, head,
-//    batch row) walks 32-query tiles (K5 rotating each tile's gA and gB as
-//    the forward does, K6 reading them) and gives dk and dv; with
-//    `want_dtab` it also adds each (key tile, query tile)'s dt into the
-//    block's (64, E) slice of a per-(b, h) partial, which
-//    `xl2_bwd_dtab_kernel` sums. The conformers' table is the constant
-//    sinusoid table, so training never asks for dt.
 //  - A key tile wholly in the past of a query tile (every pair j <= i)
 //    forms only the gA . t products, one wholly in the future only gB . t.
-//  - K6 also runs at D = 128 (the JETS conformer, E = 256): bwd-kv then
-//    needs 203 KB of shared memory, one block an SM.
+//  - K6 also runs at D = 128 (the JETS conformer, E = 256).
 //
 // What bounds them on the H100: at the training shapes (FS2: B=8, H=8,
 // D=48; K4 at T=512, K5 at T=1008, E=384) the data needs 2*B*H*T^2*8D =
 // 12.9 GFLOP for K4 bwd (s, the position term, g v, dqc, dk, dv, dqv, dp),
-// 2*B*H*T^2*(3D + 2E) = 119 GFLOP for K5 bwd-q and 2*B*H*T^2*(4D + E) = 75
-// GFLOP for K5 bwd-kv (K6 the same), against tens to hundreds of MB: bound
-// by operations. K4 bwd and K5 / K6 bwd-kv run every product on the fp32
-// CUDA cores (67 TFLOP/s), with register tiles fed from shared memory;
-// K5 / K6 bwd-q on the tensor cores (495 TFLOP/s TF32, three products a
-// term for fp32 streams: 0.72 ms for K5 bwd-q at (8, 1008) if the tensor
-// cores were the only limit; see the budget above for what is).
+// 2*B*H*T^2*(3D + 2E) = 119 GFLOP for K5 bwd-q and, with bwd-kv reading
+// Q1's scratches, 2*B*H*T^2*2D = 12.5 GFLOP for bwd-kv against 0.53 GB (K6
+// the same). K4 bwd runs every product on the fp32 CUDA cores (67
+// TFLOP/s), with register tiles fed from shared memory: bound by
+// operations. K5 / K6 bwd-q and bwd-kv run on the tensor cores (495
+// TFLOP/s TF32, three products a term for fp32 streams): 0.72 ms for K5
+// bwd-q at (8, 1008) if the tensor cores were the only limit, 0.08 ms for
+// bwd-kv, which its 0.16 ms of scratch bytes bound instead.
 //
 // Padding follows the forward. K4: keys past T are never formed (the
 // reference scores them 2*MASK_NEG: weight exactly 0). K5 / K6: the Tp - T
@@ -622,79 +645,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K5 bwd (ROTATE: one position stream rotated in the kernel) and K6 bwd
-// (two pre-rotated streams)
-// ---------------------------------------------------------------------------
-
-constexpr int kBQk = 32;  // bwd-kv query rows per tile
-constexpr int kBK2 = 64;  // bwd-kv keys per tile
-constexpr int kEC = 64;   // bwd-kv table columns staged at a time
-constexpr int kTS = kEC + 4;
-
-__device__ __forceinline__ float dot4(const float4& a, const float4& b,
-                                      float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// The rotated streams gA, gB of query rows i0 .. i0 + n - 1 into GA, GB
-// (n, ES), rounded to the stream dtype, exactly as the forward kernel
-// builds them; rows past Tq (and g_{i+1} past Tq) are zero rows.
-template <typename T>
-__device__ __forceinline__ void rotate_rows(float* GA, float* GB, int ES,
-                                            const T* g, size_t base_e,
-                                            size_t rse, int i0, int n, int Tq,
-                                            int E, float freq_coef) {
-  const int half = E / 2;
-  for (int i = threadIdx.x; i < n * half; i += kThreads) {
-    const int r = i / half, m = i % half, qi = i0 + r;
-    const VtXl2Angles ang = vt_xl2_angles(Tq, qi, m, freq_coef);
-    float ge = 0.f, go = 0.f, ne = 0.f, no = 0.f;
-    if (qi < Tq) {
-      const size_t off = base_e + (size_t)qi * rse + 2 * m;
-      ge = to_float(g[off]);
-      go = to_float(g[off + 1]);
-    }
-    if (qi + 1 < Tq) {
-      const size_t off = base_e + (size_t)(qi + 1) * rse + 2 * m;
-      ne = to_float(g[off]);
-      no = to_float(g[off + 1]);
-    }
-    const float2 a2 = vt_rot(ge, go, ang.ca, ang.sa);
-    const float2 b2 = vt_rot(ne, no, ang.cb, ang.sb);
-    GA[r * ES + 2 * m] = to_stream<T>(a2.x);
-    GA[r * ES + 2 * m + 1] = to_stream<T>(a2.y);
-    GB[r * ES + 2 * m] = to_stream<T>(b2.x);
-    GB[r * ES + 2 * m + 1] = to_stream<T>(b2.y);
-  }
-}
-
-// Columns e0 .. e0 + 63 of table rows j0 .. j0 + 63 into TS (64, kTS).
-template <typename T>
-__device__ __forceinline__ void load_table_chunk(float* TS, const T* table,
-                                                 int j0, int e0, int Tq,
-                                                 int E) {
-  for (int i = threadIdx.x; i < kBK2 * kEC; i += kThreads) {
-    const int r = i / kEC, e = i % kEC;
-    TS[r * kTS + e] =
-        (j0 + r < Tq) ? to_float(table[(size_t)(j0 + r) * E + e0 + e]) : 0.f;
-  }
-}
-
-template <int D>
-size_t xl2_bwd_kv_smem_bytes(int E) {
-  // GA, GB (32, E+4); QC, GS (32, D+4); KS, VS (64, D+4); TS (64, 68);
-  // Pt, dSt (64, 33); lse, delta (32); dead (64)
-  return sizeof(float) * (2 * kBQk * (E + 4) + 2 * kBQk * (D + 4) +
-                          2 * kBK2 * (D + 4) + kBK2 * kTS +
-                          2 * kBK2 * (kBQk + 1) + 2 * kBQk + kBK2);
-}
-
-// ---------------------------------------------------------------------------
-// K5 / K6 bwd-q on the tensor cores: Q1 (pos, then ds and dqc) and Q2 (dgA,
-// dgB), with K5's rotations before and after (see the header)
+// K5 / K6 backward on the tensor cores: Q1 (pos, then ds, dqc and P) and Q2
+// (dgA, dgB), with K5's rotations before and after, then bwd-kv and dtab
+// from Q1's scratches (see the header)
 // ---------------------------------------------------------------------------
 
 constexpr int kTC = 64;           // Q1 ds: query rows and keys a tile; Q2: table columns
@@ -707,13 +660,23 @@ constexpr int kPosThreads = (kPosBM / 32) * (kPosBN / 32) * 32;
 constexpr int kQ2BM = 64, kQ2Stages = 2;
 constexpr int kMaxGridZ = 65535;  // a grid's z limit
 constexpr int kQ2Threads = (kQ2BM / 32) * (kTC / 32) * 32;
+// bwd-kv: keys a block, query rows a stage, cp.async stages; eight warps,
+// (dv or dk) x (32-key half) x (half of D)
+constexpr int kKvBN = 64, kKvBQ = 32, kKvStages = 3;
+constexpr int kKvThreads = 256;
+// dtab: keys a block (by kTC table columns; a warp a 32 x 32 tile), query
+// rows a stage, cp.async stages
+constexpr int kDtBN = 64, kDtBQ = 32, kDtStages = 2;
+constexpr int kDtThreads = (kDtBN / 32) * (kTC / 32) * 32;
 // S's row length Ts: T rounded up to a multiple of every key tile
 constexpr int kTsAlign = 128;
-static_assert(kTsAlign % kPosBN == 0 && kTsAlign % kTC == 0, "Ts covers whole key tiles");
+static_assert(kTsAlign % kPosBN == 0 && kTsAlign % kTC == 0 && kTsAlign % kKvBN == 0 &&
+                  kTsAlign % kDtBN == 0,
+              "Ts covers whole key tiles");
 
 
-// The scratch of ds (and first of the position logits): (B, H, T, Ts), Ts
-// the key tiles' cover of T.
+// The scratch of ds (and first of the position logits), and bwd-kv's of
+// P: (B, H, T, Ts), Ts the key tiles' cover of T.
 inline int ds_cols(int Tq) { return (Tq + kTsAlign - 1) / kTsAlign * kTsAlign; }
 
 // Shared memory of each kernel.
@@ -734,6 +697,36 @@ constexpr size_t xl2_bwd_dg_smem_bytes() {
   // (32, 64)
   return kQ2Stages * (sizeof(float) * kQ2BM * tile_ld(kKC) +
                       sizeof(T) * kKC * tile_ld_nn<T, kTC>());
+}
+template <typename T, int D>
+constexpr size_t xl2_bwd_kv_smem_bytes() {
+  // kKvStages stages of the P and ds tiles (kKvBQ, kKvBN) fp32 and the g
+  // and qc rows (kKvBQ, D)
+  return kKvStages * kKvBQ * (2 * sizeof(float) * tile_ld_nn<float, kKvBN>() +
+                              2 * sizeof(T) * tile_ld_nn<T, D>());
+}
+template <typename T>
+constexpr size_t xl2_bwd_dtab_smem_bytes() {
+  // kDtStages stages of the ds tile (kDtBQ, kDtBN) fp32 and the gA, gB
+  // rows (kDtBQ, 64 columns)
+  return kDtStages * kDtBQ * (sizeof(float) * tile_ld_nn<float, kDtBN>() +
+                              2 * sizeof(T) * tile_ld_nn<T, kTC>());
+}
+
+// The A fragment (16 x 8) at rows m0.., depths k0.. of A = X^T, from a
+// tile X staged with the depth as its rows (ld fp32 words a row): lane
+// (g, t) gets rows g and g + 8 at depths k0 + 2t and k0 + 2t + 1, in
+// frag_a's slots (g, t), (g+8, t), (g, t+4), (g+8, t+4). Four scalar
+// loads; an ld of 4 mod 16 words (tile_ld_nn) puts the 32 lanes of each
+// on distinct banks.
+__device__ __forceinline__ void load_a_t(const float* X, int ld, int m0, int k0,
+                                         int lane, float x[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = X + (k0 + 2 * t) * ld + m0 + g;
+  x[0] = p[0];
+  x[1] = p[8];
+  x[2] = p[ld];
+  x[3] = p[ld + 8];
 }
 
 
@@ -853,16 +846,21 @@ __global__ void __launch_bounds__(kPosThreads)
 // the accumulators' layout, written over the logits in S, and dqc += ds k
 // with ds as the A operand straight from the registers: the key order
 // inside each 8-key step is permuted (slot t <-> key 2t, slot t+4 <-> key
-// 2t+1) so that the accumulator layout is the A fragment's.
-template <typename T, int D>
+// 2t+1) so that the accumulator layout is the A fragment's. WITH_P (bwd-kv
+// follows) it also writes P = p m / keep, rounded to the stream dtype,
+// into a second scratch shaped like S: a batch row whose keys are all
+// padding gets the uniform weight m / Tp (the dense gradient) at every key
+// below T; keys past T get 0. (A template flag, so that bwd-q alone runs
+// the kernel without the P path's code.)
+template <typename T, int D, bool WITH_P>
 __global__ void __launch_bounds__(kTCThreads)
     xl2_bwd_q1_ds_kernel(const T* __restrict__ qc, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ g,
                          const float* __restrict__ pad,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, float* __restrict__ S,
-                         float* __restrict__ dqc, int H, int Tq, int Ts,
-                         float scale, DropArgs drop) {
+                         float* __restrict__ P, float* __restrict__ dqc, int H,
+                         int Tq, int Ts, int Tp, float scale, DropArgs drop) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int LD = tile_ld(D);
@@ -879,6 +877,9 @@ __global__ void __launch_bounds__(kTCThreads)
   const float* padb = pad + (size_t)b * Tq;
   const size_t rbase = ((size_t)b * H + h) * Tq;
   float* Sb = S + rbase * Ts;
+  float* Pb = WITH_P ? P + rbase * Ts : nullptr;
+  const bool all_dead = WITH_P && row_all_dead(padb, Tq);
+  const float p_uniform = 1.f / (float)Tp;  // a fully padded row's weight
   const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g4 = lane >> 2, t4 = lane & 3;
@@ -963,7 +964,7 @@ __global__ void __launch_bounds__(kTCThreads)
       }
     }
 
-    // ds (0 at dead keys and rows past T), in the accumulator layout
+    // ds (0 at dead keys and rows past T) and P, in the accumulator layout
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni) {
       const int kj = j0 + ni * 8 + 2 * t4;
@@ -971,22 +972,34 @@ __global__ void __launch_bounds__(kTCThreads)
 #pragma unroll
       for (int q = 0; q < 2; ++q)
         dead[q] = kj + q >= Tq || padb[kj + q] > 0.5f;
+      float pv[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int hf = c >> 1, q = c & 1;
         float ds = 0.f;
-        if (!dead[q] && qi[hf] < Tq) {
-          const float pr = expf(s[ni][c] * scale - lse_r[hf]);
+        pv[c] = 0.f;
+        if (qi[hf] < Tq && (!dead[q] || (all_dead && kj + q < Tq))) {
           const float m = keep_scale(drop, drop_key, qi[hf], kj + q);
-          ds = to_stream<T>(pr * (dp[ni][c] * m - del_r[hf]) * scale);
+          if (dead[q]) {
+            pv[c] = to_stream<T>(p_uniform * m);
+          } else {
+            const float pr = expf(s[ni][c] * scale - lse_r[hf]);
+            ds = to_stream<T>(pr * (dp[ni][c] * m - del_r[hf]) * scale);
+            pv[c] = to_stream<T>(pr * m);
+          }
         }
         s[ni][c] = ds;
       }
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        if (qi[hf] < Tq)
-          *reinterpret_cast<float2*>(&Sb[(size_t)qi[hf] * Ts + kj]) =
-              make_float2(s[ni][2 * hf], s[ni][2 * hf + 1]);
+      for (int hf = 0; hf < 2; ++hf) {
+        if (qi[hf] >= Tq) continue;
+        const size_t off = (size_t)qi[hf] * Ts + kj;
+        *reinterpret_cast<float2*>(&Sb[off]) =
+            make_float2(s[ni][2 * hf], s[ni][2 * hf + 1]);
+        if constexpr (WITH_P)
+          *reinterpret_cast<float2*>(&Pb[off]) =
+              make_float2(pv[2 * hf], pv[2 * hf + 1]);
+      }
     }
 
     // dqc += ds k: key step ni holds keys j0 + 8 ni + (2t, 2t+1) in slots
@@ -1162,231 +1175,247 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ga, gb as in launch_xl2_bwd_q.
-template <typename T, int D, bool ROTATE>
-__global__ void __launch_bounds__(kThreads)
-    xl2_bwd_kv_kernel(const T* __restrict__ qc, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ ga,
-                      const T* __restrict__ gb, const T* __restrict__ table,
-                      const T* __restrict__ g,
-                      const float* __restrict__ pad,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv_out,
-                      float* __restrict__ dtab_part, int H, int Tq, int Tp,
-                      int E, float scale, float freq_coef, DropArgs drop) {
+// bwd-kv: dv_j = sum_i P_ij g_i and dk_j = sum_i ds_ij qc_i over every
+// query row i, from the scratches Q1 ds writes (P = p m / keep and ds, both
+// (B, H, T, Ts) fp32, already rounded to the stream dtype): no position
+// product, no exp, no dropout hash, no rotation. One block a (kKvBN-key
+// tile, head, batch row) walks the kKvBQ-row query chunks, the P and ds
+// tiles and the g and qc rows staged by cp.async kKvStages deep. Each
+// product is m16n8k8 with the keys as M: the A fragment is the staged
+// (query, key) tile read transposed (load_a_t), the B fragment the staged
+// (query, feature) rows. Warp w forms dv (w < 4, from P and g) or dk (from
+// ds and qc) for keys 32 ((w >> 1) & 1) .. + 31 and features
+// (D / 2) (w & 1) .. + D / 2 - 1.
+template <typename T, int D>
+__global__ void __launch_bounds__(kKvThreads)
+    xl2_bwd_kv_kernel(const T* __restrict__ qc, const T* __restrict__ g,
+                      const float* __restrict__ S, const float* __restrict__ P,
+                      float* __restrict__ dk, float* __restrict__ dv, int H,
+                      int Tq, int Ts) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int DS = D + 4;
-  constexpr int SP = kBQk + 1;
-  constexpr int DJ = D / 16;
-  const int ES = E + 4;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LDA = tile_ld_nn<float, kKvBN>();
+  constexpr int LDB = tile_ld_nn<T, D>();
+  constexpr int TA = kKvBQ * LDA, TB = kKvBQ * LDB;
+  constexpr int NI = D / 16;  // 8-feature steps a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* As = reinterpret_cast<float*>(smem_raw);          // [stage][P, ds]
+  T* Bs = reinterpret_cast<T*>(As + kKvStages * 2 * TA);   // [stage][g, qc]
 
-  extern __shared__ __align__(16) float smem[];
-  float* GA = smem;
-  float* GB = GA + kBQk * ES;
-  float* QC = GB + kBQk * ES;
-  float* GS = QC + kBQk * DS;
-  float* KS = GS + kBQk * DS;
-  float* VS = KS + kBK2 * DS;
-  float* TS = VS + kBK2 * DS;
-  float* Pt = TS + kBK2 * kTS;  // (key, query): p * m / keep
-  float* dSt = Pt + kBK2 * SP;  // (key, query): ds
-  float* lse_s = dSt + kBK2 * SP;
-  float* del_s = lse_s + kBQk;
-  float* dead_s = del_s + kBQk;
-
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * kBK2;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int j0 = blockIdx.x * kKvBN, h = blockIdx.y, b = blockIdx.z;
   const size_t rs = (size_t)H * D;
   const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
-  const size_t rse = (size_t)H * E;
-  const size_t base_e = (size_t)b * Tq * rse + (size_t)h * E;
-  const float* padb = pad + (size_t)b * Tq;
-  const size_t rbase = ((size_t)b * H + h) * Tq;
-  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
-  const float p_uniform = 1.f / (float)Tp;  // a fully padded row's weight
-  // this block's (64, E) slice of the dt partials (B * H, T, E), or null
-  float* tpart = dtab_part == nullptr
-                     ? nullptr
-                     : dtab_part + ((size_t)b * H + h) * Tq * E;
+  const size_t soff = ((size_t)b * H + h) * Tq * Ts;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int prod = warp >> 2;  // 0: dv, 1: dk
+  const int wm = ((warp >> 1) & 1) * 32, wn = (warp & 1) * (D / 2);
+  const int g4 = lane >> 2, t4 = lane & 3;
 
-  const bool all_dead = row_all_dead(padb, Tq);
+  auto stage = [&](int s, int i0) {
+    float* a = As + s * 2 * TA;
+    T* bm = Bs + s * 2 * TB;
+    cp_tile<float, kKvBQ, kKvBN, kKvThreads>(a, LDA, P + soff, Ts, i0, Tq, j0);
+    cp_tile<float, kKvBQ, kKvBN, kKvThreads>(a + TA, LDA, S + soff, Ts, i0, Tq, j0);
+    cp_tile<T, kKvBQ, D, kKvThreads>(bm, LDB, g + base, rs, i0, Tq, 0);
+    cp_tile<T, kKvBQ, D, kKvThreads>(bm + TB, LDB, qc + base, rs, i0, Tq, 0);
+  };
 
-  load_rows(KS, DS, k, base, rs, j0, kBK2, Tq, D);
-  load_rows(VS, DS, v, base, rs, j0, kBK2, Tq, D);
-  load_dead(dead_s, padb, j0, kBK2, Tq);
+  float acc[2][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
 
-  // scores: queries 2 ty + a, keys tx + 16 c; accumulators: keys 4 ty + i,
-  // features tx + 16 j
-  const int ty = tid / 16, tx = tid % 16;
-  float acc_k[4][DJ], acc_v[4][DJ];
+  const int n_chunks = (Tq + kKvBQ - 1) / kKvBQ;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int s = 0; s < kKvStages - 1; ++s) {
+    if (s < n_chunks) stage(s, s * kKvBQ);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    cp_async_wait<kKvStages - 2>();
+    __syncthreads();  // chunk ch has landed; chunk ch - 1's stage is free
+    if (ch + kKvStages - 1 < n_chunks)
+      stage((ch + kKvStages - 1) % kKvStages, (ch + kKvStages - 1) * kKvBQ);
+    cp_async_commit();
+    const float* A = As + (ch % kKvStages) * 2 * TA + prod * TA;
+    const T* Bm = Bs + (ch % kKvStages) * 2 * TB + prod * TB;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  for (int i0 = 0; i0 < Tq; i0 += kBQk) {
-    const bool need_past = j0 <= i0 + kBQk - 1;
-    const bool need_fut = j0 + kBK2 - 1 >= i0 + 2;
-    __syncthreads();  // the previous tile's GA / GB / QC / GS / Pt are read
-    load_rows(QC, DS, qc, base, rs, i0, kBQk, Tq, D);
-    load_rows(GS, DS, g, base, rs, i0, kBQk, Tq, D);
-    load_row_stats(lse_s, del_s, lse, delta, rbase, i0, kBQk, Tq);
-    if constexpr (ROTATE) {
-      rotate_rows(GA, GB, ES, ga, base_e, rse, i0, kBQk, Tq, E, freq_coef);
-    } else {
-      load_rows(GA, ES, ga, base_e, rse, i0, kBQk, Tq, E);
-      load_rows(GB, ES, gb, base_e, rse, i0, kBQk, Tq, E);
-    }
-    __syncthreads();
-
-    float s[2][4], dv[2][4], pa[2][4], pb[2][4];
+    for (int k0 = 0; k0 < kKvBQ; k0 += 8) {
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
+      for (int mi = 0; mi < 2; ++mi) {
+        float x[4];
+        load_a_t(A, LDA, wm + mi * 16, k0, lane, x);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = dv[a][c] = pa[a][c] = pb[a][c] = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      float4 q4[2], g4[2];
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        q4[a] = *reinterpret_cast<const float4*>(&QC[(ty * 2 + a) * DS + d]);
-        g4[a] = *reinterpret_cast<const float4*>(&GS[(ty * 2 + a) * DS + d]);
+        for (int c = 0; c < 4; ++c) split_tf32<SPLIT>(x[c], ah[mi][c], al[mi][c]);
       }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = (tx + 16 * c) * DS + d;
-        const float4 k4 = *reinterpret_cast<const float4*>(&KS[row]);
-        const float4 v4 = *reinterpret_cast<const float4*>(&VS[row]);
+      for (int ni = 0; ni < NI; ++ni) {
+        uint32_t bhi[2], blo[2];
+        frag_b_nn<SPLIT>(Bm, LDB, wn + ni * 8, k0, lane, bhi, blo);
 #pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          s[a][c] = dot4(q4[a], k4, s[a][c]);
-          dv[a][c] = dot4(g4[a], v4, dv[a][c]);
-        }
-      }
-    }
-    for (int e0 = 0; e0 < E; e0 += kEC) {
-      __syncthreads();  // the previous chunk of TS is read
-      load_table_chunk(TS, table, j0, e0, Tq, E);
-      __syncthreads();
-#pragma unroll 4
-      for (int e = 0; e < kEC; e += 4) {
-        float4 t4[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          t4[c] = *reinterpret_cast<const float4*>(&TS[(tx + 16 * c) * kTS + e]);
-        if (need_past) {
-#pragma unroll
-          for (int a = 0; a < 2; ++a) {
-            const float4 a4 =
-                *reinterpret_cast<const float4*>(&GA[(ty * 2 + a) * ES + e0 + e]);
-#pragma unroll
-            for (int c = 0; c < 4; ++c) pa[a][c] = dot4(a4, t4[c], pa[a][c]);
-          }
-        }
-        if (need_fut) {
-#pragma unroll
-          for (int a = 0; a < 2; ++a) {
-            const float4 b4 =
-                *reinterpret_cast<const float4*>(&GB[(ty * 2 + a) * ES + e0 + e]);
-#pragma unroll
-            for (int c = 0; c < 4; ++c) pb[a][c] = dot4(b4, t4[c], pb[a][c]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int r = ty * 2 + a, qi = i0 + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx + 16 * c, kj = j0 + col;
-        float pv = 0.f, ds = 0.f;
-        if (qi < Tq && kj < Tq) {
-          const bool dead = dead_s[col] != 0.f;
-          const float m = keep_scale(drop, drop_key, qi, kj);
-          float pr;
-          if (all_dead) {
-            pr = p_uniform;  // the dense gradient (see the header)
-          } else if (dead) {
-            pr = 0.f;
-          } else {
-            const float pos =
-                kj <= qi ? pa[a][c] : (kj >= qi + 2 ? pb[a][c] : 0.f);
-            pr = expf((s[a][c] + pos) * scale - lse_s[r]);
-          }
-          pv = to_stream<T>(pr * m);
-          if (!dead) ds = to_stream<T>(pr * (dv[a][c] * m - del_s[r]) * scale);
-        }
-        Pt[col * SP + r] = pv;
-        dSt[col * SP + r] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < kBQk; ++r) {
-      float wp[4], ws[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        wp[i] = Pt[(ty * 4 + i) * SP + r];
-        ws[i] = dSt[(ty * 4 + i) * SP + r];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float gg = GS[r * DS + tx + 16 * j];
-        const float qq = QC[r * DS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc_v[i][j] = fmaf(wp[i], gg, acc_v[i][j]);
-          acc_k[i][j] = fmaf(ws[i], qq, acc_k[i][j]);
-        }
-      }
-    }
-    if (tpart != nullptr) {
-      // dt_j += sum_i dsA_ij gA_i + dsB_ij gB_i over this query tile; one
-      // thread owns each (key, column) of the block's slice
-      for (int idx = tid; idx < kBK2 * E; idx += kThreads) {
-        const int c = idx / E, e = idx % E, kj = j0 + c;
-        if (kj >= Tq) continue;
-        float sum = 0.f;
-        for (int r = 0; r < kBQk; ++r) {
-          const int qi = i0 + r;
-          const float w = dSt[c * SP + r];
-          if (kj <= qi)
-            sum = fmaf(w, GA[r * ES + e], sum);
-          else if (kj >= qi + 2)
-            sum = fmaf(w, GB[r * ES + e], sum);
-        }
-        tpart[(size_t)kj * E + e] += sum;
+        for (int mi = 0; mi < 2; ++mi) mma3<SPLIT>(acc[mi][ni], ah[mi], al[mi], bhi, blo);
       }
     }
   }
 
+  float* out = prod ? dk : dv;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = j0 + ty * 4 + i;
-    if (kj >= Tq) continue;
-    const size_t off = base + (size_t)kj * rs;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk[off + tx + 16 * j] = acc_k[i][j];
-      dv_out[off + tx + 16 * j] = acc_v[i][j];
+    for (int hf = 0; hf < 2; ++hf) {
+      const int kj = j0 + wm + mi * 16 + g4 + 8 * hf;
+      if (kj >= Tq) continue;
+      float* row = out + base + (size_t)kj * rs + wn + 2 * t4;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        *reinterpret_cast<float2*>(row + ni * 8) =
+            make_float2(acc[mi][ni][2 * hf], acc[mi][ni][2 * hf + 1]);
     }
+}
+
+// One 8-row depth step of the dtab kernel: acc += (ds o mask)^T rows, the
+// rows (gA or gB) staged at Bm. x holds the step's two ds fragments (as
+// load_a_t reads them); slot c of fragment mi is the pair at key - query =
+// rel + 16 mi + 8 (c & 1) - (c >> 1), zeroed (with edge) where the past
+// (key <= query) or the future (key >= query + 2) mask is off.
+template <bool SPLIT, typename T>
+__device__ __forceinline__ void dtab_step(float (&acc)[2][4][4],
+                                          const float (&x)[2][4], const T* Bm,
+                                          int ldb, int wn, int k0, int lane,
+                                          int rel, bool edge, bool fut) {
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float y = x[mi][c];
+      if (edge) {
+        const int r = rel + 16 * mi + 8 * (c & 1) - (c >> 1);
+        if (fut ? r < 2 : r > 0) y = 0.f;
+      }
+      split_tf32<SPLIT>(y, ah[mi][c], al[mi][c]);
+    }
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    uint32_t bhi[2], blo[2];
+    frag_b_nn<SPLIT>(Bm, ldb, wn + ni * 8, k0, lane, bhi, blo);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) mma3<SPLIT>(acc[mi][ni], ah[mi], al[mi], bhi, blo);
   }
 }
 
-// dt (T, E) = the sum of the per-(b, h) partials.
+// dtab_j = sum over (b, h) and query rows i of dsA_ij gA_i + dsB_ij gB_i,
+// from Q1's ds scratch and the rotated streams (K5: bwd-q's gab; K6: its
+// inputs): a tensor-core product with the keys as M, the table columns as
+// N and the (b, h, query) rows as the contraction, ds masked to j <= i
+// (past) or j >= i + 2 (future) as its fragments load. One block a
+// (kDtBN-key tile, kTC-column tile, share of bh_per (b, h)), four warps of
+// 32 keys x 32 columns; it walks the kDtBQ-row query chunks of each of its
+// (b, h), staging the ds tile and only the gA / gB rows that the chunk's
+// masks reach by cp.async kDtStages deep. part: this share's sum, partial
+// blockIdx.z of (n_split, T, E).
+template <typename T>
+__global__ void __launch_bounds__(kDtThreads)
+    xl2_bwd_dtab_kernel(const float* __restrict__ S, const T* __restrict__ ga,
+                        const T* __restrict__ gb, float* __restrict__ part,
+                        int BH, int bh_per, int H, int Tq, int Ts, int E) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LDA = tile_ld_nn<float, kDtBN>();
+  constexpr int LDB = tile_ld_nn<T, kTC>();
+  constexpr int TA = kDtBQ * LDA, TB = kDtBQ * LDB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* As = reinterpret_cast<float*>(smem_raw);         // [stage] ds
+  T* Bs = reinterpret_cast<T*>(As + kDtStages * TA);      // [stage][gA, gB]
+
+  const int j0 = blockIdx.x * kDtBN, e0 = blockIdx.y * kTC;
+  const int bh_lo = blockIdx.z * bh_per;
+  const int n_bh = min(BH - bh_lo, bh_per);
+  const int nq = (Tq + kDtBQ - 1) / kDtBQ;
+  const int n_chunks = n_bh * nq;
+  const size_t rse = (size_t)H * E;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / (kTC / 32) * 32, wn = warp % (kTC / 32) * 32;
+  const int g4 = lane >> 2, t4 = lane & 3;
+
+  // chunk c: (b, h) = bh_lo + c / nq, query rows i0 = kDtBQ (c % nq) ..;
+  // the past term reaches it when some i >= j0, the future one when some
+  // i <= j0 + kDtBN - 3
+  auto stage = [&](int s, int c) {
+    const int bh = bh_lo + c / nq, i0 = (c % nq) * kDtBQ;
+    const size_t base_e = (size_t)(bh / H) * Tq * rse + (size_t)(bh % H) * E;
+    T* bm = Bs + s * 2 * TB;
+    cp_tile<float, kDtBQ, kDtBN, kDtThreads>(As + s * TA, LDA, S + (size_t)bh * Tq * Ts,
+                                            Ts, i0, Tq, j0);
+    if (i0 + kDtBQ - 1 >= j0)
+      cp_tile<T, kDtBQ, kTC, kDtThreads>(bm, LDB, ga + base_e, rse, i0, Tq, e0);
+    if (i0 <= j0 + kDtBN - 3)
+      cp_tile<T, kDtBQ, kTC, kDtThreads>(bm + TB, LDB, gb + base_e, rse, i0, Tq, e0);
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kDtStages - 1; ++s) {
+    if (s < n_chunks) stage(s, s);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    cp_async_wait<kDtStages - 2>();
+    __syncthreads();  // chunk ch has landed; chunk ch - 1's stage is free
+    if (ch + kDtStages - 1 < n_chunks)
+      stage((ch + kDtStages - 1) % kDtStages, ch + kDtStages - 1);
+    cp_async_commit();
+    const int i0 = (ch % nq) * kDtBQ;
+    const bool past = i0 + kDtBQ - 1 >= j0, fut = i0 <= j0 + kDtBN - 3;
+    // chunks across the diagonal mask their ds as the fragments load
+    const bool edge_past = j0 + kDtBN - 1 > i0, edge_fut = j0 < i0 + kDtBQ + 1;
+    const float* A = As + (ch % kDtStages) * TA;
+    const T* BA = Bs + (ch % kDtStages) * 2 * TB;
+#pragma unroll
+    for (int k0 = 0; k0 < kDtBQ; k0 += 8) {
+      float x[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) load_a_t(A, LDA, wm + mi * 16, k0, lane, x[mi]);
+      const int rel = j0 + wm + g4 - (i0 + k0 + 2 * t4);
+      if (past) dtab_step<SPLIT>(acc, x, BA, LDB, wn, k0, lane, rel, edge_past, false);
+      if (fut) dtab_step<SPLIT>(acc, x, BA + TB, LDB, wn, k0, lane, rel, edge_fut, true);
+    }
+  }
+
+  float* out = part + (size_t)blockIdx.z * Tq * E;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int kj = j0 + wm + mi * 16 + g4 + 8 * hf;
+      if (kj >= Tq) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        *reinterpret_cast<float2*>(&out[(size_t)kj * E + e0 + wn + ni * 8 + 2 * t4]) =
+            make_float2(acc[mi][ni][2 * hf], acc[mi][ni][2 * hf + 1]);
+    }
+}
+
+// dtab (T, E) = the sum of the dtab kernel's n_split partials.
 __global__ void __launch_bounds__(kThreads)
-    xl2_bwd_dtab_kernel(const float* __restrict__ dtab_part,
-                        float* __restrict__ dtab, int BH, int Tq, int E) {
+    xl2_bwd_dtab_sum_kernel(const float* __restrict__ part,
+                            float* __restrict__ dtab, int n_split, int Tq,
+                            int E) {
   const size_t n = (size_t)Tq * E;
   for (size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x; idx < n;
        idx += (size_t)gridDim.x * kThreads) {
     float sum = 0.f;
-    for (int bh = 0; bh < BH; ++bh) sum += dtab_part[(size_t)bh * n + idx];
+    for (int z = 0; z < n_split; ++z) sum += part[(size_t)z * n + idx];
     dtab[idx] = sum;
   }
 }
@@ -1439,39 +1468,32 @@ cudaError_t launch_xl3_bwd(const void* qc, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// K5 (ROTATE): rotate, Q1 pos, Q1 ds, Q2, unrotate; K6: Q1 pos, Q1 ds, Q2.
-// ga: K5's g2 or K6's gA; gb: K6's gB. dg: K5's dg2 or K6's dgA; dgb: K6's
-// dgB or K5's scratch for it. gab: K5's rotated streams (2, B, T, H, E) in
-// the stream dtype; s: the ds scratch (B, H, T, ds_cols(T)) fp32.
+// Q1: (K5, ROTATE) the rotation pass g2 -> gab, then Q1 pos and Q1 ds.
+// ga: K5's g2 or K6's gA; gb: K6's gB. gab: K5's rotated streams
+// (2, B, T, H, E) in the stream dtype; s, p: the scratches
+// (B, H, T, ds_cols(T)) fp32, p null when no bwd-kv follows.
 template <typename T, int D, bool ROTATE>
-cudaError_t launch_xl2_bwd_q(const void* qc, const void* k, const void* v,
-                             const void* ga, const void* gb,
-                             const void* table, const void* g,
-                             const float* pad, const float* lse,
-                             const float* delta, float* dqc, float* dg,
-                             float* dgb, void* gab, float* s, int B, int Tq,
-                             int H, int E, float scale, DropArgs drop,
-                             cudaStream_t stream) {
+cudaError_t launch_xl2_bwd_q1(const void* qc, const void* k, const void* v,
+                              const void* ga, const void* gb,
+                              const void* table, const void* g,
+                              const float* pad, const float* lse,
+                              const float* delta, float* dqc, void* gab,
+                              float* s, float* p, int B, int Tq, int Tp, int H,
+                              int E, float scale, DropArgs drop,
+                              cudaStream_t stream) {
   constexpr size_t smem_pos = xl2_bwd_pos_smem_bytes<T>();
   constexpr size_t smem_ds = xl2_bwd_ds_smem_bytes<T, D>();
-  constexpr size_t smem_dg = xl2_bwd_dg_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       xl2_bwd_q1_pos_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_pos);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(xl2_bwd_q1_ds_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto ds_kernel = p == nullptr ? xl2_bwd_q1_ds_kernel<T, D, false>
+                                      : xl2_bwd_q1_ds_kernel<T, D, true>;
+  err = cudaFuncSetAttribute(ds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_ds);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(xl2_bwd_q2_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_dg);
-  if (err != cudaSuccess) return err;
-  const float freq_coef = (float)(-2.0 * log(10000.0) / (double)E);
-  const size_t n_pairs = (size_t)B * Tq * H * (E / 2);
   const T* GA = static_cast<const T*>(ga);
   const T* GB = static_cast<const T*>(gb);
-  const T* Tab = static_cast<const T*>(table);
   if constexpr (ROTATE) {
     T* ra = static_cast<T*>(gab);
     T* rb = ra + (size_t)B * Tq * H * E;
@@ -1481,63 +1503,89 @@ cudaError_t launch_xl2_bwd_q(const void* qc, const void* k, const void* v,
     GB = rb;
   }
   const int Ts = ds_cols(Tq), BH = B * H;
-  // Q1 pos and Q2 put (b, h) on grid.z: one launch for each kMaxGridZ of
-  // them (one launch unless B * H passes 65535).
+  // Q1 pos, Q2 and dtab put (b, h) on grid.z: one launch for each
+  // kMaxGridZ of them (one launch unless B * H passes 65535).
   for (int bh0 = 0; bh0 < BH; bh0 += kMaxGridZ) {
     xl2_bwd_q1_pos_kernel<T>
         <<<dim3((Tq + kPosBN - 1) / kPosBN, (Tq + kPosBM - 1) / kPosBM,
                 BH - bh0 < kMaxGridZ ? BH - bh0 : kMaxGridZ),
-           kPosThreads, smem_pos, stream>>>(GA, GB, Tab, s, H, Tq, Ts, E, bh0);
+           kPosThreads, smem_pos, stream>>>(GA, GB, static_cast<const T*>(table), s,
+                                            H, Tq, Ts, E, bh0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  xl2_bwd_q1_ds_kernel<T, D>
-      <<<dim3((Tq + kTC - 1) / kTC, H, B), kTCThreads, smem_ds, stream>>>(
+  ds_kernel<<<dim3((Tq + kTC - 1) / kTC, H, B), kTCThreads, smem_ds, stream>>>(
           static_cast<const T*>(qc), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(g), pad, lse, delta,
-          s, dqc, H, Tq, Ts, scale, drop);
-  err = cudaGetLastError();
+          s, p, dqc, H, Tq, Ts, Tp, scale, drop);
+  return cudaGetLastError();
+}
+
+// Q2 and, for K5 (ROTATE), the inverse rotations. dg: K5's dg2 or K6's
+// dgA; dgb: K6's dgB or K5's scratch for it.
+template <typename T, bool ROTATE>
+cudaError_t launch_xl2_bwd_q2(const float* s, const void* table, float* dg,
+                              float* dgb, int B, int Tq, int H, int E,
+                              cudaStream_t stream) {
+  constexpr size_t smem_dg = xl2_bwd_dg_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(xl2_bwd_q2_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_dg);
   if (err != cudaSuccess) return err;
+  const int Ts = ds_cols(Tq), BH = B * H;
   for (int bh0 = 0; bh0 < BH; bh0 += kMaxGridZ) {
     xl2_bwd_q2_kernel<T>
         <<<dim3(2 * E / kTC, (Tq + kQ2BM - 1) / kQ2BM,
                 BH - bh0 < kMaxGridZ ? BH - bh0 : kMaxGridZ),
-           kQ2Threads, smem_dg, stream>>>(s, Tab, dg, dgb, H, Tq, Ts, E, bh0);
+           kQ2Threads, smem_dg, stream>>>(s, static_cast<const T*>(table), dg,
+                                          dgb, H, Tq, Ts, E, bh0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (!ROTATE) return cudaSuccess;
-  xl2_bwd_unrotate_kernel<<<grid_for(n_pairs), kThreads, 0, stream>>>(
-      dg, dgb, B, H, Tq, E, freq_coef);
+  const float freq_coef = (float)(-2.0 * log(10000.0) / (double)E);
+  xl2_bwd_unrotate_kernel<<<grid_for((size_t)B * Tq * H * (E / 2)), kThreads,
+                            0, stream>>>(dg, dgb, B, H, Tq, E, freq_coef);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool ROTATE>
-cudaError_t launch_xl2_bwd_kv(const void* qc, const void* k, const void* v,
-                              const void* ga, const void* gb,
-                              const void* table, const void* g,
-                              const float* pad, const float* lse,
-                              const float* delta, float* dk, float* dv,
-                              float* dtab_part, float* dtab, int B, int Tq,
-                              int Tp, int H, int E, float scale, DropArgs drop,
-                              cudaStream_t stream) {
-  const size_t smem = xl2_bwd_kv_smem_bytes<D>(E);
+template <typename T, int D>
+cudaError_t launch_xl2_bwd_kv(const void* qc, const void* g, const float* s,
+                              const float* p, float* dk, float* dv, int B,
+                              int Tq, int H, cudaStream_t stream) {
+  constexpr size_t smem = xl2_bwd_kv_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      xl2_bwd_kv_kernel<T, D, ROTATE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      xl2_bwd_kv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
-  const float freq_coef = (float)(-2.0 * log(10000.0) / (double)E);
-  xl2_bwd_kv_kernel<T, D, ROTATE><<<dim3((Tq + kBK2 - 1) / kBK2, H, B),
-                                    kThreads, smem, stream>>>(
-      static_cast<const T*>(qc), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(ga),
-      static_cast<const T*>(gb), static_cast<const T*>(table),
-      static_cast<const T*>(g), pad, lse, delta, dk, dv, dtab_part, H, Tq, Tp,
-      E, scale, freq_coef, drop);
+  xl2_bwd_kv_kernel<T, D>
+      <<<dim3((Tq + kKvBN - 1) / kKvBN, H, B), kKvThreads, smem, stream>>>(
+          static_cast<const T*>(qc), static_cast<const T*>(g), s, p, dk, dv, H,
+          Tq, ds_cols(Tq));
+  return cudaGetLastError();
+}
+
+// part: (n_split, T, E) fp32 scratch, unused when n_split is 1 (the
+// kernel then writes dtab itself).
+template <typename T>
+cudaError_t launch_xl2_bwd_dtab(const float* s, const void* ga, const void* gb,
+                                float* part, float* dtab, int n_split,
+                                int bh_per, int B, int Tq, int H, int E,
+                                cudaStream_t stream) {
+  constexpr size_t smem = xl2_bwd_dtab_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      xl2_bwd_dtab_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  float* out = n_split == 1 ? dtab : part;
+  xl2_bwd_dtab_kernel<T>
+      <<<dim3((Tq + kDtBN - 1) / kDtBN, E / kTC, n_split), kDtThreads, smem,
+         stream>>>(s, static_cast<const T*>(ga), static_cast<const T*>(gb), out,
+                   B * H, bh_per, H, Tq, ds_cols(Tq), E);
   err = cudaGetLastError();
-  if (err != cudaSuccess || dtab_part == nullptr) return err;
-  xl2_bwd_dtab_kernel<<<grid_for((size_t)Tq * E), kThreads, 0, stream>>>(
-      dtab_part, dtab, B * H, Tq, E);
+  if (err != cudaSuccess || n_split == 1) return err;
+  xl2_bwd_dtab_sum_kernel<<<grid_for((size_t)Tq * E), kThreads, 0, stream>>>(
+      part, dtab, n_split, Tq, E);
   return cudaGetLastError();
 }
 
@@ -1546,85 +1594,21 @@ bool bad_args(int B, int T, int H, double dropout_p) {
          H >= 65536 || !(dropout_p >= 0.0 && dropout_p < 1.0);
 }
 
-// E a multiple of 64 whose bwd-kv shared memory fits a block at head dim D
-// (bwd-q's does not depend on E).
-bool bad_e(int E, int D) {
-  if (E <= 0 || E % kEC != 0) return true;
-  const size_t kv = D == 128 ? xl2_bwd_kv_smem_bytes<128>(E)
-                             : xl2_bwd_kv_smem_bytes<64>(E);
-  return kv > 232448;
+// ... and for K5 / K6, whose kernels index (b, h) as one int (no such
+// batch fits the card)
+bool bad_xl_args(int B, int T, int H, double dropout_p) {
+  return bad_args(B, T, H, dropout_p) || (long long)B * H > INT_MAX - kMaxGridZ;
 }
 
-// One K5 (ROTATE) or K6 bwd-q call at the built head dims: 48 and 64, and
-// 128 for K6 (the JETS conformer's legacy rel-pos flavour).
-template <bool ROTATE>
-int xl2_bwd_q_entry(const void* qc, const void* k, const void* v,
-                    const void* ga, const void* gb, const void* table,
-                    const void* g, const float* pad, const float* lse,
-                    const float* delta, float* dqc, float* dg, float* dgb,
-                    void* gab, float* s, int B, int T, int H, int D, int E,
-                    int is_bf16, float scale, double dropout_p, uint64_t seed,
-                    void* stream) {
-  if (bad_args(B, T, H, dropout_p) || bad_e(E, D) ||
-      (long long)B * H > INT_MAX - kMaxGridZ)  // int (b, h); no such batch fits
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const DropArgs drop = drop_args(dropout_p, seed);
-#define VT_XL2Q(TYPE, DIM)                                                  \
-  launch_xl2_bwd_q<TYPE, DIM, ROTATE>(qc, k, v, ga, gb, table, g, pad, lse, \
-                                      delta, dqc, dg, dgb, gab, s, B, T, H, \
-                                      E, scale, drop, st)
-  switch (D * 2 + (is_bf16 ? 1 : 0)) {
-    case 96: return (int)VT_XL2Q(float, 48);
-    case 97: return (int)VT_XL2Q(__nv_bfloat16, 48);
-    case 128: return (int)VT_XL2Q(float, 64);
-    case 129: return (int)VT_XL2Q(__nv_bfloat16, 64);
-    default: break;
-  }
-  if constexpr (!ROTATE) {
-    switch (D * 2 + (is_bf16 ? 1 : 0)) {
-      case 256: return (int)VT_XL2Q(float, 128);
-      case 257: return (int)VT_XL2Q(__nv_bfloat16, 128);
-      default: break;
-    }
-  }
-  return (int)cudaErrorInvalidValue;
-#undef VT_XL2Q
-}
+// No kernel's shared memory depends on E; Q2 and dtab take 64-column table
+// tiles. 512 is the widest table the card tests hold.
+constexpr int kMaxEBwd = 512;
+bool bad_e(int E) { return E <= 0 || E % kTC != 0 || E > kMaxEBwd; }
 
-// One K5 (ROTATE) or K6 bwd-kv launch, head dims as xl2_bwd_q_entry.
-template <bool ROTATE>
-int xl2_bwd_kv_entry(const void* qc, const void* k, const void* v,
-                     const void* ga, const void* gb, const void* table,
-                     const void* g, const float* pad, const float* lse,
-                     const float* delta, float* dk, float* dv,
-                     float* dtab_part, float* dtab, int B, int T, int Tp,
-                     int H, int D, int E, int is_bf16, float scale,
-                     double dropout_p, uint64_t seed, void* stream) {
-  if (bad_args(B, T, H, dropout_p) || bad_e(E, D) || Tp < T)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DropArgs drop = drop_args(dropout_p, seed);
-#define VT_XL2KV(TYPE, DIM)                                                 \
-  launch_xl2_bwd_kv<TYPE, DIM, ROTATE>(qc, k, v, ga, gb, table, g, pad, lse, \
-                                       delta, dk, dv, dtab_part, dtab, B, T, \
-                                       Tp, H, E, scale, drop, s)
-  switch (D * 2 + (is_bf16 ? 1 : 0)) {
-    case 96: return (int)VT_XL2KV(float, 48);
-    case 97: return (int)VT_XL2KV(__nv_bfloat16, 48);
-    case 128: return (int)VT_XL2KV(float, 64);
-    case 129: return (int)VT_XL2KV(__nv_bfloat16, 64);
-    default: break;
-  }
-  if constexpr (!ROTATE) {
-    switch (D * 2 + (is_bf16 ? 1 : 0)) {
-      case 256: return (int)VT_XL2KV(float, 128);
-      case 257: return (int)VT_XL2KV(__nv_bfloat16, 128);
-      default: break;
-    }
-  }
-  return (int)cudaErrorInvalidValue;
-#undef VT_XL2KV
+// The built head dims: 48 and 64, and 128 for K6 (the JETS conformer's
+// legacy rel-pos flavour); key = 2 D + is_bf16.
+bool bad_head(int D, bool rotate) {
+  return !(D == 48 || D == 64 || (D == 128 && !rotate));
 }
 
 }  // namespace
@@ -1660,70 +1644,101 @@ int vt_flash_xl3_bwd(const void* qc, const void* k, const void* v,
 #undef VT_XL3B
 }
 
-// K5 bwd-q. qc, k, v, g: (B, T, H, D); g2: (B, T, H, E) the forward's
-// unrotated position stream; table: (T, E); all one dtype. pad, lse, delta,
-// dropout_p, seed as K4 bwd. Outputs, fp32: dqc (B, T, H, D), dg2
-// (B, T, H, E). Scratch: gab (2, B, T, H, E) in the stream dtype, dgb
-// (B, T, H, E) fp32, s (B, H, T, 128 * ceil(T / 128)) fp32. E a multiple of
-// 64. Returns the first cudaError_t of the five launches.
-int vt_flash_xl2_bwd_q(const void* qc, const void* k, const void* v,
-                       const void* g2, const void* table, const void* g,
-                       const float* pad, const float* lse, const float* delta,
-                       float* dqc, float* dg2, void* gab, float* dgb, float* s,
-                       int B, int T, int H, int D, int E, int is_bf16,
-                       float scale, double dropout_p, uint64_t seed,
-                       void* stream) {
-  return xl2_bwd_q_entry<true>(qc, k, v, g2, nullptr, table, g, pad, lse,
-                               delta, dqc, dg2, dgb, gab, s, B, T, H, D, E,
-                               is_bf16, scale, dropout_p, seed, stream);
+// The K5 (rotate = 1) / K6 backward in four stages that share the scratch
+// s and bwd-kv's p, (B, H, T, 128 * ceil(T / 128)) fp32 each: Q1, then Q2
+// (bwd-q's dg), bwd-kv (dk, dv) and dtab in any order. Streams qc, k, v, g
+// (the cotangent): (B, T, H, D); K5's g2 (ga; gb null) or K6's gA, gB:
+// (B, T, H, E); table (T, E); all one dtype, E a multiple of 64 up to 512,
+// D in {48, 64} (K6 also 128). pad, lse, delta, dropout_p, seed as K4 bwd;
+// Tp >= T the forward's padded length (the keys in [T, Tp) are virtual).
+//
+// Q1: dqc (B, T, H, D) fp32; K5 writes its rotated streams into gab
+// (2, B, T, H, E), stream dtype; p null when no bwd-kv follows. Returns
+// the first cudaError_t of its launches.
+int vt_xl_bwd_q1(const void* qc, const void* k, const void* v, const void* ga,
+                 const void* gb, const void* table, const void* g,
+                 const float* pad, const float* lse, const float* delta,
+                 float* dqc, void* gab, float* s, float* p, int B, int T,
+                 int Tp, int H, int D, int E, int is_bf16, int rotate,
+                 float scale, double dropout_p, uint64_t seed, void* stream) {
+  if (bad_xl_args(B, T, H, dropout_p) || bad_e(E) || bad_head(D, rotate) || Tp < T)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const DropArgs drop = drop_args(dropout_p, seed);
+#define VT_Q1(TYPE, DIM, ROT)                                                  \
+  launch_xl2_bwd_q1<TYPE, DIM, ROT>(qc, k, v, ga, gb, table, g, pad, lse,      \
+                                    delta, dqc, gab, s, p, B, T, Tp, H, E,     \
+                                    scale, drop, st)
+  switch (D * 4 + (is_bf16 ? 2 : 0) + (rotate ? 1 : 0)) {
+    case 192: return (int)VT_Q1(float, 48, false);
+    case 193: return (int)VT_Q1(float, 48, true);
+    case 194: return (int)VT_Q1(__nv_bfloat16, 48, false);
+    case 195: return (int)VT_Q1(__nv_bfloat16, 48, true);
+    case 256: return (int)VT_Q1(float, 64, false);
+    case 257: return (int)VT_Q1(float, 64, true);
+    case 258: return (int)VT_Q1(__nv_bfloat16, 64, false);
+    case 259: return (int)VT_Q1(__nv_bfloat16, 64, true);
+    case 512: return (int)VT_Q1(float, 128, false);
+    case 514: return (int)VT_Q1(__nv_bfloat16, 128, false);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VT_Q1
 }
 
-// K5 bwd-kv. Inputs as K5 bwd-q; Tp >= T the forward's padded length (the
-// keys in [T, Tp) are virtual). Outputs, fp32: dk, dv (B, T, H, D); with
-// dtab_part non-null (scratch (B * H, T, E) fp32, zero-filled by the
-// caller) also dtab (T, E).
-int vt_flash_xl2_bwd_kv(const void* qc, const void* k, const void* v,
-                        const void* g2, const void* table, const void* g,
-                        const float* pad, const float* lse,
-                        const float* delta, float* dk, float* dv,
-                        float* dtab_part, float* dtab, int B, int T, int Tp,
-                        int H, int D, int E, int is_bf16, float scale,
-                        double dropout_p, uint64_t seed, void* stream) {
-  return xl2_bwd_kv_entry<true>(qc, k, v, g2, nullptr, table, g, pad, lse,
-                                delta, dk, dv, dtab_part, dtab, B, T, Tp, H,
-                                D, E, is_bf16, scale, dropout_p, seed, stream);
+// Q2: dg (B, T, H, E) fp32, K5's dg2 or K6's dgA; dgb (same shape) K6's
+// dgB or K5's scratch.
+int vt_xl_bwd_q2(const float* s, const void* table, float* dg, float* dgb,
+                 int B, int T, int H, int E, int is_bf16, int rotate,
+                 void* stream) {
+  if (bad_xl_args(B, T, H, 0.0) || bad_e(E)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((is_bf16 ? 2 : 0) + (rotate ? 1 : 0)) {
+    case 0: return (int)launch_xl2_bwd_q2<float, false>(s, table, dg, dgb, B, T, H, E, st);
+    case 1: return (int)launch_xl2_bwd_q2<float, true>(s, table, dg, dgb, B, T, H, E, st);
+    case 2:
+      return (int)launch_xl2_bwd_q2<__nv_bfloat16, false>(s, table, dg, dgb, B, T, H, E, st);
+    default:
+      return (int)launch_xl2_bwd_q2<__nv_bfloat16, true>(s, table, dg, dgb, B, T, H, E, st);
+  }
 }
 
-// K6 bwd-q. qc, k, v, g: (B, T, H, D); gA, gB: (B, T, H, E) the forward's
-// pre-rotated streams; table: (T, E); all one dtype; D in {48, 64, 128}.
-// pad, lse, delta, dropout_p, seed as K4 bwd. Outputs, fp32: dqc
-// (B, T, H, D), dgA and dgB (B, T, H, E). Scratch: s as K5 bwd-q's.
-// Returns the first cudaError_t of the three launches.
-int vt_flash_xl_bwd_q(const void* qc, const void* k, const void* v,
-                      const void* ga, const void* gb, const void* table,
-                      const void* g, const float* pad, const float* lse,
-                      const float* delta, float* dqc, float* dga, float* dgb,
-                      float* s, int B, int T, int H, int D, int E, int is_bf16,
-                      float scale, double dropout_p, uint64_t seed,
-                      void* stream) {
-  return xl2_bwd_q_entry<false>(qc, k, v, ga, gb, table, g, pad, lse, delta,
-                                dqc, dga, dgb, nullptr, s, B, T, H, D, E,
-                                is_bf16, scale, dropout_p, seed, stream);
+// bwd-kv: dk, dv (B, T, H, D) fp32 from Q1's s and p and the streams qc, g.
+int vt_xl_bwd_kv(const void* qc, const void* g, const float* s, const float* p,
+                 float* dk, float* dv, int B, int T, int H, int D, int is_bf16,
+                 void* stream) {
+  if (bad_xl_args(B, T, H, 0.0) || bad_head(D, false)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VT_KV(TYPE, DIM) launch_xl2_bwd_kv<TYPE, DIM>(qc, g, s, p, dk, dv, B, T, H, st)
+  switch (D * 2 + (is_bf16 ? 1 : 0)) {
+    case 96: return (int)VT_KV(float, 48);
+    case 97: return (int)VT_KV(__nv_bfloat16, 48);
+    case 128: return (int)VT_KV(float, 64);
+    case 129: return (int)VT_KV(__nv_bfloat16, 64);
+    case 256: return (int)VT_KV(float, 128);
+    case 257: return (int)VT_KV(__nv_bfloat16, 128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VT_KV
 }
 
-// K6 bwd-kv. Inputs as K6 bwd-q, Tp as K5 bwd-kv. Outputs, fp32: dk, dv
-// (B, T, H, D); with dtab_part non-null (scratch (B * H, T, E) fp32,
-// zero-filled by the caller) also dtab (T, E).
-int vt_flash_xl_bwd_kv(const void* qc, const void* k, const void* v,
-                       const void* ga, const void* gb, const void* table,
-                       const void* g, const float* pad, const float* lse,
-                       const float* delta, float* dk, float* dv,
-                       float* dtab_part, float* dtab, int B, int T, int Tp,
-                       int H, int D, int E, int is_bf16, float scale,
-                       double dropout_p, uint64_t seed, void* stream) {
-  return xl2_bwd_kv_entry<false>(qc, k, v, ga, gb, table, g, pad, lse, delta,
-                                 dk, dv, dtab_part, dtab, B, T, Tp, H, D, E,
-                                 is_bf16, scale, dropout_p, seed, stream);
+// dtab (T, E) fp32 from Q1's s and the rotated streams ga, gb (K5: the two
+// halves of gab; K6: gA, gB), the (b, h) split into n_split shares of
+// bh_per; part: (n_split, T, E) fp32 scratch (unused, may be null, when
+// n_split is 1).
+int vt_xl_bwd_dtab(const float* s, const void* ga, const void* gb, float* part,
+                   float* dtab, int n_split, int bh_per, int B, int T, int H,
+                   int E, int is_bf16, void* stream) {
+  if (bad_xl_args(B, T, H, 0.0) || bad_e(E) || n_split < 1 || n_split > kMaxGridZ ||
+      bh_per < 1 || (long long)n_split * bh_per < (long long)B * H ||
+      (long long)(n_split - 1) * bh_per >= (long long)B * H ||
+      (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return (int)launch_xl2_bwd_dtab<__nv_bfloat16>(s, ga, gb, part, dtab, n_split, bh_per,
+                                                   B, T, H, E, st);
+  return (int)launch_xl2_bwd_dtab<float>(s, ga, gb, part, dtab, n_split, bh_per, B, T, H,
+                                         E, st);
 }
 
 const char* vt_error_string(int err) {

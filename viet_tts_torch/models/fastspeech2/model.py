@@ -207,7 +207,8 @@ class FastSpeech2(nn.Module):
         if block != "conformer":
             raise NotImplementedError(
                 f"building block {block!r}: the port has the conformer block; the "
-                "transformer block (nn/transformer.py) comes with the FS2 training slice")
+                "transformer (FFT) block, nn/transformer.py, is not ported yet "
+                "(ROADMAP.md section 1, item 12)")
         bconf = hp["building_block"]["conformer"]
         d_model = hp["encoder_hidden"]
         common = dict(

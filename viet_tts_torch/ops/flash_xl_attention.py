@@ -32,8 +32,12 @@ fp32 with the per-row logsumexp (B, H, T); ``xl3_bwd``, ``xl2_bwd_dq``,
 ``xl2_bwd_dkv``, ``xl_bwd_dq`` and ``xl_bwd_dkv`` the gradients in fp32:
 the kernel on CUDA tensors, the plain version (``*_plain``: the dense
 formulas, the JAX package's dense oracle on the padded inputs and its VJP)
-on CPU tensors, never one for the other. K6 also runs at D = 128 (the JETS
-conformer's width).
+on CPU tensors, never one for the other. ``xl2_bwd`` / ``xl_bwd`` run the
+whole K5 / K6 backward, bwd-q and bwd-kv on one set of scratches (bwd-kv
+reads the ds and p m / keep that bwd-q's first kernels write; its plain
+version ``xl_bwd_kv_plain`` does the same from their scratch layout), as
+the autograd functions do. K6 also runs at D = 128 (the JETS conformer's
+width).
 
 Padding, as the JAX wrappers do it:
 - xl3 appends zero rows up to tp (a multiple of 128), LEFT-pads p by
@@ -75,7 +79,9 @@ XL2_MAX_T = 1024  # pallas_attention.py:_XL2_MAX_T
 _HEAD_DIMS = (48, 64)  # head dims the kernels are built for
 _XL_HEAD_DIMS = (48, 64, 128)  # K6 also at the JETS width (legacy rel-pos)
 _MAX_E = 640  # the widest table the forwards take (their shared memory is E-free)
-_MAX_E_BWD = 512  # K5 / K6 bwd-kv keep two (32, E) tiles and more beside them
+# the widest table the backwards take: the widest their card tests hold (no
+# backward kernel's shared memory depends on E; ``kMaxEBwd`` in the source)
+_MAX_E_BWD = 512
 
 
 def xl3_padded_time(t: int) -> int:
@@ -354,21 +360,34 @@ def _bwd_dkv(qch, gh, gA, gB, p_v, ds, past, fut, T: int, want_dtab: bool):
     return dk, dv, dtab
 
 
+def _xl_dq(kh, tab, ds, past, fut):
+    """(dqc (B, T, H, D), dgA, dgB (B, H, T, E)) of the dense terms."""
+    zero = torch.zeros_like(ds)
+    dqc = torch.einsum("bhqk,bhkd->bqhd", ds, kh)
+    dgA = torch.einsum("bhqk,ke->bhqe", torch.where(past, ds, zero), tab)
+    dgB = torch.einsum("bhqk,ke->bhqe", torch.where(fut, ds, zero), tab)
+    return dqc, dgA, dgB
+
+
+def _xl2_dg2(dgA, dgB, rot):
+    """K5's dg2 (B, T, H, E): dg2_i = rot^-1(dgA_i) + rot^-1(dgB_{i-1}), row
+    i-1's gB having consumed g2_i."""
+    ca, sa, cb, sb = rot
+    dgB = _rotate(dgB, cb, -sb)
+    dg2 = _rotate(dgA, ca, -sa) + torch.cat(
+        [torch.zeros_like(dgB[:, :, :1]), dgB[:, :, :-1]], dim=2)
+    return dg2.permute(0, 2, 1, 3)
+
+
 def xl2_bwd_dq_plain(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
                      dropout_p: float = 0.0, seed: int = 0):
     """(dqc (B, T, H, D), dg2 (B, T, H, E)), fp32: the plain version of K5
     bwd-q (``_xl2_bwd_dense``). g2 the unrotated position stream, g the
-    cotangent; other arguments as ``xl3_bwd_plain``. dg2_i = rot^-1(dgA_i)
-    + rot^-1(dgB_{i-1}): row i-1's gB consumed g2_i."""
-    qch, kh, gh, gA, gB, tab, (ca, sa, cb, sb), _, ds, past, fut = _xl2_bwd_terms(
+    cotangent; other arguments as ``xl3_bwd_plain``."""
+    _, kh, _, _, _, tab, rot, _, ds, past, fut = _xl2_bwd_terms(
         qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p, seed)
-    zero = torch.zeros_like(ds)
-    dqc = torch.einsum("bhqk,bhkd->bqhd", ds, kh)
-    dgA = torch.einsum("bhqk,ke->bhqe", torch.where(past, ds, zero), tab)
-    dgB = _rotate(torch.einsum("bhqk,ke->bhqe", torch.where(fut, ds, zero), tab), cb, -sb)
-    dg2 = _rotate(dgA, ca, -sa) + torch.cat(
-        [torch.zeros_like(dgB[:, :, :1]), dgB[:, :, :-1]], dim=2)
-    return dqc, dg2.permute(0, 2, 1, 3)
+    dqc, dgA, dgB = _xl_dq(kh, tab, ds, past, fut)
+    return dqc, _xl2_dg2(dgA, dgB, rot)
 
 
 def xl2_bwd_dkv_plain(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
@@ -389,11 +408,8 @@ def xl_bwd_dq_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
     gAh, gBh = (_hm(x, _compute_dtype(qc)) for x in (gA, gB))
     _, kh, _, tab, _, ds, past, fut = _xl_bwd_terms(
         qc, k, v, gAh, gBh, table, pad, lse, delta, g, scale, dropout_p, seed)
-    zero = torch.zeros_like(ds)
-    dqc = torch.einsum("bhqk,bhkd->bqhd", ds, kh)
-    dgA = torch.einsum("bhqk,ke->bqhe", torch.where(past, ds, zero), tab)
-    dgB = torch.einsum("bhqk,ke->bqhe", torch.where(fut, ds, zero), tab)
-    return dqc, dgA, dgB
+    dqc, dgA, dgB = _xl_dq(kh, tab, ds, past, fut)
+    return dqc, dgA.permute(0, 2, 1, 3), dgB.permute(0, 2, 1, 3)
 
 
 def xl_bwd_dkv_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
@@ -404,6 +420,70 @@ def xl_bwd_dkv_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
     qch, _, gh, _, p_v, ds, past, fut = _xl_bwd_terms(
         qc, k, v, gAh, gBh, table, pad, lse, delta, g, scale, dropout_p, seed)
     return _bwd_dkv(qch, gh, gAh, gBh, p_v, ds, past, fut, qc.shape[1], want_dtab)
+
+
+def xl_bwd_scratch_plain(x: torch.Tensor) -> torch.Tensor:
+    """A dense term (B, H, T, keys >= T) of the backward (p m / keep or ds)
+    laid out as the kernels' fp32 scratch (B, H, T, Ts): 0 at the keys from
+    T on, as Q1 ds writes them up to its last 64-key tile (it leaves the
+    columns past that tile unwritten, and nothing reads them)."""
+    T = x.shape[2]
+    return F.pad(x[..., :T].float(), (0, (T + 127) // 128 * 128 - T))
+
+
+def xl_bwd_kv_plain(qc, g, s, p, ga=None, gb=None, want_dtab: bool = False):
+    """(dk, dv (B, T, H, D), dtab (T, E) or None), fp32: the plain version
+    of the bwd-kv kernel and of the dtab kernel, from Q1's scratches (B, H,
+    T, Ts) fp32: s = ds, p = p m / keep (both already rounded to the stream
+    dtype). qc, g (the cotangent) (B, T, H, D); with ``want_dtab`` the
+    rotated streams ga, gb (B, T, H, E) in the stream dtype (K5's gab):
+    dv_j = sum_i p_ij g_i, dk_j = sum_i ds_ij qc_i, dtab_j = sum_{b,h,i}
+    [j <= i] ds_ij gA_i + [j >= i + 2] ds_ij gB_i. Keys past T write no
+    row."""
+    T = qc.shape[1]
+    cd = _compute_dtype(qc)
+    S, P = s[..., :T], p[..., :T]
+    qch, gh = _hm(qc, cd), _hm(g, cd)
+    dk = torch.einsum("bhqk,bhqd->bkhd", S, qch)
+    dv = torch.einsum("bhqk,bhqd->bkhd", P, gh)
+    dtab = None
+    if want_dtab:
+        i = torch.arange(T, device=qc.device)[:, None]
+        j = torch.arange(T, device=qc.device)[None, :]
+        zero = torch.zeros_like(S)
+        dtab = (torch.einsum("bhqk,bhqe->ke", torch.where(j <= i, S, zero), _hm(ga, cd))
+                + torch.einsum("bhqk,bhqe->ke", torch.where(j >= i + 2, S, zero),
+                               _hm(gb, cd)))
+    return dk, dv, dtab
+
+
+def xl2_bwd_plain(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
+                  dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
+    """(dqc, dk, dv (B, T, H, D), dg2 (B, T, H, E), dtab (T, E) or None),
+    fp32: the plain version of the whole K5 backward as the kernels split
+    it: the dense terms once, bwd-q from ds, bwd-kv (and dtab) by
+    ``xl_bwd_kv_plain`` from the scratch layout of ds and p m / keep."""
+    _, kh, _, gA, gB, tab, rot, p_v, ds, past, fut = _xl2_bwd_terms(
+        qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p, seed)
+    dqc, dgA, dgB = _xl_dq(kh, tab, ds, past, fut)
+    ga, gb = (x.permute(0, 2, 1, 3) for x in (gA, gB))
+    dk, dv, dtab = xl_bwd_kv_plain(qc, g, xl_bwd_scratch_plain(ds), xl_bwd_scratch_plain(p_v),
+                                   ga, gb, want_dtab)
+    return dqc, dk, dv, _xl2_dg2(dgA, dgB, rot), dtab
+
+
+def xl_bwd_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
+                 dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
+    """(dqc, dk, dv (B, T, H, D), dgA, dgB (B, T, H, E), dtab (T, E) or
+    None), fp32: the plain version of the whole K6 backward as the kernels
+    split it (``xl2_bwd_plain``'s, on the two streams)."""
+    gAh, gBh = (_hm(x, _compute_dtype(qc)) for x in (gA, gB))
+    _, kh, _, tab, p_v, ds, past, fut = _xl_bwd_terms(
+        qc, k, v, gAh, gBh, table, pad, lse, delta, g, scale, dropout_p, seed)
+    dqc, dgA, dgB = _xl_dq(kh, tab, ds, past, fut)
+    dk, dv, dtab = xl_bwd_kv_plain(qc, g, xl_bwd_scratch_plain(ds), xl_bwd_scratch_plain(p_v),
+                                   gA, gB, want_dtab)
+    return dqc, dk, dv, dgA.permute(0, 2, 1, 3), dgB.permute(0, 2, 1, 3), dtab
 
 
 # --------------------------------------------------------------------------
@@ -601,10 +681,113 @@ xl3_bwd.launches = 0
 
 
 def _ds_scratch(B: int, T: int, H: int, device) -> torch.Tensor:
-    """The bwd-q kernels' fp32 scratch (B, H, T, Ts) of the position logits
-    and then ds, Ts = T rounded up to a multiple of 128, which every key
-    tile of the kernels divides (``kTsAlign`` in the source)."""
+    """One of the K5 / K6 backward's fp32 scratches (B, H, T, Ts), Ts = T
+    rounded up to a multiple of 128, which every key tile of the kernels
+    divides (``kTsAlign`` in the source): S holds the position logits and
+    then ds, P holds p m / keep for bwd-kv."""
     return torch.empty(B, H, T, (T + 127) // 128 * 128, dtype=torch.float32, device=device)
+
+
+def _dtab_split(bh: int, T: int, E: int) -> Tuple[int, int]:
+    """(n_split, bh_per): the dtab kernel's (64-key, 64-column) tiles split
+    the (b, h) rows into n_split shares of bh_per, enough blocks for about
+    four on each of the H100's 132 SMs; one share needs no partial sums."""
+    tiles = -(-T // 64) * (E // 64)
+    per = -(-bh // max(1, min(bh, -(-4 * 132 // tiles))))
+    return -(-bh // per), per
+
+
+def _bwd_q1(rotate: bool, qc, k, v, ga, gb, table, pad, lse, delta, g, scale: float,
+            dropout_p: float, seed: int, with_p: bool):
+    """Q1 of the K5 (``rotate``: ga is the unrotated g2, gb None) / K6
+    backward on checked, contiguous CUDA operands: (dqc (B, T, H, D) fp32,
+    S (ds), P (p m / keep, or None without ``with_p``), the rotated streams
+    (gA, gB) (B, T, H, E) in the stream dtype). A stage of the counted
+    wrappers below; it counts nothing itself."""
+    B, T, H, D = qc.shape
+    E = ga.shape[-1]
+    dqc = torch.empty(B, T, H, D, dtype=torch.float32, device=qc.device)
+    s = _ds_scratch(B, T, H, qc.device)
+    p = _ds_scratch(B, T, H, qc.device) if with_p else None
+    gab = torch.empty(2, B, T, H, E, dtype=qc.dtype, device=qc.device) if rotate else None
+    lib = kernels.library("flash_xl_attention_bwd")
+    err = lib.vt_xl_bwd_q1(
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(), ga.data_ptr(),
+        None if gb is None else gb.data_ptr(), table.data_ptr(), g.data_ptr(),
+        pad.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqc.data_ptr(),
+        None if gab is None else gab.data_ptr(), s.data_ptr(),
+        None if p is None else p.data_ptr(), B, T, padded_time(T), H, D, E,
+        int(qc.dtype == torch.bfloat16), int(rotate), float(scale), float(dropout_p),
+        _seed(seed), _stream(qc))
+    kernels.check(lib, err, "XL flash attention backward Q1 kernels")
+    return dqc, s, p, ((gab[0], gab[1]) if rotate else (ga, gb))
+
+
+def _bwd_q2(rotate: bool, s, table, qc):
+    """Q2 (K5: and the inverse rotations) from Q1's S: K5's dg2 (and the
+    dgB scratch) or K6's (dgA, dgB), (B, T, H, E) fp32. A stage; counts
+    nothing."""
+    B, T, H, _ = qc.shape
+    E = table.shape[-1]
+    dg = torch.empty(B, T, H, E, dtype=torch.float32, device=qc.device)
+    dgb = torch.empty_like(dg)
+    lib = kernels.library("flash_xl_attention_bwd")
+    err = lib.vt_xl_bwd_q2(s.data_ptr(), table.data_ptr(), dg.data_ptr(), dgb.data_ptr(),
+                           B, T, H, E, int(qc.dtype == torch.bfloat16), int(rotate),
+                           _stream(qc))
+    kernels.check(lib, err, "XL flash attention backward Q2 kernel")
+    return dg, dgb
+
+
+def _bwd_kv(qc, g, s, p):
+    """The bwd-kv kernel: (dk, dv (B, T, H, D) fp32) from Q1's scratches S
+    and P and the streams qc, g. A stage; counts nothing."""
+    B, T, H, D = qc.shape
+    dk = torch.empty(B, T, H, D, dtype=torch.float32, device=qc.device)
+    dv = torch.empty_like(dk)
+    lib = kernels.library("flash_xl_attention_bwd")
+    err = lib.vt_xl_bwd_kv(qc.data_ptr(), g.data_ptr(), s.data_ptr(), p.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), B, T, H, D,
+                           int(qc.dtype == torch.bfloat16), _stream(qc))
+    kernels.check(lib, err, "XL flash attention bwd_kv kernel")
+    return dk, dv
+
+
+def _bwd_dtab(s, ga, gb):
+    """The dtab kernel: dtab (T, E) fp32 from Q1's S and the rotated streams
+    gA, gB (B, T, H, E). A stage; counts nothing."""
+    B, T, H, E = ga.shape
+    n_split, per = _dtab_split(B * H, T, E)
+    f32 = dict(dtype=torch.float32, device=ga.device)
+    dtab = torch.empty(T, E, **f32)
+    part = torch.empty(n_split, T, E, **f32) if n_split > 1 else None
+    lib = kernels.library("flash_xl_attention_bwd")
+    err = lib.vt_xl_bwd_dtab(s.data_ptr(), ga.data_ptr(), gb.data_ptr(),
+                             None if part is None else part.data_ptr(), dtab.data_ptr(),
+                             n_split, per, B, T, H, E, int(ga.dtype == torch.bfloat16),
+                             _stream(ga))
+    kernels.check(lib, err, "XL flash attention dtab kernel")
+    return dtab
+
+
+def _bwd_q1_kv(rotate: bool, ops, scale, dropout_p, seed, want_dtab: bool):
+    """Q1 with P, bwd-kv and (with ``want_dtab``) dtab on the checked
+    operands ``ops`` = (qc, k, v, ga, gb, table, pad, lse, delta, g): (dqc,
+    S, dk, dv, dtab or None)."""
+    qc, k, v, ga, gb, table, pad, lse, delta, g = ops
+    dqc, s, p, (ra, rb) = _bwd_q1(rotate, qc, k, v, ga, gb, table, pad, lse, delta, g, scale,
+                                  dropout_p, seed, with_p=True)
+    dk, dv = _bwd_kv(qc, g, s, p)
+    del p
+    return dqc, s, dk, dv, (_bwd_dtab(s, ra, rb) if want_dtab else None)
+
+
+def _xl2_ops(qc, k, v, g2, table, pad, lse, delta, g):
+    """Checked, contiguous operands of the K5 backward: (qc, k, v, g2, None,
+    table, pad, lse, delta, g)."""
+    pad, lse, delta, g, qc, k, v, g2 = _bwd_inputs(qc, pad, lse, delta, g, qc, k, v, g2)
+    table = _table(table, qc, g2.shape[-1], _MAX_E_BWD)
+    return qc, k, v, g2, None, table, pad, lse, delta, g
 
 
 def xl2_bwd_dq(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
@@ -616,24 +799,11 @@ def xl2_bwd_dq(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
     if _device_of(qc) == "cpu":
         return xl2_bwd_dq_plain(qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p,
                                 seed)
-    pad, lse, delta, g, qc, k, v, g2 = _bwd_inputs(qc, pad, lse, delta, g, qc, k, v, g2)
-    B, T, H, D = qc.shape
-    E = g2.shape[-1]
-    table = _table(table, qc, E, _MAX_E_BWD)
-    f32 = dict(dtype=torch.float32, device=qc.device)
-    dqc = torch.empty(B, T, H, D, **f32)
-    dg2 = torch.empty(B, T, H, E, **f32)
-    gab = torch.empty(2, B, T, H, E, dtype=qc.dtype, device=qc.device)  # gA, gB
-    dgb = torch.empty(B, T, H, E, **f32)
-    s = _ds_scratch(B, T, H, qc.device)
-    lib = kernels.library("flash_xl_attention_bwd")
-    err = lib.vt_flash_xl2_bwd_q(
-        qc.data_ptr(), k.data_ptr(), v.data_ptr(), g2.data_ptr(), table.data_ptr(),
-        g.data_ptr(), pad.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqc.data_ptr(),
-        dg2.data_ptr(), gab.data_ptr(), dgb.data_ptr(), s.data_ptr(), B, T, H, D, E,
-        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
-        _stream(qc))
-    kernels.check(lib, err, "XL2 flash attention bwd_q kernel")
+    ops = _xl2_ops(qc, k, v, g2, table, pad, lse, delta, g)
+    qc, k, v, g2, _, table, pad, lse, delta, g = ops
+    dqc, s, _, _ = _bwd_q1(True, qc, k, v, g2, None, table, pad, lse, delta, g, scale,
+                           dropout_p, seed, with_p=False)
+    dg2, _ = _bwd_q2(True, s, table, qc)
     xl2_bwd_dq.launches += 1
     return dqc, dg2
 
@@ -644,32 +814,16 @@ xl2_bwd_dq.launches = 0
 def xl2_bwd_dkv(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
                 dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
     """(dk, dv (B, T, H, D), dtab (T, E) or None) fp32: kernel K5 bwd-kv on
-    CUDA tensors, the plain version on CPU tensors. dtab only with
-    ``want_dtab`` (the conformer's table is a constant)."""
+    CUDA tensors (standalone it first runs Q1 to fill the scratches it
+    reads: the rotations, the position logits, ds and P; one count), the
+    plain version on CPU tensors. dtab only with ``want_dtab`` (the
+    conformer's table is a constant)."""
     _check_rates(dropout_p)
     if _device_of(qc) == "cpu":
         return xl2_bwd_dkv_plain(qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p,
                                  seed, want_dtab)
-    pad, lse, delta, g, qc, k, v, g2 = _bwd_inputs(qc, pad, lse, delta, g, qc, k, v, g2)
-    B, T, H, D = qc.shape
-    E = g2.shape[-1]
-    table = _table(table, qc, E, _MAX_E_BWD)
-    f32 = dict(dtype=torch.float32, device=qc.device)
-    dk = torch.empty(B, T, H, D, **f32)
-    dv = torch.empty(B, T, H, D, **f32)
-    dtab = dtab_part = None
-    if want_dtab:
-        dtab = torch.empty(T, E, **f32)
-        dtab_part = torch.zeros(B * H, T, E, **f32)
-    lib = kernels.library("flash_xl_attention_bwd")
-    err = lib.vt_flash_xl2_bwd_kv(
-        qc.data_ptr(), k.data_ptr(), v.data_ptr(), g2.data_ptr(), table.data_ptr(),
-        g.data_ptr(), pad.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), None if dtab_part is None else dtab_part.data_ptr(),
-        None if dtab is None else dtab.data_ptr(), B, T, padded_time(T), H, D, E,
-        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
-        _stream(qc))
-    kernels.check(lib, err, "XL2 flash attention bwd_kv kernel")
+    ops = _xl2_ops(qc, k, v, g2, table, pad, lse, delta, g)
+    _, _, dk, dv, dtab = _bwd_q1_kv(True, ops, scale, dropout_p, seed, want_dtab)
     xl2_bwd_dkv.launches += 1
     return dk, dv, dtab
 
@@ -677,16 +831,36 @@ def xl2_bwd_dkv(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
 xl2_bwd_dkv.launches = 0
 
 
-def _xl_bwd_operands(qc, k, v, gA, gB, table, pad, lse, delta, g):
-    """Checked, contiguous operands of K6 bwd-q / bwd-kv: (pad, lse, delta,
-    g, qc, k, v, gA, gB, table)."""
+def xl2_bwd(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
+            dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
+    """(dqc, dk, dv (B, T, H, D), dg2 (B, T, H, E), dtab (T, E) or None)
+    fp32, the whole K5 backward: on CUDA tensors bwd-q and bwd-kv on one
+    set of scratches (Q1 writes S and P once, then Q2 and the inverse
+    rotations, bwd-kv and, with ``want_dtab``, dtab read them; one count
+    each on ``xl2_bwd_dq`` and ``xl2_bwd_dkv``), on CPU tensors the plain
+    version of that split (``xl2_bwd_plain``)."""
+    _check_rates(dropout_p)
+    if _device_of(qc) == "cpu":
+        return xl2_bwd_plain(qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p, seed,
+                             want_dtab)
+    ops = _xl2_ops(qc, k, v, g2, table, pad, lse, delta, g)
+    dqc, s, dk, dv, dtab = _bwd_q1_kv(True, ops, scale, dropout_p, seed, want_dtab)
+    dg2, _ = _bwd_q2(True, s, ops[5], ops[0])
+    xl2_bwd_dq.launches += 1
+    xl2_bwd_dkv.launches += 1
+    return dqc, dk, dv, dg2, dtab
+
+
+def _xl_ops(qc, k, v, gA, gB, table, pad, lse, delta, g):
+    """Checked, contiguous operands of the K6 backward: (qc, k, v, gA, gB,
+    table, pad, lse, delta, g)."""
     pad, lse, delta, g, qc, k, v = _bwd_inputs(qc, pad, lse, delta, g, qc, k, v,
                                                head_dims=_XL_HEAD_DIMS)
     _check(qc, gA, gB, head_dims=_XL_HEAD_DIMS)
     if gB.shape != gA.shape:
         raise ValueError("gA and gB must have one shape")
     table = _table(table, qc, gA.shape[-1], _MAX_E_BWD)
-    return pad, lse, delta, g, qc, k, v, gA.contiguous(), gB.contiguous(), table
+    return qc, k, v, gA.contiguous(), gB.contiguous(), table, pad, lse, delta, g
 
 
 def xl_bwd_dq(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
@@ -698,23 +872,11 @@ def xl_bwd_dq(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
     if _device_of(qc) == "cpu":
         return xl_bwd_dq_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale, dropout_p,
                                seed)
-    pad, lse, delta, g, qc, k, v, gA, gB, table = _xl_bwd_operands(
+    qc, k, v, gA, gB, table, pad, lse, delta, g = _xl_ops(
         qc, k, v, gA, gB, table, pad, lse, delta, g)
-    B, T, H, D = qc.shape
-    E = gA.shape[-1]
-    f32 = dict(dtype=torch.float32, device=qc.device)
-    dqc = torch.empty(B, T, H, D, **f32)
-    dgA = torch.empty(B, T, H, E, **f32)
-    dgB = torch.empty(B, T, H, E, **f32)
-    s = _ds_scratch(B, T, H, qc.device)
-    lib = kernels.library("flash_xl_attention_bwd")
-    err = lib.vt_flash_xl_bwd_q(
-        qc.data_ptr(), k.data_ptr(), v.data_ptr(), gA.data_ptr(), gB.data_ptr(),
-        table.data_ptr(), g.data_ptr(), pad.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dqc.data_ptr(), dgA.data_ptr(), dgB.data_ptr(), s.data_ptr(), B, T, H, D, E,
-        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
-        _stream(qc))
-    kernels.check(lib, err, "XL flash attention bwd_q kernel")
+    dqc, s, _, _ = _bwd_q1(False, qc, k, v, gA, gB, table, pad, lse, delta, g, scale,
+                           dropout_p, seed, with_p=False)
+    dgA, dgB = _bwd_q2(False, s, table, qc)
     xl_bwd_dq.launches += 1
     return dqc, dgA, dgB
 
@@ -725,37 +887,39 @@ xl_bwd_dq.launches = 0
 def xl_bwd_dkv(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
                dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
     """(dk, dv (B, T, H, D), dtab (T, E) or None) fp32: kernel K6 bwd-kv on
-    CUDA tensors, the plain version on CPU tensors. dtab only with
+    CUDA tensors (standalone it first runs Q1 to fill the scratches it
+    reads; one count), the plain version on CPU tensors. dtab only with
     ``want_dtab`` (the conformers' table is a constant)."""
     _check_rates(dropout_p)
     if _device_of(qc) == "cpu":
         return xl_bwd_dkv_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale,
                                 dropout_p, seed, want_dtab)
-    pad, lse, delta, g, qc, k, v, gA, gB, table = _xl_bwd_operands(
-        qc, k, v, gA, gB, table, pad, lse, delta, g)
-    B, T, H, D = qc.shape
-    E = gA.shape[-1]
-    f32 = dict(dtype=torch.float32, device=qc.device)
-    dk = torch.empty(B, T, H, D, **f32)
-    dv = torch.empty(B, T, H, D, **f32)
-    dtab = dtab_part = None
-    if want_dtab:
-        dtab = torch.empty(T, E, **f32)
-        dtab_part = torch.zeros(B * H, T, E, **f32)
-    lib = kernels.library("flash_xl_attention_bwd")
-    err = lib.vt_flash_xl_bwd_kv(
-        qc.data_ptr(), k.data_ptr(), v.data_ptr(), gA.data_ptr(), gB.data_ptr(),
-        table.data_ptr(), g.data_ptr(), pad.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), None if dtab_part is None else dtab_part.data_ptr(),
-        None if dtab is None else dtab.data_ptr(), B, T, padded_time(T), H, D, E,
-        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
-        _stream(qc))
-    kernels.check(lib, err, "XL flash attention bwd_kv kernel")
+    ops = _xl_ops(qc, k, v, gA, gB, table, pad, lse, delta, g)
+    _, _, dk, dv, dtab = _bwd_q1_kv(False, ops, scale, dropout_p, seed, want_dtab)
     xl_bwd_dkv.launches += 1
     return dk, dv, dtab
 
 
 xl_bwd_dkv.launches = 0
+
+
+def xl_bwd(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
+           dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
+    """(dqc, dk, dv (B, T, H, D), dgA, dgB (B, T, H, E), dtab (T, E) or
+    None) fp32, the whole K6 backward: on CUDA tensors bwd-q and bwd-kv on
+    one set of scratches (one count each on ``xl_bwd_dq`` and
+    ``xl_bwd_dkv``), on CPU tensors the plain version of that split
+    (``xl_bwd_plain``)."""
+    _check_rates(dropout_p)
+    if _device_of(qc) == "cpu":
+        return xl_bwd_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale, dropout_p, seed,
+                            want_dtab)
+    ops = _xl_ops(qc, k, v, gA, gB, table, pad, lse, delta, g)
+    dqc, s, dk, dv, dtab = _bwd_q1_kv(False, ops, scale, dropout_p, seed, want_dtab)
+    dgA, dgB = _bwd_q2(False, s, ops[5], ops[0])
+    xl_bwd_dq.launches += 1
+    xl_bwd_dkv.launches += 1
+    return dqc, dk, dv, dgA, dgB, dtab
 
 
 # --------------------------------------------------------------------------
@@ -786,8 +950,9 @@ class _XL3Attention(torch.autograd.Function):
 
 class _XL2Attention(torch.autograd.Function):
     """``_xl2_op`` with its custom VJP: the forward (K5) saves its inputs,
-    the context and lse; the backward computes delta and launches K5 bwd-q
-    and bwd-kv (dtab only when the table needs a gradient)."""
+    the context and lse; the backward computes delta and runs the whole K5
+    backward, bwd-q and bwd-kv on shared scratches (``xl2_bwd``; dtab only
+    when the table needs a gradient)."""
 
     @staticmethod
     def forward(ctx, qc, k, v, g2, table, pad, scale, dropout_p, seed):
@@ -800,9 +965,9 @@ class _XL2Attention(torch.autograd.Function):
     def backward(ctx, gout):
         qc, k, v, g2, table, pad, out, lse = ctx.saved_tensors
         delta, g = backward_inputs(out, gout, v.dtype)
-        args = (qc, k, v, g2, table, pad, lse, delta, g, ctx.scale, ctx.dropout_p, ctx.seed)
-        dqc, dg2 = xl2_bwd_dq(*args)
-        dk, dv, dtab = xl2_bwd_dkv(*args, want_dtab=ctx.needs_input_grad[4])
+        dqc, dk, dv, dg2, dtab = xl2_bwd(qc, k, v, g2, table, pad, lse, delta, g, ctx.scale,
+                                         ctx.dropout_p, ctx.seed,
+                                         want_dtab=ctx.needs_input_grad[4])
         return (dqc.to(qc.dtype), dk.to(k.dtype), dv.to(v.dtype), dg2.to(g2.dtype),
                 None if dtab is None else dtab.to(table.dtype), None, None, None, None)
 
@@ -810,8 +975,8 @@ class _XL2Attention(torch.autograd.Function):
 class _XLAttention(torch.autograd.Function):
     """``_xl_op`` with its custom VJP: the forward (K6) saves its inputs,
     the context and lse; the backward computes delta, casts the cotangent
-    to v's dtype and launches K6 bwd-q and bwd-kv (dtab only when the table
-    needs a gradient)."""
+    to v's dtype and runs the whole K6 backward (``xl_bwd``; dtab only when
+    the table needs a gradient)."""
 
     @staticmethod
     def forward(ctx, qc, k, v, gA, gB, table, pad, scale, dropout_p, seed):
@@ -824,10 +989,9 @@ class _XLAttention(torch.autograd.Function):
     def backward(ctx, gout):
         qc, k, v, gA, gB, table, pad, out, lse = ctx.saved_tensors
         delta, g = backward_inputs(out, gout, v.dtype)
-        args = (qc, k, v, gA, gB, table, pad, lse, delta, g, ctx.scale, ctx.dropout_p,
-                ctx.seed)
-        dqc, dgA, dgB = xl_bwd_dq(*args)
-        dk, dv, dtab = xl_bwd_dkv(*args, want_dtab=ctx.needs_input_grad[5])
+        dqc, dk, dv, dgA, dgB, dtab = xl_bwd(qc, k, v, gA, gB, table, pad, lse, delta, g,
+                                             ctx.scale, ctx.dropout_p, ctx.seed,
+                                             want_dtab=ctx.needs_input_grad[5])
         return (dqc.to(qc.dtype), dk.to(k.dtype), dv.to(v.dtype), dgA.to(gA.dtype),
                 dgB.to(gB.dtype), None if dtab is None else dtab.to(table.dtype),
                 None, None, None, None)

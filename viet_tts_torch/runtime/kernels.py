@@ -89,26 +89,17 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "vt_flash_xl3_bwd": (
             _I, [_P] * 16 + [_I, _I, _I, _I, _I, _F, _D, _U64, _P]
         ),
-        # qc, k, v, g2, table, g, pad, lse, delta, dqc, dg2, gab, dgb, s, B,
-        # T, H, D, E, is_bf16, scale, dropout_p, seed, stream
-        "vt_flash_xl2_bwd_q": (
-            _I, [_P] * 14 + [_I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+        # qc, k, v, ga, gb, table, g, pad, lse, delta, dqc, gab, s, p, B, T,
+        # Tp, H, D, E, is_bf16, rotate, scale, dropout_p, seed, stream
+        "vt_xl_bwd_q1": (
+            _I, [_P] * 14 + [_I] * 8 + [_F, _D, _U64, _P]
         ),
-        # qc, k, v, g2, table, g, pad, lse, delta, dk, dv, dtab_part, dtab,
-        # B, T, Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream
-        "vt_flash_xl2_bwd_kv": (
-            _I, [_P] * 13 + [_I, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
-        ),
-        # qc, k, v, gA, gB, table, g, pad, lse, delta, dqc, dgA, dgB, s, B,
-        # T, H, D, E, is_bf16, scale, dropout_p, seed, stream
-        "vt_flash_xl_bwd_q": (
-            _I, [_P] * 14 + [_I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
-        ),
-        # qc, k, v, gA, gB, table, g, pad, lse, delta, dk, dv, dtab_part,
-        # dtab, B, T, Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream
-        "vt_flash_xl_bwd_kv": (
-            _I, [_P] * 14 + [_I, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
-        ),
+        # s, table, dg, dgb, B, T, H, E, is_bf16, rotate, stream
+        "vt_xl_bwd_q2": (_I, [_P] * 4 + [_I] * 6 + [_P]),
+        # qc, g, s, p, dk, dv, B, T, H, D, is_bf16, stream
+        "vt_xl_bwd_kv": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+        # s, ga, gb, part, dtab, n_split, bh_per, B, T, H, E, is_bf16, stream
+        "vt_xl_bwd_dtab": (_I, [_P] * 5 + [_I] * 7 + [_P]),
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_rel_attention": {
