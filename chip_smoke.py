@@ -77,8 +77,9 @@ Phases (any failure exits non-zero; no phase is caught):
     (16, 1008), all three at the training shapes (8, 64) and (8, 512) with
     dropout 0 and 0.2; fp32 and bf16, ragged lengths with a fully padded
     row and no pad mask; with times and SDPA with the position term as its
-    mask (and its backward); K6's forward at D=128, E=256 (the legacy
-    rel-pos route) at the serving shapes, with its tensor-core bound;
+    mask (and its backward); the forward (the tensor-core template's K7
+    instance) with its tensor-core bound; K6's forward at D=128, E=256 (the
+    legacy rel-pos route) at the serving shapes, with its tensor-core bound;
 12. JETS-conformer serving: full-width JETS with espnet rel-pos conformer
     encoder and decoder (4 + 6 layers, conv kernels 7 / 31), seeded random
     weights, saved as a port checkpoint, served by ``OneStageTTS(ckpt,
@@ -115,11 +116,12 @@ Phases (any failure exits non-zero; no phase is caught):
     full-width step at T_mel 1040 (decoder on K6) on the card against the
     CPU;
 18. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
-    JETS training steps, five two-stage calls, five FS2 training steps and
-    five of each JETS-conformer path (both flavours) and of the FS2 step
-    at T_mel 2048, one of each under ``torch.profiler``, device time by
-    kernel group (bwd-q as its Q1 and Q2 kernels, bwd-kv on its own, K5's
-    rotation pass on its own);
+    JETS training steps, five two-stage calls, five FS2 training steps at
+    T_mel 1008 and five at 512 and five of each JETS-conformer path (both
+    flavours) and of the FS2 step at T_mel 2048, one of each under
+    ``torch.profiler``, device time by kernel group (bwd-q as its Q1 and
+    Q2 kernels, bwd-kv on its own, K5's rotation pass on its own, K7 apart
+    from K6, K4's bwd-kv instance under K4 bwd);
 19. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -128,8 +130,10 @@ script under a time limit. Times are CUDA-event times over repeated
 launches after a warm-up. bound_ms
 is the larger of bytes / 3.35 TB/s and operations / the card's peak for the
 work's type (fp32 work at the 67 TFLOP/s CUDA-core rate, bf16 at 989), per
-the H100 SXM data sheet. The tensor-core kernels (K5 / K6 forward, bwd-q
-and bwd-kv) take the bound of the work they do on the tensor cores: fp32
+the H100 SXM data sheet. The tensor-core kernels (K5 / K6 / K7 forward,
+K4 bwd, K5 / K6 bwd-q and bwd-kv) take the bound of the work they do on
+the tensor cores, counted from the function (the pairs of the live keys;
+not the band products' padding or the tiles a kernel walks): fp32
 streams under 3xTF32 run three TF32 products a term, so 3 * operations /
 495 TFLOP/s, bf16 streams one, operations / 495; they also report the
 CUDA-core (67), one-TF32-product (495) and bf16 (989) figures beside it.
@@ -1385,9 +1389,20 @@ TC_REDESIGNED = {
         "backward (bwd-q and bwd-kv on shared scratches)")),
     **dict.fromkeys(("flash_xl2_fwd", "flash_xl_fwd"), (
         "tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 streams, one TF32 product "
-        "for bf16); one flash kernel for K5 and K6 (64-query tiles, the E-wide position "
+        "for bf16); one flash kernel for K5, K6 and K7 (64-query tiles, the E-wide position "
         "product in 32-column chunks of gA / gB and the table, the online softmax and p v "
-        "in registers); K5 adds its rotation pass before it (timed in its ms)")),
+        "in registers; each batch row's key tiles walked only up to its last live key); "
+        "K5 adds its rotation pass before it (timed in its ms)")),
+    "flash_rel_fwd": (
+        "tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 streams, one TF32 product for "
+        "bf16): K7's instance of the K5 / K6 flash kernel, one g t^T pass a key tile added "
+        "at every key; each batch row's key tiles walked only up to its last live key"),
+    "flash_xl3_bwd": (
+        "tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 streams): a ds kernel (s, the "
+        "position logits as band products, g v^T, ds, dqc, then ds in band form for dqv and "
+        "the table's partials) writing the ds and p m / keep scratches, bwd-kv (K5 / K6's "
+        "kernel, K4's instance) on them, and a reduce pass; bound_ms counts the function's "
+        "8D a pair, not the band products' padding"),
 }
 TC_BOUND_NOTE = ("; bound_ms is the tensor cores' bound of that work, 3 * operations / 495 "
                  "TFLOP/s for fp32 streams; bound_ms_fp32 the fp32 CUDA cores', "
@@ -1864,7 +1879,7 @@ def check_fs2_training_path(dev, steps: int = 3, warmup: int = 2):
     log(f"FS2 bf16 mixed-precision step at T_mel={FS2_TRAIN_T_MELS[0]}: {mp_s:.4f} s, "
         f"metrics {values}; max parameter change over the phase {changed:.3e}")
     check_fs2_training_against_cpu(dev)
-    return launches, figures, (step, state, batch, rng)
+    return launches, figures, (step, state, batch, rng), batches[FS2_TRAIN_T_MELS[1]]
 
 
 def check_fs2_training_against_cpu(dev, T_mel: int = 600):
@@ -2021,8 +2036,9 @@ def check_rel_kernels(dev, t_text: int):
 
     scale = REL_D ** -0.5
     names = ("qc", "k", "v", "g", "table")
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ms_fp32")
     serve = dict.fromkeys(keys, 0.0)
+    per_shape = {}  # K7 fwd's figures a launch at each shape
     step = {n: dict.fromkeys(keys, 0.0) for n in REL_REPLACES}
     errs = dict.fromkeys(REL_REPLACES, 0.0)
     kinds = {n: set() for n in REL_REPLACES}
@@ -2103,13 +2119,21 @@ def check_rel_kernels(dev, t_text: int):
                         p_ms = cuda_ms(p_fn, 3, warmup=1)
                         l_ms = l_bwd if l_fn is lib_bwd else cuda_ms(l_fn, iters)
                         nbytes, flops = work[name]
-                        b_ms, kind_b = bound(nbytes, flops, peak)
+                        b32, kind_32 = bound(nbytes, flops, peak)
+                        b_ms, kind_b = (_tensor_core_bound(nbytes, flops, dtype)
+                                        if name in TC_REDESIGNED else (b32, kind_32))
                         log(f"  {name} (B={B}, T={T}): kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
                             f"library_ms {l_ms:.4f} (mask built in {build_ms:.1f} ms) bound_ms "
                             f"{b_ms:.4f} ({kind_b}) {flops / k_ms / 1e9:.2f} TFLOP/s; "
                             f"x{n_layers} a {'step' if training else 'call'}")
+                        if name in TC_REDESIGNED:
+                            tc = _tensor_core_figures(f"{name} (B={B}, T={T})", k_ms, b_ms,
+                                                      nbytes, flops)
+                            per_shape[f"({B}, {T})" + (" training" if training else "")] = dict(
+                                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                                bound_by=kind_b, **tc)
                         acc = step[name] if training else serve
-                        for key, val in zip(keys, (k_ms, p_ms, l_ms, b_ms)):
+                        for key, val in zip(keys, (k_ms, p_ms, l_ms, b_ms, b32)):
                             acc[key] += n_layers * val
                         kinds[name].add(kind_b)
             del args
@@ -2162,7 +2186,7 @@ def check_rel_kernels(dev, t_text: int):
         fig = serve if name == "flash_rel_fwd" else step[name]
         entries[name] = {
             "name": name, "route": "cuda",
-            "source": ("viet_tts_torch/csrc/flash_rel_attention.cu" if name == "flash_rel_fwd"
+            "source": ("viet_tts_torch/csrc/flash_xl_attention.cu" if name == "flash_rel_fwd"
                        else "viet_tts_torch/csrc/flash_rel_attention_bwd.cu"),
             "replaces": replaces, "max_abs_err": errs[name], "tol": 1e-4,
             "bound_by": "operations" if "operations" in kinds[name] else "bytes",
@@ -2173,6 +2197,10 @@ def check_rel_kernels(dev, t_text: int):
                                            "retained graph")),
             **fig}
     entries["flash_rel_fwd"]["train_step"] = {"per": per_step, **step["flash_rel_fwd"]}
+    entries["flash_rel_fwd"]["per_shape"] = per_shape
+    for entry in entries.values():
+        if entry["name"] not in TC_REDESIGNED:
+            del entry["bound_ms_fp32"]  # the CUDA-core kernels' bound_ms is that bound
     return entries, k6
 
 
@@ -2404,7 +2432,11 @@ KERNEL_GROUPS = (
     ("K3b flash_bwd_kv_kernel", ("flash_bwd_kv_kernel",)),
     ("K2 mrf_conv_kernel", ("mrf_conv_kernel",)),
     ("K4 xl3_fwd_kernel", ("xl3_fwd_kernel",)),
-    ("K4 bwd (xl3_bwd_q / kv / reduce)", ("xl3_bwd_",)),
+    # K4 bwd: its ds kernel, its instance of bwd-kv (<dtype, D, true>) and
+    # the reduce pass
+    ("K4 bwd (xl3_bwd_ds, xl2_bwd_kv<., ., true>, xl3_bwd_reduce)",
+     ("xl3_bwd_", *(f"xl2_bwd_kv_kernel<{t}, {d}, true>" for t in ("float", "__nv_bfloat16")
+                    for d in (48, 64)))),
     # bwd-q's kernels are K5's and K6's alike (a step runs one of the two);
     # K5 adds the rotation pass (before its forward and its bwd-q) and the
     # inverse rotation after bwd-q
@@ -2414,12 +2446,14 @@ KERNEL_GROUPS = (
     # bwd-kv and dtab are K5's and K6's alike too
     ("K5 / K6 bwd-kv (xl2_bwd_kv, from Q1's scratches; dtab)", ("xl2_bwd_kv_kernel",
                                                                  "xl2_bwd_dtab")),
-    # the forward's instances: <dtype, D, K5's flag, warps a block>
+    # the forward's instances: <dtype, D, the position term (0 K6, 1 K5,
+    # 2 K7), warps a block>
     ("K5 xl2_fwd_kernel (tensor cores; after the rotation pass)",
-     tuple(f"xl2_fwd_kernel<{t}, {d}, true," for t in ("float", "__nv_bfloat16")
+     tuple(f"xl2_fwd_kernel<{t}, {d}, 1," for t in ("float", "__nv_bfloat16")
            for d in (48, 64))),
+    ("K7 xl2_fwd_kernel (tensor cores, rel-pos at every key)",
+     tuple(f"xl2_fwd_kernel<{t}, 128, 2," for t in ("float", "__nv_bfloat16"))),
     ("K6 xl2_fwd_kernel (tensor cores, two streams)", ("xl2_fwd_kernel",)),
-    ("K7 rel_fwd_kernel", ("rel_fwd_kernel",)),
     ("K7 bwd-q rel_bwd_q_kernel", ("rel_bwd_q_kernel",)),
     ("K7 bwd-kv (rel_bwd_kv + dtab)", ("rel_bwd_kv_kernel", "rel_bwd_dtab")),
     ("cuBLAS matmul (attention projections, GST, STFT-mel)", ("cublas", "gemv", "sgemm")),
@@ -2484,8 +2518,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, time five fp32 __call__s of 16 "
                          "sentences, five JETS training steps, five two-stage "
-                         "calls, five FS2 training steps at T_mel 1008 and five "
-                         "at 2048, five JETS-conformer calls and five "
+                         "calls, five FS2 training steps at T_mel 1008, five at "
+                         "512 and five at 2048, five JETS-conformer calls and five "
                          "JETS-conformer steps of each rel-pos flavour, and "
                          "profile one of each (device time by kernel group, "
                          "busy share; per-kernel tables in the output "
@@ -2527,7 +2561,7 @@ def main() -> int:
     fs2_launches, tts2, fs2_figures = phase_timed("8", check_two_stage_path, dev, ac_dir,
                                                   voc_dir)
     xl_train = phase_timed("9", check_xl_training, dev)
-    fs2_train_launches, fs2_train_figures, (fs2_step, *fs2_step_args) = \
+    fs2_train_launches, fs2_train_figures, (fs2_step, *fs2_step_args), fs2_batch_512 = \
         phase_timed("10", check_fs2_training_path, dev)
     rel, k6_jets = phase_timed("11", check_rel_kernels, dev, t_text)
     jc_ckpt = build_conformer_checkpoint(os.path.join(REPO, "build", "chip_smoke_jets_conformer"))
@@ -2553,6 +2587,9 @@ def main() -> int:
         profile_call(lambda: fs2_step(*fs2_step_args),
                      f"FS2 training step (T_mel {FS2_TRAIN_T_MELS[0]})",
                      "chip_smoke_profile_fs2_train.txt")
+        profile_call(lambda: fs2_step(fs2_step_args[0], fs2_batch_512, fs2_step_args[2]),
+                     f"FS2 training step (T_mel {FS2_TRAIN_T_MELS[1]})",
+                     "chip_smoke_profile_fs2_train_512.txt")
         profile_call(lambda: jc_tts(SENTENCES), "JETS-conformer fp32 __call__(16)",
                      "chip_smoke_profile_jets_conformer.txt")
         profile_call(lambda: jc_step(*jc_step_args), "JETS-conformer training step",
@@ -2615,14 +2652,14 @@ def main() -> int:
                     "with scale * pos as an additive mask, on a retained graph",
          **k6_train[name]}
         for name in K6_BWD_REPLACES]
-    for entry in (*xl_entries, *xl_bwd_entries, *k6_bwd_entries):
+    rel_entries = [rel[name] for name in REL_REPLACES]
+    for entry in (*xl_entries, *xl_bwd_entries, *k6_bwd_entries, *rel_entries):
         if entry["name"] in TC_REDESIGNED:
             entry["redesigned"] = TC_REDESIGNED[entry["name"]] + TC_BOUND_NOTE
         if entry["name"].endswith("_bwd_q"):
             entry["library_pos_grad"] = (
                 "SDPA backward with scale * pos as a mask leaf that takes a gradient, plus "
                 "the two masked products of that gradient with the table (dgA, dgB)")
-    rel_entries = [rel[name] for name in REL_REPLACES]
     rel_entries[0]["launches"] = jc_launches["flash_rel_fwd"]
     rel_entries[0]["launches_per"] = ("the JETS-conformer serving phase: two __call__s of 16 "
                                       "sentences, one /synthesize, one /synthesize_stream")

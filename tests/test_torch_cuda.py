@@ -724,3 +724,94 @@ def test_rel_autograd_function_launches_the_kernels(cuda_device):
     for name, a, b in zip(REL_NAMES[:4], leaves, ref_leaves):
         err = (a.grad - b.grad).abs().max().item()
         assert err <= 1e-4 * max(1.0, b.grad.abs().max().item()), (name, err)
+
+
+def ragged_lengths_mask(device, B, T):
+    """A (B, T) pad mask whose batch rows hold 0, 1, 63, 64, 65 and T live
+    keys (the key tiles' edges), one row with holes before its last live
+    key, and ragged rows after those."""
+    lens = [0, 1, 63, 64, 65, T, T // 2, T // 3]
+    lens = (lens + [max(1, T - 7 * i) for i in range(1, B)])[:B]
+    pad = torch.arange(T)[None] >= torch.tensor(lens)[:, None]
+    pad[6, : T // 4 : 3] = True  # holes before the row's last live key
+    return pad.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(16, 1008), (8, 512)])
+def test_rel_fwd_tensor_core_kernel_matches_plain(cuda_device, B, T):
+    """K7 forward (the K7 instance of the tensor-core forward template,
+    which walks each batch row's key tiles only up to its last live key)
+    against ``rel_fwd_plain`` at the serving (16, 1008) and training
+    (8, 512) shapes: fp32 within 1e-4 and lse within rel 1e-5, bf16 within
+    2e-2 (lse 1e-3), dropout 0 and 0.2, with batch rows of 0, 1, 63, 64, 65
+    and T live keys and one with holes, and with no pad mask; one launch
+    count a call. K6 at D=128 (the same template and the same skip) on the
+    same ragged rows, fp32 and bf16."""
+    streams, _, scale = rel_case(cuda_device, B, T, seed=T + B, pad_rows=False)
+    ragged = ragged_lengths_mask(cuda_device, B, T)
+    seed = 97531 + T
+    for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        args = [streams[n].to(dtype) for n in REL_NAMES]
+        lse_tol = 1e-5 if dtype == torch.float32 else 1e-3
+        for pad in (ragged, None):
+            for p in (0.0, 0.2):
+                case = (str(dtype), pad is None, p)
+                before = fr.rel_fwd.launches
+                ctx, lse = fr.rel_fwd(*args, scale, pad, p, seed)
+                assert fr.rel_fwd.launches == before + 1, case
+                ref, ref_lse = fr.rel_fwd_plain(*args, scale, pad, p, seed)
+                torch.cuda.synchronize()
+                assert torch.isfinite(ctx).all() and torch.isfinite(lse).all(), case
+                err = (ctx - ref).abs().max().item()
+                assert err <= atol, (case, err)
+                lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item()
+                assert lse_err <= lse_tol, (case, lse_err)
+                del ctx, ref
+        del args
+    xl, _, xl_scale = xl_case(cuda_device, B, T, H=2, D=128, seed=T, pad_rows=False)
+    for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        xargs = [xl[n].to(dtype) for n in XL_NAMES]
+        ctx, lse = fx.xl_fwd(*xargs, xl_scale, ragged)
+        ref, ref_lse = fx.xl_fwd_plain(*xargs, xl_scale, ragged)
+        torch.cuda.synchronize()
+        assert (ctx - ref).abs().max().item() <= atol, str(dtype)
+        lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item()
+        assert lse_err <= (1e-5 if dtype == torch.float32 else 1e-3), (str(dtype), lse_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D", [(64, 48), (100, 48), (512, 48), (100, 64)])
+def test_xl3_bwd_tensor_core_kernels_match_plain(cuda_device, T, D):
+    """K4 bwd (the ds kernel on the tensor cores, bwd-kv on its scratches,
+    the reduce pass) against ``xl3_bwd_plain`` on the kernel forward's lse,
+    for every case of ``XL_TC_CASES`` (fp32 and bf16, dropout 0 and 0.1, a
+    full, a ragged and a fully padded row, whose dv is the dense gradient of
+    the uniform weights 1 / T, or no pad mask): dqc, dk, dv, dqv and dp each
+    within atol of the plain one, scaled by its largest value where that
+    exceeds 1; one launch count a call."""
+    B, H = 3, 8
+    seed = 8642 + T
+    inputs = {pr: xl_case(cuda_device, B, T, H=H, D=D, seed=T + D + 3, pad_rows=pr)
+              for pr in (True, False)}
+    for dtype, atol, dropout_p, pad_rows in XL_TC_CASES:
+        case = (str(dtype), dropout_p, pad_rows)
+        streams, pad, scale = inputs[pad_rows]
+        args = [streams[n].to(dtype) for n in ("qc", "k", "v", "qv", "p")]
+        ctx, lse = fx.xl3_fwd(*args, scale, pad, dropout_p, seed)
+        gout = torch.from_numpy(np.random.RandomState(T + 6).randn(*ctx.shape)
+                                .astype(np.float32))
+        delta, g = fa.backward_inputs(ctx, gout.to(ctx.device), dtype)
+        padf = pad.float() if pad is not None else torch.zeros(B, T, device=cuda_device)
+        bwd_args = (*args, padf, lse, delta, g, scale, dropout_p, seed)
+        before = fx.xl3_bwd.launches
+        got = fx.xl3_bwd(*bwd_args)
+        assert fx.xl3_bwd.launches == before + 1, case
+        want = fx.xl3_bwd_plain(*bwd_args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dqc", "dk", "dv", "dqv", "dp"), got, want):
+            assert a.shape == b.shape, (case, name)
+            assert torch.isfinite(a).all(), (case, name)
+            err = (a - b).abs().max().item()
+            assert err <= atol * max(1.0, b.abs().max().item()), (case, name, err)
+        del got, want

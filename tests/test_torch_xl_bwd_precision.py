@@ -15,8 +15,12 @@ largest gradient where that exceeds 1) of the fp32 plain version, and one
 TF32 product does not. The same holds for bwd-kv's two products, the
 T-long contractions over the query rows dk = ds^T qc and dv = (p m /
 keep)^T g, each on its own: one TF32 product misses the limit in dk and in
-dv, so the kernel runs both in 3xTF32. No JAX here: the emulation and the
-plain version are both the port's.
+dv, so the kernel runs both in 3xTF32. K4 bwd's band products, the
+T-long contractions of ds by offset against the projected table (dqv) and
+against qv over the batch and query rows (the table's gradient dp), behave
+the same: one TF32 product misses the limit in each, so the K4 ds kernel
+runs both in 3xTF32. No JAX here: the emulation and the plain version are
+both the port's.
 """
 
 from __future__ import annotations
@@ -176,5 +180,72 @@ def test_kv_products_need_3xtf32(kv_case, product):
     assert _scaled_err([_kv_products(terms, mm_fp32)[i]], [plain[i]]) <= 1e-6
     err_3x = _scaled_err([_kv_products(terms, mm_3xtf32)[i]], [plain[i]])
     err_1x = _scaled_err([_kv_products(terms, mm_tf32)[i]], [plain[i]])
+    assert err_3x <= TOL, err_3x
+    assert err_1x > TOL, err_1x
+
+
+@pytest.fixture(scope="module")
+def xl3_case():
+    """The plain K4 bwd (fp32, no dropout) at the module's sizes: the
+    streams of one XL attention in the projected-table form (qv = q +
+    v_bias, p = table kernel), a ragged row, and its (dqv, dp)."""
+    rng = np.random.RandomState(11)
+    f = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    q, k, v = f(B, T, H, D), f(B, T, H, D), f(B, T, H, D)
+    qc, qv = q + 0.3 * f(H, D), q + 0.3 * f(H, D)
+    table = torch.from_numpy(sinusoid_position_table(T, E))
+    p = (table @ (f(E, E) / np.sqrt(E))).reshape(T, H, D)
+    lens = torch.tensor([T, T // 2 + 1])
+    pad = (torch.arange(T)[None] >= lens[:, None]).float()
+    ctx, lse = fx.xl3_fwd_plain(qc, k, v, qv, p, SCALE, pad > 0.5)
+    gout = torch.from_numpy(np.random.RandomState(12).randn(*ctx.shape).astype(np.float32))
+    delta, g = backward_inputs(ctx, gout, torch.float32)
+    args = (qc, k, v, qv, p, pad, lse, delta, g)
+    return args, fx.xl3_bwd_plain(*args, SCALE)[3:]
+
+
+def _k4_band_products(qc, k, v, qv, p, pad, lse, delta, g, mm):
+    """The plain K4 bwd's (``xl3_bwd_plain``, fp32, no dropout) dqv and dp
+    with their two band products through ``mm``: ds gathered by offset (dx
+    past, dx2 future) against the projected table, and against qv (qv one
+    row down for the future term) over the batch and query rows."""
+    cd = torch.float32
+    qch, kh, vh, qvh, gh = (fx._hm(x, cd) for x in (qc, k, v, qv, g))
+    ph = p.float().permute(1, 0, 2)  # (H, T, D)
+    x = torch.einsum("bhid,hcd->bhic", qvh, ph)
+    x2 = torch.cat([x[:, :, 1:], torch.zeros_like(x[:, :, :1])], dim=2)
+    i = torch.arange(T)[:, None]
+    j = torch.arange(T)[None, :]
+    past, fut = j <= i, j >= i + 2
+    idx_past = ((T - 1 - i + j) % T).expand(x.shape)
+    idx_fut = ((j - i - 2) % T).expand(x.shape)
+    pos = torch.where(past, torch.gather(x, -1, idx_past),
+                      torch.where(fut, torch.gather(x2, -1, idx_fut), 0.0))
+    logits = (qch @ kh.transpose(-1, -2) + pos) * SCALE
+    _, ds = fx._weights_and_ds(logits, pad, lse, gh @ vh.transpose(-1, -2), delta, None, T,
+                               SCALE, cd)
+    dx = torch.zeros_like(ds).scatter_add_(-1, idx_past, torch.where(past, ds, 0.0))
+    dx2 = torch.zeros_like(ds).scatter_add_(-1, idx_fut, torch.where(fut, ds, 0.0))
+    nxt = mm(dx2, ph[None])
+    dqv = mm(dx, ph[None]) + torch.cat([torch.zeros_like(nxt[:, :, :1]), nxt[:, :, :-1]], dim=2)
+    qv_next = torch.cat([qvh[:, :, 1:], torch.zeros_like(qvh[:, :, :1])], dim=2)
+    by_offset = lambda a: a.permute(1, 3, 0, 2).reshape(H, T, B * T)
+    rows = lambda a: a.permute(1, 0, 2, 3).reshape(H, B * T, D)
+    dp = mm(by_offset(dx), rows(qvh)) + mm(by_offset(dx2), rows(qv_next))
+    return dqv.permute(0, 2, 1, 3), dp.permute(1, 0, 2)
+
+
+@pytest.mark.parametrize("product", ["dqv", "dp"])
+def test_k4_band_products_need_3xtf32(xl3_case, product):
+    """K4 bwd's band product ``product`` (dqv: ds by offset times the
+    projected table; dp: the table's gradient, ds by offset times qv over
+    the batch and query rows) in 3xTF32 holds the fp32 limit, in one TF32
+    product it does not; with fp32 products the hook is the plain K4 bwd
+    (``xl3_bwd_plain``, the source of truth)."""
+    args, plain = xl3_case
+    i = ("dqv", "dp").index(product)
+    assert _scaled_err([_k4_band_products(*args, mm_fp32)[i]], [plain[i]]) <= 1e-6
+    err_3x = _scaled_err([_k4_band_products(*args, mm_3xtf32)[i]], [plain[i]])
+    err_1x = _scaled_err([_k4_band_products(*args, mm_tf32)[i]], [plain[i]])
     assert err_3x <= TOL, err_3x
     assert err_1x > TOL, err_1x

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the K5 / K6 backward (bwd-q and bwd-kv together) of one or more
-checkouts on one NVIDIA card, in turns, at the shapes the training paths
-run it, with each kernel's device time.
+"""Time the K4 backward and the K5 / K6 backward (bwd-q and bwd-kv
+together) of one or more checkouts on one NVIDIA card, in turns, at the
+shapes the training paths run them, with each kernel's device time.
 
     python3 tools/time_xl_bwd.py                    # this checkout
     python3 tools/time_xl_bwd.py OLD NEW NEW OLD    # checkouts in turns
@@ -9,9 +9,10 @@ run it, with each kernel's device time.
 Each argument is the root of a checkout of this repository. Each runs in a
 process of its own, in the order given, and builds its kernels into its own
 ``build/``. The backward is what the autograd function of that checkout
-runs: ``xl2_bwd`` / ``xl_bwd`` where the checkout has them (bwd-q and
-bwd-kv on shared scratches), else ``xl2_bwd_dq`` then ``xl2_bwd_dkv`` (the
-same for ``xl_``). It is first checked against the plain versions (every
+runs: ``xl3_bwd`` for K4; ``xl2_bwd`` / ``xl_bwd`` where the checkout has
+them (bwd-q and bwd-kv on shared scratches), else ``xl2_bwd_dq`` then
+``xl2_bwd_dkv`` (the same for ``xl_``). It is first checked against the
+plain versions (every
 gradient within 1e-4, scaled by its largest value where that exceeds 1).
 Times are CUDA-event means over 10 calls after 2 warm-ups, fp32 with TF32
 off, no pad mask, the path's attention dropout; then three calls under
@@ -28,15 +29,20 @@ import os
 import subprocess
 import sys
 
-# (label, kind, B, T, H, D, dropout): K5 at the FS2 decoder's 1008 frames,
-# K6 at the FS2 2048-frame bucket and at the JETS legacy conformer's decoder
+# (label, kind, B, T, H, D, dropout): K4 at the FS2 encoder's text bucket
+# and the decoder's 512 frames, K5 at the FS2 decoder's 1008 frames, K6 at
+# the FS2 2048-frame bucket and at the JETS legacy conformer's decoder
 SHAPES = (
+    ("K4 (8, 64) D=48", "xl3", 8, 64, 8, 48, 0.1),
+    ("K4 (8, 512) D=48", "xl3", 8, 512, 8, 48, 0.1),
     ("K5 (8, 1008) D=48", "xl2", 8, 1008, 8, 48, 0.1),
     ("K6 (4, 2048) D=48", "xl", 4, 2048, 8, 48, 0.1),
     ("K6 (8, 512) D=128", "xl", 8, 512, 2, 128, 0.2),
 )
-# kernel-name fragments of the backward, in launch order
-KERNELS = ("xl2_rotate", "xl2_bwd_q1_pos", "xl2_bwd_q1_ds", "xl2_bwd_q2", "xl2_bwd_unrotate",
+# kernel-name fragments of the backwards, in launch order (K4's, then K5 /
+# K6's; K4's bwd-kv is an instance of K5 / K6's kernel)
+KERNELS = ("xl3_bwd_ds", "xl3_bwd_q", "xl3_bwd_kv", "xl3_bwd_reduce",
+           "xl2_rotate", "xl2_bwd_q1_pos", "xl2_bwd_q1_ds", "xl2_bwd_q2", "xl2_bwd_unrotate",
            "xl2_bwd_kv", "xl2_bwd_dtab")
 
 
@@ -66,7 +72,10 @@ def worker() -> None:
         pos_kernel = f(E, E) / np.sqrt(E)
         table = torch.from_numpy(sinusoid_position_table(T, E)).to(dev)
         scale = D ** -0.5 if D == 128 else 1.0 / np.sqrt(E)  # JETS / FS2
-        if kind == "xl2":
+        if kind == "xl3":
+            args = (qc, k, v, qv, (table @ pos_kernel).reshape(T, H, D))
+            fwd, whole = fx.xl3_fwd, fx.xl3_bwd
+        elif kind == "xl2":
             args = (qc, k, v, xl_pos_query_stream(qv, pos_kernel), table)
             fwd, dq, dkv, dq_plain, dkv_plain = (fx.xl2_fwd, fx.xl2_bwd_dq, fx.xl2_bwd_dkv,
                                                  fx.xl2_bwd_dq_plain, fx.xl2_bwd_dkv_plain)
@@ -86,8 +95,11 @@ def worker() -> None:
         else:
             run = lambda: (dq(*bargs), dkv(*bargs))
         run()
-        got = (*dq(*bargs), *dkv(*bargs)[:2])
-        want = (*dq_plain(*bargs), *dkv_plain(*bargs)[:2])
+        if kind == "xl3":
+            got, want = fx.xl3_bwd(*bargs), fx.xl3_bwd_plain(*bargs)
+        else:
+            got = (*dq(*bargs), *dkv(*bargs)[:2])
+            want = (*dq_plain(*bargs), *dkv_plain(*bargs)[:2])
         for i, (a, b) in enumerate(zip(got, want)):
             err = (a - b).abs().max().item()
             if not err <= 1e-4 * max(1.0, b.abs().max().item()):

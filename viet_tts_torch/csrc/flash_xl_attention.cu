@@ -1,22 +1,28 @@
-// Kernels K4, K5 and K6: Transformer-XL relative-position attention forward
-// (the FS2 conformer's self-attention; K6 also the JETS conformer's legacy
-// rel-pos flavour) with an online softmax, for Hopper (sm_90a).
+// Kernels K4, K5, K6 and K7 forward: Transformer-XL relative-position
+// attention (the FS2 conformer's self-attention; K6 also the JETS conformer's
+// legacy rel-pos flavour) and espnet "latest" relative-position attention
+// (K7, the JETS conformer's), with an online softmax, for Hopper (sm_90a).
 //
 // Replace the TPU kernels of viet_tts_tpu/ops/pallas_attention.py:
 //   K4 `_xl3_kernel` (launched by `_xl3_pallas`), the projected-table form;
 //   K5 `_xl2_kernel` (`_xl2_pallas` through `_call_flash`), one position
 //      stream rotated inside the kernel;
 //   K6 `_xl_kernel` (`_xl_pallas` through `_call_flash`), two pre-rotated
-//      position streams.
-// All three compute ctx_i = sum_j softmax_j(logit_ij) v_j with
+//      position streams;
+//   K7 `_rel_kernel` (`_rel_pallas` through `_call_flash`), one position
+//      stream against the table at every key.
+// K4, K5 and K6 compute ctx_i = sum_j softmax_j(logit_ij) v_j with
 //   logit_ij = (qc_i . k_j + pos_ij) * scale, MASK_NEG = -1e9 at padded keys,
 //   pos_ij   = P_i(j)  for j <= i  (the past term)
 //            = 0       for j == i + 1
 //            = F_i(j)  for j >= i + 2 (the future term: the XL shift makes
 //                                      row i read row i + 1's scores),
-// and emit the per-row logsumexp beside the fp32 context. Inputs are fp32 or
-// bf16 in the JAX package's feature-last layouts, read in place; all
-// arithmetic is fp32.
+// and emit the per-row logsumexp beside the fp32 context. K7 is the same
+// function with pos_ij = g_i . t_j at every key (the TPU's `_rel_kernel` is
+// `_xl_kernel` without the select): qc = q + pos_bias_u, g the pre-rotated
+// position queries (B, T, H, E), t the negative half of the symmetric
+// sinusoid table (T, E). Inputs are fp32 or bf16 in the JAX package's
+// feature-last layouts, read in place; all arithmetic is fp32.
 //
 // K4: P_i(j) = qv_i . p_{T-1-i+j} and F_i(j) = qv_{i+1} . p_{j-i-2}, with p
 // the projected table (T, H, D). The TPU keeps the whole (tp, tp) score tile
@@ -42,37 +48,48 @@
 // keys; here the Tp - T tail keys are virtual: they add (Tp - T) *
 // exp(MASK_NEG - m) to the denominator and nothing to the context, so a row
 // whose keys are all padding averages v over all Tp keys, as the TPU kernel
-// and the dense path do; keys past T inside a key tile score -inf.
+// and the dense path do; keys past T inside a key tile score -inf. K7 pads
+// the same way (its JAX wrapper does).
 //
-// What bounds K5 / K6 on the H100: at the decoder shape (B=16, H=8,
+// What bounds K5 / K6 / K7 on the H100: at the decoder shape (B=16, H=8,
 // T=1008, D=48, E=384) K5 does 2*B*H*T^2*(D + E + D) = 1.25e11 FLOP of dot
 // products against ~260 MB of inputs: bound by operations, 80 % of them the
-// E-wide position products. So every product runs on the tensor cores,
-// `mma.sync.m16n8k8` TF32 with fp32 accumulation (xl_mma.cuh): fp32
-// streams in 3xTF32 (one TF32 product misses the fp32 limits on ctx and
-// lse: tests/test_torch_xl_fwd_precision.py), bf16 streams in one TF32
+// E-wide position products; K7 at its serving shape (B=16, H=2, T=1008,
+// D=128, E=256) 33 GFLOP against ~50 MB. So every product runs on the
+// tensor cores, `mma.sync.m16n8k8` TF32 with fp32 accumulation
+// (xl_mma.cuh): fp32 streams in 3xTF32 (one TF32 product misses the fp32
+// limits on ctx and lse: tests/test_torch_xl_fwd_precision.py for K5,
+// tests/test_torch_rel_fwd_precision.py for K7), bf16 streams in one TF32
 // product, exact for bf16 values (and p rounded to bf16, as the JAX `_mx`
 // rounds it; m16n8k16 bf16 would run twice the rate but a second code
-// path). The kernel (`xl2_fwd_kernel`, below) is one flash loop for both:
-// a block a (64-query tile, head, batch row), four warps of 16 rows
-// (eight, 128 rows, for fp32 at D = 128); a query tile's E-wide gA / gB
-// rows (196 KB at 64 rows, E = 384, fp32) do not stay in shared memory but
-// stream in 32-column chunks beside the key tile's table chunk, two stages
-// deep; a key tile forms only the position terms its
-// pairs select, and no (T, T) array reaches device memory. K5 first runs
-// the rotation pass (xl_mma.cuh's `xl2_rotate_kernel`, K5 bwd-q's too) into
-// a scratch gab (2, B, T, H, E) in the stream dtype that the wrapper
-// allocates: sincosf once a pair, not once a key tile. Budget (ptxas -v,
-// sm_90a, the CUDA toolkit of the H100 machine; blocks an SM = the least of
-// what registers and shared memory allow):
-//   dtype  D    warps  smem B    regs  blocks/SM
-//   fp32   48   4       82,944   168   2
-//   fp32   64   4       95,232   168   2   (192 bytes spilled; D = 64 is on
-//                                          no path the models run)
-//   fp32   128  8      199,680   255   1
-//   bf16   48   4       41,984   168   3
-//   bf16   64   4       48,128   168   3
-//   bf16   128  4       72,704   246   2
+// path). The kernel (`xl2_fwd_kernel`, below) is one flash loop for all
+// three, the position term's form (POS) a template argument: a block a
+// (64-query tile, head, batch row), four warps of 16 rows (eight, 128
+// rows, for fp32 at D = 128 when that grid fills the card: at (8, 512,
+// H=2) it would make 64 blocks for 132 SMs, so the launcher takes four
+// warps there); a query tile's E-wide gA / gB rows (196 KB at 64 rows,
+// E = 384, fp32) do not stay in shared memory but stream in 32-column
+// chunks beside the key tile's table chunk, two stages deep; a key tile
+// forms only the position terms its pairs select (K7: one pass, added at
+// every key), and no (T, T) array reaches device memory. A block walks the
+// key tiles up to its batch row's last live key only: in a row with a live
+// key, m >= that key's logit, so a padded key's exp(MASK_NEG - m) is 0.0
+// in fp32 and the skip is exact (a row with no live key walks every tile:
+// its weights are uniform over Tp); the serving paths pass ragged pad
+// masks. K5 first runs the rotation pass (xl_mma.cuh's
+// `xl2_rotate_kernel`, K5 bwd-q's too) into a scratch gab (2, B, T, H, E)
+// in the stream dtype that the wrapper allocates: sincosf once a pair, not
+// once a key tile. Budget (ptxas -v, sm_90a, the CUDA toolkit of the H100
+// machine; blocks an SM = the least of what registers and shared memory
+// allow; no spill; 16 more bytes of static shared memory for live_end):
+//   dtype  D    warps  smem B    regs K5 / K6 / K7  blocks/SM
+//   fp32   48   4       82,944   168 / 168 / -      2
+//   fp32   64   4       95,232   202 / 202 / -      2
+//   fp32   128  8      199,680   - / 254 / 185      1
+//   fp32   128  4      144,384   - / 254 / 204      1
+//   bf16   48   4       41,984   168 / 168 / -      3
+//   bf16   64   4       48,128   168 / 168 / -      3
+//   bf16   128  4       72,704   - / 254 / 168      2
 //   rotation pass (256 threads): 28-29 registers, a 32-byte frame for
 //   sincosf's slow path.
 // What bounds it, measured (H100, tools/time_xl_fwd.py): at D = 48 eight
@@ -356,26 +373,52 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kFBK = 64;  // keys a tile
 constexpr int kFKC = 32;  // E columns a chunk of the position product
 
+// The position term of xl2_fwd_kernel, a template argument, so that it
+// also names the instance and a profile tells the kernels apart:
+constexpr int kPosXl = 0;     // K6: gA . t (past), gB . t (future), 0 at j = i + 1
+constexpr int kPosXlRot = 1;  // K5: the same on the rotation pass's streams
+constexpr int kPosRel = 2;    // K7: g . t at every key
+
 // Warps a block, each 16 query rows: eight for fp32 at D = 128, where a
 // block's shared memory lets one block onto an SM, so that it runs eight
-// warps and not four; four elsewhere (two blocks an SM).
+// warps and not four; four elsewhere (two blocks an SM). The launcher also
+// takes four at fp32, D = 128 when eight would leave SMs idle.
 template <typename T, int D>
 constexpr int xl2_fwd_warps() {
   return sizeof(T) == 4 && D == 128 ? 8 : 4;
 }
 
-template <typename T, int D>
+template <typename T, int D, int NW>
 constexpr size_t xl2_fwd_smem_bytes() {
   // QC (BQ, D), KS (64, D) read by 64-bit fragment loads, VS (64, D) read
   // down its rows, and two stages of a chunk: the stream's (BQ, 32) and the
   // table's (64, 32). Independent of E.
-  constexpr int BQ = 16 * xl2_fwd_warps<T, D>();
+  constexpr int BQ = 16 * NW;
   return sizeof(T) * ((BQ + kFBK) * tile_ld(D) + kFBK * tile_ld_nn<T, D>() +
                       2 * (BQ + kFBK) * tile_ld(kFKC));
 }
 
+// One past the last live key (pad <= 0.5) of a batch row, or Tq when the
+// row has none: its weights are uniform over every key, so every tile is
+// walked. Block-wide; every thread calls it.
+__device__ __forceinline__ int live_end(const float* padb, int Tq) {
+  __shared__ int end_s;
+  if (threadIdx.x == 0) end_s = 0;
+  __syncthreads();
+  int end = 0;
+  for (int j = Tq - 1 - (int)threadIdx.x; j >= 0; j -= (int)blockDim.x)
+    if (padb[j] <= 0.5f) {
+      end = j + 1;
+      break;
+    }
+  if (end > 0) atomicMax(&end_s, end);
+  __syncthreads();
+  return end_s > 0 ? end_s : Tq;
+}
+
 // One block a (16 NW-query tile, head, batch row); warp w owns query rows
-// 16w .. 16w + 15 of the tile and walks the 64-key tiles. Per key tile:
+// 16w .. 16w + 15 of the tile and walks the 64-key tiles up to the batch
+// row's last live key (`live_end`). Per key tile (K5 / K6):
 // s = qc k^T, then the position term, gA t^T where some j <= i and gB t^T
 // where some j >= i + 2, each over E in 32-column chunks of the stream and
 // the table, into a second accumulator that is added into s where its
@@ -387,10 +430,10 @@ constexpr size_t xl2_fwd_smem_bytes() {
 // xl_mma.cuh). The chunks stream by cp.async two stages deep across the
 // key tiles; k (the next tile's, once every warp has read this one's) and
 // v (this tile's, once every warp is past the last p v) ride in the
-// chunks' groups. ROTATED only names the instance (K5's streams come from
-// the rotation pass) so that a profile tells K5's launches from K6's; the
-// body does not read it.
-template <typename T, int D, bool ROTATED, int NW = xl2_fwd_warps<T, D>()>
+// chunks' groups. K7 (POS = kPosRel) forms one pass of g t^T a key tile,
+// straight into s, added at every key. K5 and K6 run one body (kPosXlRot
+// only names K5's instance: its streams come from the rotation pass).
+template <typename T, int D, int POS, int NW>
 __global__ void __launch_bounds__(32 * NW)
     xl2_fwd_kernel(const T* __restrict__ qc, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ ga,
@@ -400,6 +443,7 @@ __global__ void __launch_bounds__(32 * NW)
                    float scale, DropArgs drop) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr bool REL = POS == kPosRel;
   constexpr int BQ = 16 * NW, NT = 32 * NW;
   constexpr int LD = tile_ld(D);
   constexpr int LDV = tile_ld_nn<T, D>();
@@ -424,12 +468,13 @@ __global__ void __launch_bounds__(32 * NW)
   const int g4 = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16;  // the warp's rows of the tile
   const int qi[2] = {i0 + r0 + g4, i0 + r0 + g4 + 8};
-  const int n_tiles = (Tq + kFBK - 1) / kFBK;
+  const int n_tiles = (live_end(padb, Tq) + kFBK - 1) / kFBK;
   const int n_ch = E / kFKC;
 
-  // the position terms key tile j0 needs, each a pass of n_ch chunks
-  auto has_past = [&](int j0) { return j0 <= i0 + BQ - 1; };
-  auto has_fut = [&](int j0) { return j0 + kFBK - 1 >= i0 + 2; };
+  // the position terms key tile j0 needs, each a pass of n_ch chunks (K7:
+  // one, read from ga)
+  auto has_past = [&](int j0) { return REL || j0 <= i0 + BQ - 1; };
+  auto has_fut = [&](int j0) { return !REL && j0 + kFBK - 1 >= i0 + 2; };
   auto n_chunks = [&](int kt) {
     return (has_past(kt * kFBK) + has_fut(kt * kFBK)) * n_ch;
   };
@@ -441,8 +486,8 @@ __global__ void __launch_bounds__(32 * NW)
     const bool past = lc < n_ch && has_past(j0);
     const int e0 = (lc % n_ch) * kFKC;
     T* dst = CS + stage * (CA + CB);
-    cp_tile<T, BQ, kFKC, NT>(dst, LDC, (past ? ga : gb) + base_e, rse, i0, Tq,
-                             e0);
+    cp_tile<T, BQ, kFKC, NT>(dst, LDC, (REL || past ? ga : gb) + base_e, rse, i0,
+                             Tq, e0);
     cp_tile<T, kFBK, kFKC, NT>(dst + CA, LDC, table, E, j0, Tq, e0);
     if (++lc == n_chunks(lkt)) {
       lc = 0;
@@ -498,7 +543,7 @@ __global__ void __launch_bounds__(32 * NW)
         }
       }
       const int cc = c % n_ch;
-      if (cc == 0) {
+      if (!REL && cc == 0) {
 #pragma unroll
         for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
@@ -513,10 +558,10 @@ __global__ void __launch_bounds__(32 * NW)
         for (int ni = 0; ni < 8; ++ni) {
           uint32_t bh[2], bl[2];
           frag_b_nt<SPLIT>(A + CA, LDC, ni * 8, k0, lane, bh, bl);
-          mma3<SPLIT>(acc[ni], ah, al, bh, bl);
+          mma3<SPLIT>(REL ? s[ni] : acc[ni], ah, al, bh, bl);
         }
       }
-      if (cc == n_ch - 1) {  // a term is complete: add it where it selects
+      if (!REL && cc == n_ch - 1) {  // a term is complete: add it where it selects
         const bool is_past = past && c < n_ch;
 #pragma unroll
         for (int ni = 0; ni < 8; ++ni)
@@ -630,36 +675,71 @@ cudaError_t launch_xl3(const void* qc, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// K5 (ROTATE): the rotation pass writes gA, gB into gab (2, B, T, H, E),
-// then the kernel reads them; K6: the kernel reads ga, gb.
-template <typename T, int D, bool ROTATE>
+// The SMs of the current card (cached).
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        n <= 0)
+      n = 132;  // the H100 SXM's
+  }
+  return n;
+}
+
+// One xl2_fwd_kernel launch of NW warps a block.
+template <typename T, int D, int POS, int NW>
+cudaError_t launch_xl2_fwd(const T* qc, const T* k, const T* v, const T* ga,
+                           const T* gb, const T* table, const float* pad,
+                           float* out, float* lse, int B, int Tq, int Tp, int H,
+                           int E, float scale, DropArgs drop,
+                           cudaStream_t stream) {
+  constexpr size_t smem = xl2_fwd_smem_bytes<T, D, NW>();
+  cudaError_t err = cudaFuncSetAttribute(
+      xl2_fwd_kernel<T, D, POS, NW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  constexpr int BQ = 16 * NW;
+  xl2_fwd_kernel<T, D, POS, NW>
+      <<<dim3((Tq + BQ - 1) / BQ, H, B), 32 * NW, smem, stream>>>(
+          qc, k, v, ga, gb, table, pad, out, lse, H, Tq, Tp, E, scale, drop);
+  return cudaGetLastError();
+}
+
+// K5 (kPosXlRot): the rotation pass writes gA, gB into gab (2, B, T, H, E),
+// then the kernel reads them; K6: the kernel reads ga, gb; K7: ga is g, gb
+// unused. Eight warps a block where xl2_fwd_warps says so and that grid
+// covers the card's SMs, else four.
+template <typename T, int D, int POS>
 cudaError_t launch_xl2(const void* qc, const void* k, const void* v,
                        const void* ga, const void* gb, const void* table,
                        void* gab, const float* pad, float* out, float* lse,
                        int B, int Tq, int Tp, int H, int E, float scale,
                        DropArgs drop, cudaStream_t stream) {
-  constexpr size_t smem = xl2_fwd_smem_bytes<T, D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      xl2_fwd_kernel<T, D, ROTATE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const T* GA = static_cast<const T*>(ga);
   const T* GB = static_cast<const T*>(gb);
-  if constexpr (ROTATE) {
+  if constexpr (POS == kPosXlRot) {
     T* ra = static_cast<T*>(gab);
     T* rb = ra + (size_t)B * Tq * H * E;
-    err = launch_xl2_rotate<T>(GA, ra, rb, B, H, Tq, E, stream);
+    cudaError_t err = launch_xl2_rotate<T>(GA, ra, rb, B, H, Tq, E, stream);
     if (err != cudaSuccess) return err;
     GA = ra;
     GB = rb;
   }
-  constexpr int BQ = 16 * xl2_fwd_warps<T, D>();
-  xl2_fwd_kernel<T, D, ROTATE>
-      <<<dim3((Tq + BQ - 1) / BQ, H, B), 2 * BQ, smem, stream>>>(
-          static_cast<const T*>(qc), static_cast<const T*>(k),
-          static_cast<const T*>(v), GA, GB, static_cast<const T*>(table), pad,
-          out, lse, H, Tq, Tp, E, scale, drop);
-  return cudaGetLastError();
+#define VT_XL2_NW(NW)                                                         \
+  launch_xl2_fwd<T, D, POS, NW>(                                              \
+      static_cast<const T*>(qc), static_cast<const T*>(k),                    \
+      static_cast<const T*>(v), GA, GB, static_cast<const T*>(table), pad,    \
+      out, lse, B, Tq, Tp, H, E, scale, drop, stream)
+  constexpr int NW = xl2_fwd_warps<T, D>();
+  if constexpr (NW > 4) {
+    const long long wide = (long long)((Tq + 16 * NW - 1) / (16 * NW)) * H * B;
+    if (wide < sm_count()) return VT_XL2_NW(4);
+  }
+  return VT_XL2_NW(NW);
+#undef VT_XL2_NW
 }
 
 bool bad_sizes(int B, int T, int H, double dropout_p) {
@@ -667,31 +747,33 @@ bool bad_sizes(int B, int T, int H, double dropout_p) {
          T >= 65536 || !(dropout_p >= 0.0 && dropout_p < 1.0);
 }
 
-template <bool ROTATE>
+// K5 and K6 at D in {48, 64} (K6 also 128); K7 at D = 128 only.
+template <int POS>
 int xl2_entry(const void* qc, const void* k, const void* v, const void* ga,
               const void* gb, const void* table, void* gab, const float* pad,
               float* out, float* lse, int B, int T, int Tp, int H, int D, int E,
               int is_bf16, float scale, double dropout_p, uint64_t seed,
               void* stream) {
   // E in whole 64-column steps (the chunks' 32 and the rotation's pairs)
-  if (bad_sizes(B, T, H, dropout_p) || Tp < T || E <= 0 || E % 64 != 0 ||
-      (D == 128 && ROTATE))
+  if (bad_sizes(B, T, H, dropout_p) || Tp < T || E <= 0 || E % 64 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DropArgs drop = drop_args(dropout_p, seed);
-#define VT_XL2(TYPE, DIM)                                                    \
-  launch_xl2<TYPE, DIM, ROTATE>(qc, k, v, ga, gb, table, gab, pad, out, lse, \
-                                B, T, Tp, H, E, scale, drop, s)
-  switch (D * 2 + (is_bf16 ? 1 : 0)) {
-    case 96: return (int)VT_XL2(float, 48);
-    case 97: return (int)VT_XL2(__nv_bfloat16, 48);
-    case 128: return (int)VT_XL2(float, 64);
-    case 129: return (int)VT_XL2(__nv_bfloat16, 64);
-    default: break;
+#define VT_XL2(TYPE, DIM)                                                  \
+  launch_xl2<TYPE, DIM, POS>(qc, k, v, ga, gb, table, gab, pad, out, lse, \
+                             B, T, Tp, H, E, scale, drop, s)
+  if constexpr (POS != kPosRel) {
+    switch (D * 2 + (is_bf16 ? 1 : 0)) {
+      case 96: return (int)VT_XL2(float, 48);
+      case 97: return (int)VT_XL2(__nv_bfloat16, 48);
+      case 128: return (int)VT_XL2(float, 64);
+      case 129: return (int)VT_XL2(__nv_bfloat16, 64);
+      default: break;
+    }
   }
-  // D = 128 (the JETS conformer's legacy rel-pos flavour, E = 256): the
-  // two-stream kernel K6 only
-  if constexpr (!ROTATE) {
+  // D = 128 (the JETS conformer, E = 256): K6 (the legacy rel-pos flavour)
+  // and K7 (the latest)
+  if constexpr (POS != kPosXlRot) {
     switch (D * 2 + (is_bf16 ? 1 : 0)) {
       case 256: return (int)VT_XL2(float, 128);
       case 257: return (int)VT_XL2(__nv_bfloat16, 128);
@@ -741,8 +823,9 @@ int vt_flash_xl2_fwd(const void* qc, const void* k, const void* v,
                      const float* pad, float* out, float* lse, int B, int T,
                      int Tp, int H, int D, int E, int is_bf16, float scale,
                      double dropout_p, uint64_t seed, void* stream) {
-  return xl2_entry<true>(qc, k, v, g, nullptr, table, gab, pad, out, lse, B, T,
-                         Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream);
+  return xl2_entry<kPosXlRot>(qc, k, v, g, nullptr, table, gab, pad, out, lse,
+                              B, T, Tp, H, D, E, is_bf16, scale, dropout_p,
+                              seed, stream);
 }
 
 // K6. gA, gB: (B, T, H, E) pre-rotated; other arguments as K5 (dropout
@@ -754,8 +837,24 @@ int vt_flash_xl_fwd(const void* qc, const void* k, const void* v,
                     const float* pad, float* out, float* lse, int B, int T,
                     int Tp, int H, int D, int E, int is_bf16, float scale,
                     double dropout_p, uint64_t seed, void* stream) {
-  return xl2_entry<false>(qc, k, v, ga, gb, table, nullptr, pad, out, lse, B, T,
-                          Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream);
+  return xl2_entry<kPosXl>(qc, k, v, ga, gb, table, nullptr, pad, out, lse, B,
+                           T, Tp, H, D, E, is_bf16, scale, dropout_p, seed,
+                           stream);
+}
+
+// K7. qc, k, v: (B, T, H, D); g: (B, T, H, E) the pre-rotated position
+// queries; table: (T, E) the negative half of the symmetric table; all one
+// dtype. D = 128 (the JETS width), E a multiple of 64. Other arguments as
+// K5 (Tp >= T, the keys in [T, Tp) padded zero rows). Returns the
+// cudaError_t.
+int vt_flash_rel_fwd(const void* qc, const void* k, const void* v,
+                     const void* g, const void* table, const float* pad,
+                     float* out, float* lse, int B, int T, int Tp, int H,
+                     int D, int E, int is_bf16, float scale, double dropout_p,
+                     uint64_t seed, void* stream) {
+  return xl2_entry<kPosRel>(qc, k, v, g, nullptr, table, nullptr, pad, out, lse,
+                            B, T, Tp, H, D, E, is_bf16, scale, dropout_p, seed,
+                            stream);
 }
 
 const char* vt_error_string(int err) {

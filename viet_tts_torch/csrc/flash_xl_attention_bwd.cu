@@ -38,16 +38,18 @@
 // place of the sequential axis, no two blocks write one output, and sums
 // across blocks go through fp32 partials and a second pass: no atomics, the
 // result is deterministic.
-//  - K4 is one entry of three passes: `xl3_bwd_q_kernel`, one block per
-//    (64-query tile, head, batch row) walking the 64-key tiles, gives dqc,
-//    the two parts of dqv, and the tile's dp partial (each diagonal of a
-//    (query, key) tile is one offset c, summed over its <= 64 pairs and
-//    added into the block's own (T, D) slice); `xl3_bwd_kv_kernel`, one
-//    block per (64-key tile, head, batch row) walking the query tiles,
-//    gives dk and dv; `xl3_bwd_reduce_kernel` sums the dp partials over
-//    batch rows and query tiles and adds row i-1's future part into dqv_i.
-//    Both main kernels stage the 127-row band of p that a tile's offsets
-//    j - i reach, as the forward does.
+//  - K4 bwd runs on the tensor cores in three launches: `xl3_bwd_ds_kernel`
+//    (see its comment), one block a (64-query tile, head, batch row)
+//    walking the 64-key tiles, forms s, the position logits as band
+//    products (qv against the 127 rows of p that a tile's offsets j - i
+//    reach, read back along the tile's diagonals), g v^T, ds, dqc, the two
+//    parts of dqv and the tile's partial of the table's gradient dp (ds in
+//    band form against qv), and writes ds and P = p m / keep into two
+//    (B, H, T, Ts) fp32 scratches; bwd-kv's kernel (`xl2_bwd_kv_kernel`,
+//    K4's instance) forms dk = ds^T qc and dv = P^T g from them; and
+//    `xl3_bwd_reduce_kernel` sums the dp partials over batch rows and query
+//    tiles and adds row i-1's future part into dqv_i. K4 runs at T <= 512
+//    (`XL3_MAX_T`), so the scratches are small (67 MB each at (8, 8, 512)).
 //  - The K5 / K6 backward runs on the tensor cores, in stages that share
 //    two fp32 scratches: Q1 and Q2 give bwd-q's dqc and dgA / dgB, then
 //    bwd-kv gives dk and dv, and dtab (only on demand) the table's
@@ -139,6 +141,15 @@
 //        kv            bf16   128   104,448    124   2          256
 //        dtab          fp32   -      52,224     93   4          128
 //        dtab          bf16   -      35,840     90   5          128
+//        K4 ds         fp32   48    134,368    222   1          256
+//        K4 ds         fp32   64    163,104    246   1          256
+//        K4 ds         bf16   48     84,080    202   1          256
+//        K4 ds         bf16   64     98,448    232   1          256
+//        (K4's bwd-kv instance: kv's registers; reduce: grid-stride.)
+//      K4's ds kernel with four warps of 16 rows (all the keys each) took
+//      0.91 ms at (8, 8, 512) fp32, one warp on each of an SM's four
+//      schedulers; eight warps, each half of the keys, take 0.47 ms
+//      (tools/time_xl_bwd.py, H100).
 //        rotate (xl_mma.cuh) / unrotate (256 threads): no shared memory,
 //        28-30 registers (a 32-byte frame for sincosf's slow path).
 //      Shared memory does not depend on E; E a multiple of 64 (the column
@@ -159,12 +170,13 @@
 // 12.9 GFLOP for K4 bwd (s, the position term, g v, dqc, dk, dv, dqv, dp),
 // 2*B*H*T^2*(3D + 2E) = 119 GFLOP for K5 bwd-q and, with bwd-kv reading
 // Q1's scratches, 2*B*H*T^2*2D = 12.5 GFLOP for bwd-kv against 0.53 GB (K6
-// the same). K4 bwd runs every product on the fp32 CUDA cores (67
-// TFLOP/s), with register tiles fed from shared memory: bound by
-// operations. K5 / K6 bwd-q and bwd-kv run on the tensor cores (495
-// TFLOP/s TF32, three products a term for fp32 streams): 0.72 ms for K5
+// the same). All run on the tensor cores (495 TFLOP/s TF32, three products
+// a term for fp32 streams): 0.08 ms for K4 bwd at (8, 512), 0.72 ms for K5
 // bwd-q at (8, 1008) if the tensor cores were the only limit, 0.08 ms for
-// bwd-kv, which its 0.16 ms of scratch bytes bound instead.
+// bwd-kv, which its 0.16 ms of scratch bytes bound instead. K4's band
+// products pad its position work to 128 band columns for a tile's 64 keys
+// (skipping the columns a warp's rows do not reach), about 1.5 times the
+// function's operations in all.
 //
 // Padding follows the forward. K4: keys past T are never formed (the
 // reference scores them 2*MASK_NEG: weight exactly 0). K5 / K6: the Tp - T
@@ -190,458 +202,6 @@ __device__ __forceinline__ bool row_all_dead(const float* padb, int Tq) {
   int live = 0;
   for (int j = threadIdx.x; j < Tq; j += blockDim.x) live |= padb[j] <= 0.5f;
   return !__syncthreads_or(live);
-}
-
-// Rows r0 .. r0 + n - 1 of a (B, T, H, X) stream (row stride rs, this
-// (b, h)'s offset base) into dst (n, ld) as fp32; rows outside [0, Tq) are 0.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
-                                          size_t base, size_t rs, int r0,
-                                          int n, int Tq, int X) {
-  for (int i = threadIdx.x; i < n * X; i += kThreads) {
-    const int r = i / X, x = i % X, row = r0 + r;
-    dst[r * ld + x] = (row >= 0 && row < Tq)
-                          ? to_float(src[base + (size_t)row * rs + x])
-                          : 0.f;
-  }
-}
-
-// Per-row lse and delta of rows r0 .. r0 + n - 1 (0 past Tq).
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* del_s,
-                                               const float* lse,
-                                               const float* delta,
-                                               size_t rbase, int r0, int n,
-                                               int Tq) {
-  for (int r = threadIdx.x; r < n; r += kThreads) {
-    const bool in = r0 + r < Tq;
-    lse_s[r] = in ? lse[rbase + r0 + r] : 0.f;
-    del_s[r] = in ? delta[rbase + r0 + r] : 0.f;
-  }
-}
-
-// 1.0 for keys j0 .. j0 + n - 1 that are padding or past Tq.
-__device__ __forceinline__ void load_dead(float* dead_s, const float* padb,
-                                          int j0, int n, int Tq) {
-  for (int c = threadIdx.x; c < n; c += kThreads) {
-    const int key = j0 + c;
-    dead_s[c] = (key >= Tq || padb[key] > 0.5f) ? 1.f : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4 bwd: xl3, projected table
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ3 = 64;
-constexpr int kBK3 = 64;
-constexpr int kBand = kBQ3 + kBK3 - 1;  // offsets j - i one tile reaches
-
-// Rows c0 .. c0 + 126 of the head-h slice of p (T, H, D) into a band
-// (127, ld); rows outside [0, Tq) are never selected and stay 0.
-template <typename T>
-__device__ __forceinline__ void load_band(float* dst, int ld, const T* p,
-                                          int c0, int Tq, int H, int h,
-                                          int D) {
-  for (int i = threadIdx.x; i < kBand * D; i += kThreads) {
-    const int u = i / D, d = i % D, c = c0 + u;
-    dst[u * ld + d] =
-        (c >= 0 && c < Tq) ? to_float(p[((size_t)c * H + h) * D + d]) : 0.f;
-  }
-}
-
-// Shared memory of both K4 bwd main kernels: QC, GS, KS, VS (64, D+1);
-// QV (65, D+1); the past and future bands (127, D+1); two (64, 65) score
-// tiles; lse, delta, dead (64 each).
-template <int D>
-constexpr size_t xl3_bwd_smem_bytes() {
-  return sizeof(float) * (4 * 64 * (D + 1) + 65 * (D + 1) +
-                          2 * kBand * (D + 1) + 2 * 64 * 65 + 3 * 64);
-}
-
-// The forward's four products on one (64 query, 64 key) tile, as the
-// forward kernel computes them (same order of summation): thread (ty, tx)
-// holds queries 4 ty + a and keys 4 tx + c. s = qc . k, pos = the XL select
-// of qv . band (past) and qv_{+1} . band (future), dv = g . v.
-template <int D>
-__device__ __forceinline__ void xl3_tile_products(
-    const float* QC, const float* QV, const float* GS, const float* KS,
-    const float* VS, const float* PP, const float* PF, bool need_past,
-    bool need_fut, int i0, int j0, int ty, int tx, float s[4][4],
-    float pos[4][4], float dv[4][4]) {
-  constexpr int DP = D + 1;
-  const int u0 = 4 * tx - 4 * ty + kBQ3 - 4;  // band row of (a, c) = u0+c-a+3
-  float sp[4][4], sf[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[a][c] = sp[a][c] = sf[a][c] = dv[a][c] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; ++d) {
-    float q4[4], g4[4], k4[4], v4[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      q4[a] = QC[(ty * 4 + a) * DP + d];
-      g4[a] = GS[(ty * 4 + a) * DP + d];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      k4[c] = KS[(tx * 4 + c) * DP + d];
-      v4[c] = VS[(tx * 4 + c) * DP + d];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[a][c] = fmaf(q4[a], k4[c], s[a][c]);
-        dv[a][c] = fmaf(g4[a], v4[c], dv[a][c]);
-      }
-    float qv5[5];
-#pragma unroll
-    for (int a = 0; a < 5; ++a) qv5[a] = QV[(ty * 4 + a) * DP + d];
-    if (need_past) {
-      float band[7];
-#pragma unroll
-      for (int t = 0; t < 7; ++t) band[t] = PP[(u0 + t) * DP + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          sp[a][c] = fmaf(qv5[a], band[c - a + 3], sp[a][c]);
-    }
-    if (need_fut) {
-      float band[7];
-#pragma unroll
-      for (int t = 0; t < 7; ++t) band[t] = PF[(u0 + t) * DP + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          sf[a][c] = fmaf(qv5[a + 1], band[c - a + 3], sf[a][c]);
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int qi = i0 + ty * 4 + a;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int kj = j0 + tx * 4 + c;
-      pos[a][c] = kj <= qi ? sp[a][c] : (kj >= qi + 2 ? sf[a][c] : 0.f);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    xl3_bwd_q_kernel(const T* __restrict__ qc, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ qv,
-                     const T* __restrict__ p, const T* __restrict__ g,
-                     const float* __restrict__ pad,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dqc,
-                     float* __restrict__ dqv_a, float* __restrict__ dqv_b,
-                     float* __restrict__ dp_part, int H, int Tq, float scale,
-                     DropArgs drop) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int DP = D + 1;
-  constexpr int SP = kBK3 + 1;
-  constexpr int DJ = D / 16;
-
-  extern __shared__ __align__(16) float smem[];
-  float* QC = smem;
-  float* GS = QC + kBQ3 * DP;
-  float* KS = GS + kBQ3 * DP;
-  float* VS = KS + kBK3 * DP;
-  float* QV = VS + kBK3 * DP;
-  float* PP = QV + (kBQ3 + 1) * DP;
-  float* PF = PP + kBand * DP;
-  float* dS = PF + kBand * DP;
-  float* lse_s = dS + 2 * kBQ3 * SP;
-  float* del_s = lse_s + kBQ3;
-  float* dead_s = del_s + kBQ3;
-
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * kBQ3;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t rs = (size_t)H * D;
-  const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
-  const float* padb = pad + (size_t)b * Tq;
-  const size_t rbase = ((size_t)b * H + h) * Tq;
-  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
-  // this block's (T, D) slice of the dp partials (B, n_qtiles, H, T, D)
-  float* part =
-      dp_part + (((size_t)b * gridDim.x + blockIdx.x) * H + h) * Tq * D;
-
-  // a fully padded batch row has ds = 0 everywhere: dqc, dqv and its dp
-  // share are 0
-  const bool all_dead = row_all_dead(padb, Tq);
-
-  load_rows(QC, DP, qc, base, rs, i0, kBQ3, Tq, D);
-  load_rows(GS, DP, g, base, rs, i0, kBQ3, Tq, D);
-  load_rows(QV, DP, qv, base, rs, i0, kBQ3 + 1, Tq, D);
-  load_row_stats(lse_s, del_s, lse, delta, rbase, i0, kBQ3, Tq);
-
-  const int ty = tid / 16, tx = tid % 16;
-  float acc_q[4][DJ], acc_a[4][DJ], acc_b[4][DJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_q[a][j] = acc_a[a][j] = acc_b[a][j] = 0.f;
-
-  for (int j0 = 0; j0 < Tq && !all_dead; j0 += kBK3) {
-    const bool need_past = j0 <= i0 + kBQ3 - 1;
-    const bool need_fut = j0 + kBK3 - 1 >= i0 + 2;
-    const int c_past = Tq - 1 - i0 - (kBQ3 - 1) + j0;
-    const int c_fut = j0 - i0 - (kBQ3 - 1) - 2;
-    __syncthreads();  // the previous tile's KS / VS / bands / dS are read
-    load_rows(KS, DP, k, base, rs, j0, kBK3, Tq, D);
-    load_rows(VS, DP, v, base, rs, j0, kBK3, Tq, D);
-    load_dead(dead_s, padb, j0, kBK3, Tq);
-    if (need_past) load_band(PP, DP, p, c_past, Tq, H, h, D);
-    if (need_fut) load_band(PF, DP, p, c_fut, Tq, H, h, D);
-    __syncthreads();
-
-    float s[4][4], pos[4][4], dv[4][4];
-    xl3_tile_products<D>(QC, QV, GS, KS, VS, PP, PF, need_past, need_fut, i0,
-                         j0, ty, tx, s, pos, dv);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty * 4 + a, qi = i0 + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx * 4 + c;
-        float ds = 0.f;
-        if (qi < Tq && dead_s[col] == 0.f) {
-          const float pr = expf((s[a][c] + pos[a][c]) * scale - lse_s[r]);
-          const float m = keep_scale(drop, drop_key, qi, j0 + col);
-          ds = to_stream<T>(pr * (dv[a][c] * m - del_s[r]) * scale);
-        }
-        dS[r * SP + col] = ds;
-      }
-    }
-    __syncthreads();
-
-    // dqc += ds k; dqv (own row) += dsA band_past; dqv (next row) += dsB
-    // band_fut. Thread (ty, tx): rows 4 ty + a, features tx + 16 j.
-#pragma unroll 2
-    for (int col = 0; col < kBK3; ++col) {
-      const int kj = j0 + col;
-      float w[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) w[a] = dS[(ty * 4 + a) * SP + col];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float kk = KS[col * DP + tx + 16 * j];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) acc_q[a][j] = fmaf(w[a], kk, acc_q[a][j]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int r = ty * 4 + a, qi = i0 + r, u = col - r + kBQ3 - 1;
-        if (need_past && kj <= qi) {
-#pragma unroll
-          for (int j = 0; j < DJ; ++j)
-            acc_a[a][j] = fmaf(w[a], PP[u * DP + tx + 16 * j], acc_a[a][j]);
-        } else if (need_fut && kj >= qi + 2) {
-#pragma unroll
-          for (int j = 0; j < DJ; ++j)
-            acc_b[a][j] = fmaf(w[a], PF[u * DP + tx + 16 * j], acc_b[a][j]);
-        }
-      }
-    }
-
-    // dp partial: diagonal u of the tile (pairs (a, u - 63 + a)) is the
-    // offset j - i = j0 - i0 + u - 63, wholly past, the zero diagonal or
-    // wholly future, and lands on c_past + u or c_fut + u. Past diagonals
-    // first, then future ones: two diagonals of the two kinds may share an
-    // offset c, and one thread at a time owns an address.
-    for (int fut = 0; fut < 2; ++fut) {
-      if (fut) __syncthreads();
-      if (fut ? !need_fut : !need_past) continue;
-      const int c0 = fut ? c_fut : c_past;
-      for (int idx = tid; idx < kBand * D; idx += kThreads) {
-        const int u = idx / D, d = idx % D;
-        const int rel = j0 - i0 + u - (kBQ3 - 1);
-        const int c = c0 + u;
-        if ((fut ? rel < 2 : rel > 0) || c < 0 || c >= Tq) continue;
-        const int a_lo = u < kBQ3 - 1 ? kBQ3 - 1 - u : 0;
-        const int a_hi = u > kBK3 - 1 ? kBand - 1 - u : kBQ3 - 1;
-        float sum = 0.f;
-        for (int a = a_lo; a <= a_hi; ++a)
-          sum = fmaf(dS[a * SP + u - (kBQ3 - 1) + a], QV[(a + fut) * DP + d],
-                     sum);
-        part[(size_t)c * D + d] += sum;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int qi = i0 + ty * 4 + a;
-    if (qi >= Tq) continue;
-    const size_t off = base + (size_t)qi * rs;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dqc[off + tx + 16 * j] = acc_q[a][j];
-      dqv_a[off + tx + 16 * j] = acc_a[a][j];
-      dqv_b[off + tx + 16 * j] = acc_b[a][j];
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    xl3_bwd_kv_kernel(const T* __restrict__ qc, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ qv,
-                      const T* __restrict__ p, const T* __restrict__ g,
-                      const float* __restrict__ pad,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv_out, int H, int Tq, float scale,
-                      DropArgs drop) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int DP = D + 1;
-  constexpr int SP = kBQ3 + 1;
-  constexpr int DJ = D / 16;
-
-  extern __shared__ __align__(16) float smem[];
-  float* QC = smem;
-  float* GS = QC + kBQ3 * DP;
-  float* KS = GS + kBQ3 * DP;
-  float* VS = KS + kBK3 * DP;
-  float* QV = VS + kBK3 * DP;
-  float* PP = QV + (kBQ3 + 1) * DP;
-  float* PF = PP + kBand * DP;
-  float* Pt = PF + kBand * DP;  // (key, query): p * m / keep
-  float* dSt = Pt + kBK3 * SP;  // (key, query): ds
-  float* lse_s = dSt + kBK3 * SP;
-  float* del_s = lse_s + kBQ3;
-  float* dead_s = del_s + kBQ3;
-
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * kBK3;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t rs = (size_t)H * D;
-  const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
-  const float* padb = pad + (size_t)b * Tq;
-  const size_t rbase = ((size_t)b * H + h) * Tq;
-  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
-  const float p_uniform = 1.f / (float)Tq;  // a fully padded row's weight
-
-  const bool all_dead = row_all_dead(padb, Tq);
-
-  load_rows(KS, DP, k, base, rs, j0, kBK3, Tq, D);
-  load_rows(VS, DP, v, base, rs, j0, kBK3, Tq, D);
-  load_dead(dead_s, padb, j0, kBK3, Tq);
-
-  // scores: queries 4 ty + a, keys 4 tx + c; accumulators: keys 4 ty + i,
-  // features tx + 16 j
-  const int ty = tid / 16, tx = tid % 16;
-  float acc_k[4][DJ], acc_v[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  for (int i0 = 0; i0 < Tq; i0 += kBQ3) {
-    const bool need_past = j0 <= i0 + kBQ3 - 1;
-    const bool need_fut = j0 + kBK3 - 1 >= i0 + 2;
-    __syncthreads();  // the previous tile's QC / GS / QV / bands / Pt are read
-    load_rows(QC, DP, qc, base, rs, i0, kBQ3, Tq, D);
-    load_rows(GS, DP, g, base, rs, i0, kBQ3, Tq, D);
-    load_rows(QV, DP, qv, base, rs, i0, kBQ3 + 1, Tq, D);
-    load_row_stats(lse_s, del_s, lse, delta, rbase, i0, kBQ3, Tq);
-    if (need_past)
-      load_band(PP, DP, p, Tq - 1 - i0 - (kBQ3 - 1) + j0, Tq, H, h, D);
-    if (need_fut) load_band(PF, DP, p, j0 - i0 - (kBQ3 - 1) - 2, Tq, H, h, D);
-    __syncthreads();
-
-    float s[4][4], pos[4][4], dv[4][4];
-    xl3_tile_products<D>(QC, QV, GS, KS, VS, PP, PF, need_past, need_fut, i0,
-                         j0, ty, tx, s, pos, dv);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty * 4 + a, qi = i0 + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx * 4 + c, kj = j0 + col;
-        float pv = 0.f, ds = 0.f;
-        if (qi < Tq && kj < Tq) {
-          const bool dead = dead_s[col] != 0.f;
-          const float m = keep_scale(drop, drop_key, qi, kj);
-          float pr;
-          if (all_dead)
-            pr = p_uniform;  // the dense gradient (see the header)
-          else
-            pr = dead ? 0.f
-                      : expf((s[a][c] + pos[a][c]) * scale - lse_s[r]);
-          pv = to_stream<T>(pr * m);
-          if (!dead) ds = to_stream<T>(pr * (dv[a][c] * m - del_s[r]) * scale);
-        }
-        Pt[col * SP + r] = pv;
-        dSt[col * SP + r] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int r = 0; r < kBQ3; ++r) {
-      float wp[4], ws[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        wp[i] = Pt[(ty * 4 + i) * SP + r];
-        ws[i] = dSt[(ty * 4 + i) * SP + r];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float gg = GS[r * DP + tx + 16 * j];
-        const float qq = QC[r * DP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc_v[i][j] = fmaf(wp[i], gg, acc_v[i][j]);
-          acc_k[i][j] = fmaf(ws[i], qq, acc_k[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = j0 + ty * 4 + i;
-    if (kj >= Tq) continue;
-    const size_t off = base + (size_t)kj * rs;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk[off + tx + 16 * j] = acc_k[i][j];
-      dv_out[off + tx + 16 * j] = acc_v[i][j];
-    }
-  }
-}
-
-// dp (T, H, D) = the sum of the partials over batch rows and query tiles;
-// dqv_i += dqv_b_{i-1} (row i-1's future term read qv_i).
-__global__ void __launch_bounds__(kThreads)
-    xl3_bwd_reduce_kernel(const float* __restrict__ dp_part,
-                          float* __restrict__ dp, float* __restrict__ dqv,
-                          const float* __restrict__ dqv_b, int B, int nq,
-                          int H, int Tq, int D) {
-  const size_t n_dp = (size_t)Tq * H * D;
-  const size_t n_qv = (size_t)B * Tq * H * D;
-  const size_t rs = (size_t)H * D;
-  for (size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
-       idx < n_dp + n_qv; idx += (size_t)gridDim.x * kThreads) {
-    if (idx < n_dp) {
-      const size_t c = idx / rs, h = (idx / D) % H, d = idx % D;
-      float sum = 0.f;
-      for (int bq = 0; bq < B * nq; ++bq)
-        sum += dp_part[((size_t)bq * H + h) * Tq * D + c * D + d];
-      dp[idx] = sum;
-    } else {
-      const size_t j = idx - n_dp;
-      if ((j / rs) % Tq >= 1) dqv[j] += dqv_b[j - rs];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1185,8 +745,10 @@ __global__ void __launch_bounds__(kThreads)
 // (query, key) tile read transposed (load_a_t), the B fragment the staged
 // (query, feature) rows. Warp w forms dv (w < 4, from P and g) or dk (from
 // ds and qc) for keys 32 ((w >> 1) & 1) .. + 31 and features
-// (D / 2) (w & 1) .. + D / 2 - 1.
-template <typename T, int D>
+// (D / 2) (w & 1) .. + D / 2 - 1. XL3 only names K4's instance (its
+// scratches come from xl3_bwd_ds_kernel), so that a profile tells K4's
+// launches from K5 / K6's; the body does not read it.
+template <typename T, int D, bool XL3>
 __global__ void __launch_bounds__(kKvThreads)
     xl2_bwd_kv_kernel(const T* __restrict__ qc, const T* __restrict__ g,
                       const float* __restrict__ S, const float* __restrict__ P,
@@ -1421,51 +983,458 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// K4 bwd on the tensor cores: the ds kernel (ds, P, dqc, dqv and the
+// table's partials), bwd-kv (K5 / K6's kernel, K4's instance) on its
+// scratches, and the reduce pass
+// ---------------------------------------------------------------------------
+
+constexpr int kX3 = 64;              // query rows and keys a tile
+constexpr int kX3Band = 2 * kX3;     // band columns: a tile's 127 offsets j - i and a zero one
+constexpr int kX3Threads = 256;      // eight warps: 16 query rows x half of the keys each
+constexpr int kX3LDW = kX3Band + 4;  // the fp32 band tile's row pitch, 4 mod 16 words
+
+// Rows of one block's table partial (a (batch row, query tile, head)): 64
+// a key tile and 64 more (the ds kernel's carry).
+__host__ __device__ inline int xl3_part_rows(int Tq) {
+  return kX3 * ((Tq + kX3 - 1) / kX3 + 1);
+}
+
+template <typename T, int D>
+constexpr size_t xl3_bwd_ds_smem_bytes() {
+  // QC, GS, KS, VS (64, D), QV (65, D) and the band of p (128, D) in the
+  // stream dtype; the band tile W (64, 128) in fp32. After the tile loop
+  // the first 3 * 64 * D floats hold the key halves' partial dqc and dqv.
+  return sizeof(T) * (5 * kX3 + 1 + kX3Band) * tile_ld(D) +
+         sizeof(float) * kX3 * kX3LDW;
+}
+static_assert(xl3_bwd_ds_smem_bytes<__nv_bfloat16, 48>() >= sizeof(float) * 3 * kX3 * 64,
+              "the smallest instance holds the partials of the widest one");
+
+// One block a (64-query tile qt, head, batch row), eight warps: warp w
+// holds query rows 16 (w % 4) .. + 15 and the keys of half w / 4 of each
+// key tile (its pair, w ^ 4, the other half). It walks the 64-key tiles kt
+// (k, v and the band of p staged by cp.async, the next tile's in flight
+// during the table product; qc, g and qv staged once). Key tile kt's pairs
+// reach 127 offsets rel = j - i = 64 (kt - qt) + u - 63, band column u in
+// [0, 127): each past column (rel <= 0) reads p_{T-1+rel} against qv_i,
+// each future one (rel >= 2) p_{rel-2} against qv_{i+1}, the column rel = 1
+// is zero. A tile wholly in the past has only past columns, one wholly in
+// the future only future ones, the diagonal tile both, split at u = 64.
+// Per key tile:
+//  - the position logits as a band product, X = qv band^T (past columns)
+//    and qv_{+1} band^T (future), over the band columns the warp's pairs
+//    reach, sheared into W (row r, key c = u + r - 63);
+//  - s = pos + qc k^T and dp = g v^T; ds and P = p m / keep in the
+//    accumulators' layout, written into the scratches S and P (B, H, T,
+//    Ts) fp32 that bwd-kv reads (a fully padded batch row: P = m / T, K4's
+//    dense weight; ds = 0);
+//  - dqc += ds k over the warp's keys, ds the A operand from the registers
+//    (xl_mma.cuh's permuted k order);
+//  - ds sheared back into band form in W (column u of row r = the pair
+//    (r, u + r - 63); 0 outside the row's band and at rel = 1), then, each
+//    warp over half of its rows' band columns, dqv (own row) += W_past band
+//    and dqv_b (row i's future term, added into row i + 1 by the reduce
+//    pass) += W_future band;
+//  - the table's partial G = W^T qv (past columns) or W^T qv_{+1}
+//    (future), the 128 band columns as M and the 64 rows as the
+//    contraction: warp w forms columns 16 (w % 4).. (lo) and 64 + 16 (w %
+//    4).. (hi) for half w / 4 of D. Column u of tile kt and column u + 64
+//    of tile kt - 1 hold one offset c (same kind), so hi is carried in
+//    registers to the next tile's lo, and a block writes each of its
+//    partial's rows L = 64 kt + u once (no zero fill, no atomics): L < 64
+//    (qt + 1) is past offset c = T - 64 (qt + 1) + L, the rest future
+//    c = L - 64 qt - 65.
+// At the end the two key halves' partial dqc and dqv meet in shared memory.
+// Skipped: band columns a warp's pairs do not reach, and the table
+// product's row steps that hold no pair of a column block.
+template <typename T, int D>
+__global__ void __launch_bounds__(kX3Threads)
+    xl3_bwd_ds_kernel(const T* __restrict__ qc, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ qv,
+                      const T* __restrict__ p, const T* __restrict__ g,
+                      const float* __restrict__ pad,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ S,
+                      float* __restrict__ P, float* __restrict__ dqc,
+                      float* __restrict__ dqv_a, float* __restrict__ dqv_b,
+                      float* __restrict__ part, int H, int Tq, int Ts,
+                      float scale, DropArgs drop) {
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LD = tile_ld(D);
+  constexpr int TILE = kX3 * LD;
+  constexpr int ND = D / 8;
+  constexpr int NH = ND / 2;  // 8-column steps of the warp's half of D
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* QC = reinterpret_cast<T*>(smem_raw);
+  T* GS = QC + TILE;
+  T* KS = GS + TILE;
+  T* VS = KS + TILE;
+  T* QV = VS + TILE;            // rows i0 .. i0 + 64
+  T* BC = QV + (kX3 + 1) * LD;  // the band of p, kX3Band rows
+  float* W = reinterpret_cast<float*>(BC + kX3Band * LD);  // (64, kX3LDW)
+
+  const int qt = blockIdx.x, i0 = qt * kX3, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (Tq + kX3 - 1) / kX3;
+  const size_t rs = (size_t)H * D;
+  const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
+  const float* padb = pad + (size_t)b * Tq;
+  const size_t rbase = ((size_t)b * H + h) * Tq;
+  float* Sb = S + rbase * Ts;
+  float* Pb = P + rbase * Ts;
+  float* blk = part + (((size_t)b * nt + qt) * H + h) * xl3_part_rows(Tq) * D;
+  const bool all_dead = row_all_dead(padb, Tq);
+  const float p_uniform = 1.f / (float)Tq;  // a fully padded row's weight
+  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int r0 = (warp & 3) * 16;  // the warp's rows of the tile
+  const int hk = warp >> 2;        // its half of the keys (and of D)
+  const int c0 = hk * (kX3 / 2);   // its first key of a tile
+  // the band columns the warp's rows reach ([63 - r, 126 - r] for row r),
+  // and those its pairs reach
+  const int ulo = kX3 - 16 - r0, uhi = kX3Band - 2 - r0;
+  const int xlo = ulo + c0, xhi = ulo + c0 + kX3 / 2 + 14;
+  // where the key halves split the contraction over the rows' band
+  // columns (dqv): five 8-column steps each
+  const int umid = ((ulo + uhi + 1) / 2 + 4) / 8 * 8;
+  int qi[2];
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    qi[hf] = i0 + r0 + g4 + 8 * hf;
+    const bool in = qi[hf] < Tq;
+    lse_r[hf] = in ? lse[rbase + qi[hf]] : 0.f;
+    del_r[hf] = in ? delta[rbase + qi[hf]] : 0.f;
+  }
+
+  // k, v and the band of p of key tile kt (the caller commits)
+  auto stage = [&](int kt) {
+    cp_tile<T, kX3, D, kX3Threads>(KS, LD, k + base, rs, kt * kX3, Tq, 0);
+    cp_tile<T, kX3, D, kX3Threads>(VS, LD, v + base, rs, kt * kX3, Tq, 0);
+    constexpr int V = 16 / (int)sizeof(T), PER_ROW = D / V;
+    for (int idx = threadIdx.x; idx < kX3Band * PER_ROW; idx += kX3Threads) {
+      const int u = idx / PER_ROW, c = (idx % PER_ROW) * V;
+      const int rel = kX3 * (kt - qt) + u - (kX3 - 1);
+      const int row = rel >= 2 ? rel - 2 : Tq - 1 + rel;
+      const bool in = u < kX3Band - 1 && rel != 1 && row >= 0 && row < Tq;
+      cp_async16(BC + u * LD + c, in ? p + ((size_t)row * H + h) * D + c : p,
+                 in ? 16 : 0);
+    }
+  };
+
+  cp_tile<T, kX3, D, kX3Threads>(QC, LD, qc + base, rs, i0, Tq, 0);
+  cp_tile<T, kX3, D, kX3Threads>(GS, LD, g + base, rs, i0, Tq, 0);
+  cp_tile<T, kX3 + 1, D, kX3Threads>(QV, LD, qv + base, rs, i0, Tq, 0);
+  stage(0);
+  cp_async_commit();
+
+  float acc_q[ND][4], acc_a[ND][4], acc_b[ND][4], carry[NH][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc_q[nd][c] = acc_a[nd][c] = acc_b[nd][c] = 0.f;
+      if (nd < NH) carry[nd][c] = 0.f;
+    }
+
+  // rows 64 kt + r0 + (g, g + 8), the warp's half of D, of the partial
+  auto write_part = [&](int kt, const float (&x)[NH][4]) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float* row = blk + (size_t)(kX3 * kt + r0 + g4 + 8 * hf) * D + hk * (D / 2) + 2 * t4;
+#pragma unroll
+      for (int nd = 0; nd < NH; ++nd)
+        *reinterpret_cast<float2*>(row + nd * 8) =
+            make_float2(x[nd][2 * hf], x[nd][2 * hf + 1]);
+    }
+  };
+
+  for (int kt = 0; kt < nt; ++kt) {
+    const int j0 = kt * kX3;
+    // band columns below u_split are past, the rest future (from u_split
+    // on; the zero column rel = 1 is u_split itself when in range)
+    const int u_split = kX3 - kX3 * (kt - qt);
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt's k, v and band have landed; W is free
+
+    // the position logits of the warp's pairs, sheared into W[r][c]
+    // (c = u + r - 63)
+#pragma unroll
+    for (int n0 = 0; n0 < kX3Band / 8; n0 += 4) {
+      if (8 * n0 > xhi || 8 * n0 + 31 < xlo) continue;
+      const T* A = QV + (8 * n0 >= u_split ? LD : 0);  // qv_{i+1} for the future
+      float x[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) x[j][c] = 0.f;
+#pragma unroll
+      for (int k0 = 0; k0 < D; k0 += 8) {
+        uint32_t ah[4], al[4];
+        frag_a<SPLIT>(A, LD, r0, k0, lane, ah, al);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int u0 = 8 * (n0 + j);
+          if (u0 > xhi || u0 + 7 < xlo) continue;
+          uint32_t bh[2], bl[2];
+          frag_b_nt<SPLIT>(BC, LD, u0, k0, lane, bh, bl);
+          mma3<SPLIT>(x[j], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = r0 + g4 + 8 * (c >> 1);
+          const int col = 8 * (n0 + j) + 2 * t4 + (c & 1) + r - (kX3 - 1);
+          if (col >= c0 && col < c0 + kX3 / 2) W[r * kX3LDW + col] = x[j][c];
+        }
+    }
+    __syncwarp();
+
+    // s = pos + qc k^T, dp = g v^T over the warp's 32 keys
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float* row = W + (r0 + g4 + 8 * hf) * kX3LDW + c0 + 2 * t4;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const float2 p2 = *reinterpret_cast<const float2*>(row + ni * 8);
+        s[ni][2 * hf] = p2.x;
+        s[ni][2 * hf + 1] = p2.y;
+        dp[ni][2 * hf] = dp[ni][2 * hf + 1] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int k0 = 0; k0 < D; k0 += 8) {
+      uint32_t qh[4], ql[4], gh[4], gl[4];
+      frag_a<SPLIT>(QC, LD, r0, k0, lane, qh, ql);
+      frag_a<SPLIT>(GS, LD, r0, k0, lane, gh, gl);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        uint32_t bhi[2], blo[2];
+        frag_b_nt<SPLIT>(KS, LD, c0 + ni * 8, k0, lane, bhi, blo);
+        mma3<SPLIT>(s[ni], qh, ql, bhi, blo);
+        frag_b_nt<SPLIT>(VS, LD, c0 + ni * 8, k0, lane, bhi, blo);
+        mma3<SPLIT>(dp[ni], gh, gl, bhi, blo);
+      }
+    }
+
+    // ds (0 at dead keys and rows past T) and P, in the accumulator layout
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int kj = j0 + c0 + ni * 8 + 2 * t4;
+      bool dead[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) dead[q] = kj + q >= Tq || padb[kj + q] > 0.5f;
+      float pv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int hf = c >> 1, q = c & 1;
+        float ds = 0.f;
+        pv[c] = 0.f;
+        if (qi[hf] < Tq && (!dead[q] || (all_dead && kj + q < Tq))) {
+          const float m = keep_scale(drop, drop_key, qi[hf], kj + q);
+          if (dead[q]) {
+            pv[c] = to_stream<T>(p_uniform * m);
+          } else {
+            const float pr = expf(s[ni][c] * scale - lse_r[hf]);
+            ds = to_stream<T>(pr * (dp[ni][c] * m - del_r[hf]) * scale);
+            pv[c] = to_stream<T>(pr * m);
+          }
+        }
+        s[ni][c] = ds;
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (qi[hf] >= Tq) continue;
+        const size_t off = (size_t)qi[hf] * Ts + kj;
+        *reinterpret_cast<float2*>(&Sb[off]) =
+            make_float2(s[ni][2 * hf], s[ni][2 * hf + 1]);
+        *reinterpret_cast<float2*>(&Pb[off]) =
+            make_float2(pv[2 * hf], pv[2 * hf + 1]);
+      }
+    }
+
+    // dqc += ds k: key step ni holds keys c0 + 8 ni + (2t, 2t+1) in slots
+    // (t, t+4) of the A fragment
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      uint32_t ah[4], al[4];
+      split_tf32<SPLIT>(s[ni][0], ah[0], al[0]);
+      split_tf32<SPLIT>(s[ni][2], ah[1], al[1]);
+      split_tf32<SPLIT>(s[ni][1], ah[2], al[2]);
+      split_tf32<SPLIT>(s[ni][3], ah[3], al[3]);
+      const T* krow = KS + (c0 + ni * 8 + 2 * t4) * LD + g4;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        uint32_t bhi[2], blo[2];
+        split_tf32<SPLIT>(to_float(krow[nd * 8]), bhi[0], blo[0]);
+        split_tf32<SPLIT>(to_float(krow[LD + nd * 8]), bhi[1], blo[1]);
+        mma3<SPLIT>(acc_q[nd], ah, al, bhi, blo);
+      }
+    }
+
+    // ds in band form: the two key halves of a row write disjoint columns,
+    // over position logits the other half may not have read yet
+    __syncthreads();
+    for (int idx = lane; idx < 16 * kX3; idx += 32) {
+      // 0 outside each row's band: left of it (half 0), right of it (half 1)
+      const int r = r0 + idx / kX3, e = idx % kX3;
+      if ((e < kX3 - 1 - r) == (hk == 0)) W[r * kX3LDW + (hk ? e + kX3 : e)] = 0.f;
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = r0 + g4 + 8 * (c >> 1), col = c0 + ni * 8 + 2 * t4 + (c & 1);
+        const bool zero = j0 + col == i0 + r + 1;  // rel = 1: no position term
+        W[r * kX3LDW + col - r + kX3 - 1] = zero ? 0.f : s[ni][c];
+      }
+    __syncthreads();  // the rows' bands are whole
+
+    // dqv (own row) += W_past band, dqv_b += W_future band, over the
+    // warp's half of its rows' band columns
+    auto dqv_step = [&](float (&acc)[ND][4], int u0) {
+      uint32_t ah[4], al[4];
+      frag_a<SPLIT>(W, kX3LDW, r0, u0, lane, ah, al);
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        uint32_t bhi[2], blo[2];
+        frag_b_nn<SPLIT>(BC, LD, nd * 8, u0, lane, bhi, blo);
+        mma3<SPLIT>(acc[nd], ah, al, bhi, blo);
+      }
+    };
+    const int u_first = hk ? umid : ulo / 8 * 8, u_end = hk ? uhi + 1 : umid;
+    for (int u0 = u_first; u0 < min(u_split, u_end); u0 += 8) dqv_step(acc_a, u0);
+    for (int u0 = max(u_first, u_split); u0 < u_end; u0 += 8) dqv_step(acc_b, u0);
+
+    __syncthreads();  // k, v and the band are read
+    if (kt + 1 < nt) {
+      stage(kt + 1);
+      cp_async_commit();
+    }
+
+    // the table's partial: G[u] = sum_r W[r][u] qv_r (past) or qv_{r+1}
+    // (future); lo columns r0.., hi 64 + r0..; row r reaches columns
+    // [63 - r, 126 - r], so lo needs rows >= 48 - r0 and hi rows <= 62 - r0
+    const int um_lo = r0, um_hi = kX3 + r0;
+    const T* B_lo = QV + (um_lo >= u_split ? LD : 0) + hk * (D / 2);
+    const T* B_hi = QV + (um_hi >= u_split ? LD : 0) + hk * (D / 2);
+    float gh_acc[NH][4];
+#pragma unroll
+    for (int nd = 0; nd < NH; ++nd)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) gh_acc[nd][c] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < kX3; k0 += 8) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (half ? k0 > kX3 - 2 - r0 : k0 + 7 < kX3 - 16 - r0) continue;
+        float x[4];
+        load_a_t(W, kX3LDW, half ? um_hi : um_lo, k0, lane, x);
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) split_tf32<SPLIT>(x[c], ah[c], al[c]);
+#pragma unroll
+        for (int nd = 0; nd < NH; ++nd) {
+          uint32_t bhi[2], blo[2];
+          frag_b_nn<SPLIT>(half ? B_hi : B_lo, LD, nd * 8, k0, lane, bhi, blo);
+          mma3<SPLIT>(half ? gh_acc[nd] : carry[nd], ah, al, bhi, blo);
+        }
+      }
+    }
+    write_part(kt, carry);  // lo plus the previous tile's hi
+#pragma unroll
+    for (int nd = 0; nd < NH; ++nd)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) carry[nd][c] = gh_acc[nd][c];
+  }
+  write_part(nt, carry);
+
+  // the key halves' partial dqc, dqv and dqv_b meet in shared memory (no
+  // copy is in flight: the last tile staged none)
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_raw);  // [3][64][D]
+  auto slot = [&](int a, int hf, int nd) {
+    return red + ((size_t)a * kX3 + r0 + g4 + 8 * hf) * D + nd * 8 + 2 * t4;
+  };
+  if (hk) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        *reinterpret_cast<float2*>(slot(0, hf, nd)) =
+            make_float2(acc_q[nd][2 * hf], acc_q[nd][2 * hf + 1]);
+        *reinterpret_cast<float2*>(slot(1, hf, nd)) =
+            make_float2(acc_a[nd][2 * hf], acc_a[nd][2 * hf + 1]);
+        *reinterpret_cast<float2*>(slot(2, hf, nd)) =
+            make_float2(acc_b[nd][2 * hf], acc_b[nd][2 * hf + 1]);
+      }
+  }
+  __syncthreads();
+  if (hk) return;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (qi[hf] >= Tq) continue;
+    const size_t off = base + (size_t)qi[hf] * rs + 2 * t4;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      const float2 q2 = *reinterpret_cast<const float2*>(slot(0, hf, nd));
+      const float2 a2 = *reinterpret_cast<const float2*>(slot(1, hf, nd));
+      const float2 b2 = *reinterpret_cast<const float2*>(slot(2, hf, nd));
+      *reinterpret_cast<float2*>(dqc + off + nd * 8) =
+          make_float2(acc_q[nd][2 * hf] + q2.x, acc_q[nd][2 * hf + 1] + q2.y);
+      *reinterpret_cast<float2*>(dqv_a + off + nd * 8) =
+          make_float2(acc_a[nd][2 * hf] + a2.x, acc_a[nd][2 * hf + 1] + a2.y);
+      *reinterpret_cast<float2*>(dqv_b + off + nd * 8) =
+          make_float2(acc_b[nd][2 * hf] + b2.x, acc_b[nd][2 * hf + 1] + b2.y);
+    }
+  }
+}
+
+// dp (T, H, D) = the ds kernel's table partials summed over batch rows and
+// query tiles (row L of query tile qt's partial is past offset c = T - 64
+// (qt + 1) + L for L < 64 (qt + 1), else future offset c = L - 64 qt -
+// 65); dqv_i += dqv_b_{i-1} (row i-1's future term read qv_i).
+__global__ void __launch_bounds__(kThreads)
+    xl3_bwd_reduce_kernel(const float* __restrict__ part,
+                          float* __restrict__ dp, float* __restrict__ dqv,
+                          const float* __restrict__ dqv_b, int B, int H,
+                          int Tq, int D) {
+  const int nt = (Tq + kX3 - 1) / kX3, rows = xl3_part_rows(Tq);
+  const size_t n_dp = (size_t)Tq * H * D;
+  const size_t n_qv = (size_t)B * Tq * H * D;
+  const size_t rs = (size_t)H * D;
+  for (size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
+       idx < n_dp + n_qv; idx += (size_t)gridDim.x * kThreads) {
+    if (idx < n_dp) {
+      const int c = (int)(idx / rs), h = (int)((idx / D) % H), d = (int)(idx % D);
+      float sum = 0.f;
+      for (int bq = 0; bq < B * nt; ++bq) {
+        const int qt = bq % nt;
+        const float* blk = part + ((size_t)bq * H + h) * rows * D + d;
+        const int lp = c - Tq + kX3 * (qt + 1);
+        if (lp >= 0) sum += blk[(size_t)lp * D];
+        const int lf = c + kX3 * qt + kX3 + 1;
+        if (lf < rows) sum += blk[(size_t)lf * D];
+      }
+      dp[idx] = sum;
+    } else {
+      const size_t j = idx - n_dp;
+      if ((j / rs) % Tq >= 1) dqv[j] += dqv_b[j - rs];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
 int grid_for(size_t n) {
   const size_t blocks = (n + kThreads - 1) / kThreads;
   return (int)(blocks < 132 * 8 ? (blocks > 0 ? blocks : 1) : 132 * 8);
-}
-
-template <typename T, int D>
-cudaError_t launch_xl3_bwd(const void* qc, const void* k, const void* v,
-                           const void* qv, const void* p, const void* g,
-                           const float* pad, const float* lse,
-                           const float* delta, float* dqc, float* dk,
-                           float* dv, float* dqv, float* dqv_b,
-                           float* dp_part, float* dp, int B, int Tq, int H,
-                           float scale, DropArgs drop, cudaStream_t stream) {
-  constexpr size_t smem = xl3_bwd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      xl3_bwd_q_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(xl3_bwd_kv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  const int nq = (Tq + kBQ3 - 1) / kBQ3;
-  const T* Qc = static_cast<const T*>(qc);
-  const T* K = static_cast<const T*>(k);
-  const T* V = static_cast<const T*>(v);
-  const T* Qv = static_cast<const T*>(qv);
-  const T* P = static_cast<const T*>(p);
-  const T* G = static_cast<const T*>(g);
-  xl3_bwd_q_kernel<T, D><<<dim3(nq, H, B), kThreads, smem, stream>>>(
-      Qc, K, V, Qv, P, G, pad, lse, delta, dqc, dqv, dqv_b, dp_part, H, Tq,
-      scale, drop);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  xl3_bwd_kv_kernel<T, D><<<dim3((Tq + kBK3 - 1) / kBK3, H, B), kThreads, smem,
-                            stream>>>(Qc, K, V, Qv, P, G, pad, lse, delta, dk,
-                                      dv, H, Tq, scale, drop);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  xl3_bwd_reduce_kernel<<<grid_for((size_t)(1 + B) * Tq * H * D), kThreads, 0,
-                          stream>>>(dp_part, dp, dqv, dqv_b, B, nq, H, Tq, D);
-  return cudaGetLastError();
 }
 
 // Q1: (K5, ROTATE) the rotation pass g2 -> gab, then Q1 pos and Q1 ds.
@@ -1549,19 +1518,49 @@ cudaError_t launch_xl2_bwd_q2(const float* s, const void* table, float* dg,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool XL3>
 cudaError_t launch_xl2_bwd_kv(const void* qc, const void* g, const float* s,
                               const float* p, float* dk, float* dv, int B,
                               int Tq, int H, cudaStream_t stream) {
   constexpr size_t smem = xl2_bwd_kv_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      xl2_bwd_kv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      xl2_bwd_kv_kernel<T, D, XL3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  xl2_bwd_kv_kernel<T, D>
+  xl2_bwd_kv_kernel<T, D, XL3>
       <<<dim3((Tq + kKvBN - 1) / kKvBN, H, B), kKvThreads, smem, stream>>>(
           static_cast<const T*>(qc), static_cast<const T*>(g), s, p, dk, dv, H,
           Tq, ds_cols(Tq));
+  return cudaGetLastError();
+}
+
+// K4 bwd: the ds kernel, bwd-kv on its scratches s (ds) and pm (P), then
+// the reduce pass (dp from the partials, dqv += the shifted dqv_b).
+template <typename T, int D>
+cudaError_t launch_xl3_bwd(const void* qc, const void* k, const void* v,
+                           const void* qv, const void* p, const void* g,
+                           const float* pad, const float* lse,
+                           const float* delta, float* dqc, float* dk,
+                           float* dv, float* dqv, float* dqv_b, float* part,
+                           float* dp, float* s, float* pm, int B, int Tq, int H,
+                           float scale, DropArgs drop, cudaStream_t stream) {
+  constexpr size_t smem = xl3_bwd_ds_smem_bytes<T, D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      xl3_bwd_ds_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  xl3_bwd_ds_kernel<T, D>
+      <<<dim3((Tq + kX3 - 1) / kX3, H, B), kX3Threads, smem, stream>>>(
+          static_cast<const T*>(qc), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(qv),
+          static_cast<const T*>(p), static_cast<const T*>(g), pad, lse, delta,
+          s, pm, dqc, dqv, dqv_b, part, H, Tq, ds_cols(Tq), scale, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch_xl2_bwd_kv<T, D, true>(qc, g, s, pm, dk, dv, B, Tq, H, stream);
+  if (err != cudaSuccess) return err;
+  xl3_bwd_reduce_kernel<<<grid_for((size_t)(1 + B) * Tq * H * D), kThreads, 0,
+                          stream>>>(part, dp, dqv, dqv_b, B, H, Tq, D);
   return cudaGetLastError();
 }
 
@@ -1618,22 +1617,24 @@ extern "C" {
 // K4 bwd. qc, k, v, qv, g: (B, T, H, D) contiguous, fp32 (is_bf16 = 0) or
 // bf16; p: (T, H, D), same dtype; pad: (B, T) fp32, 1.0 at padding keys;
 // lse, delta: (B, H, T) fp32; dropout_p and seed: the forward's. Outputs,
-// fp32: dqc, dk, dv, dqv (B, T, H, D); dp (T, H, D). Scratch, fp32: dqv_b
-// (B, T, H, D) and dp_part (B, ceil(T / 64), H, T, D), zero-filled by the
-// caller. Returns the first cudaError_t of the three launches.
+// fp32: dqc, dk, dv, dqv (B, T, H, D); dp (T, H, D). Scratch, fp32, none
+// of it zero-filled: dqv_b (B, T, H, D); part (B, ceil(T / 64), H,
+// 64 (ceil(T / 64) + 1), D); s and pm (B, H, T, 128 ceil(T / 128)).
+// Returns the first cudaError_t of the three launches.
 int vt_flash_xl3_bwd(const void* qc, const void* k, const void* v,
                      const void* qv, const void* p, const void* g,
                      const float* pad, const float* lse, const float* delta,
                      float* dqc, float* dk, float* dv, float* dqv, float* dp,
-                     float* dqv_b, float* dp_part, int B, int T, int H, int D,
-                     int is_bf16, float scale, double dropout_p, uint64_t seed,
-                     void* stream) {
+                     float* dqv_b, float* part, float* s, float* pm, int B,
+                     int T, int H, int D, int is_bf16, float scale,
+                     double dropout_p, uint64_t seed, void* stream) {
   if (bad_args(B, T, H, dropout_p)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropArgs drop = drop_args(dropout_p, seed);
-#define VT_XL3B(TYPE, DIM)                                                  \
+#define VT_XL3B(TYPE, DIM)                                                   \
   launch_xl3_bwd<TYPE, DIM>(qc, k, v, qv, p, g, pad, lse, delta, dqc, dk, dv, \
-                            dqv, dqv_b, dp_part, dp, B, T, H, scale, drop, s)
+                            dqv, dqv_b, part, dp, s, pm, B, T, H, scale, drop, \
+                            st)
   switch (D * 2 + (is_bf16 ? 1 : 0)) {
     case 96: return (int)VT_XL3B(float, 48);
     case 97: return (int)VT_XL3B(__nv_bfloat16, 48);
@@ -1708,7 +1709,7 @@ int vt_xl_bwd_kv(const void* qc, const void* g, const float* s, const float* p,
                  void* stream) {
   if (bad_xl_args(B, T, H, 0.0) || bad_head(D, false)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VT_KV(TYPE, DIM) launch_xl2_bwd_kv<TYPE, DIM>(qc, g, s, p, dk, dv, B, T, H, st)
+#define VT_KV(TYPE, DIM) launch_xl2_bwd_kv<TYPE, DIM, false>(qc, g, s, p, dk, dv, B, T, H, st)
   switch (D * 2 + (is_bf16 ? 1 : 0)) {
     case 96: return (int)VT_KV(float, 48);
     case 97: return (int)VT_KV(__nv_bfloat16, 48);

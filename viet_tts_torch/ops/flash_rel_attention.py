@@ -24,7 +24,9 @@ every (b, h). Padded keys score ``MASK_NEG = -1e9``.
 - ``flash_rel_attention``: the JAX signature and result, (B, T, H*D) in qc's
   dtype, differentiable through ``_RelAttention``.
 
-Each wrapper launches its kernel (``csrc/flash_rel_attention.cu``,
+Each wrapper launches its kernel (the forward: the K7 instance of the
+tensor-core flash template ``xl2_fwd_kernel`` in
+``csrc/flash_xl_attention.cu``, which K5 and K6 run too; the backward:
 ``csrc/flash_rel_attention_bwd.cu``) for CUDA tensors and takes its plain
 version (the dense formulas of ``_rel_dense`` on the padded inputs, and
 that function's VJP) for CPU tensors, never one for the other.
@@ -166,8 +168,9 @@ def _streams(qc, k, v, g, table) -> torch.Tensor:
 
 def rel_fwd(qc, k, v, g, table, scale: float, pad_mask=None, dropout_p: float = 0.0,
             seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(ctx (B, T, H, D) fp32, lse (B, H, T)): kernel K7 on CUDA tensors, the
-    plain version on CPU tensors."""
+    """(ctx (B, T, H, D) fp32, lse (B, H, T)): kernel K7 on CUDA tensors (the
+    tensor-core forward template's K7 instance, which walks each batch row's
+    key tiles up to its last live key), the plain version on CPU tensors."""
     _check_rates(dropout_p)
     if _device_of(qc) == "cpu":
         return rel_fwd_plain(qc, k, v, g, table, scale, pad_mask, dropout_p, seed)
@@ -175,7 +178,7 @@ def rel_fwd(qc, k, v, g, table, scale: float, pad_mask=None, dropout_p: float = 
     B, T, H, D = qc.shape
     qc, k, v, g = (x.contiguous() for x in (qc, k, v, g))
     pad, out, lse, stream = _launch_args(qc, pad_mask)
-    lib = kernels.library("flash_rel_attention")
+    lib = kernels.library("flash_xl_attention")
     err = lib.vt_flash_rel_fwd(
         qc.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), table.data_ptr(),
         pad.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, padded_time(T), H, D,

@@ -654,7 +654,9 @@ def xl3_bwd(qc, k, v, qv, p, pad, lse, delta, g, scale: float, dropout_p: float 
             seed: int = 0):
     """(dqc, dk, dv, dqv (B, T, H, D), dp (T, H, D)) fp32 of ``xl3_fwd`` for
     the cotangent g (stream dtype) of its context, with delta = rowsum(g *
-    out): kernel K4 bwd on CUDA tensors, the plain version on CPU tensors."""
+    out): kernel K4 bwd on CUDA tensors (three launches: the ds kernel,
+    which also writes the ds and p m / keep scratches, bwd-kv on them, the
+    reduce pass; one count), the plain version on CPU tensors."""
     _check_rates(dropout_p)
     if _device_of(qc) == "cpu":
         return xl3_bwd_plain(qc, k, v, qv, p, pad, lse, delta, g, scale, dropout_p, seed)
@@ -664,14 +666,18 @@ def xl3_bwd(qc, k, v, qv, p, pad, lse, delta, g, scale: float, dropout_p: float 
     f32 = dict(dtype=torch.float32, device=qc.device)
     dqc, dk, dv, dqv, dqv_b = (torch.empty(B, T, H, D, **f32) for _ in range(5))
     dp = torch.empty(T, H, D, **f32)
-    dp_part = torch.zeros(B, (T + 63) // 64, H, T, D, **f32)
+    n_tiles = -(-T // 64)
+    # each (batch row, query tile, head)'s rows of the table's gradient,
+    # 64 a key tile and 64 more (``xl3_part_rows`` in the source)
+    part = torch.empty(B, n_tiles, H, 64 * (n_tiles + 1), D, **f32)
+    s, pm = _ds_scratch(B, T, H, qc.device), _ds_scratch(B, T, H, qc.device)
     lib = kernels.library("flash_xl_attention_bwd")
     err = lib.vt_flash_xl3_bwd(
         qc.data_ptr(), k.data_ptr(), v.data_ptr(), qv.data_ptr(), p.data_ptr(), g.data_ptr(),
         pad.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqc.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dqv.data_ptr(), dp.data_ptr(), dqv_b.data_ptr(), dp_part.data_ptr(),
-        B, T, H, D, int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p),
-        _seed(seed), _stream(qc))
+        dv.data_ptr(), dqv.data_ptr(), dp.data_ptr(), dqv_b.data_ptr(), part.data_ptr(),
+        s.data_ptr(), pm.data_ptr(), B, T, H, D, int(qc.dtype == torch.bfloat16),
+        float(scale), float(dropout_p), _seed(seed), _stream(qc))
     kernels.check(lib, err, "XL3 flash attention backward kernel")
     xl3_bwd.launches += 1
     return dqc, dk, dv, dqv, dp
@@ -681,10 +687,10 @@ xl3_bwd.launches = 0
 
 
 def _ds_scratch(B: int, T: int, H: int, device) -> torch.Tensor:
-    """One of the K5 / K6 backward's fp32 scratches (B, H, T, Ts), Ts = T
-    rounded up to a multiple of 128, which every key tile of the kernels
-    divides (``kTsAlign`` in the source): S holds the position logits and
-    then ds, P holds p m / keep for bwd-kv."""
+    """One of the K4 / K5 / K6 backward's fp32 scratches (B, H, T, Ts), Ts
+    = T rounded up to a multiple of 128, which every key tile of the
+    kernels divides (``kTsAlign`` in the source): S holds ds (K5 / K6:
+    first the position logits), P holds p m / keep for bwd-kv."""
     return torch.empty(B, H, T, (T + 127) // 128 * 128, dtype=torch.float32, device=device)
 
 

@@ -81,13 +81,18 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
         ),
+        # K7: qc, k, v, g, table, pad, out, lse, B, T, Tp, H, D, E, is_bf16,
+        # scale, dropout_p, seed, stream
+        "vt_flash_rel_fwd": (
+            _I, [_P] * 8 + [_I] * 7 + [_F, _D, _U64, _P]
+        ),
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_xl_attention_bwd": {
         # qc, k, v, qv, p, g, pad, lse, delta, dqc, dk, dv, dqv, dp, dqv_b,
-        # dp_part, B, T, H, D, is_bf16, scale, dropout_p, seed, stream
+        # part, s, pm, B, T, H, D, is_bf16, scale, dropout_p, seed, stream
         "vt_flash_xl3_bwd": (
-            _I, [_P] * 16 + [_I, _I, _I, _I, _I, _F, _D, _U64, _P]
+            _I, [_P] * 18 + [_I, _I, _I, _I, _I, _F, _D, _U64, _P]
         ),
         # qc, k, v, ga, gb, table, g, pad, lse, delta, dqc, gab, s, p, B, T,
         # Tp, H, D, E, is_bf16, rotate, scale, dropout_p, seed, stream
@@ -100,14 +105,6 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "vt_xl_bwd_kv": (_I, [_P] * 6 + [_I] * 5 + [_P]),
         # s, ga, gb, part, dtab, n_split, bh_per, B, T, H, E, is_bf16, stream
         "vt_xl_bwd_dtab": (_I, [_P] * 5 + [_I] * 7 + [_P]),
-        "vt_error_string": (ctypes.c_char_p, [_I]),
-    },
-    "flash_rel_attention": {
-        # qc, k, v, g, table, pad, out, lse, B, T, Tp, H, D, E, is_bf16,
-        # scale, dropout_p, seed, stream
-        "vt_flash_rel_fwd": (
-            _I, [_P] * 8 + [_I] * 7 + [_F, _D, _U64, _P]
-        ),
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_rel_attention_bwd": {
