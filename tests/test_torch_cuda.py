@@ -815,3 +815,94 @@ def test_xl3_bwd_tensor_core_kernels_match_plain(cuda_device, T, D):
             err = (a - b).abs().max().item()
             assert err <= atol * max(1.0, b.abs().max().item()), (case, name, err)
         del got, want
+
+
+@pytest.mark.cuda
+def test_rel_bwd_q_tensor_core_kernels_match_plain(cuda_device):
+    """K7 bwd-q (K7's instance of the tensor-core K5 / K6 bwd-q kernels:
+    the position logits g t^T, ds and dqc, then dg = ds t) against
+    ``rel_bwd_dq_plain`` on the kernel forward's lse, at T in {45, 64, 300,
+    512} (partial and whole 64-row tiles, the training decoder's 512), fp32
+    (each gradient within 1e-4, scaled by its largest value where that
+    exceeds 1) and bf16 (2e-2), dropout 0 and 0.2, with a full, a ragged and
+    a fully padded row (its ds, so dqc and dg, are 0) or no pad mask; one
+    launch count a call."""
+    B = 3
+    for T in (45, 64, 300, 512):
+        seed = 5318008 + T
+        inputs = {pr: rel_case(cuda_device, B, T, seed=T + 13, pad_rows=pr)
+                  for pr in (True, False)}
+        gout = torch.from_numpy(np.random.RandomState(T + 7).randn(B, T, 2, 128)
+                                .astype(np.float32)).to(cuda_device)
+        for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            for dropout_p in (0.0, 0.2):
+                for pad_rows in (True, False):
+                    case = (T, str(dtype), dropout_p, pad_rows)
+                    streams, pad, scale = inputs[pad_rows]
+                    args = [streams[n].to(dtype) for n in REL_NAMES]
+                    ctx, lse = fr.rel_fwd(*args, scale, pad, dropout_p, seed)
+                    delta, g = fa.backward_inputs(ctx, gout, dtype)
+                    padf = pad.float() if pad is not None else torch.zeros(B, T,
+                                                                           device=cuda_device)
+                    bwd_args = (*args, padf, lse, delta, g, scale, dropout_p, seed)
+                    before = fr.rel_bwd_dq.launches
+                    got = fr.rel_bwd_dq(*bwd_args)
+                    assert fr.rel_bwd_dq.launches == before + 1, case
+                    want = fr.rel_bwd_dq_plain(*bwd_args)
+                    torch.cuda.synchronize()
+                    for name, a, b in zip(("dqc", "dg"), got, want):
+                        assert a.shape == b.shape, (case, name)
+                        assert torch.isfinite(a).all(), (case, name)
+                        err = (a - b).abs().max().item()
+                        assert err <= atol * max(1.0, b.abs().max().item()), (case, name, err)
+                    if pad_rows:  # the fully padded row takes no gradient
+                        assert not got[0][2].any() and not got[1][2].any(), case
+                    del got, want, ctx, lse
+
+
+@pytest.mark.cuda
+def test_xl3_fwd_tensor_core_kernel_matches_plain(cuda_device):
+    """K4 forward (the tensor-core kernel: band-form position logits
+    sheared into the (row, key) tile, then the flash back half) against
+    ``xl3_fwd_plain`` under one seed, at D in {48, 64} and T in {45, 64,
+    300, 512}, for every case of ``XL_TC_CASES`` (fp32 and bf16, dropout 0
+    and 0.1, a full, a ragged and a fully padded row, which averages v over
+    the T real keys, or no pad mask): ctx within atol, lse within rel 1e-5
+    in fp32 and 1e-3 in bf16; one launch count a call. Then, with v the
+    identity, the context is the dropped weights themselves: its zeros are
+    exactly where ``dropout_keep_mask`` drops, in every row, the fully
+    padded one too."""
+    B, H = 3, 8
+    for D in (48, 64):
+        for T in (45, 64, 300, 512):
+            seed = 24680 + T + D
+            inputs = {pr: xl_case(cuda_device, B, T, H=H, D=D, seed=T + D + 4, pad_rows=pr)
+                      for pr in (True, False)}
+            for dtype, atol, dropout_p, pad_rows in XL_TC_CASES:
+                case = (D, T, str(dtype), dropout_p, pad_rows)
+                streams, pad, scale = inputs[pad_rows]
+                args = [streams[n].to(dtype) for n in ("qc", "k", "v", "qv", "p")]
+                before = fx.xl3_fwd.launches
+                ctx, lse = fx.xl3_fwd(*args, scale, pad, dropout_p, seed)
+                assert fx.xl3_fwd.launches == before + 1, case
+                ref, ref_lse = fx.xl3_fwd_plain(*args, scale, pad, dropout_p, seed)
+                torch.cuda.synchronize()
+                assert torch.isfinite(ctx).all() and torch.isfinite(lse).all(), case
+                err = (ctx - ref).abs().max().item()
+                assert err <= atol, (case, err)
+                lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item()
+                assert lse_err <= (1e-5 if dtype == torch.float32 else 1e-3), (case, lse_err)
+                del ctx, ref
+    T, D, p, seed = 64, 48, 0.2, 79
+    streams, _, scale = xl_case(cuda_device, B, T, H=H, D=D, seed=8, pad_rows=False)
+    eye = torch.eye(T, D, device=cuda_device)[None, :, None, :].expand(B, T, H, D).contiguous()
+    args = [streams["qc"], streams["k"], eye, streams["qv"], streams["p"]]
+    pad = torch.zeros(B, T, device=cuda_device)
+    pad[-1] = 1.0
+    ctx, _ = fx.xl3_fwd(*args, scale, pad > 0.5, p, seed)
+    keep = fa.dropout_keep_mask(seed, B, H, T, T, p, cuda_device)  # (B, H, i, j)
+    torch.cuda.synchronize()
+    assert torch.equal(ctx.permute(0, 2, 1, 3) != 0, keep[..., :D])
+    uniform = ctx[-1]
+    assert torch.allclose(uniform[uniform != 0],
+                          torch.tensor(1.0 / ((1.0 - p) * T), device=cuda_device))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the K4 backward and the K5 / K6 backward (bwd-q and bwd-kv
-together) of one or more checkouts on one NVIDIA card, in turns, at the
+"""Time the K4 backward, the K5 / K6 backward (bwd-q and bwd-kv together)
+and K7 bwd-q of one or more checkouts on one NVIDIA card, in turns, at the
 shapes the training paths run them, with each kernel's device time.
 
     python3 tools/time_xl_bwd.py                    # this checkout
@@ -11,8 +11,8 @@ process of its own, in the order given, and builds its kernels into its own
 ``build/``. The backward is what the autograd function of that checkout
 runs: ``xl3_bwd`` for K4; ``xl2_bwd`` / ``xl_bwd`` where the checkout has
 them (bwd-q and bwd-kv on shared scratches), else ``xl2_bwd_dq`` then
-``xl2_bwd_dkv`` (the same for ``xl_``). It is first checked against the
-plain versions (every
+``xl2_bwd_dkv`` (the same for ``xl_``); ``rel_bwd_dq`` for K7 bwd-q. It is
+first checked against the plain versions (every
 gradient within 1e-4, scaled by its largest value where that exceeds 1).
 Times are CUDA-event means over 10 calls after 2 warm-ups, fp32 with TF32
 off, no pad mask, the path's attention dropout; then three calls under
@@ -31,19 +31,24 @@ import sys
 
 # (label, kind, B, T, H, D, dropout): K4 at the FS2 encoder's text bucket
 # and the decoder's 512 frames, K5 at the FS2 decoder's 1008 frames, K6 at
-# the FS2 2048-frame bucket and at the JETS legacy conformer's decoder
+# the FS2 2048-frame bucket and at the JETS legacy conformer's decoder, K7
+# bwd-q at the JETS conformer's training encoder and decoder
 SHAPES = (
     ("K4 (8, 64) D=48", "xl3", 8, 64, 8, 48, 0.1),
     ("K4 (8, 512) D=48", "xl3", 8, 512, 8, 48, 0.1),
     ("K5 (8, 1008) D=48", "xl2", 8, 1008, 8, 48, 0.1),
     ("K6 (4, 2048) D=48", "xl", 4, 2048, 8, 48, 0.1),
     ("K6 (8, 512) D=128", "xl", 8, 512, 2, 128, 0.2),
+    ("K7 bwd-q (8, 64)", "rel", 8, 64, 2, 128, 0.2),
+    ("K7 bwd-q (8, 512)", "rel", 8, 512, 2, 128, 0.2),
 )
 # kernel-name fragments of the backwards, in launch order (K4's, then K5 /
-# K6's; K4's bwd-kv is an instance of K5 / K6's kernel)
+# K6's; K4's bwd-kv is an instance of K5 / K6's kernel, and K7 bwd-q runs
+# K5 / K6's Q1 and Q2; rel_bwd_q is the CUDA-core K7 bwd-q of older
+# checkouts)
 KERNELS = ("xl3_bwd_ds", "xl3_bwd_q", "xl3_bwd_kv", "xl3_bwd_reduce",
            "xl2_rotate", "xl2_bwd_q1_pos", "xl2_bwd_q1_ds", "xl2_bwd_q2", "xl2_bwd_unrotate",
-           "xl2_bwd_kv", "xl2_bwd_dtab")
+           "xl2_bwd_kv", "xl2_bwd_dtab", "rel_bwd_q")
 
 
 def worker() -> None:
@@ -54,8 +59,11 @@ def worker() -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from viet_tts_torch.nn.espnet_conformer import rel_positional_table
     from viet_tts_torch.nn.utils import sinusoid_position_table
+    from viet_tts_torch.ops import flash_rel_attention as fr
     from viet_tts_torch.ops import flash_xl_attention as fx
+    from viet_tts_torch.ops.espnet_attention import neg_rel_table, rel_pos_queries_latest
     from viet_tts_torch.ops.flash_attention import backward_inputs
     from viet_tts_torch.ops.xl_attention import xl_pos_queries, xl_pos_query_stream
 
@@ -72,7 +80,11 @@ def worker() -> None:
         pos_kernel = f(E, E) / np.sqrt(E)
         table = torch.from_numpy(sinusoid_position_table(T, E)).to(dev)
         scale = D ** -0.5 if D == 128 else 1.0 / np.sqrt(E)  # JETS / FS2
-        if kind == "xl3":
+        if kind == "rel":
+            neg = neg_rel_table(torch.from_numpy(rel_positional_table(T, E)).to(dev))
+            args = (qc, k, v, rel_pos_queries_latest(qv, pos_kernel), neg.contiguous())
+            fwd, whole = fr.rel_fwd, fr.rel_bwd_dq
+        elif kind == "xl3":
             args = (qc, k, v, qv, (table @ pos_kernel).reshape(T, H, D))
             fwd, whole = fx.xl3_fwd, fx.xl3_bwd
         elif kind == "xl2":
@@ -95,7 +107,9 @@ def worker() -> None:
         else:
             run = lambda: (dq(*bargs), dkv(*bargs))
         run()
-        if kind == "xl3":
+        if kind == "rel":
+            got, want = fr.rel_bwd_dq(*bargs), fr.rel_bwd_dq_plain(*bargs)
+        elif kind == "xl3":
             got, want = fx.xl3_bwd(*bargs), fx.xl3_bwd_plain(*bargs)
         else:
             got = (*dq(*bargs), *dkv(*bargs)[:2])

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the tensor-core forward kernels (K5 ``flash_xl2_fwd``, K6
-``flash_xl_fwd``, K7 ``flash_rel_fwd``) of one or more checkouts on one
-NVIDIA card, in turns, at the shapes the serving and training paths run
-them.
+"""Time the tensor-core forward kernels (K4 ``flash_xl3_fwd``, K5
+``flash_xl2_fwd``, K6 ``flash_xl_fwd``, K7 ``flash_rel_fwd``) of one or
+more checkouts on one NVIDIA card, in turns, at the shapes the serving and
+training paths run them.
 
     python3 tools/time_xl_fwd.py                    # this checkout
     python3 tools/time_xl_fwd.py OLD NEW NEW OLD    # checkouts in turns
@@ -11,7 +11,10 @@ Each argument is the root of a checkout of this repository. Each runs in a
 process of its own, in the order given, and builds its kernels into its own
 ``build/``. Every timed launch is first checked against its plain version
 (ctx within 1e-4 in fp32, 2e-2 in bf16). Times are CUDA-event means over
-10 launches after 2 warm-ups, fp32 with TF32 off, and bf16. K5 and K6 at
+10 launches after 2 warm-ups, fp32 with TF32 off, and bf16. K4 runs at the
+FS2 two-stage call's encoder shape with no pad mask and no dropout, and at
+the FS2 training shapes (encoder and the 512-frame decoder) with attention
+dropout 0.1. K5 and K6 at
 D=48 run with no pad mask and no dropout; K7 and K6 at D=128 (the JETS
 conformer's two flavours) with the serving path's ragged pad mask (the
 lengths ``chip_smoke.py`` draws: seeded, one full row, one fully padded
@@ -28,11 +31,16 @@ import os
 import subprocess
 import sys
 
-# (label, kind, B, T, H, D, ragged pad mask, dropout): K5 at the FS2
-# two-stage call's decoder shape, K6 at the FS2 2048-frame decoder and at
-# the JETS conformer's width (legacy flavour), K7 at the JETS conformer's
-# serving shapes (text bucket and decoder) and training decoder
+# (label, kind, B, T, H, D, ragged pad mask, dropout): K4 at the FS2
+# two-stage call's encoder shape and the FS2 training step's encoder and
+# 512-frame decoder, K5 at the FS2 two-stage call's decoder shape, K6 at the
+# FS2 2048-frame decoder and at the JETS conformer's width (legacy flavour),
+# K7 at the JETS conformer's serving shapes (text bucket and decoder) and
+# training decoder
 SHAPES = (
+    ("K4 (16, 64) D=48", "xl3", 16, 64, 8, 48, False, 0.0),
+    ("K4 (8, 64) D=48 dropout 0.1", "xl3", 8, 64, 8, 48, False, 0.1),
+    ("K4 (8, 512) D=48 dropout 0.1", "xl3", 8, 512, 8, 48, False, 0.1),
     ("K5 (16, 1008) D=48", "xl2", 16, 1008, 8, 48, False, 0.0),
     ("K6 (4, 2048) D=48", "xl", 4, 2048, 8, 48, False, 0.0),
     ("K6 (16, 1008) D=128", "xl", 16, 1008, 2, 128, False, 0.0),
@@ -78,7 +86,10 @@ def worker() -> None:
             fwd, plain = fr.rel_fwd, fr.rel_fwd_plain
         else:
             table = torch.from_numpy(sinusoid_position_table(T, E)).to(dev)
-            if kind == "xl2":
+            if kind == "xl3":
+                streams = (qc, k, v, qv, (table @ pos_kernel).reshape(T, H, D))
+                fwd, plain = fx.xl3_fwd, fx.xl3_fwd_plain
+            elif kind == "xl2":
                 streams = (qc, k, v, xl_pos_query_stream(qv, pos_kernel), table)
                 fwd, plain = fx.xl2_fwd, fx.xl2_fwd_plain
             else:

@@ -1,60 +1,52 @@
-// Kernels K7 bwd-q and bwd-kv: the FlashAttention-2 backward of the espnet
-// "latest" relative-position attention (kernel K7, flash_rel_attention.cu),
-// for Hopper (sm_90a), with the forward's attention-weight dropout.
+// Kernel K7 bwd-kv: the key side of the FlashAttention-2 backward of the
+// espnet "latest" relative-position attention (kernel K7, the K7 instance
+// of xl2_fwd_kernel in flash_xl_attention.cu), for Hopper (sm_90a), with
+// the forward's attention-weight dropout.
 //
-// Replace the TPU kernels viet_tts_tpu/ops/pallas_attention.py
-// `_rel_bwd_q_kernel` (launched by `_rel_bwd_pallas` through `_call_bwd_q`)
-// and `_rel_bwd_kv_kernel` (through `_call_bwd_kv`). Same function: with the
-// logits l_ij = (qc_i . k_j + g_i . t_j) * scale, the forward's logsumexp
-// lse, delta_i = sum_d gout_id out_id (computed outside, as the JAX package
-// does) and m the forward's keep bit over (1 - p) (dropout_hash.cuh),
+// Replaces the TPU kernel viet_tts_tpu/ops/pallas_attention.py
+// `_rel_bwd_kv_kernel` (launched by `_rel_bwd_pallas` through
+// `_call_bwd_kv`). Same function: with the logits l_ij = (qc_i . k_j +
+// g_i . t_j) * scale, the forward's logsumexp lse, delta_i = sum_d gout_id
+// out_id (computed outside, as the JAX package does) and m the forward's
+// keep bit over (1 - p) (dropout_hash.cuh),
 //   p    = exp(l - lse)                   (0 at padded keys)
 //   ds   = p * (gout_i . v_j * m - delta_i) * scale   (0 at padded keys)
-//   bwd-q:  dqc = ds k,  dg = ds t;
-//   bwd-kv: dk = ds^T qc,  dv = (p m)^T gout,  and, when the table needs a
-//           gradient, dt = sum over (b, h) of ds^T g.
+//   dk = ds^T qc,  dv = (p m)^T gout,  and, when the table needs a
+//   gradient, dt = sum over (b, h) of ds^T g.
+// K7 bwd-q (dqc = ds k, dg = ds t, TPU `_rel_bwd_q_kernel`) runs on the
+// tensor cores as K7's instance of the K5 / K6 bwd-q kernels
+// (flash_xl_attention_bwd.cu, position kind kPosRel).
 //
 // Design. On the TPU the grid runs in order and carries each accumulator in
 // VMEM from one grid step to the next (the table's gradient across the whole
 // (B, H, query) sweep); here a loop inside each block takes that place, no
 // two blocks write the same output, so there are no atomics and the result
-// is deterministic.
-//  - bwd-q: one block of 256 threads per (32-query tile, head, batch row)
-//    keeps the tile's [qc | g] rows (D + E wide) and the cotangent rows in
-//    shared memory and walks the 64-key tiles. Per key tile it stages the
-//    whole key side [k | t] (64 x (D + E)) and v, forms the logits and
-//    gout . v in registers (a 2 x 4 patch per thread), writes ds to shared
-//    memory and accumulates [dqc | dg] = ds [k | t] in registers (2 rows x
-//    (D + E) / 16 columns a thread). At D = 128, E = 256 that is 204 KB of
-//    shared memory, one block per SM.
-//  - bwd-kv: one block per (64-key tile, head, batch row) keeps the key
-//    side [k | t] and v, walks the 32-query tiles, writes (p m)^T and ds^T
-//    to shared memory and accumulates dk and dv in registers (4 keys x D/16
-//    columns a thread each); 212 KB of shared memory. With a table gradient
-//    it also adds each query tile's ds^T g into the block's (64, E) slice of
-//    a per-(b, h) fp32 partial, which `rel_bwd_dtab_kernel` sums over
-//    (b, h). The conformer's table is the constant sinusoid table, so
-//    training never asks for it.
+// is deterministic. One block per (64-key tile, head, batch row) keeps the
+// key side [k | t] and v, walks the 32-query tiles, writes (p m)^T and ds^T
+// to shared memory and accumulates dk and dv in registers (4 keys x D/16
+// columns a thread each); 212 KB of shared memory. With a table gradient
+// it also adds each query tile's ds^T g into the block's (64, E) slice of
+// a per-(b, h) fp32 partial, which `rel_bwd_dtab_kernel` sums over
+// (b, h). The conformer's table is the constant sinusoid table, so
+// training never asks for it.
 //
-// What bounds them on the H100: at the decoder's training shape (B=8, H=2,
-// T=512, D=128, E=256) the data needs 2*B*H*T^2*(3D + 2E) = 7.5 GFLOP for
-// bwd-q (the logits over D + E, gout . v, dqc and dg) and 2*B*H*T^2*(4D + E)
-// = 6.4 GFLOP for bwd-kv (the logits, gout . v, dk and dv) against ~20 MB
-// of inputs and outputs: bound by operations. This first version runs every
-// product on the fp32 CUDA cores (67 TFLOP/s), with register tiles fed from
-// shared memory.
+// What bounds it on the H100: at the decoder's training shape (B=8, H=2,
+// T=512, D=128, E=256) the data needs 2*B*H*T^2*(4D + E) = 6.4 GFLOP (the
+// logits, gout . v, dk and dv) against ~20 MB of inputs and outputs: bound
+// by operations. It runs every product on the fp32 CUDA cores (67
+// TFLOP/s), with register tiles fed from shared memory.
 //
 // Padding follows the forward: the Tp - T tail keys are virtual (dead,
 // v = 0, not outputs) and the query rows past T carry a zero cotangent, so
-// both loops stop at T. bf16 streams mirror the JAX `_mx`: p m and ds are
+// the loops stop at T. bf16 streams mirror the JAX `_mx`: p m and ds are
 // rounded to bf16 before the products they feed, with fp32 accumulation.
 //
 // A batch row whose keys are all padding: every logit is MASK_NEG, so the
 // forward's softmax is uniform, 1/Tp per key. Its lse, -1e9 + log Tp,
 // rounds to -1e9 in fp32 (the spacing there is 64), and exp(l - lse) would
-// give 1 per key: the TPU kernels' dv is Tp times too large on such a row.
-// These kernels detect the row (no live key in the batch row) and use
-// p = 1/Tp, the dense gradient; its ds, and so dqc, dg and dk, are 0.
+// give 1 per key: the TPU kernel's dv is Tp times too large on such a row.
+// This kernel detects the row (no live key in the batch row) and uses
+// p = 1/Tp, the dense gradient; its ds, and so dk, are 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,170 +126,12 @@ __device__ __forceinline__ void load_rows(float* dst, int ds, const T* a,
 }
 
 template <int D, int E>
-constexpr size_t smem_q_bytes() {
-  // QG (BQ, D+E+4); GO (BQ, D+4); KT (BK, D+E+4); VS (BK, D+4);
-  // dS (BQ, BK+1); lse, delta (BQ); dead (BK)
-  return sizeof(float) * (kBQ * (D + E + 4) + kBQ * (D + 4) +
-                          kBK * (D + E + 4) + kBK * (D + 4) +
-                          kBQ * (kBK + 1) + 2 * kBQ + kBK);
-}
-
-template <int D, int E>
 constexpr size_t smem_kv_bytes() {
   // KT (BK, D+E+4); VS (BK, D+4); QG (BQ, D+E+4); GO (BQ, D+4);
   // Pt, dSt (BK, BQ+1); lse, delta (BQ); dead (BK)
   return sizeof(float) * (kBK * (D + E + 4) + kBK * (D + 4) +
                           kBQ * (D + E + 4) + kBQ * (D + 4) +
                           2 * kBK * (kBQ + 1) + 2 * kBQ + kBK);
-}
-
-template <typename T, int D, int E>
-__global__ void __launch_bounds__(kThreads)
-    rel_bwd_q_kernel(const T* __restrict__ qc, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ g,
-                     const T* __restrict__ table, const T* __restrict__ gout,
-                     const float* __restrict__ pad,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dqc,
-                     float* __restrict__ dg, int H, int Tq, float scale,
-                     DropArgs drop) {
-  static_assert(D % 16 == 0 && E % 16 == 0, "D and E must be multiples of 16");
-  constexpr int W = D + E;
-  constexpr int QS = W + 4;
-  constexpr int DS = D + 4;
-  constexpr int SP = kBK + 1;
-  constexpr int WJ = W / 16;  // accumulator columns per thread
-
-  extern __shared__ __align__(16) float smem[];
-  float* QG = smem;
-  float* GO = QG + kBQ * QS;
-  float* KT = GO + kBQ * DS;
-  float* VS = KT + kBK * QS;
-  float* dS = VS + kBK * DS;
-  float* lse_s = dS + kBQ * SP;
-  float* del_s = lse_s + kBQ;
-  float* dead_s = del_s + kBQ;
-
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t rs = (size_t)H * D;
-  const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
-  const size_t rse = (size_t)H * E;
-  const size_t base_e = (size_t)b * Tq * rse + (size_t)h * E;
-  const float* padb = pad + (size_t)b * Tq;
-  const size_t rbase = ((size_t)b * H + h) * Tq;
-  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
-
-  // a fully padded batch row has ds = 0 everywhere: its dqc and dg are 0
-  const bool all_dead = row_all_dead(padb, Tq);
-
-  load_rows<T, D, E>(QG, QS, qc, base, rs, g, base_e, rse, i0, kBQ, Tq);
-  load_rows<T, D, 0>(GO, DS, gout, base, rs, gout, 0, 0, i0, kBQ, Tq);
-  if (tid < kBQ) {
-    const bool in = i0 + tid < Tq;
-    lse_s[tid] = in ? lse[rbase + i0 + tid] : 0.f;
-    del_s[tid] = in ? delta[rbase + i0 + tid] : 0.f;
-  }
-
-  // (ty, tx): query rows ty*2 + a; for the logits the key columns
-  // tx + 16*c, for the accumulator the [k | t] columns tx + 16*j
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[2][WJ];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int j = 0; j < WJ; ++j) acc[a][j] = 0.f;
-
-  for (int j0 = 0; j0 < Tq && !all_dead; j0 += kBK) {
-    __syncthreads();  // the previous tile's KT / VS / dS are no longer read
-    load_rows<T, D, E>(KT, QS, k, base, rs, table, 0, E, j0, kBK, Tq);
-    load_rows<T, D, 0>(VS, DS, v, base, rs, v, 0, 0, j0, kBK, Tq);
-    if (tid < kBK) {
-      const int kj = j0 + tid;
-      dead_s[tid] = (kj >= Tq || padb[kj] > 0.5f) ? 1.f : 0.f;
-    }
-    __syncthreads();
-
-    float s[2][4], dp[2][4];
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
-#pragma unroll 4
-    for (int e = 0; e < W; e += 4) {
-      float4 k4[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        k4[c] = *reinterpret_cast<const float4*>(&KT[(tx + 16 * c) * QS + e]);
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const float4 q4 =
-            *reinterpret_cast<const float4*>(&QG[(ty * 2 + a) * QS + e]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] = dot4(q4, k4[c], s[a][c]);
-      }
-    }
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 v4[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        v4[c] = *reinterpret_cast<const float4*>(&VS[(tx + 16 * c) * DS + d]);
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const float4 g4 =
-            *reinterpret_cast<const float4*>(&GO[(ty * 2 + a) * DS + d]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) dp[a][c] = dot4(g4, v4[c], dp[a][c]);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int r = ty * 2 + a, qi = i0 + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx + 16 * c, kj = j0 + col;
-        float ds = 0.f;
-        if (qi < Tq && dead_s[col] == 0.f) {
-          const float p = expf(s[a][c] * scale - lse_s[r]);
-          const float m = keep_scale(drop, drop_key, qi, kj);
-          ds = to_stream<T>(p * (dp[a][c] * m - del_s[r]) * scale);
-        }
-        dS[r * SP + col] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int c = 0; c < kBK; ++c) {
-      const float w0 = dS[(ty * 2) * SP + c];
-      const float w1 = dS[(ty * 2 + 1) * SP + c];
-#pragma unroll
-      for (int j = 0; j < WJ; ++j) {
-        const float kk = KT[c * QS + tx + 16 * j];
-        acc[0][j] = fmaf(w0, kk, acc[0][j]);
-        acc[1][j] = fmaf(w1, kk, acc[1][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int qi = i0 + ty * 2 + a;
-    if (qi >= Tq) continue;
-    float* oq = dqc + base + (size_t)qi * rs;
-    float* og = dg + base_e + (size_t)qi * rse;
-#pragma unroll
-    for (int j = 0; j < WJ; ++j) {
-      const int col = tx + 16 * j;
-      if (j < D / 16)
-        oq[col] = acc[a][j];
-      else
-        og[col - D] = acc[a][j];
-    }
-  }
 }
 
 template <typename T, int D, int E>
@@ -493,27 +327,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D, int E>
-cudaError_t launch_q(const void* qc, const void* k, const void* v,
-                     const void* g, const void* table, const void* gout,
-                     const float* pad, const float* lse, const float* delta,
-                     float* dqc, float* dg, int B, int Tq, int H, float scale,
-                     DropArgs drop, cudaStream_t stream) {
-  constexpr size_t smem = smem_q_bytes<D, E>();
-  static_assert(smem <= 232448, "bwd-q tiles exceed a block's shared memory");
-  cudaError_t err = cudaFuncSetAttribute(
-      rel_bwd_q_kernel<T, D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
-  rel_bwd_q_kernel<T, D, E><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qc), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<const T*>(table), static_cast<const T*>(gout), pad, lse,
-      delta, dqc, dg, H, Tq, scale, drop);
-  return cudaGetLastError();
-}
-
-template <typename T, int D, int E>
 cudaError_t launch_kv(const void* qc, const void* k, const void* v,
                       const void* g, const void* table, const void* gout,
                       const float* pad, const float* lse, const float* delta,
@@ -561,35 +374,13 @@ DropArgs drop_args(double dropout_p, uint64_t seed) {
 
 extern "C" {
 
-// qc, k, v, gout: (B, T, H, D); g: (B, T, H, E); table: (T, E); all
-// contiguous and one dtype, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
-// (D, E) is (128, 256), the JETS width. pad: (B, T) fp32, 1.0 at padding keys.
-// lse, delta: (B, H, T) fp32. Tp >= T: the forward's padded length (keys in
-// [T, Tp) are virtual). dropout_p and seed: the forward's. dqc: (B, T, H, D)
-// fp32; dg: (B, T, H, E) fp32. Returns the launch's cudaError_t.
-int vt_flash_rel_bwd_q(const void* qc, const void* k, const void* v,
-                       const void* g, const void* table, const void* gout,
-                       const float* pad, const float* lse, const float* delta,
-                       float* dqc, float* dg, int B, int T, int Tp, int H,
-                       int D, int E, int is_bf16, float scale,
-                       double dropout_p, uint64_t seed, void* stream) {
-  if (bad_args(B, T, Tp, H, dropout_p) || E != 256)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DropArgs drop = drop_args(dropout_p, seed);
-#define VT_Q(TYPE, DIM)                                                      \
-  launch_q<TYPE, DIM, 256>(qc, k, v, g, table, gout, pad, lse, delta, dqc, dg, \
-                           B, T, H, scale, drop, s)
-  switch (D * 2 + (is_bf16 ? 1 : 0)) {
-    case 256: return (int)VT_Q(float, 128);
-    case 257: return (int)VT_Q(__nv_bfloat16, 128);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef VT_Q
-}
-
-// As vt_flash_rel_bwd_q; dk, dv: (B, T, H, D) fp32. dtab_part null: no
-// table gradient; else scratch (B * H, T, E) fp32 and dtab (T, E) fp32.
+// K7 bwd-kv. qc, k, v, gout: (B, T, H, D); g: (B, T, H, E); table: (T, E);
+// all contiguous and one dtype, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
+// (D, E) is (128, 256), the JETS width. pad: (B, T) fp32, 1.0 at padding
+// keys. lse, delta: (B, H, T) fp32. Tp >= T: the forward's padded length
+// (keys in [T, Tp) are virtual). dropout_p and seed: the forward's. dk, dv:
+// (B, T, H, D) fp32. dtab_part null: no table gradient; else scratch
+// (B * H, T, E) fp32 and dtab (T, E) fp32. Returns the first cudaError_t.
 int vt_flash_rel_bwd_kv(const void* qc, const void* k, const void* v,
                         const void* g, const void* table, const void* gout,
                         const float* pad, const float* lse,

@@ -31,10 +31,13 @@
 // those indices are T-1-(i-j) and j-i-2 for every real key (no wrap-around
 // reaches a key below T), and the wrapper's tail keys score 2*MASK_NEG, so
 // they weigh exactly 0 even in a row whose keys are all padding. Here the
-// kernel tiles queries and keys (64 x 64) and never forms the tail: for a
-// tile it stages the band of 127 rows of p that the tile's offsets j - i
-// reach, once for the past and once for the future term (only where the tile
-// has such pairs), and dots qv (and qv one row down) with them directly.
+// kernel (`xl3_fwd_band_kernel`, below) tiles queries and keys (64 x 64)
+// and never forms the tail: for a tile it stages the band of the 127 rows
+// of p that the tile's offsets j - i reach, forms the position logits as a
+// tensor-core product of qv (qv one row down for the future columns) with
+// the band, and shears them from (row, offset) into (row, key) space
+// through shared memory (xl3_band.cuh, which K4 bwd's ds kernel shares);
+// then qc k^T and the flash loop's back half, as K5 / K6 / K7.
 //
 // K5 and K6: P_i(j) = gA_i . t_j and F_i(j) = gB_i . t_j against the raw
 // sinusoid table t (T, E), E = d_model = 384. K6 reads gA and gB. K5 reads
@@ -51,19 +54,22 @@
 // and the dense path do; keys past T inside a key tile score -inf. K7 pads
 // the same way (its JAX wrapper does).
 //
-// What bounds K5 / K6 / K7 on the H100: at the decoder shape (B=16, H=8,
+// What bounds K4 / K5 / K6 / K7 on the H100: at the decoder shape (B=16, H=8,
 // T=1008, D=48, E=384) K5 does 2*B*H*T^2*(D + E + D) = 1.25e11 FLOP of dot
 // products against ~260 MB of inputs: bound by operations, 80 % of them the
 // E-wide position products; K7 at its serving shape (B=16, H=2, T=1008,
-// D=128, E=256) 33 GFLOP against ~50 MB. So every product runs on the
-// tensor cores, `mma.sync.m16n8k8` TF32 with fp32 accumulation
+// D=128, E=256) 33 GFLOP against ~50 MB; K4 at the FS2 training decoder
+// (B=8, H=8, T=512, D=48) 2*B*H*T^2*3D = 4.8 GFLOP against ~40 MB (its
+// band products pad the position work to ~1.3x). So every product runs on
+// the tensor cores, `mma.sync.m16n8k8` TF32 with fp32 accumulation
 // (xl_mma.cuh): fp32 streams in 3xTF32 (one TF32 product misses the fp32
 // limits on ctx and lse: tests/test_torch_xl_fwd_precision.py for K5,
-// tests/test_torch_rel_fwd_precision.py for K7), bf16 streams in one TF32
+// tests/test_torch_rel_fwd_precision.py for K7,
+// tests/test_torch_xl3_fwd_precision.py for K4), bf16 streams in one TF32
 // product, exact for bf16 values (and p rounded to bf16, as the JAX `_mx`
 // rounds it; m16n8k16 bf16 would run twice the rate but a second code
-// path). The kernel (`xl2_fwd_kernel`, below) is one flash loop for all
-// three, the position term's form (POS) a template argument: a block a
+// path). The K5 / K6 / K7 kernel (`xl2_fwd_kernel`, below) is one flash
+// loop for all three, the position term's form (POS) a template argument: a block a
 // (64-query tile, head, batch row), four warps of 16 rows (eight, 128
 // rows, for fp32 at D = 128 when that grid fills the card: at (8, 512,
 // H=2) it would make 64 blocks for 132 SMs, so the launcher takes four
@@ -92,6 +98,17 @@
 //   bf16   128  4       72,704   - / 254 / 168      2
 //   rotation pass (256 threads): 28-29 registers, a 32-byte frame for
 //   sincosf's slow path.
+// K4 (`xl3_fwd_band_kernel`, four warps of 16 rows, every key of a tile
+// each; no static shared memory):
+//   dtype  D    smem B    regs  blocks/SM
+//   fp32   48   102,624   200   2
+//   fp32   64   127,264   212   1
+//   bf16   48    60,528   128   3
+//   bf16   64    72,848   128   3
+// At fp32, D = 48 (the FS2 width) two blocks an SM fit both budgets; the
+// eight-warp split of K4 bwd's ds kernel (each warp half the keys, two
+// online-softmax states a row to merge) would forgo that and walk ~1.5x
+// the band columns a pair.
 // What bounds it, measured (H100, tools/time_xl_fwd.py): at D = 48 eight
 // warps a block lost 12-32 % to four, three cp.async stages moved it <= 2 %,
 // 16-column chunks (which spill under a three-block register cap) lost
@@ -105,265 +122,244 @@
 // no tile size, so the backward kernels (flash_xl_attention_bwd.cu) draw the
 // same bits with their own tilings. With dropout_p = 0 no bit is drawn.
 
+#include "xl3_band.cuh"
 #include "xl_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr float kMaskNeg = -1.0e9f;
 
-// Dropout on a tile of softmax numerators S (BQ, BK), row stride SP, after
-// the online-softmax step has summed them: each weight is kept and scaled
-// by 1 / (1 - p), or zeroed. Query i0 + r, key j0 + c.
-template <int BQ, int BK>
-__device__ __forceinline__ void drop_tile(float* S, int SP, const DropArgs& drop,
-                                          uint32_t key, int i0, int j0,
-                                          int tid) {
-  for (int i = tid; i < BQ * BK; i += kThreads) {
-    const int r = i / BK, c = i % BK;
-    S[r * SP + c] = vt_dropout_keep(key, i0 + r, j0 + c, drop.thresh)
-                        ? S[r * SP + c] * drop.inv_keep
-                        : 0.f;
+// ---------------------------------------------------------------------------
+// the flash loop's back half, shared by K4 (xl3_fwd_band_kernel) and K5 /
+// K6 / K7 (xl2_fwd_kernel)
+// ---------------------------------------------------------------------------
+
+// One 64-key tile in the accumulators' layout of a warp's 16 query rows
+// (lane (g, t): rows qi[0] and qi[1] = qi[0] + 8, keys j0 + 8 ni + 2t and
+// + 1 in s[ni][0..3]): s holds the tile's raw scores (qc k^T + pos). Keys
+// past T weigh nothing (-inf), padded keys score MASK_NEG, the rest s *
+// scale. The running max m_r and this lane's part of the denominator l_r
+// (undropped) take the tile, o is rescaled, and o += p v with p =
+// exp(logit - m) * keep / (1 - p), rounded to the stream dtype (the JAX
+// `_mx`), as the A operand straight from the registers (xl_mma.cuh's
+// permuted k order; frag_b_nn reads v's rows, ldv a row, in that order).
+// Every tile holds a real key (logit >= MASK_NEG), so the max is finite.
+template <bool SPLIT, typename T, int ND>
+__device__ __forceinline__ void flash_tile_softmax_pv(
+    float (&s)[8][4], float (&o)[ND][4], float (&m_r)[2], float (&l_r)[2],
+    const T* VS, int ldv, const float* padb, int Tq, int j0, const int (&qi)[2],
+    float scale, const DropArgs& drop, uint32_t drop_key, int lane) {
+  const int t4 = lane & 3;
+  float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int kj = j0 + ni * 8 + 2 * t4 + (q & 1);
+      float x;
+      if (kj >= Tq)
+        x = -INFINITY;
+      else if (padb[kj] > 0.5f)
+        x = kMaskNeg;
+      else
+        x = s[ni][q] * scale;
+      s[ni][q] = x;
+      mx[q >> 1] = fmaxf(mx[q >> 1], x);
+    }
+  float corr[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+    corr[hf] = expf(m_r[hf] - mx[hf]);
+    m_r[hf] = mx[hf];
+    l_r[hf] *= corr[hf];
+  }
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float p = expf(s[ni][q] - mx[q >> 1]);
+      l_r[q >> 1] += p;
+      const int kj = j0 + ni * 8 + 2 * t4 + (q & 1);
+      s[ni][q] = to_stream<T>(p * keep_scale(drop, drop_key, qi[q >> 1], kj));
+    }
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[nd][q] *= corr[q >> 1];
+  // key step ni holds keys j0 + 8 ni + (2t, 2t+1) in slots (t, t+4) of the
+  // A fragment
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    uint32_t ah[4], al[4];
+    split_tf32<SPLIT>(s[ni][0], ah[0], al[0]);
+    split_tf32<SPLIT>(s[ni][2], ah[1], al[1]);
+    split_tf32<SPLIT>(s[ni][1], ah[2], al[2]);
+    split_tf32<SPLIT>(s[ni][3], ah[3], al[3]);
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      uint32_t bh[2], bl[2];
+      frag_b_nn<SPLIT>(VS, ldv, nd * 8, ni * 8, lane, bh, bl);
+      mma3<SPLIT>(o[nd], ah, al, bh, bl);
+    }
   }
 }
 
-// One online-softmax step over a (BQ, BK) tile of logits in S (row stride
-// SP): the running max m_s and denominator l_s per row are updated, S is
-// replaced by exp(logit - m_new), and c_s holds each row's correction factor
-// exp(m_prev - m_new) for the accumulator. kThreads / BQ threads a row.
-// Every tile holds a real key (logit >= MASK_NEG), so m_new is finite.
-template <int BQ, int BK>
-__device__ __forceinline__ void softmax_step(float* S, int SP, float* m_s,
-                                             float* l_s, float* c_s,
-                                             int tid) {
-  constexpr int TPR = kThreads / BQ;
-  const int r = tid / TPR, part = tid % TPR;
-  float mx = -INFINITY;
-  for (int c = part; c < BK; c += TPR) mx = fmaxf(mx, S[r * SP + c]);
+// The flash loop's end: each row's denominator summed over its quad, plus
+// n_tail virtual keys (logit MASK_NEG, v = 0: K5 / K6 / K7's Tp - T tail;
+// K4 has none), ctx = o / l into orow + qi * rs (fp32) and lse = m + log l
+// into lse_row[qi], for the rows below T.
+template <int ND>
+__device__ __forceinline__ void flash_finish(const float (&o)[ND][4], const float (&m_r)[2],
+                                             float (&l_r)[2], int n_tail, float* out,
+                                             size_t rs, float* lse_row, const int (&qi)[2],
+                                             int Tq, int lane) {
+  const int t4 = lane & 3;
 #pragma unroll
-  for (int o = 1; o < TPR; o <<= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  const float m_prev = m_s[r];
-  const float m_new = fmaxf(m_prev, mx);
-  float sum = 0.f;
-  for (int c = part; c < BK; c += TPR) {
-    const float p = expf(S[r * SP + c] - m_new);
-    sum += p;
-    S[r * SP + c] = p;
-  }
+  for (int hf = 0; hf < 2; ++hf) {
+    l_r[hf] += __shfl_xor_sync(0xffffffffu, l_r[hf], 1);
+    l_r[hf] += __shfl_xor_sync(0xffffffffu, l_r[hf], 2);
+    if (qi[hf] >= Tq) continue;
+    const float m = m_r[hf];
+    const float l = l_r[hf] + (float)n_tail * expf(kMaskNeg - m);
+    const float inv = l > 0.f ? 1.f / fmaxf(l, 1e-30f) : 0.f;
+    float* orow = out + (size_t)qi[hf] * rs + 2 * t4;
 #pragma unroll
-  for (int o = 1; o < TPR; o <<= 1)
-    sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  if (part == 0) {
-    const float corr = (m_prev == -INFINITY) ? 0.f : expf(m_prev - m_new);
-    c_s[r] = corr;
-    l_s[r] = l_s[r] * corr + sum;
-    m_s[r] = m_new;
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<float2*>(orow + nd * 8) =
+          make_float2(o[nd][2 * hf] * inv, o[nd][2 * hf + 1] * inv);
+    if (t4 == 0) lse_row[qi[hf]] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
 // ---------------------------------------------------------------------------
-// K4: xl3, projected table
+// K4 on the tensor cores: the band-form logits of xl3_band.cuh (shared with
+// K4 bwd's ds kernel), then the flash back half above
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ3 = 64;
-constexpr int kBK3 = 64;
-constexpr int kBand = kBQ3 + kBK3 - 1;  // offsets j - i one tile reaches
-
-template <int D>
-constexpr size_t xl3_smem_bytes() {
-  // QC (BQ, D+1), QV (BQ+1, D+1), KS (BK, D+1), VS (BK, D), two bands
-  // (127, D+1), S (BQ, BK+1), m / l / corr (BQ each)
-  return sizeof(float) * (kBQ3 * (D + 1) + (kBQ3 + 1) * (D + 1) +
-                          kBK3 * (D + 1) + kBK3 * D + 2 * kBand * (D + 1) +
-                          kBQ3 * (kBK3 + 1) + 3 * kBQ3);
-}
+constexpr int kX3FwdThreads = 128;  // four warps of 16 query rows, every key each
+constexpr int kX3FwdLDW = kX3 + 4;  // W's row pitch (fp32): the tile's 64 keys
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    xl3_fwd_kernel(const T* __restrict__ qc, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ qv,
-                   const T* __restrict__ p, const float* __restrict__ pad,
-                   float* __restrict__ out, float* __restrict__ lse, int H,
-                   int Tq, float scale, DropArgs drop) {
+constexpr size_t xl3_fwd_smem_bytes() {
+  // QC (64, D), QV (65, D), KS (64, D) and the band of p (128, D) read by
+  // fragment loads, VS (64, D) read down its rows, all in the stream
+  // dtype; W (64, 64) fp32, the sheared position logits
+  return sizeof(T) * ((3 * kX3 + 1 + kX3Band) * tile_ld(D) + kX3 * tile_ld_nn<T, D>()) +
+         sizeof(float) * kX3 * kX3FwdLDW;
+}
+
+// One block a (64-query tile qt, head, batch row), four warps: warp w owns
+// query rows 16w .. 16w + 15 and every key of each 64-key tile kt it
+// walks. qc and qv (65 rows: the future term reads qv_{i+1}) are staged
+// once; k and the band of p (xl3_stage_band) are one cp.async group, v a
+// second, each in flight during the other half of the previous tile. Per
+// key tile: the position logits of the warp's pairs as band products
+// (xl3_band_logits: qv band^T over the past columns, qv_{+1} band^T over
+// the future ones, only the band columns its rows reach), sheared into the
+// warp's rows of W; s = W + qc k^T on the tensor cores; then the online
+// softmax, the keep bits and p v in registers (flash_tile_softmax_pv). Keys
+// past T are never formed (the reference scores them 2 MASK_NEG: weight
+// exactly 0), so a row whose keys are all padding averages v over the T
+// real keys, with lse = MASK_NEG + log T, as the plain version.
+template <typename T, int D>
+__global__ void __launch_bounds__(kX3FwdThreads)
+    xl3_fwd_band_kernel(const T* __restrict__ qc, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ qv,
+                        const T* __restrict__ p, const float* __restrict__ pad,
+                        float* __restrict__ out, float* __restrict__ lse, int H,
+                        int Tq, float scale, DropArgs drop) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int DP = D + 1;
-  constexpr int SP = kBK3 + 1;
-  constexpr int DJ = D / 16;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int NT = kX3FwdThreads;
+  constexpr int LD = tile_ld(D);
+  constexpr int LDV = tile_ld_nn<T, D>();
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* QC = reinterpret_cast<T*>(smem_raw);
+  T* QV = QC + kX3 * LD;  // rows i0 .. i0 + 64
+  T* KS = QV + (kX3 + 1) * LD;
+  T* BC = KS + kX3 * LD;  // the band of p, kX3Band rows
+  T* VS = BC + kX3Band * LD;
+  float* W = reinterpret_cast<float*>(VS + kX3 * LDV);  // (64, kX3FwdLDW)
 
-  extern __shared__ __align__(16) float smem[];
-  float* QC = smem;
-  float* QV = QC + kBQ3 * DP;
-  float* KS = QV + (kBQ3 + 1) * DP;
-  float* VS = KS + kBK3 * DP;
-  float* PP = VS + kBK3 * D;
-  float* PF = PP + kBand * DP;
-  float* S = PF + kBand * DP;
-  float* m_s = S + kBQ3 * SP;
-  float* l_s = m_s + kBQ3;
-  float* c_s = l_s + kBQ3;
-
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * kBQ3;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t rs = (size_t)H * D;  // row stride of (B, T, H, D)
+  const int qt = blockIdx.x, i0 = qt * kX3, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (Tq + kX3 - 1) / kX3;
+  const size_t rs = (size_t)H * D;
   const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
   const float* padb = pad + (size_t)b * Tq;
   const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16;  // the warp's rows of the tile
+  const int qi[2] = {i0 + r0 + g4, i0 + r0 + g4 + 8};
 
-  for (int i = tid; i < (kBQ3 + 1) * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const bool in = i0 + r < Tq;
-    const size_t off = base + (size_t)(i0 + r) * rs + d;
-    QV[r * DP + d] = in ? to_float(qv[off]) : 0.f;
-    if (r < kBQ3) QC[r * DP + d] = in ? to_float(qc[off]) : 0.f;
+  cp_tile<T, kX3, D, NT>(QC, LD, qc + base, rs, i0, Tq, 0);
+  cp_tile<T, kX3 + 1, D, NT>(QV, LD, qv + base, rs, i0, Tq, 0);
+  cp_tile<T, kX3, D, NT>(KS, LD, k + base, rs, 0, Tq, 0);
+  xl3_stage_band<T, D, NT>(BC, p, H, h, Tq, 0, qt);
+  cp_async_commit();
+  cp_tile<T, kX3, D, NT>(VS, LDV, v + base, rs, 0, Tq, 0);
+  cp_async_commit();
+
+  float o[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[nd][c] = 0.f;
+  // running max and this lane's part of the denominator, rows g4, g4 + 8
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < nt; ++kt) {
+    const int j0 = kt * kX3;
+    cp_async_wait<1>();
+    __syncthreads();  // tile kt's k and band have landed (its v may not have)
+
+    xl3_band_logits<SPLIT, T, D, kX3>(QV, BC, W, kX3FwdLDW, r0, 0, xl3_u_split(kt, qt),
+                                      lane);
+    __syncwarp();
+    float s[8][4];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float* row = W + (r0 + g4 + 8 * hf) * kX3FwdLDW + 2 * t4;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const float2 p2 = *reinterpret_cast<const float2*>(row + ni * 8);
+        s[ni][2 * hf] = p2.x;
+        s[ni][2 * hf + 1] = p2.y;
+      }
+    }
+#pragma unroll
+    for (int k0 = 0; k0 < D; k0 += 8) {
+      uint32_t ah[4], al[4];
+      frag_a<SPLIT>(QC, LD, r0, k0, lane, ah, al);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        uint32_t bh[2], bl[2];
+        frag_b_nt<SPLIT>(KS, LD, ni * 8, k0, lane, bh, bl);
+        mma3<SPLIT>(s[ni], ah, al, bh, bl);
+      }
+    }
+
+    __syncthreads();  // every warp has read this tile's k and band
+    if (kt + 1 < nt) {
+      cp_tile<T, kX3, D, NT>(KS, LD, k + base, rs, j0 + kX3, Tq, 0);
+      xl3_stage_band<T, D, NT>(BC, p, H, h, Tq, kt + 1, qt);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile kt's v has landed
+
+    flash_tile_softmax_pv<SPLIT, T, ND>(s, o, m_r, l_r, VS, LDV, padb, Tq, j0, qi, scale,
+                                        drop, drop_key, lane);
+
+    __syncthreads();  // every warp is past this tile's p v
+    if (kt + 1 < nt) cp_tile<T, kX3, D, NT>(VS, LDV, v + base, rs, j0 + kX3, Tq, 0);
+    cp_async_commit();
   }
-  if (tid < kBQ3) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-
-  // (ty, tx): query rows ty*4 + a, key columns tx*4 + c (contiguous, so the
-  // 16 (a, c) pairs reach only 7 band rows); accumulator columns tx + 16*j
-  const int ty = tid / 16, tx = tid % 16;
-  const int u0 = 4 * tx - 4 * ty + kBQ3 - 4;  // band row of (a, c) = u0+c-a+3
-  float acc[4][DJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[a][j] = 0.f;
-
-  for (int j0 = 0; j0 < Tq; j0 += kBK3) {
-    const bool need_past = j0 <= i0 + kBQ3 - 1;     // some j <= i
-    const bool need_fut = j0 + kBK3 - 1 >= i0 + 2;  // some j >= i + 2
-    __syncthreads();  // the previous tile's KS / VS / bands / S are read
-    for (int i = tid; i < kBK3 * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      const bool in = j0 + r < Tq;
-      const size_t off = base + (size_t)(j0 + r) * rs + d;
-      KS[r * DP + d] = in ? to_float(k[off]) : 0.f;
-      VS[r * D + d] = in ? to_float(v[off]) : 0.f;
-    }
-    // band row u holds p[c] with c = T-1-i+j (past) or j-i-2 (future) for
-    // the pairs with (j - j0) - (i - i0) = u - (BQ - 1); rows outside
-    // [0, T) are never selected and stay 0
-    const int c_past = Tq - 1 - i0 - (kBQ3 - 1) + j0;
-    const int c_fut = j0 - i0 - (kBQ3 - 1) - 2;
-    for (int i = tid; i < kBand * D; i += kThreads) {
-      const int u = i / D, d = i % D;
-      if (need_past) {
-        const int c = c_past + u;
-        PP[u * DP + d] =
-            (c >= 0 && c < Tq) ? to_float(p[((size_t)c * H + h) * D + d]) : 0.f;
-      }
-      if (need_fut) {
-        const int c = c_fut + u;
-        PF[u * DP + d] =
-            (c >= 0 && c < Tq) ? to_float(p[((size_t)c * H + h) * D + d]) : 0.f;
-      }
-    }
-    __syncthreads();
-
-    float s[4][4], sp[4][4], sf[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = sp[a][c] = sf[a][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float q4[4], k4[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) q4[a] = QC[(ty * 4 + a) * DP + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) k4[c] = KS[(tx * 4 + c) * DP + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] = fmaf(q4[a], k4[c], s[a][c]);
-      float qv5[5];
-#pragma unroll
-      for (int a = 0; a < 5; ++a) qv5[a] = QV[(ty * 4 + a) * DP + d];
-      if (need_past) {
-        float band[7];
-#pragma unroll
-        for (int t = 0; t < 7; ++t) band[t] = PP[(u0 + t) * DP + d];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            sp[a][c] = fmaf(qv5[a], band[c - a + 3], sp[a][c]);
-      }
-      if (need_fut) {
-        float band[7];
-#pragma unroll
-        for (int t = 0; t < 7; ++t) band[t] = PF[(u0 + t) * DP + d];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            sf[a][c] = fmaf(qv5[a + 1], band[c - a + 3], sf[a][c]);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty * 4 + a, qi = i0 + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx * 4 + c, kj = j0 + col;
-        float val;
-        if (kj >= Tq) {
-          val = -INFINITY;  // past the last key: weighs nothing
-        } else if (padb[kj] > 0.5f) {
-          val = kMaskNeg;
-        } else {
-          const float pos =
-              kj <= qi ? sp[a][c] : (kj >= qi + 2 ? sf[a][c] : 0.f);
-          val = (s[a][c] + pos) * scale;
-        }
-        S[r * SP + col] = val;
-      }
-    }
-    __syncthreads();
-    softmax_step<kBQ3, kBK3>(S, SP, m_s, l_s, c_s, tid);
-    __syncthreads();
-    if (drop.use) {
-      drop_tile<kBQ3, kBK3>(S, SP, drop, drop_key, i0, j0, tid);
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const float corr = c_s[ty * 4 + a];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[a][j] *= corr;
-    }
-#pragma unroll 4
-    for (int c = 0; c < kBK3; ++c) {
-      float pr[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pr[a] = S[(ty * 4 + a) * SP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vv = VS[c * D + tx + 16 * j];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][j] = fmaf(pr[a], vv, acc[a][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty * 4 + a;
-    if (i0 + r >= Tq) continue;
-    const float l = l_s[r];
-    const float inv = l > 0.f ? 1.f / fmaxf(l, 1e-30f) : 0.f;
-    float* ob = out + base + (size_t)(i0 + r) * rs;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) ob[tx + 16 * j] = acc[a][j] * inv;
-    if (tx == 0)
-      lse[((size_t)b * H + h) * Tq + i0 + r] = m_s[r] + logf(fmaxf(l, 1e-30f));
-  }
+  flash_finish<ND>(o, m_r, l_r, 0, out + base, rs, lse + ((size_t)b * H + h) * Tq, qi, Tq,
+                   lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -372,12 +368,6 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kFBK = 64;  // keys a tile
 constexpr int kFKC = 32;  // E columns a chunk of the position product
-
-// The position term of xl2_fwd_kernel, a template argument, so that it
-// also names the instance and a profile tells the kernels apart:
-constexpr int kPosXl = 0;     // K6: gA . t (past), gB . t (future), 0 at j = i + 1
-constexpr int kPosXlRot = 1;  // K5: the same on the rotation pass's streams
-constexpr int kPosRel = 2;    // K7: g . t at every key
 
 // Warps a block, each 16 query rows: eight for fp32 at D = 128, where a
 // block's shared memory lets one block onto an SM, so that it runs eight
@@ -574,83 +564,13 @@ __global__ void __launch_bounds__(32 * NW)
       st ^= 1;
     }
 
-    // logits; keys past T weigh nothing (the Tp - T tail is added below)
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int kj = j0 + ni * 8 + 2 * t4 + (q & 1);
-        float x;
-        if (kj >= Tq)
-          x = -INFINITY;
-        else if (padb[kj] > 0.5f)
-          x = kMaskNeg;
-        else
-          x = s[ni][q] * scale;
-        s[ni][q] = x;
-        mx[q >> 1] = fmaxf(mx[q >> 1], x);
-      }
-    float corr[2];
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
-      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
-      // every tile holds a real key (logit >= MASK_NEG): mx is finite
-      corr[hf] = expf(m_r[hf] - mx[hf]);
-      m_r[hf] = mx[hf];
-      l_r[hf] *= corr[hf];
-    }
-    // p = exp(logit - m): the denominator takes it undropped; p v takes
-    // p * keep / (1 - p), rounded to the stream dtype (the JAX `_mx`)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float p = expf(s[ni][q] - mx[q >> 1]);
-        l_r[q >> 1] += p;
-        const int kj = j0 + ni * 8 + 2 * t4 + (q & 1);
-        s[ni][q] = to_stream<T>(p * keep_scale(drop, drop_key, qi[q >> 1], kj));
-      }
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) o[nd][q] *= corr[q >> 1];
-    // o += p v: key step ni holds keys j0 + 8 ni + (2t, 2t+1) in slots
-    // (t, t+4) of the A fragment, and frag_b_nn reads v's rows in that order
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      uint32_t ah[4], al[4];
-      split_tf32<SPLIT>(s[ni][0], ah[0], al[0]);
-      split_tf32<SPLIT>(s[ni][2], ah[1], al[1]);
-      split_tf32<SPLIT>(s[ni][1], ah[2], al[2]);
-      split_tf32<SPLIT>(s[ni][3], ah[3], al[3]);
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t bh[2], bl[2];
-        frag_b_nn<SPLIT>(VS, LDV, nd * 8, ni * 8, lane, bh, bl);
-        mma3<SPLIT>(o[nd], ah, al, bh, bl);
-      }
-    }
+    // the logits, the online softmax and p v; keys past T weigh nothing
+    // (the Tp - T tail is added at the end)
+    flash_tile_softmax_pv<SPLIT, T, ND>(s, o, m_r, l_r, VS, LDV, padb, Tq, j0, qi, scale,
+                                        drop, drop_key, lane);
   }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    l_r[hf] += __shfl_xor_sync(0xffffffffu, l_r[hf], 1);
-    l_r[hf] += __shfl_xor_sync(0xffffffffu, l_r[hf], 2);
-    if (qi[hf] >= Tq) continue;
-    const float m = m_r[hf];
-    // the Tp - T virtual tail keys: logit MASK_NEG, v = 0
-    const float l = l_r[hf] + (float)(Tp - Tq) * expf(kMaskNeg - m);
-    const float inv = l > 0.f ? 1.f / fmaxf(l, 1e-30f) : 0.f;
-    float* orow = out + base + (size_t)qi[hf] * rs + 2 * t4;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<float2*>(orow + nd * 8) =
-          make_float2(o[nd][2 * hf] * inv, o[nd][2 * hf + 1] * inv);
-    if (t4 == 0)
-      lse[((size_t)b * H + h) * Tq + qi[hf]] = m + logf(fmaxf(l, 1e-30f));
-  }
+  flash_finish<ND>(o, m_r, l_r, Tp - Tq, out + base, rs, lse + ((size_t)b * H + h) * Tq, qi,
+                   Tq, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -658,20 +578,20 @@ __global__ void __launch_bounds__(32 * NW)
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
-cudaError_t launch_xl3(const void* qc, const void* k, const void* v,
-                       const void* qv, const void* p, const float* pad,
-                       float* out, float* lse, int B, int Tq, int H,
-                       float scale, DropArgs drop, cudaStream_t stream) {
-  constexpr size_t smem = xl3_smem_bytes<D>();
+cudaError_t launch_xl3_fwd(const void* qc, const void* k, const void* v,
+                           const void* qv, const void* p, const float* pad,
+                           float* out, float* lse, int B, int Tq, int H,
+                           float scale, DropArgs drop, cudaStream_t stream) {
+  constexpr size_t smem = xl3_fwd_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      xl3_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      xl3_fwd_band_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tq + kBQ3 - 1) / kBQ3, H, B);
-  xl3_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qc), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(qv),
-      static_cast<const T*>(p), pad, out, lse, H, Tq, scale, drop);
+  xl3_fwd_band_kernel<T, D>
+      <<<dim3((Tq + kX3 - 1) / kX3, H, B), kX3FwdThreads, smem, stream>>>(
+          static_cast<const T*>(qc), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(qv),
+          static_cast<const T*>(p), pad, out, lse, H, Tq, scale, drop);
   return cudaGetLastError();
 }
 
@@ -801,8 +721,9 @@ int vt_flash_xl3_fwd(const void* qc, const void* k, const void* v,
   if (bad_sizes(B, T, H, dropout_p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DropArgs drop = drop_args(dropout_p, seed);
-#define VT_XL3(TYPE, DIM) \
-  launch_xl3<TYPE, DIM>(qc, k, v, qv, p, pad, out, lse, B, T, H, scale, drop, s)
+#define VT_XL3(TYPE, DIM)                                                       \
+  launch_xl3_fwd<TYPE, DIM>(qc, k, v, qv, p, pad, out, lse, B, T, H, scale, drop, \
+                            s)
   switch (D * 2 + (is_bf16 ? 1 : 0)) {
     case 96: return (int)VT_XL3(float, 48);
     case 97: return (int)VT_XL3(__nv_bfloat16, 48);

@@ -1,14 +1,18 @@
-// Kernels K4 bwd (xl3), K5 bwd-q / bwd-kv (xl2) and K6 bwd-q / bwd-kv (xl):
-// the backward of the Transformer-XL attention (flash_xl_attention.cu) of
-// the FS2 conformer and of the JETS conformer's legacy rel-pos flavour, for
-// Hopper (sm_90a), with the forward's attention-weight dropout.
+// Kernels K4 bwd (xl3), K5 bwd-q / bwd-kv (xl2), K6 bwd-q / bwd-kv (xl)
+// and K7 bwd-q (rel): the backward of the Transformer-XL attention
+// (flash_xl_attention.cu) of the FS2 conformer and of the JETS conformer's
+// legacy rel-pos flavour, and the query side of the backward of the JETS
+// conformer's espnet "latest" rel-pos attention, for Hopper (sm_90a), with
+// the forward's attention-weight dropout.
 //
 // Replace the TPU kernels of viet_tts_tpu/ops/pallas_attention.py:
 //   K4 bwd     `_xl3_bwd_kernel` (launched by `_xl3_bwd_pallas`);
 //   K5 bwd-q   `_xl2_bwd_q_kernel` (`_xl2_bwd_pallas` through `_call_bwd_q`);
 //   K5 bwd-kv  `_xl2_bwd_kv_kernel` (`_xl2_bwd_pallas` through `_call_bwd_kv`);
 //   K6 bwd-q   `_xl_bwd_q_kernel` (`_xl_bwd_pallas` through `_call_bwd_q`);
-//   K6 bwd-kv  `_xl_bwd_kv_kernel` (`_xl_bwd_pallas` through `_call_bwd_kv`).
+//   K6 bwd-kv  `_xl_bwd_kv_kernel` (`_xl_bwd_pallas` through `_call_bwd_kv`);
+//   K7 bwd-q   `_rel_bwd_q_kernel` (`_rel_bwd_pallas` through `_call_bwd_q`).
+// (K7 bwd-kv is flash_rel_attention_bwd.cu's.)
 // With the forward's logits l_ij = (qc_i . k_j + pos_ij) * scale, its
 // logsumexp lse_i and delta_i = sum_d g_id out_id (computed outside, as the
 // JAX package does):
@@ -98,6 +102,17 @@
 //      into a scratch, and `xl2_bwd_unrotate_kernel` forms dg2_i =
 //      rot^-1(dgA_i, A_i) + rot^-1(dgB_{i-1}, B_{i-1}) in place. K6 reads
 //      gA, gB and writes dgA, dgB.
+//    * K7 bwd-q (the TPU's `_rel_bwd_q_kernel` is `_xl_bwd_q_kernel` with
+//      pos = g t^T at every key): Q1 pos and Q2 take the position kind as
+//      a template argument (xl_mma.cuh's kPosXl for K5 and K6, kPosRel for
+//      K7): K7's Q1 pos forms one g t^T pass a tile, written at every key;
+//      Q1 ds is K6's at D = 128 (no P: K7's bwd-kv, flash_rel_attention_
+//      bwd.cu, forms its own weights); K7's Q2 forms dg = ds t over every
+//      key, one block a (64-query tile, 64-column table tile, (b, h)), no
+//      A / B axis and no mask. At the training shape (8, 2, 512) that is
+//      8 x 4 x 16 = 512 blocks of 128 threads. K7 pads T to Tp (a multiple
+//      of 32) as K5 / K6 do: the Tp - T tail keys are virtual, never
+//      formed.
 //    * bwd-kv, `xl2_bwd_kv_kernel`: dv = P^T g and dk = ds^T qc; one block
 //      a (64-key tile, head, batch row) walks the 32-row query chunks, P,
 //      ds, g and qc staged by cp.async three stages deep; eight warps, each
@@ -133,6 +148,10 @@
 //        q1_ds, P      bf16   48 / 64 / 128    164 / 172 / 223  (64: 2)
 //        q2            fp32   -      37,888     88   5          128
 //        q2            bf16   -      29,696    117   4          128
+//        q1_pos, K7    fp32   -      40,960    125   4          128
+//        q1_pos, K7    bf16   -      20,480    120   4          128
+//        q2, K7        fp32   -      37,888     95   5          128
+//        q2, K7        bf16   -      29,696     94   5          128
 //        kv            fp32   48     92,160     96   2          256
 //        kv            fp32   64    104,448    102   2          256
 //        kv            fp32   128   153,600    146   1          256
@@ -176,7 +195,9 @@
 // bwd-kv, which its 0.16 ms of scratch bytes bound instead. K4's band
 // products pad its position work to 128 band columns for a tile's 64 keys
 // (skipping the columns a warp's rows do not reach), about 1.5 times the
-// function's operations in all.
+// function's operations in all. K7 bwd-q at the JETS training decoder (B=8,
+// H=2, T=512, D=128, E=256) needs 2*B*H*T^2*(3D + 2E) = 7.5 GFLOP, 0.046 ms
+// under 3xTF32.
 //
 // Padding follows the forward. K4: keys past T are never formed (the
 // reference scores them 2*MASK_NEG: weight exactly 0). K5 / K6: the Tp - T
@@ -191,6 +212,7 @@
 
 #include <limits.h>
 
+#include "xl3_band.cuh"
 #include "xl_mma.cuh"
 
 namespace {
@@ -240,11 +262,12 @@ static_assert(kTsAlign % kPosBN == 0 && kTsAlign % kTC == 0 && kTsAlign % kKvBN 
 inline int ds_cols(int Tq) { return (Tq + kTsAlign - 1) / kTsAlign * kTsAlign; }
 
 // Shared memory of each kernel.
-template <typename T>
+template <typename T, int POS>
 constexpr size_t xl2_bwd_pos_smem_bytes() {
-  // kPosStages stages of the gA, gB chunks (kPosBM, 32) and the table
-  // chunk (kPosBN, 32)
-  return sizeof(T) * kPosStages * (2 * kPosBM + kPosBN) * tile_ld(kKC);
+  // kPosStages stages of the gA, gB chunks (kPosBM, 32) (K7: the one g
+  // chunk) and the table chunk (kPosBN, 32)
+  return sizeof(T) * kPosStages * ((POS == kPosRel ? 1 : 2) * kPosBM + kPosBN) *
+         tile_ld(kKC);
 }
 template <typename T, int D>
 constexpr size_t xl2_bwd_ds_smem_bytes() {
@@ -296,22 +319,26 @@ __device__ __forceinline__ void load_a_t(const float* X, int ld, int m0, int k0,
 // past forms only gA . t, one wholly in the future only gB . t. The E
 // contraction walks 32-column chunks of gA / gB and the table, staged once
 // each by cp.async kPosStages deep. A warp a 32 x 32 tile of the output.
-template <typename T>
+// POS: kPosXl for K5 (on the rotation pass's streams) and K6; kPosRel for
+// K7, pos_ij = g_i . t_j at every key (ga = g, gb unused): one pass a tile.
+template <typename T, int POS>
 __global__ void __launch_bounds__(kPosThreads)
     xl2_bwd_q1_pos_kernel(const T* __restrict__ ga, const T* __restrict__ gb,
                           const T* __restrict__ table, float* __restrict__ S,
                           int H, int Tq, int Ts, int E, int bh0) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr bool REL = POS == kPosRel;
   constexpr int LD = tile_ld(kKC);
   constexpr int TA = kPosBM * LD, TB = kPosBN * LD;
-  constexpr int STAGE = 2 * TA + TB;
+  constexpr int NA = REL ? 1 : 2;  // position streams staged
+  constexpr int STAGE = NA * TA + TB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);  // [stage][gA, gB, table]
+  T* sm = reinterpret_cast<T*>(smem_raw);  // [stage][gA, gB (not K7), table]
 
   const int j0 = blockIdx.x * kPosBN, i0 = blockIdx.y * kPosBM;
   const int bh = bh0 + blockIdx.z, b = bh / H, h = bh % H;
-  const bool need_past = j0 <= i0 + kPosBM - 1;
-  const bool need_fut = j0 + kPosBN - 1 >= i0 + 2;
+  const bool need_past = REL || j0 <= i0 + kPosBM - 1;
+  const bool need_fut = !REL && j0 + kPosBN - 1 >= i0 + 2;
   const size_t rse = (size_t)H * E;
   const size_t base_e = (size_t)b * Tq * rse + (size_t)h * E;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -324,7 +351,7 @@ __global__ void __launch_bounds__(kPosThreads)
     if (need_fut)
       cp_tile<T, kPosBM, kKC, kPosThreads>(st + TA, LD, gb + base_e, rse, i0, Tq,
                                            e0);
-    cp_tile<T, kPosBN, kKC, kPosThreads>(st + 2 * TA, LD, table, E, j0, Tq, e0);
+    cp_tile<T, kPosBN, kKC, kPosThreads>(st + NA * TA, LD, table, E, j0, Tq, e0);
   };
 
   float acc_a[2][4][4], acc_b[2][4][4];
@@ -353,7 +380,7 @@ __global__ void __launch_bounds__(kPosThreads)
       uint32_t bhi[4][2], blo[4][2];
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni)
-        frag_b_nt<SPLIT>(st + 2 * TA, LD, wn + ni * 8, k0, lane, bhi[ni],
+        frag_b_nt<SPLIT>(st + NA * TA, LD, wn + ni * 8, k0, lane, bhi[ni],
                          blo[ni]);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
@@ -389,8 +416,9 @@ __global__ void __launch_bounds__(kPosThreads)
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const int c = 2 * hf + q;
-          out[q] = kj + q <= qi ? acc_a[mi][ni][c]
-                                : (kj + q >= qi + 2 ? acc_b[mi][ni][c] : 0.f);
+          out[q] = REL || kj + q <= qi
+                       ? acc_a[mi][ni][c]
+                       : (kj + q >= qi + 2 ? acc_b[mi][ni][c] : 0.f);
         }
         *reinterpret_cast<float2*>(&Sb[(size_t)qi * Ts + kj]) =
             make_float2(out[0], out[1]);
@@ -601,13 +629,15 @@ __global__ void __launch_bounds__(kTCThreads)
 // share its ds rows in L2; it walks only the 32-key chunks its mask
 // reaches, j <= i (A) or j >= i + 2 (B), ds and the table staged by
 // cp.async kQ2Stages deep. A warp a 32 x 32 tile of the output. dg_out
-// gets dgA (K5: before its rotation), dgb_out dgB.
-template <typename T>
+// gets dgA (K5: before its rotation), dgb_out dgB. K7 (POS = kPosRel):
+// dg = ds t over every key, no mask, no A / B axis, dgb_out unused.
+template <typename T, int POS>
 __global__ void __launch_bounds__(kQ2Threads)
     xl2_bwd_q2_kernel(const float* __restrict__ S, const T* __restrict__ table,
                       float* __restrict__ dg_out, float* __restrict__ dgb_out,
                       int H, int Tq, int Ts, int E, int bh0) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr bool REL = POS == kPosRel;
   constexpr int LDA = tile_ld(kKC);
   constexpr int LDB = tile_ld_nn<T, kTC>();  // table chunk (32 keys, 64 columns)
   constexpr int TA = kQ2BM * LDA, TB = kKC * LDB;
@@ -615,8 +645,8 @@ __global__ void __launch_bounds__(kQ2Threads)
   float* As = reinterpret_cast<float*>(smem_raw);          // [stage] ds
   T* Bs = reinterpret_cast<T*>(As + kQ2Stages * TA);       // [stage] table
 
-  const int e0 = (blockIdx.x >> 1) * kTC;
-  const bool fut = blockIdx.x & 1;
+  const int e0 = (REL ? blockIdx.x : blockIdx.x >> 1) * kTC;
+  const bool fut = !REL && (blockIdx.x & 1);
   const int i0 = blockIdx.y * kQ2BM;
   const int bh = bh0 + blockIdx.z, b = bh / H, h = bh % H;
   const float* Sb = S + (size_t)bh * Tq * Ts;
@@ -624,9 +654,9 @@ __global__ void __launch_bounds__(kQ2Threads)
   const int wm = warp / (kTC / 32) * 32, wn = warp % (kTC / 32) * 32;
   const int g4 = lane >> 2, t4 = lane & 3;
 
-  // key chunks: past [0, min(i0 + BM, T)), future [i0 + 2, T)
+  // key chunks: past [0, min(i0 + BM, T)), future [i0 + 2, T), K7 [0, T)
   const int jlo = fut ? (i0 + 2) / kKC * kKC : 0;
-  const int jhi = fut ? Tq : min(i0 + kQ2BM, Tq);
+  const int jhi = REL || fut ? Tq : min(i0 + kQ2BM, Tq);
   const int n_chunks = jhi > jlo ? (jhi - jlo + kKC - 1) / kKC : 0;
 
   auto stage = [&](int s, int jc) {
@@ -659,7 +689,7 @@ __global__ void __launch_bounds__(kQ2Threads)
     // a chunk across the mask's edge masks its ds as the fragments load:
     // slot c of (mi, k0) holds key - query = rel0 + k0 - 16 mi + (c >> 1)
     // - 8 (c & 1)
-    const bool edge = fut ? jc < i0 + kQ2BM + 1 : jc + kKC - 1 > i0;
+    const bool edge = !REL && (fut ? jc < i0 + kQ2BM + 1 : jc + kKC - 1 > i0);
     const int rel0 = jc + 2 * t4 - (i0 + wm + g4);
 #pragma unroll
     for (int k0 = 0; k0 < kKC; k0 += 8) {
@@ -988,8 +1018,8 @@ __global__ void __launch_bounds__(kThreads)
 // scratches, and the reduce pass
 // ---------------------------------------------------------------------------
 
-constexpr int kX3 = 64;              // query rows and keys a tile
-constexpr int kX3Band = 2 * kX3;     // band columns: a tile's 127 offsets j - i and a zero one
+// kX3 (query rows and keys a tile) and kX3Band (band columns) are
+// xl3_band.cuh's, shared with K4's forward
 constexpr int kX3Threads = 256;      // eight warps: 16 query rows x half of the keys each
 constexpr int kX3LDW = kX3Band + 4;  // the fp32 band tile's row pitch, 4 mod 16 words
 
@@ -1091,10 +1121,8 @@ __global__ void __launch_bounds__(kX3Threads)
   const int r0 = (warp & 3) * 16;  // the warp's rows of the tile
   const int hk = warp >> 2;        // its half of the keys (and of D)
   const int c0 = hk * (kX3 / 2);   // its first key of a tile
-  // the band columns the warp's rows reach ([63 - r, 126 - r] for row r),
-  // and those its pairs reach
+  // the band columns the warp's rows reach ([63 - r, 126 - r] for row r)
   const int ulo = kX3 - 16 - r0, uhi = kX3Band - 2 - r0;
-  const int xlo = ulo + c0, xhi = ulo + c0 + kX3 / 2 + 14;
   // where the key halves split the contraction over the rows' band
   // columns (dqv): five 8-column steps each
   const int umid = ((ulo + uhi + 1) / 2 + 4) / 8 * 8;
@@ -1112,15 +1140,7 @@ __global__ void __launch_bounds__(kX3Threads)
   auto stage = [&](int kt) {
     cp_tile<T, kX3, D, kX3Threads>(KS, LD, k + base, rs, kt * kX3, Tq, 0);
     cp_tile<T, kX3, D, kX3Threads>(VS, LD, v + base, rs, kt * kX3, Tq, 0);
-    constexpr int V = 16 / (int)sizeof(T), PER_ROW = D / V;
-    for (int idx = threadIdx.x; idx < kX3Band * PER_ROW; idx += kX3Threads) {
-      const int u = idx / PER_ROW, c = (idx % PER_ROW) * V;
-      const int rel = kX3 * (kt - qt) + u - (kX3 - 1);
-      const int row = rel >= 2 ? rel - 2 : Tq - 1 + rel;
-      const bool in = u < kX3Band - 1 && rel != 1 && row >= 0 && row < Tq;
-      cp_async16(BC + u * LD + c, in ? p + ((size_t)row * H + h) * D + c : p,
-                 in ? 16 : 0);
-    }
+    xl3_stage_band<T, D, kX3Threads>(BC, p, H, h, Tq, kt, qt);
   };
 
   cp_tile<T, kX3, D, kX3Threads>(QC, LD, qc + base, rs, i0, Tq, 0);
@@ -1152,45 +1172,13 @@ __global__ void __launch_bounds__(kX3Threads)
 
   for (int kt = 0; kt < nt; ++kt) {
     const int j0 = kt * kX3;
-    // band columns below u_split are past, the rest future (from u_split
-    // on; the zero column rel = 1 is u_split itself when in range)
-    const int u_split = kX3 - kX3 * (kt - qt);
+    const int u_split = xl3_u_split(kt, qt);
     cp_async_wait<0>();
     __syncthreads();  // tile kt's k, v and band have landed; W is free
 
     // the position logits of the warp's pairs, sheared into W[r][c]
     // (c = u + r - 63)
-#pragma unroll
-    for (int n0 = 0; n0 < kX3Band / 8; n0 += 4) {
-      if (8 * n0 > xhi || 8 * n0 + 31 < xlo) continue;
-      const T* A = QV + (8 * n0 >= u_split ? LD : 0);  // qv_{i+1} for the future
-      float x[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) x[j][c] = 0.f;
-#pragma unroll
-      for (int k0 = 0; k0 < D; k0 += 8) {
-        uint32_t ah[4], al[4];
-        frag_a<SPLIT>(A, LD, r0, k0, lane, ah, al);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int u0 = 8 * (n0 + j);
-          if (u0 > xhi || u0 + 7 < xlo) continue;
-          uint32_t bh[2], bl[2];
-          frag_b_nt<SPLIT>(BC, LD, u0, k0, lane, bh, bl);
-          mma3<SPLIT>(x[j], ah, al, bh, bl);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int r = r0 + g4 + 8 * (c >> 1);
-          const int col = 8 * (n0 + j) + 2 * t4 + (c & 1) + r - (kX3 - 1);
-          if (col >= c0 && col < c0 + kX3 / 2) W[r * kX3LDW + col] = x[j][c];
-        }
-    }
+    xl3_band_logits<SPLIT, T, D, kX3 / 2>(QV, BC, W, kX3LDW, r0, c0, u_split, lane);
     __syncwarp();
 
     // s = pos + qc k^T, dp = g v^T over the warp's 32 keys
@@ -1437,11 +1425,11 @@ int grid_for(size_t n) {
   return (int)(blocks < 132 * 8 ? (blocks > 0 ? blocks : 1) : 132 * 8);
 }
 
-// Q1: (K5, ROTATE) the rotation pass g2 -> gab, then Q1 pos and Q1 ds.
-// ga: K5's g2 or K6's gA; gb: K6's gB. gab: K5's rotated streams
-// (2, B, T, H, E) in the stream dtype; s, p: the scratches
-// (B, H, T, ds_cols(T)) fp32, p null when no bwd-kv follows.
-template <typename T, int D, bool ROTATE>
+// Q1: (K5, POS = kPosXlRot) the rotation pass g2 -> gab, then Q1 pos and
+// Q1 ds. ga: K5's g2, K6's gA or K7's g; gb: K6's gB (K5, K7: unused).
+// gab: K5's rotated streams (2, B, T, H, E) in the stream dtype; s, p: the
+// scratches (B, H, T, ds_cols(T)) fp32, p null when no bwd-kv follows.
+template <typename T, int D, int POS>
 cudaError_t launch_xl2_bwd_q1(const void* qc, const void* k, const void* v,
                               const void* ga, const void* gb,
                               const void* table, const void* g,
@@ -1450,10 +1438,12 @@ cudaError_t launch_xl2_bwd_q1(const void* qc, const void* k, const void* v,
                               float* s, float* p, int B, int Tq, int Tp, int H,
                               int E, float scale, DropArgs drop,
                               cudaStream_t stream) {
-  constexpr size_t smem_pos = xl2_bwd_pos_smem_bytes<T>();
+  // K5 and K6 share one Q1 pos instance (K5 reads the rotated streams)
+  constexpr int QPOS = POS == kPosRel ? kPosRel : kPosXl;
+  constexpr size_t smem_pos = xl2_bwd_pos_smem_bytes<T, QPOS>();
   constexpr size_t smem_ds = xl2_bwd_ds_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      xl2_bwd_q1_pos_kernel<T>,
+      xl2_bwd_q1_pos_kernel<T, QPOS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_pos);
   if (err != cudaSuccess) return err;
   const auto ds_kernel = p == nullptr ? xl2_bwd_q1_ds_kernel<T, D, false>
@@ -1463,7 +1453,7 @@ cudaError_t launch_xl2_bwd_q1(const void* qc, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const T* GA = static_cast<const T*>(ga);
   const T* GB = static_cast<const T*>(gb);
-  if constexpr (ROTATE) {
+  if constexpr (POS == kPosXlRot) {
     T* ra = static_cast<T*>(gab);
     T* rb = ra + (size_t)B * Tq * H * E;
     err = launch_xl2_rotate<T>(GA, ra, rb, B, H, Tq, E, stream);
@@ -1475,7 +1465,7 @@ cudaError_t launch_xl2_bwd_q1(const void* qc, const void* k, const void* v,
   // Q1 pos, Q2 and dtab put (b, h) on grid.z: one launch for each
   // kMaxGridZ of them (one launch unless B * H passes 65535).
   for (int bh0 = 0; bh0 < BH; bh0 += kMaxGridZ) {
-    xl2_bwd_q1_pos_kernel<T>
+    xl2_bwd_q1_pos_kernel<T, QPOS>
         <<<dim3((Tq + kPosBN - 1) / kPosBN, (Tq + kPosBM - 1) / kPosBM,
                 BH - bh0 < kMaxGridZ ? BH - bh0 : kMaxGridZ),
            kPosThreads, smem_pos, stream>>>(GA, GB, static_cast<const T*>(table), s,
@@ -1490,28 +1480,30 @@ cudaError_t launch_xl2_bwd_q1(const void* qc, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// Q2 and, for K5 (ROTATE), the inverse rotations. dg: K5's dg2 or K6's
-// dgA; dgb: K6's dgB or K5's scratch for it.
-template <typename T, bool ROTATE>
+// Q2 and, for K5 (POS = kPosXlRot), the inverse rotations. dg: K5's dg2,
+// K6's dgA or K7's dg; dgb: K6's dgB, K5's scratch for it (K7: unused).
+template <typename T, int POS>
 cudaError_t launch_xl2_bwd_q2(const float* s, const void* table, float* dg,
                               float* dgb, int B, int Tq, int H, int E,
                               cudaStream_t stream) {
+  // K5 and K6 share one Q2 instance; K7 has no A / B axis
+  constexpr int QPOS = POS == kPosRel ? kPosRel : kPosXl;
   constexpr size_t smem_dg = xl2_bwd_dg_smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(xl2_bwd_q2_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(xl2_bwd_q2_kernel<T, QPOS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_dg);
   if (err != cudaSuccess) return err;
   const int Ts = ds_cols(Tq), BH = B * H;
   for (int bh0 = 0; bh0 < BH; bh0 += kMaxGridZ) {
-    xl2_bwd_q2_kernel<T>
-        <<<dim3(2 * E / kTC, (Tq + kQ2BM - 1) / kQ2BM,
+    xl2_bwd_q2_kernel<T, QPOS>
+        <<<dim3((QPOS == kPosRel ? 1 : 2) * E / kTC, (Tq + kQ2BM - 1) / kQ2BM,
                 BH - bh0 < kMaxGridZ ? BH - bh0 : kMaxGridZ),
            kQ2Threads, smem_dg, stream>>>(s, static_cast<const T*>(table), dg,
                                           dgb, H, Tq, Ts, E, bh0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (!ROTATE) return cudaSuccess;
+  if constexpr (POS != kPosXlRot) return cudaSuccess;
   const float freq_coef = (float)(-2.0 * log(10000.0) / (double)E);
   xl2_bwd_unrotate_kernel<<<grid_for((size_t)B * Tq * H * (E / 2)), kThreads,
                             0, stream>>>(dg, dgb, B, H, Tq, E, freq_coef);
@@ -1604,10 +1596,52 @@ bool bad_xl_args(int B, int T, int H, double dropout_p) {
 constexpr int kMaxEBwd = 512;
 bool bad_e(int E) { return E <= 0 || E % kTC != 0 || E > kMaxEBwd; }
 
-// The built head dims: 48 and 64, and 128 for K6 (the JETS conformer's
-// legacy rel-pos flavour); key = 2 D + is_bf16.
-bool bad_head(int D, bool rotate) {
-  return !(D == 48 || D == 64 || (D == 128 && !rotate));
+// The built head dims of position kind pos (kPosXl K6, kPosXlRot K5,
+// kPosRel K7): 48 and 64 for K5 and K6, 128 for K6 and K7 (the JETS
+// conformer's two rel-pos flavours).
+bool bad_head(int D, int pos) {
+  if (pos == kPosRel) return D != 128;
+  return !(D == 48 || D == 64 || (D == 128 && pos == kPosXl));
+}
+bool bad_pos(int pos) { return pos != kPosXl && pos != kPosXlRot && pos != kPosRel; }
+
+// One bwd-q Q1 launch sequence of position kind POS, by head dim and dtype.
+template <int POS>
+int q1_entry(const void* qc, const void* k, const void* v, const void* ga,
+             const void* gb, const void* table, const void* g, const float* pad,
+             const float* lse, const float* delta, float* dqc, void* gab, float* s,
+             float* p, int B, int T, int Tp, int H, int D, int E, int is_bf16,
+             float scale, DropArgs drop, cudaStream_t st) {
+#define VT_Q1(TYPE, DIM)                                                        \
+  launch_xl2_bwd_q1<TYPE, DIM, POS>(qc, k, v, ga, gb, table, g, pad, lse, delta, \
+                                    dqc, gab, s, p, B, T, Tp, H, E, scale, drop, \
+                                    st)
+  if constexpr (POS != kPosRel) {
+    switch (D * 2 + (is_bf16 ? 1 : 0)) {
+      case 96: return (int)VT_Q1(float, 48);
+      case 97: return (int)VT_Q1(__nv_bfloat16, 48);
+      case 128: return (int)VT_Q1(float, 64);
+      case 129: return (int)VT_Q1(__nv_bfloat16, 64);
+      default: break;
+    }
+  }
+  if constexpr (POS != kPosXlRot) {
+    switch (D * 2 + (is_bf16 ? 1 : 0)) {
+      case 256: return (int)VT_Q1(float, 128);
+      case 257: return (int)VT_Q1(__nv_bfloat16, 128);
+      default: break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+#undef VT_Q1
+}
+
+template <int POS>
+int q2_entry(const float* s, const void* table, float* dg, float* dgb, int B,
+             int T, int H, int E, int is_bf16, cudaStream_t st) {
+  if (is_bf16)
+    return (int)launch_xl2_bwd_q2<__nv_bfloat16, POS>(s, table, dg, dgb, B, T, H, E, st);
+  return (int)launch_xl2_bwd_q2<float, POS>(s, table, dg, dgb, B, T, H, E, st);
 }
 
 }  // namespace
@@ -1645,13 +1679,15 @@ int vt_flash_xl3_bwd(const void* qc, const void* k, const void* v,
 #undef VT_XL3B
 }
 
-// The K5 (rotate = 1) / K6 backward in four stages that share the scratch
-// s and bwd-kv's p, (B, H, T, 128 * ceil(T / 128)) fp32 each: Q1, then Q2
-// (bwd-q's dg), bwd-kv (dk, dv) and dtab in any order. Streams qc, k, v, g
-// (the cotangent): (B, T, H, D); K5's g2 (ga; gb null) or K6's gA, gB:
-// (B, T, H, E); table (T, E); all one dtype, E a multiple of 64 up to 512,
-// D in {48, 64} (K6 also 128). pad, lse, delta, dropout_p, seed as K4 bwd;
-// Tp >= T the forward's padded length (the keys in [T, Tp) are virtual).
+// The K5 (pos = 1) / K6 (pos = 0) backward in four stages that share the
+// scratch s and bwd-kv's p, (B, H, T, 128 * ceil(T / 128)) fp32 each: Q1,
+// then Q2 (bwd-q's dg), bwd-kv (dk, dv) and dtab in any order; K7's bwd-q
+// (pos = 2) as Q1 and Q2. Streams qc, k, v, g (the cotangent):
+// (B, T, H, D); K5's g2 (ga; gb null), K6's gA, gB or K7's g (ga; gb
+// null): (B, T, H, E); table (T, E); all one dtype, E a multiple of 64 up
+// to 512, D in {48, 64} (K6 also 128; K7 128 only). pad, lse, delta,
+// dropout_p, seed as K4 bwd; Tp >= T the forward's padded length (the keys
+// in [T, Tp) are virtual).
 //
 // Q1: dqc (B, T, H, D) fp32; K5 writes its rotated streams into gab
 // (2, B, T, H, E), stream dtype; p null when no bwd-kv follows. Returns
@@ -1660,46 +1696,37 @@ int vt_xl_bwd_q1(const void* qc, const void* k, const void* v, const void* ga,
                  const void* gb, const void* table, const void* g,
                  const float* pad, const float* lse, const float* delta,
                  float* dqc, void* gab, float* s, float* p, int B, int T,
-                 int Tp, int H, int D, int E, int is_bf16, int rotate,
+                 int Tp, int H, int D, int E, int is_bf16, int pos,
                  float scale, double dropout_p, uint64_t seed, void* stream) {
-  if (bad_xl_args(B, T, H, dropout_p) || bad_e(E) || bad_head(D, rotate) || Tp < T)
+  if (bad_xl_args(B, T, H, dropout_p) || bad_e(E) || bad_pos(pos) || bad_head(D, pos) ||
+      Tp < T)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropArgs drop = drop_args(dropout_p, seed);
-#define VT_Q1(TYPE, DIM, ROT)                                                  \
-  launch_xl2_bwd_q1<TYPE, DIM, ROT>(qc, k, v, ga, gb, table, g, pad, lse,      \
-                                    delta, dqc, gab, s, p, B, T, Tp, H, E,     \
-                                    scale, drop, st)
-  switch (D * 4 + (is_bf16 ? 2 : 0) + (rotate ? 1 : 0)) {
-    case 192: return (int)VT_Q1(float, 48, false);
-    case 193: return (int)VT_Q1(float, 48, true);
-    case 194: return (int)VT_Q1(__nv_bfloat16, 48, false);
-    case 195: return (int)VT_Q1(__nv_bfloat16, 48, true);
-    case 256: return (int)VT_Q1(float, 64, false);
-    case 257: return (int)VT_Q1(float, 64, true);
-    case 258: return (int)VT_Q1(__nv_bfloat16, 64, false);
-    case 259: return (int)VT_Q1(__nv_bfloat16, 64, true);
-    case 512: return (int)VT_Q1(float, 128, false);
-    case 514: return (int)VT_Q1(__nv_bfloat16, 128, false);
-    default: return (int)cudaErrorInvalidValue;
+#define VT_Q1E(POS)                                                                  \
+  q1_entry<POS>(qc, k, v, ga, gb, table, g, pad, lse, delta, dqc, gab, s, p, B, T, Tp, \
+                H, D, E, is_bf16, scale, drop, st)
+  switch (pos) {
+    case kPosXl: return VT_Q1E(kPosXl);
+    case kPosXlRot: return VT_Q1E(kPosXlRot);
+    default: return VT_Q1E(kPosRel);
   }
-#undef VT_Q1
+#undef VT_Q1E
 }
 
-// Q2: dg (B, T, H, E) fp32, K5's dg2 or K6's dgA; dgb (same shape) K6's
-// dgB or K5's scratch.
+// Q2: dg (B, T, H, E) fp32, K5's dg2, K6's dgA or K7's dg; dgb (same
+// shape) K6's dgB or K5's scratch (K7: unused, may be null).
 int vt_xl_bwd_q2(const float* s, const void* table, float* dg, float* dgb,
-                 int B, int T, int H, int E, int is_bf16, int rotate,
+                 int B, int T, int H, int E, int is_bf16, int pos,
                  void* stream) {
-  if (bad_xl_args(B, T, H, 0.0) || bad_e(E)) return (int)cudaErrorInvalidValue;
+  if (bad_xl_args(B, T, H, 0.0) || bad_e(E) || bad_pos(pos) ||
+      (pos != kPosRel && dgb == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((is_bf16 ? 2 : 0) + (rotate ? 1 : 0)) {
-    case 0: return (int)launch_xl2_bwd_q2<float, false>(s, table, dg, dgb, B, T, H, E, st);
-    case 1: return (int)launch_xl2_bwd_q2<float, true>(s, table, dg, dgb, B, T, H, E, st);
-    case 2:
-      return (int)launch_xl2_bwd_q2<__nv_bfloat16, false>(s, table, dg, dgb, B, T, H, E, st);
-    default:
-      return (int)launch_xl2_bwd_q2<__nv_bfloat16, true>(s, table, dg, dgb, B, T, H, E, st);
+  switch (pos) {
+    case kPosXl: return q2_entry<kPosXl>(s, table, dg, dgb, B, T, H, E, is_bf16, st);
+    case kPosXlRot: return q2_entry<kPosXlRot>(s, table, dg, dgb, B, T, H, E, is_bf16, st);
+    default: return q2_entry<kPosRel>(s, table, dg, dgb, B, T, H, E, is_bf16, st);
   }
 }
 
@@ -1707,7 +1734,7 @@ int vt_xl_bwd_q2(const float* s, const void* table, float* dg, float* dgb,
 int vt_xl_bwd_kv(const void* qc, const void* g, const float* s, const float* p,
                  float* dk, float* dv, int B, int T, int H, int D, int is_bf16,
                  void* stream) {
-  if (bad_xl_args(B, T, H, 0.0) || bad_head(D, false)) return (int)cudaErrorInvalidValue;
+  if (bad_xl_args(B, T, H, 0.0) || bad_head(D, kPosXl)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define VT_KV(TYPE, DIM) launch_xl2_bwd_kv<TYPE, DIM, false>(qc, g, s, p, dk, dv, B, T, H, st)
   switch (D * 2 + (is_bf16 ? 1 : 0)) {

@@ -26,7 +26,9 @@ every (b, h). Padded keys score ``MASK_NEG = -1e9``.
 
 Each wrapper launches its kernel (the forward: the K7 instance of the
 tensor-core flash template ``xl2_fwd_kernel`` in
-``csrc/flash_xl_attention.cu``, which K5 and K6 run too; the backward:
+``csrc/flash_xl_attention.cu``, which K5 and K6 run too; bwd-q: K7's
+instance of the tensor-core K5 / K6 bwd-q kernels in
+``csrc/flash_xl_attention_bwd.cu``, on a ds scratch; bwd-kv:
 ``csrc/flash_rel_attention_bwd.cu``) for CUDA tensors and takes its plain
 version (the dense formulas of ``_rel_dense`` on the padded inputs, and
 that function's VJP) for CPU tensors, never one for the other.
@@ -54,7 +56,10 @@ import torch.nn.functional as F
 
 from viet_tts_torch.ops.flash_attention import MASK_NEG, _pad_tensor, backward_inputs, padded_time
 from viet_tts_torch.ops.flash_xl_attention import (
+    POS_REL,
     _bwd_inputs,
+    _bwd_q1,
+    _bwd_q2,
     _check,
     _check_rates,
     _compute_dtype,
@@ -195,7 +200,9 @@ rel_fwd.launches = 0
 def rel_bwd_dq(qc, k, v, g, table, pad, lse, delta, gout, scale: float,
                dropout_p: float = 0.0, seed: int = 0):
     """(dqc (B, T, H, D), dg (B, T, H, E)) fp32: kernel K7 bwd-q on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (K7's instance of the K5 / K6 bwd-q kernels, three launches on
+    a ds scratch: Q1's position logits g t^T, Q1's ds and dqc, Q2's dg =
+    ds t; one count), the plain version on CPU tensors."""
     _check_rates(dropout_p)
     if _device_of(qc) == "cpu":
         return rel_bwd_dq_plain(qc, k, v, g, table, pad, lse, delta, gout, scale,
@@ -203,17 +210,9 @@ def rel_bwd_dq(qc, k, v, g, table, pad, lse, delta, gout, scale: float,
     table = _streams(qc, k, v, g, table)
     pad, lse, delta, gout, qc, k, v, g = _bwd_inputs(qc, pad, lse, delta, gout, qc, k, v, g,
                                                      head_dims=(REL_D,))
-    B, T, H, D = qc.shape
-    E = g.shape[-1]
-    dqc = torch.empty(B, T, H, D, dtype=torch.float32, device=qc.device)
-    dg = torch.empty(B, T, H, E, dtype=torch.float32, device=qc.device)
-    lib = kernels.library("flash_rel_attention_bwd")
-    err = lib.vt_flash_rel_bwd_q(
-        qc.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), table.data_ptr(),
-        gout.data_ptr(), pad.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqc.data_ptr(),
-        dg.data_ptr(), B, T, padded_time(T), H, D, E, int(qc.dtype == torch.bfloat16),
-        float(scale), float(dropout_p), _seed(seed), _stream(qc))
-    kernels.check(lib, err, "rel flash attention bwd_q kernel")
+    dqc, s, _, _ = _bwd_q1(POS_REL, qc, k, v, g, None, table, pad, lse, delta, gout, scale,
+                           dropout_p, seed, with_p=False)
+    dg, _ = _bwd_q2(POS_REL, s, table, qc)
     rel_bwd_dq.launches += 1
     return dqc, dg
 

@@ -82,6 +82,10 @@ _MAX_E = 640  # the widest table the forwards take (their shared memory is E-fre
 # the widest table the backwards take: the widest their card tests hold (no
 # backward kernel's shared memory depends on E; ``kMaxEBwd`` in the source)
 _MAX_E_BWD = 512
+# the position term of the bwd-q kernels (``kPos*`` in ``csrc/xl_mma.cuh``):
+# K6's two streams, K5's one stream rotated on the card, K7's g t^T at
+# every key
+POS_XL, POS_XL_ROT, POS_REL = 0, 1, 2
 
 
 def xl3_padded_time(t: int) -> int:
@@ -703,15 +707,17 @@ def _dtab_split(bh: int, T: int, E: int) -> Tuple[int, int]:
     return -(-bh // per), per
 
 
-def _bwd_q1(rotate: bool, qc, k, v, ga, gb, table, pad, lse, delta, g, scale: float,
+def _bwd_q1(pos: int, qc, k, v, ga, gb, table, pad, lse, delta, g, scale: float,
             dropout_p: float, seed: int, with_p: bool):
-    """Q1 of the K5 (``rotate``: ga is the unrotated g2, gb None) / K6
-    backward on checked, contiguous CUDA operands: (dqc (B, T, H, D) fp32,
-    S (ds), P (p m / keep, or None without ``with_p``), the rotated streams
-    (gA, gB) (B, T, H, E) in the stream dtype). A stage of the counted
-    wrappers below; it counts nothing itself."""
+    """Q1 of the K5 (``pos`` POS_XL_ROT: ga is the unrotated g2, gb None) /
+    K6 (POS_XL) / K7 (POS_REL: ga is g, gb None) backward on checked,
+    contiguous CUDA operands: (dqc (B, T, H, D) fp32, S (ds), P (p m /
+    keep, or None without ``with_p``), the rotated streams (gA, gB)
+    (B, T, H, E) in the stream dtype). A stage of the counted wrappers
+    below; it counts nothing itself."""
     B, T, H, D = qc.shape
     E = ga.shape[-1]
+    rotate = pos == POS_XL_ROT
     dqc = torch.empty(B, T, H, D, dtype=torch.float32, device=qc.device)
     s = _ds_scratch(B, T, H, qc.device)
     p = _ds_scratch(B, T, H, qc.device) if with_p else None
@@ -723,24 +729,24 @@ def _bwd_q1(rotate: bool, qc, k, v, ga, gb, table, pad, lse, delta, g, scale: fl
         pad.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqc.data_ptr(),
         None if gab is None else gab.data_ptr(), s.data_ptr(),
         None if p is None else p.data_ptr(), B, T, padded_time(T), H, D, E,
-        int(qc.dtype == torch.bfloat16), int(rotate), float(scale), float(dropout_p),
+        int(qc.dtype == torch.bfloat16), int(pos), float(scale), float(dropout_p),
         _seed(seed), _stream(qc))
     kernels.check(lib, err, "XL flash attention backward Q1 kernels")
     return dqc, s, p, ((gab[0], gab[1]) if rotate else (ga, gb))
 
 
-def _bwd_q2(rotate: bool, s, table, qc):
+def _bwd_q2(pos: int, s, table, qc):
     """Q2 (K5: and the inverse rotations) from Q1's S: K5's dg2 (and the
-    dgB scratch) or K6's (dgA, dgB), (B, T, H, E) fp32. A stage; counts
-    nothing."""
+    dgB scratch), K6's (dgA, dgB) or K7's (dg, None), (B, T, H, E) fp32. A
+    stage; counts nothing."""
     B, T, H, _ = qc.shape
     E = table.shape[-1]
     dg = torch.empty(B, T, H, E, dtype=torch.float32, device=qc.device)
-    dgb = torch.empty_like(dg)
+    dgb = None if pos == POS_REL else torch.empty_like(dg)
     lib = kernels.library("flash_xl_attention_bwd")
-    err = lib.vt_xl_bwd_q2(s.data_ptr(), table.data_ptr(), dg.data_ptr(), dgb.data_ptr(),
-                           B, T, H, E, int(qc.dtype == torch.bfloat16), int(rotate),
-                           _stream(qc))
+    err = lib.vt_xl_bwd_q2(s.data_ptr(), table.data_ptr(), dg.data_ptr(),
+                           None if dgb is None else dgb.data_ptr(), B, T, H, E,
+                           int(qc.dtype == torch.bfloat16), int(pos), _stream(qc))
     kernels.check(lib, err, "XL flash attention backward Q2 kernel")
     return dg, dgb
 
@@ -776,12 +782,12 @@ def _bwd_dtab(s, ga, gb):
     return dtab
 
 
-def _bwd_q1_kv(rotate: bool, ops, scale, dropout_p, seed, want_dtab: bool):
-    """Q1 with P, bwd-kv and (with ``want_dtab``) dtab on the checked
-    operands ``ops`` = (qc, k, v, ga, gb, table, pad, lse, delta, g): (dqc,
-    S, dk, dv, dtab or None)."""
+def _bwd_q1_kv(pos: int, ops, scale, dropout_p, seed, want_dtab: bool):
+    """Q1 with P, bwd-kv and (with ``want_dtab``) dtab of K5 (``pos``
+    POS_XL_ROT) or K6 (POS_XL) on the checked operands ``ops`` = (qc, k, v,
+    ga, gb, table, pad, lse, delta, g): (dqc, S, dk, dv, dtab or None)."""
     qc, k, v, ga, gb, table, pad, lse, delta, g = ops
-    dqc, s, p, (ra, rb) = _bwd_q1(rotate, qc, k, v, ga, gb, table, pad, lse, delta, g, scale,
+    dqc, s, p, (ra, rb) = _bwd_q1(pos, qc, k, v, ga, gb, table, pad, lse, delta, g, scale,
                                   dropout_p, seed, with_p=True)
     dk, dv = _bwd_kv(qc, g, s, p)
     del p
@@ -807,9 +813,9 @@ def xl2_bwd_dq(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
                                 seed)
     ops = _xl2_ops(qc, k, v, g2, table, pad, lse, delta, g)
     qc, k, v, g2, _, table, pad, lse, delta, g = ops
-    dqc, s, _, _ = _bwd_q1(True, qc, k, v, g2, None, table, pad, lse, delta, g, scale,
+    dqc, s, _, _ = _bwd_q1(POS_XL_ROT, qc, k, v, g2, None, table, pad, lse, delta, g, scale,
                            dropout_p, seed, with_p=False)
-    dg2, _ = _bwd_q2(True, s, table, qc)
+    dg2, _ = _bwd_q2(POS_XL_ROT, s, table, qc)
     xl2_bwd_dq.launches += 1
     return dqc, dg2
 
@@ -829,7 +835,7 @@ def xl2_bwd_dkv(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
         return xl2_bwd_dkv_plain(qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p,
                                  seed, want_dtab)
     ops = _xl2_ops(qc, k, v, g2, table, pad, lse, delta, g)
-    _, _, dk, dv, dtab = _bwd_q1_kv(True, ops, scale, dropout_p, seed, want_dtab)
+    _, _, dk, dv, dtab = _bwd_q1_kv(POS_XL_ROT, ops, scale, dropout_p, seed, want_dtab)
     xl2_bwd_dkv.launches += 1
     return dk, dv, dtab
 
@@ -850,8 +856,8 @@ def xl2_bwd(qc, k, v, g2, table, pad, lse, delta, g, scale: float,
         return xl2_bwd_plain(qc, k, v, g2, table, pad, lse, delta, g, scale, dropout_p, seed,
                              want_dtab)
     ops = _xl2_ops(qc, k, v, g2, table, pad, lse, delta, g)
-    dqc, s, dk, dv, dtab = _bwd_q1_kv(True, ops, scale, dropout_p, seed, want_dtab)
-    dg2, _ = _bwd_q2(True, s, ops[5], ops[0])
+    dqc, s, dk, dv, dtab = _bwd_q1_kv(POS_XL_ROT, ops, scale, dropout_p, seed, want_dtab)
+    dg2, _ = _bwd_q2(POS_XL_ROT, s, ops[5], ops[0])
     xl2_bwd_dq.launches += 1
     xl2_bwd_dkv.launches += 1
     return dqc, dk, dv, dg2, dtab
@@ -880,9 +886,9 @@ def xl_bwd_dq(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
                                seed)
     qc, k, v, gA, gB, table, pad, lse, delta, g = _xl_ops(
         qc, k, v, gA, gB, table, pad, lse, delta, g)
-    dqc, s, _, _ = _bwd_q1(False, qc, k, v, gA, gB, table, pad, lse, delta, g, scale,
+    dqc, s, _, _ = _bwd_q1(POS_XL, qc, k, v, gA, gB, table, pad, lse, delta, g, scale,
                            dropout_p, seed, with_p=False)
-    dgA, dgB = _bwd_q2(False, s, table, qc)
+    dgA, dgB = _bwd_q2(POS_XL, s, table, qc)
     xl_bwd_dq.launches += 1
     return dqc, dgA, dgB
 
@@ -901,7 +907,7 @@ def xl_bwd_dkv(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
         return xl_bwd_dkv_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale,
                                 dropout_p, seed, want_dtab)
     ops = _xl_ops(qc, k, v, gA, gB, table, pad, lse, delta, g)
-    _, _, dk, dv, dtab = _bwd_q1_kv(False, ops, scale, dropout_p, seed, want_dtab)
+    _, _, dk, dv, dtab = _bwd_q1_kv(POS_XL, ops, scale, dropout_p, seed, want_dtab)
     xl_bwd_dkv.launches += 1
     return dk, dv, dtab
 
@@ -921,8 +927,8 @@ def xl_bwd(qc, k, v, gA, gB, table, pad, lse, delta, g, scale: float,
         return xl_bwd_plain(qc, k, v, gA, gB, table, pad, lse, delta, g, scale, dropout_p, seed,
                             want_dtab)
     ops = _xl_ops(qc, k, v, gA, gB, table, pad, lse, delta, g)
-    dqc, s, dk, dv, dtab = _bwd_q1_kv(False, ops, scale, dropout_p, seed, want_dtab)
-    dgA, dgB = _bwd_q2(False, s, ops[5], ops[0])
+    dqc, s, dk, dv, dtab = _bwd_q1_kv(POS_XL, ops, scale, dropout_p, seed, want_dtab)
+    dgA, dgB = _bwd_q2(POS_XL, s, ops[5], ops[0])
     xl_bwd_dq.launches += 1
     xl_bwd_dkv.launches += 1
     return dqc, dk, dv, dgA, dgB, dtab

@@ -95,11 +95,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
             _I, [_P] * 18 + [_I, _I, _I, _I, _I, _F, _D, _U64, _P]
         ),
         # qc, k, v, ga, gb, table, g, pad, lse, delta, dqc, gab, s, p, B, T,
-        # Tp, H, D, E, is_bf16, rotate, scale, dropout_p, seed, stream
+        # Tp, H, D, E, is_bf16, pos (0 K6, 1 K5, 2 K7), scale, dropout_p,
+        # seed, stream
         "vt_xl_bwd_q1": (
             _I, [_P] * 14 + [_I] * 8 + [_F, _D, _U64, _P]
         ),
-        # s, table, dg, dgb, B, T, H, E, is_bf16, rotate, stream
+        # s, table, dg, dgb, B, T, H, E, is_bf16, pos, stream
         "vt_xl_bwd_q2": (_I, [_P] * 4 + [_I] * 6 + [_P]),
         # qc, g, s, p, dk, dv, B, T, H, D, is_bf16, stream
         "vt_xl_bwd_kv": (_I, [_P] * 6 + [_I] * 5 + [_P]),
@@ -108,11 +109,6 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_rel_attention_bwd": {
-        # qc, k, v, g, table, gout, pad, lse, delta, dqc, dg, B, T, Tp, H, D,
-        # E, is_bf16, scale, dropout_p, seed, stream
-        "vt_flash_rel_bwd_q": (
-            _I, [_P] * 11 + [_I] * 7 + [_F, _D, _U64, _P]
-        ),
         # qc, k, v, g, table, gout, pad, lse, delta, dk, dv, dtab_part, dtab,
         # B, T, Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream
         "vt_flash_rel_bwd_kv": (
