@@ -61,7 +61,8 @@ Phases (any failure exits non-zero; no phase is caught):
     then the two masked products of that gradient with the table); the
     tensor-core bwd-kv timed alone on the scratches of one Q1 and held
     against its plain version there, beside Q1 without and with its second
-    write and the whole backward (bwd-q and bwd-kv on shared scratches);
+    write and the whole backward (bwd-q and bwd-kv on shared scratches), in
+    device time;
 10. the FS2 training path: ``make_fs2_train_step`` on full-width
     FastSpeech2-conformer (flash attention, every dropout as configured,
     MAS durations, CVAE, Postnet) with the bench.py batch (B=8, T_text=64,
@@ -142,10 +143,10 @@ host gaps between its launches that CUDA events count), with the
 CUDA-event figures beside them. bound_ms
 is the larger of bytes / 3.35 TB/s and operations / the card's peak for the
 work's type (fp32 work at the 67 TFLOP/s CUDA-core rate, bf16 at 989), per
-the H100 SXM data sheet. The tensor-core kernels (K4 / K5 / K6 / K7
-forward, K4 bwd, K5 / K6 / K7 bwd-q, K5 / K6 bwd-kv) take the bound of the
-work they do on
-the tensor cores, counted from the function (the pairs of the live keys;
+the H100 SXM data sheet. Every attention kernel but K3a / K3b runs on the
+tensor cores (K1, K4 / K5 / K6 / K7 forward, K4 bwd, K5 / K6 / K7 bwd-q
+and bwd-kv) and takes the bound of the work it does on the tensor cores,
+counted from the function (the pairs of the live keys;
 not the band products' padding or the tiles a kernel walks): fp32
 streams under 3xTF32 run three TF32 products a term, so 3 * operations /
 495 TFLOP/s, bf16 streams one, operations / 495; they also report the
@@ -304,7 +305,9 @@ def check_flash_attention(dev):
 
     B, H, D = 16, 2, 128
     scale = D ** -0.5
-    per_call = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    per_call = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                "bound_ms_fp32": 0.0}
+    per_shape = {}
     max_err = 0.0
     kinds = set()
     # per OneStageTTS.__call__ of 16 sentences: 4 encoder layers at the
@@ -341,28 +344,34 @@ def check_flash_attention(dev):
             # q, k, v in their dtype; ctx, lse and pad in fp32
             nbytes = (3 * q.element_size() * B * T * H * D
                       + 4.0 * (B * T * H * D + B * H * T + B * T))
-            b_ms, kind = bound(nbytes, flops, FP32_FLOP_PER_MS
-                               if dtype == torch.float32 else BF16_FLOP_PER_MS)
+            b32, _ = bound(nbytes, flops, FP32_FLOP_PER_MS
+                           if dtype == torch.float32 else BF16_FLOP_PER_MS)
+            b_ms, kind = _tensor_core_bound(nbytes, flops, dtype)
             log(f"{name}: max_abs_err {err:.3e} (tol {tol}) kernel_ms {k_ms:.4f} "
                 f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms {b_ms:.4f} "
                 f"({kind}) x{n_layers} per call")
             if dtype != torch.float32:  # the kernel line reports the fp32 call
                 continue
+            tc = _tensor_core_figures(f"flash_attention_fwd (B={B}, T={T})", k_ms, b_ms,
+                                      nbytes, flops)
+            per_shape[f"({B}, {T})"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                            bound_ms=b_ms, bound_by=kind, **tc)
             max_err = max(max_err, err)
             kinds.add(kind)
-            for key, val in (("ms", k_ms), ("plain_ms", p_ms),
-                             ("library_ms", l_ms), ("bound_ms", b_ms)):
+            for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                             ("bound_ms", b_ms), ("bound_ms_fp32", b32)):
                 per_call[key] += n_layers * val
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
-        "source": "viet_tts_torch/csrc/flash_attention.cu",
+        "source": "viet_tts_torch/csrc/flash_xl_attention.cu",
         "replaces": "viet_tts_tpu/ops/pallas_attention.py:1832",
         "max_abs_err": max_err,
         "tol": 1e-4,
         "bound_by": "operations" if "operations" in kinds else "bytes",
         "per": "one OneStageTTS.__call__ of 16 sentences, fp32 (4 calls at "
                "(16, 64) + 6 at (16, 1008), H=2, D=128)",
+        "per_shape": per_shape,
         **per_call,
     }
 
@@ -426,6 +435,7 @@ def check_flash_training(dev):
     scale = D ** -0.5
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     step = {name: dict.fromkeys(keys, 0.0) for name in ("fwd", "bwd_q", "bwd_kv")}
+    step["fwd"].update(bound_ms_fp32=0.0, per_shape={})
     err = {name: 0.0 for name in step}
     kinds = {name: set() for name in step}
     for T, n_layers in ((TRAIN_T_TEXT, 4), (TRAIN_T_MEL, 6)):
@@ -471,13 +481,15 @@ def check_flash_training(dev):
                 k_dkv = bwd_ms(lambda: fa.attention_bwd_dkv(*args), iters, f"K3b {name}")
                 # bytes: inputs once in their dtype, fp32 pad/lse/delta/outputs once
                 row, stat = B * T * H * D, B * H * T
+                # K1 runs on the tensor cores: the bound of that work
+                fwd_work = (3 * esz * row + 4.0 * (row + stat + B * T),
+                            _attn_flops(2, H, D, T, lens))
                 times = {
                     "fwd": (cuda_ms(lambda: fa.attention_fwd(q, k, v, scale, pad, p, seed), iters),
                             cuda_ms(lambda: fa.attention_fwd_plain(q, k, v, scale, pad, p, seed),
                                     iters),
                             cuda_ms(lib_fwd, iters),
-                            bound(3 * esz * row + 4.0 * (row + stat + B * T),
-                                  _attn_flops(2, H, D, T, lens), peak),
+                            _tensor_core_bound(*fwd_work, dtype),
                             errs["ctx"], None),
                     "bwd_q": (k_dq[0], cuda_ms(lambda: fa.attention_bwd_dq_plain(*args), iters),
                               l_bwd[0],
@@ -506,6 +518,13 @@ def check_flash_training(dev):
                     kinds[kern].add(kind)
                     for key, val in zip(keys, (k_ms, p_ms, l_ms, b_ms)):
                         step[kern][key] += n_layers * val
+                    if kern == "fwd":
+                        step[kern]["bound_ms_fp32"] += n_layers * bound(*fwd_work, peak)[0]
+                        tc = _tensor_core_figures(f"flash_attention_fwd (B={B}, T={T}) dropout "
+                                                  f"{p}", k_ms, b_ms, *fwd_work)
+                        step[kern]["per_shape"][f"({B}, {T}) training"] = dict(
+                            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                            bound_by=kind, **tc)
                     if events is not None:
                         for key, val in zip(EVENT_KEYS, events):
                             step[kern][key] = step[kern].get(key, 0.0) + n_layers * val
@@ -1339,27 +1358,29 @@ def _xl_train_work(kind: str, args, lens, T: int):
 
 
 def _bwd_kv_stages(kind: str, bargs, tol: float = 1e-4) -> dict:
-    """The K5 (``xl2``) / K6 backward's stages at one call of the training
-    path, as closures to time: Q1 without and with its second write (P),
-    the bwd-kv kernel alone on the scratches of one Q1 and its plain version
-    there (``xl_bwd_kv_plain``), and the whole backward (``xl2_bwd`` /
-    ``xl_bwd``); with the kernel alone's (max abs error, scaled) against
-    that plain version, which must be within ``tol`` (scaled by the largest
-    value where that exceeds 1). The stage helpers count no launch: these
-    are timings, not the path."""
+    """The K5 (``xl2``) / K6 (``xl``) / K7 (``rel``) backward's stages at one
+    call of the training path, as closures to time: Q1 without and with its
+    second write (P), the bwd-kv kernel alone on the scratches of one Q1 and
+    its plain version there (``xl_bwd_kv_plain``), and the whole backward
+    (``xl2_bwd`` / ``xl_bwd`` / ``rel_bwd``); with the kernel alone's (max
+    abs error, scaled) against that plain version, which must be within
+    ``tol`` (scaled by the largest value where that exceeds 1). The stage
+    helpers count no launch: these are timings, not the path."""
+    from viet_tts_torch.ops import flash_rel_attention as fr
     from viet_tts_torch.ops import flash_xl_attention as fx
 
-    rotate = kind == "xl2"
     *streams, pad, lse, delta, g, scale, p, seed = bargs
-    ops = (fx._xl2_ops if rotate else fx._xl_ops)(*streams, pad, lse, delta, g)
-    pos = fx.POS_XL_ROT if rotate else fx.POS_XL
+    ops_fn, pos, whole = {"xl2": (fx._xl2_ops, fx.POS_XL_ROT, fx.xl2_bwd),
+                          "xl": (fx._xl_ops, fx.POS_XL, fx.xl_bwd),
+                          "rel": (fr._rel_ops, fx.POS_REL, fr.rel_bwd)}[kind]
+    ops = ops_fn(*streams, pad, lse, delta, g)
     _, s, pm, _ = fx._bwd_q1(pos, *ops, scale, p, seed, True)
     stages = {
         "kernel": lambda: fx._bwd_kv(ops[0], ops[9], s, pm),
         "plain": lambda: fx.xl_bwd_kv_plain(ops[0], ops[9], s, pm),
         "q1": lambda: fx._bwd_q1(pos, *ops, scale, p, seed, False),
         "q1_with_p": lambda: fx._bwd_q1(pos, *ops, scale, p, seed, True),
-        "whole": lambda: (fx.xl2_bwd if rotate else fx.xl_bwd)(*bargs),
+        "whole": lambda: whole(*bargs),
     }
     got, want = stages["kernel"](), stages["plain"]()
     torch.cuda.synchronize()
@@ -1372,11 +1393,14 @@ def _bwd_kv_stages(kind: str, bargs, tol: float = 1e-4) -> dict:
 
 def _bwd_kv_figures(name: str, stages: dict, function_work, iters: int) -> dict:
     """bwd-kv's figures beside its kernel time, logged: Q1's time without
-    and with the second write, the whole backward's, and the bound of the
+    and with the second write and the whole backward's, in device time
+    (``bwd_ms``, the CUDA-event figures beside them), and the bound of the
     function's own work (``*_bwd_kv_function``) on the fp32 CUDA cores (the
     bound of the CUDA-core kernel this one replaced) and under 3xTF32."""
     nbytes, flops = function_work
-    fig = {f"{k}_ms": cuda_ms(stages[k], iters) for k in ("q1", "q1_with_p", "whole")}
+    fig = {}
+    for k in ("q1", "q1_with_p", "whole"):
+        fig[f"{k}_ms"], fig[f"{k}_ms_cuda_events"] = bwd_ms(stages[k], iters, f"{k} of {name}")
     fig["bound_ms_function"], _ = bound(nbytes, flops, FP32_FLOP_PER_MS)
     fig["bound_ms_function_3xtf32"], _ = bound(nbytes, 3 * flops, TF32_FLOP_PER_MS)
     fig["max_abs_err_kernel_alone"] = stages["err"][0]
@@ -1477,7 +1501,7 @@ TC_REDESIGNED = {
         "bound_ms the bound of its own work (the two scratches' bytes, two D-wide "
         "products a pair); bound_ms_function the function's 4D + E a pair on the fp32 "
         "cores, q1_ms / q1_with_p_ms Q1 without and with the P write, whole_ms the whole "
-        "backward (bwd-q and bwd-kv on shared scratches)")),
+        "backward (bwd-q and bwd-kv on shared scratches), all three in device time")),
     **dict.fromkeys(("flash_xl2_fwd", "flash_xl_fwd"), (
         "tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 streams, one TF32 product "
         "for bf16); one flash kernel for K5, K6 and K7 (64-query tiles, the E-wide position "
@@ -1505,6 +1529,21 @@ TC_REDESIGNED = {
         "tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 streams): K7's instance of the "
         "K5 / K6 bwd-q kernels on a ds scratch, Q1 (position logits g t^T, then ds and "
         "dqc) and Q2 (dg = ds t over every key)"),
+    "flash_rel_bwd_kv": (
+        "tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 streams): K6's bwd-kv kernel at "
+        "D = 128 on the ds and P scratches of K7's Q1 (no logits formed again), dtable by "
+        "the dtab kernel's K7 instance: ms is the kernel alone, plain_ms its plain version "
+        "on the same scratches, bound_ms the bound of its own work (the two scratches' "
+        "bytes, two D-wide products a pair); bound_ms_function the function's 4D + E a "
+        "pair on the fp32 cores, q1_ms / q1_with_p_ms Q1 without and with the P write, "
+        "whole_ms the whole backward (bwd-q and bwd-kv on shared scratches), all three in "
+        "device time, beside library_ms (SDPA's backward) and library_ms_pos_grad"),
+    "flash_attention_fwd": (
+        "tensor cores (mma.sync m16n8k8, 3xTF32 for fp32 streams, one TF32 product for "
+        "bf16): the instance of the K5 / K6 / K7 flash kernel with no position term "
+        "(xl2_fwd_kernel<T, D, 3, 4>: q k^T, the online softmax and p v in registers, k and "
+        "v each in a cp.async group of its own), each batch row's key tiles walked only up "
+        "to its last live key"),
 }
 TC_BOUND_NOTE = ("; bound_ms is the tensor cores' bound of that work, 3 * operations / 495 "
                  "TFLOP/s for fp32 streams; bound_ms_fp32 the fp32 CUDA cores', "
@@ -2111,7 +2150,11 @@ def _rel_work(args, lens, T: int):
     delta in fp32), every output written once in fp32; the dot products
     over the live keys of each row: forward the [qc|g].[k|t] logits (D + E)
     and the weighted sum (D); bwd-q the logits, g_out . v, dqc and dg
-    (3D + 2E); bwd-kv the logits, g_out . v, dk and dv (4D + E)."""
+    (3D + 2E). bwd-kv: the work of the kernel, which reads bwd-q's two fp32
+    scratches (p m / keep and ds over the T x T pairs) with qc and g_out and
+    forms dk and dv (two D-wide products a pair); and, as
+    ``flash_rel_bwd_kv_function``, the function's own work from the
+    streams (the logits, g_out . v, dk and dv: 4D + E)."""
     B, _, H, D = args[0].shape
     E = args[3].shape[-1]
     esz = args[0].element_size()
@@ -2121,7 +2164,9 @@ def _rel_work(args, lens, T: int):
     bwd_in = ins + esz * row + 8.0 * stat
     return {"flash_rel_fwd": (ins + 4.0 * (row + stat), pairs * (2 * D + E)),
             "flash_rel_bwd_q": (bwd_in + 4.0 * (row + erow), pairs * (3 * D + 2 * E)),
-            "flash_rel_bwd_kv": (bwd_in + 8.0 * row, pairs * (4 * D + E))}
+            "flash_rel_bwd_kv": (2.0 * esz * row + 8.0 * B * H * T * T + 4.0 * 2 * row,
+                                 pairs * 2 * D),
+            "flash_rel_bwd_kv_function": (bwd_in + 8.0 * row, pairs * (4 * D + E))}
 
 
 def _rel_pos(base, scale: float):
@@ -2215,13 +2260,17 @@ def check_rel_kernels(dev, t_text: int):
                     to_time = {"flash_rel_fwd": (
                         lambda: fr.rel_fwd(*args, scale, pad, p, seed),
                         lambda: fr.rel_fwd_plain(*args, scale, pad, p, seed), lib_fwd)}
+                    stages = None
                     if training:
                         to_time["flash_rel_bwd_q"] = (lambda: fr.rel_bwd_dq(*bargs),
                                                       lambda: fr.rel_bwd_dq_plain(*bargs),
                                                       lib_bwd)
-                        to_time["flash_rel_bwd_kv"] = (lambda: fr.rel_bwd_dkv(*bargs),
-                                                       lambda: fr.rel_bwd_dkv_plain(*bargs),
+                        # bwd-kv: the kernel alone on the scratches of one Q1
+                        stages = _bwd_kv_stages("rel", bargs)
+                        to_time["flash_rel_bwd_kv"] = (stages["kernel"], stages["plain"],
                                                        lib_bwd)
+                        errs["flash_rel_bwd_kv"] = max(errs["flash_rel_bwd_kv"],
+                                                       stages["err"][0])
                     work = _rel_work(args, live, T)
                     l_bwd = (bwd_ms(lib_bwd, iters, f"SDPA backward rel (B={B}, T={T})")
                              if training else None)
@@ -2248,6 +2297,20 @@ def check_rel_kernels(dev, t_text: int):
                             tc = _tensor_core_figures(f"{name} (B={B}, T={T})", k_ms, b_ms,
                                                       nbytes, flops, pos_grad, iters)
                             del pos_grad
+                            if name == "flash_rel_bwd_kv":
+                                tc.update(_bwd_kv_figures(f"{name} (B={B}, T={T})", stages,
+                                                          work["flash_rel_bwd_kv_function"],
+                                                          iters))
+                                # bwd-q's yardstick of the same function, beside whole_ms
+                                for key in ("library_ms_pos_grad",
+                                            "library_ms_pos_grad_cuda_events"):
+                                    tc[key] = per_shape["flash_rel_bwd_q"][
+                                        f"({B}, {T}) training"][key]
+                                for key in ("q1_ms", "q1_with_p_ms", "whole_ms",
+                                            "q1_ms_cuda_events", "q1_with_p_ms_cuda_events",
+                                            "whole_ms_cuda_events", "bound_ms_function",
+                                            "bound_ms_function_3xtf32"):
+                                    acc[key] = acc.get(key, 0.0) + n_layers * tc[key]
                             per_shape.setdefault(name, {})[
                                 f"({B}, {T})" + (" training" if training else "")] = dict(
                                 ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
@@ -2261,6 +2324,7 @@ def check_rel_kernels(dev, t_text: int):
                             for key, val in zip(EVENT_KEYS, (k_ev, l_ev)):
                                 acc[key] = acc.get(key, 0.0) + n_layers * val
                         kinds[name].add(kind_b)
+                    del stages
             del args
         if not training:  # K6 at the JETS width: the legacy rel-pos route
             xl = xl_inputs(dev, B, T, seed=T + 11, H=REL_H, D=REL_D)
@@ -2313,7 +2377,7 @@ def check_rel_kernels(dev, t_text: int):
             "name": name, "route": "cuda",
             "source": {"flash_rel_fwd": "viet_tts_torch/csrc/flash_xl_attention.cu",
                        "flash_rel_bwd_q": "viet_tts_torch/csrc/flash_xl_attention_bwd.cu",
-                       "flash_rel_bwd_kv": "viet_tts_torch/csrc/flash_rel_attention_bwd.cu"}[name],
+                       "flash_rel_bwd_kv": "viet_tts_torch/csrc/flash_xl_attention_bwd.cu"}[name],
             "replaces": replaces, "max_abs_err": errs[name], "tol": 1e-4,
             "bound_by": "operations" if "operations" in kinds[name] else "bytes",
             "per": per_serve if name == "flash_rel_fwd" else per_step,
@@ -2555,7 +2619,11 @@ def check_conformer_training(dev, flavour: str = "latest", steps: int = 3, warmu
 
 # kernel-name fragments -> the layer each kernel belongs to (first match wins)
 KERNEL_GROUPS = (
-    ("K1 flash_fwd_kernel", ("flash_fwd_kernel",)),
+    # K1: the forward template's instances with no position term
+    # (<dtype, D, 3, warps>), ahead of K6's catch-all below
+    ("K1 xl2_fwd_kernel (tensor cores, no position term)",
+     tuple(f"xl2_fwd_kernel<{t}, {d}, 3," for t in ("float", "__nv_bfloat16")
+           for d in (32, 64, 128))),
     ("K3a flash_bwd_q_kernel", ("flash_bwd_q_kernel",)),
     ("K3b flash_bwd_kv_kernel", ("flash_bwd_kv_kernel",)),
     ("K2 mrf_conv_kernel", ("mrf_conv_kernel",)),
@@ -2565,13 +2633,18 @@ KERNEL_GROUPS = (
     ("K4 bwd (xl3_bwd_ds, xl2_bwd_kv<., ., true>, xl3_bwd_reduce)",
      ("xl3_bwd_", *(f"xl2_bwd_kv_kernel<{t}, {d}, true>" for t in ("float", "__nv_bfloat16")
                     for d in (48, 64)))),
-    # K7 bwd-q: the bwd-q kernels' instances of position kind 2 (Q1 pos,
-    # Q2) and Q1 ds at D = 128 without the P write (K6's whole backward at
-    # D = 128 writes P; its standalone bwd-q, on no training path, does not)
-    ("K7 bwd-q (xl2_bwd_q1_pos<., 2>, q1_ds<., 128, false>, q2<., 2>)",
+    # K7 bwd-q's own instances: position kind 2 (Q1 pos, Q2)
+    ("K7 bwd-q Q1 pos / Q2 (xl2_bwd_q1_pos<., 2>, q2<., 2>)",
+     tuple(f"{k}<{t}, 2>" for t in ("float", "__nv_bfloat16")
+           for k in ("xl2_bwd_q1_pos_kernel", "xl2_bwd_q2_kernel"))),
+    # Q1 ds and bwd-kv at D = 128 are one instance each for K7 and K6's
+    # legacy flavour (both with the P write): the JETS-conformer step of
+    # each flavour runs only its own, and each step is profiled on its own
+    ("D=128 bwd-q Q1 ds (q1_ds<., 128, true>: K7 latest, K6 legacy step)",
+     tuple(f"xl2_bwd_q1_ds_kernel<{t}, 128," for t in ("float", "__nv_bfloat16"))),
+    ("D=128 bwd-kv (xl2_bwd_kv<., 128, false>: K7 latest, K6 legacy step; K7 dtab)",
      tuple(f"{k}<{t}, {a}>" for t in ("float", "__nv_bfloat16")
-           for k, a in (("xl2_bwd_q1_pos_kernel", "2"), ("xl2_bwd_q1_ds_kernel", "128, false"),
-                        ("xl2_bwd_q2_kernel", "2")))),
+           for k, a in (("xl2_bwd_kv_kernel", "128, false"), ("xl2_bwd_dtab_kernel", "2")))),
     # bwd-q's other kernels are K5's and K6's alike (a step runs one of the
     # two); K5 adds the rotation pass (before its forward and its bwd-q) and
     # the inverse rotation after bwd-q
@@ -2582,14 +2655,13 @@ KERNEL_GROUPS = (
     ("K5 / K6 bwd-kv (xl2_bwd_kv, from Q1's scratches; dtab)", ("xl2_bwd_kv_kernel",
                                                                  "xl2_bwd_dtab")),
     # the forward's instances: <dtype, D, the position term (0 K6, 1 K5,
-    # 2 K7), warps a block>
+    # 2 K7, 3 K1), warps a block>
     ("K5 xl2_fwd_kernel (tensor cores; after the rotation pass)",
      tuple(f"xl2_fwd_kernel<{t}, {d}, 1," for t in ("float", "__nv_bfloat16")
            for d in (48, 64))),
     ("K7 xl2_fwd_kernel (tensor cores, rel-pos at every key)",
      tuple(f"xl2_fwd_kernel<{t}, 128, 2," for t in ("float", "__nv_bfloat16"))),
     ("K6 xl2_fwd_kernel (tensor cores, two streams)", ("xl2_fwd_kernel",)),
-    ("K7 bwd-kv (rel_bwd_kv + dtab)", ("rel_bwd_kv_kernel", "rel_bwd_dtab")),
     ("cuBLAS matmul (attention projections, GST, STFT-mel)", ("cublas", "gemv", "sgemm")),
     ("cuDNN (convs: vocoder, discriminators, FFN, predictors)", ("cudnn",)),
 )
@@ -2791,7 +2863,7 @@ def main() -> int:
          "timing": BWD_TIMING, **k6_train[name]}
         for name in K6_BWD_REPLACES]
     rel_entries = [rel[name] for name in REL_REPLACES]
-    for entry in (*xl_entries, *xl_bwd_entries, *k6_bwd_entries, *rel_entries):
+    for entry in (k1, *xl_entries, *xl_bwd_entries, *k6_bwd_entries, *rel_entries):
         if entry["name"] in TC_REDESIGNED:
             entry["redesigned"] = TC_REDESIGNED[entry["name"]] + TC_BOUND_NOTE
         if entry["name"].endswith("_bwd_q"):

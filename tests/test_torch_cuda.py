@@ -906,3 +906,121 @@ def test_xl3_fwd_tensor_core_kernel_matches_plain(cuda_device):
     uniform = ctx[-1]
     assert torch.allclose(uniform[uniform != 0],
                           torch.tensor(1.0 / ((1.0 - p) * T), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_flash_attention_tensor_core_kernel_matches_plain(cuda_device):
+    """K1 (the instance of the tensor-core forward template with no
+    position term, which walks each batch row's key tiles only up to its
+    last live key) against ``attention_fwd_plain`` under one seed, at D in
+    {32, 64, 128} and T in {45, 64, 300, 1008}: fp32 within 1e-4 and bf16
+    within 2e-2, lse within rel 1e-5, dropout 0 and 0.2, with a full, a
+    ragged, a one-live-key and a fully padded row (which averages v over
+    all Tp keys), or no pad mask; one launch count a call. Then, with v the
+    identity, the context is the dropped weights themselves: its zeros are
+    exactly where ``dropout_keep_mask`` drops."""
+    B, H = 4, 2
+    for D in (32, 64, 128):
+        for T in (45, 64, 300, 1008):
+            rng = np.random.RandomState(T + D)
+            q, k, v = (torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32))
+                       .to(cuda_device) for _ in range(3))
+            ragged = (torch.arange(T)[None] >= torch.tensor([T, T // 2 + 1, 1, 0])[:, None])
+            seed = 31337 + T + D
+            for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+                args = [x.to(dtype) for x in (q, k, v)]
+                for pad in (ragged.to(cuda_device), None):
+                    for p in (0.0, 0.2):
+                        case = (D, T, str(dtype), pad is None, p)
+                        before = fa.attention_fwd.launches
+                        ctx, lse = fa.attention_fwd(*args, D ** -0.5, pad, p, seed)
+                        assert fa.attention_fwd.launches == before + 1, case
+                        ref, ref_lse = fa.attention_fwd_plain(*args, D ** -0.5, pad, p, seed)
+                        torch.cuda.synchronize()
+                        assert torch.isfinite(ctx).all() and torch.isfinite(lse).all(), case
+                        err = (ctx - ref).abs().max().item()
+                        assert err <= atol, (case, err)
+                        lse_err = ((lse - ref_lse).abs()
+                                   / ref_lse.abs().clamp(min=1.0)).max().item()
+                        assert lse_err <= 1e-5, (case, lse_err)
+                        del ctx, ref
+    T, D, p, seed = 64, 128, 0.2, 81
+    rng = np.random.RandomState(3)
+    q, k = (torch.from_numpy(rng.randn(3, T, H, D).astype(np.float32)).to(cuda_device)
+            for _ in range(2))
+    eye = torch.eye(T, D, device=cuda_device)[None, :, None, :].expand(3, T, H, D).contiguous()
+    ctx, _ = fa.attention_fwd(q, k, eye, D ** -0.5, None, p, seed)
+    keep = fa.dropout_keep_mask(seed, 3, H, T, T, p, cuda_device)  # (B, H, i, j)
+    torch.cuda.synchronize()
+    assert torch.equal(ctx[..., :T].permute(0, 2, 1, 3) != 0, keep)
+
+
+@pytest.mark.cuda
+def test_rel_bwd_whole_on_shared_scratches_matches_plain(cuda_device, monkeypatch):
+    """The whole K7 backward on one set of scratches (``rel_bwd``: Q1 with
+    P, bwd-kv and dtab on its ds and P scratches, Q2) against
+    ``rel_bwd_plain`` and against the standalone ``rel_bwd_dq`` and
+    ``rel_bwd_dkv`` on the kernel forward's lse, at T in {45, 64, 300,
+    512}, fp32 (each gradient within 1e-4, scaled by its largest value
+    where that exceeds 1) and bf16 (2e-2), dropout 0 and 0.2, the table's
+    gradient included, with a full, a ragged, a three-live-key, a
+    one-live-key and a fully padded row (the dense gradient of the uniform
+    weights: dk, dqc and dg 0 there), or no pad mask; one count on each
+    backward counter a call. The standalone bwd-kv runs the same kernels
+    on the same inputs: its dk, dv and dtable are the whole backward's bit
+    for bit. Then ``_RelAttention``'s backward runs Q1 once and counts
+    one launch on each of the three counters."""
+    B = 5
+    for T in (45, 64, 300, 512):
+        seed = 2718281 + T
+        streams, _, scale = rel_case(cuda_device, B, T, seed=T + 17, pad_rows=False)
+        ragged = (torch.arange(T)[None] >= torch.tensor([T, T // 2 + 1, 3, 1, 0])[:, None])
+        gout = torch.from_numpy(np.random.RandomState(T + 8).randn(B, T, 2, 128)
+                                .astype(np.float32)).to(cuda_device)
+        for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = [streams[n].to(dtype) for n in REL_NAMES]
+            for pad in (ragged.to(cuda_device), None):
+                for dropout_p in (0.0, 0.2):
+                    case = (T, str(dtype), pad is None, dropout_p)
+                    ctx, lse = fr.rel_fwd(*args, scale, pad, dropout_p, seed)
+                    delta, g = fa.backward_inputs(ctx, gout, dtype)
+                    padf = pad.float() if pad is not None else torch.zeros(B, T,
+                                                                           device=cuda_device)
+                    bwd_args = (*args, padf, lse, delta, g, scale, dropout_p, seed)
+                    before = (fr.rel_bwd_dq.launches, fr.rel_bwd_dkv.launches)
+                    got = fr.rel_bwd(*bwd_args, want_dtab=True)
+                    assert (fr.rel_bwd_dq.launches, fr.rel_bwd_dkv.launches) == (
+                        before[0] + 1, before[1] + 1), case
+                    want = fr.rel_bwd_plain(*bwd_args, want_dtab=True)
+                    dqc, dg = fr.rel_bwd_dq(*bwd_args)
+                    dk, dv, dtab = fr.rel_bwd_dkv(*bwd_args, want_dtab=True)
+                    torch.cuda.synchronize()
+                    names = ("dqc", "dk", "dv", "dg", "dtable")
+                    for name, a, b, c in zip(names, got, want, (dqc, dk, dv, dg, dtab)):
+                        assert a.shape == b.shape == c.shape, (case, name)
+                        assert torch.isfinite(a).all(), (case, name)
+                        lim = atol * max(1.0, b.abs().max().item())
+                        err = (a - b).abs().max().item()
+                        assert err <= lim, (case, name, err)
+                        err = (a - c).abs().max().item()
+                        assert err <= (0.0 if name in ("dk", "dv", "dtable") else lim), (
+                            case, name, "standalone", err)
+                    if pad is not None:  # the fully padded row: no ds
+                        for name, a in zip(names, got):
+                            if name in ("dqc", "dk", "dg"):
+                                assert not a[-1].any(), (case, name)
+                    del got, want, ctx, lse
+            del args
+    calls = []
+    q1 = fx._bwd_q1
+    monkeypatch.setattr(fx, "_bwd_q1", lambda *a, **kw: calls.append(1) or q1(*a, **kw))
+    streams, pad, scale = rel_case(cuda_device, 3, 200, seed=5)
+    fns = (fr.rel_fwd, fr.rel_bwd_dq, fr.rel_bwd_dkv)
+    counts = [f.launches for f in fns]
+    leaves = [streams[n].clone().requires_grad_() for n in REL_NAMES]
+    out = fr.flash_rel_attention(*leaves, scale, pad_mask=pad, dropout_p=0.2, dropout_seed=9)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [c + 1 for c in counts]
+    assert len(calls) == 1
+    assert all(torch.isfinite(x.grad).all() for x in leaves)

@@ -167,20 +167,34 @@ def test_bf16_matches_jax(name):
 
 
 def test_dropout_backward_is_autograd_of_the_masked_dense_forward():
-    """With dropout the autograd function's backward (the plain K7 bwd-q and
-    bwd-kv, mask regenerated from the seed) equals autograd through the
-    plain forward under the same seed, the table's gradient, a ragged and a
-    fully padded row included."""
+    """With dropout the autograd function's backward (the plain whole K7
+    backward, ``rel_bwd_plain``, mask regenerated from the seed) equals
+    autograd through the plain forward under the same seed, the table's
+    gradient, a ragged and a fully padded row included; and
+    ``rel_bwd_plain``, bwd-kv taken from the scratch layout of ds and
+    p m / keep as the kernels take it, equals the dense ``rel_bwd_dq_plain``
+    and ``rel_bwd_dkv_plain`` there."""
     p, seed = 0.2, 2024
     args, gout, pad = _case(45, [45, 38, 0], seed=8)
     got_out, got = _port_grads(args, gout, pad, dropout_p=p, seed=seed)
     leaves = [torch.from_numpy(np.array(x)).requires_grad_() for x in args]
-    ctx, _ = fr.rel_fwd_plain(*leaves, SCALE, torch.from_numpy(pad), p, seed)
+    ctx, lse = fr.rel_fwd_plain(*leaves, SCALE, torch.from_numpy(pad), p, seed)
     out = ctx.reshape(got_out.shape)
     (out * torch.from_numpy(gout)).sum().backward()
     np.testing.assert_array_equal(got_out, out.detach().numpy())
     for i, (a, x) in enumerate(zip(got, leaves)):
         np.testing.assert_allclose(a, x.grad.numpy(), rtol=5e-5, atol=1e-6, err_msg=str(i))
+    streams = [x.detach() for x in leaves]
+    delta, gs = fa.backward_inputs(ctx.detach(), torch.from_numpy(gout).reshape(ctx.shape),
+                                   torch.float32)
+    bwd_args = (*streams, torch.from_numpy(pad).float(), lse.detach(), delta, gs, SCALE, p,
+                seed)
+    whole = fr.rel_bwd_plain(*bwd_args, want_dtab=True)
+    dqc, dg = fr.rel_bwd_dq_plain(*bwd_args)
+    dk, dv, dtab = fr.rel_bwd_dkv_plain(*bwd_args, want_dtab=True)
+    for name, a, b in zip(("dqc", "dk", "dv", "dg", "dtable"), whole, (dqc, dk, dv, dg, dtab)):
+        assert a.shape == b.shape and b.abs().max() > 1e-3, name
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=name)
 
 
 def test_dropout_mask_is_the_counter_hash_bit_for_bit():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the K4 backward, the K5 / K6 backward (bwd-q and bwd-kv together)
-and K7 bwd-q of one or more checkouts on one NVIDIA card, in turns, at the
-shapes the training paths run them, with each kernel's device time.
+"""Time the K4 backward, the K5 / K6 backward (bwd-q and bwd-kv together),
+K7 bwd-q and the whole K7 backward of one or more checkouts on one NVIDIA
+card, in turns, at the shapes the training paths run them, with each
+kernel's device time.
 
     python3 tools/time_xl_bwd.py                    # this checkout
     python3 tools/time_xl_bwd.py OLD NEW NEW OLD    # checkouts in turns
@@ -11,7 +12,9 @@ process of its own, in the order given, and builds its kernels into its own
 ``build/``. The backward is what the autograd function of that checkout
 runs: ``xl3_bwd`` for K4; ``xl2_bwd`` / ``xl_bwd`` where the checkout has
 them (bwd-q and bwd-kv on shared scratches), else ``xl2_bwd_dq`` then
-``xl2_bwd_dkv`` (the same for ``xl_``); ``rel_bwd_dq`` for K7 bwd-q. It is
+``xl2_bwd_dkv`` (the same for ``xl_``); ``rel_bwd_dq`` for K7 bwd-q;
+``rel_bwd`` for the whole K7 backward where the checkout has it, else
+``rel_bwd_dq`` then ``rel_bwd_dkv``. It is
 first checked against the plain versions (every
 gradient within 1e-4, scaled by its largest value where that exceeds 1).
 Times are CUDA-event means over 10 calls after 2 warm-ups, fp32 with TF32
@@ -41,14 +44,16 @@ SHAPES = (
     ("K6 (8, 512) D=128", "xl", 8, 512, 2, 128, 0.2),
     ("K7 bwd-q (8, 64)", "rel", 8, 64, 2, 128, 0.2),
     ("K7 bwd-q (8, 512)", "rel", 8, 512, 2, 128, 0.2),
+    ("K7 whole (8, 64)", "rel_whole", 8, 64, 2, 128, 0.2),
+    ("K7 whole (8, 512)", "rel_whole", 8, 512, 2, 128, 0.2),
 )
 # kernel-name fragments of the backwards, in launch order (K4's, then K5 /
-# K6's; K4's bwd-kv is an instance of K5 / K6's kernel, and K7 bwd-q runs
-# K5 / K6's Q1 and Q2; rel_bwd_q is the CUDA-core K7 bwd-q of older
-# checkouts)
+# K6's; K4's bwd-kv is an instance of K5 / K6's kernel, and K7 runs K5 /
+# K6's Q1, Q2 and bwd-kv; rel_bwd_q and rel_bwd_kv are the CUDA-core K7
+# kernels of older checkouts)
 KERNELS = ("xl3_bwd_ds", "xl3_bwd_q", "xl3_bwd_kv", "xl3_bwd_reduce",
            "xl2_rotate", "xl2_bwd_q1_pos", "xl2_bwd_q1_ds", "xl2_bwd_q2", "xl2_bwd_unrotate",
-           "xl2_bwd_kv", "xl2_bwd_dtab", "rel_bwd_q")
+           "xl2_bwd_kv", "xl2_bwd_dtab", "rel_bwd_q", "rel_bwd_kv")
 
 
 def worker() -> None:
@@ -80,10 +85,14 @@ def worker() -> None:
         pos_kernel = f(E, E) / np.sqrt(E)
         table = torch.from_numpy(sinusoid_position_table(T, E)).to(dev)
         scale = D ** -0.5 if D == 128 else 1.0 / np.sqrt(E)  # JETS / FS2
-        if kind == "rel":
+        if kind in ("rel", "rel_whole"):
             neg = neg_rel_table(torch.from_numpy(rel_positional_table(T, E)).to(dev))
             args = (qc, k, v, rel_pos_queries_latest(qv, pos_kernel), neg.contiguous())
             fwd, whole = fr.rel_fwd, fr.rel_bwd_dq
+            if kind == "rel_whole":
+                whole = getattr(fr, "rel_bwd", None)
+                dq, dkv, dq_plain, dkv_plain = (fr.rel_bwd_dq, fr.rel_bwd_dkv,
+                                                fr.rel_bwd_dq_plain, fr.rel_bwd_dkv_plain)
         elif kind == "xl3":
             args = (qc, k, v, qv, (table @ pos_kernel).reshape(T, H, D))
             fwd, whole = fx.xl3_fwd, fx.xl3_bwd
@@ -111,6 +120,9 @@ def worker() -> None:
             got, want = fr.rel_bwd_dq(*bargs), fr.rel_bwd_dq_plain(*bargs)
         elif kind == "xl3":
             got, want = fx.xl3_bwd(*bargs), fx.xl3_bwd_plain(*bargs)
+        elif kind == "rel_whole" and whole is not None:
+            dqc, dk, dv, dg, _ = whole(*bargs)
+            got, want = (dqc, dg, dk, dv), (*dq_plain(*bargs), *dkv_plain(*bargs)[:2])
         else:
             got = (*dq(*bargs), *dkv(*bargs)[:2])
             want = (*dq_plain(*bargs), *dkv_plain(*bargs)[:2])

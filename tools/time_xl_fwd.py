@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the tensor-core forward kernels (K4 ``flash_xl3_fwd``, K5
-``flash_xl2_fwd``, K6 ``flash_xl_fwd``, K7 ``flash_rel_fwd``) of one or
-more checkouts on one NVIDIA card, in turns, at the shapes the serving and
-training paths run them.
+"""Time the tensor-core forward kernels (K1 ``attention_fwd``, K4
+``flash_xl3_fwd``, K5 ``flash_xl2_fwd``, K6 ``flash_xl_fwd``, K7
+``flash_rel_fwd``) of one or more checkouts on one NVIDIA card, in turns,
+at the shapes the serving and training paths run them.
 
     python3 tools/time_xl_fwd.py                    # this checkout
     python3 tools/time_xl_fwd.py OLD NEW NEW OLD    # checkouts in turns
@@ -19,7 +19,9 @@ D=48 run with no pad mask and no dropout; K7 and K6 at D=128 (the JETS
 conformer's two flavours) with the serving path's ragged pad mask (the
 lengths ``chip_smoke.py`` draws: seeded, one full row, one fully padded
 row), and K7 also at the training shape with no pad mask and attention
-dropout 0.2.
+dropout 0.2. K1 (JETS, D=128) runs at the serving call's decoder shape
+with that ragged mask and with every row full, at its text bucket with
+the ragged mask, and at the training decoder with attention dropout 0.2.
 The card's name and power limit come first, one line per (checkout, shape,
 dtype) follows, and the last line is a JSON object of the times.
 """
@@ -36,8 +38,13 @@ import sys
 # 512-frame decoder, K5 at the FS2 two-stage call's decoder shape, K6 at the
 # FS2 2048-frame decoder and at the JETS conformer's width (legacy flavour),
 # K7 at the JETS conformer's serving shapes (text bucket and decoder) and
-# training decoder
+# training decoder, K1 at the JETS serving and training shapes
 SHAPES = (
+    ("K1 (16, 1008) ragged", "k1", 16, 1008, 2, 128, True, 0.0),
+    ("K1 (16, 1008) full", "k1", 16, 1008, 2, 128, False, 0.0),
+    ("K1 (16, 64) ragged", "k1", 16, 64, 2, 128, True, 0.0),
+    ("K1 (8, 512) dropout 0.2", "k1", 8, 512, 2, 128, False, 0.2),
+    ("K1 (8, 64) dropout 0.2", "k1", 8, 64, 2, 128, False, 0.2),
     ("K4 (16, 64) D=48", "xl3", 16, 64, 8, 48, False, 0.0),
     ("K4 (8, 64) D=48 dropout 0.1", "xl3", 8, 64, 8, 48, False, 0.1),
     ("K4 (8, 512) D=48 dropout 0.1", "xl3", 8, 512, 8, 48, False, 0.1),
@@ -59,6 +66,7 @@ def worker() -> None:
 
     from viet_tts_torch.nn.espnet_conformer import rel_positional_table
     from viet_tts_torch.nn.utils import sinusoid_position_table
+    from viet_tts_torch.ops import flash_attention as fa
     from viet_tts_torch.ops import flash_rel_attention as fr
     from viet_tts_torch.ops import flash_xl_attention as fx
     from viet_tts_torch.ops.espnet_attention import neg_rel_table, rel_pos_queries_latest
@@ -80,7 +88,10 @@ def worker() -> None:
             lens = np.random.RandomState(T + 3).randint(1, T + 1, B)
             lens[0], lens[-1] = T, 0
             pad = (torch.arange(T)[None] >= torch.from_numpy(lens)[:, None]).to(dev)
-        if kind == "rel":
+        if kind == "k1":
+            streams = (q, k, v)
+            fwd, plain = fa.attention_fwd, fa.attention_fwd_plain
+        elif kind == "rel":
             table = neg_rel_table(torch.from_numpy(rel_positional_table(T, E)).to(dev))
             streams = (qc, k, v, rel_pos_queries_latest(qv, pos_kernel), table.contiguous())
             fwd, plain = fr.rel_fwd, fr.rel_fwd_plain

@@ -1,5 +1,6 @@
 // Kernels K3a (bwd_q) and K3b (bwd_kv): the FlashAttention-2 backward of
-// plain scaled-dot multi-head attention (kernel K1, flash_attention.cu), for
+// plain scaled-dot multi-head attention (kernel K1, the instance of
+// xl2_fwd_kernel with no position term in flash_xl_attention.cu), for
 // Hopper (sm_90a), with the forward's attention-weight dropout.
 //
 // Replace the TPU kernels viet_tts_tpu/ops/pallas_attention.py

@@ -1,9 +1,12 @@
-// Kernels K4, K5, K6 and K7 forward: Transformer-XL relative-position
-// attention (the FS2 conformer's self-attention; K6 also the JETS conformer's
-// legacy rel-pos flavour) and espnet "latest" relative-position attention
-// (K7, the JETS conformer's), with an online softmax, for Hopper (sm_90a).
+// Kernels K1, K4, K5, K6 and K7 forward: plain scaled-dot attention (K1,
+// the JETS transformer stacks'), Transformer-XL relative-position attention
+// (the FS2 conformer's self-attention; K6 also the JETS conformer's legacy
+// rel-pos flavour) and espnet "latest" relative-position attention (K7,
+// the JETS conformer's), with an online softmax, for Hopper (sm_90a).
 //
 // Replace the TPU kernels of viet_tts_tpu/ops/pallas_attention.py:
+//   K1 `_plain_kernel` (`_plain_pallas` through `_call_flash`), no position
+//      term;
 //   K4 `_xl3_kernel` (launched by `_xl3_pallas`), the projected-table form;
 //   K5 `_xl2_kernel` (`_xl2_pallas` through `_call_flash`), one position
 //      stream rotated inside the kernel;
@@ -21,8 +24,10 @@
 // function with pos_ij = g_i . t_j at every key (the TPU's `_rel_kernel` is
 // `_xl_kernel` without the select): qc = q + pos_bias_u, g the pre-rotated
 // position queries (B, T, H, E), t the negative half of the symmetric
-// sinusoid table (T, E). Inputs are fp32 or bf16 in the JAX package's
-// feature-last layouts, read in place; all arithmetic is fp32.
+// sinusoid table (T, E). K1 is the same function with pos_ij = 0 (qc = q),
+// at D in {32, 64, 128}; the backward kernels K3a / K3b
+// (flash_attention_bwd.cu) read its lse. Inputs are fp32 or bf16 in the JAX
+// package's feature-last layouts, read in place; all arithmetic is fp32.
 //
 // K4: P_i(j) = qv_i . p_{T-1-i+j} and F_i(j) = qv_{i+1} . p_{j-i-2}, with p
 // the projected table (T, H, D). The TPU keeps the whole (tp, tp) score tile
@@ -51,43 +56,47 @@
 // keys; here the Tp - T tail keys are virtual: they add (Tp - T) *
 // exp(MASK_NEG - m) to the denominator and nothing to the context, so a row
 // whose keys are all padding averages v over all Tp keys, as the TPU kernel
-// and the dense path do; keys past T inside a key tile score -inf. K7 pads
-// the same way (its JAX wrapper does).
+// and the dense path do; keys past T inside a key tile score -inf. K7 and
+// K1 pad the same way (their JAX wrappers do).
 //
-// What bounds K4 / K5 / K6 / K7 on the H100: at the decoder shape (B=16, H=8,
-// T=1008, D=48, E=384) K5 does 2*B*H*T^2*(D + E + D) = 1.25e11 FLOP of dot
-// products against ~260 MB of inputs: bound by operations, 80 % of them the
-// E-wide position products; K7 at its serving shape (B=16, H=2, T=1008,
-// D=128, E=256) 33 GFLOP against ~50 MB; K4 at the FS2 training decoder
-// (B=8, H=8, T=512, D=48) 2*B*H*T^2*3D = 4.8 GFLOP against ~40 MB (its
-// band products pad the position work to ~1.3x). So every product runs on
-// the tensor cores, `mma.sync.m16n8k8` TF32 with fp32 accumulation
-// (xl_mma.cuh): fp32 streams in 3xTF32 (one TF32 product misses the fp32
-// limits on ctx and lse: tests/test_torch_xl_fwd_precision.py for K5,
+// What bounds K1 / K4 / K5 / K6 / K7 on the H100: at the decoder shape (B=16,
+// H=8, T=1008, D=48, E=384) K5 does 2*B*H*T^2*(D + E + D) = 1.25e11 FLOP of
+// dot products against ~260 MB of inputs: bound by operations, 80 % of them
+// the E-wide position products; K7 at its serving shape (B=16, H=2, T=1008,
+// D=128, E=256) 33 GFLOP against ~50 MB; K4 at the FS2 training decoder (B=8,
+// H=8, T=512, D=48) 2*B*H*T^2*3D = 4.8 GFLOP against ~40 MB (its band products
+// pad the position work to ~1.3x); K1 at the JETS decoder (B=16, H=2, T=1008,
+// D=128) 4*B*H*T^2*D = 17 GFLOP against ~66 MB, 260 FLOP a byte (fewer on
+// ragged rows, whose padded key tiles it skips). So every product runs on the
+// tensor cores, `mma.sync.m16n8k8` TF32 with fp32 accumulation (xl_mma.cuh):
+// fp32 streams in 3xTF32 (one TF32 product misses the fp32 limits on ctx and
+// lse: tests/test_torch_xl_fwd_precision.py for K5,
 // tests/test_torch_rel_fwd_precision.py for K7,
-// tests/test_torch_xl3_fwd_precision.py for K4), bf16 streams in one TF32
+// tests/test_torch_xl3_fwd_precision.py for K4,
+// tests/test_torch_flash_fwd_precision.py for K1), bf16 streams in one TF32
 // product, exact for bf16 values (and p rounded to bf16, as the JAX `_mx`
-// rounds it; m16n8k16 bf16 would run twice the rate but a second code
-// path). The K5 / K6 / K7 kernel (`xl2_fwd_kernel`, below) is one flash
-// loop for all three, the position term's form (POS) a template argument: a block a
-// (64-query tile, head, batch row), four warps of 16 rows (eight, 128
-// rows, for fp32 at D = 128 when that grid fills the card: at (8, 512,
-// H=2) it would make 64 blocks for 132 SMs, so the launcher takes four
-// warps there); a query tile's E-wide gA / gB rows (196 KB at 64 rows,
-// E = 384, fp32) do not stay in shared memory but stream in 32-column
-// chunks beside the key tile's table chunk, two stages deep; a key tile
-// forms only the position terms its pairs select (K7: one pass, added at
-// every key), and no (T, T) array reaches device memory. A block walks the
+// rounds it; m16n8k16 bf16 would run twice the rate but a second code path).
+// The K1 / K5 / K6 / K7 kernel (`xl2_fwd_kernel`, below) is one flash loop for
+// all four, the position term's form (POS) a template argument (K1's kPosNone
+// has none: its instance runs `xl2_fwd_no_pos`, k and v staged without
+// chunks, then the same back half): a block a (64-query tile, head, batch
+// row), four warps of 16 rows (eight, 128 rows, for fp32 at D = 128 when that
+// grid fills the card: at (8, 512, H=2) it would make 64 blocks for 132 SMs,
+// so the launcher takes four warps there); a query tile's E-wide gA / gB rows
+// (196 KB at 64 rows, E = 384, fp32) do not stay in shared memory but stream
+// in 32-column chunks beside the key tile's table chunk, two stages deep; a
+// key tile forms only the position terms its pairs select (K7: one pass, added
+// at every key), and no (T, T) array reaches device memory. A block walks the
 // key tiles up to its batch row's last live key only: in a row with a live
-// key, m >= that key's logit, so a padded key's exp(MASK_NEG - m) is 0.0
-// in fp32 and the skip is exact (a row with no live key walks every tile:
-// its weights are uniform over Tp); the serving paths pass ragged pad
-// masks. K5 first runs the rotation pass (xl_mma.cuh's
-// `xl2_rotate_kernel`, K5 bwd-q's too) into a scratch gab (2, B, T, H, E)
-// in the stream dtype that the wrapper allocates: sincosf once a pair, not
-// once a key tile. Budget (ptxas -v, sm_90a, the CUDA toolkit of the H100
-// machine; blocks an SM = the least of what registers and shared memory
-// allow; no spill; 16 more bytes of static shared memory for live_end):
+// key, m >= that key's logit, so a padded key's exp(MASK_NEG - m) is 0.0 in
+// fp32 and the skip is exact (a row with no live key walks every tile: its
+// weights are uniform over Tp); the serving paths pass ragged pad masks. K5
+// first runs the rotation pass (xl_mma.cuh's `xl2_rotate_kernel`, K5 bwd-q's
+// too) into a scratch gab (2, B, T, H, E) in the stream dtype that the wrapper
+// allocates: sincosf once a pair, not once a key tile. Budget (ptxas -v,
+// sm_90a, the CUDA toolkit of the H100 machine; blocks an SM = the least of
+// what registers and shared memory allow; no spill; 16 more bytes of static
+// shared memory for live_end):
 //   dtype  D    warps  smem B    regs K5 / K6 / K7  blocks/SM
 //   fp32   48   4       82,944   168 / 168 / -      2
 //   fp32   64   4       95,232   202 / 202 / -      2
@@ -98,6 +107,20 @@
 //   bf16   128  4       72,704   - / 254 / 168      2
 //   rotation pass (256 threads): 28-29 registers, a 32-byte frame for
 //   sincosf's slow path.
+// K1 (POS = kPosNone, `xl2_fwd_no_pos`, four warps; no chunk stages, so K1
+// at fp32, D = 128 fits two blocks an SM where K7 fits one):
+//   dtype  D    smem B    regs  blocks/SM
+//   fp32   32    29,696   128   4
+//   fp32   64    54,272   128   4
+//   fp32   128  103,424   168   2
+//   bf16   32    15,360    96   5
+//   bf16   64    27,648   128   4
+//   bf16   128   52,224   168   3
+// Eight warps a block for K1 (128 rows, one block an SM at fp32, D = 128)
+// took 0.331 ms at the JETS call's (16, 1008) ragged shape and 0.431 with
+// every row full, four 0.325 and 0.404 (tools/time_xl_fwd.py, H100): four.
+// At the JETS training decoder (8, 512) K1's 128 four-warp blocks leave one
+// block an SM, under one wave.
 // K4 (`xl3_fwd_band_kernel`, four warps of 16 rows, every key of a tile
 // each; no static shared memory):
 //   dtype  D    smem B    regs  blocks/SM
@@ -116,11 +139,12 @@
 // 3xTF32 bound, and wgmma is its next step.
 //
 // Attention-weight dropout (training, dropout_p > 0) follows the JAX
-// package's semantics, as K1 does: the softmax denominator takes the
-// undropped weights, the context sums p * keep / (1 - p) * v. The keep bit of
-// weight (i, j) is dropout_hash.cuh's keep(seed, b, h, i, j), which depends on
-// no tile size, so the backward kernels (flash_xl_attention_bwd.cu) draw the
-// same bits with their own tilings. With dropout_p = 0 no bit is drawn.
+// package's semantics: the softmax denominator takes the undropped weights,
+// the context sums p * keep / (1 - p) * v. The keep bit of weight (i, j) is
+// dropout_hash.cuh's keep(seed, b, h, i, j), which depends on no tile size,
+// so the backward kernels (flash_xl_attention_bwd.cu; K1's in
+// flash_attention_bwd.cu) draw the same bits with their own tilings. With
+// dropout_p = 0 no bit is drawn.
 
 #include "xl3_band.cuh"
 #include "xl_mma.cuh"
@@ -369,23 +393,25 @@ __global__ void __launch_bounds__(kX3FwdThreads)
 constexpr int kFBK = 64;  // keys a tile
 constexpr int kFKC = 32;  // E columns a chunk of the position product
 
-// Warps a block, each 16 query rows: eight for fp32 at D = 128, where a
-// block's shared memory lets one block onto an SM, so that it runs eight
-// warps and not four; four elsewhere (two blocks an SM). The launcher also
-// takes four at fp32, D = 128 when eight would leave SMs idle.
-template <typename T, int D>
+// Warps a block, each 16 query rows: eight for fp32 at D = 128 with a
+// position term, where a block's shared memory lets one block onto an SM,
+// so that it runs eight warps and not four; four elsewhere (two blocks an
+// SM; K1 at fp32, D = 128 too, whose block holds no chunk stages). The
+// launcher also takes four at fp32, D = 128 when eight would leave SMs
+// idle.
+template <typename T, int D, int POS>
 constexpr int xl2_fwd_warps() {
-  return sizeof(T) == 4 && D == 128 ? 8 : 4;
+  return POS != kPosNone && sizeof(T) == 4 && D == 128 ? 8 : 4;
 }
 
-template <typename T, int D, int NW>
+template <typename T, int D, int POS, int NW>
 constexpr size_t xl2_fwd_smem_bytes() {
   // QC (BQ, D), KS (64, D) read by 64-bit fragment loads, VS (64, D) read
-  // down its rows, and two stages of a chunk: the stream's (BQ, 32) and the
-  // table's (64, 32). Independent of E.
+  // down its rows, and, with a position term, two stages of a chunk: the
+  // stream's (BQ, 32) and the table's (64, 32). Independent of E.
   constexpr int BQ = 16 * NW;
   return sizeof(T) * ((BQ + kFBK) * tile_ld(D) + kFBK * tile_ld_nn<T, D>() +
-                      2 * (BQ + kFBK) * tile_ld(kFKC));
+                      (POS == kPosNone ? 0 : 2 * (BQ + kFBK) * tile_ld(kFKC)));
 }
 
 // One past the last live key (pad <= 0.5) of a batch row, or Tq when the
@@ -406,6 +432,91 @@ __device__ __forceinline__ int live_end(const float* padb, int Tq) {
   return end_s > 0 ? end_s : Tq;
 }
 
+// K1 (xl2_fwd_kernel's POS = kPosNone): a block a (16 NW-query tile, head,
+// batch row), warp w owning query rows 16w .. 16w + 15, walking the 64-key
+// tiles up to the batch row's last live key (`live_end`). Per key tile:
+// s = q k^T, then the online softmax, the keep bits and p v
+// (flash_tile_softmax_pv), as the position kinds do after their position
+// term. k and v each ride a cp.async group of their own (K4's pipeline):
+// the next tile's k is in flight during this tile's p v, the next tile's v
+// during its q k^T; one buffer each, so that at fp32, D = 128 two
+// four-warp blocks fit an SM (two stages of each would leave room for one).
+template <typename T, int D, int NW>
+__device__ __forceinline__ void xl2_fwd_no_pos(const T* __restrict__ q, const T* __restrict__ k,
+                                               const T* __restrict__ v,
+                                               const float* __restrict__ pad,
+                                               float* __restrict__ out, float* __restrict__ lse,
+                                               int H, int Tq, int Tp, float scale,
+                                               DropArgs drop) {
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int BQ = 16 * NW, NT = 32 * NW;
+  constexpr int LD = tile_ld(D);
+  constexpr int LDV = tile_ld_nn<T, D>();
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* QC = reinterpret_cast<T*>(smem_raw);
+  T* KS = QC + BQ * LD;
+  T* VS = KS + kFBK * LD;
+
+  const int i0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const size_t rs = (size_t)H * D;
+  const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
+  const float* padb = pad + (size_t)b * Tq;
+  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16;  // the warp's rows of the tile
+  const int qi[2] = {i0 + r0 + (lane >> 2), i0 + r0 + (lane >> 2) + 8};
+  const int n_tiles = (live_end(padb, Tq) + kFBK - 1) / kFBK;
+
+  float o[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[nd][c] = 0.f;
+  // running max and this lane's part of the denominator, rows qi[0], qi[1]
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+
+  cp_tile<T, BQ, D, NT>(QC, LD, q + base, rs, i0, Tq, 0);
+  cp_tile<T, kFBK, D, NT>(KS, LD, k + base, rs, 0, Tq, 0);
+  cp_async_commit();
+  cp_tile<T, kFBK, D, NT>(VS, LDV, v + base, rs, 0, Tq, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int j0 = kt * kFBK;
+    cp_async_wait<1>();
+    __syncthreads();  // tile kt's k has landed (its v may not have)
+    float s[8][4];
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[ni][c] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < D; k0 += 8) {
+      uint32_t ah[4], al[4];
+      frag_a<SPLIT>(QC, LD, r0, k0, lane, ah, al);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        uint32_t bh[2], bl[2];
+        frag_b_nt<SPLIT>(KS, LD, ni * 8, k0, lane, bh, bl);
+        mma3<SPLIT>(s[ni], ah, al, bh, bl);
+      }
+    }
+    __syncthreads();  // every warp has read this tile's k
+    if (kt + 1 < n_tiles) cp_tile<T, kFBK, D, NT>(KS, LD, k + base, rs, j0 + kFBK, Tq, 0);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile kt's v has landed
+    flash_tile_softmax_pv<SPLIT, T, ND>(s, o, m_r, l_r, VS, LDV, padb, Tq, j0, qi, scale,
+                                        drop, drop_key, lane);
+    __syncthreads();  // every warp is past this tile's p v
+    if (kt + 1 < n_tiles) cp_tile<T, kFBK, D, NT>(VS, LDV, v + base, rs, j0 + kFBK, Tq, 0);
+    cp_async_commit();
+  }
+  flash_finish<ND>(o, m_r, l_r, Tp - Tq, out + base, rs, lse + ((size_t)b * H + h) * Tq, qi,
+                   Tq, lane);
+}
+
 // One block a (16 NW-query tile, head, batch row); warp w owns query rows
 // 16w .. 16w + 15 of the tile and walks the 64-key tiles up to the batch
 // row's last live key (`live_end`). Per key tile (K5 / K6):
@@ -423,6 +534,7 @@ __device__ __forceinline__ int live_end(const float* padb, int Tq) {
 // chunks' groups. K7 (POS = kPosRel) forms one pass of g t^T a key tile,
 // straight into s, added at every key. K5 and K6 run one body (kPosXlRot
 // only names K5's instance: its streams come from the rotation pass).
+// K1's instance (POS = kPosNone) runs xl2_fwd_no_pos, above.
 template <typename T, int D, int POS, int NW>
 __global__ void __launch_bounds__(32 * NW)
     xl2_fwd_kernel(const T* __restrict__ qc, const T* __restrict__ k,
@@ -431,6 +543,10 @@ __global__ void __launch_bounds__(32 * NW)
                    const float* __restrict__ pad, float* __restrict__ out,
                    float* __restrict__ lse, int H, int Tq, int Tp, int E,
                    float scale, DropArgs drop) {
+  if constexpr (POS == kPosNone) {
+    xl2_fwd_no_pos<T, D, NW>(qc, k, v, pad, out, lse, H, Tq, Tp, scale, drop);
+    return;
+  }
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr bool REL = POS == kPosRel;
@@ -616,7 +732,7 @@ cudaError_t launch_xl2_fwd(const T* qc, const T* k, const T* v, const T* ga,
                            float* out, float* lse, int B, int Tq, int Tp, int H,
                            int E, float scale, DropArgs drop,
                            cudaStream_t stream) {
-  constexpr size_t smem = xl2_fwd_smem_bytes<T, D, NW>();
+  constexpr size_t smem = xl2_fwd_smem_bytes<T, D, POS, NW>();
   cudaError_t err = cudaFuncSetAttribute(
       xl2_fwd_kernel<T, D, POS, NW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -630,8 +746,9 @@ cudaError_t launch_xl2_fwd(const T* qc, const T* k, const T* v, const T* ga,
 
 // K5 (kPosXlRot): the rotation pass writes gA, gB into gab (2, B, T, H, E),
 // then the kernel reads them; K6: the kernel reads ga, gb; K7: ga is g, gb
-// unused. Eight warps a block where xl2_fwd_warps says so and that grid
-// covers the card's SMs, else four.
+// unused; K1 (kPosNone): no ga, gb, table (E unused). Eight warps a block
+// where xl2_fwd_warps says so and that grid covers the card's SMs, else
+// four.
 template <typename T, int D, int POS>
 cudaError_t launch_xl2(const void* qc, const void* k, const void* v,
                        const void* ga, const void* gb, const void* table,
@@ -653,7 +770,7 @@ cudaError_t launch_xl2(const void* qc, const void* k, const void* v,
       static_cast<const T*>(qc), static_cast<const T*>(k),                    \
       static_cast<const T*>(v), GA, GB, static_cast<const T*>(table), pad,    \
       out, lse, B, Tq, Tp, H, E, scale, drop, stream)
-  constexpr int NW = xl2_fwd_warps<T, D>();
+  constexpr int NW = xl2_fwd_warps<T, D, POS>();
   if constexpr (NW > 4) {
     const long long wide = (long long)((Tq + 16 * NW - 1) / (16 * NW)) * H * B;
     if (wide < sm_count()) return VT_XL2_NW(4);
@@ -707,6 +824,34 @@ int xl2_entry(const void* qc, const void* k, const void* v, const void* ga,
 }  // namespace
 
 extern "C" {
+
+// K1. q, k, v: (B, T, H, D) contiguous, fp32 (is_bf16 = 0) or bf16
+// (is_bf16 = 1), D in {32, 64, 128}. pad: (B, T) fp32, 1.0 at padding keys.
+// Tp >= T: keys in [T, Tp) are treated as zero rows with pad = 1. out:
+// (B, T, H, D) fp32. lse: (B, H, T) fp32. dropout_p in [0, 1):
+// attention-weight dropout keyed by `seed` (dropout_hash.cuh; B, H and T
+// below 2^16). Returns the launch's cudaError_t (0 = success).
+int vt_flash_attn_fwd(const void* q, const void* k, const void* v,
+                      const float* pad, float* out, float* lse, int B, int T,
+                      int Tp, int H, int D, int is_bf16, float scale,
+                      double dropout_p, uint64_t seed, void* stream) {
+  if (bad_sizes(B, T, H, dropout_p) || Tp < T) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DropArgs drop = drop_args(dropout_p, seed);
+#define VT_K1(TYPE, DIM)                                                       \
+  launch_xl2<TYPE, DIM, kPosNone>(q, k, v, nullptr, nullptr, nullptr, nullptr, \
+                                  pad, out, lse, B, T, Tp, H, 0, scale, drop, s)
+  switch (D * 2 + (is_bf16 ? 1 : 0)) {
+    case 64: return (int)VT_K1(float, 32);
+    case 65: return (int)VT_K1(__nv_bfloat16, 32);
+    case 128: return (int)VT_K1(float, 64);
+    case 129: return (int)VT_K1(__nv_bfloat16, 64);
+    case 256: return (int)VT_K1(float, 128);
+    case 257: return (int)VT_K1(__nv_bfloat16, 128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VT_K1
+}
 
 // K4. qc, k, v, qv: (B, T, H, D) contiguous, fp32 (is_bf16 = 0) or bf16;
 // p: (T, H, D) in the same dtype; pad: (B, T) fp32, 1.0 at padding keys;

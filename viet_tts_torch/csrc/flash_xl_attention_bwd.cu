@@ -1,9 +1,9 @@
 // Kernels K4 bwd (xl3), K5 bwd-q / bwd-kv (xl2), K6 bwd-q / bwd-kv (xl)
-// and K7 bwd-q (rel): the backward of the Transformer-XL attention
-// (flash_xl_attention.cu) of the FS2 conformer and of the JETS conformer's
-// legacy rel-pos flavour, and the query side of the backward of the JETS
-// conformer's espnet "latest" rel-pos attention, for Hopper (sm_90a), with
-// the forward's attention-weight dropout.
+// and K7 bwd-q / bwd-kv (rel): the backward of the Transformer-XL
+// attention (flash_xl_attention.cu) of the FS2 conformer and of the JETS
+// conformer's legacy rel-pos flavour, and of the JETS conformer's espnet
+// "latest" rel-pos attention, for Hopper (sm_90a), with the forward's
+// attention-weight dropout.
 //
 // Replace the TPU kernels of viet_tts_tpu/ops/pallas_attention.py:
 //   K4 bwd     `_xl3_bwd_kernel` (launched by `_xl3_bwd_pallas`);
@@ -11,8 +11,8 @@
 //   K5 bwd-kv  `_xl2_bwd_kv_kernel` (`_xl2_bwd_pallas` through `_call_bwd_kv`);
 //   K6 bwd-q   `_xl_bwd_q_kernel` (`_xl_bwd_pallas` through `_call_bwd_q`);
 //   K6 bwd-kv  `_xl_bwd_kv_kernel` (`_xl_bwd_pallas` through `_call_bwd_kv`);
-//   K7 bwd-q   `_rel_bwd_q_kernel` (`_rel_bwd_pallas` through `_call_bwd_q`).
-// (K7 bwd-kv is flash_rel_attention_bwd.cu's.)
+//   K7 bwd-q   `_rel_bwd_q_kernel` (`_rel_bwd_pallas` through `_call_bwd_q`);
+//   K7 bwd-kv  `_rel_bwd_kv_kernel` (`_rel_bwd_pallas` through `_call_bwd_kv`).
 // With the forward's logits l_ij = (qc_i . k_j + pos_ij) * scale, its
 // logsumexp lse_i and delta_i = sum_d g_id out_id (computed outside, as the
 // JAX package does):
@@ -106,13 +106,18 @@
 //      pos = g t^T at every key): Q1 pos and Q2 take the position kind as
 //      a template argument (xl_mma.cuh's kPosXl for K5 and K6, kPosRel for
 //      K7): K7's Q1 pos forms one g t^T pass a tile, written at every key;
-//      Q1 ds is K6's at D = 128 (no P: K7's bwd-kv, flash_rel_attention_
-//      bwd.cu, forms its own weights); K7's Q2 forms dg = ds t over every
-//      key, one block a (64-query tile, 64-column table tile, (b, h)), no
-//      A / B axis and no mask. At the training shape (8, 2, 512) that is
-//      8 x 4 x 16 = 512 blocks of 128 threads. K7 pads T to Tp (a multiple
-//      of 32) as K5 / K6 do: the Tp - T tail keys are virtual, never
-//      formed.
+//      Q1 ds is K6's at D = 128 (with P when bwd-kv follows); K7's Q2
+//      forms dg = ds t over every key, one block a (64-query tile,
+//      64-column table tile, (b, h)), no A / B axis and no mask. At the
+//      training shape (8, 2, 512) that is 8 x 4 x 16 = 512 blocks of 128
+//      threads. K7 pads T to Tp (a multiple of 32) as K5 / K6 do: the
+//      Tp - T tail keys are virtual, never formed.
+//    * K7 bwd-kv (the TPU's `_rel_bwd_kv_kernel` forms the logits over
+//      D + E again, then g_out . v, dk and dv: 4D + E a pair) is K6's
+//      bwd-kv at D = 128 on the ds and P scratches of K7's Q1, so it forms
+//      no logit: two D-wide products a pair. Its table gradient, dt_j =
+//      sum over (b, h, i) of ds_ij g_i at every key, is the dtab kernel's
+//      K7 instance (kPosRel: one stream, no mask).
 //    * bwd-kv, `xl2_bwd_kv_kernel`: dv = P^T g and dk = ds^T qc; one block
 //      a (64-key tile, head, batch row) walks the 32-row query chunks, P,
 //      ds, g and qc staged by cp.async three stages deep; eight warps, each
@@ -122,8 +127,8 @@
 //      by their bytes (0.53 GB at (8, 8, 1008), 0.16 ms at 3.35 TB/s).
 //    * dtab, `xl2_bwd_dtab_kernel` (with `want_dtab` only: the conformers'
 //      table is the constant sinusoid table, so training never asks for
-//      it): dt = (ds o past)^T gA + (ds o future)^T gB, Q2's product
-//      transposed, the keys as M, the (b, h, query) rows as the
+//      it): dt = (ds o past)^T gA + (ds o future)^T gB (K7: ds^T g), Q2's
+//      product transposed, the keys as M, the (b, h, query) rows as the
 //      contraction; one block a (64-key tile, 64-column tile, share of the
 //      (b, h)), the shares summed by `xl2_bwd_dtab_sum_kernel` when the
 //      (key, column) tiles alone would not fill the card.
@@ -160,6 +165,8 @@
 //        kv            bf16   128   104,448    124   2          256
 //        dtab          fp32   -      52,224     93   4          128
 //        dtab          bf16   -      35,840     90   5          128
+//        dtab, K7      fp32   -      34,816     78   6          128
+//        dtab, K7      bf16   -      26,624     78   6          128
 //        K4 ds         fp32   48    134,368    222   1          256
 //        K4 ds         fp32   64    163,104    246   1          256
 //        K4 ds         bf16   48     84,080    202   1          256
@@ -197,12 +204,14 @@
 // (skipping the columns a warp's rows do not reach), about 1.5 times the
 // function's operations in all. K7 bwd-q at the JETS training decoder (B=8,
 // H=2, T=512, D=128, E=256) needs 2*B*H*T^2*(3D + 2E) = 7.5 GFLOP, 0.046 ms
-// under 3xTF32.
+// under 3xTF32; K7 bwd-kv there reads the two scratches and its streams
+// (~50 MB, 0.015 ms at 3.35 TB/s) for 2*B*H*T^2*2D = 2.1 GFLOP (0.013 ms
+// under 3xTF32): bound by those bytes, as K5 / K6's bwd-kv.
 //
 // Padding follows the forward. K4: keys past T are never formed (the
-// reference scores them 2*MASK_NEG: weight exactly 0). K5 / K6: the Tp - T
-// tail keys are virtual (dead, v = 0). A batch row whose keys are all
-// padding has the uniform softmax, 1/T (K4) or 1/Tp (K5, K6), and lse =
+// reference scores them 2*MASK_NEG: weight exactly 0). K5 / K6 / K7: the
+// Tp - T tail keys are virtual (dead, v = 0). A batch row whose keys are all
+// padding has the uniform softmax, 1/T (K4) or 1/Tp (K5, K6, K7), and lse =
 // -1e9 + log n rounds to -1e9 in fp32, where exp(l - lse) would give 1:
 // these kernels detect the row and use the uniform weight, the dense
 // gradient (the TPU kernels' dv is n times too large there, as K3 notes
@@ -288,12 +297,12 @@ constexpr size_t xl2_bwd_kv_smem_bytes() {
   return kKvStages * kKvBQ * (2 * sizeof(float) * tile_ld_nn<float, kKvBN>() +
                               2 * sizeof(T) * tile_ld_nn<T, D>());
 }
-template <typename T>
+template <typename T, int POS>
 constexpr size_t xl2_bwd_dtab_smem_bytes() {
   // kDtStages stages of the ds tile (kDtBQ, kDtBN) fp32 and the gA, gB
-  // rows (kDtBQ, 64 columns)
+  // rows (kDtBQ, 64 columns) (K7: the one g)
   return kDtStages * kDtBQ * (sizeof(float) * tile_ld_nn<float, kDtBN>() +
-                              2 * sizeof(T) * tile_ld_nn<T, kTC>());
+                              (POS == kPosRel ? 1 : 2) * sizeof(T) * tile_ld_nn<T, kTC>());
 }
 
 // The A fragment (16 x 8) at rows m0.., depths k0.. of A = X^T, from a
@@ -909,19 +918,23 @@ __device__ __forceinline__ void dtab_step(float (&acc)[2][4][4],
 // 32 keys x 32 columns; it walks the kDtBQ-row query chunks of each of its
 // (b, h), staging the ds tile and only the gA / gB rows that the chunk's
 // masks reach by cp.async kDtStages deep. part: this share's sum, partial
-// blockIdx.z of (n_split, T, E).
-template <typename T>
+// blockIdx.z of (n_split, T, E). K7 (POS = kPosRel): dtab_j = sum over
+// (b, h) and rows i of ds_ij g_i at every key, one stream (ga = g), no
+// mask. (POS kPosXl serves K5, on the rotated streams, and K6.)
+template <typename T, int POS>
 __global__ void __launch_bounds__(kDtThreads)
     xl2_bwd_dtab_kernel(const float* __restrict__ S, const T* __restrict__ ga,
                         const T* __restrict__ gb, float* __restrict__ part,
                         int BH, int bh_per, int H, int Tq, int Ts, int E) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr bool REL = POS == kPosRel;
+  constexpr int NB = REL ? 1 : 2;  // position streams staged
   constexpr int LDA = tile_ld_nn<float, kDtBN>();
   constexpr int LDB = tile_ld_nn<T, kTC>();
   constexpr int TA = kDtBQ * LDA, TB = kDtBQ * LDB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* As = reinterpret_cast<float*>(smem_raw);         // [stage] ds
-  T* Bs = reinterpret_cast<T*>(As + kDtStages * TA);      // [stage][gA, gB]
+  T* Bs = reinterpret_cast<T*>(As + kDtStages * TA);      // [stage][gA, gB (not K7)]
 
   const int j0 = blockIdx.x * kDtBN, e0 = blockIdx.y * kTC;
   const int bh_lo = blockIdx.z * bh_per;
@@ -935,16 +948,16 @@ __global__ void __launch_bounds__(kDtThreads)
 
   // chunk c: (b, h) = bh_lo + c / nq, query rows i0 = kDtBQ (c % nq) ..;
   // the past term reaches it when some i >= j0, the future one when some
-  // i <= j0 + kDtBN - 3
+  // i <= j0 + kDtBN - 3 (K7's one term reaches every chunk)
   auto stage = [&](int s, int c) {
     const int bh = bh_lo + c / nq, i0 = (c % nq) * kDtBQ;
     const size_t base_e = (size_t)(bh / H) * Tq * rse + (size_t)(bh % H) * E;
-    T* bm = Bs + s * 2 * TB;
+    T* bm = Bs + s * NB * TB;
     cp_tile<float, kDtBQ, kDtBN, kDtThreads>(As + s * TA, LDA, S + (size_t)bh * Tq * Ts,
                                             Ts, i0, Tq, j0);
-    if (i0 + kDtBQ - 1 >= j0)
+    if (REL || i0 + kDtBQ - 1 >= j0)
       cp_tile<T, kDtBQ, kTC, kDtThreads>(bm, LDB, ga + base_e, rse, i0, Tq, e0);
-    if (i0 <= j0 + kDtBN - 3)
+    if (!REL && i0 <= j0 + kDtBN - 3)
       cp_tile<T, kDtBQ, kTC, kDtThreads>(bm + TB, LDB, gb + base_e, rse, i0, Tq, e0);
   };
 
@@ -968,11 +981,12 @@ __global__ void __launch_bounds__(kDtThreads)
       stage((ch + kDtStages - 1) % kDtStages, ch + kDtStages - 1);
     cp_async_commit();
     const int i0 = (ch % nq) * kDtBQ;
-    const bool past = i0 + kDtBQ - 1 >= j0, fut = i0 <= j0 + kDtBN - 3;
-    // chunks across the diagonal mask their ds as the fragments load
-    const bool edge_past = j0 + kDtBN - 1 > i0, edge_fut = j0 < i0 + kDtBQ + 1;
+    const bool past = REL || i0 + kDtBQ - 1 >= j0, fut = !REL && i0 <= j0 + kDtBN - 3;
+    // chunks across the diagonal mask their ds as the fragments load (K7
+    // masks none)
+    const bool edge_past = !REL && j0 + kDtBN - 1 > i0, edge_fut = j0 < i0 + kDtBQ + 1;
     const float* A = As + (ch % kDtStages) * TA;
-    const T* BA = Bs + (ch % kDtStages) * 2 * TB;
+    const T* BA = Bs + (ch % kDtStages) * NB * TB;
 #pragma unroll
     for (int k0 = 0; k0 < kDtBQ; k0 += 8) {
       float x[2][4];
@@ -1557,19 +1571,19 @@ cudaError_t launch_xl3_bwd(const void* qc, const void* k, const void* v,
 }
 
 // part: (n_split, T, E) fp32 scratch, unused when n_split is 1 (the
-// kernel then writes dtab itself).
-template <typename T>
+// kernel then writes dtab itself). POS: kPosXl (K5, K6) or kPosRel (K7).
+template <typename T, int POS>
 cudaError_t launch_xl2_bwd_dtab(const float* s, const void* ga, const void* gb,
                                 float* part, float* dtab, int n_split,
                                 int bh_per, int B, int Tq, int H, int E,
                                 cudaStream_t stream) {
-  constexpr size_t smem = xl2_bwd_dtab_smem_bytes<T>();
+  constexpr size_t smem = xl2_bwd_dtab_smem_bytes<T, POS>();
   cudaError_t err = cudaFuncSetAttribute(
-      xl2_bwd_dtab_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      xl2_bwd_dtab_kernel<T, POS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   float* out = n_split == 1 ? dtab : part;
-  xl2_bwd_dtab_kernel<T>
+  xl2_bwd_dtab_kernel<T, POS>
       <<<dim3((Tq + kDtBN - 1) / kDtBN, E / kTC, n_split), kDtThreads, smem,
          stream>>>(s, static_cast<const T*>(ga), static_cast<const T*>(gb), out,
                    B * H, bh_per, H, Tq, ds_cols(Tq), E);
@@ -1752,7 +1766,8 @@ int vt_xl_bwd_kv(const void* qc, const void* g, const float* s, const float* p,
 // dtab (T, E) fp32 from Q1's s and the rotated streams ga, gb (K5: the two
 // halves of gab; K6: gA, gB), the (b, h) split into n_split shares of
 // bh_per; part: (n_split, T, E) fp32 scratch (unused, may be null, when
-// n_split is 1).
+// n_split is 1). gb null selects K7's form: ga is K7's g, and dtab_j sums
+// ds_ij g_i at every key (no past / future mask).
 int vt_xl_bwd_dtab(const float* s, const void* ga, const void* gb, float* part,
                    float* dtab, int n_split, int bh_per, int B, int T, int H,
                    int E, int is_bf16, void* stream) {
@@ -1762,11 +1777,11 @@ int vt_xl_bwd_dtab(const float* s, const void* ga, const void* gb, float* part,
       (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)launch_xl2_bwd_dtab<__nv_bfloat16>(s, ga, gb, part, dtab, n_split, bh_per,
-                                                   B, T, H, E, st);
-  return (int)launch_xl2_bwd_dtab<float>(s, ga, gb, part, dtab, n_split, bh_per, B, T, H,
-                                         E, st);
+#define VT_DT(TYPE, POS) \
+  (int)launch_xl2_bwd_dtab<TYPE, POS>(s, ga, gb, part, dtab, n_split, bh_per, B, T, H, E, st)
+  if (gb == nullptr) return is_bf16 ? VT_DT(__nv_bfloat16, kPosRel) : VT_DT(float, kPosRel);
+  return is_bf16 ? VT_DT(__nv_bfloat16, kPosXl) : VT_DT(float, kPosXl);
+#undef VT_DT
 }
 
 const char* vt_error_string(int err) {

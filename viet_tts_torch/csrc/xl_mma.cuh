@@ -1,10 +1,10 @@
-// The pieces that the Transformer-XL forward (flash_xl_attention.cu) and
-// backward (flash_xl_attention_bwd.cu) kernels share: stream-element
-// conversions, the attention-weight dropout arguments, the tensor-core
-// building blocks (cp.async tile staging, the 3xTF32 split, mma.sync
-// m16n8k8 TF32 and its fragments), the position-term kinds of the flash
-// templates, and K5's rotation pass, which writes the rotated streams that
-// both K5 forward and K5 bwd-q read.
+// The pieces that the flash forward (flash_xl_attention.cu: K1, K4-K7)
+// and backward (flash_xl_attention_bwd.cu: K4 bwd, K5-K7 bwd-q / bwd-kv)
+// kernels share: stream-element conversions, the attention-weight dropout
+// arguments, the tensor-core building blocks (cp.async tile staging, the
+// 3xTF32 split, mma.sync m16n8k8 TF32 and its fragments), the
+// position-term kinds of the flash templates, and K5's rotation pass,
+// which writes the rotated streams that both K5 forward and K5 bwd-q read.
 
 #pragma once
 
@@ -20,12 +20,13 @@
 
 namespace {
 
-// The position term of the flash templates (xl2_fwd_kernel, the bwd-q
-// kernels), a template argument, so that it also names each instance and a
-// profile tells the kernels apart:
+// The position term of the flash templates (xl2_fwd_kernel, the bwd-q and
+// dtab kernels), a template argument, so that it also names each instance
+// and a profile tells the kernels apart:
 constexpr int kPosXl = 0;     // K6: gA . t (past), gB . t (future), 0 at j = i + 1
 constexpr int kPosXlRot = 1;  // K5: the same on the rotation pass's streams
 constexpr int kPosRel = 2;    // K7: g . t at every key
+constexpr int kPosNone = 3;   // K1: no position term (xl2_fwd_kernel only)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {

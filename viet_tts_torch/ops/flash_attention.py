@@ -8,10 +8,11 @@ TPU kernels ``_plain_kernel``, ``_plain_bwd_q_kernel`` and
 ``_plain_bwd_kv_kernel``). The JAX package's feature-last API is kept: q/k/v
 (B, T, H, D) in, (B, T, H*D) out.
 
-- ``attention_fwd`` / ``attention_fwd_plain``: K1 (``csrc/flash_attention.cu``)
-  and the dense PyTorch version (``_plain_dense``: the (B, H, T, Tp) logits
-  exist in memory), with the JAX wrapper's padding of T to Tp, the next
-  multiple of 32.
+- ``attention_fwd`` / ``attention_fwd_plain``: K1 (the instance of the
+  tensor-core flash forward template ``xl2_fwd_kernel`` with no position
+  term, ``csrc/flash_xl_attention.cu``, which K5, K6 and K7 run too) and
+  the dense PyTorch version (the (B, H, T, Tp) logits exist in memory),
+  with the JAX wrapper's padding of T to Tp, the next multiple of 32.
 - ``attention_bwd_dq`` / ``attention_bwd_dkv``: K3a and K3b
   (``csrc/flash_attention_bwd.cu``), with ``attention_bwd_dq_plain`` /
   ``attention_bwd_dkv_plain`` beside them; ``attention_bwd`` and
@@ -26,11 +27,15 @@ Kernel notes (full text in the .cu sources): one block per (64-row tile,
 head, batch row) loops over the other axis's 64-row tiles staged in shared
 memory, so no (T, T) matrix reaches device memory; K1 keeps an online
 softmax, bwd_q accumulates dq over keys, bwd_kv dk and dv over queries. All
-three are bound by operations at the JETS shapes and this first version
-runs them on the fp32 CUDA cores, not the tensor cores. Padded keys score
-``MASK_NEG = -1e9`` as on the TPU, so a row whose keys are all padding
-becomes the uniform average over all Tp keys; its gradient is the dense
-path's (p = 1/Tp), not the TPU kernel's (see ``attention_bwd_plain``).
+three are bound by operations at the JETS shapes. K1 runs both products
+on the tensor cores (``mma.sync`` TF32, 3xTF32 for fp32 streams, one TF32
+product for bf16; ``tests/test_torch_flash_fwd_precision.py`` says why)
+and walks each batch row's key tiles only up to its last live key; K3a /
+K3b run on the fp32 CUDA cores. Padded keys score ``MASK_NEG = -1e9`` as
+on the TPU, so a row whose keys are all padding becomes the uniform
+average over all Tp keys (K1 walks every tile there); its gradient is the
+dense path's (p = 1/Tp), not the TPU kernel's (see
+``attention_bwd_plain``).
 
 Dropout: the mask is a counter-based hash of (seed, b, h, i, j)
 (``csrc/dropout_hash.cuh``; ``dropout_keep_mask`` here computes the same
@@ -185,7 +190,8 @@ def attention_fwd(
     seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ctx (B, T, H, D) fp32, lse (B, H, T) fp32): kernel K1 on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (the tensor-core forward template's instance with no position
+    term), the plain version on CPU tensors."""
     if _device_of(q) == "cpu":
         return attention_fwd_plain(q, k, v, scale, pad_mask, dropout_p, seed)
     _check_stream(q, k, v)
@@ -196,7 +202,7 @@ def attention_fwd(
         raise ValueError(f"pad_mask must be (B, T) = {(B, T)}, got {tuple(pad.shape)}")
     out = torch.empty(B, T, H, D, dtype=torch.float32, device=q.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
-    lib = kernels.library("flash_attention")
+    lib = kernels.library("flash_xl_attention")
     err = lib.vt_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
         out.data_ptr(), lse.data_ptr(), B, T, padded_time(T), H, D,

@@ -21,17 +21,24 @@ every (b, h). Padded keys score ``MASK_NEG = -1e9``.
   (T, E) or None) = (ds^T qc, (p m / keep)^T g_out, sum_{b,h} ds^T g); the
   table's gradient only with ``want_dtab`` (the conformer's table is a
   constant).
+- ``rel_bwd`` / ``rel_bwd_plain``: the whole backward, (dqc, dk, dv, dg,
+  dtable or None), bwd-q and bwd-kv on one set of scratches, as
+  ``_RelAttention`` runs it.
 - ``flash_rel_attention``: the JAX signature and result, (B, T, H*D) in qc's
   dtype, differentiable through ``_RelAttention``.
 
-Each wrapper launches its kernel (the forward: the K7 instance of the
-tensor-core flash template ``xl2_fwd_kernel`` in
-``csrc/flash_xl_attention.cu``, which K5 and K6 run too; bwd-q: K7's
-instance of the tensor-core K5 / K6 bwd-q kernels in
-``csrc/flash_xl_attention_bwd.cu``, on a ds scratch; bwd-kv:
-``csrc/flash_rel_attention_bwd.cu``) for CUDA tensors and takes its plain
+Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (the dense formulas of ``_rel_dense`` on the padded inputs, and
-that function's VJP) for CPU tensors, never one for the other.
+that function's VJP) for CPU tensors, never one for the other. The
+forward is the K7 instance of the tensor-core flash template
+``xl2_fwd_kernel`` in ``csrc/flash_xl_attention.cu``, which K1, K5 and K6
+run too. The backward runs K7's instances of the tensor-core K5 / K6
+backward kernels in ``csrc/flash_xl_attention_bwd.cu``: bwd-q is Q1 (the
+position logits g t^T, then ds and dqc, written into a ds scratch) and Q2
+(dg = ds t); bwd-kv is the bwd-kv kernel (dk = ds^T qc, dv = P^T g_out)
+on the ds scratch and the P = p m / keep scratch that Q1 writes beside it
+when bwd-kv follows, so it forms no logit; dtable is the dtab kernel's K7
+instance (ds^T g at every key).
 
 Padding, as the JAX wrapper does it: T is padded to Tp, the next multiple of
 32, with zero rows of qc, k, v, g and of the table, and the tail is marked
@@ -59,6 +66,7 @@ from viet_tts_torch.ops.flash_xl_attention import (
     POS_REL,
     _bwd_inputs,
     _bwd_q1,
+    _bwd_q1_kv,
     _bwd_q2,
     _check,
     _check_rates,
@@ -72,9 +80,10 @@ from viet_tts_torch.ops.flash_xl_attention import (
     _pad_rows,
     _seed,
     _softmax_ctx,
-    _stream,
     _table,
     _weights_and_ds,
+    xl_bwd_kv_plain,
+    xl_bwd_scratch_plain,
 )
 from viet_tts_torch.runtime import kernels
 
@@ -156,6 +165,21 @@ def rel_bwd_dkv_plain(qc, k, v, g, table, pad, lse, delta, gout, scale: float,
     return dk, dv, dtab
 
 
+def rel_bwd_plain(qc, k, v, g, table, pad, lse, delta, gout, scale: float,
+                  dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
+    """(dqc, dk, dv (B, T, H, D), dg (B, T, H, E), dtable (T, E) or None)
+    fp32: the plain version of the whole K7 backward as the kernels split
+    it: the dense terms once, bwd-q from ds, bwd-kv (and dtable) by
+    ``xl_bwd_kv_plain`` from the scratch layout of ds and p m / keep."""
+    _, _, _, kh, tab, p_v, ds = _bwd_terms(qc, k, v, g, table, pad, lse, delta, gout, scale,
+                                           dropout_p, seed)
+    dqc = torch.einsum("bhqk,bhkd->bqhd", ds, kh)
+    dg = torch.einsum("bhqk,ke->bqhe", ds, tab)
+    dk, dv, dtab = xl_bwd_kv_plain(qc, gout, xl_bwd_scratch_plain(ds),
+                                   xl_bwd_scratch_plain(p_v), g, None, want_dtab)
+    return dqc, dk, dv, dg, dtab
+
+
 # --------------------------------------------------------------------------
 # the kernels' wrappers
 # --------------------------------------------------------------------------
@@ -197,6 +221,15 @@ def rel_fwd(qc, k, v, g, table, scale: float, pad_mask=None, dropout_p: float = 
 rel_fwd.launches = 0
 
 
+def _rel_ops(qc, k, v, g, table, pad, lse, delta, gout):
+    """Checked, contiguous operands of the K7 backward in the layout of the
+    K5 / K6 stages: (qc, k, v, g, None, table, pad, lse, delta, gout)."""
+    table = _streams(qc, k, v, g, table)
+    pad, lse, delta, gout, qc, k, v, g = _bwd_inputs(qc, pad, lse, delta, gout, qc, k, v, g,
+                                                     head_dims=(REL_D,))
+    return qc, k, v, g, None, table, pad, lse, delta, gout
+
+
 def rel_bwd_dq(qc, k, v, g, table, pad, lse, delta, gout, scale: float,
                dropout_p: float = 0.0, seed: int = 0):
     """(dqc (B, T, H, D), dg (B, T, H, E)) fp32: kernel K7 bwd-q on CUDA
@@ -207,12 +240,9 @@ def rel_bwd_dq(qc, k, v, g, table, pad, lse, delta, gout, scale: float,
     if _device_of(qc) == "cpu":
         return rel_bwd_dq_plain(qc, k, v, g, table, pad, lse, delta, gout, scale,
                                 dropout_p, seed)
-    table = _streams(qc, k, v, g, table)
-    pad, lse, delta, gout, qc, k, v, g = _bwd_inputs(qc, pad, lse, delta, gout, qc, k, v, g,
-                                                     head_dims=(REL_D,))
-    dqc, s, _, _ = _bwd_q1(POS_REL, qc, k, v, g, None, table, pad, lse, delta, gout, scale,
-                           dropout_p, seed, with_p=False)
-    dg, _ = _bwd_q2(POS_REL, s, table, qc)
+    ops = _rel_ops(qc, k, v, g, table, pad, lse, delta, gout)
+    dqc, s, _, _ = _bwd_q1(POS_REL, *ops, scale, dropout_p, seed, with_p=False)
+    dg, _ = _bwd_q2(POS_REL, s, ops[5], ops[0])
     rel_bwd_dq.launches += 1
     return dqc, dg
 
@@ -223,38 +253,41 @@ rel_bwd_dq.launches = 0
 def rel_bwd_dkv(qc, k, v, g, table, pad, lse, delta, gout, scale: float,
                 dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
     """(dk, dv (B, T, H, D), dtable (T, E) or None) fp32: kernel K7 bwd-kv on
-    CUDA tensors, the plain version on CPU tensors. dtable only with
-    ``want_dtab``, through fp32 per-(b, h) partials and a second pass."""
+    CUDA tensors (the bwd-kv kernel on the ds and P scratches of K7's Q1,
+    which it runs first when standalone; dtable, only with ``want_dtab``,
+    by the dtab kernel's K7 instance; one count), the plain version on CPU
+    tensors."""
     _check_rates(dropout_p)
     if _device_of(qc) == "cpu":
         return rel_bwd_dkv_plain(qc, k, v, g, table, pad, lse, delta, gout, scale,
                                  dropout_p, seed, want_dtab)
-    table = _streams(qc, k, v, g, table)
-    pad, lse, delta, gout, qc, k, v, g = _bwd_inputs(qc, pad, lse, delta, gout, qc, k, v, g,
-                                                     head_dims=(REL_D,))
-    B, T, H, D = qc.shape
-    E = g.shape[-1]
-    f32 = dict(dtype=torch.float32, device=qc.device)
-    dk = torch.empty(B, T, H, D, **f32)
-    dv = torch.empty(B, T, H, D, **f32)
-    dtab = dtab_part = None
-    if want_dtab:
-        dtab = torch.empty(T, E, **f32)
-        dtab_part = torch.empty(B * H, T, E, **f32)
-    lib = kernels.library("flash_rel_attention_bwd")
-    err = lib.vt_flash_rel_bwd_kv(
-        qc.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), table.data_ptr(),
-        gout.data_ptr(), pad.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), None if dtab_part is None else dtab_part.data_ptr(),
-        None if dtab is None else dtab.data_ptr(), B, T, padded_time(T), H, D, E,
-        int(qc.dtype == torch.bfloat16), float(scale), float(dropout_p), _seed(seed),
-        _stream(qc))
-    kernels.check(lib, err, "rel flash attention bwd_kv kernel")
+    ops = _rel_ops(qc, k, v, g, table, pad, lse, delta, gout)
+    _, _, dk, dv, dtab = _bwd_q1_kv(POS_REL, ops, scale, dropout_p, seed, want_dtab)
     rel_bwd_dkv.launches += 1
     return dk, dv, dtab
 
 
 rel_bwd_dkv.launches = 0
+
+
+def rel_bwd(qc, k, v, g, table, pad, lse, delta, gout, scale: float,
+            dropout_p: float = 0.0, seed: int = 0, want_dtab: bool = False):
+    """(dqc, dk, dv (B, T, H, D), dg (B, T, H, E), dtable (T, E) or None)
+    fp32, the whole K7 backward: on CUDA tensors bwd-q and bwd-kv on one set
+    of scratches (Q1 writes ds and P once, then bwd-kv, with ``want_dtab``
+    dtab, and Q2 read them; one count each on ``rel_bwd_dq`` and
+    ``rel_bwd_dkv``), on CPU tensors the plain version of that split
+    (``rel_bwd_plain``)."""
+    _check_rates(dropout_p)
+    if _device_of(qc) == "cpu":
+        return rel_bwd_plain(qc, k, v, g, table, pad, lse, delta, gout, scale, dropout_p, seed,
+                             want_dtab)
+    ops = _rel_ops(qc, k, v, g, table, pad, lse, delta, gout)
+    dqc, s, dk, dv, dtab = _bwd_q1_kv(POS_REL, ops, scale, dropout_p, seed, want_dtab)
+    dg, _ = _bwd_q2(POS_REL, s, ops[5], ops[0])
+    rel_bwd_dq.launches += 1
+    rel_bwd_dkv.launches += 1
+    return dqc, dk, dv, dg, dtab
 
 
 # --------------------------------------------------------------------------
@@ -265,8 +298,9 @@ rel_bwd_dkv.launches = 0
 class _RelAttention(torch.autograd.Function):
     """``_rel_op`` with its custom VJP: the forward (K7) saves its inputs,
     the context and lse; the backward computes delta = rowsum(g_out * out)
-    outside the kernels, as ``_rel_bwd`` does, and launches K7 bwd-q and
-    bwd-kv (dtable only when the table needs a gradient)."""
+    outside the kernels, as ``_rel_bwd`` does, and runs the whole K7
+    backward, bwd-q and bwd-kv on shared scratches (``rel_bwd``; dtable
+    only when the table needs a gradient)."""
 
     @staticmethod
     def forward(ctx, qc, k, v, g, table, pad, scale, dropout_p, seed):
@@ -280,8 +314,7 @@ class _RelAttention(torch.autograd.Function):
         qc, k, v, g, table, pad, out, lse = ctx.saved_tensors
         delta, gs = backward_inputs(out, g_out, v.dtype)
         args = (qc, k, v, g, table, pad, lse, delta, gs, ctx.scale, ctx.dropout_p, ctx.seed)
-        dqc, dg = rel_bwd_dq(*args)
-        dk, dv, dtab = rel_bwd_dkv(*args, want_dtab=ctx.needs_input_grad[4])
+        dqc, dk, dv, dg, dtab = rel_bwd(*args, want_dtab=ctx.needs_input_grad[4])
         return (dqc.to(qc.dtype), dk.to(k.dtype), dv.to(v.dtype), dg.to(g.dtype),
                 None if dtab is None else dtab.to(table.dtype), None, None, None, None)
 

@@ -442,8 +442,9 @@ def xl_bwd_kv_plain(qc, g, s, p, ga=None, gb=None, want_dtab: bool = False):
     dtype). qc, g (the cotangent) (B, T, H, D); with ``want_dtab`` the
     rotated streams ga, gb (B, T, H, E) in the stream dtype (K5's gab):
     dv_j = sum_i p_ij g_i, dk_j = sum_i ds_ij qc_i, dtab_j = sum_{b,h,i}
-    [j <= i] ds_ij gA_i + [j >= i + 2] ds_ij gB_i. Keys past T write no
-    row."""
+    [j <= i] ds_ij gA_i + [j >= i + 2] ds_ij gB_i; with gb None (K7's form,
+    ga its g) dtab_j = sum_{b,h,i} ds_ij g_i at every key. Keys past T write
+    no row."""
     T = qc.shape[1]
     cd = _compute_dtype(qc)
     S, P = s[..., :T], p[..., :T]
@@ -451,7 +452,9 @@ def xl_bwd_kv_plain(qc, g, s, p, ga=None, gb=None, want_dtab: bool = False):
     dk = torch.einsum("bhqk,bhqd->bkhd", S, qch)
     dv = torch.einsum("bhqk,bhqd->bkhd", P, gh)
     dtab = None
-    if want_dtab:
+    if want_dtab and gb is None:
+        dtab = torch.einsum("bhqk,bhqe->ke", S, _hm(ga, cd))
+    elif want_dtab:
         i = torch.arange(T, device=qc.device)[:, None]
         j = torch.arange(T, device=qc.device)[None, :]
         zero = torch.zeros_like(S)
@@ -767,14 +770,16 @@ def _bwd_kv(qc, g, s, p):
 
 def _bwd_dtab(s, ga, gb):
     """The dtab kernel: dtab (T, E) fp32 from Q1's S and the rotated streams
-    gA, gB (B, T, H, E). A stage; counts nothing."""
+    gA, gB (B, T, H, E), or K7's g with gb None (every key, no mask). A
+    stage; counts nothing."""
     B, T, H, E = ga.shape
     n_split, per = _dtab_split(B * H, T, E)
     f32 = dict(dtype=torch.float32, device=ga.device)
     dtab = torch.empty(T, E, **f32)
     part = torch.empty(n_split, T, E, **f32) if n_split > 1 else None
     lib = kernels.library("flash_xl_attention_bwd")
-    err = lib.vt_xl_bwd_dtab(s.data_ptr(), ga.data_ptr(), gb.data_ptr(),
+    err = lib.vt_xl_bwd_dtab(s.data_ptr(), ga.data_ptr(),
+                             None if gb is None else gb.data_ptr(),
                              None if part is None else part.data_ptr(), dtab.data_ptr(),
                              n_split, per, B, T, H, E, int(ga.dtype == torch.bfloat16),
                              _stream(ga))
@@ -784,8 +789,9 @@ def _bwd_dtab(s, ga, gb):
 
 def _bwd_q1_kv(pos: int, ops, scale, dropout_p, seed, want_dtab: bool):
     """Q1 with P, bwd-kv and (with ``want_dtab``) dtab of K5 (``pos``
-    POS_XL_ROT) or K6 (POS_XL) on the checked operands ``ops`` = (qc, k, v,
-    ga, gb, table, pad, lse, delta, g): (dqc, S, dk, dv, dtab or None)."""
+    POS_XL_ROT), K6 (POS_XL) or K7 (POS_REL, gb None) on the checked
+    operands ``ops`` = (qc, k, v, ga, gb, table, pad, lse, delta, g): (dqc,
+    S, dk, dv, dtab or None)."""
     qc, k, v, ga, gb, table, pad, lse, delta, g = ops
     dqc, s, p, (ra, rb) = _bwd_q1(pos, qc, k, v, ga, gb, table, pad, lse, delta, g, scale,
                                   dropout_p, seed, with_p=True)

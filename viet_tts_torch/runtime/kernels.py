@@ -8,7 +8,7 @@ sources are compiled together, one ``nvcc`` process each, the first time
 any kernel is asked for. Nothing here runs at import time: the CPU tests
 import every module, and this machine may have no ``nvcc``.
 
-    lib = kernels.library("flash_attention")   # ctypes.CDLL, argtypes set
+    lib = kernels.library("flash_xl_attention")   # ctypes.CDLL, argtypes set
 """
 
 from __future__ import annotations
@@ -39,14 +39,6 @@ _U64 = ctypes.c_uint64
 
 # C signatures of each source's entry points: name -> (restype, argtypes)
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
-    "flash_attention": {
-        # q, k, v, pad, out, lse, B, T, Tp, H, D, is_bf16, scale,
-        # dropout_p, seed, stream
-        "vt_flash_attn_fwd": (
-            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
-        ),
-        "vt_error_string": (ctypes.c_char_p, [_I]),
-    },
     "flash_attention_bwd": {
         # q, k, v, g, pad, lse, delta, dq, B, T, Tp, H, D, is_bf16, scale,
         # dropout_p, seed, stream
@@ -63,6 +55,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_xl_attention": {
+        # K1: q, k, v, pad, out, lse, B, T, Tp, H, D, is_bf16, scale,
+        # dropout_p, seed, stream
+        "vt_flash_attn_fwd": (
+            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
+        ),
         # qc, k, v, qv, p, pad, out, lse, B, T, H, D, is_bf16, scale,
         # dropout_p, seed, stream
         "vt_flash_xl3_fwd": (
@@ -104,16 +101,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "vt_xl_bwd_q2": (_I, [_P] * 4 + [_I] * 6 + [_P]),
         # qc, g, s, p, dk, dv, B, T, H, D, is_bf16, stream
         "vt_xl_bwd_kv": (_I, [_P] * 6 + [_I] * 5 + [_P]),
-        # s, ga, gb, part, dtab, n_split, bh_per, B, T, H, E, is_bf16, stream
+        # s, ga, gb (null: K7's form), part, dtab, n_split, bh_per, B, T, H,
+        # E, is_bf16, stream
         "vt_xl_bwd_dtab": (_I, [_P] * 5 + [_I] * 7 + [_P]),
-        "vt_error_string": (ctypes.c_char_p, [_I]),
-    },
-    "flash_rel_attention_bwd": {
-        # qc, k, v, g, table, gout, pad, lse, delta, dk, dv, dtab_part, dtab,
-        # B, T, Tp, H, D, E, is_bf16, scale, dropout_p, seed, stream
-        "vt_flash_rel_bwd_kv": (
-            _I, [_P] * 13 + [_I] * 7 + [_F, _D, _U64, _P]
-        ),
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_mrf": {
