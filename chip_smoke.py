@@ -14,9 +14,10 @@ Phases (any failure exits non-zero; no phase is caught):
     K3b dk and dv) against their plain versions under one seed at the
     training shapes (B=8; T=64 and T=512; ragged lengths, one fully padded
     row), fp32 and bf16, dropout 0 and 0.2, with times;
- 4. kernel K2 (fused MRF stage) against its plain version at the two fused
-    HiFi-GAN stages (C=64 at T=128*1008, C=32 at T=256*1008, B=16), one case
-    with seq_len < T, with times;
+ 4. kernel K2 (fused MRF stage, tensor cores) against its plain version at
+    the two fused HiFi-GAN stages (C=64 at T=128*1008, C=32 at T=256*1008,
+    B=16), one case with seq_len < T, with times, its 3xTF32 bound beside
+    the fp32 CUDA-core one and the bytes bound of its 9-launch design;
  5. the inference path: full-width JETS (config/model_config.yaml widths)
     with seeded random weights, saved as a port checkpoint, served by
     ``OneStageTTS(ckpt, fused_vocoder=True)``: 16 sentences in one call, once
@@ -46,7 +47,7 @@ Phases (any failure exits non-zero; no phase is caught):
     ``max_mel_frames=2048``, then the HTTP server with ``--model_type
     FASTSPEECH2`` semantics (``/health``, two ``/synthesize``, one
     ``/synthesize_stream``). Launches are zeroed and asserted per call (K4 6
-    and K5 6 at 1008 frames, K4 6 and K6 6 at 2048, K2 36); a small input
+    and K5 6 at 1008 frames, K4 6 and K6 6 at 2048, K2 18); a small input
     on each attention route is checked against the CPU; the host median of
     5 fp32 calls and the acoustic / vocoder split;
  9. kernels K4 and K5 with attention-weight dropout and their backward (K4
@@ -89,7 +90,7 @@ Phases (any failure exits non-zero; no phase is caught):
     weights, saved as a port checkpoint, served by ``OneStageTTS(ckpt,
     fused_vocoder=True)``: 16 sentences in fp32 and with ``half=True``,
     then the HTTP server (``/health``, one ``/synthesize``, one
-    ``/synthesize_stream``); launches held per call (K7 fwd 10, K2 36); a
+    ``/synthesize_stream``); launches held per call (K7 fwd 10, K2 18); a
     small input against the CPU; the host median of 5 fp32 calls;
 13. the JETS-conformer training step: ``make_jets_train_step`` with the
     full MSMPD on the bench.py batch (B=8, T_text=64, T_mel=512), two
@@ -107,7 +108,7 @@ Phases (any failure exits non-zero; no phase is caught):
     phase 9;
 15. JETS-conformer serving in the legacy rel-pos flavour
     (``conformer_rel_pos_type: legacy``, K6 at D=128): as phase 12, with
-    the launches held per call (K6 fwd 10, K2 36, no K1 and no K7);
+    the launches held per call (K6 fwd 10, K2 18, no K1 and no K7);
 16. the legacy JETS-conformer training step: as phase 13 (every dropout
     as configured, attention 0.2 inside K6), the launches held exactly
     (K6 fwd, bwd-q and bwd-kv 10 each a step; no K1, K3 or K7); one small
@@ -558,6 +559,9 @@ def k3_entries(step):
 
 KS = (3, 7, 11)
 DILS = ((1, 3, 5),) * 3
+# K2 launches a serving call: one a (block, dilation) pair, 9 a fused stage,
+# two fused stages (C = 64 and 32) in HiFi-GAN V1
+K2_PER_CALL = 2 * sum(len(d) for d in DILS)
 
 
 def _mrf_library(x, ws):
@@ -600,11 +604,32 @@ def fused_stage_shapes():
     return shapes
 
 
+def _mrf_fused_bytes(B: int, T: int, C: int) -> float:
+    """Device-memory bytes K2's pair launches must move at least: each
+    block's window of its pair's input (its S output rows and the halo of
+    both convs), one (B, T, C) write a pair and the running mean's reads;
+    the residual rows are the ones the block's window just read, and are not
+    counted again."""
+    from viet_tts_torch.ops import fused_mrf as fm
+
+    total = 0.0
+    for blk, (k, dils) in enumerate(zip(KS, DILS)):
+        S = fm.tile_rows(C) - 2 * ((k - 1) // 2)
+        for di, d in enumerate(dils):
+            window = S + 2 * ((k - 1) // 2 * (d + 1))
+            total += 4.0 * B * T * C * (window / S + 1)
+            if di == len(dils) - 1 and blk > 0:
+                total += 4.0 * B * T * C
+    return total
+
+
 def check_fused_mrf(dev, frames: int):
     from viet_tts_torch.ops import fused_mrf as fm
 
     B = 16
-    per_call = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ms_fp32", "bound_ms_bytes_fused")
+    per_call = dict.fromkeys(keys, 0.0)
+    per_shape = {}
     max_err, tol = 0.0, 1e-4
     shapes = fused_stage_shapes()
     for C, up in shapes:
@@ -638,12 +663,19 @@ def check_fused_mrf(dev, frames: int):
         l_ms = cuda_ms(lambda: _mrf_library(x, ws), 3, warmup=1)
         flops = fm.stage_flops(B, T, C, KS, DILS)
         nbytes = 4.0 * (2 * B * T * C + sum(w.numel() for g in ws for w in g))
-        b_ms, kind = bound(nbytes, flops)
+        b_ms, kind = _tensor_core_bound(nbytes, flops, torch.float32)
+        fused_ms = _mrf_fused_bytes(B, T, C) / HBM_BYTES_PER_MS
         log(f"K2 fused_mrf C={C} T={T}: kernel_ms {k_ms:.3f} plain_ms {p_ms:.3f} "
-            f"library_ms {l_ms:.3f} bound_ms {b_ms:.3f} ({kind}) "
-            f"{flops / k_ms / 1e9:.2f} TFLOP/s")
+            f"library_ms {l_ms:.3f} bound_ms {b_ms:.3f} ({kind}, 3xTF32) "
+            f"bound_ms_bytes_fused {fused_ms:.3f} {flops / k_ms / 1e9:.2f} TFLOP/s")
+        tc = _tensor_core_figures(f"fused_mrf_stage (B={B}, T={T}, C={C})", k_ms, b_ms,
+                                  nbytes, flops)
+        per_shape[f"C={C} ({B}, {T})"] = dict(
+            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=kind,
+            bound_ms_bytes_fused=fused_ms, **tc)
         for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
-                         ("bound_ms", b_ms)):
+                         ("bound_ms", b_ms), ("bound_ms_fp32", tc["bound_ms_fp32"]),
+                         ("bound_ms_bytes_fused", fused_ms)):
             per_call[key] += val
         del x, ws
         torch.cuda.empty_cache()
@@ -657,7 +689,16 @@ def check_fused_mrf(dev, frames: int):
         "bound_by": "operations",
         "per": "one OneStageTTS.__call__ of 16 sentences, fp32 (stages "
                + " and ".join(f"C={C} at T={up}*{frames}" for C, up in shapes)
-               + ", 18 launches each)",
+               + f", {K2_PER_CALL // len(shapes)} launches each)",
+        "per_shape": per_shape,
+        "redesigned": (
+            "tensor cores (mma.sync m16n8k8, 3xTF32): one launch a (block, dilation) pair, "
+            "conv1 and conv2 as implicit GEMMs on a shared-memory window, conv1's output "
+            "tile kept in shared memory, weights split into TF32 hi / lo once and packed in "
+            "fragment order, streamed a tap at a time through a two-stage cp.async ring"
+            + TC_BOUND_NOTE + "; bound_ms_bytes_fused the device-memory bytes of the "
+            "9-launch design (each block's window with its halo, one write a pair, the "
+            "running mean's reads) at 3.35 TB/s"),
         **per_call,
     }
 
@@ -1203,7 +1244,7 @@ def check_two_stage_path(dev, ac_dir: str, voc_dir: str):
     for model in (tts, tts_half, tts_long):  # warm-up: cuDNN autotune, allocator
         model(SENTENCES[:2])
     torch.cuda.synchronize()
-    per_call = {"flash_xl3_fwd": 6, "fused_mrf_stage": 36, "flash_attention_fwd": 0}
+    per_call = {"flash_xl3_fwd": 6, "fused_mrf_stage": K2_PER_CALL, "flash_attention_fwd": 0}
     _zero_fs2_counts()
     torch.cuda.reset_peak_memory_stats()
     waves, call_s = _counted_call(lambda: tts(SENTENCES),
@@ -2462,7 +2503,7 @@ def build_conformer_checkpoint(ckpt_dir: str, flavour: str = "latest") -> str:
 def check_conformer_serving(dev, ckpt_dir: str, flavour: str = "latest"):
     """OneStageTTS on the conformer checkpoint: 16 sentences in fp32 and in
     bf16, then the HTTP server; every call's launches held (the flavour's
-    attention forward, K7 or K6, 10 = 4 encoder + 6 decoder layers, K2 36,
+    attention forward, K7 or K6, 10 = 4 encoder + 6 decoder layers, K2 18,
     no other attention kernel and no backward); the host median of 5 fp32
     calls; a small input on the card against the CPU."""
     from viet_tts_torch.infer.api import OneStageTTS
@@ -2476,7 +2517,7 @@ def check_conformer_serving(dev, ckpt_dir: str, flavour: str = "latest"):
         model(SENTENCES[:2])
     torch.cuda.synchronize()
     per_call = dict.fromkeys(_jc_wrappers(), 0)
-    per_call.update({fwd_name: 10, "fused_mrf_stage": 36})
+    per_call.update({fwd_name: 10, "fused_mrf_stage": K2_PER_CALL})
     for fn in _jc_wrappers().values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2517,8 +2558,8 @@ def check_conformer_serving(dev, ckpt_dir: str, flavour: str = "latest"):
     # one /synthesize (a batch of one) and one stream (its acoustic half
     # once, then one vocoder window per chunk)
     others = [k for k in server if k not in (fwd_name, "fused_mrf_stage") and server[k]]
-    if (server[fwd_name] != 20 or server["fused_mrf_stage"] < 72
-            or server["fused_mrf_stage"] % 36 or others):
+    if (server[fwd_name] != 20 or server["fused_mrf_stage"] < 2 * K2_PER_CALL
+            or server["fused_mrf_stage"] % K2_PER_CALL or others):
         raise AssertionError(f"{name} server launches {server}")
     launches = _counts()
     log(f"{name} serving: peak {peak_gb:.2f} GB; server HTTP {codes}, "
@@ -2626,7 +2667,7 @@ KERNEL_GROUPS = (
            for d in (32, 64, 128))),
     ("K3a flash_bwd_q_kernel", ("flash_bwd_q_kernel",)),
     ("K3b flash_bwd_kv_kernel", ("flash_bwd_kv_kernel",)),
-    ("K2 mrf_conv_kernel", ("mrf_conv_kernel",)),
+    ("K2 mrf_pair_kernel (tensor cores)", ("mrf_pair_kernel",)),
     ("K4 xl3_fwd_band_kernel (tensor cores)", ("xl3_fwd_band_kernel",)),
     # K4 bwd: its ds kernel, its instance of bwd-kv (<dtype, D, true>) and
     # the reduce pass

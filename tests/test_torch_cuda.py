@@ -127,18 +127,33 @@ def _mrf_weights(C, device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,seq_len", [(64, 4096), (32, 3000), (16, 1)])
 def test_fused_mrf_kernel_matches_plain(cuda_device, C, seq_len):
-    """K2 against the plain version (TF32 off), including seq_len < T."""
-    T = 4096
-    x = torch.from_numpy(
-        np.random.RandomState(C).randn(2, T, C).astype(np.float32)).to(cuda_device)
+    """K2 against the plain version (TF32 off), 9 launches a stage (one a
+    (block, dilation) pair), zeros past seq_len: at the item's seq_len, on
+    and beside a tile edge of the k = 11 pair (its tile is ``tile_rows(C) -
+    10`` rows) and of the k = 3 pair, at B = 1 with T not a multiple of the
+    tile, and with a bf16 input (within 2e-2)."""
+    TT = fm.tile_rows(C)
     ws = _mrf_weights(C, cuda_device, seed=C)
-    before = fm.fused_mrf_stage.launches
-    got = fm.fused_mrf_stage(x, seq_len, *ws, kernel_sizes=KS, dilations=DILS)
-    assert fm.fused_mrf_stage.launches == before + 18
-    want = fm.fused_mrf_stage_plain(x, seq_len, *ws, kernel_sizes=KS, dilations=DILS)
-    torch.cuda.synchronize()
-    assert not got[:, seq_len:].any()
-    assert (got - want).abs().max().item() <= 1e-4
+    # (B, T, seq_len, dtype, limit)
+    cases = [(2, 4096, seq_len, torch.float32, 1e-4),
+             (2, 4096, TT - 10, torch.float32, 1e-4),
+             (2, 4096, TT - 9, torch.float32, 1e-4),
+             (2, 4096, 2 * (TT - 2), torch.float32, 1e-4),
+             (1, 3 * TT + 77, 2 * TT - 5, torch.float32, 1e-4),
+             (1, 3 * TT + 77, 3 * TT + 77, torch.float32, 1e-4),
+             (2, 4096, seq_len, torch.bfloat16, 2e-2)]
+    for B, T, n, dtype, limit in cases:
+        x = torch.from_numpy(np.random.RandomState(C + T).randn(B, T, C).astype(np.float32))
+        x = x.to(cuda_device, dtype)
+        before = fm.fused_mrf_stage.launches
+        got = fm.fused_mrf_stage(x, n, *ws, kernel_sizes=KS, dilations=DILS)
+        assert fm.fused_mrf_stage.launches == before + 9
+        want = fm.fused_mrf_stage_plain(x, n, *ws, kernel_sizes=KS, dilations=DILS)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == x.shape
+        assert not got[:, n:].any(), (B, T, n, dtype)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= limit, (B, T, n, dtype, err)
 
 
 def xl_case(device, B, T, H=8, D=48, seed=0, pad_rows=True):

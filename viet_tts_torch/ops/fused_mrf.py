@@ -15,14 +15,16 @@ blocks' ``h``. Inference only.
 
 Kernel note (full text in the .cu source): the TPU kernel keeps a
 1144-row time tile and all 18 convs' weights (2 MB at C=64) resident in
-VMEM; a Hopper block has 227 KB of shared memory, so here each conv is one
-launch of a direct-convolution kernel that stages a halo'd time tile of
-``leaky(input)`` in shared memory and streams the conv's weights one tap at
-a time (they stay in the 50 MB L2). Its epilogue fuses bias, the sequence
-mask, the residual add and the running block mean, so a stage is 18
-launches with three (B, T, C) fp32 scratch tensors. The stage does
-252*B*T*C^2 FLOP at the default MRF and is bound by operations; this first
-version runs them on the fp32 CUDA cores.
+VMEM; a Hopper block has 227 KB of shared memory, so here each (block,
+dilation) pair is one launch: a block stages a halo'd window of
+``leaky(input)`` in shared memory, runs conv1 on it as an implicit GEMM on
+the tensor cores (``mma.sync`` TF32, 3xTF32 for fp32), keeps conv1's
+output tile (with its conv2 halo) in shared memory and runs conv2 on it;
+the epilogue fuses bias, the sequence mask, the residual add and the
+running block mean. A stage is 9 launches on two ping-pong (B, T, C) fp32
+scratches. The weights are split into TF32 hi / lo and packed in the
+kernel's fragment order here (``pack_weights``), once a call. The stage
+does 252*B*T*C^2 FLOP at the default MRF and is bound by operations.
 """
 
 from __future__ import annotations
@@ -35,6 +37,34 @@ import torch.nn.functional as F
 from viet_tts_torch.runtime import kernels
 
 KERNEL_CHANNELS = (16, 32, 64)  # channel counts csrc/fused_mrf.cu is built for
+
+
+def tile_rows(C: int) -> int:
+    """Rows of a K2 block's conv1 tile (``mrf_tile`` in csrc/fused_mrf.cu):
+    eight warps of 16 * (128 / C) rows. A block owns ``tile_rows(C) -
+    2 * ((k - 1) // 2)`` output rows of a pair with kernel size k."""
+    return 16384 // C
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """(..., C_in, C_out) conv taps -> K2's packed hi / lo B fragments.
+
+    Each fp32 weight is split into two TF32 values, w = hi + lo (hi: w
+    rounded to nearest, ties away, on the bit pattern; lo: the rest with its
+    13 low bits cleared, as ``split_tf32`` in csrc/xl_mma.cuh does), and
+    each (C_in, C_out) tap is laid out as (C_in / 8, C_out / 8, 32, 4): for
+    k-step ks, n-tile nt and lane (g, t) = (lane // 4, lane % 4) the four
+    floats hi, hi, lo, lo of rows 8 ks + 2t, 8 ks + 2t + 1 at column
+    8 nt + g, one m16n8k8 B fragment a 16-byte load."""
+    *lead, ci, co = w.shape
+    w = w.to(torch.float32).contiguous()
+    hi = ((w.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    lo = ((w - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    # [.., ks, t, j, nt, g, hl] -> [.., ks, nt, g, t, hl, j]
+    p = torch.stack([x.reshape(*lead, ci // 8, 4, 2, co // 8, 8) for x in (hi, lo)], -1)
+    n = len(lead)
+    p = p.permute(*range(n), n, n + 3, n + 4, n + 1, n + 5, n + 2)
+    return p.reshape(*lead, ci // 8, co // 8, 32, 4).contiguous()
 
 
 def stage_halo(kernel_sizes: Sequence[int],
@@ -114,7 +144,7 @@ def fused_mrf_stage(
             params of shapes (n_d, k, C, C) [tap, in, out] / (n_d, C); w1
             dilated, w2 dilation 1.
         tile: kept for the JAX signature; the Hopper kernel's time tile is
-            fixed by C (64 rows at C=64, 128 at C=32).
+            fixed by C (``tile_rows``: 256 rows at C=64, 512 at C=32).
 
     Returns (B, T, C) in x's dtype.
     """
@@ -133,41 +163,44 @@ def fused_mrf_stage(
     # the kernel computes in fp32 throughout (as the TPU kernel does); a bf16
     # stage input is widened here and the output narrowed back
     src0 = x.to(torch.float32).contiguous()
-    y = torch.empty_like(src0)
-    h = torch.empty_like(src0)
+    # h ping-pongs between two scratches: a block reads a halo of its pair's
+    # input that neighbouring blocks of the same launch write
+    hbuf = (torch.empty_like(src0), torch.empty_like(src0))
     out = torch.empty_like(src0)
     lib = kernels.library("fused_mrf")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     n_blocks = len(kernel_sizes)
-
-    def conv(src, w, b, res, hout, accin, accout, acc_div, k, d):
-        w = w.to(torch.float32).contiguous()
-        b = b.to(torch.float32).contiguous()
-        if w.shape != (k, C, C) or b.shape != (C,):
-            raise ValueError(f"conv weights must be ({k}, {C}, {C}) and ({C},)")
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        err = lib.vt_mrf_conv(
-            src.data_ptr(), w.data_ptr(), b.data_ptr(), ptr(res), ptr(hout),
-            ptr(accin), ptr(accout), float(acc_div), B, T, C, seq_len, k, d,
-            float(lrelu), stream,
-        )
-        kernels.check(lib, err, "fused MRF conv kernel")
-        fused_mrf_stage.launches += 1
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
 
     for blk, (k, dils) in enumerate(zip(kernel_sizes, dilations)):
+        n_d = len(dils)
+        params = (w1s[blk], w2s[blk], b1s[blk], b2s[blk])
+        if (w1s[blk].shape != (n_d, k, C, C) or w2s[blk].shape != (n_d, k, C, C)
+                or b1s[blk].shape != (n_d, C) or b2s[blk].shape != (n_d, C)
+                or any(t.device != x.device for t in params)):
+            raise ValueError(f"block {blk}: conv weights must be ({n_d}, {k}, {C}, {C}) "
+                             f"and biases ({n_d}, {C}), on {x.device}")
+        # per dilation: conv1's k taps, then conv2's
+        wp = pack_weights(torch.cat([w1s[blk], w2s[blk]], dim=1))
+        b1 = b1s[blk].to(torch.float32).contiguous()
+        b2 = b2s[blk].to(torch.float32).contiguous()
+        src = src0
         for di, d in enumerate(dils):
-            src = src0 if di == 0 else h
-            last = di == len(dils) - 1
-            # y = mask(conv_{k,d}(leaky(h)))
-            conv(src, w1s[blk][di], b1s[blk][di], None, y, None, None, 1.0, k, d)
-            # h = mask(h + conv_{k,1}(leaky(y))); the block's last h goes
-            # straight into the running mean over blocks
-            conv(y, w2s[blk][di], b2s[blk][di], src,
-                 None if last else h,
-                 out if (last and blk > 0) else None,
-                 out if last else None,
-                 float(n_blocks) if (last and blk == n_blocks - 1) else 1.0,
-                 k, 1)
+            last = di == n_d - 1
+            # h = mask(h + conv_{k,1}(leaky(mask(conv_{k,d}(leaky(h)))))); the
+            # block's last h goes straight into the running mean over blocks
+            hout = None if last else hbuf[di % 2]
+            accout = out if last else None
+            accin = out if (last and blk > 0) else None
+            acc_div = float(n_blocks) if (last and blk == n_blocks - 1) else 1.0
+            err = lib.vt_mrf_pair(
+                src.data_ptr(), wp[di].data_ptr(), b1[di].data_ptr(), b2[di].data_ptr(),
+                ptr(hout), ptr(accin), ptr(accout), acc_div, B, T, C, seq_len, k, d,
+                float(lrelu), stream,
+            )
+            kernels.check(lib, err, "fused MRF pair kernel")
+            fused_mrf_stage.launches += 1
+            src = hout
     return out.to(x.dtype)
 
 

@@ -107,9 +107,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_mrf": {
-        # src, w, bias, res, hout, accin, accout, acc_div, B, T, C, seq_len,
-        # K, dil, slope, stream
-        "vt_mrf_conv": (
+        # src, wp (packed hi / lo taps), b1, b2, hout, accin, accout, acc_div,
+        # B, T, C, seq_len, K, dil, slope, stream
+        "vt_mrf_pair": (
             _I,
             [_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _F, _P],
         ),
