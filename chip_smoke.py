@@ -10,10 +10,15 @@ Phases (any failure exits non-zero; no phase is caught):
  2. kernel K1 (flash attention forward) against its plain version at the
     inference shapes (B=16, H=2, D=128; encoder T=64, decoder T=1008, ragged
     lengths and one fully padded row), fp32 and bf16, with times;
- 3. K1 with attention-weight dropout and K3 (the backward pair: K3a dq,
-    K3b dk and dv) against their plain versions under one seed at the
+ 3. K1 with attention-weight dropout and K3 (its backward, the tensor-core
+    backward template's instance with no position term: K3a, Q1 forming
+    dq and the ds scratch; K3b, bwd-kv forming dk and dv on the ds and P
+    scratches of a Q1) against their plain versions under one seed at the
     training shapes (B=8; T=64 and T=512; ragged lengths, one fully padded
-    row), fp32 and bf16, dropout 0 and 0.2, with times;
+    row), fp32 and bf16, dropout 0 and 0.2: the whole backward, the
+    standalone halves and bwd-kv alone on one Q1's scratches, with times
+    (Q1 without and with P, bwd-kv alone, the whole backward, which SDPA's
+    backward of all three gradients is held against);
  4. kernel K2 (fused MRF stage, tensor cores) against its plain version at
     the two fused HiFi-GAN stages (C=64 at T=128*1008, C=32 at T=256*1008,
     B=16), one case with seq_len < T, with times, its 3xTF32 bound beside
@@ -144,9 +149,9 @@ host gaps between its launches that CUDA events count), with the
 CUDA-event figures beside them. bound_ms
 is the larger of bytes / 3.35 TB/s and operations / the card's peak for the
 work's type (fp32 work at the 67 TFLOP/s CUDA-core rate, bf16 at 989), per
-the H100 SXM data sheet. Every attention kernel but K3a / K3b runs on the
-tensor cores (K1, K4 / K5 / K6 / K7 forward, K4 bwd, K5 / K6 / K7 bwd-q
-and bwd-kv) and takes the bound of the work it does on the tensor cores,
+the H100 SXM data sheet. Every attention kernel runs on the tensor cores
+(K1, K4 / K5 / K6 / K7 forward, K3, K4 bwd, K5 / K6 / K7 bwd-q and
+bwd-kv) and takes the bound of the work it does on the tensor cores,
 counted from the function (the pairs of the live keys;
 not the band products' padding or the tiles a kernel walks): fp32
 streams under 3xTF32 run three TF32 products a term, so 3 * operations /
@@ -154,7 +159,7 @@ streams under 3xTF32 run three TF32 products a term, so 3 * operations /
 CUDA-core (67), one-TF32-product (495) and bf16 (989) figures beside it.
 bwd-kv's own work is bwd-q's two scratches read once and two D-wide
 products a pair (bound by those bytes); the bound of the function it
-computes, 4D + E a pair from the streams, stands beside it.
+computes from the streams (4D + E a pair; K3b's 4D) stands beside it.
 The card's power limit is printed beside them.
 """
 
@@ -424,19 +429,43 @@ def _library_attention(q, k, v, g, pad, scale, dropout_p):
     return fwd, bwd
 
 
+def _k3_work(B: int, H: int, D: int, T: int, lens, esz: int):
+    """(bytes, FLOP) of K3's functions at these inputs: every input read
+    once in its dtype (q, k, v, the cotangent g; pad, lse and delta in
+    fp32), every output written once in fp32; the D-wide products over the
+    live keys of each row only. ``bwd_q``: dq (s, dp, dq: 3 products a
+    pair); ``bwd_kv_function``: dk and dv from the streams (s, dp, dk, dv:
+    4); ``whole``: all three (5, where the CUDA-core pair did 7);
+    ``bwd_kv``: the bwd-kv kernel's own work on Q1's two fp32 scratches (p m
+    / keep and ds over the T x T pairs) with q and g (dk, dv: 2)."""
+    row, stat = B * T * H * D, B * H * T
+    ins = 4 * esz * row + 4.0 * (2 * stat + B * T)
+    return {"bwd_q": (ins + 4.0 * row, _attn_flops(3, H, D, T, lens)),
+            "bwd_kv_function": (ins + 4.0 * 2 * row, _attn_flops(4, H, D, T, lens)),
+            "whole": (ins + 4.0 * 3 * row, _attn_flops(5, H, D, T, lens)),
+            "bwd_kv": (2.0 * esz * row + 8.0 * B * H * T * T + 4.0 * 2 * row,
+                       _attn_flops(2, H, D, T, lens))}
+
+
 def check_flash_training(dev):
-    """K1 with dropout, K3a (bwd_q) and K3b (bwd_kv) against their plain
-    versions under one seed, at the training shapes (B=8, H=2, D=128;
-    encoder T=64, decoder T=512; ragged lengths and a fully padded row),
-    fp32 and bf16, dropout 0 and 0.2, with times. Returns the per-step
-    figures (fp32, dropout 0.2: 4 encoder + 6 decoder layers a step)."""
+    """K1 with dropout and K3 (the backward template's instance with no
+    position term: K3a, Q1 forming dq and the ds scratch; K3b, bwd-kv on the
+    ds and P scratches of a Q1) against their plain versions under one seed,
+    at the training shapes (B=8, H=2, D=128; encoder T=64, decoder T=512;
+    ragged lengths and a fully padded row), fp32 and bf16, dropout 0 and
+    0.2: the whole backward (``attention_bwd``), the standalone halves and
+    bwd-kv alone on one Q1's scratches (against ``xl_bwd_kv_plain``), with
+    times. Returns the per-step figures (fp32, dropout 0.2: 4 encoder + 6
+    decoder layers a step): K3a, Q1 without P; K3b, bwd-kv alone on the
+    scratches, beside Q1 with P and the whole backward, which SDPA's
+    backward (all three gradients) is held against."""
     from viet_tts_torch.ops import flash_attention as fa
 
     B, H, D = TRAIN_B, 2, 128
     scale = D ** -0.5
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    step = {name: dict.fromkeys(keys, 0.0) for name in ("fwd", "bwd_q", "bwd_kv")}
-    step["fwd"].update(bound_ms_fp32=0.0, per_shape={})
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ms_fp32")
+    step = {name: dict.fromkeys(keys, 0.0) for name in ("fwd", "bwd_q", "bwd_kv", "whole")}
+    step["fwd"]["per_shape"] = {}
     err = {name: 0.0 for name in step}
     kinds = {name: set() for name in step}
     for T, n_layers in ((TRAIN_T_TEXT, 4), (TRAIN_T_MEL, 6)):
@@ -452,86 +481,105 @@ def check_flash_training(dev):
             q, k, v = (x.to(dtype) for x in base[:3])
             g = base[3]  # the cotangent of ctx is fp32, as autograd hands it over
             esz = q.element_size()
+            work = _k3_work(B, H, D, T, lens, esz)
             for p in (0.0, ATTN_DROPOUT):
                 seed = 1000003 * T + int(p * 10)
                 ctx, lse = fa.attention_fwd(q, k, v, scale, pad, p, seed)
                 ref, ref_lse = fa.attention_fwd_plain(q, k, v, scale, pad, p, seed)
                 delta, gs = fa.backward_inputs(ctx, g, dtype)
                 args = (q, k, v, gs, padf, lse, delta, scale, p, seed)
-                dq = fa.attention_bwd_dq(*args)
-                dk, dv = fa.attention_bwd_dkv(*args)
-                rdq = fa.attention_bwd_dq_plain(*args)
-                rdk, rdv = fa.attention_bwd_dkv_plain(*args)
+                whole_args = (q, k, v, padf, ctx, lse, g, seed, scale, p)
+                got = {"whole": fa.attention_bwd(*whole_args),
+                       "halves": (fa.attention_bwd_dq(*args), *fa.attention_bwd_dkv(*args))}
+                want = (fa.attention_bwd_dq_plain(*args), *fa.attention_bwd_dkv_plain(*args))
                 torch.cuda.synchronize()
-                errs = {"ctx": (ctx - ref).abs().max().item(),
-                        "dq": (dq - rdq).abs().max().item(),
-                        "dk": (dk - rdk).abs().max().item(),
-                        "dv": (dv - rdv).abs().max().item()}
+                errs = {"ctx": (ctx - ref).abs().max().item()}
+                for how, grads in got.items():
+                    for gname, a, b in zip(("dq", "dk", "dv"), grads, want):
+                        errs[f"{gname} ({how})"] = (a - b).abs().max().item()
                 lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item()
                 name = f"T={T} {str(dtype)[6:]} dropout={p}"
-                finite = all(torch.isfinite(x).all() for x in (ctx, dq, dk, dv))
+                finite = all(torch.isfinite(x).all() for x in (ctx, *got["whole"], *got["halves"]))
                 if not (finite and max(errs.values()) <= tol and lse_err <= 1e-5):
                     raise AssertionError(f"K1/K3 {name}: max_abs_err {errs} (tol {tol}), "
                                          f"lse rel err {lse_err}")
+                del got, want
+                # bwd-kv alone on the scratches of one Q1, held against its
+                # plain version there (within tol, scaled where it passes 1)
+                stages = _bwd_kv_stages("plain", args, tol,
+                                        whole=lambda: fa.attention_bwd(*whole_args))
+                errs["dk, dv (bwd-kv alone)"] = stages["err"][0]
                 iters = 50 if T == TRAIN_T_TEXT else 20
                 lib_fwd, lib_bwd = _library_attention(q, k, v, g, pad, scale, p)
                 # the backward rows in device time, their library call too
                 # (an autograd backward: host gaps between its launches)
                 l_bwd = bwd_ms(lib_bwd, iters, f"SDPA backward {name}")
                 k_dq = bwd_ms(lambda: fa.attention_bwd_dq(*args), iters, f"K3a {name}")
-                k_dkv = bwd_ms(lambda: fa.attention_bwd_dkv(*args), iters, f"K3b {name}")
-                # bytes: inputs once in their dtype, fp32 pad/lse/delta/outputs once
-                row, stat = B * T * H * D, B * H * T
+                k_kv = bwd_ms(stages["kernel"], iters, f"K3b bwd-kv alone {name}")
+                k_whole = bwd_ms(stages["whole"], iters, f"K3 whole {name}")
                 # K1 runs on the tensor cores: the bound of that work
-                fwd_work = (3 * esz * row + 4.0 * (row + stat + B * T),
+                fwd_work = (3 * esz * B * T * H * D + 4.0 * (B * T * H * D + B * H * T + B * T),
                             _attn_flops(2, H, D, T, lens))
                 times = {
                     "fwd": (cuda_ms(lambda: fa.attention_fwd(q, k, v, scale, pad, p, seed), iters),
                             cuda_ms(lambda: fa.attention_fwd_plain(q, k, v, scale, pad, p, seed),
                                     iters),
-                            cuda_ms(lib_fwd, iters),
-                            _tensor_core_bound(*fwd_work, dtype),
-                            errs["ctx"], None),
+                            cuda_ms(lib_fwd, iters), fwd_work, errs["ctx"], None),
                     "bwd_q": (k_dq[0], cuda_ms(lambda: fa.attention_bwd_dq_plain(*args), iters),
-                              l_bwd[0],
-                              bound(4 * esz * row + 4.0 * (row + 2 * stat + B * T),
-                                    _attn_flops(3, H, D, T, lens), peak),
-                              errs["dq"], (k_dq[1], l_bwd[1])),
-                    "bwd_kv": (k_dkv[0], cuda_ms(lambda: fa.attention_bwd_dkv_plain(*args), iters),
-                               l_bwd[0],
-                               bound(4 * esz * row + 4.0 * (2 * row + 2 * stat + B * T),
-                                     _attn_flops(4, H, D, T, lens), peak),
-                               max(errs["dk"], errs["dv"]), (k_dkv[1], l_bwd[1])),
+                              l_bwd[0], work["bwd_q"],
+                              max(errs["dq (whole)"], errs["dq (halves)"]), (k_dq[1], l_bwd[1])),
+                    "bwd_kv": (k_kv[0], cuda_ms(stages["plain"], iters), l_bwd[0], work["bwd_kv"],
+                               max(e for n, e in errs.items() if n[:2] in ("dk", "dv")),
+                               (k_kv[1], l_bwd[1])),
+                    "whole": (k_whole[0],
+                              cuda_ms(lambda: fa.attention_bwd_plain(*whole_args), iters),
+                              l_bwd[0], work["whole"], max(e for n, e in errs.items()
+                                                           if n != "ctx"), (k_whole[1], l_bwd[1])),
                 }
-                pair_ms, _ = bound(4 * esz * row + 4.0 * (3 * row + 2 * stat + B * T),
-                                   _attn_flops(5, H, D, T, lens), peak)
                 log(f"K1/K3 {name}: max_abs_err {', '.join(f'{n} {e:.3e}' for n, e in errs.items())}"
-                    f" (tol {tol}); K3 pair bound {pair_ms:.4f} ms (10 BHTLD FLOP; the "
-                    f"two-kernel schedule does 14; x{n_layers} a step)")
-                for kern, (k_ms, p_ms, l_ms, (b_ms, kind), e, events) in times.items():
+                    f" (tol {tol}); x{n_layers} a step")
+                for kern, (k_ms, p_ms, l_ms, (nbytes, flops), e, events) in times.items():
                     ev = "" if events is None else _events_note(*events)
+                    b_ms, kind = _tensor_core_bound(nbytes, flops, dtype)
+                    b32, _ = bound(nbytes, flops, peak)
                     log(f"  {kern}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-                        f"library_ms {l_ms:.4f} bound_ms {b_ms:.4f} ({kind}) "
-                        f"max_abs_err {e:.3e}{ev}")
+                        f"library_ms {l_ms:.4f} bound_ms {b_ms:.4f} ({kind}; CUDA cores "
+                        f"{b32:.4f}) max_abs_err {e:.3e}{ev}")
+                    if kern == "whole":
+                        log(f"  whole K3 backward against SDPA's backward (dq, dk, dv): "
+                            f"{k_ms / l_ms:.3f}x its time")
                     if dtype != torch.float32 or p != ATTN_DROPOUT:
                         continue  # the kernel line reports fp32 with dropout
                     err[kern] = max(err[kern], e)
                     kinds[kern].add(kind)
-                    for key, val in zip(keys, (k_ms, p_ms, l_ms, b_ms)):
+                    for key, val in zip(keys, (k_ms, p_ms, l_ms, b_ms, b32)):
                         step[kern][key] += n_layers * val
+                    tc = _tensor_core_figures(f"K3 {kern} (B={B}, T={T}) dropout {p}", k_ms, b_ms,
+                                              nbytes, flops)
                     if kern == "fwd":
-                        step[kern]["bound_ms_fp32"] += n_layers * bound(*fwd_work, peak)[0]
-                        tc = _tensor_core_figures(f"flash_attention_fwd (B={B}, T={T}) dropout "
-                                                  f"{p}", k_ms, b_ms, *fwd_work)
                         step[kern]["per_shape"][f"({B}, {T}) training"] = dict(
                             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                             bound_by=kind, **tc)
+                    if kern == "bwd_kv":
+                        fig = _bwd_kv_figures(f"K3 bwd-kv (B={B}, T={T})", stages,
+                                              work["bwd_kv_function"], iters)
+                        for key in ("q1_ms", "q1_with_p_ms", "q1_ms_cuda_events",
+                                    "q1_with_p_ms_cuda_events", "bound_ms_function",
+                                    "bound_ms_function_3xtf32"):
+                            step[kern][key] = step[kern].get(key, 0.0) + n_layers * fig[key]
                     if events is not None:
                         for key, val in zip(EVENT_KEYS, events):
                             step[kern][key] = step[kern].get(key, 0.0) + n_layers * val
+                del stages
     for kern in step:
         step[kern]["max_abs_err"] = err[kern]
         step[kern]["bound_by"] = "operations" if "operations" in kinds[kern] else "bytes"
+    log(f"K3 a step (fp32, dropout {ATTN_DROPOUT}): whole backward {step['whole']['ms']:.4f} ms "
+        f"(Q1 with P {step['bwd_kv']['q1_with_p_ms']:.4f} + bwd-kv {step['bwd_kv']['ms']:.4f}); "
+        f"K3a alone {step['bwd_q']['ms']:.4f}; SDPA's backward {step['whole']['library_ms']:.4f} "
+        f"({step['whole']['ms'] / step['whole']['library_ms']:.3f}x); bound "
+        f"{step['whole']['bound_ms']:.4f} (3xTF32), {step['whole']['bound_ms_fp32']:.4f} "
+        f"(fp32 CUDA cores)")
     return step
 
 
@@ -540,16 +588,22 @@ def k3_entries(step):
            f"({TRAIN_B}, {TRAIN_T_TEXT}) + 6 at ({TRAIN_B}, {TRAIN_T_MEL}), H=2, D=128)")
     library = ("F.scaled_dot_product_attention backward (dq, dk and dv together) on "
                "a retained graph")
+    source = "viet_tts_torch/csrc/flash_xl_attention_bwd.cu"
+    # the whole backward (Q1 with P, then bwd-kv), which SDPA's backward
+    # computes too
+    whole = {k: v for k, v in step["whole"].items() if k != "bound_by"}
     return [
-        {"name": "flash_attention_bwd_q", "route": "cuda",
-         "source": "viet_tts_torch/csrc/flash_attention_bwd.cu",
+        {"name": "flash_attention_bwd_q", "route": "cuda", "source": source,
+         "instance": "xl2_bwd_q1_ds_kernel<T, D, false, 3> (Q1 without P)",
          "replaces": "viet_tts_tpu/ops/pallas_attention.py:627",
-         "tol": 1e-4, "per": per, "library": library, "timing": BWD_TIMING, **step["bwd_q"]},
-        {"name": "flash_attention_bwd_kv", "route": "cuda",
-         "source": "viet_tts_torch/csrc/flash_attention_bwd.cu",
+         "tol": 1e-4, "per": per, "library": library, "timing": BWD_TIMING,
+         "whole_backward": whole, **step["bwd_q"]},
+        {"name": "flash_attention_bwd_kv", "route": "cuda", "source": source,
+         "instance": ("xl2_bwd_kv_kernel<T, D, 2> (chunk sums) alone on the scratches of "
+                      "xl2_bwd_q1_ds_kernel<T, D, true, 3> (q1_with_p_ms)"),
          "replaces": "viet_tts_tpu/ops/pallas_attention.py:656",
          "tol": 1e-4, "per": per, "library": library, "timing": BWD_TIMING,
-         **step["bwd_kv"]},
+         "whole_backward": whole, **step["bwd_kv"]},
     ]
 
 
@@ -1398,30 +1452,44 @@ def _xl_train_work(kind: str, args, lens, T: int):
     return work
 
 
-def _bwd_kv_stages(kind: str, bargs, tol: float = 1e-4) -> dict:
-    """The K5 (``xl2``) / K6 (``xl``) / K7 (``rel``) backward's stages at one
-    call of the training path, as closures to time: Q1 without and with its
-    second write (P), the bwd-kv kernel alone on the scratches of one Q1 and
-    its plain version there (``xl_bwd_kv_plain``), and the whole backward
-    (``xl2_bwd`` / ``xl_bwd`` / ``rel_bwd``); with the kernel alone's (max
+def _bwd_kv_stages(kind: str, bargs, tol: float = 1e-4, whole=None) -> dict:
+    """The K3 (``plain``) / K5 (``xl2``) / K6 (``xl``) / K7 (``rel``)
+    backward's stages at one call of the training path, as closures to
+    time: Q1 without and with its second write (P), the bwd-kv kernel alone
+    on the scratches of one Q1 and its plain version there
+    (``xl_bwd_kv_plain``), and the whole backward (``xl2_bwd`` / ``xl_bwd``
+    / ``rel_bwd``; K3's ``whole``, the closure of its ``attention_bwd``
+    call, whose arguments differ from bargs); with the kernel alone's (max
     abs error, scaled) against that plain version, which must be within
     ``tol`` (scaled by the largest value where that exceeds 1). The stage
     helpers count no launch: these are timings, not the path."""
+    from viet_tts_torch.ops import flash_attention as fa
     from viet_tts_torch.ops import flash_rel_attention as fr
     from viet_tts_torch.ops import flash_xl_attention as fx
 
-    *streams, pad, lse, delta, g, scale, p, seed = bargs
-    ops_fn, pos, whole = {"xl2": (fx._xl2_ops, fx.POS_XL_ROT, fx.xl2_bwd),
-                          "xl": (fx._xl_ops, fx.POS_XL, fx.xl_bwd),
-                          "rel": (fr._rel_ops, fx.POS_REL, fr.rel_bwd)}[kind]
-    ops = ops_fn(*streams, pad, lse, delta, g)
-    _, s, pm, _ = fx._bwd_q1(pos, *ops, scale, p, seed, True)
+    if kind == "plain":  # K3: bargs as attention_bwd_dq takes them
+        q, k, v, g, pad, lse, delta, scale, p, seed = bargs
+        ops = fa._bwd_ops(q, k, v, g, pad, lse, delta)
+        q1 = lambda with_p: fa._bwd_q1(*ops, scale, p, seed, with_p)
+        qc, g = ops[0], ops[3]
+        kv = fa._bwd_kv  # K3's own bwd-kv instance
+    else:
+        *streams, pad, lse, delta, g, scale, p, seed = bargs
+        ops_fn, pos, whole_fn = {"xl2": (fx._xl2_ops, fx.POS_XL_ROT, fx.xl2_bwd),
+                                 "xl": (fx._xl_ops, fx.POS_XL, fx.xl_bwd),
+                                 "rel": (fr._rel_ops, fx.POS_REL, fr.rel_bwd)}[kind]
+        ops = ops_fn(*streams, pad, lse, delta, g)
+        q1 = lambda with_p: fx._bwd_q1(pos, *ops, scale, p, seed, with_p)
+        qc, g = ops[0], ops[9]
+        whole = lambda: whole_fn(*bargs)
+        kv = fx._bwd_kv
+    s, pm = q1(True)[1:3]
     stages = {
-        "kernel": lambda: fx._bwd_kv(ops[0], ops[9], s, pm),
-        "plain": lambda: fx.xl_bwd_kv_plain(ops[0], ops[9], s, pm),
-        "q1": lambda: fx._bwd_q1(pos, *ops, scale, p, seed, False),
-        "q1_with_p": lambda: fx._bwd_q1(pos, *ops, scale, p, seed, True),
-        "whole": lambda: whole(*bargs),
+        "kernel": lambda: kv(qc, g, s, pm),
+        "plain": lambda: fx.xl_bwd_kv_plain(qc, g, s, pm),
+        "q1": lambda: q1(False),
+        "q1_with_p": lambda: q1(True),
+        "whole": whole,
     }
     got, want = stages["kernel"](), stages["plain"]()
     torch.cuda.synchronize()
@@ -1447,7 +1515,7 @@ def _bwd_kv_figures(name: str, stages: dict, function_work, iters: int) -> dict:
     fig["max_abs_err_kernel_alone"] = stages["err"][0]
     log(f"    {name}: Q1 {fig['q1_ms']:.4f} ms, with the P write {fig['q1_with_p_ms']:.4f} "
         f"(+{fig['q1_with_p_ms'] - fig['q1_ms']:.4f}); whole backward {fig['whole_ms']:.4f} ms; "
-        f"the function's bound {fig['bound_ms_function']:.4f} ms (fp32 cores, 4D + E a pair), "
+        f"the function's bound {fig['bound_ms_function']:.4f} ms (fp32 cores), "
         f"{fig['bound_ms_function_3xtf32']:.4f} (3xTF32); kernel alone vs its plain version "
         f"{stages['err'][0]:.3e} (scaled {stages['err'][1]:.3e})")
     return fig
@@ -2665,27 +2733,34 @@ KERNEL_GROUPS = (
     ("K1 xl2_fwd_kernel (tensor cores, no position term)",
      tuple(f"xl2_fwd_kernel<{t}, {d}, 3," for t in ("float", "__nv_bfloat16")
            for d in (32, 64, 128))),
-    ("K3a flash_bwd_q_kernel", ("flash_bwd_q_kernel",)),
-    ("K3b flash_bwd_kv_kernel", ("flash_bwd_kv_kernel",)),
     ("K2 mrf_pair_kernel (tensor cores)", ("mrf_pair_kernel",)),
     ("K4 xl3_fwd_band_kernel (tensor cores)", ("xl3_fwd_band_kernel",)),
     # K4 bwd: its ds kernel, its instance of bwd-kv (<dtype, D, true>) and
     # the reduce pass
-    ("K4 bwd (xl3_bwd_ds, xl2_bwd_kv<., ., true>, xl3_bwd_reduce)",
-     ("xl3_bwd_", *(f"xl2_bwd_kv_kernel<{t}, {d}, true>" for t in ("float", "__nv_bfloat16")
+    ("K4 bwd (xl3_bwd_ds, xl2_bwd_kv<., ., 1>, xl3_bwd_reduce)",
+     ("xl3_bwd_", *(f"xl2_bwd_kv_kernel<{t}, {d}, 1>" for t in ("float", "__nv_bfloat16")
                     for d in (48, 64)))),
     # K7 bwd-q's own instances: position kind 2 (Q1 pos, Q2)
     ("K7 bwd-q Q1 pos / Q2 (xl2_bwd_q1_pos<., 2>, q2<., 2>)",
      tuple(f"{k}<{t}, 2>" for t in ("float", "__nv_bfloat16")
            for k in ("xl2_bwd_q1_pos_kernel", "xl2_bwd_q2_kernel"))),
+    # K3's instances: Q1 ds with no position term (<dtype, D, P write, 3>)
+    # and bwd-kv on its scratches (<dtype, D, 2>), ahead of the D = 128
+    # groups below, whose Q1 ds prefix would catch them too
+    ("K3a Q1 ds (q1_ds<., ., ., 3>: dq, and the ds and P scratches)",
+     tuple(f"xl2_bwd_q1_ds_kernel<{t}, {d}, {w}, 3>" for t in ("float", "__nv_bfloat16")
+           for d in (32, 64, 128) for w in ("true", "false"))),
+    ("K3b bwd-kv (xl2_bwd_kv<., ., 2>, on K3's scratches)",
+     tuple(f"xl2_bwd_kv_kernel<{t}, {d}, 2>" for t in ("float", "__nv_bfloat16")
+           for d in (32, 64, 128))),
     # Q1 ds and bwd-kv at D = 128 are one instance each for K7 and K6's
     # legacy flavour (both with the P write): the JETS-conformer step of
     # each flavour runs only its own, and each step is profiled on its own
-    ("D=128 bwd-q Q1 ds (q1_ds<., 128, true>: K7 latest, K6 legacy step)",
+    ("D=128 bwd-q Q1 ds (q1_ds<., 128, true, 0>: K7 latest, K6 legacy step)",
      tuple(f"xl2_bwd_q1_ds_kernel<{t}, 128," for t in ("float", "__nv_bfloat16"))),
-    ("D=128 bwd-kv (xl2_bwd_kv<., 128, false>: K7 latest, K6 legacy step; K7 dtab)",
+    ("D=128 bwd-kv (xl2_bwd_kv<., 128, 0>: K7 latest, K6 legacy step; K7 dtab)",
      tuple(f"{k}<{t}, {a}>" for t in ("float", "__nv_bfloat16")
-           for k, a in (("xl2_bwd_kv_kernel", "128, false"), ("xl2_bwd_dtab_kernel", "2")))),
+           for k, a in (("xl2_bwd_kv_kernel", "128, 0"), ("xl2_bwd_dtab_kernel", "2")))),
     # bwd-q's other kernels are K5's and K6's alike (a step runs one of the
     # two); K5 adds the rotation pass (before its forward and its bwd-q) and
     # the inverse rotation after bwd-q

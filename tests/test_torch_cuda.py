@@ -112,6 +112,82 @@ def test_flash_autograd_function_launches_the_kernels(cuda_device):
         assert (a.grad - b.grad).abs().max().item() <= 1e-4
 
 
+def _flash_bwd_case(device, B, T, H, D, dtype, dropout_p, seed):
+    """K3's arguments (q, k, v, g, pad, lse, delta, scale, dropout_p, seed)
+    on K1's own lse and delta: ragged rows, the last fully padded."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32))
+               .to(device, dtype) for _ in range(3))
+    gout = torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32)).to(device)
+    lens = torch.from_numpy(rng.randint(1, T + 1, B))
+    lens[0], lens[-1] = T, 0
+    pad = (torch.arange(T)[None] >= lens[:, None]).to(device)
+    scale, drop_seed = D ** -0.5, 1000 * T + D
+    ctx, lse = fa.attention_fwd(q, k, v, scale, pad, dropout_p, drop_seed)
+    delta, g = fa.backward_inputs(ctx, gout, dtype)
+    return q, k, v, g, pad.float(), lse, delta, scale, dropout_p, drop_seed
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_on_shared_scratches(cuda_device):
+    """K3 as the backward template's instance with no position term, at
+    every built head dim (32, 64, 128), fp32 (1e-4) and bf16 (2e-2),
+    dropout 0 and 0.2, ragged rows with a fully padded one: the whole
+    backward (Q1 with P, then bwd-kv on its scratches; one count each)
+    equals the standalone ``attention_bwd_dq`` (Q1 without P) and
+    ``attention_bwd_dkv`` bit for bit and holds against the plain versions;
+    bwd-kv alone on one Q1's scratches holds against ``xl_bwd_kv_plain``
+    there; the scratches hold the plain ds and p m / keep on the T real keys
+    (a fully padded row's m / Tp included) and 0 from T to the end of the
+    last 64-key tile."""
+    B, T, H = 3, 200, 2
+    for D in (32, 64, 128):
+        for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            for p in (0.0, 0.2):
+                case = f"D={D} {dtype} dropout={p}"
+                args = _flash_bwd_case(cuda_device, B, T, H, D, dtype, p, seed=D + int(10 * p))
+                q, k, v, g, pad, lse, delta, scale = args[:8]
+                ops = fa._bwd_ops(q, k, v, g, pad, lse, delta)
+                before = (fa.attention_bwd_dq.launches, fa.attention_bwd_dkv.launches)
+                dq, s, pm = fa._bwd_q1(*ops, scale, p, args[9], with_p=True)
+                whole = (dq, *fa._bwd_kv(ops[0], ops[3], s, pm))
+                alone = (fa.attention_bwd_dq(*args), *fa.attention_bwd_dkv(*args))
+                assert (fa.attention_bwd_dq.launches, fa.attention_bwd_dkv.launches) == (
+                    before[0] + 1, before[1] + 1), case
+                want = (fa.attention_bwd_dq_plain(*args), *fa.attention_bwd_dkv_plain(*args))
+                kv_plain = fx.xl_bwd_kv_plain(ops[0], ops[3], s, pm)
+                _, _, _, p_v, ds = fa._bwd_terms(q, k, v, g, pad, lse, delta, scale, p, args[9])
+                torch.cuda.synchronize()
+                for name, a, b, ref in zip(("dq", "dk", "dv"), whole, alone, want):
+                    assert torch.isfinite(a).all(), (case, name)
+                    assert torch.equal(a, b), (case, name)
+                    assert (a - ref).abs().max().item() <= atol, (case, name)
+                for name, a, ref in zip(("dk", "dv"), whole[1:], kv_plain):
+                    assert (a - ref).abs().max().item() <= atol, (case, "kv alone", name)
+                edge = -(-T // 64) * 64
+                for name, x, ref in (("ds", s, ds), ("p m / keep", pm, p_v)):
+                    assert (x[..., :T] - ref).abs().max().item() <= atol, (case, name)
+                    assert not x[..., T:edge].any(), (case, name)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_past_a_wave(cuda_device):
+    """K3 on a grid past one wave of the card (B H = 64 at T = 1008: 1,024
+    blocks of Q1 and of bwd-kv), fp32 and bf16, dropout 0.2, against the
+    plain versions (a short row's dk and dv reach ~50 there: bwd-kv's chunk
+    sums keep its 1008-row contraction within the fp32 limit)."""
+    for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        args = _flash_bwd_case(cuda_device, 32, 1008, 2, 128, dtype, 0.2, seed=64)
+        got = (fa.attention_bwd_dq(*args), *fa.attention_bwd_dkv(*args))
+        want = (fa.attention_bwd_dq_plain(*args), *fa.attention_bwd_dkv_plain(*args))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert torch.isfinite(a).all(), (dtype, name)
+            err = (a - b).abs().max().item()
+            assert err <= atol, (dtype, name, err, b.abs().max().item())
+        del got, want
+
+
 def _mrf_weights(C, device, seed):
     rng = np.random.RandomState(seed)
     out = ([], [], [], [])

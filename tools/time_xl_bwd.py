@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Time the K4 backward, the K5 / K6 backward (bwd-q and bwd-kv together),
-K7 bwd-q and the whole K7 backward of one or more checkouts on one NVIDIA
-card, in turns, at the shapes the training paths run them, with each
-kernel's device time.
+"""Time the K3 backward (the plain attention's), the K4 backward, the K5 /
+K6 backward (bwd-q and bwd-kv together), K7 bwd-q and the whole K7
+backward of one or more checkouts on one NVIDIA card, in turns, at the
+shapes the training paths run them, with each kernel's device time.
 
     python3 tools/time_xl_bwd.py                    # this checkout
     python3 tools/time_xl_bwd.py OLD NEW NEW OLD    # checkouts in turns
+    python3 tools/time_xl_bwd.py --only 'K3|K7' OLD NEW  # shapes whose label holds K3 or K7
 
 Each argument is the root of a checkout of this repository. Each runs in a
 process of its own, in the order given, and builds its kernels into its own
 ``build/``. The backward is what the autograd function of that checkout
-runs: ``xl3_bwd`` for K4; ``xl2_bwd`` / ``xl_bwd`` where the checkout has
+runs: ``attention_bwd`` for K3; ``xl3_bwd`` for K4; ``xl2_bwd`` / ``xl_bwd`` where the checkout has
 them (bwd-q and bwd-kv on shared scratches), else ``xl2_bwd_dq`` then
 ``xl2_bwd_dkv`` (the same for ``xl_``); ``rel_bwd_dq`` for K7 bwd-q;
 ``rel_bwd`` for the whole K7 backward where the checkout has it, else
@@ -32,11 +33,14 @@ import os
 import subprocess
 import sys
 
-# (label, kind, B, T, H, D, dropout): K4 at the FS2 encoder's text bucket
+# (label, kind, B, T, H, D, dropout): K3 at the JETS training encoder and
+# decoder (its transformer stacks), K4 at the FS2 encoder's text bucket
 # and the decoder's 512 frames, K5 at the FS2 decoder's 1008 frames, K6 at
 # the FS2 2048-frame bucket and at the JETS legacy conformer's decoder, K7
 # bwd-q at the JETS conformer's training encoder and decoder
 SHAPES = (
+    ("K3 whole (8, 64)", "plain", 8, 64, 2, 128, 0.2),
+    ("K3 whole (8, 512)", "plain", 8, 512, 2, 128, 0.2),
     ("K4 (8, 64) D=48", "xl3", 8, 64, 8, 48, 0.1),
     ("K4 (8, 512) D=48", "xl3", 8, 512, 8, 48, 0.1),
     ("K5 (8, 1008) D=48", "xl2", 8, 1008, 8, 48, 0.1),
@@ -49,15 +53,17 @@ SHAPES = (
 )
 # kernel-name fragments of the backwards, in launch order (K4's, then K5 /
 # K6's; K4's bwd-kv is an instance of K5 / K6's kernel, and K7 runs K5 /
-# K6's Q1, Q2 and bwd-kv; rel_bwd_q and rel_bwd_kv are the CUDA-core K7
-# kernels of older checkouts)
-KERNELS = ("xl3_bwd_ds", "xl3_bwd_q", "xl3_bwd_kv", "xl3_bwd_reduce",
+# K6's Q1, Q2 and bwd-kv, K3 their Q1 ds and bwd-kv; flash_bwd_q / _kv and
+# rel_bwd_q / _kv are the CUDA-core K3 and K7 kernels of older checkouts)
+KERNELS = ("flash_bwd_q", "flash_bwd_kv", "xl3_bwd_ds", "xl3_bwd_q", "xl3_bwd_kv",
+           "xl3_bwd_reduce",
            "xl2_rotate", "xl2_bwd_q1_pos", "xl2_bwd_q1_ds", "xl2_bwd_q2", "xl2_bwd_unrotate",
            "xl2_bwd_kv", "xl2_bwd_dtab", "rel_bwd_q", "rel_bwd_kv")
 
 
-def worker() -> None:
-    """Time this checkout's backward (the working directory's package)."""
+def worker(only: str) -> None:
+    """Time this checkout's backward (the working directory's package) at the
+    shapes whose label holds one of ``only``'s parts, separated by |."""
     sys.path.insert(0, os.getcwd())
     import numpy as np
     import torch
@@ -66,6 +72,7 @@ def worker() -> None:
 
     from viet_tts_torch.nn.espnet_conformer import rel_positional_table
     from viet_tts_torch.nn.utils import sinusoid_position_table
+    from viet_tts_torch.ops import flash_attention as fa
     from viet_tts_torch.ops import flash_rel_attention as fr
     from viet_tts_torch.ops import flash_xl_attention as fx
     from viet_tts_torch.ops.espnet_attention import neg_rel_table, rel_pos_queries_latest
@@ -77,6 +84,8 @@ def worker() -> None:
     dev = torch.device("cuda")
     out = {}
     for label, kind, B, T, H, D, p in SHAPES:
+        if not any(o in label for o in only.split("|")):
+            continue
         E = H * D
         gen = torch.Generator().manual_seed(T + D)
         f = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
@@ -85,7 +94,10 @@ def worker() -> None:
         pos_kernel = f(E, E) / np.sqrt(E)
         table = torch.from_numpy(sinusoid_position_table(T, E)).to(dev)
         scale = D ** -0.5 if D == 128 else 1.0 / np.sqrt(E)  # JETS / FS2
-        if kind in ("rel", "rel_whole"):
+        if kind == "plain":
+            args = (q, k, v)
+            fwd = fa.attention_fwd
+        elif kind in ("rel", "rel_whole"):
             neg = neg_rel_table(torch.from_numpy(rel_positional_table(T, E)).to(dev))
             args = (qc, k, v, rel_pos_queries_latest(qv, pos_kernel), neg.contiguous())
             fwd, whole = fr.rel_fwd, fr.rel_bwd_dq
@@ -110,13 +122,21 @@ def worker() -> None:
         ctx, lse = fwd(*args, scale, None, p, seed)
         gout = f(*ctx.shape)
         delta, g = backward_inputs(ctx, gout, torch.float32)
-        bargs = (*args, torch.zeros(B, T, device=dev), lse, delta, g, scale, p, seed)
-        if whole is not None:
+        pad = torch.zeros(B, T, device=dev)
+        bargs = (*args, pad, lse, delta, g, scale, p, seed)
+        if kind == "plain":
+            # what the autograd function runs: K3a then K3b, or the whole
+            # backward on shared scratches
+            pargs = (q, k, v, pad, ctx, lse, gout, seed, scale, p)
+            run = lambda: fa.attention_bwd(*pargs)
+        elif whole is not None:
             run = lambda: whole(*bargs)
         else:
             run = lambda: (dq(*bargs), dkv(*bargs))
         run()
-        if kind == "rel":
+        if kind == "plain":
+            got, want = fa.attention_bwd(*pargs), fa.attention_bwd_plain(*pargs)
+        elif kind == "rel":
             got, want = fr.rel_bwd_dq(*bargs), fr.rel_bwd_dq_plain(*bargs)
         elif kind == "xl3":
             got, want = fx.xl3_bwd(*bargs), fx.xl3_bwd_plain(*bargs)
@@ -160,16 +180,19 @@ def worker() -> None:
 
 
 def main() -> int:
-    if sys.argv[1:] == ["--worker"]:
-        worker()
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2])
         return 0
-    checkouts = sys.argv[1:] or [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
+    argv, only = sys.argv[1:], ""
+    if argv[:1] == ["--only"]:
+        only, argv = argv[1], argv[2:]
+    checkouts = argv or [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
     runs = []
     for root in checkouts:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker"],
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", only],
                              cwd=os.path.abspath(root), check=True, capture_output=True,
                              text=True).stdout
         times = json.loads(out.strip().splitlines()[-1])

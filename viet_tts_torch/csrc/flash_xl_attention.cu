@@ -25,8 +25,8 @@
 // `_xl_kernel` without the select): qc = q + pos_bias_u, g the pre-rotated
 // position queries (B, T, H, E), t the negative half of the symmetric
 // sinusoid table (T, E). K1 is the same function with pos_ij = 0 (qc = q),
-// at D in {32, 64, 128}; the backward kernels K3a / K3b
-// (flash_attention_bwd.cu) read its lse. Inputs are fp32 or bf16 in the JAX
+// at D in {32, 64, 128}; its backward K3a / K3b (flash_xl_attention_bwd.cu,
+// the backward template's instance with no position term) reads its lse. Inputs are fp32 or bf16 in the JAX
 // package's feature-last layouts, read in place; all arithmetic is fp32.
 //
 // K4: P_i(j) = qv_i . p_{T-1-i+j} and F_i(j) = qv_{i+1} . p_{j-i-2}, with p
@@ -142,8 +142,8 @@
 // package's semantics: the softmax denominator takes the undropped weights,
 // the context sums p * keep / (1 - p) * v. The keep bit of weight (i, j) is
 // dropout_hash.cuh's keep(seed, b, h, i, j), which depends on no tile size,
-// so the backward kernels (flash_xl_attention_bwd.cu; K1's in
-// flash_attention_bwd.cu) draw the same bits with their own tilings. With
+// so the backward kernels (flash_xl_attention_bwd.cu, K1's K3 too) draw
+// the same bits with their own tilings. With
 // dropout_p = 0 no bit is drawn.
 
 #include "xl3_band.cuh"

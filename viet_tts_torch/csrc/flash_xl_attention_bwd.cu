@@ -1,11 +1,14 @@
-// Kernels K4 bwd (xl3), K5 bwd-q / bwd-kv (xl2), K6 bwd-q / bwd-kv (xl)
-// and K7 bwd-q / bwd-kv (rel): the backward of the Transformer-XL
-// attention (flash_xl_attention.cu) of the FS2 conformer and of the JETS
-// conformer's legacy rel-pos flavour, and of the JETS conformer's espnet
-// "latest" rel-pos attention, for Hopper (sm_90a), with the forward's
+// Kernels K3a / K3b (plain), K4 bwd (xl3), K5 bwd-q / bwd-kv (xl2), K6
+// bwd-q / bwd-kv (xl) and K7 bwd-q / bwd-kv (rel): the backward of the
+// plain scaled-dot attention of JETS (K1), of the Transformer-XL attention
+// (flash_xl_attention.cu) of the FS2 conformer and of the JETS conformer's
+// legacy rel-pos flavour, and of the JETS conformer's espnet "latest"
+// rel-pos attention, for Hopper (sm_90a), with the forward's
 // attention-weight dropout.
 //
 // Replace the TPU kernels of viet_tts_tpu/ops/pallas_attention.py:
+//   K3a        `_plain_bwd_q_kernel` (`_plain_bwd_pallas` through `_call_bwd_q`);
+//   K3b        `_plain_bwd_kv_kernel` (`_plain_bwd_pallas` through `_call_bwd_kv`);
 //   K4 bwd     `_xl3_bwd_kernel` (launched by `_xl3_bwd_pallas`);
 //   K5 bwd-q   `_xl2_bwd_q_kernel` (`_xl2_bwd_pallas` through `_call_bwd_q`);
 //   K5 bwd-kv  `_xl2_bwd_kv_kernel` (`_xl2_bwd_pallas` through `_call_bwd_kv`);
@@ -19,7 +22,8 @@
 //   p   = exp(l - lse)                          (0 at padding keys)
 //   ds  = p * (dp * m / keep - delta) * scale   (0 at padding keys)
 //   dqc = ds k,   dk = ds^T qc,   dv = (p * m / keep)^T g,
-// dp = g v^T, m the forward's keep bit (dropout_hash.cuh). The position term
+// dp = g v^T, m the forward's keep bit (dropout_hash.cuh). K3 has no
+// position term (pos = 0; qc is q). The position term of the others
 // takes the rest of ds, split by the XL select into its past part dsA
 // (j <= i) and its future part dsB (j >= i + 2):
 //   K4: pos_ij = qv_i . p_{T-1-i+j} (past), qv_{i+1} . p_{j-i-2} (future), so
@@ -172,6 +176,21 @@
 //        K4 ds         bf16   48     84,080    202   1          256
 //        K4 ds         bf16   64     98,448    232   1          256
 //        (K4's bwd-kv instance: kv's registers; reduce: grid-stride.)
+//        K3 q1_ds      fp32   32     61,440    126   2          256
+//        K3 q1_ds      fp32   64    110,592    255   1          256
+//        K3 q1_ds      fp32   128   208,896    255   1          256
+//        K3 q1_ds      bf16   32     30,720    120   2          256
+//        K3 q1_ds      bf16   64     55,296    126   2          256
+//        K3 q1_ds      bf16   128   104,448    188   1          256
+//        K3 q1_ds, P   fp32   32 / 64 / 128    127 / 227 / 255  (2 / 1 / 1)
+//        K3 q1_ds, P   bf16   32 / 64 / 128    118 / 146 / 169  (2 / 1 / 1)
+//        K3 kv         fp32   32     79,872    109   2          256
+//        K3 kv         fp32   64    104,448    125   2          256
+//        K3 kv         fp32   128   153,600    227   1          256
+//        K3 kv         bf16   32     67,584     66   3          256
+//        K3 kv         bf16   64     79,872    104   2          256
+//        K3 kv         bf16   128   104,448    124   2          256
+//        (K3's fp32 instances with their slice and chunk sums.)
 //      K4's ds kernel with four warps of 16 rows (all the keys each) took
 //      0.91 ms at (8, 8, 512) fp32, one warp on each of an SM's four
 //      schedulers; eight warps, each half of the keys, take 0.47 ms
@@ -187,13 +206,40 @@
 //      them by under 5 %, so neither L2 traffic nor load latency is the
 //      limit. q1_ds splits every k and v element in all four warps. The next
 //      step is wgmma with the operands split once into shared memory.
+//  - K3 (the TPU's `_plain_bwd_q_kernel` forms s, dp and dq, and
+//    `_plain_bwd_kv_kernel` forms s and dp again, then dk and dv: 14 BHTLD
+//    FLOP a pair against the function's 10) is the template's instance
+//    with no position term, in two launches on the two scratches: Q1 ds
+//    with POS = kPosNone (no Q1 pos launch, no position logits read: s
+//    starts at 0) forms s, dp, ds, P and dq = ds k in one walk over the
+//    keys, then bwd-kv (K5 / K6 / K7's kernel, K3's instance
+//    kKvFromPlain) forms dk = ds^T q and dv = P^T g from the scratches:
+//    10 BHTLD FLOP. K3's Q1 ds runs eight warps a block: at the JETS
+//    decoder's (8, 2, 512), D = 128, fp32, a block's 208,896 B of shared
+//    memory admit one block an SM and the grid is 128 blocks, under one
+//    wave, so four warps leave one warp on each of an SM's schedulers. The
+//    two warp groups share the block's 64 query rows and walk alternate
+//    key tiles, each with one k / v stage of its own (the same six (64, D)
+//    tiles as the four-warp body's two stages), and sum their dq partials
+//    through shared memory at the end (xl2_bwd_ds_split). Measured in one
+//    call (tools/time_xl_bwd.py, H100, dropout 0.2, no slice sums in
+//    either): eight warps 0.104 ms a launch at (8, 2, 512) against 0.126
+//    for the four-warp body with s from 0; at (8, 2, 64), one key tile, 22
+//    us against 19 (the second group idles). Every key tile below T is
+//    walked (no live_end skip: bwd-kv reads every scratch cell below T).
+//    Built at D in {32, 64, 128}, the widths K1 takes.
 //  - A key tile wholly in the past of a query tile (every pair j <= i)
 //    forms only the gA . t products, one wholly in the future only gB . t.
 //  - K6 also runs at D = 128 (the JETS conformer, E = 256).
 //
-// What bounds them on the H100: at the training shapes (FS2: B=8, H=8,
-// D=48; K4 at T=512, K5 at T=1008, E=384) the data needs 2*B*H*T^2*8D =
-// 12.9 GFLOP for K4 bwd (s, the position term, g v, dqc, dk, dv, dqv, dp),
+// What bounds them on the H100: K3 at the JETS decoder's training shape
+// (B=8, H=2, T=512, D=128) needs 2*B*H*T^2*5D = 5.4 GFLOP (s, dp, dq, dk,
+// dv), 0.033 ms under 3xTF32, against 16.8 MB of fp32 streams in and 12.6
+// MB of gradients out (0.009 ms); Q1 writes the two scratches (16.8 MB
+// each) and bwd-kv reads them, 0.020 ms more. At the training shapes (FS2:
+// B=8, H=8, D=48; K4 at T=512, K5 at T=1008, E=384) the data needs
+// 2*B*H*T^2*8D = 12.9 GFLOP for K4 bwd (s, the position term, g v, dqc,
+// dk, dv, dqv, dp),
 // 2*B*H*T^2*(3D + 2E) = 119 GFLOP for K5 bwd-q and, with bwd-kv reading
 // Q1's scratches, 2*B*H*T^2*2D = 12.5 GFLOP for bwd-kv against 0.53 GB (K6
 // the same). All run on the tensor cores (495 TFLOP/s TF32, three products
@@ -244,6 +290,7 @@ __device__ __forceinline__ bool row_all_dead(const float* padb, int Tq) {
 constexpr int kTC = 64;           // Q1 ds: query rows and keys a tile; Q2: table columns
 constexpr int kKC = 32;           // contraction chunk of the pos and Q2 kernels
 constexpr int kTCThreads = 128;   // Q1 ds: four warps of 16 query rows
+constexpr int kQ1SplitThreads = 2 * kTCThreads;  // K3's Q1 ds: two groups of four
 // Q1 pos: (query rows, keys) a block, cp.async stages; a warp a 32 x 32 tile
 constexpr int kPosBM = 64, kPosBN = 64, kPosStages = 2;
 constexpr int kPosThreads = (kPosBM / 32) * (kPosBN / 32) * 32;
@@ -255,6 +302,10 @@ constexpr int kQ2Threads = (kQ2BM / 32) * (kTC / 32) * 32;
 // (dv or dk) x (32-key half) x (half of D)
 constexpr int kKvBN = 64, kKvBQ = 32, kKvStages = 3;
 constexpr int kKvThreads = 256;
+// bwd-kv's instances, by the kernel that wrote its scratches
+constexpr int kKvFromQ1 = 0;     // K5 / K6 / K7's Q1 ds
+constexpr int kKvFromXl3 = 1;    // K4's ds kernel
+constexpr int kKvFromPlain = 2;  // K3's Q1 ds (chunk sums)
 // dtab: keys a block (by kTC table columns; a warp a 32 x 32 tile), query
 // rows a stage, cp.async stages
 constexpr int kDtBN = 64, kDtBQ = 32, kDtStages = 2;
@@ -435,22 +486,316 @@ __global__ void __launch_bounds__(kPosThreads)
     }
 }
 
+// What a lane of Q1 ds keeps of its two query rows and their batch row.
+struct Q1Rows {
+  int qi[2];             // the lane's two query rows
+  float lse[2], del[2];  // their logsumexp and delta
+  const float* padb;     // the batch row's pad mask
+  float* Sb;             // the (b, h) rows of S and P
+  float* Pb;
+  bool all_dead;
+  float p_uniform;  // a fully padded row's weight, 1 / Tp
+  uint32_t drop_key;
+};
+
+// Q1 ds, the two halves of a key tile's work for a warp's 16 query rows
+// r0 .. r0 + 15 (its lanes' rows qi[0], qi[1]): first s (holding the
+// position logits, or 0) += qc k^T and dp = g v^T on the tensor cores, from
+// the staged qc, g (QC, GS) and the tile's k, v (KS, VS); then ds and P in
+// the accumulators' layout, ds written over s and into S, P into the
+// second scratch (WITH_P), and dqc += ds k with ds as the A operand
+// straight from the registers: the key order inside each 8-key step is
+// permuted (slot t <-> key 2t, slot t+4 <-> key 2t+1) so that the
+// accumulator layout is the A fragment's. P = p m / keep, rounded to the
+// stream dtype; a batch row whose keys are all padding (all_dead) gets the
+// uniform weight m / Tp (the dense gradient) at every key below T; keys
+// past T get 0.
+//
+// CHUNK_SUMS (K3's fp32 instances): each 32-wide slice of D is summed in
+// accumulators of its own and added into s and dp in fp32, as K3's bwd-kv
+// sums its row chunks (see xl2_bwd_kv_kernel): mma.sync's fp32
+// accumulation drops the low bits of each addend aligned to the
+// accumulator, and K3's dk sums those losses in dp over the query rows.
+// Without the slice sums the card test at T = 1008 (B H = 64, dropout
+// 0.2) missed the fp32 limit on dk (1.38e-4); with them it passes. At the
+// JETS decoder's (8, 512) dq, dk and dv come within 4.2e-6, 1.2e-5 and
+// 1.2e-5 of an fp64 reference, against 1.3e-5, 3.4e-5 and 3.7e-5 without
+// them (the fp32 plain version: 3.4e-6, 1.2e-5, 1.4e-5), for ~6 % of Q1's
+// time (tools/probe_bwd_sums.py, H100). bf16 streams (limit 2e-2) need
+// none.
+template <bool SPLIT, typename T, int D, bool CHUNK_SUMS>
+__device__ __forceinline__ void q1_products(float (&s)[8][4], float (&dp)[8][4], const T* QC,
+                                            const T* GS, const T* KS, const T* VS, int r0,
+                                            int lane) {
+  constexpr int LD = tile_ld(D);
+  constexpr int KC = CHUNK_SUMS ? 32 : D;  // the slice of D a sum takes
+  static_assert(D % KC == 0, "D is whole slices");
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dp[ni][c] = 0.f;
+#pragma unroll
+  for (int d0 = 0; d0 < D; d0 += KC) {
+    float ps[8][4], pd[8][4];  // the slice's sums (CHUNK_SUMS)
+    auto& ss = CHUNK_SUMS ? ps : s;
+    auto& sd = CHUNK_SUMS ? pd : dp;
+    if constexpr (CHUNK_SUMS) {
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) ps[ni][c] = pd[ni][c] = 0.f;
+    }
+#pragma unroll
+    for (int k0 = d0; k0 < d0 + KC; k0 += 8) {
+      uint32_t qh[4], ql[4], gh[4], gl[4];
+      frag_a<SPLIT>(QC, LD, r0, k0, lane, qh, ql);
+      frag_a<SPLIT>(GS, LD, r0, k0, lane, gh, gl);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        uint32_t bhi[2], blo[2];
+        frag_b_nt<SPLIT>(KS, LD, ni * 8, k0, lane, bhi, blo);
+        mma3<SPLIT>(ss[ni], qh, ql, bhi, blo);
+        frag_b_nt<SPLIT>(VS, LD, ni * 8, k0, lane, bhi, blo);
+        mma3<SPLIT>(sd[ni], gh, gl, bhi, blo);
+      }
+    }
+    if constexpr (CHUNK_SUMS) {
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[ni][c] += ps[ni][c];
+          dp[ni][c] += pd[ni][c];
+        }
+    }
+  }
+}
+
+template <bool SPLIT, typename T, int D, bool WITH_P>
+__device__ __forceinline__ void q1_ds_dq(float (&s)[8][4], const float (&dp)[8][4],
+                                         float (&acc_q)[D / 8][4], const T* KS,
+                                         const Q1Rows& rw, int j0, int Tq, int Ts,
+                                         float scale, const DropArgs& drop, int lane) {
+  constexpr int LD = tile_ld(D);
+  constexpr int ND = D / 8;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  // ds (0 at dead keys and rows past T) and P, in the accumulator layout
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    const int kj = j0 + ni * 8 + 2 * t4;
+    bool dead[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      dead[q] = kj + q >= Tq || rw.padb[kj + q] > 0.5f;
+    float pv[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int hf = c >> 1, q = c & 1;
+      float ds = 0.f;
+      pv[c] = 0.f;
+      if (rw.qi[hf] < Tq && (!dead[q] || (rw.all_dead && kj + q < Tq))) {
+        const float m = keep_scale(drop, rw.drop_key, rw.qi[hf], kj + q);
+        if (dead[q]) {
+          pv[c] = to_stream<T>(rw.p_uniform * m);
+        } else {
+          const float pr = expf(s[ni][c] * scale - rw.lse[hf]);
+          ds = to_stream<T>(pr * (dp[ni][c] * m - rw.del[hf]) * scale);
+          pv[c] = to_stream<T>(pr * m);
+        }
+      }
+      s[ni][c] = ds;
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (rw.qi[hf] >= Tq) continue;
+      const size_t off = (size_t)rw.qi[hf] * Ts + kj;
+      *reinterpret_cast<float2*>(&rw.Sb[off]) = make_float2(s[ni][2 * hf], s[ni][2 * hf + 1]);
+      if constexpr (WITH_P)
+        *reinterpret_cast<float2*>(&rw.Pb[off]) = make_float2(pv[2 * hf], pv[2 * hf + 1]);
+    }
+  }
+
+  // dqc += ds k: key step ni holds keys j0 + 8 ni + (2t, 2t+1) in slots
+  // (t, t+4) of the A fragment
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    uint32_t ah[4], al[4];
+    split_tf32<SPLIT>(s[ni][0], ah[0], al[0]);
+    split_tf32<SPLIT>(s[ni][2], ah[1], al[1]);
+    split_tf32<SPLIT>(s[ni][1], ah[2], al[2]);
+    split_tf32<SPLIT>(s[ni][3], ah[3], al[3]);
+    const T* krow = KS + (ni * 8 + 2 * t4) * LD + g4;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      uint32_t bhi[2], blo[2];
+      split_tf32<SPLIT>(to_float(krow[nd * 8]), bhi[0], blo[0]);
+      split_tf32<SPLIT>(to_float(krow[LD + nd * 8]), bhi[1], blo[1]);
+      mma3<SPLIT>(acc_q[nd], ah, al, bhi, blo);
+    }
+  }
+}
+
+// A lane's Q1Rows for the warp's rows r0.. of query tile i0, head h, batch
+// row b (all_dead is block-wide: every thread calls).
+template <bool WITH_P>
+__device__ __forceinline__ Q1Rows q1_rows(const float* pad, const float* lse,
+                                          const float* delta, float* S, float* P, int b,
+                                          int h, int H, int Tq, int Ts, int Tp, int i0,
+                                          int r0, const DropArgs& drop, int lane) {
+  Q1Rows rw;
+  const size_t rbase = ((size_t)b * H + h) * Tq;
+  rw.padb = pad + (size_t)b * Tq;
+  rw.Sb = S + rbase * Ts;
+  rw.Pb = WITH_P ? P + rbase * Ts : nullptr;
+  rw.all_dead = WITH_P && row_all_dead(rw.padb, Tq);
+  rw.p_uniform = 1.f / (float)Tp;
+  rw.drop_key = vt_dropout_key(drop.seed, b, h);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    rw.qi[hf] = i0 + r0 + (lane >> 2) + 8 * hf;
+    const bool in = rw.qi[hf] < Tq;
+    rw.lse[hf] = in ? lse[rbase + rw.qi[hf]] : 0.f;
+    rw.del[hf] = in ? delta[rbase + rw.qi[hf]] : 0.f;
+  }
+  return rw;
+}
+
+// dqc rows of a lane's accumulators (this lane's columns of rows qi).
+template <int D>
+__device__ __forceinline__ void q1_write_dq(float* dqc, size_t base, size_t rs,
+                                            const float (&acc_q)[D / 8][4], const Q1Rows& rw,
+                                            int Tq, int lane) {
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (rw.qi[hf] >= Tq) continue;
+    float* out = dqc + base + (size_t)rw.qi[hf] * rs + 2 * (lane & 3);
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<float2*>(out + nd * 8) =
+          make_float2(acc_q[nd][2 * hf], acc_q[nd][2 * hf + 1]);
+  }
+}
+
+// K3's Q1 ds with eight warps a block (xl2_bwd_q1_ds_kernel's POS =
+// kPosNone). The two warp groups of four share the block's 64
+// query rows (qc and g staged once) and split its key tiles: group w / 4
+// walks tiles w / 4, w / 4 + 2, ..., with one k / v stage of its own, so
+// that where shared memory lets one block onto an SM (fp32, D = 128:
+// 208,896 B) the SM runs eight warps, not four. A group's next v is in
+// flight during its ds and dq, its next k after them, and the other group
+// computes meanwhile. The groups' dqc partials meet in shared memory after
+// the walk. Each group writes ds and P at its own keys.
+template <typename T, int D, bool WITH_P>
+__device__ __forceinline__ void xl2_bwd_ds_split(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ g, const float* __restrict__ pad, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ S, float* __restrict__ P,
+    float* __restrict__ dq, int H, int Tq, int Ts, int Tp, float scale, DropArgs drop) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LD = tile_ld(D);
+  constexpr int TILE = kTC * LD;
+  constexpr int ND = D / 8;
+  constexpr int GT = kTCThreads;  // a warp group's threads
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* QC = reinterpret_cast<T*>(smem_raw);
+  T* GS = QC + TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp >> 2, gtid = threadIdx.x & (GT - 1);
+  T* KS = GS + (1 + 2 * grp) * TILE;  // the group's k and v stage
+  T* VS = KS + TILE;
+  const int i0 = blockIdx.x * kTC, h = blockIdx.y, b = blockIdx.z;
+  const size_t rs = (size_t)H * D;
+  const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
+  const int r0 = (warp & 3) * 16;  // the warp's rows of the tile
+  const Q1Rows rw = q1_rows<WITH_P>(pad, lse, delta, S, P, b, h, H, Tq, Ts, Tp, i0, r0, drop,
+                                    lane);
+  const int n_tiles = (Tq + kTC - 1) / kTC;
+  // the group's four warps (named barrier 1 + grp; __syncthreads is 0)
+  auto group_sync = [&] {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(kTCThreads) : "memory");
+  };
+
+  cp_tile<T, kTC, D, 2 * GT>(QC, LD, q + base, rs, i0, Tq, 0);
+  cp_tile<T, kTC, D, 2 * GT>(GS, LD, g + base, rs, i0, Tq, 0);
+  if (grp < n_tiles) {
+    cp_tile_by<T, kTC, D, GT>(gtid, KS, LD, k + base, rs, grp * kTC, Tq, 0);
+    cp_tile_by<T, kTC, D, GT>(gtid, VS, LD, v + base, rs, grp * kTC, Tq, 0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // qc, g and each group's first tile have landed
+
+  float acc_q[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_q[nd][c] = 0.f;
+
+  for (int kt = grp; kt < n_tiles; kt += 2) {
+    const int j0 = kt * kTC;
+    const bool more = kt + 2 < n_tiles;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[ni][c] = 0.f;
+    q1_products<SPLIT, T, D, SPLIT>(s, dp, QC, GS, KS, VS, r0, lane);
+    group_sync();  // the group's warps have read v
+    if (more) cp_tile_by<T, kTC, D, GT>(gtid, VS, LD, v + base, rs, j0 + 2 * kTC, Tq, 0);
+    cp_async_commit();
+    q1_ds_dq<SPLIT, T, D, WITH_P>(s, dp, acc_q, KS, rw, j0, Tq, Ts, scale, drop, lane);
+    if (more) {
+      group_sync();  // ... and k
+      cp_tile_by<T, kTC, D, GT>(gtid, KS, LD, k + base, rs, j0 + 2 * kTC, Tq, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      group_sync();  // the group's next k and v have landed
+    }
+  }
+
+  // group 1's dqc partial meets group 0's in shared memory, over the staged
+  // tiles (no copy is in flight: the last tiles staged none)
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_raw);  // (64, D), row pitch LD
+  const int g4 = lane >> 2, t4 = lane & 3;
+  if (grp) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+        *reinterpret_cast<float2*>(red + (r0 + g4 + 8 * hf) * LD + nd * 8 + 2 * t4) =
+            make_float2(acc_q[nd][2 * hf], acc_q[nd][2 * hf + 1]);
+  }
+  __syncthreads();
+  if (grp) return;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      const float2 o = *reinterpret_cast<const float2*>(red + (r0 + g4 + 8 * hf) * LD +
+                                                        nd * 8 + 2 * t4);
+      acc_q[nd][2 * hf] += o.x;
+      acc_q[nd][2 * hf + 1] += o.y;
+    }
+  q1_write_dq<D>(dq, base, rs, acc_q, rw, Tq, lane);
+}
+
 // Q1, second kernel: one block a (64-query tile, head, batch row), four
 // warps of 16 query rows each, walking the 64-key tiles (k, v staged by
 // cp.async two stages deep; qc and g staged once). Per key tile: s = pos +
 // qc k^T and dp = g v^T on the tensor cores (the position logits read from
-// S, the next tile's loaded into registers while this one computes), ds in
-// the accumulators' layout, written over the logits in S, and dqc += ds k
-// with ds as the A operand straight from the registers: the key order
-// inside each 8-key step is permuted (slot t <-> key 2t, slot t+4 <-> key
-// 2t+1) so that the accumulator layout is the A fragment's. WITH_P (bwd-kv
-// follows) it also writes P = p m / keep, rounded to the stream dtype,
-// into a second scratch shaped like S: a batch row whose keys are all
-// padding gets the uniform weight m / Tp (the dense gradient) at every key
-// below T; keys past T get 0. (A template flag, so that bwd-q alone runs
-// the kernel without the P path's code.)
-template <typename T, int D, bool WITH_P>
-__global__ void __launch_bounds__(kTCThreads)
+// S, the next tile's loaded into registers while this one computes), then
+// ds, written over the logits in S, dqc += ds k and, WITH_P (bwd-kv
+// follows), P into a second scratch shaped like S (q1_products, q1_ds_dq).
+// WITH_P is a template flag, so that bwd-q alone runs the kernel without
+// the P path's code. POS names the instance: kPosXl for every kind with a
+// position term (K5, K6 and K7 share it: Q1 pos has written their logits
+// into S); kPosNone for K3 (the plain attention: no position logits, s
+// starts at 0, S holds only ds), whose instance runs eight warps
+// (xl2_bwd_ds_split; with four, the body below with s from 0, it took
+// 0.126 ms at (8, 2, 512) against 0.104, see the header).
+template <typename T, int D, bool WITH_P, int POS>
+__global__ void __launch_bounds__(POS == kPosNone ? kQ1SplitThreads : kTCThreads)
     xl2_bwd_q1_ds_kernel(const T* __restrict__ qc, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ g,
                          const float* __restrict__ pad,
@@ -459,6 +804,12 @@ __global__ void __launch_bounds__(kTCThreads)
                          float* __restrict__ P, float* __restrict__ dqc, int H,
                          int Tq, int Ts, int Tp, float scale, DropArgs drop) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
+  static_assert(POS == kPosXl || POS == kPosNone, "Q1 ds reads S's logits or none");
+  if constexpr (POS == kPosNone) {
+    xl2_bwd_ds_split<T, D, WITH_P>(qc, k, v, g, pad, lse, delta, S, P, dqc, H, Tq, Ts, Tp,
+                                   scale, drop);
+    return;
+  }
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int LD = tile_ld(D);
   constexpr int TILE = kTC * LD;
@@ -471,25 +822,11 @@ __global__ void __launch_bounds__(kTCThreads)
   const int i0 = blockIdx.x * kTC, h = blockIdx.y, b = blockIdx.z;
   const size_t rs = (size_t)H * D;
   const size_t base = (size_t)b * Tq * rs + (size_t)h * D;
-  const float* padb = pad + (size_t)b * Tq;
-  const size_t rbase = ((size_t)b * H + h) * Tq;
-  float* Sb = S + rbase * Ts;
-  float* Pb = WITH_P ? P + rbase * Ts : nullptr;
-  const bool all_dead = WITH_P && row_all_dead(padb, Tq);
-  const float p_uniform = 1.f / (float)Tp;  // a fully padded row's weight
-  const uint32_t drop_key = vt_dropout_key(drop.seed, b, h);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g4 = lane >> 2, t4 = lane & 3;
+  const int t4 = lane & 3;
   const int r0 = warp * 16;  // the warp's rows of the tile
-  int qi[2];
-  float lse_r[2], del_r[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    qi[hf] = i0 + r0 + g4 + 8 * hf;
-    const bool in = qi[hf] < Tq;
-    lse_r[hf] = in ? lse[rbase + qi[hf]] : 0.f;
-    del_r[hf] = in ? delta[rbase + qi[hf]] : 0.f;
-  }
+  const Q1Rows rw = q1_rows<WITH_P>(pad, lse, delta, S, P, b, h, H, Tq, Ts, Tp, i0, r0, drop,
+                                    lane);
 
   cp_tile<T, kTC, D, kTCThreads>(QC, LD, qc + base, rs, i0, Tq, 0);
   cp_tile<T, kTC, D, kTCThreads>(GS, LD, g + base, rs, i0, Tq, 0);
@@ -502,8 +839,8 @@ __global__ void __launch_bounds__(kTCThreads)
   auto load_pos = [&](int j0) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const bool in = qi[hf] < Tq;
-      const float* row = Sb + (size_t)(in ? qi[hf] : 0) * Ts + j0 + 2 * t4;
+      const bool in = rw.qi[hf] < Tq;
+      const float* row = rw.Sb + (size_t)(in ? rw.qi[hf] : 0) * Ts + j0 + 2 * t4;
 #pragma unroll
       for (int ni = 0; ni < 8; ++ni) {
         const float2 p2 = in ? *reinterpret_cast<const float2*>(row + ni * 8)
@@ -541,94 +878,13 @@ __global__ void __launch_bounds__(kTCThreads)
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[ni][c] = pos[ni][c];
-        dp[ni][c] = 0.f;
-      }
+      for (int c = 0; c < 4; ++c) s[ni][c] = pos[ni][c];
     if (kt + 1 < n_tiles) load_pos(j0 + kTC);  // in flight while we compute
-#pragma unroll
-    for (int k0 = 0; k0 < D; k0 += 8) {
-      uint32_t qh[4], ql[4], gh[4], gl[4];
-      frag_a<SPLIT>(QC, LD, r0, k0, lane, qh, ql);
-      frag_a<SPLIT>(GS, LD, r0, k0, lane, gh, gl);
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        uint32_t bhi[2], blo[2];
-        frag_b_nt<SPLIT>(KS, LD, ni * 8, k0, lane, bhi, blo);
-        mma3<SPLIT>(s[ni], qh, ql, bhi, blo);
-        frag_b_nt<SPLIT>(VS, LD, ni * 8, k0, lane, bhi, blo);
-        mma3<SPLIT>(dp[ni], gh, gl, bhi, blo);
-      }
-    }
-
-    // ds (0 at dead keys and rows past T) and P, in the accumulator layout
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int kj = j0 + ni * 8 + 2 * t4;
-      bool dead[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-        dead[q] = kj + q >= Tq || padb[kj + q] > 0.5f;
-      float pv[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int hf = c >> 1, q = c & 1;
-        float ds = 0.f;
-        pv[c] = 0.f;
-        if (qi[hf] < Tq && (!dead[q] || (all_dead && kj + q < Tq))) {
-          const float m = keep_scale(drop, drop_key, qi[hf], kj + q);
-          if (dead[q]) {
-            pv[c] = to_stream<T>(p_uniform * m);
-          } else {
-            const float pr = expf(s[ni][c] * scale - lse_r[hf]);
-            ds = to_stream<T>(pr * (dp[ni][c] * m - del_r[hf]) * scale);
-            pv[c] = to_stream<T>(pr * m);
-          }
-        }
-        s[ni][c] = ds;
-      }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        if (qi[hf] >= Tq) continue;
-        const size_t off = (size_t)qi[hf] * Ts + kj;
-        *reinterpret_cast<float2*>(&Sb[off]) =
-            make_float2(s[ni][2 * hf], s[ni][2 * hf + 1]);
-        if constexpr (WITH_P)
-          *reinterpret_cast<float2*>(&Pb[off]) =
-              make_float2(pv[2 * hf], pv[2 * hf + 1]);
-      }
-    }
-
-    // dqc += ds k: key step ni holds keys j0 + 8 ni + (2t, 2t+1) in slots
-    // (t, t+4) of the A fragment
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      uint32_t ah[4], al[4];
-      split_tf32<SPLIT>(s[ni][0], ah[0], al[0]);
-      split_tf32<SPLIT>(s[ni][2], ah[1], al[1]);
-      split_tf32<SPLIT>(s[ni][1], ah[2], al[2]);
-      split_tf32<SPLIT>(s[ni][3], ah[3], al[3]);
-      const T* krow = KS + (ni * 8 + 2 * t4) * LD + g4;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t bhi[2], blo[2];
-        split_tf32<SPLIT>(to_float(krow[nd * 8]), bhi[0], blo[0]);
-        split_tf32<SPLIT>(to_float(krow[LD + nd * 8]), bhi[1], blo[1]);
-        mma3<SPLIT>(acc_q[nd], ah, al, bhi, blo);
-      }
-    }
+    q1_products<SPLIT, T, D, false>(s, dp, QC, GS, KS, VS, r0, lane);
+    q1_ds_dq<SPLIT, T, D, WITH_P>(s, dp, acc_q, KS, rw, j0, Tq, Ts, scale, drop, lane);
     __syncthreads();  // the stage is read before it is refilled
   }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    if (qi[hf] >= Tq) continue;
-    float* out = dqc + base + (size_t)qi[hf] * rs + 2 * t4;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<float2*>(out + nd * 8) =
-          make_float2(acc_q[nd][2 * hf], acc_q[nd][2 * hf + 1]);
-  }
+  q1_write_dq<D>(dqc, base, rs, acc_q, rw, Tq, lane);
 }
 
 // Q2: dgA = (ds o past) t and dgB = (ds o future) t, a tensor-core product
@@ -784,10 +1040,21 @@ __global__ void __launch_bounds__(kThreads)
 // (query, key) tile read transposed (load_a_t), the B fragment the staged
 // (query, feature) rows. Warp w forms dv (w < 4, from P and g) or dk (from
 // ds and qc) for keys 32 ((w >> 1) & 1) .. + 31 and features
-// (D / 2) (w & 1) .. + D / 2 - 1. XL3 only names K4's instance (its
-// scratches come from xl3_bwd_ds_kernel), so that a profile tells K4's
-// launches from K5 / K6's; the body does not read it.
-template <typename T, int D, bool XL3>
+// (D / 2) (w & 1) .. + D / 2 - 1. SRC names the kernel that wrote the
+// scratches, so that a profile tells the instances apart: kKvFromQ1 (K5,
+// K6 and K7's Q1 ds), kKvFromXl3 (K4's xl3_bwd_ds_kernel), kKvFromPlain
+// (K3's Q1 ds). K3's fp32 instances also sum each staged chunk's kKvBQ
+// rows in an accumulator of their own and add that into the running sum
+// in fp32: mma.sync's fp32 accumulation drops the low bits of each addend
+// aligned to the accumulator, and over T = 512 rows into one accumulator
+// that left dv 9.7e-5 from an fp64 reference at the JETS decoder's
+// training inputs (8, 512), 1.05e-4 from the plain version, past the fp32
+// limit of 1e-4; with the chunk sums 1.2e-5, as close as the plain
+// version itself (cuBLAS in fp32: 1.4e-5). A fourth product (lo lo)
+// changed no digit of it, so the products are not the cause. The chunk
+// sums cost ~3 % of the kernel's time there (tools/probe_bwd_sums.py,
+// H100). The other instances are left as they were.
+template <typename T, int D, int SRC>
 __global__ void __launch_bounds__(kKvThreads)
     xl2_bwd_kv_kernel(const T* __restrict__ qc, const T* __restrict__ g,
                       const float* __restrict__ S, const float* __restrict__ P,
@@ -795,6 +1062,7 @@ __global__ void __launch_bounds__(kKvThreads)
                       int Tq, int Ts) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr bool CHUNK_SUMS = SPLIT && SRC == kKvFromPlain;
   constexpr int LDA = tile_ld_nn<float, kKvBN>();
   constexpr int LDB = tile_ld_nn<T, D>();
   constexpr int TA = kKvBQ * LDA, TB = kKvBQ * LDB;
@@ -843,6 +1111,16 @@ __global__ void __launch_bounds__(kKvThreads)
     cp_async_commit();
     const float* A = As + (ch % kKvStages) * 2 * TA + prod * TA;
     const T* Bm = Bs + (ch % kKvStages) * 2 * TB + prod * TB;
+    float part[2][NI][4];  // the chunk's sum (CHUNK_SUMS)
+    auto& sum = CHUNK_SUMS ? part : acc;
+    if constexpr (CHUNK_SUMS) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[mi][ni][c] = 0.f;
+    }
 #pragma unroll
     for (int k0 = 0; k0 < kKvBQ; k0 += 8) {
       uint32_t ah[2][4], al[2][4];
@@ -858,8 +1136,16 @@ __global__ void __launch_bounds__(kKvThreads)
         uint32_t bhi[2], blo[2];
         frag_b_nn<SPLIT>(Bm, LDB, wn + ni * 8, k0, lane, bhi, blo);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma3<SPLIT>(acc[mi][ni], ah[mi], al[mi], bhi, blo);
+        for (int mi = 0; mi < 2; ++mi) mma3<SPLIT>(sum[mi][ni], ah[mi], al[mi], bhi, blo);
       }
+    }
+    if constexpr (CHUNK_SUMS) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mi][ni][c] += part[mi][ni][c];
     }
   }
 
@@ -1460,8 +1746,8 @@ cudaError_t launch_xl2_bwd_q1(const void* qc, const void* k, const void* v,
       xl2_bwd_q1_pos_kernel<T, QPOS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_pos);
   if (err != cudaSuccess) return err;
-  const auto ds_kernel = p == nullptr ? xl2_bwd_q1_ds_kernel<T, D, false>
-                                      : xl2_bwd_q1_ds_kernel<T, D, true>;
+  const auto ds_kernel = p == nullptr ? xl2_bwd_q1_ds_kernel<T, D, false, kPosXl>
+                                      : xl2_bwd_q1_ds_kernel<T, D, true, kPosXl>;
   err = cudaFuncSetAttribute(ds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_ds);
   if (err != cudaSuccess) return err;
@@ -1524,19 +1810,40 @@ cudaError_t launch_xl2_bwd_q2(const float* s, const void* table, float* dg,
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool XL3>
+template <typename T, int D, int SRC>
 cudaError_t launch_xl2_bwd_kv(const void* qc, const void* g, const float* s,
                               const float* p, float* dk, float* dv, int B,
                               int Tq, int H, cudaStream_t stream) {
   constexpr size_t smem = xl2_bwd_kv_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      xl2_bwd_kv_kernel<T, D, XL3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      xl2_bwd_kv_kernel<T, D, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  xl2_bwd_kv_kernel<T, D, XL3>
+  xl2_bwd_kv_kernel<T, D, SRC>
       <<<dim3((Tq + kKvBN - 1) / kKvBN, H, B), kKvThreads, smem, stream>>>(
           static_cast<const T*>(qc), static_cast<const T*>(g), s, p, dk, dv, H,
           Tq, ds_cols(Tq));
+  return cudaGetLastError();
+}
+
+// K3's Q1 (the plain attention's: no position term, so no Q1 pos launch):
+// ds into s, dq and, when p is not null (bwd-kv follows), P into p.
+template <typename T, int D>
+cudaError_t launch_plain_bwd_q1(const void* q, const void* k, const void* v, const void* g,
+                                const float* pad, const float* lse, const float* delta,
+                                float* dq, float* s, float* p, int B, int Tq, int Tp, int H,
+                                float scale, DropArgs drop, cudaStream_t stream) {
+  constexpr size_t smem = xl2_bwd_ds_smem_bytes<T, D>();
+  static_assert(sizeof(float) * kTC * tile_ld(D) <= smem,
+                "xl2_bwd_ds_split's dq partial fits over the staged tiles");
+  const auto kernel = p == nullptr ? xl2_bwd_q1_ds_kernel<T, D, false, kPosNone>
+                                   : xl2_bwd_q1_ds_kernel<T, D, true, kPosNone>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((Tq + kTC - 1) / kTC, H, B), kQ1SplitThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), pad, lse, delta, s, p, dq, H, Tq, ds_cols(Tq), Tp, scale, drop);
   return cudaGetLastError();
 }
 
@@ -1563,7 +1870,7 @@ cudaError_t launch_xl3_bwd(const void* qc, const void* k, const void* v,
           s, pm, dqc, dqv, dqv_b, part, H, Tq, ds_cols(Tq), scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_xl2_bwd_kv<T, D, true>(qc, g, s, pm, dk, dv, B, Tq, H, stream);
+  err = launch_xl2_bwd_kv<T, D, kKvFromXl3>(qc, g, s, pm, dk, dv, B, Tq, H, stream);
   if (err != cudaSuccess) return err;
   xl3_bwd_reduce_kernel<<<grid_for((size_t)(1 + B) * Tq * H * D), kThreads, 0,
                           stream>>>(part, dp, dqv, dqv_b, B, H, Tq, D);
@@ -1750,7 +2057,8 @@ int vt_xl_bwd_kv(const void* qc, const void* g, const float* s, const float* p,
                  void* stream) {
   if (bad_xl_args(B, T, H, 0.0) || bad_head(D, kPosXl)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VT_KV(TYPE, DIM) launch_xl2_bwd_kv<TYPE, DIM, false>(qc, g, s, p, dk, dv, B, T, H, st)
+#define VT_KV(TYPE, DIM) \
+  launch_xl2_bwd_kv<TYPE, DIM, kKvFromQ1>(qc, g, s, p, dk, dv, B, T, H, st)
   switch (D * 2 + (is_bf16 ? 1 : 0)) {
     case 96: return (int)VT_KV(float, 48);
     case 97: return (int)VT_KV(__nv_bfloat16, 48);
@@ -1761,6 +2069,56 @@ int vt_xl_bwd_kv(const void* qc, const void* g, const float* s, const float* p,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef VT_KV
+}
+
+// K3's Q1 (K3a; with bwd-kv after it on s and p, K3b), the plain
+// attention's backward: q, k, v, g (the cotangent of ctx in the stream
+// dtype) (B, T, H, D), fp32 (is_bf16 = 0) or bf16, D in {32, 64, 128}; pad,
+// lse, delta, dropout_p, seed as K4 bwd; Tp >= T the forward's padded
+// length (the keys in [T, Tp) are virtual). Outputs, fp32: dq (B, T, H, D);
+// ds into s and, when p is not null, P = p m / keep into p, both scratches
+// (B, H, T, 128 ceil(T / 128)). Returns the launch's cudaError_t.
+int vt_flash_attn_bwd_q1(const void* q, const void* k, const void* v, const void* g,
+                         const float* pad, const float* lse, const float* delta, float* dq,
+                         float* s, float* p, int B, int T, int Tp, int H, int D, int is_bf16,
+                         float scale, double dropout_p, uint64_t seed, void* stream) {
+  if (bad_args(B, T, H, dropout_p) || Tp < T) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const DropArgs drop = drop_args(dropout_p, seed);
+#define VT_K3(TYPE, DIM)                                                                    \
+  (int)launch_plain_bwd_q1<TYPE, DIM>(q, k, v, g, pad, lse, delta, dq, s, p, B, T, Tp, H, \
+                                      scale, drop, st)
+  switch (D * 2 + (is_bf16 ? 1 : 0)) {
+    case 64: return VT_K3(float, 32);
+    case 65: return VT_K3(__nv_bfloat16, 32);
+    case 128: return VT_K3(float, 64);
+    case 129: return VT_K3(__nv_bfloat16, 64);
+    case 256: return VT_K3(float, 128);
+    case 257: return VT_K3(__nv_bfloat16, 128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VT_K3
+}
+
+// K3b's bwd-kv on the scratches s (ds) and p (P) of K3's Q1 (run with p):
+// dk = ds^T q, dv = P^T g, (B, T, H, D) fp32; q, g and D as K3's Q1.
+int vt_flash_attn_bwd_kv(const void* q, const void* g, const float* s, const float* p,
+                         float* dk, float* dv, int B, int T, int H, int D, int is_bf16,
+                         void* stream) {
+  if (bad_args(B, T, H, 0.0)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VT_K3KV(TYPE, DIM) \
+  (int)launch_xl2_bwd_kv<TYPE, DIM, kKvFromPlain>(q, g, s, p, dk, dv, B, T, H, st)
+  switch (D * 2 + (is_bf16 ? 1 : 0)) {
+    case 64: return VT_K3KV(float, 32);
+    case 65: return VT_K3KV(__nv_bfloat16, 32);
+    case 128: return VT_K3KV(float, 64);
+    case 129: return VT_K3KV(__nv_bfloat16, 64);
+    case 256: return VT_K3KV(float, 128);
+    case 257: return VT_K3KV(__nv_bfloat16, 128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VT_K3KV
 }
 
 // dtab (T, E) fp32 from Q1's s and the rotated streams ga, gb (K5: the two

@@ -26,7 +26,7 @@ namespace {
 constexpr int kPosXl = 0;     // K6: gA . t (past), gB . t (future), 0 at j = i + 1
 constexpr int kPosXlRot = 1;  // K5: the same on the rotation pass's streams
 constexpr int kPosRel = 2;    // K7: g . t at every key
-constexpr int kPosNone = 3;   // K1: no position term (xl2_fwd_kernel only)
+constexpr int kPosNone = 3;   // K1 fwd, K3 bwd (Q1 ds): no position term
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -101,21 +101,30 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Rows r0 .. r0 + R - 1 (zero rows from nrows on) and columns c0 .. c0 + C
 // - 1 of a row-major matrix (row stride `stride` elements) into dst (R, ld),
-// 16 bytes a copy by NT threads; the caller commits the group.
+// 16 bytes a copy by the NT threads numbered tid = 0 .. NT - 1 (a warp
+// group's own, where groups stage tiles of their own); the caller commits
+// the group.
 template <typename T, int R, int C, int NT>
-__device__ __forceinline__ void cp_tile(T* dst, int ld, const T* src,
-                                        size_t stride, int r0, int nrows,
-                                        int c0) {
+__device__ __forceinline__ void cp_tile_by(int tid, T* dst, int ld, const T* src,
+                                           size_t stride, int r0, int nrows, int c0) {
   constexpr int V = 16 / (int)sizeof(T);
   constexpr int PER_ROW = C / V;
   static_assert(C % V == 0, "a tile row is whole 16-byte copies");
-  for (int idx = threadIdx.x; idx < R * PER_ROW; idx += NT) {
+  for (int idx = tid; idx < R * PER_ROW; idx += NT) {
     const int r = idx / PER_ROW, c = (idx % PER_ROW) * V;
     const bool in = r0 + r < nrows;
     cp_async16(dst + r * ld + c,
                in ? src + (size_t)(r0 + r) * stride + c0 + c : src,
                in ? 16 : 0);
   }
+}
+
+// ... copied by the block's NT threads.
+template <typename T, int R, int C, int NT>
+__device__ __forceinline__ void cp_tile(T* dst, int ld, const T* src,
+                                        size_t stride, int r0, int nrows,
+                                        int c0) {
+  cp_tile_by<T, R, C, NT>(threadIdx.x, dst, ld, src, stride, r0, nrows, c0);
 }
 
 // x = hi + lo, each a TF32 value (3xTF32): hi is x rounded to nearest

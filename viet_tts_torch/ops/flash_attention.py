@@ -13,33 +13,41 @@ TPU kernels ``_plain_kernel``, ``_plain_bwd_q_kernel`` and
   term, ``csrc/flash_xl_attention.cu``, which K5, K6 and K7 run too) and
   the dense PyTorch version (the (B, H, T, Tp) logits exist in memory),
   with the JAX wrapper's padding of T to Tp, the next multiple of 32.
-- ``attention_bwd_dq`` / ``attention_bwd_dkv``: K3a and K3b
-  (``csrc/flash_attention_bwd.cu``), with ``attention_bwd_dq_plain`` /
-  ``attention_bwd_dkv_plain`` beside them; ``attention_bwd`` and
-  ``attention_bwd_plain`` compute delta = rowsum(g * out) and run both.
+- ``attention_bwd_dq`` / ``attention_bwd_dkv``: K3a and K3b, the
+  instance with no position term of the tensor-core flash backward that
+  K5, K6 and K7 run (``csrc/flash_xl_attention_bwd.cu``): Q1 ds forms s,
+  dp, ds and dq = ds k in one walk over the keys and writes ds and
+  P = p m / keep into two fp32 scratches; bwd-kv forms dk = ds^T q and
+  dv = P^T g from them. ``attention_bwd_dq_plain`` /
+  ``attention_bwd_dkv_plain`` stand beside them; ``attention_bwd`` (Q1
+  once, then bwd-kv on its scratches) and ``attention_bwd_plain`` compute
+  delta = rowsum(g * out) and run both.
 - ``flash_attention``: the public op, a ``torch.autograd.Function`` whose
   forward is K1 and whose backward is K3.
 
 Every wrapper launches its kernel for CUDA tensors and takes its plain
 version for CPU tensors only; there is no fallback from one to the other.
 
-Kernel notes (full text in the .cu sources): one block per (64-row tile,
-head, batch row) loops over the other axis's 64-row tiles staged in shared
-memory, so no (T, T) matrix reaches device memory; K1 keeps an online
-softmax, bwd_q accumulates dq over keys, bwd_kv dk and dv over queries. All
-three are bound by operations at the JETS shapes. K1 runs both products
-on the tensor cores (``mma.sync`` TF32, 3xTF32 for fp32 streams, one TF32
-product for bf16; ``tests/test_torch_flash_fwd_precision.py`` says why)
-and walks each batch row's key tiles only up to its last live key; K3a /
-K3b run on the fp32 CUDA cores. Padded keys score ``MASK_NEG = -1e9`` as
-on the TPU, so a row whose keys are all padding becomes the uniform
-average over all Tp keys (K1 walks every tile there); its gradient is the
-dense path's (p = 1/Tp), not the TPU kernel's (see
+Kernel notes (full text in the .cu sources): K1 and K3's Q1 run one block
+per (64-query tile, head, batch row) over the 64-key tiles staged in shared
+memory; K1 keeps an online softmax, so no (T, T) matrix reaches device
+memory. K3's Q1 accumulates dq over the keys and writes the (B, H, T, Ts)
+ds and P scratches (``_ds_scratch``), which bwd-kv, one block per (64-key
+tile, head, batch row), reads back to accumulate dk and dv over the
+queries. All run every product on the tensor cores (``mma.sync`` TF32,
+3xTF32 for fp32 streams, one TF32 product for bf16;
+``tests/test_torch_flash_fwd_precision.py`` and
+``tests/test_torch_flash_bwd_precision.py`` say why). K1 walks each batch
+row's key tiles only up to its last live key; K3 walks every key tile
+below T. Padded keys score ``MASK_NEG = -1e9`` as on the TPU, so a row
+whose keys are all padding becomes the uniform average over all Tp keys
+(K1 walks every tile there); its gradient is the dense path's (p = 1/Tp),
+not the TPU kernel's (see
 ``attention_bwd_plain``).
 
 Dropout: the mask is a counter-based hash of (seed, b, h, i, j)
 (``csrc/dropout_hash.cuh``; ``dropout_keep_mask`` here computes the same
-bits), so the three kernels and the plain versions draw the same mask. It
+bits), so K1, K3's Q1 and the plain versions draw the same mask. It
 cannot reproduce the TPU's on-core PRNG bits nor ``jax.random.bernoulli``;
 the semantics are the JAX package's: the softmax denominator takes the
 undropped weights, the context p * m / keep.
@@ -271,24 +279,78 @@ def attention_bwd_dkv_plain(q, k, v, g, pad, lse, delta, scale: float,
             torch.einsum("bhqk,bhqd->bkhd", p_v, gh))
 
 
+def _ds_scratch(B: int, T: int, H: int, device) -> torch.Tensor:
+    """One of the flash backward's fp32 scratches (B, H, T, Ts) (K3 and the
+    K4 / K5 / K6 / K7 backward alike), Ts = T rounded up to a multiple of
+    128, which every key tile of the kernels divides (``kTsAlign`` in
+    ``csrc/flash_xl_attention_bwd.cu``): S holds ds (K5 / K6 / K7: first the
+    position logits), P holds p m / keep for bwd-kv."""
+    return torch.empty(B, H, T, (T + 127) // 128 * 128, dtype=torch.float32, device=device)
+
+
+def _bwd_kv(q, g, s, p):
+    """K3b's bwd-kv kernel (K3's instance of the K5 / K6 / K7 bwd-kv kernel,
+    which for fp32 streams sums each 32-row chunk apart, see the source):
+    (dk, dv (B, T, H, D) fp32) from the scratches S and P of K3's Q1 and
+    the streams q, g. A stage of the counted wrappers below; counts
+    nothing."""
+    B, T, H, D = q.shape
+    dk = torch.empty(B, T, H, D, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    lib = kernels.library("flash_xl_attention_bwd")
+    err = lib.vt_flash_attn_bwd_kv(q.data_ptr(), g.data_ptr(), s.data_ptr(), p.data_ptr(),
+                                   dk.data_ptr(), dv.data_ptr(), B, T, H, D,
+                                   int(q.dtype == torch.bfloat16), _stream(q))
+    kernels.check(lib, err, "flash attention bwd_kv kernel")
+    return dk, dv
+
+
+def _bwd_ops(q, k, v, g, pad, lse, delta):
+    """Checked, contiguous CUDA operands of K3: (q, k, v, g, pad (B, T)
+    fp32, lse, delta (B, H, T) fp32)."""
+    _check_stream(q, k, v, g)
+    B, T, H, _ = q.shape
+    if tuple(pad.shape) != (B, T):
+        raise ValueError(f"pad must be (B, T) = {(B, T)}, got {tuple(pad.shape)}")
+    if tuple(lse.shape) != (B, H, T) or tuple(delta.shape) != (B, H, T):
+        raise ValueError(f"lse and delta must be (B, H, T) = {(B, H, T)}")
+    return (*(x.contiguous() for x in (q, k, v, g)),
+            *(x.float().contiguous() for x in (pad, lse, delta)))
+
+
+def _bwd_q1(q, k, v, g, pad, lse, delta, scale: float, dropout_p: float, seed: int,
+            with_p: bool):
+    """K3's Q1 on checked operands (``_bwd_ops``): (dq (B, T, H, D) fp32, S
+    (ds), P (p m / keep, or None without ``with_p``)). The instance with no
+    position term of the Q1 ds kernel that K5 / K6 / K7 run
+    (``csrc/flash_xl_attention_bwd.cu``). A stage of the counted wrappers
+    below; it counts nothing itself."""
+    B, T, H, D = q.shape
+    dq = torch.empty(B, T, H, D, dtype=torch.float32, device=q.device)
+    s = _ds_scratch(B, T, H, q.device)
+    p = _ds_scratch(B, T, H, q.device) if with_p else None
+    lib = kernels.library("flash_xl_attention_bwd")
+    err = lib.vt_flash_attn_bwd_q1(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), pad.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), s.data_ptr(),
+        None if p is None else p.data_ptr(), B, T, padded_time(T), H, D,
+        int(q.dtype == torch.bfloat16), float(scale), float(dropout_p),
+        int(seed) & ((1 << 64) - 1), _stream(q),
+    )
+    kernels.check(lib, err, "flash attention backward Q1 kernel")
+    return dq, s, p
+
+
 def attention_bwd_dq(q, k, v, g, pad, lse, delta, scale: float,
                      dropout_p: float = 0.0, seed: int = 0) -> torch.Tensor:
-    """dq: kernel K3a on CUDA tensors, the plain version on CPU tensors."""
+    """dq: kernel K3a on CUDA tensors (Q1 without P: one launch that forms
+    s, dp, ds and dq = ds k, writing ds into a scratch; one count), the
+    plain version on CPU tensors."""
     if _device_of(q) == "cpu":
         return attention_bwd_dq_plain(q, k, v, g, pad, lse, delta, scale,
                                       dropout_p, seed)
-    _check_stream(q, k, v, g)
-    B, T, H, D = q.shape
-    q, k, v, g, pad, lse, delta = (x.contiguous() for x in (q, k, v, g, pad, lse, delta))
-    dq = torch.empty(B, T, H, D, dtype=torch.float32, device=q.device)
-    lib = kernels.library("flash_attention_bwd")
-    err = lib.vt_flash_attn_bwd_q(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), pad.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, T, padded_time(T),
-        H, D, int(q.dtype == torch.bfloat16), float(scale), float(dropout_p),
-        int(seed) & ((1 << 64) - 1), _stream(q),
-    )
-    kernels.check(lib, err, "flash attention bwd_q kernel")
+    dq, _, _ = _bwd_q1(*_bwd_ops(q, k, v, g, pad, lse, delta), scale, dropout_p, seed,
+                       with_p=False)
     attention_bwd_dq.launches += 1
     return dq
 
@@ -299,24 +361,15 @@ attention_bwd_dq.launches = 0
 def attention_bwd_dkv(q, k, v, g, pad, lse, delta, scale: float,
                       dropout_p: float = 0.0, seed: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv): kernel K3b on CUDA tensors, the plain version on CPU
-    tensors."""
+    """(dk, dv): kernel K3b on CUDA tensors (the bwd-kv kernel, dk = ds^T q
+    and dv = P^T g, on the ds and P scratches of K3's Q1, which it runs
+    first when standalone; one count), the plain version on CPU tensors."""
     if _device_of(q) == "cpu":
         return attention_bwd_dkv_plain(q, k, v, g, pad, lse, delta, scale,
                                        dropout_p, seed)
-    _check_stream(q, k, v, g)
-    B, T, H, D = q.shape
-    q, k, v, g, pad, lse, delta = (x.contiguous() for x in (q, k, v, g, pad, lse, delta))
-    dk = torch.empty(B, T, H, D, dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
-    lib = kernels.library("flash_attention_bwd")
-    err = lib.vt_flash_attn_bwd_kv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), pad.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T,
-        padded_time(T), H, D, int(q.dtype == torch.bfloat16), float(scale),
-        float(dropout_p), int(seed) & ((1 << 64) - 1), _stream(q),
-    )
-    kernels.check(lib, err, "flash attention bwd_kv kernel")
+    ops = _bwd_ops(q, k, v, g, pad, lse, delta)
+    _, s, p = _bwd_q1(*ops, scale, dropout_p, seed, with_p=True)
+    dk, dv = _bwd_kv(ops[0], ops[3], s, p)
     attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -335,10 +388,18 @@ def backward_inputs(out: torch.Tensor, g: torch.Tensor, dtype: torch.dtype):
 def attention_bwd(q, k, v, pad, out, lse, g, seed: int, scale: float,
                   dropout_p: float = 0.0):
     """(dq, dk, dv) fp32 of ``attention_fwd`` for the cotangent g of its
-    ctx: K3a and K3b on CUDA tensors, their plain versions on CPU tensors."""
+    ctx, the whole K3 backward: on CUDA tensors Q1 with P once (dq, and the
+    ds and P scratches), then bwd-kv on those scratches (dk, dv), one count
+    each on ``attention_bwd_dq`` and ``attention_bwd_dkv``; on CPU tensors
+    the plain versions."""
+    if _device_of(q) == "cpu":
+        return attention_bwd_plain(q, k, v, pad, out, lse, g, seed, scale, dropout_p)
     delta, gs = backward_inputs(out, g, v.dtype)
-    dq = attention_bwd_dq(q, k, v, gs, pad, lse, delta, scale, dropout_p, seed)
-    dk, dv = attention_bwd_dkv(q, k, v, gs, pad, lse, delta, scale, dropout_p, seed)
+    ops = _bwd_ops(q, k, v, gs, pad, lse, delta)
+    dq, s, p = _bwd_q1(*ops, scale, dropout_p, seed, with_p=True)
+    dk, dv = _bwd_kv(ops[0], ops[3], s, p)
+    attention_bwd_dq.launches += 1
+    attention_bwd_dkv.launches += 1
     return dq, dk, dv
 
 

@@ -67,6 +67,7 @@ import torch.nn.functional as F
 
 from viet_tts_torch.ops.flash_attention import (
     MASK_NEG,
+    _ds_scratch,
     _pad_tensor,
     backward_inputs,
     dropout_keep_mask,
@@ -691,14 +692,6 @@ def xl3_bwd(qc, k, v, qv, p, pad, lse, delta, g, scale: float, dropout_p: float 
 
 
 xl3_bwd.launches = 0
-
-
-def _ds_scratch(B: int, T: int, H: int, device) -> torch.Tensor:
-    """One of the K4 / K5 / K6 backward's fp32 scratches (B, H, T, Ts), Ts
-    = T rounded up to a multiple of 128, which every key tile of the
-    kernels divides (``kTsAlign`` in the source): S holds ds (K5 / K6:
-    first the position logits), P holds p m / keep for bwd-kv."""
-    return torch.empty(B, H, T, (T + 127) // 128 * 128, dtype=torch.float32, device=device)
 
 
 def _dtab_split(bh: int, T: int, E: int) -> Tuple[int, int]:

@@ -39,21 +39,6 @@ _U64 = ctypes.c_uint64
 
 # C signatures of each source's entry points: name -> (restype, argtypes)
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
-    "flash_attention_bwd": {
-        # q, k, v, g, pad, lse, delta, dq, B, T, Tp, H, D, is_bf16, scale,
-        # dropout_p, seed, stream
-        "vt_flash_attn_bwd_q": (
-            _I, [_P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
-        ),
-        # q, k, v, g, pad, lse, delta, dk, dv, B, T, Tp, H, D, is_bf16, scale,
-        # dropout_p, seed, stream
-        "vt_flash_attn_bwd_kv": (
-            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _F, _D, _U64, _P]
-        ),
-        "vt_error_string": (ctypes.c_char_p, [_I]),
-    },
     "flash_xl_attention": {
         # K1: q, k, v, pad, out, lse, B, T, Tp, H, D, is_bf16, scale,
         # dropout_p, seed, stream
@@ -86,6 +71,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "vt_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_xl_attention_bwd": {
+        # K3's Q1: q, k, v, g, pad, lse, delta, dq, s, p, B, T, Tp, H, D,
+        # is_bf16, scale, dropout_p, seed, stream
+        "vt_flash_attn_bwd_q1": (_I, [_P] * 10 + [_I] * 6 + [_F, _D, _U64, _P]),
+        # K3's bwd-kv: q, g, s, p, dk, dv, B, T, H, D, is_bf16, stream
+        "vt_flash_attn_bwd_kv": (_I, [_P] * 6 + [_I] * 5 + [_P]),
         # qc, k, v, qv, p, g, pad, lse, delta, dqc, dk, dv, dqv, dp, dqv_b,
         # part, s, pm, B, T, H, D, is_bf16, scale, dropout_p, seed, stream
         "vt_flash_xl3_bwd": (
