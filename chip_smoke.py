@@ -125,7 +125,20 @@ Phases (any failure exits non-zero; no phase is caught):
     bwd-q, bwd-kv 6 each), finite losses, the parameters changed; one
     full-width step at T_mel 1040 (decoder on K6) on the card against the
     CPU;
-18. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
+18. the FS2 trainer: ``python -m viet_tts_torch.train --task fastspeech2``'s
+    entry function in-process, on a dataset it writes with the port's
+    ``write_wav`` (2 speakers x 12 utterances at ~2 s and ~7.5 s: mel
+    buckets 256, decoder on K4, and 768, on K5), full-width FastSpeech2
+    (``attn_implementation: flash`` by a text edit of a copy of
+    ``config/``, every dropout as configured), batch size 8, to
+    ``--max_iter 6``, then resumed by scan to 8: the feature cache, the
+    sidecars, keep-3 checkpoint names, the resumed iteration, finite
+    losses and each step's K4 / K5 launches against its bucket; the first
+    step on the card against the same trainer with ``--device cpu`` (a
+    one-bucket dataset, every dropout 0) within rel 1e-3; ``TwoStageTTS``
+    serving the trained output directory with phase 8's vocoder; feature
+    cache seconds, step host seconds, data wait and peak memory;
+19. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
     JETS training steps, five two-stage calls, five FS2 training steps at
     T_mel 1008 and five at 512 and five of each JETS-conformer path (both
     flavours) and of the FS2 step at T_mel 2048, one of each under
@@ -133,10 +146,10 @@ Phases (any failure exits non-zero; no phase is caught):
     Q2 kernels, bwd-kv on its own, K5's rotation pass on its own, K7's
     forward and bwd-q instances apart from K6's, K4's bwd-kv instance under
     K4 bwd);
-19. one JSON line ``{"kernels": [...]}``, then the card's line, then
+20. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
-Phases 3, 9, 11 and 14 run after phase 17 (in that order): their
+Phases 3, 9, 11 and 14 run after phase 18 (in that order): their
 ``torch.profiler`` sessions leave every later kernel launch ~25 % dearer on
 the host, and the other phases read host seconds of launch-bound calls and
 steps. Each phase logs its host seconds (``phase time:``): the script has
@@ -2784,6 +2797,293 @@ KERNEL_GROUPS = (
 OTHER = "other kernels (elementwise, norms, copies, reductions, FFT)"
 
 
+# --------------------------------------------------------------------------
+# phase 18: the FS2 trainer (python -m viet_tts_torch.train --task fastspeech2)
+# --------------------------------------------------------------------------
+
+TRAINER_WORDS = (
+    "xin chào các bạn tôi là một hệ thống tổng hợp tiếng nói hôm nay "
+    "trời đẹp quá chúng ta cùng nhau học tập và làm việc thật tốt").split()
+TRAINER_SPEAKERS = ("hn_spk", "hcm_spk")
+# ~172 and ~646 mel frames: mel buckets 256 (decoder on K4) and 768 (on K5)
+TRAINER_SECONDS = (2.0, 7.5)
+TRAINER_UTTS = 12  # a speaker: 11 train, 1 test (the filelist's 95 / 5 split)
+TRAINER_ITERS = (6, 8)  # the first run, then the resumed run
+
+
+def write_trainer_dataset(root: str, n_utts: int, seconds, seed: int):
+    """``<root>/data/<speaker>/{metadata.csv, wavs/}`` and
+    ``<root>/egs/{speakers, accents}.json``: five-word sentences over a
+    voiced tone with a 3 Hz tremolo and noise, written with the port's
+    ``dsp.audio.write_wav``, lengths cycling through ``seconds``; the accent
+    is the file name's prefix. Returns (data_dir, egs_dir)."""
+    from viet_tts_torch.dsp.audio import write_wav
+
+    rng = np.random.RandomState(seed)
+    sr = 22050
+    data_dir, egs_dir = os.path.join(root, "data"), os.path.join(root, "egs")
+    os.makedirs(egs_dir, exist_ok=True)
+    for spk in TRAINER_SPEAKERS:
+        wav_dir = os.path.join(data_dir, spk, "wavs")
+        os.makedirs(wav_dir, exist_ok=True)
+        accent = spk.split("_")[0]
+        rows = []
+        for i in range(n_utts):
+            t = np.arange(int(sr * seconds[i % len(seconds)])) / sr
+            f0 = 110 + 80 * rng.rand()
+            wav = 0.3 * np.sin(2 * np.pi * f0 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 3.0 * t))
+            wav += 0.01 * rng.randn(len(t))
+            name = f"{accent}-{i:04d}.wav"
+            write_wav(os.path.join(wav_dir, name), wav.astype(np.float32), sr)
+            rows.append(f"{name}|{' '.join(rng.choice(TRAINER_WORDS, 5))}")
+        with open(os.path.join(data_dir, spk, "metadata.csv"), "w", encoding="utf8") as f:
+            f.write("\n".join(rows))
+    with open(os.path.join(egs_dir, "speakers.json"), "w") as f:
+        json.dump({spk: i for i, spk in enumerate(TRAINER_SPEAKERS)}, f)
+    with open(os.path.join(egs_dir, "accents.json"), "w") as f:
+        json.dump({"hn": 0, "hcm": 1}, f)
+    return data_dir, egs_dir
+
+
+def _edit_section(text: str, section: str, edits) -> str:
+    """``edits`` ((old, new) line pairs) applied inside the top-level
+    ``section:`` block of a YAML file's text."""
+    lines = text.split("\n")
+    start = lines.index(f"{section}:")
+    end = next((i for i in range(start + 1, len(lines))
+                if lines[i] and not lines[i][0].isspace() and not lines[i].startswith("#")),
+               len(lines))
+    block = "\n".join(lines[start:end])
+    for old, new in edits:
+        if old not in block:
+            raise AssertionError(f"config edit: {old!r} not in section {section}")
+        block = block.replace(old, new)
+    return "\n".join(lines[:start] + block.split("\n") + lines[end:])
+
+
+def trainer_config(root: str, zero_dropout: bool = False, batch_size: int = 8) -> str:
+    """A copy of ``config/`` whose FastSpeech2 section gains
+    ``attn_implementation: flash`` (the file's own recommendation for
+    training), edited as text (the card has no pyyaml); ``log_step`` 1;
+    optionally every dropout 0 and another batch size. Read back through
+    the port's reader and checked."""
+    from viet_tts_torch.config import build_config
+
+    out = os.path.join(root, "config")
+    os.makedirs(out, exist_ok=True)
+    for name in ("preprocessing_config.yaml", "model_config.yaml", "train_config.yaml"):
+        with open(os.path.join(REPO, "config", name), encoding="utf8") as f:
+            text = f.read()
+        if name == "model_config.yaml":
+            edits = [("fastspeech2:\n", "fastspeech2:\n  attn_implementation: flash\n")]
+            if zero_dropout:
+                edits += [("encoder_dropout: 0.1", "encoder_dropout: 0.0"),
+                          ("decoder_dropout: 0.1", "decoder_dropout: 0.0"),
+                          ("      dropout: 0.5", "      dropout: 0.0")]
+            text = _edit_section(text, "fastspeech2", edits)
+        elif name == "train_config.yaml":
+            text = text.replace("\nlog_step: 100\n", "\nlog_step: 1\n").replace(
+                "\nbatch_size: 8\n", f"\nbatch_size: {batch_size}\n")
+        with open(os.path.join(out, name), "w", encoding="utf8") as f:
+            f.write(text)
+    conf = build_config(out)
+    hp = conf["models"]["fastspeech2"]
+    bc = hp["building_block"]["conformer"]
+    drop = 0.0 if zero_dropout else None
+    if (hp["attn_implementation"] != "flash" or conf["train"]["log_step"] != 1
+            or conf["train"]["batch_size"] != batch_size
+            or (drop is not None and (bc["encoder_dropout"], bc["decoder_dropout"],
+                                      hp["variance"]["variance_predictor"]["dropout"])
+                != (drop, drop, drop))):
+        raise AssertionError(f"trainer config copy not as edited: {hp}")
+    return out
+
+
+class _StepProbe:
+    """Wraps a trainer's ``train_step``: the XL kernels' launch counts zeroed
+    before each step and read after it (the device synchronised), with the
+    batch's padded lengths, the host seconds of the step, the data wait that
+    came before it, its learning rate and its losses; and the host seconds
+    of each epoch end's parameter histograms."""
+
+    def __init__(self, trainer, sync: bool = True, zero_postnet_dropout: bool = False):
+        self.steps = []
+        self.hist_s = []
+        self.trainer = trainer
+        self.sync = sync
+        self._step = trainer.train_step
+        trainer.train_step = self
+        log_histograms = trainer._log_histograms
+
+        def timed_histograms():
+            t0 = time.perf_counter()
+            log_histograms()
+            self.hist_s.append(time.perf_counter() - t0)
+
+        trainer._log_histograms = timed_histograms
+        if zero_postnet_dropout:
+            trainer.model.postnet.dropout.p = 0.0
+
+    def __call__(self, state, batch, generator):
+        wrappers = _xl_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        if self.sync:
+            torch.cuda.synchronize()
+        lr = state.lr
+        t0 = time.perf_counter()
+        state, metrics = self._step(state, batch, generator)
+        if self.sync:
+            torch.cuda.synchronize()
+        self.steps.append({
+            "iter": self.trainer.iter, "t_text": int(batch["text"].shape[1]),
+            "t_mel": int(batch["feats"].shape[1]), "step_s": time.perf_counter() - t0,
+            "wait_s": self.trainer.last_data_wait, "lr": lr,
+            "launches": {name: fn.launches for name, fn in wrappers.items()},
+            "metrics": {k: v.item() for k, v in metrics.items()}})
+        return state, metrics
+
+
+def _trainer_argv(root: str, config_dir: str, out: str, max_iter: int, *extra):
+    return ["--task", "fastspeech2", "-i", os.path.join(root, "egs"), "-d",
+            os.path.join(root, "data"), "-o", os.path.join(root, out), "--config", config_dir,
+            "--max_iter", str(max_iter), *extra]
+
+
+def check_trainer(dev, voc_dir: str):
+    """The FS2 trainer through the CLI's entry function, in-process, on the
+    card (its default device): a dataset of 2 speakers x 12 utterances at
+    ~2 s and ~7.5 s (mel buckets 256 and 768), full-width FastSpeech2 with
+    ``attn_implementation: flash`` and every dropout as configured, batch
+    size 8, to ``--max_iter 6``, then resumed by scan to 8. Held: the
+    feature cache, the sidecars, the checkpoints (keep-3, names), the
+    resumed iteration, each step's learning rate against its epoch's,
+    finite losses, each step's K4 / K5 launches against
+    its mel bucket (``fs2_step_launches``) and a K5 step among them. Then
+    the trainer's first step on the card against the same trainer on the
+    CPU (a one-bucket dataset, every dropout 0): losses within rel 1e-3.
+    Then ``TwoStageTTS`` serves the trained output directory with phase 8's
+    vocoder."""
+    from viet_tts_torch.data.features import ARTIFACTS, resolve_artifact
+    from viet_tts_torch.infer.api import TwoStageTTS, resolve_checkpoint
+    from viet_tts_torch.train.__main__ import main
+    from viet_tts_torch.train.checkpoint import SUFFIX, checkpoint_name
+    from viet_tts_torch.train.state import exponential_lr
+
+    root = os.path.join(REPO, "build", "chip_smoke_trainer")
+    if os.path.exists(root):
+        import shutil
+
+        shutil.rmtree(root)
+    data_dir, _ = write_trainer_dataset(root, TRAINER_UTTS, TRAINER_SECONDS, SEED)
+    config_dir = trainer_config(root)
+    probes = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = main(_trainer_argv(root, config_dir, "out", TRAINER_ITERS[0]),
+                 on_trainer=lambda tr: probes.append(_StepProbe(tr)))
+    run1_s = time.perf_counter() - t0
+    if first.device.type != dev.type or next(first.model.parameters()).device.type != dev.type:
+        raise AssertionError(f"trainer ran on {first.device}, not on {dev}")
+    out = first.args.output_folder
+    wavs = [os.path.join(data_dir, spk, "wavs", n) for spk in TRAINER_SPEAKERS
+            for n in sorted(os.listdir(os.path.join(data_dir, spk, "wavs")))]
+    rows = first.train_set + first.test_set
+    missing = [(w, k) for w, *_ in rows for k in ARTIFACTS[:4] if resolve_artifact(w, k) is None]
+    if missing or len(rows) != len(wavs):
+        raise AssertionError(f"feature cache: {len(rows)} rows of {len(wavs)} wavs, "
+                             f"missing {missing[:4]}")
+    for name in ("config.json", "speakers.json", "accents.json", "stats.json",
+                 "train.txt"):
+        where = out if name != "train.txt" else os.path.join(root, "egs")
+        if not os.path.exists(os.path.join(where, name)):
+            raise AssertionError(f"trainer: no {name}")
+    per_epoch = first.train_loader.epoch_batches()
+
+    resumed = main(_trainer_argv(root, config_dir, "out", TRAINER_ITERS[1]),
+                   on_trainer=lambda tr: probes.append(_StepProbe(tr)))
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n0 = TRAINER_ITERS[0]
+    names = sorted((f for f in os.listdir(out) if f.endswith(SUFFIX)),
+                   key=lambda f: int(f.split("iteration")[1].split("_")[0]))
+    want_names = [checkpoint_name("generator", 0, per_epoch),
+                  checkpoint_name("generator", n0 // per_epoch, n0),
+                  checkpoint_name("generator", n0 // per_epoch, TRAINER_ITERS[1])]
+    if per_epoch != 4 or names != want_names:
+        raise AssertionError(f"checkpoints {names}, expected {want_names} "
+                             f"({per_epoch} batches an epoch)")
+    steps = [s for p in probes for s in p.steps]
+    if [s["iter"] for s in steps] != list(range(TRAINER_ITERS[1])):
+        raise AssertionError(f"trainer iterations {[s['iter'] for s in steps]} (resumed at "
+                             f"{probes[1].trainer.iter if probes[1].steps else None})")
+    if resumed.iter != TRAINER_ITERS[1] or resumed.state.step != TRAINER_ITERS[1]:
+        raise AssertionError(f"resumed trainer at iter {resumed.iter}, step {resumed.state.step}")
+    # each step at its epoch's rate, across the resume inside epoch 1
+    want_lr = [exponential_lr(first.base_lr, first.gamma, s["iter"] // per_epoch) for s in steps]
+    if [s["lr"] for s in steps] != want_lr:
+        raise AssertionError(f"trainer learning rates {[s['lr'] for s in steps]}, expected "
+                             f"{want_lr}")
+    launches = dict.fromkeys(XL_COUNTED, 0)
+    for s in steps:
+        expect = fs2_step_launches(s["t_mel"])
+        if s["launches"] != expect:
+            raise AssertionError(f"trainer step {s['iter']} at T_mel {s['t_mel']}: launches "
+                                 f"{s['launches']}, expected {expect}")
+        if not all(np.isfinite(v) for v in s["metrics"].values()):
+            raise AssertionError(f"trainer step {s['iter']}: losses {s['metrics']}")
+        for k, n in s["launches"].items():
+            launches[k] += n
+    buckets = sorted({s["t_mel"] for s in steps})
+    if buckets != [256, 768]:
+        raise AssertionError(f"trainer mel buckets {buckets}, expected a K4 (256) and a K5 "
+                             "(768) bucket")
+    by_bucket = {b: sorted(s["step_s"] for s in steps if s["t_mel"] == b) for b in buckets}
+    wait_ms = sorted(1e3 * s["wait_s"] for s in steps)
+    figures = {
+        "cache_s": first.cache_seconds, "run_s": run_s, "first_run_s": run1_s,
+        "step_s_by_bucket": by_bucket,
+        "step_s_median_by_bucket": {b: float(np.median(v)) for b, v in by_bucket.items()},
+        "hist_s": [h for p in probes for h in p.hist_s],
+        "wait_ms": wait_ms[len(wait_ms) // 2], "wait_ms_max": wait_ms[-1], "peak_gb": peak_gb}
+    log(f"trainer: {len(rows)} utterances ({len(first.train_set)} train), feature cache and "
+        f"stats {first.cache_seconds:.1f} s; {len(steps)} steps at (B, T_text, T_mel) "
+        f"{[(8, s['t_text'], s['t_mel']) for s in steps]}, resumed at iter {n0}; "
+        f"checkpoints {names}; step host seconds "
+        f"{[round(s['step_s'], 4) for s in steps]}; data "
+        f"wait ms {[round(1e3 * s['wait_s'], 2) for s in steps]}; peak {peak_gb:.2f} GB; "
+        f"both runs {run_s:.1f} s; launches {launches}; last losses {steps[-1]['metrics']}")
+
+    # the first step on the card against the CPU, on a one-bucket dataset
+    cmp_root = os.path.join(root, "card_vs_cpu")
+    write_trainer_dataset(cmp_root, 3, (2.0,), SEED + 1)
+    cmp_config = trainer_config(cmp_root, zero_dropout=True, batch_size=2)
+    results = []
+    for device in ("cuda", "cpu"):
+        probe = []
+        main(_trainer_argv(cmp_root, cmp_config, f"out_{device}", 1, "--device", device),
+             on_trainer=lambda tr: probe.append(_StepProbe(tr, sync=device == "cuda",
+                                                           zero_postnet_dropout=True)))
+        (step,) = probe[0].steps
+        results.append(step)
+    card, cpu = (r["metrics"] for r in results)
+    if results[0]["t_mel"] > 512 or results[0]["launches"] != fs2_step_launches(
+            results[0]["t_mel"]):
+        raise AssertionError(f"card vs CPU step: {results[0]}")
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    if max(rel.values()) > 1e-3:
+        raise AssertionError(f"trainer first step card vs CPU: {card} vs {cpu}, rel {rel}")
+    log(f"trainer first step card (kernels) vs CPU (plain), B=2 T_mel={results[0]['t_mel']}, "
+        f"every dropout 0: max rel diff {max(rel.values()):.3e} (tol 1e-3) over {sorted(rel)}")
+
+    tts = TwoStageTTS(out, voc_dir, fused_vocoder=True)
+    waves = tts(SENTENCES[:4], speaker=TRAINER_SPEAKERS[1], accent="hcm")
+    _check_waves(waves, 4, "TwoStageTTS from the trainer's output")
+    log(f"TwoStageTTS serves the trainer's output ({os.path.basename(resolve_checkpoint(out))}"
+        f"): 4 sentences, {[len(w) for w in waves]} samples")
+    return launches, figures
+
+
 def profile_call(fn, label: str, out_name: str, repeats: int = 5) -> None:
     """Host time of ``repeats`` calls of ``fn``, then one under
     ``torch.profiler``: device time by kernel group and the device's busy
@@ -2896,6 +3196,7 @@ def main() -> int:
     fs2_state_, fs2_rng = fs2_step_args[0], fs2_step_args[2]
     fs2_long_launches, fs2_long_figures, (fs2_long_step, *fs2_long_args) = \
         phase_timed("17", check_fs2_long_training, dev, fs2_step, fs2_state_, fs2_rng)
+    trainer_launches, trainer_figures = phase_timed("18", check_trainer, dev, voc_dir)
     # the phases that time backward rows in device time run last: after a
     # torch.profiler session every kernel launch costs the host ~25 % more
     # (CUPTI stays attached; measured on the H100 machine), and the phases
@@ -2949,6 +3250,9 @@ def main() -> int:
         entry["name_detail"] = "forward, with attention-weight dropout in training"
         entry["train_step"] = {"launches": fs2_train_launches[entry["name"]],
                                "launches_per": train_per, **xl_train[entry["name"]]}
+    trainer_per = (f"the trainer phase's {TRAINER_ITERS[1]} steps (python -m "
+                   "viet_tts_torch.train, mel buckets 256 and 768, to --max_iter "
+                   f"{TRAINER_ITERS[0]}, then resumed to {TRAINER_ITERS[1]})")
     xl_bwd_entries = [
         {"name": name, "route": "cuda", "source": "viet_tts_torch/csrc/flash_xl_attention_bwd.cu",
          "replaces": XL_TRAIN_REPLACES[name], "launches": fs2_train_launches[name],
@@ -2957,6 +3261,9 @@ def main() -> int:
                     "with scale * pos as an additive mask, on a retained graph",
          "timing": BWD_TIMING, **xl_train[name]}
         for name in ("flash_xl3_bwd", "flash_xl2_bwd_q", "flash_xl2_bwd_kv")]
+    for entry in (*xl_entries[:2], *xl_bwd_entries):
+        entry["trainer_launches"] = trainer_launches[entry["name"]]
+        entry["trainer_launches_per"] = trainer_per
     xl_entries[2]["jets_width"] = k6_jets
     k6_paths = {"jets_legacy_training": jl_train_launches,
                 "fs2_2048_training": fs2_long_launches}
@@ -3015,6 +3322,13 @@ def main() -> int:
             f"{train_fig['step_s']:.4f} s, peak {train_fig['peak_gb']:.2f} GB")
     log(f"FS2 training step at B={FS2_LONG_B} T_mel {FS2_LONG_T_MEL}: host median "
         f"{fs2_long_figures['step_s']:.4f} s, peak {fs2_long_figures['peak_gb']:.2f} GB")
+    log(f"FS2 trainer: feature cache and stats {trainer_figures['cache_s']:.2f} s; step host "
+        f"median by mel bucket "
+        f"{ {b: round(v, 4) for b, v in trainer_figures['step_s_median_by_bucket'].items()} } s "
+        f"(steps {trainer_figures['step_s_by_bucket']}); data wait median {trainer_figures['wait_ms']:.2f} ms a step (max "
+        f"{trainer_figures['wait_ms_max']:.2f}); peak {trainer_figures['peak_gb']:.2f} GB; "
+        f"both runs {trainer_figures['run_s']:.1f} s; parameter histograms "
+        f"{[round(h, 3) for h in trainer_figures['hist_s']]} s an epoch end")
     kernels_line = [k1, k2, *k3, *xl_entries, *xl_bwd_entries, *k6_bwd_entries, *rel_entries]
     if DEVICE_MS_MISSES:
         log(f"device_ms: {len(DEVICE_MS_MISSES)} backward figure(s) timed by CUDA events: "

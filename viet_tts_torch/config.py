@@ -8,12 +8,48 @@ discriminator params; ``fastspeech2``; ``hifigan``), ``config/train_config.yaml`
 is not installed; ``DEFAULT_STATS`` is ``viet_tts_tpu/infer/api.py``'s.
 ``tests/test_torch_text.py`` and ``tests/test_torch_fastspeech2.py`` hold
 every dict equal to its source.
+
+``build_config`` and ``derive_task_config`` are the counterparts of
+``viet_tts_tpu/config.py``: the trainer reads a config directory's three
+files through the port's own YAML-subset reader (``utils/yaml_subset.py``).
 """
 
 from __future__ import annotations
 
 import copy
+import os
 from typing import Any, Dict
+
+from viet_tts_torch.utils.yaml_subset import load_file
+
+CONFIG_FILES = {
+    "audio": "preprocessing_config.yaml",
+    "models": "model_config.yaml",
+    "train": "train_config.yaml",
+}
+
+
+def build_config(config_dir: str) -> Dict[str, Any]:
+    """Load and merge the three config YAMLs of ``config_dir`` into
+    ``{"audio": ..., "models": ..., "train": ...}``."""
+    return {key: load_file(os.path.join(config_dir, fname))
+            for key, fname in CONFIG_FILES.items()}
+
+
+def derive_task_config(conf: Dict[str, Any], task: str,
+                       version: str | None = None) -> Dict[str, Any]:
+    """A deep copy of ``conf`` with the task-derived fields filled in:
+    ``audio.self_learning`` (the model's ``learn_alignment``, always on for
+    Matcha), ``task`` and ``version``."""
+    conf = copy.deepcopy(conf)
+    model_key = version if task in ("text2wav", "joint") and version else task
+    model_conf = conf["models"].get(model_key, {})
+    variance = model_conf.get("variance", model_conf)
+    learn_alignment = bool(variance.get("learn_alignment", False)) or model_key == "matcha"
+    conf["audio"]["self_learning"] = learn_alignment
+    conf["task"] = task
+    conf["version"] = version
+    return conf
 
 AUDIO: Dict[str, Any] = {
     "signal": {

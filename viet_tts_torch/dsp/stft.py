@@ -1,8 +1,10 @@
-"""STFT and log-mel features for the training losses.
+"""STFT, spectrogram, log-mel and energy features: the training losses and
+the feature cache.
 
 Counterpart of ``viet_tts_tpu/dsp/stft.py`` (the window, the Slaney mel
-filterbank, the centred reflect-padded STFT and ``log_mel_spectrogram``),
-with its own numpy copies of the framework-free pieces. Semantics: periodic
+filterbank, the centred reflect-padded STFT, the linear / log / log-mel
+spectrograms, ``frame_energy`` and ``num_frames``), with its own numpy
+copies of the framework-free pieces. Semantics: periodic
 Hann window, amplitude sqrt(max(|S|^2, 1e-10)), Slaney-scale and
 Slaney-normalised triangles (librosa ``htk=False``), log(max(mel, 1e-10)),
 divided by log(base) when ``log_base`` is given. Audio is (..., T) and
@@ -121,7 +123,52 @@ def log_mel_spectrogram(x: torch.Tensor, sr: int = 22050, n_fft: int = 1024,
     amp = spectrogram_amplitude(stft(x, n_fft=n_fft, hop_length=hop_length,
                                      win_length=win_length, window=window))
     basis = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin, fmax)).to(x.device)
-    y = torch.log(torch.clamp(amp @ basis, min=EPS))
+    return apply_log(amp @ basis, log_base)
+
+
+def apply_log(x: torch.Tensor, log_base: Optional[float]) -> torch.Tensor:
+    """log(max(x, 1e-10)), divided by log(base) when ``log_base`` is given."""
+    y = torch.log(torch.clamp(x, min=EPS))
     if log_base is not None:
         y = y / float(np.log(log_base))
     return y
+
+
+def _config_stft(x: torch.Tensor, cfg: dict) -> torch.Tensor:
+    st = cfg["stft"]
+    return stft(x, n_fft=st["filter_length"], hop_length=st["hop_length"],
+                win_length=st["win_length"], window=st["window"])
+
+
+def linear_spectrogram(x: torch.Tensor, cfg: dict) -> torch.Tensor:
+    """Amplitude spectrogram (..., frames, n_fft // 2 + 1) with the
+    preprocessing config's (``conf["audio"]``) STFT settings."""
+    return spectrogram_amplitude(_config_stft(x, cfg))
+
+
+def log_spectrogram(x: torch.Tensor, cfg: dict) -> torch.Tensor:
+    """Natural-log amplitude spectrogram."""
+    return torch.log(torch.clamp(linear_spectrogram(x, cfg), min=EPS))
+
+
+def log_mel_from_config(x: torch.Tensor, cfg: dict) -> torch.Tensor:
+    """Log-mel features with the preprocessing config (``conf["audio"]``)."""
+    return log_mel_spectrogram(
+        x, sr=cfg["signal"]["sampling_rate"], n_fft=cfg["stft"]["filter_length"],
+        hop_length=cfg["stft"]["hop_length"], win_length=cfg["stft"]["win_length"],
+        window=cfg["stft"]["window"], n_mels=cfg["mel"]["channels"],
+        fmin=cfg["mel"]["fmin"] or 0.0, fmax=cfg["mel"]["fmax"],
+        log_base=cfg["mel"]["log_base"])
+
+
+def frame_energy(x: torch.Tensor, cfg: dict) -> torch.Tensor:
+    """Per-frame energy sqrt(max(sum over frequency of |S|^2, 1e-10)),
+    espnet's ``Energy`` semantics."""
+    s = _config_stft(x, cfg)
+    power = s.real ** 2 + s.imag ** 2
+    return torch.sqrt(torch.clamp(power.sum(dim=-1), min=EPS))
+
+
+def num_frames(n_samples: int, hop_length: int) -> int:
+    """Frame count of a centred STFT."""
+    return 1 + n_samples // hop_length

@@ -6,11 +6,13 @@ Counterpart of ``viet_tts_tpu/infer/api.py``: ``OneStageTTS`` for JETS and
 front-end, bucketed batches, synthesis on the card, waveform export. A port
 checkpoint is a directory with
 
-- ``model.pt``: the model's ``state_dict`` (``torch.save``);
+- ``model.pt``: the model's ``state_dict`` (``torch.save``), or, in a
+  trainer's output directory, the newest
+  ``generator_epoch{E}_iteration{I}_statedict.pt`` (its ``model`` entry);
 - ``config.json``: ``{"audio": ..., "models": {"jets": {"generator_params":
   ...}, "fastspeech2": ..., "hifigan": ...}}`` (a ``config.yaml`` of the
-  same shape is read too, importing ``yaml`` only then); without either,
-  the package's ``config.py``;
+  same shape is read too, through the port's YAML-subset reader); without
+  either, the package's ``config.py``;
 - optional ``speakers.json`` (speaker name -> id) and, for an acoustic
   model, ``accents.json`` and ``stats.json`` (pitch / energy statistics).
 
@@ -34,6 +36,8 @@ from viet_tts_torch import config as port_config
 from viet_tts_torch.data.batching import DEFAULT_TEXT_BUCKETS, bucket_for
 from viet_tts_torch.device import resolve_device
 from viet_tts_torch.text import NUM_SYMBOLS, VietnameseG2P, basic_clean, symbols_to_ids
+from viet_tts_torch.train.checkpoint import model_state_dict, scan_checkpoint
+from viet_tts_torch.utils.yaml_subset import load_file
 
 WEIGHTS_NAME = "model.pt"
 
@@ -57,10 +61,7 @@ def load_sidecars(ckpt_dir: str) -> Dict[str, Any]:
         with open(cfg_json, "r", encoding="utf8") as f:
             out["conf"] = json.load(f)
     elif os.path.exists(cfg_yaml):
-        import yaml
-
-        with open(cfg_yaml, "r", encoding="utf8") as f:
-            out["conf"] = yaml.safe_load(f)
+        out["conf"] = load_file(cfg_yaml)
     for name in ("speakers", "accents", "stats"):
         path = os.path.join(ckpt_dir, f"{name}.json")
         if os.path.exists(path):
@@ -88,9 +89,14 @@ def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, conf: Dict[str, Any],
 
 
 def resolve_checkpoint(path: str) -> str:
-    """A checkpoint directory or a weights file -> the weights file."""
+    """A checkpoint directory or a weights file -> the weights file: a
+    directory's ``model.pt``, else its newest trainer checkpoint
+    (``generator_epoch*_iteration*_statedict.pt``, by iteration)."""
     if os.path.isdir(path):
-        path = os.path.join(path, WEIGHTS_NAME)
+        weights = os.path.join(path, WEIGHTS_NAME)
+        if not os.path.exists(weights):
+            weights = scan_checkpoint(path, "generator") or weights
+        path = weights
     if not os.path.exists(path):
         raise FileNotFoundError(f"no port checkpoint at {path}")
     return path
@@ -191,8 +197,7 @@ class OneStageTTS(_TTSBase):
             hparams=jets_hp,
             n_speakers=max(len(self.speakers), 1),
         )
-        state = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-        model.load_state_dict(state)
+        model.load_state_dict(model_state_dict(ckpt_path))
         self.half = half
         dtype = torch.bfloat16 if half else torch.float32
         self.model = model.to(device=self.device, dtype=dtype).eval()
@@ -294,8 +299,7 @@ class TwoStageTTS(_TTSBase):
         acoustic = FastSpeech2(NUM_SYMBOLS, self.n_mels, self.conf["models"]["fastspeech2"],
                                self.stats, n_speakers=max(len(self.speakers), 1),
                                n_accents=max(len(self.accents), 2))
-        acoustic.load_state_dict(torch.load(acoustic_ckpt, map_location="cpu",
-                                            weights_only=True))
+        acoustic.load_state_dict(model_state_dict(acoustic_ckpt))
         hifi = self.conf["models"].get("hifigan", {})
         vocoder = HiFiGANGenerator(
             in_channels=self.n_mels,
@@ -308,8 +312,7 @@ class TwoStageTTS(_TTSBase):
             fused_mrf=fused_vocoder,
             packed_tail=_resolve_packed(packed_vocoder),
         )
-        vocoder.load_state_dict(torch.load(vocoder_ckpt, map_location="cpu",
-                                           weights_only=True))
+        vocoder.load_state_dict(model_state_dict(vocoder_ckpt))
         self.half = half
         self.dtype = torch.bfloat16 if half else torch.float32
         self.acoustic = acoustic.to(device=self.device, dtype=self.dtype).eval()
