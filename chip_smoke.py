@@ -14,8 +14,9 @@ Phases (any failure exits non-zero; no phase is caught):
     backward template's instance with no position term: K3a, Q1 forming
     dq and the ds scratch; K3b, bwd-kv forming dk and dv on the ds and P
     scratches of a Q1) against their plain versions under one seed at the
-    training shapes (B=8; T=64 and T=512; ragged lengths, one fully padded
-    row), fp32 and bf16, dropout 0 and 0.2: the whole backward, the
+    training shapes (B=8; T=64 and T=512, with times; the JETS trainer's
+    other buckets, T=32 and T=256, checked only; ragged lengths, one fully
+    padded row), fp32 and bf16, dropout 0 and 0.2: the whole backward, the
     standalone halves and bwd-kv alone on one Q1's scratches, with times
     (Q1 without and with P, bwd-kv alone, the whole backward, which SDPA's
     backward of all three gradients is held against);
@@ -138,18 +139,42 @@ Phases (any failure exits non-zero; no phase is caught):
     one-bucket dataset, every dropout 0) within rel 1e-3; ``TwoStageTTS``
     serving the trained output directory with phase 8's vocoder; feature
     cache seconds, step host seconds, data wait and peak memory;
-19. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
+19. the JETS trainer: ``--task jets`` the same way, on a dataset of 2
+    speakers x 12 utterances at ~2 s and ~5.5 s (mel buckets 256 and 512),
+    full-width JETS (``attn_implementation: flash`` by the config copy's
+    edit, every dropout as configured, ``init_type: xavier_uniform``) and
+    the full MSMPD, batch size 8, to ``--max_iter 6``, then resumed by
+    scan to 8: the generator checkpoints' names, the discriminator file's
+    iteration, the resumed iteration, each step's two rates against its
+    epoch's, finite metrics, both models changed, K1, K3a and K3b 10 each
+    a step; the first step on the card against ``--device cpu`` (a
+    one-bucket dataset, every dropout 0): its metrics within rel 1e-3 and
+    the gradients of every self-attention parameter (K1 and K3's; the key
+    bias, whose gradient is 0 but for rounding, left out) within 1e-2 of
+    each tensor's norm; the trainer sets TF32 off on the card
+    (the phase turns it on before); ``OneStageTTS``
+    serving the output directory (K1 10 and K2 18 a call); step host
+    seconds by mel bucket, data wait, histogram seconds, peak memory;
+20. the HiFi-GAN trainer: ``--task hifigan`` on phase 18's dataset and
+    feature cache, full-width HiFi-GAN V1 and the default MSMPD, 64-frame
+    segments, batch size 8, to ``--max_iter 6``, then resumed to 8: as
+    phase 19's checks, with no K2 launch in a step; the first step on the
+    card against the CPU within rel 1e-3; ``TwoStageTTS`` serving phase
+    18's FastSpeech2 output with this phase's output as its vocoder (K2 18
+    a call);
+21. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
     JETS training steps, five two-stage calls, five FS2 training steps at
     T_mel 1008 and five at 512 and five of each JETS-conformer path (both
-    flavours) and of the FS2 step at T_mel 2048, one of each under
+    flavours), of the FS2 step at T_mel 2048 and of the JETS and HiFi-GAN
+    trainers' steps (on one of their batches), one of each under
     ``torch.profiler``, device time by kernel group (bwd-q as its Q1 and
     Q2 kernels, bwd-kv on its own, K5's rotation pass on its own, K7's
     forward and bwd-q instances apart from K6's, K4's bwd-kv instance under
     K4 bwd);
-20. one JSON line ``{"kernels": [...]}``, then the card's line, then
+22. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
-Phases 3, 9, 11 and 14 run after phase 18 (in that order): their
+Phases 3, 9, 11 and 14 run after phase 20 (in that order): their
 ``torch.profiler`` sessions leave every later kernel launch ~25 % dearer on
 the host, and the other phases read host seconds of launch-bound calls and
 steps. Each phase logs its host seconds (``phase time:``): the script has
@@ -185,6 +210,7 @@ import subprocess
 import sys
 import time
 import urllib.request
+from typing import Optional
 
 import numpy as np
 import torch
@@ -400,6 +426,8 @@ def check_flash_attention(dev):
 # --------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL = 8, 64, 512  # bench.py:56-60
+# the JETS trainer phase's text and mel buckets that the shapes above miss
+TRAINER_ONLY_T = (32, 256)
 ATTN_DROPOUT = 0.2  # config/model_config.yaml: transformer_*_attn_dropout_rate
 # a backward row's CUDA-event figures, kept beside its device-time ms and
 # library_ms
@@ -465,7 +493,9 @@ def check_flash_training(dev):
     position term: K3a, Q1 forming dq and the ds scratch; K3b, bwd-kv on the
     ds and P scratches of a Q1) against their plain versions under one seed,
     at the training shapes (B=8, H=2, D=128; encoder T=64, decoder T=512;
-    ragged lengths and a fully padded row), fp32 and bf16, dropout 0 and
+    the JETS trainer's other text and mel buckets, T=32 and T=256, are
+    checked and not timed; ragged lengths and a fully padded row), fp32
+    and bf16, dropout 0 and
     0.2: the whole backward (``attention_bwd``), the standalone halves and
     bwd-kv alone on one Q1's scratches (against ``xl_bwd_kv_plain``), with
     times. Returns the per-step figures (fp32, dropout 0.2: 4 encoder + 6
@@ -481,7 +511,9 @@ def check_flash_training(dev):
     step["fwd"]["per_shape"] = {}
     err = {name: 0.0 for name in step}
     kinds = {name: set() for name in step}
-    for T, n_layers in ((TRAIN_T_TEXT, 4), (TRAIN_T_MEL, 6)):
+    # n_layers 0: a shape the JETS trainer gives K1 and K3, checked only
+    for T, n_layers in ((TRAIN_T_TEXT, 4), (TRAIN_T_MEL, 6),
+                        *((T, 0) for T in TRAINER_ONLY_T)):
         rng = np.random.RandomState(T + 7)
         lens = rng.randint(1, T + 1, B)
         lens[0], lens[-1] = T, 0  # one full row, one fully padded row
@@ -522,6 +554,12 @@ def check_flash_training(dev):
                 stages = _bwd_kv_stages("plain", args, tol,
                                         whole=lambda: fa.attention_bwd(*whole_args))
                 errs["dk, dv (bwd-kv alone)"] = stages["err"][0]
+                if not n_layers:
+                    log(f"K1/K3 {name}: max_abs_err "
+                        f"{', '.join(f'{n} {e:.3e}' for n, e in errs.items())} (tol {tol}); "
+                        f"a JETS trainer bucket, checked only")
+                    del stages
+                    continue
                 iters = 50 if T == TRAIN_T_TEXT else 20
                 lib_fwd, lib_bwd = _library_attention(q, k, v, g, pad, scale, p)
                 # the backward rows in device time, their library call too
@@ -895,11 +933,10 @@ def build_gan(hp_overrides=None):
     full MSMPD, seeded random weights on the CPU, and the step's pieces
     from the shipped training config."""
     from viet_tts_torch import config
-    from viet_tts_torch.models.hifigan import MelSpectrogramLoss
-    from viet_tts_torch.models.hifigan import MultiScaleMultiPeriodDiscriminator
     from viet_tts_torch.models.jets import JETS
     from viet_tts_torch.nn.utils import seeded_init_
     from viet_tts_torch.text import NUM_SYMBOLS
+    from viet_tts_torch.train.gan import build_discriminator, build_mel_loss
 
     hp = dict(config.jets_generator_params(), attn_implementation="flash", fused_mrf=False)
     hp.update(hp_overrides or {})
@@ -909,15 +946,8 @@ def build_gan(hp_overrides=None):
     with torch.no_grad():
         for up in model.generator.upsamples:  # audio-scale output (see phase 5)
             up[1].weight_g.fill_(1.0)
-    dp = config.jets_discriminator_params()
-    disc = seeded_init_(MultiScaleMultiPeriodDiscriminator(
-        scales=dp["scales"], scale_params=dp["scale_discriminator_params"],
-        periods=dp["periods"], period_params=dp["period_discriminator_params"]), gen)
-    mel_loss = MelSpectrogramLoss(
-        fs=audio["signal"]["sampling_rate"], n_fft=audio["stft"]["filter_length"],
-        hop_length=audio["stft"]["hop_length"], win_length=audio["stft"]["win_length"],
-        window=audio["stft"]["window"], n_mels=audio["mel"]["channels"],
-        fmin=audio["mel"]["fmin"], fmax=audio["mel"]["fmax"], log_base=None)
+    disc = seeded_init_(build_discriminator(config.jets_discriminator_params()), gen)
+    mel_loss = build_mel_loss(audio, log_base=None)
     return model, disc, mel_loss, config.jets_train_conf(), config.upsample_factor(audio)
 
 
@@ -2809,6 +2839,20 @@ TRAINER_SPEAKERS = ("hn_spk", "hcm_spk")
 TRAINER_SECONDS = (2.0, 7.5)
 TRAINER_UTTS = 12  # a speaker: 11 train, 1 test (the filelist's 95 / 5 split)
 TRAINER_ITERS = (6, 8)  # the first run, then the resumed run
+TRAINER_ROOT = os.path.join(REPO, "build", "chip_smoke_trainer")
+# config/model_config.yaml's JETS dropout rates, as written there
+JETS_CONFIG_DROPOUT = tuple(
+    [(f"transformer_{kind}_{rate}", "0.2") for kind in ("enc", "dec")
+     for rate in ("dropout_rate", "positional_dropout_rate", "attn_dropout_rate")]
+    + [("pitch_predictor_dropout", "0.5"), ("energy_predictor_dropout", "0.5")])
+
+
+def _fresh_dir(root: str) -> str:
+    if os.path.exists(root):
+        import shutil
+
+        shutil.rmtree(root)
+    return root
 
 
 def write_trainer_dataset(root: str, n_utts: int, seconds, seed: int):
@@ -2862,12 +2906,13 @@ def _edit_section(text: str, section: str, edits) -> str:
 
 
 def trainer_config(root: str, zero_dropout: bool = False, batch_size: int = 8) -> str:
-    """A copy of ``config/`` whose FastSpeech2 section gains
-    ``attn_implementation: flash`` (the file's own recommendation for
-    training), edited as text (the card has no pyyaml); ``log_step`` 1;
-    optionally every dropout 0 and another batch size. Read back through
-    the port's reader and checked."""
-    from viet_tts_torch.config import build_config
+    """A copy of ``config/`` whose FastSpeech2 section and JETS generator
+    params gain ``attn_implementation: flash`` (the file's own
+    recommendation for training), edited as text (the card has no pyyaml);
+    ``log_step`` 1; optionally every dropout 0 (JETS's duration predictor's,
+    which the file leaves to the model's default, added) and another batch
+    size. Read back through the port's reader and checked."""
+    from viet_tts_torch.config import JETS_DROPOUT_KEYS, build_config
 
     out = os.path.join(root, "config")
     os.makedirs(out, exist_ok=True)
@@ -2881,6 +2926,14 @@ def trainer_config(root: str, zero_dropout: bool = False, batch_size: int = 8) -
                           ("decoder_dropout: 0.1", "decoder_dropout: 0.0"),
                           ("      dropout: 0.5", "      dropout: 0.0")]
             text = _edit_section(text, "fastspeech2", edits)
+            jets_edits = [("  generator_params:\n",
+                           "  generator_params:\n    attn_implementation: flash\n")]
+            if zero_dropout:
+                jets_edits += [(f"    {key}: {rate}", f"    {key}: 0.0")
+                               for key, rate in JETS_CONFIG_DROPOUT]
+                jets_edits += [("    init_type:", "    duration_predictor_dropout_rate: 0.0\n"
+                                                 "    init_type:")]
+            text = _edit_section(text, "jets", jets_edits)
         elif name == "train_config.yaml":
             text = text.replace("\nlog_step: 100\n", "\nlog_step: 1\n").replace(
                 "\nbatch_size: 8\n", f"\nbatch_size: {batch_size}\n")
@@ -2896,20 +2949,35 @@ def trainer_config(root: str, zero_dropout: bool = False, batch_size: int = 8) -
                                       hp["variance"]["variance_predictor"]["dropout"])
                 != (drop, drop, drop))):
         raise AssertionError(f"trainer config copy not as edited: {hp}")
+    jets = conf["models"]["jets"]["generator_params"]
+    if jets["attn_implementation"] != "flash" or (drop is not None and any(
+            jets[key] != drop for key in JETS_DROPOUT_KEYS if key in jets)) or (
+            drop is not None and jets["duration_predictor_dropout_rate"] != drop):
+        raise AssertionError(f"trainer config copy's JETS params not as edited: {jets}")
     return out
 
 
 class _StepProbe:
-    """Wraps a trainer's ``train_step``: the XL kernels' launch counts zeroed
-    before each step and read after it (the device synchronised), with the
-    batch's padded lengths, the host seconds of the step, the data wait that
-    came before it, its learning rate and its losses; and the host seconds
-    of each epoch end's parameter histograms."""
+    """Wraps a trainer's ``train_step``: the launch counts of ``wrappers()``
+    (name -> kernel wrapper) zeroed before each step and read after it (the
+    device synchronised), with the batch's padded lengths, the host seconds
+    of the step, the data wait that came before it, each state's learning
+    rate and the losses; the weights of each state's module before the
+    first step; and the host seconds of each epoch end's parameter
+    histograms. The step's arguments are its train states (one, or the
+    generator's and the discriminator's), then the batch, then the rest.
+    With ``grads_of``, each step also keeps (on the host) the gradient the
+    first state's module was stepped with, of each parameter whose name
+    holds that string."""
 
-    def __init__(self, trainer, sync: bool = True, zero_postnet_dropout: bool = False):
+    def __init__(self, trainer, wrappers=None, sync: bool = True,
+                 zero_postnet_dropout: bool = False, grads_of: Optional[str] = None):
         self.steps = []
+        self.grads_of = grads_of
         self.hist_s = []
+        self.before = None
         self.trainer = trainer
+        self.wrappers = wrappers or _xl_wrappers
         self.sync = sync
         self._step = trainer.train_step
         trainer.train_step = self
@@ -2924,28 +2992,41 @@ class _StepProbe:
         if zero_postnet_dropout:
             trainer.model.postnet.dropout.p = 0.0
 
-    def __call__(self, state, batch, generator):
-        wrappers = _xl_wrappers()
+    def __call__(self, *args):
+        from viet_tts_torch.train.state import TrainState
+
+        states = [a for a in args if isinstance(a, TrainState)]
+        batch = args[len(states)]
+        if self.before is None:
+            self.before = [_flat_params(s.module) for s in states]
+        wrappers = self.wrappers()
         for fn in wrappers.values():
             fn.launches = 0
         if self.sync:
             torch.cuda.synchronize()
-        lr = state.lr
+        lrs = tuple(s.lr for s in states)
         t0 = time.perf_counter()
-        state, metrics = self._step(state, batch, generator)
+        out = self._step(*args)
         if self.sync:
             torch.cuda.synchronize()
+        feats = batch.get("feats", batch.get("mel"))
         self.steps.append({
-            "iter": self.trainer.iter, "t_text": int(batch["text"].shape[1]),
-            "t_mel": int(batch["feats"].shape[1]), "step_s": time.perf_counter() - t0,
-            "wait_s": self.trainer.last_data_wait, "lr": lr,
+            "iter": self.trainer.iter,
+            "t_text": int(batch["text"].shape[1]) if "text" in batch else None,
+            "t_mel": int(feats.shape[1]), "step_s": time.perf_counter() - t0,
+            "wait_s": self.trainer.last_data_wait, "lr": lrs[0], "lrs": lrs,
             "launches": {name: fn.launches for name, fn in wrappers.items()},
-            "metrics": {k: v.item() for k, v in metrics.items()}})
-        return state, metrics
+            "metrics": {k: v.item() for k, v in out[-1].items()}})
+        if self.grads_of is not None:
+            self.steps[-1]["grads"] = {
+                n: p.grad.detach().cpu() for n, p in states[0].module.named_parameters()
+                if self.grads_of in n and p.grad is not None}
+        return out
 
 
-def _trainer_argv(root: str, config_dir: str, out: str, max_iter: int, *extra):
-    return ["--task", "fastspeech2", "-i", os.path.join(root, "egs"), "-d",
+def _trainer_argv(root: str, config_dir: str, out: str, max_iter: int, *extra,
+                  task: str = "fastspeech2"):
+    return ["--task", task, "-i", os.path.join(root, "egs"), "-d",
             os.path.join(root, "data"), "-o", os.path.join(root, out), "--config", config_dir,
             "--max_iter", str(max_iter), *extra]
 
@@ -2970,11 +3051,7 @@ def check_trainer(dev, voc_dir: str):
     from viet_tts_torch.train.checkpoint import SUFFIX, checkpoint_name
     from viet_tts_torch.train.state import exponential_lr
 
-    root = os.path.join(REPO, "build", "chip_smoke_trainer")
-    if os.path.exists(root):
-        import shutil
-
-        shutil.rmtree(root)
+    root = _fresh_dir(TRAINER_ROOT)
     data_dir, _ = write_trainer_dataset(root, TRAINER_UTTS, TRAINER_SECONDS, SEED)
     config_dir = trainer_config(root)
     probes = []
@@ -3084,6 +3161,321 @@ def check_trainer(dev, voc_dir: str):
     return launches, figures
 
 
+# --------------------------------------------------------------------------
+# phases 19 and 20: the GAN trainers (python -m viet_tts_torch.train --task
+# jets | hifigan)
+# --------------------------------------------------------------------------
+
+# ~173 and ~474 mel frames: mel buckets 256 and 512 (bench.py's T_mel)
+JETS_TRAINER_SECONDS = (2.0, 5.5)
+FLASH_COUNTED = ("flash_attention_fwd", "flash_attention_bwd_q", "flash_attention_bwd_kv")
+# full-width JETS: 4 encoder + 6 decoder attention layers, K2 9 launches at
+# each of the vocoder's two fused stages
+JETS_STEP_LAUNCHES = dict.fromkeys(FLASH_COUNTED, 10)
+JETS_CALL_LAUNCHES = {"flash_attention_fwd": 10, "flash_attention_bwd_q": 0,
+                      "flash_attention_bwd_kv": 0, "fused_mrf_stage": 18}
+
+
+def _flash_wrappers():
+    from viet_tts_torch.ops import flash_attention as fa
+
+    return dict(zip(FLASH_COUNTED, (fa.attention_fwd, fa.attention_bwd_dq,
+                                    fa.attention_bwd_dkv)))
+
+
+def _mrf_wrappers():
+    from viet_tts_torch.ops import fused_mrf as fm
+
+    return {"fused_mrf_stage": fm.fused_mrf_stage}
+
+
+def _generator_names(out: str):
+    from viet_tts_torch.train.checkpoint import parse_checkpoint_name
+
+    return sorted((f for f in os.listdir(out) if f.startswith("generator_")),
+                  key=lambda f: parse_checkpoint_name(f)[1])
+
+
+def _run_gan_trainer(task: str, root: str, config_dir: str, wrappers, dev, profile: bool):
+    """``main`` with ``--task`` on the card's default device to
+    ``TRAINER_ITERS[0]``, then resumed by scan to ``TRAINER_ITERS[1]``.
+    Held: the device, the resumed iteration and steps, the generator
+    checkpoints' names (keep-3), the discriminator file's iteration, each
+    step's two rates against ``exponential_lr`` of its epoch, finite
+    metrics, both models changed over the runs, TF32 off after the trainer
+    was built (it is turned on before, so the trainer has to set it).
+    Returns (the first trainer, the steps, the epoch's batches, (the memory
+    earlier phases still hold, the peak) in GB, the two runs' seconds, the
+    histogram seconds, the largest parameter changes, and with ``profile``
+    (a step and its arguments) on one of the resumed trainer's batches,
+    else None)."""
+    from viet_tts_torch.train.__main__ import main
+    from viet_tts_torch.train.checkpoint import checkpoint_name, load_checkpoint
+    from viet_tts_torch.train.gan import DISCRIMINATOR_FILE
+    from viet_tts_torch.train.state import exponential_lr
+    from viet_tts_torch.train.trainer import step_generator
+
+    probes = []
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases still hold
+    tf32 = []
+
+    def on_trainer(tr):
+        tf32.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        probes.append(_StepProbe(tr, wrappers))
+
+    t0 = time.perf_counter()
+    try:
+        _set_tf32(True)
+        first, resumed = (main(_trainer_argv(root, config_dir, f"out_{task}", n, task=task),
+                               on_trainer=on_trainer) for n in TRAINER_ITERS)
+    finally:
+        _set_tf32(False)
+    run_s = time.perf_counter() - t0
+    if tf32 != [(False, False)] * 2:
+        raise AssertionError(f"{task} trainer left TF32 (cuDNN, matmul) at {tf32}")
+    peak_gb = (base_gb, torch.cuda.max_memory_allocated() / 1e9)
+    if first.device.type != dev.type or next(first.model.parameters()).device.type != dev.type:
+        raise AssertionError(f"{task} trainer ran on {first.device}, not on {dev}")
+    out = first.args.output_folder
+    per_epoch = first.train_loader.epoch_batches()
+    n0, n1 = TRAINER_ITERS
+    # saved at each epoch's end and at each run's --max_iter; keep-3
+    saved = sorted({*range(per_epoch, n1 + 1, per_epoch), n0, n1})[-3:]
+    want_names = [checkpoint_name("generator", (i - 1) // per_epoch, i) for i in saved]
+    names = _generator_names(out)
+    disc_iter = load_checkpoint(os.path.join(out, DISCRIMINATOR_FILE))["iteration"]
+    if names != want_names or disc_iter != n1:
+        raise AssertionError(f"{task} checkpoints {names} (expected {want_names}), "
+                             f"discriminator file at iteration {disc_iter}")
+    steps = [s for p in probes for s in p.steps]
+    if [s["iter"] for s in steps] != list(range(n1)) or (
+            resumed.iter, resumed.state.step, resumed.disc_state.step) != (n1, n1, n1):
+        raise AssertionError(f"{task} trainer iterations {[s['iter'] for s in steps]}, "
+                             f"resumed at {resumed.iter}, steps {resumed.state.step} / "
+                             f"{resumed.disc_state.step}")
+    for s in steps:
+        epoch = s["iter"] // per_epoch
+        want = (exponential_lr(first.base_lr, first.gamma, epoch),
+                exponential_lr(first.dis_lr, first.dis_gamma, epoch))
+        if s["lrs"] != want:
+            raise AssertionError(f"{task} step {s['iter']}: rates {s['lrs']}, expected {want}")
+        if not all(np.isfinite(v) for v in s["metrics"].values()):
+            raise AssertionError(f"{task} step {s['iter']}: metrics {s['metrics']}")
+    changed = [(a - _flat_params(m)).abs().max().item()
+               for a, m in zip(probes[0].before, (resumed.model, resumed.discriminator))]
+    if min(changed) <= 0.0:
+        raise AssertionError(f"{task}: max parameter change {changed}")
+    hist_s = [h for p in probes for h in p.hist_s]
+    profile_args = None
+    if profile:  # a step of the resumed trainer on one training batch
+        batches = iter(resumed.train_loader)
+        batch = resumed._device_batch(next(batches))
+        batches.close()
+        profile_args = (probes[-1]._step, resumed.state, resumed.disc_state, batch,
+                        *([step_generator(resumed.seed, 0)] if task == "jets" else []))
+    return first, steps, per_epoch, peak_gb, run_s, hist_s, changed, profile_args
+
+
+def _set_tf32(on: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+# The JETS trainer's first-step gradients, card against CPU, per tensor:
+# the fp32 step with no kernel of the port in it (attn_implementation
+# "shift" on the card) already differs from the CPU by up to ~1e-3 of a
+# self-attention tensor's norm (tools/jets_trainer_grads.py; PERF.md), and
+# a K3 that wrote zeros would differ by 1.
+GRAD_REL_TOL = 1e-2
+
+
+def _gan_card_vs_cpu(task: str, root: str, config_dir: str, wrappers, expect_launches,
+                     grads_of: Optional[str] = None):
+    """The trainer's first step on the card and under ``--device cpu`` (the
+    same seeded weights and segments): the metrics within rel 1e-3, and the
+    card step's launches as expected. With ``grads_of``, the generator's
+    gradients of the parameters whose names hold it too (the metrics are
+    all taken before the generator's update, so they do not see its
+    backward): each tensor's ||card - CPU|| within GRAD_REL_TOL of its CPU
+    norm. A key projection's bias is left out: softmax is invariant to the
+    shift it adds to a row's logits, so its gradient is 0 in exact
+    arithmetic and only rounding remains."""
+    from viet_tts_torch.train.__main__ import main
+
+    results = []
+    for device in ("cuda", "cpu"):
+        probe = []
+        main(_trainer_argv(root, config_dir, f"out_{task}_{device}", 1, "--device", device,
+                           task=task),
+             on_trainer=lambda tr: probe.append(_StepProbe(
+                 tr, wrappers, sync=device == "cuda", grads_of=grads_of)))
+        (step,) = probe[0].steps
+        results.append(step)
+    card, cpu = (r["metrics"] for r in results)
+    if results[0]["launches"] != expect_launches:
+        raise AssertionError(f"{task} card vs CPU step launches {results[0]['launches']}, "
+                             f"expected {expect_launches}")
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    if max(rel.values()) > 1e-3:
+        raise AssertionError(f"{task} trainer first step card vs CPU: {card} vs {cpu}, "
+                             f"rel {rel}")
+    note = ""
+    if grads_of is not None:
+        card_g, cpu_g = (r["grads"] for r in results)
+        if not cpu_g or sorted(card_g) != sorted(cpu_g):
+            raise AssertionError(f"{task} card vs CPU: gradients of {sorted(card_g)} against "
+                                 f"{sorted(cpu_g)}")
+        grad_rel = {n: ((card_g[n] - g).double().norm() / g.double().norm()).item()
+                    for n, g in cpu_g.items() if not n.endswith("linear_k.bias")}
+        bad = {n: e for n, e in grad_rel.items() if not e <= GRAD_REL_TOL}
+        if bad:
+            raise AssertionError(f"{task} card vs CPU: gradients beyond {GRAD_REL_TOL} of "
+                                 f"their norm: {bad}")
+        note = (f"; the gradients of {len(grad_rel)} '{grads_of}' tensors: max "
+                f"||card - CPU|| / ||CPU|| {max(grad_rel.values()):.3e} (tol {GRAD_REL_TOL})")
+    log(f"{task} trainer first step card (kernels) vs CPU (plain), B=2 "
+        f"T_mel={results[0]['t_mel']}: max rel diff {max(rel.values()):.3e} (tol 1e-3) over "
+        f"{sorted(rel)}{note}")
+    return max(rel.values())
+
+
+def _gan_figures(first, steps, per_epoch, peak_gb, run_s, hist_s):
+    by_bucket = {}
+    for s in steps:
+        by_bucket.setdefault(s["t_mel"], []).append(s["step_s"])
+    wait_ms = sorted(1e3 * s["wait_s"] for s in steps)
+    return {"step_s_by_bucket": {b: sorted(v) for b, v in sorted(by_bucket.items())},
+            "step_s_median_by_bucket": {b: float(np.median(v))
+                                        for b, v in sorted(by_bucket.items())},
+            "wait_ms": wait_ms[len(wait_ms) // 2], "wait_ms_max": wait_ms[-1],
+            "held_gb": peak_gb[0], "peak_gb": peak_gb[1], "run_s": run_s, "hist_s": hist_s,
+            "epoch_batches": per_epoch,
+            "cache_s": getattr(first, "cache_seconds", None)}
+
+
+def check_jets_trainer(dev, profile: bool):
+    """The JETS trainer through the CLI's entry function, in-process, on the
+    card (its default device): a dataset of 2 speakers x 12 utterances at
+    ~2 s and ~5.5 s (mel buckets 256 and 512), full-width JETS with
+    ``attn_implementation: flash`` and every dropout as configured
+    (``init_type: xavier_uniform`` applied), the full MSMPD, batch size 8,
+    to ``--max_iter 6``, then resumed by scan to 8 (``_run_gan_trainer``'s
+    checks), each step's K1, K3a and K3b launches held at 10 each (4
+    encoder + 6 decoder layers). Then the first step on the card against
+    the CPU (a one-bucket dataset, every dropout 0 by the config edit): the
+    metrics, and the self-attention gradients that K1 and K3 feed. Then
+    ``OneStageTTS`` serves the output directory: K1 10 and K2 18
+    launches a call."""
+    from viet_tts_torch.infer.api import OneStageTTS, resolve_checkpoint
+
+    root = _fresh_dir(os.path.join(REPO, "build", "chip_smoke_jets_trainer"))
+    write_trainer_dataset(root, TRAINER_UTTS, JETS_TRAINER_SECONDS, SEED)
+    config_dir = trainer_config(root)
+    first, steps, per_epoch, peak_gb, run_s, hist_s, changed, profile_args = _run_gan_trainer(
+        "jets", root, config_dir, _flash_wrappers, dev, profile)
+    launches = dict.fromkeys(FLASH_COUNTED, 0)
+    for s in steps:
+        if s["launches"] != JETS_STEP_LAUNCHES:
+            raise AssertionError(f"JETS trainer step {s['iter']} at T_mel {s['t_mel']}: "
+                                 f"launches {s['launches']}, expected {JETS_STEP_LAUNCHES}")
+        for k, n in s["launches"].items():
+            launches[k] += n
+    buckets = sorted({s["t_mel"] for s in steps})
+    if per_epoch != 4 or buckets != [256, 512]:
+        raise AssertionError(f"JETS trainer: {per_epoch} batches an epoch, mel buckets "
+                             f"{buckets}, expected 4 and [256, 512]")
+    figures = _gan_figures(first, steps, per_epoch, peak_gb, run_s, hist_s)
+    log(f"JETS trainer: {len(first.train_set)} train utterances, {len(steps)} steps at "
+        f"(B, T_text, T_mel) {[(8, s['t_text'], s['t_mel']) for s in steps]}, resumed at iter "
+        f"{TRAINER_ITERS[0]}; checkpoints {_generator_names(first.args.output_folder)}; step "
+        f"host seconds {[round(s['step_s'], 4) for s in steps]}; data wait ms "
+        f"{[round(1e3 * s['wait_s'], 2) for s in steps]}; peak {peak_gb[1]:.2f} GB ("
+        f"{peak_gb[0]:.2f} held before); both runs {run_s:.1f} s; launches {launches}; max "
+        f"parameter change gen {changed[0]:.3e} disc "
+        f"{changed[1]:.3e}; last metrics {steps[-1]['metrics']}")
+
+    cmp_root = os.path.join(root, "card_vs_cpu")
+    write_trainer_dataset(cmp_root, 3, (2.0,), SEED + 1)
+    cmp_config = trainer_config(cmp_root, zero_dropout=True, batch_size=2)
+    figures["card_vs_cpu_rel"] = _gan_card_vs_cpu("jets", cmp_root, cmp_config,
+                                                  _flash_wrappers, JETS_STEP_LAUNCHES,
+                                                  grads_of=".self_attn.")
+
+    out = first.args.output_folder
+    tts = OneStageTTS(out, fused_vocoder=True)
+    per_call = []
+    for texts in (SENTENCES[:4], SENTENCES[4:12]):
+        counts = {**_flash_wrappers(), **_mrf_wrappers()}
+        for fn in counts.values():
+            fn.launches = 0
+        waves = tts(texts)
+        torch.cuda.synchronize()
+        per_call.append({k: fn.launches for k, fn in counts.items()})
+        _check_waves(waves, len(texts), "OneStageTTS from the JETS trainer's output")
+    if per_call != [JETS_CALL_LAUNCHES] * 2:
+        raise AssertionError(f"OneStageTTS launches per call {per_call}, expected "
+                             f"{JETS_CALL_LAUNCHES}")
+    log(f"OneStageTTS serves the JETS trainer's output "
+        f"({os.path.basename(resolve_checkpoint(out))}): launches per call {per_call}")
+    return launches, figures, profile_args
+
+
+def check_hifigan_trainer(dev, profile: bool):
+    """The HiFi-GAN trainer through the CLI's entry function on phase 18's
+    dataset, feature cache and config copy: full-width HiFi-GAN V1 (plain
+    MRF) and the default MSMPD, 64-frame segments, batch size 8, to
+    ``--max_iter 6``, then resumed by scan to 8 (``_run_gan_trainer``'s
+    checks), no K2 launch in a step. Then the first step on the card
+    against the CPU (phase 18's one-bucket dataset). Then ``TwoStageTTS``
+    serves phase 18's FastSpeech2 output with this phase's output as its
+    vocoder: K2 18 launches a call."""
+    from viet_tts_torch.infer.api import TwoStageTTS, resolve_checkpoint
+
+    config_dir = os.path.join(TRAINER_ROOT, "config")
+    first, steps, per_epoch, peak_gb, run_s, hist_s, changed, profile_args = _run_gan_trainer(
+        "hifigan", TRAINER_ROOT, config_dir, _mrf_wrappers, dev, profile)
+    if any(s["launches"]["fused_mrf_stage"] for s in steps):
+        raise AssertionError(f"K2 launched in a HiFi-GAN training step: "
+                             f"{[s['launches'] for s in steps]}")
+    seg = first.conf["models"]["hifigan"]["segment_size"]
+    if {s["t_mel"] for s in steps} != {seg} or per_epoch != 3:
+        raise AssertionError(f"HiFi-GAN steps at {sorted({s['t_mel'] for s in steps})} "
+                             f"frames, {per_epoch} batches an epoch")
+    figures = _gan_figures(first, steps, per_epoch, peak_gb, run_s, hist_s)
+    log(f"HiFi-GAN trainer: {len(first.train_set)} train utterances, {len(steps)} steps of "
+        f"8 x {seg}-frame segments, resumed at iter {TRAINER_ITERS[0]}; checkpoints "
+        f"{_generator_names(first.args.output_folder)}; step host seconds "
+        f"{[round(s['step_s'], 4) for s in steps]}; data wait ms "
+        f"{[round(1e3 * s['wait_s'], 2) for s in steps]}; peak {peak_gb[1]:.2f} GB ("
+        f"{peak_gb[0]:.2f} held before); both runs {run_s:.1f} s; max parameter change gen "
+        f"{changed[0]:.3e} disc {changed[1]:.3e}; "
+        f"last metrics {steps[-1]['metrics']}")
+
+    cmp_root = os.path.join(TRAINER_ROOT, "card_vs_cpu")
+    figures["card_vs_cpu_rel"] = _gan_card_vs_cpu(
+        "hifigan", cmp_root, os.path.join(cmp_root, "config"), _mrf_wrappers,
+        {"fused_mrf_stage": 0})
+
+    out = first.args.output_folder
+    tts = TwoStageTTS(os.path.join(TRAINER_ROOT, "out"), out, fused_vocoder=True)
+    counts = _mrf_wrappers()
+    per_call = []
+    for texts in (SENTENCES[:4], SENTENCES[4:8]):
+        counts["fused_mrf_stage"].launches = 0
+        waves = tts(texts, speaker=TRAINER_SPEAKERS[1], accent="hcm")
+        torch.cuda.synchronize()
+        per_call.append(counts["fused_mrf_stage"].launches)
+        _check_waves(waves, len(texts), "TwoStageTTS with the HiFi-GAN trainer's vocoder")
+    want = JETS_CALL_LAUNCHES["fused_mrf_stage"]  # the same V1 vocoder
+    if per_call != [want, want]:
+        raise AssertionError(f"TwoStageTTS K2 launches per call {per_call}, expected {want}")
+    log(f"TwoStageTTS serves phase 18's FastSpeech2 with the HiFi-GAN trainer's output "
+        f"({os.path.basename(resolve_checkpoint(out))}) as its vocoder: K2 launches per call "
+        f"{per_call}")
+    return figures, profile_args
+
+
 def profile_call(fn, label: str, out_name: str, repeats: int = 5) -> None:
     """Host time of ``repeats`` calls of ``fn``, then one under
     ``torch.profiler``: device time by kernel group and the device's busy
@@ -3142,7 +3534,8 @@ def main() -> int:
                          "sentences, five JETS training steps, five two-stage "
                          "calls, five FS2 training steps at T_mel 1008, five at "
                          "512 and five at 2048, five JETS-conformer calls and five "
-                         "JETS-conformer steps of each rel-pos flavour, and "
+                         "JETS-conformer steps of each rel-pos flavour, five "
+                         "JETS and five HiFi-GAN trainer steps, and "
                          "profile one of each (device time by kernel group, "
                          "busy share; per-kernel tables in the output "
                          "directory, chip_smoke_profile*.txt)")
@@ -3197,6 +3590,10 @@ def main() -> int:
     fs2_long_launches, fs2_long_figures, (fs2_long_step, *fs2_long_args) = \
         phase_timed("17", check_fs2_long_training, dev, fs2_step, fs2_state_, fs2_rng)
     trainer_launches, trainer_figures = phase_timed("18", check_trainer, dev, voc_dir)
+    jets_trainer_launches, jets_trainer_figures, jt_profile = phase_timed(
+        "19", check_jets_trainer, dev, args.profile)
+    hifigan_trainer_figures, ht_profile = phase_timed("20", check_hifigan_trainer, dev,
+                                                      args.profile)
     # the phases that time backward rows in device time run last: after a
     # torch.profiler session every kernel launch costs the host ~25 % more
     # (CUPTI stays attached; measured on the H100 machine), and the phases
@@ -3228,6 +3625,13 @@ def main() -> int:
         profile_call(lambda: fs2_long_step(*fs2_long_args),
                      f"FS2 training step (B={FS2_LONG_B}, T_mel {FS2_LONG_T_MEL})",
                      "chip_smoke_profile_fs2_long_train.txt")
+        jt_step, *jt_args = jt_profile
+        ht_step, *ht_args = ht_profile
+        profile_call(lambda: jt_step(*jt_args),
+                     f"JETS trainer step (T_mel {jt_args[2]['feats'].shape[1]})",
+                     "chip_smoke_profile_jets_trainer.txt")
+        profile_call(lambda: ht_step(*ht_args), "HiFi-GAN trainer step (8 x 64 frames)",
+                     "chip_smoke_profile_hifigan_trainer.txt")
     for entry in (k1, k2):
         entry["launches"] = launches[entry["name"]]
     k1["name_detail"] = "forward, with attention-weight dropout in training"
@@ -3238,6 +3642,12 @@ def main() -> int:
     k3 = k3_entries(k1_train)
     for entry in k3:
         entry["launches"] = train_launches[entry["name"]]
+    for entry in (k1, *k3):
+        entry["trainer_launches"] = jets_trainer_launches[entry["name"]]
+        entry["trainer_launches_per"] = (
+            f"the JETS trainer phase's {TRAINER_ITERS[1]} steps (python -m viet_tts_torch.train "
+            f"--task jets, mel buckets 256 and 512, to --max_iter {TRAINER_ITERS[0]}, then "
+            f"resumed to {TRAINER_ITERS[1]}; 10 a step)")
     k2["two_stage_launches"] = fs2_launches["fused_mrf_stage"]
     xl_entries = [xl[kind] for kind in ("xl3", "xl2", "xl")]
     for entry in xl_entries:
@@ -3329,6 +3739,16 @@ def main() -> int:
         f"{trainer_figures['wait_ms_max']:.2f}); peak {trainer_figures['peak_gb']:.2f} GB; "
         f"both runs {trainer_figures['run_s']:.1f} s; parameter histograms "
         f"{[round(h, 3) for h in trainer_figures['hist_s']]} s an epoch end")
+    for label, fig in (("JETS", jets_trainer_figures), ("HiFi-GAN", hifigan_trainer_figures)):
+        log(f"{label} trainer: step host median by mel bucket "
+            f"{ {b: round(v, 4) for b, v in fig['step_s_median_by_bucket'].items()} } s "
+            f"(steps {fig['step_s_by_bucket']}); data wait median {fig['wait_ms']:.2f} ms a "
+            f"step (max {fig['wait_ms_max']:.2f}); peak {fig['peak_gb']:.2f} GB "
+            f"({fig['held_gb']:.2f} held by earlier phases at its start); both runs "
+            f"{fig['run_s']:.1f} s; parameter histograms "
+            f"{[round(h, 3) for h in fig['hist_s']]} s an epoch end; first step card vs CPU "
+            f"max rel {fig['card_vs_cpu_rel']:.3e}"
+            + (f"; feature cache and stats {fig['cache_s']:.2f} s" if fig["cache_s"] else ""))
     kernels_line = [k1, k2, *k3, *xl_entries, *xl_bwd_entries, *k6_bwd_entries, *rel_entries]
     if DEVICE_MS_MISSES:
         log(f"device_ms: {len(DEVICE_MS_MISSES)} backward figure(s) timed by CUDA events: "

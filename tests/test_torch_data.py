@@ -6,7 +6,10 @@ Dio and NCCF pitch), the filelists, the feature cache (each package writes
 one copy of ``tests/synth_data.build_dataset``'s 2 speakers x 3 utterances
 and reads the other's), ``AcousticDataset`` in prior and
 supervised-duration mode, ``BucketBatcher``'s batches under one seed, the
-prefetch thread and the TensorBoard event files. Tolerances: mel features
+prefetch thread and the TensorBoard event files; the JETS task's items
+with the waveform (``include_speech``, read as the JAX package's native
+reader reads it) and its collate; the vocoder pipeline (``VocoderDataset``,
+``VocoderSegmentCollate``, ``VocoderBatcher`` and its ``skip``). Tolerances: mel features
 and energy atol 1e-4 (two FFT libraries in fp32), pitch atol 1e-6 (the
 same numpy code), the beta-binomial prior rel 1e-5 (scipy against
 ``torch.lgamma``), stats rel 1e-6, batches' integers exact and floats
@@ -28,11 +31,12 @@ from viet_tts_tpu.data import batching as jax_batching
 from viet_tts_tpu.data import dataset as jax_dataset
 from viet_tts_tpu.data import features as jax_features
 from viet_tts_tpu.data import filelist as jax_filelist
+from viet_tts_tpu.data import vocoder as jax_vocoder
 from viet_tts_tpu.dsp import dio as jax_dio
 from viet_tts_tpu.dsp.stft import apply_log as jax_apply_log
 from viet_tts_tpu.utils import tfevents as jax_tfevents
 from viet_tts_torch import config as port_config
-from viet_tts_torch.data import batching, dataset, features, filelist
+from viet_tts_torch.data import batching, dataset, features, filelist, vocoder
 from viet_tts_torch.dsp import audio, dio, pitch, stft
 from viet_tts_torch.utils import tfevents
 from viet_tts_torch.utils.yaml_subset import YamlSubsetError, safe_load
@@ -301,9 +305,21 @@ def test_feature_cache_dataset_and_batches_match_jax(tmp_path):
     stats_path = str(tmp_path / "stats.json")
     dataset.save_stats(stats, stats_path)
     assert jax_dataset.load_stats(stats_path) == dataset.load_stats(stats_path) == stats
-    with pytest.raises(NotImplementedError, match="8b"):
-        dataset.AcousticDataset(train_j, audio_conf, speakers, accents, stats=stats,
-                                include_speech=True)
+    # with the waveform and no durations (the JETS task's items and batches)
+    kw = dict(stats=stats, include_speech=True, load_duration=False)
+    wds_j = jax_dataset.AcousticDataset(train_p, audio_conf, speakers, accents, **kw)
+    wds_p = dataset.AcousticDataset(train_j, audio_conf, speakers, accents, **kw)
+    for i in range(len(wds_p)):
+        item_p, item_j = wds_p[i], wds_j[i]
+        np.testing.assert_array_equal(item_p["speech"], item_j["speech"])
+        assert item_p["speech"].dtype == np.float32 and not item_p["duration"].any()
+        item_j["wav_path"] = item_p["wav_path"]
+        _assert_items_equal(item_p, item_j)
+    _assert_batches_equal(
+        list(batching.BucketBatcher(wds_p, 3, seed=11, prefetch=2,
+                                    collate_fn=batching.make_jets_collate(256))),
+        list(jax_batching.BucketBatcher(wds_j, 3, seed=11, prefetch=0,
+                                        collate_fn=jax_batching.make_jets_collate(256))))
 
     # supervised-duration mode
     sup_conf = dict(audio_conf, self_learning=False)
@@ -376,6 +392,46 @@ def test_epoch_batches_counts_the_batches_of_an_epoch(batch_size):
     assert all(len(b["text"]) == batch_size for b in epoch)
 
 
+def test_jets_collate_matches_jax():
+    """The acoustic collate without durations, with each waveform cut or
+    zero-padded to the mel bucket's samples: equal to JAX's bit for bit."""
+    rng = np.random.RandomState(4)
+    items = [dict(text=rng.randint(1, 90, n).astype(np.int32),
+                  word_ids=np.arange(n, dtype=np.int32) // 3,
+                  feat=rng.randn(m, 80).astype(np.float32),
+                  duration=np.zeros(n, np.int32),
+                  pitch=rng.randn(m).astype(np.float32), energy=rng.randn(m).astype(np.float32),
+                  speech=rng.randn(m * 256 + extra).astype(np.float32),
+                  sid=np.int32(i), aid=np.int32(1))
+             for i, (n, m, extra) in enumerate(((9, 70, 100), (13, 128, 300), (5, 40, -20)))]
+    got = batching.make_jets_collate(256)(items, 32, 128)
+    want = jax_batching.make_jets_collate(256)(items, 32, 128)
+    assert got.keys() == want.keys() and "duration" not in got
+    assert got["speech"].shape == (3, 128 * 256)
+    for k in got:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_read_wav_matches_the_native_reader(tmp_path):
+    """The port's ``read_wav`` against the JAX package's
+    ``runtime/native.py:wav_read_f32`` (its ``collate.cpp`` reader, built
+    with g++ on first use) on the written 16-bit wavs: equal sample for
+    sample."""
+    from viet_tts_tpu.runtime import native
+
+    data_dir, _ = build_dataset(str(tmp_path), n_utts=2)
+    wavs = [os.path.join(data_dir, spk, "wavs", name) for spk in sorted(os.listdir(data_dir))
+            for name in sorted(os.listdir(os.path.join(data_dir, spk, "wavs")))]
+    extra = str(tmp_path / "port.wav")
+    audio.write_wav(extra, _audio(seed=3), 22050)
+    for path in wavs + [extra]:
+        got, sr = audio.read_wav(path)
+        want, sr_native = native.wav_read_f32(path)
+        assert sr == sr_native == 22050 and got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want, err_msg=path)
+
+
 def test_collate_and_pad_match_jax():
     rng = np.random.RandomState(2)
     items = [dict(text=rng.randint(1, 90, n).astype(np.int32),
@@ -412,6 +468,101 @@ def test_prefetch_thread_order_errors_and_close():
 
 
 # -- tfevents --------------------------------------------------------------------
+
+# -- the vocoder pipeline ---------------------------------------------------------
+
+VOC_SEGMENT = 96  # the 1.0 s utterances (87 frames) fit whole, the 1.2 s (104) draw
+
+
+def _vocoder_batches(ds, collate_seed, batcher_seed, module, prefetch, epochs=2):
+    batcher = module.VocoderBatcher(
+        ds, 4, module.VocoderSegmentCollate(VOC_SEGMENT, 256, seed=collate_seed),
+        seed=batcher_seed, prefetch=prefetch)
+    return [b for _ in range(epochs) for b in batcher]
+
+
+def test_vocoder_dataset_and_batches_match_jax(tmp_path):
+    """``VocoderDataset`` items against the JAX package's, with the feature
+    cache (both read the same file: exact) and without it (the log-mel of
+    the peak-normalised waveform, two FFT libraries: atol 1e-4); the
+    waveform exact either way. ``VocoderBatcher`` batches of
+    ``VocoderSegmentCollate`` segments under one seed over two epochs (6
+    items at batch 4: one full batch and one repeat-filled an epoch),
+    through the prefetch thread, equal to JAX's inline batches."""
+    data_dir, egs_dir = build_dataset(str(tmp_path / "a"), n_utts=3)
+    with open(os.path.join(egs_dir, "speakers.json")) as f:
+        filelist.create_filelist(data_dir, json.load(f), egs_dir, seed=3)
+    shutil.copytree(str(tmp_path / "a" / "data"), str(tmp_path / "b" / "data"))
+    audio_conf = port_config.build_config(CONFIG_DIR)["audio"]
+    rows = _rows(egs_dir)
+    features.prepare_inputs(rows, audio_conf)
+    for cached, rows_case in ((True, rows), (False, _moved(rows, "/a/data/", "/b/data/"))):
+        ds_p = vocoder.VocoderDataset(rows_case, audio_conf)
+        ds_j = jax_vocoder.VocoderDataset(rows_case, audio_conf)
+        assert len(ds_p) == len(ds_j) == 6
+        for i in range(len(ds_p)):
+            item_p, item_j = ds_p[i], ds_j[i]
+            assert item_p.keys() == item_j.keys() == {"speech", "melspec"}
+            np.testing.assert_array_equal(item_p["speech"], item_j["speech"])
+            if cached:
+                np.testing.assert_array_equal(item_p["melspec"], item_j["melspec"])
+            else:
+                assert features.resolve_artifact(rows_case[i][0], "feat") is None
+                np.testing.assert_allclose(item_p["melspec"], item_j["melspec"],
+                                           atol=FEAT_ATOL)
+            assert ds_p.lengths(i) == (len(item_p["melspec"]), len(item_p["speech"]))
+    ds_p = vocoder.VocoderDataset(rows, audio_conf)
+    ds_j = jax_vocoder.VocoderDataset(rows, audio_conf)
+    got = _vocoder_batches(ds_p, 7, 8, vocoder, prefetch=2)
+    want = _vocoder_batches(ds_j, 7, 8, jax_vocoder, prefetch=0)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys() == {"mel", "speech"}
+        assert g["mel"].shape == (4, VOC_SEGMENT, 80) and g["speech"].shape == (
+            4, VOC_SEGMENT * 256, 1)
+        for k in g:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    # some segments start past frame 0, some items are shorter than one
+    assert any(not (b["speech"][:, -256:] == 0).all() for b in got)
+    assert any((b["speech"][:, -256:] == 0).all(axis=(1, 2)).any() for b in got)
+
+
+class _VocoderItems(list):
+    """Waveform / log-mel items of varied lengths with their ``lengths``."""
+
+    def lengths(self, i):
+        return len(self[i]["melspec"]), len(self[i]["speech"])
+
+
+def test_vocoder_batcher_skip_repeats_the_uninterrupted_stream():
+    """``skip(n)`` then iterating gives the stream from batch n on, the
+    segments included: both the shuffle and the segment starts (drawn only
+    for items longer than a segment) are replayed from the lengths."""
+    rng = np.random.RandomState(0)
+    items = _VocoderItems(
+        dict(melspec=rng.randn(n, 80).astype(np.float32),
+             speech=rng.randn(n * 256 + extra).astype(np.float32))
+        for n, extra in ((50, 0), (140, 17), (97, 300), (230, -256), (96, 5), (180, 0),
+                         (61, 255)))
+
+    def batcher():
+        return vocoder.VocoderBatcher(
+            items, 3, vocoder.VocoderSegmentCollate(VOC_SEGMENT, 256, seed=2), seed=5,
+            prefetch=0)
+
+    full = batcher()
+    per_epoch = full.epoch_batches()
+    stream = [b for _ in range(3) for b in full]
+    assert per_epoch == len(full) == 3 and len(stream) == 3 * per_epoch
+    for n in (0, 1, per_epoch, per_epoch + 2, 2 * per_epoch - 1):
+        resumed = batcher()
+        resumed.skip(n)
+        got = [b for _ in range(3 - n // per_epoch) for b in resumed][: len(stream) - n]
+        assert len(got) == len(stream) - n
+        for g, w in zip(got, stream[n:]):
+            for k in g:
+                np.testing.assert_array_equal(g[k], w[k], err_msg=f"skip {n}: {k}")
+
 
 @pytest.mark.parametrize("writer", ["port", "jax"])
 def test_tfevents_read_by_both_packages(tmp_path, writer):

@@ -87,6 +87,25 @@ def collate_acoustic(items: List[dict], t_text: int, t_mel: int) -> Dict[str, np
     return batch
 
 
+def make_jets_collate(hop_length: int = 256):
+    """The acoustic collate without the ``duration`` slot (JETS learns its
+    alignment), plus ``speech`` (B, t_mel * hop_length): each waveform cut
+    or zero-padded to the mel bucket's samples."""
+
+    def collate(items: List[dict], t_text: int, t_mel: int) -> Dict[str, np.ndarray]:
+        batch = collate_acoustic(items, t_text, t_mel)
+        del batch["duration"]
+        t_wav = t_mel * hop_length
+        speech = np.zeros((len(items), t_wav), np.float32)
+        for i, it in enumerate(items):
+            a = it["speech"][:t_wav]
+            speech[i, : len(a)] = a
+        batch["speech"] = speech
+        return batch
+
+    return collate
+
+
 class _PrefetchIterator:
     """Background-thread prefetch over a batch generator: the producer
     (disk reads and the numpy collate) fills a bounded queue from a daemon

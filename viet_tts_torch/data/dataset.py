@@ -3,9 +3,9 @@
 Counterpart of ``viet_tts_tpu/data/dataset.py``: per-utterance items
 (pitch and energy normalised by the dataset's statistics, the alignment
 prior or the supervised durations, the accent from the file name's
-prefix) read from the feature cache of ``data/features.py``; batching
-lives in ``data/batching.py``. ``include_speech`` (the waveform, for
-JETS) is not ported yet (ROADMAP.md, item 8b).
+prefix) read from the feature cache of ``data/features.py``, and with
+``include_speech`` the waveform (JETS); batching lives in
+``data/batching.py``.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from viet_tts_torch.data.features import load_array, prepare_inputs, resolve_artifact
+from viet_tts_torch.dsp.audio import read_wav
 from viet_tts_torch.text import symbols_to_ids
 
 
@@ -80,10 +81,6 @@ class AcousticDataset:
         include_speech: bool = False,
         load_duration: bool = True,
     ):
-        if include_speech:
-            raise NotImplementedError(
-                "include_speech (the waveform item of the JETS task) is not ported yet "
-                "(ROADMAP.md section 1, item 8b)")
         self.inputs = list(filelist)
         self.config = config
         self.speakers = speakers
@@ -190,6 +187,8 @@ class AcousticDataset:
             energy=prosody("energy")[: feat.shape[0]],
             wav_path=wav_path,
         )
+        if self.include_speech:
+            item["speech"] = read_wav(wav_path)[0]
         return item
 
 

@@ -78,6 +78,8 @@ class WNConvTranspose1d(nn.Module):
     ``weight_v`` (in, out, k), ``weight_g`` (1, out, 1), norm per output
     channel as in the JAX module."""
 
+    transposed = True  # weight laid out (in, out, k), as torch's _ConvNd says
+
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, padding: int, output_padding: int = 0,
                  use_weight_norm: bool = True):

@@ -1,6 +1,7 @@
 """Training CLI of the port, with the JAX package's ``train.py`` flags.
 
     python -m viet_tts_torch.train --task fastspeech2 -i egs/dir -d data/dir -o out/dir
+    python -m viet_tts_torch.train --task jets ... | --task hifigan ...
     python -m viet_tts_torch.train --task fastspeech2 ... --device cpu
 
 Runs on the CUDA card unless ``--device`` names another; it never falls
@@ -9,7 +10,9 @@ and ``speakers.json`` / ``accents.json``; ``-d`` the dataset
 (``<speaker>/metadata.csv`` and ``<speaker>/wavs/``); ``-o`` the
 checkpoints, sidecars and ``log/``. A rerun with the same ``-o`` resumes
 from its newest checkpoint; ``-c`` names a port trainer checkpoint to
-resume from instead. Only ``fastspeech2`` is ported so far.
+resume from instead. The GAN tasks (``jets``, ``hifigan``) also write and
+resume ``last_discriminator_statedict.pt`` there. ``fastspeech2``,
+``jets`` and ``hifigan`` are ported so far.
 """
 
 from __future__ import annotations
@@ -31,8 +34,6 @@ NOT_PORTED = {
     "text2wav": "item 11",
     "adaspeech": "item 12",
     "matcha": "item 13",
-    "jets": "item 8b, its second half",
-    "hifigan": "item 8b, its second half",
     "vits2": "item 14",
 }
 
@@ -82,9 +83,12 @@ def make_trainer(args, conf):
             f"{NOT_PORTED[args.task]})")
     if args.is_finetune:
         raise ValueError(f"Fine-tuning model is not supported for `{args.task}` yet!")
+    from viet_tts_torch.train.gan import HiFiGANTrainer, JETSTrainer
     from viet_tts_torch.train.trainer import FastSpeech2Trainer
 
-    return FastSpeech2Trainer(args, conf)
+    trainers = {"fastspeech2": FastSpeech2Trainer, "jets": JETSTrainer,
+                "hifigan": HiFiGANTrainer}
+    return trainers[args.task](args, conf)
 
 
 def main(argv: Optional[Sequence[str]] = None,

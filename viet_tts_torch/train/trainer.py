@@ -1,14 +1,18 @@
 """Host-side training loops: the trainer template and the FastSpeech2
-trainer.
+trainer (the GAN trainers are in ``train/gan.py``).
 
 Counterpart of ``viet_tts_tpu/train/trainer.py:79-462``: speakers and
 accents loading, filelist creation, dataset -> model -> loss -> optimizer
 hooks, the epoch loop until ``max_iter``, per-epoch LR decay and
 validation with the coloured delta report, parameter histograms, keep-3
 checkpoints with sidecars, resume by scan and one checkpoint on SIGTERM.
-Each step is the port's eager ``make_fs2_train_step`` on one device (the
-CUDA card unless ``args.device`` says otherwise); the host feeds bucketed
-batches from a prefetch thread.
+``BaseTrainer`` owns the loop: ``train_one_epoch`` feeds each batch to the
+subclass's ``train_batch`` (one eager step on one device, the CUDA card
+unless ``args.device`` says otherwise) and ``set_epoch_rates`` sets every
+optimizer's rate for an epoch, so the three trainers share one loop and
+one resume; the host feeds the batches from a prefetch thread. With
+``--profile`` the run's first epoch runs under ``torch.profiler`` and
+counts as an epoch like any other.
 
 Where the JAX trainer folds the step count into one PRNG key
 (``jax.random.fold_in(rng, state.step)``), each step here takes a CPU
@@ -17,7 +21,7 @@ Where the JAX trainer folds the step count into one PRNG key
 from the iteration (``iter // epoch_batches()``), whether the checkpoint
 was written at an epoch's end or inside one (``--max_iter``, SIGTERM), and
 the batch stream skips the batches already trained
-(``BucketBatcher.skip``), so a resumed run repeats the steps of an
+(the batcher's ``skip``), so a resumed run repeats the steps of an
 uninterrupted one; it does not repeat the validation an interrupted epoch
 left out. ``train.zero1`` / ``train.fsdp`` change
 nothing on one device, as in JAX on a one-device mesh; more than one card
@@ -77,6 +81,11 @@ class BaseTrainer:
         self.args = args
         self.conf = derive_task_config(conf, self.task, getattr(args, "version", None))
         self.device = resolve_device(getattr(args, "device", None))
+        if self.device.type == "cuda":
+            # fp32 as configured: cuDNN's convolutions and cuBLAS's products
+            # would otherwise be free to run in TF32
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
         self.n_symbols = NUM_SYMBOLS
 
         inp = args.input_folder
@@ -136,6 +145,20 @@ class BaseTrainer:
     def __init_optimizer__(self):
         raise NotImplementedError
 
+    def train_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a device batch; returns its metrics."""
+        raise NotImplementedError
+
+    def set_epoch_rates(self, epoch: int) -> None:
+        """Every optimizer's learning rate for ``epoch`` (ExponentialLR
+        stepped once an epoch)."""
+        self.state = set_learning_rate(
+            self.state, exponential_lr(self.base_lr, self.gamma, epoch))
+
+    def step_rates(self) -> Dict[str, float]:
+        """The learning rates the train log records at a step, by tag."""
+        return {"learning_rate": self.state.lr}
+
     # -- helpers --------------------------------------------------------
     @staticmethod
     def _load_json(path):
@@ -177,8 +200,7 @@ class BaseTrainer:
         ckpt.restore_payload(self.state, ckpt.load_checkpoint(path))
         self.iter = self.state.step = ckpt.parse_checkpoint_name(path)[1]
         self.epoch = self.iter // max(self.train_loader.epoch_batches(), 1)
-        self.state = set_learning_rate(
-            self.state, exponential_lr(self.base_lr, self.gamma, self.epoch))
+        self.set_epoch_rates(self.epoch)
         self.train_loader.skip(self.iter)
         log.info(f"resumed from {path} (epoch {self.epoch}, iter {self.iter})")
 
@@ -232,12 +254,18 @@ class BaseTrainer:
         self._install_preemption_handler()
         try:
             try:
-                if getattr(self.args, "profile", False):
-                    self._profiled_epoch()
+                profile = getattr(self.args, "profile", False)
                 while self.iter < self.args.max_iter:
                     t0 = time.time()
-                    self.train_one_epoch()
+                    if profile:  # the run's first epoch, counted as any other
+                        profile = False
+                        self._profiled_epoch()
+                    else:
+                        self.train_one_epoch()
                     self._check_preempted()
+                    # the per-epoch decay comes before validation, as
+                    # ExponentialLR.step() in the reference's epoch loop
+                    self.set_epoch_rates(self.epoch + 1)
                     self.valid_one_epoch()
                     self._check_preempted()
                     self._log_histograms()
@@ -269,7 +297,38 @@ class BaseTrainer:
             log.warning(f"histogram logging failed: {exc}")
 
     def train_one_epoch(self):
-        raise NotImplementedError
+        """The training batches of one epoch through ``train_batch``, to
+        the epoch's end or ``--max_iter``: the data wait before each step,
+        the metrics and rates every ``log_step`` iterations, a preemption
+        check after each step."""
+        log_step = self.conf["train"]["log_step"]
+        batches = iter(self.train_loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                batch = self._device_batch(batch)
+                self.last_data_wait = time.perf_counter() - t0
+                metrics = self.train_batch(batch)
+                if self.iter % log_step == 0:
+                    host = {k: float(v) for k, v in metrics.items()}
+                    self.train_logger.log(host, self.iter, rates=self.step_rates())
+                    sps = self.timer.steps_per_sec
+                    log.info(f"iter {self.iter} | "
+                             + " ".join(f"{k}={v:.3f}" for k, v in host.items())
+                             + f" | data wait {1e3 * self.last_data_wait:.1f} ms"
+                             + (f" | {sps:.2f} it/s" if sps else ""))
+                self.timer.tick()
+                self.iter += 1
+                self._check_preempted()
+                if self.iter >= self.args.max_iter:
+                    break
+        finally:
+            close = getattr(batches, "close", None)
+            if close is not None:  # stop the prefetch thread
+                close()
 
     def valid_one_epoch(self):
         raise NotImplementedError
@@ -362,41 +421,12 @@ class FastSpeech2Trainer(BaseTrainer):
             grad_accum=int(self.conf["train"].get("grad_accum", 1)))
         self.valid_step = make_fs2_valid_step(self.model, self.criterion)
 
-    def train_one_epoch(self):
-        log_step = self.conf["train"]["log_step"]
-        batches = iter(self.train_loader)
-        try:
-            while True:
-                t0 = time.perf_counter()
-                batch = next(batches, None)
-                if batch is None:
-                    break
-                batch = self._device_batch(batch)
-                self.last_data_wait = time.perf_counter() - t0
-                self.state, metrics = self.train_step(
-                    self.state, batch, step_generator(self.seed, self.state.step))
-                if self.iter % log_step == 0:
-                    host = {k: float(v) for k, v in metrics.items()}
-                    self.train_logger.log(host, self.iter, lr=self.state.lr)
-                    sps = self.timer.steps_per_sec
-                    log.info(f"iter {self.iter} | "
-                             + " ".join(f"{k}={v:.3f}" for k, v in host.items())
-                             + f" | data wait {1e3 * self.last_data_wait:.1f} ms"
-                             + (f" | {sps:.2f} it/s" if sps else ""))
-                self.timer.tick()
-                self.iter += 1
-                self._check_preempted()
-                if self.iter >= self.args.max_iter:
-                    break
-        finally:
-            close = getattr(batches, "close", None)
-            if close is not None:  # stop the prefetch thread
-                close()
+    def train_batch(self, batch):
+        self.state, metrics = self.train_step(
+            self.state, batch, step_generator(self.seed, self.state.step))
+        return metrics
 
     def valid_one_epoch(self):
-        # per-epoch LR decay, like ExponentialLR.step() each epoch
-        self.state = set_learning_rate(
-            self.state, exponential_lr(self.base_lr, self.gamma, self.epoch + 1))
         val, n = {"feat": 0.0, "feat_postnet": 0.0}, 0
         for batch in self.valid_loader:
             losses = self.valid_step(self.state, self._device_batch(batch))

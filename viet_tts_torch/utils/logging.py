@@ -44,13 +44,16 @@ class TensorLogger:
             self.writer = None
         self.split = split
 
-    def log(self, losses: Dict[str, float], step: int, lr: Optional[float] = None) -> None:
+    def log(self, losses: Dict[str, float], step: int,
+            rates: Optional[Dict[str, float]] = None) -> None:
+        """``losses`` as ``<split>/<key>``, each of ``rates`` (learning
+        rates) under its own tag, outside the split."""
         if self.writer is None:
             return
         for k, v in losses.items():
             self.writer.add_scalar(f"{self.split}/{k}", float(v), step)
-        if lr is not None:
-            self.writer.add_scalar("learning_rate", float(lr), step)
+        for tag, rate in (rates or {}).items():
+            self.writer.add_scalar(tag, float(rate), step)
         self.writer.flush()
 
     def log_histograms(self, module: nn.Module, step: int) -> None:
