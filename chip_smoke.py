@@ -59,8 +59,10 @@ Phases (any failure exits non-zero; no phase is caught):
  9. kernels K4 and K5 with attention-weight dropout and their backward (K4
     bwd; K5 bwd-q, bwd-kv) against their plain versions under one seed at
     the FS2 training shapes (B=8, H=8, D=48: K4 at T=64 and 512, K5 at
-    1008 with E=384), fp32 and bf16, dropout 0 and 0.1, ragged lengths with
-    a fully padded row and no pad mask, with times and SDPA's backward with
+    1008 with E=384; the trainer phases' K4 at T=32 and 256 and K5 at 768
+    checked and not timed), fp32 and bf16, dropout 0 and 0.1, ragged
+    lengths with a fully padded row and no pad mask, with times and SDPA's
+    backward with
     the position term as its mask; K4 forward and bwd, K5 forward and bwd-q
     (tensor cores) also beside their TF32 and bf16 bounds, bwd-q beside a
     yardstick of the same function
@@ -162,19 +164,39 @@ Phases (any failure exits non-zero; no phase is caught):
     card against the CPU within rel 1e-3; ``TwoStageTTS`` serving phase
     18's FastSpeech2 output with this phase's output as its vocoder (K2 18
     a call);
-21. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
+21. the joint trainer: ``--task text2wav`` the same way, on phase 18's
+    dataset and config copy (``attn_implementation: flash``, every dropout
+    as configured): full-width ``Text2Wav`` (FastSpeech2 warm-started from
+    phase 18's output with ``-a``, HiFi-GAN V1 from phase 20's with
+    ``-v``) and the default MSMPD, 64-frame windows, batch size 8, to
+    ``--max_iter 6``, then resumed by scan to 8: as phase 19's checks, each
+    step's K4 / K5 launches against its mel bucket (``fs2_step_launches``)
+    and no K2; the first step on the card against ``--device cpu``: its
+    metrics within rel 1e-3 and the gradients of every self-attention
+    parameter (K4 and K5's; the key bias left out) within 1e-2 of each
+    tensor's norm; ``--is_finetune`` from the output on the dataset plus a
+    written third speaker for 2 steps (the known speakers' embedding rows
+    copied, the new one drawn, only the new speaker's batches); then
+    ``OneStageTTS(model_type="JOINT")`` serving the output: 16 sentences at
+    1008 frames with K4 6, K5 6 and K2 18 launches a call exactly, 2
+    sentences at 64 frames on a copy at audio scale (the upsamplers' g set
+    to 1) against the CPU within 1e-3 of the peak, the HTTP server
+    (``/synthesize`` 200, ``/synthesize_stream`` 501); step host seconds by
+    bucket, data wait and peak memory beside the card's name and power
+    limit;
+22. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
     JETS training steps, five two-stage calls, five FS2 training steps at
     T_mel 1008 and five at 512 and five of each JETS-conformer path (both
-    flavours), of the FS2 step at T_mel 2048 and of the JETS and HiFi-GAN
-    trainers' steps (on one of their batches), one of each under
+    flavours), of the FS2 step at T_mel 2048 and of the JETS, HiFi-GAN and
+    joint trainers' steps (on one of their batches), one of each under
     ``torch.profiler``, device time by kernel group (bwd-q as its Q1 and
     Q2 kernels, bwd-kv on its own, K5's rotation pass on its own, K7's
     forward and bwd-q instances apart from K6's, K4's bwd-kv instance under
     K4 bwd);
-22. one JSON line ``{"kernels": [...]}``, then the card's line, then
+23. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
-Phases 3, 9, 11 and 14 run after phase 20 (in that order): their
+Phases 3, 9, 11 and 14 run after phase 21 (in that order): their
 ``torch.profiler`` sessions leave every later kernel launch ~25 % dearer on
 the host, and the other phases read host seconds of launch-bound calls and
 steps. Each phase logs its host seconds (``phase time:``): the script has
@@ -1455,6 +1477,9 @@ FS2_TRAIN_T_MELS = (1008, 512)  # decoder on K5 (pads to 1024) / on K4
 # (kind, T): the encoder's text bucket and the decoder at 512 on K4, the
 # decoder at 1008 on K5; B = 8, H = 8, D = 48 (E = 384)
 XL_TRAIN_CASES = (("xl3", TRAIN_T_TEXT), ("xl3", TRAIN_T_MEL), ("xl2", 1008))
+# the shapes the trainer phases give K4 and K5 beside those (text bucket 32,
+# mel buckets 256 and 768): checked against the plain versions, not timed
+XL_TRAINER_ONLY_CASES = (("xl3", 32), ("xl3", 256), ("xl2", 768))
 XL_TRAIN_REPLACES = {
     "flash_xl3_bwd": "viet_tts_tpu/ops/pallas_attention.py:1465",
     "flash_xl2_bwd_q": "viet_tts_tpu/ops/pallas_attention.py:1060",
@@ -1746,7 +1771,9 @@ def check_xl_training(dev):
     """K4 / K5 forward with attention-weight dropout and K4 bwd, K5 bwd-q,
     K5 bwd-kv against their plain versions under one seed at the FS2
     training shapes (B=8, H=8, D=48, E=384; K4 at T=64 and 512, K5 at
-    1008), fp32 (TF32 off, each gradient within 1e-4 of the plain one,
+    1008; the trainer phases' other buckets, K4 at T=32 and 256 and K5 at
+    768, are checked and not timed), fp32 (TF32 off, each gradient within
+    1e-4 of the plain one,
     scaled by its largest value where that exceeds 1) and bf16 (2e-2),
     dropout 0 and 0.1, ragged lengths with a fully padded row and no pad
     mask (the path's: ``mask_attn_keys: false``); K5 bwd-kv with the table's
@@ -1757,7 +1784,7 @@ def check_xl_training(dev):
 
     scale = 1.0 / np.sqrt(FS2_H * FS2_D)
     figures = {}
-    for kind, T in XL_TRAIN_CASES:
+    for kind, T in XL_TRAIN_CASES + XL_TRAINER_ONLY_CASES:
         B = TRAIN_B
         base = xl_inputs(dev, B, T, seed=T + 3)
         rng = np.random.RandomState(T + 1)
@@ -1806,7 +1833,7 @@ def check_xl_training(dev):
                         f"{n} {e[0]:.3e} (scaled {e[1]:.3e})" for n, e in errs.items())
                         + f" (tol {tol})")
                     path_call = dtype == torch.float32 and pad is None and p == XL_TRAIN_DROPOUT
-                    if not path_call:
+                    if not path_call or (kind, T) not in XL_TRAIN_CASES:
                         continue
                     iters = 20 if T <= 512 else 5
                     build_ms, lib_fwd, lib_bwd = _library_sdpa(_xl_pos, base, pad, scale, dtype,
@@ -2855,7 +2882,8 @@ def _fresh_dir(root: str) -> str:
     return root
 
 
-def write_trainer_dataset(root: str, n_utts: int, seconds, seed: int):
+def write_trainer_dataset(root: str, n_utts: int, seconds, seed: int,
+                          speakers=TRAINER_SPEAKERS):
     """``<root>/data/<speaker>/{metadata.csv, wavs/}`` and
     ``<root>/egs/{speakers, accents}.json``: five-word sentences over a
     voiced tone with a 3 Hz tremolo and noise, written with the port's
@@ -2867,7 +2895,7 @@ def write_trainer_dataset(root: str, n_utts: int, seconds, seed: int):
     sr = 22050
     data_dir, egs_dir = os.path.join(root, "data"), os.path.join(root, "egs")
     os.makedirs(egs_dir, exist_ok=True)
-    for spk in TRAINER_SPEAKERS:
+    for spk in speakers:
         wav_dir = os.path.join(data_dir, spk, "wavs")
         os.makedirs(wav_dir, exist_ok=True)
         accent = spk.split("_")[0]
@@ -2883,7 +2911,7 @@ def write_trainer_dataset(root: str, n_utts: int, seconds, seed: int):
         with open(os.path.join(data_dir, spk, "metadata.csv"), "w", encoding="utf8") as f:
             f.write("\n".join(rows))
     with open(os.path.join(egs_dir, "speakers.json"), "w") as f:
-        json.dump({spk: i for i, spk in enumerate(TRAINER_SPEAKERS)}, f)
+        json.dump({spk: i for i, spk in enumerate(speakers)}, f)
     with open(os.path.join(egs_dir, "accents.json"), "w") as f:
         json.dump({"hn": 0, "hcm": 1}, f)
     return data_dir, egs_dir
@@ -2989,8 +3017,8 @@ class _StepProbe:
             self.hist_s.append(time.perf_counter() - t0)
 
         trainer._log_histograms = timed_histograms
-        if zero_postnet_dropout:
-            trainer.model.postnet.dropout.p = 0.0
+        if zero_postnet_dropout:  # FastSpeech2's, or Text2Wav's FastSpeech2's
+            getattr(trainer.model, "text2mel", trainer.model).postnet.dropout.p = 0.0
 
     def __call__(self, *args):
         from viet_tts_torch.train.state import TrainState
@@ -3135,12 +3163,15 @@ def check_trainer(dev, voc_dir: str):
     cmp_root = os.path.join(root, "card_vs_cpu")
     write_trainer_dataset(cmp_root, 3, (2.0,), SEED + 1)
     cmp_config = trainer_config(cmp_root, zero_dropout=True, batch_size=2)
+    def on_trainer(tr):
+        probe.append(_StepProbe(tr, sync=device == "cuda", zero_postnet_dropout=True))
+        tr._log_histograms = lambda: None  # read for the first step only
+
     results = []
     for device in ("cuda", "cpu"):
         probe = []
         main(_trainer_argv(cmp_root, cmp_config, f"out_{device}", 1, "--device", device),
-             on_trainer=lambda tr: probe.append(_StepProbe(tr, sync=device == "cuda",
-                                                           zero_postnet_dropout=True)))
+             on_trainer=on_trainer)
         (step,) = probe[0].steps
         results.append(step)
     card, cpu = (r["metrics"] for r in results)
@@ -3196,9 +3227,11 @@ def _generator_names(out: str):
                   key=lambda f: parse_checkpoint_name(f)[1])
 
 
-def _run_gan_trainer(task: str, root: str, config_dir: str, wrappers, dev, profile: bool):
-    """``main`` with ``--task`` on the card's default device to
-    ``TRAINER_ITERS[0]``, then resumed by scan to ``TRAINER_ITERS[1]``.
+def _run_gan_trainer(task: str, root: str, config_dir: str, wrappers, dev, profile: bool,
+                     extra=()):
+    """``main`` with ``--task`` (and ``extra`` arguments) on the card's
+    default device to ``TRAINER_ITERS[0]``, then resumed by scan to
+    ``TRAINER_ITERS[1]``.
     Held: the device, the resumed iteration and steps, the generator
     checkpoints' names (keep-3), the discriminator file's iteration, each
     step's two rates against ``exponential_lr`` of its epoch, finite
@@ -3227,7 +3260,8 @@ def _run_gan_trainer(task: str, root: str, config_dir: str, wrappers, dev, profi
     t0 = time.perf_counter()
     try:
         _set_tf32(True)
-        first, resumed = (main(_trainer_argv(root, config_dir, f"out_{task}", n, task=task),
+        first, resumed = (main(_trainer_argv(root, config_dir, f"out_{task}", n, *extra,
+                                             task=task),
                                on_trainer=on_trainer) for n in TRAINER_ITERS)
     finally:
         _set_tf32(False)
@@ -3273,7 +3307,7 @@ def _run_gan_trainer(task: str, root: str, config_dir: str, wrappers, dev, profi
         batch = resumed._device_batch(next(batches))
         batches.close()
         profile_args = (probes[-1]._step, resumed.state, resumed.disc_state, batch,
-                        *([step_generator(resumed.seed, 0)] if task == "jets" else []))
+                        *([step_generator(resumed.seed, 0)] if task != "hifigan" else []))
     return first, steps, per_epoch, peak_gb, run_s, hist_s, changed, profile_args
 
 
@@ -3288,28 +3322,37 @@ def _set_tf32(on: bool) -> None:
 # self-attention tensor's norm (tools/jets_trainer_grads.py; PERF.md), and
 # a K3 that wrote zeros would differ by 1.
 GRAD_REL_TOL = 1e-2
+# the key projections' biases: JETS's espnet attention's, the conformer's
+KEY_BIASES = ("linear_k.bias", "key_proj.linear.bias")
 
 
 def _gan_card_vs_cpu(task: str, root: str, config_dir: str, wrappers, expect_launches,
-                     grads_of: Optional[str] = None):
+                     grads_of: Optional[str] = None, zero_postnet_dropout: bool = False):
     """The trainer's first step on the card and under ``--device cpu`` (the
     same seeded weights and segments): the metrics within rel 1e-3, and the
     card step's launches as expected. With ``grads_of``, the generator's
     gradients of the parameters whose names hold it too (the metrics are
     all taken before the generator's update, so they do not see its
     backward): each tensor's ||card - CPU|| within GRAD_REL_TOL of its CPU
-    norm. A key projection's bias is left out: softmax is invariant to the
+    norm. A key projection's bias (KEY_BIASES) is left out: softmax is
+    invariant to the
     shift it adds to a row's logits, so its gradient is 0 in exact
     arithmetic and only rounding remains."""
     from viet_tts_torch.train.__main__ import main
+
+    def on_trainer(tr):
+        probe.append(_StepProbe(tr, wrappers, sync=device == "cuda", grads_of=grads_of,
+                                zero_postnet_dropout=zero_postnet_dropout))
+        # these runs are read for their first step only: no parameter
+        # histograms at the epoch end (5-6 s at full width; the phase's
+        # main runs write them)
+        tr._log_histograms = lambda: None
 
     results = []
     for device in ("cuda", "cpu"):
         probe = []
         main(_trainer_argv(root, config_dir, f"out_{task}_{device}", 1, "--device", device,
-                           task=task),
-             on_trainer=lambda tr: probe.append(_StepProbe(
-                 tr, wrappers, sync=device == "cuda", grads_of=grads_of)))
+                           task=task), on_trainer=on_trainer)
         (step,) = probe[0].steps
         results.append(step)
     card, cpu = (r["metrics"] for r in results)
@@ -3327,7 +3370,7 @@ def _gan_card_vs_cpu(task: str, root: str, config_dir: str, wrappers, expect_lau
             raise AssertionError(f"{task} card vs CPU: gradients of {sorted(card_g)} against "
                                  f"{sorted(cpu_g)}")
         grad_rel = {n: ((card_g[n] - g).double().norm() / g.double().norm()).item()
-                    for n, g in cpu_g.items() if not n.endswith("linear_k.bias")}
+                    for n, g in cpu_g.items() if not n.endswith(KEY_BIASES)}
         bad = {n: e for n, e in grad_rel.items() if not e <= GRAD_REL_TOL}
         if bad:
             raise AssertionError(f"{task} card vs CPU: gradients beyond {GRAD_REL_TOL} of "
@@ -3476,6 +3519,197 @@ def check_hifigan_trainer(dev, profile: bool):
     return figures, profile_args
 
 
+# --------------------------------------------------------------------------
+# phase 21: the joint trainer (python -m viet_tts_torch.train --task text2wav
+# [--is_finetune]) and JOINT serving
+# --------------------------------------------------------------------------
+
+FINETUNE_SPEAKER = "hn_new"
+FINETUNE_ITERS = 2
+# one JOINT __call__ of 16 sentences at 1008 frames: the encoder's 6 layers
+# on K4, the decoder's 6 on K5, the vocoder's two fused stages on K2
+JOINT_CALL_LAUNCHES = {"flash_xl3_fwd": 6, "flash_xl2_fwd": 6, "flash_xl_fwd": 0,
+                       "fused_mrf_stage": K2_PER_CALL, "flash_attention_fwd": 0}
+
+
+def _joint_wrappers():
+    return {**_xl_wrappers(), **_mrf_wrappers()}
+
+
+def _joint_step_launches(T_mel: int):
+    """An FS2 step's XL launches (``fs2_step_launches``) and no K2: the
+    vocoder trains on the plain MRF."""
+    return {**fs2_step_launches(T_mel), "fused_mrf_stage": 0}
+
+
+def _check_joint_steps(steps, label: str):
+    launches = dict.fromkeys(_joint_wrappers(), 0)
+    for s in steps:
+        expect = _joint_step_launches(s["t_mel"])
+        if s["launches"] != expect:
+            raise AssertionError(f"{label} step {s['iter']} at T_mel {s['t_mel']}: launches "
+                                 f"{s['launches']}, expected {expect}")
+        if not all(np.isfinite(v) for v in s["metrics"].values()):
+            raise AssertionError(f"{label} step {s['iter']}: metrics {s['metrics']}")
+        for k, n in s["launches"].items():
+            launches[k] += n
+    return launches
+
+
+def check_joint_trainer(dev, smi: str, profile: bool):
+    """The Text2Wav trainer through the CLI's entry function, in-process, on
+    the card (its default device), on phase 18's dataset and config copy
+    (``attn_implementation: flash``, every dropout as configured): full-width
+    FastSpeech2 warm-started from phase 18's output (``-a``) and HiFi-GAN V1
+    from phase 20's (``-v``), the default MSMPD, 64-frame windows, batch
+    size 8, to ``--max_iter 6``, then resumed by scan to 8
+    (``_run_gan_trainer``'s checks), each step's K4 / K5 launches against
+    its mel bucket and no K2. Then the first step on the card against
+    ``--device cpu`` (phase 18's one-bucket dataset, every dropout 0): the
+    metrics, and the gradients of the self-attention parameters that K4
+    and K5 feed (the metrics are all taken before the generator's update).
+    Then ``--is_finetune`` from the output on the dataset plus a written
+    third speaker, 2 steps: the known rows copied, the new one drawn, the
+    new speaker's batches only. Then ``OneStageTTS(model_type="JOINT")``
+    serves the output: 16 sentences at 1008 frames with K4 6, K5 6 and K2
+    18 launches a call, a small input against the CPU (on a copy whose
+    upsamplers' g is 1: the seeded init's waveform is ~1e-5), the HTTP server
+    (``/synthesize`` 200, ``/synthesize_stream`` 501)."""
+    import urllib.error
+
+    from viet_tts_torch.infer.api import OneStageTTS, resolve_checkpoint
+    from viet_tts_torch.infer.server import serve
+    from viet_tts_torch.train.__main__ import main
+    from viet_tts_torch.train.checkpoint import model_state_dict
+
+    config_dir = os.path.join(TRAINER_ROOT, "config")
+    warm = ("-a", os.path.join(TRAINER_ROOT, "out"), "-v",
+            os.path.join(TRAINER_ROOT, "out_hifigan"))
+    first, steps, per_epoch, peak_gb, run_s, hist_s, changed, profile_args = _run_gan_trainer(
+        "text2wav", TRAINER_ROOT, config_dir, _joint_wrappers, dev, profile, extra=warm)
+    launches = _check_joint_steps(steps, "joint trainer")
+    buckets = sorted({s["t_mel"] for s in steps})
+    if per_epoch != 4 or buckets != [256, 768] or not first.criterion.is_finetune:
+        raise AssertionError(f"joint trainer: {per_epoch} batches an epoch, mel buckets "
+                             f"{buckets}, is_finetune {first.criterion.is_finetune}")
+    figures = _gan_figures(first, steps, per_epoch, peak_gb, run_s, hist_s)
+    out = first.args.output_folder
+    log(f"joint trainer ({smi}): {len(first.train_set)} train utterances, {len(steps)} steps at "
+        f"(B, T_text, T_mel) {[(8, s['t_text'], s['t_mel']) for s in steps]}, warm-started "
+        f"from phases 18 and 20, resumed at iter {TRAINER_ITERS[0]}; checkpoints "
+        f"{_generator_names(out)}; step host seconds {[round(s['step_s'], 4) for s in steps]}; "
+        f"data wait ms {[round(1e3 * s['wait_s'], 2) for s in steps]}; peak "
+        f"{peak_gb[1]:.2f} GB ({peak_gb[0]:.2f} held before); both runs {run_s:.1f} s; "
+        f"launches {launches}; max parameter change gen {changed[0]:.3e} disc "
+        f"{changed[1]:.3e}; last metrics {steps[-1]['metrics']}")
+
+    cmp_root = os.path.join(TRAINER_ROOT, "card_vs_cpu")
+    figures["card_vs_cpu_rel"] = _gan_card_vs_cpu(
+        "text2wav", cmp_root, os.path.join(cmp_root, "config"), _joint_wrappers,
+        _joint_step_launches(256), grads_of=".attention.", zero_postnet_dropout=True)
+
+    # --is_finetune: the dataset plus a third speaker
+    ft_root = _fresh_dir(os.path.join(TRAINER_ROOT, "finetune"))
+    ft_data, ft_egs = write_trainer_dataset(ft_root, 4, (2.0,), SEED + 2,
+                                            speakers=(FINETUNE_SPEAKER,))
+    for spk in TRAINER_SPEAKERS:
+        os.symlink(os.path.join(TRAINER_ROOT, "data", spk), os.path.join(ft_data, spk))
+    with open(os.path.join(ft_egs, "speakers.json"), "w") as f:
+        json.dump({spk: i for i, spk in enumerate(TRAINER_SPEAKERS + (FINETUNE_SPEAKER,))}, f)
+    ft_probe, sids = [], []
+
+    def on_finetuner(tr):
+        probe = _StepProbe(tr, _joint_wrappers)
+        step = tr.train_step
+
+        def kept(gen_state, disc_state, batch, *rest):
+            sids.append(sorted(set(batch["sids"].tolist())))
+            return step(gen_state, disc_state, batch, *rest)
+
+        tr.train_step = kept
+        ft_probe.append((probe, {k: v.detach().cpu().clone()
+                                 for k, v in tr.model.state_dict().items()}))
+
+    t0 = time.perf_counter()
+    ft = main(_trainer_argv(ft_root, config_dir, "out", FINETUNE_ITERS, "--is_finetune", "-c",
+                            out, task="text2wav"), on_trainer=on_finetuner)
+    ft_s = time.perf_counter() - t0
+    (probe, surgery), = ft_probe
+    key = "text2mel.speaker_emb.cvae.embedding_layer_spk.weight"
+    base = model_state_dict(resolve_checkpoint(out))[key]
+    table = surgery[key]
+    drawn = torch.rand(table.shape, generator=torch.Generator().manual_seed(ft.seed))
+    new_row = ft.speakers[FINETUNE_SPEAKER]
+    if not (all(torch.equal(table[ft.speakers[s]], base[i])
+                for i, s in enumerate(TRAINER_SPEAKERS))
+            and torch.equal(table[new_row], drawn[new_row])):
+        raise AssertionError("finetuner: speaker table rows not copied / drawn")
+    ft_launches = _check_joint_steps(probe.steps, "finetuner")
+    if len(probe.steps) != FINETUNE_ITERS or sids != [[new_row]] * FINETUNE_ITERS:
+        raise AssertionError(f"finetuner: {len(probe.steps)} steps, speakers by step {sids}")
+    figures["finetune_s"] = ft_s
+    log(f"finetuner ({smi}): speaker table {tuple(base.shape)} -> {tuple(table.shape)}, known "
+        f"rows copied, '{FINETUNE_SPEAKER}' drawn; {len(probe.steps)} steps on its utterances "
+        f"alone at T_mel {[s['t_mel'] for s in probe.steps]}, step host seconds "
+        f"{[round(s['step_s'], 4) for s in probe.steps]}; launches {ft_launches}; run "
+        f"{ft_s:.1f} s")
+
+    # JOINT serving of the trained output
+    tts = OneStageTTS(out, model_type="JOINT", fused_vocoder=True)
+    speaker = dict(speaker=TRAINER_SPEAKERS[1], accent="hcm")
+    tts(SENTENCES[:2], **speaker)  # warm-up: cuDNN autotune, allocator
+    per_call = []
+    for _ in range(2):
+        waves, call_s = _counted_call(lambda: tts(SENTENCES, **speaker), JOINT_CALL_LAUNCHES,
+                                      "JOINT __call__(16) at 1008 frames")
+        _check_waves(waves, len(SENTENCES), "JOINT")
+        per_call.append(call_s)
+    figures["call_s"] = per_call
+    card = copy.deepcopy(tts.model)  # audio scale (see phase 5)
+    with torch.no_grad():
+        for up in card.mel2wav.upsamples:
+            up[1].weight_g.fill_(1.0)
+    cpu = copy.deepcopy(card).to("cpu")
+    ids, lens, _ = tts.encode_texts(SENTENCES[:2])
+    args = (torch.full((2,), 1, dtype=torch.int64), torch.as_tensor(ids), torch.as_tensor(lens),
+            64)
+    kw = dict(feats=torch.zeros(2, 64, tts.n_mels), aids=torch.ones(2, dtype=torch.int64))
+    wav_gpu, len_gpu = card.inference(*(a.to(dev) if torch.is_tensor(a) else a for a in args),
+                                      **{k: v.to(dev) for k, v in kw.items()})
+    wav_cpu, len_cpu = cpu.inference(*args, **kw)
+    del card
+    err = (wav_gpu.cpu() - wav_cpu).abs().max().item()
+    peak = wav_cpu.abs().max().item()
+    if not torch.equal(len_gpu.cpu(), len_cpu) or not err <= 1e-3 * peak:
+        raise AssertionError(f"JOINT card vs CPU: lengths {len_gpu.tolist()} vs "
+                             f"{len_cpu.tolist()}, max_abs_err {err}, peak |wav| {peak}")
+    figures["serve_vs_cpu"] = err / peak
+    httpd = serve(tts, port=0, model_name="JOINT")
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        with urllib.request.urlopen(f"{url}/health", timeout=60) as r:
+            health = json.load(r)
+        code, body = post(f"{url}/synthesize", {"text": SENTENCES[5]})
+        try:
+            stream_code = post(f"{url}/synthesize_stream", {"text": SENTENCES[5]})[0]
+        except urllib.error.HTTPError as e:
+            stream_code = e.code
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if health != {"status": "ok", "model": "JOINT"} or code != 200 or body[:4] != b"RIFF" \
+            or stream_code != 501:
+        raise AssertionError(f"JOINT server: health {health}, /synthesize {code}, "
+                             f"/synthesize_stream {stream_code}")
+    log(f"OneStageTTS JOINT serves the joint trainer's output "
+        f"({os.path.basename(resolve_checkpoint(out))}; {smi}): __call__(16) at 1008 frames "
+        f"{[round(c, 4) for c in per_call]} s, launches {JOINT_CALL_LAUNCHES} a call; card vs "
+        f"CPU, 2 sentences x 64 frames, upsamplers' g 1: max_abs_err {err:.3e}, peak |wav| "
+        f"{peak:.3f}, relative {err / peak:.3e} (tol 1e-3); server /health ok, "
+        f"/synthesize {code}, /synthesize_stream {stream_code}")
+    return launches, figures, profile_args
+
+
 def profile_call(fn, label: str, out_name: str, repeats: int = 5) -> None:
     """Host time of ``repeats`` calls of ``fn``, then one under
     ``torch.profiler``: device time by kernel group and the device's busy
@@ -3535,7 +3769,7 @@ def main() -> int:
                          "calls, five FS2 training steps at T_mel 1008, five at "
                          "512 and five at 2048, five JETS-conformer calls and five "
                          "JETS-conformer steps of each rel-pos flavour, five "
-                         "JETS and five HiFi-GAN trainer steps, and "
+                         "JETS, five HiFi-GAN and five joint trainer steps, and "
                          "profile one of each (device time by kernel group, "
                          "busy share; per-kernel tables in the output "
                          "directory, chip_smoke_profile*.txt)")
@@ -3594,6 +3828,8 @@ def main() -> int:
         "19", check_jets_trainer, dev, args.profile)
     hifigan_trainer_figures, ht_profile = phase_timed("20", check_hifigan_trainer, dev,
                                                       args.profile)
+    joint_launches, joint_figures, joint_profile = phase_timed("21", check_joint_trainer, dev,
+                                                               smi, args.profile)
     # the phases that time backward rows in device time run last: after a
     # torch.profiler session every kernel launch costs the host ~25 % more
     # (CUPTI stays attached; measured on the H100 machine), and the phases
@@ -3632,6 +3868,10 @@ def main() -> int:
                      "chip_smoke_profile_jets_trainer.txt")
         profile_call(lambda: ht_step(*ht_args), "HiFi-GAN trainer step (8 x 64 frames)",
                      "chip_smoke_profile_hifigan_trainer.txt")
+        jo_step, *jo_args = joint_profile
+        profile_call(lambda: jo_step(*jo_args),
+                     f"joint trainer step (T_mel {jo_args[2]['feats'].shape[1]})",
+                     "chip_smoke_profile_joint_trainer.txt")
     for entry in (k1, k2):
         entry["launches"] = launches[entry["name"]]
     k1["name_detail"] = "forward, with attention-weight dropout in training"
@@ -3671,9 +3911,18 @@ def main() -> int:
                     "with scale * pos as an additive mask, on a retained graph",
          "timing": BWD_TIMING, **xl_train[name]}
         for name in ("flash_xl3_bwd", "flash_xl2_bwd_q", "flash_xl2_bwd_kv")]
+    joint_per = (f"the joint trainer phase's {TRAINER_ITERS[1]} steps (python -m "
+                 "viet_tts_torch.train --task text2wav, mel buckets 256 and 768, to --max_iter "
+                 f"{TRAINER_ITERS[0]}, then resumed to {TRAINER_ITERS[1]})")
     for entry in (*xl_entries[:2], *xl_bwd_entries):
         entry["trainer_launches"] = trainer_launches[entry["name"]]
         entry["trainer_launches_per"] = trainer_per
+        entry["joint_trainer_launches"] = joint_launches[entry["name"]]
+        entry["joint_trainer_launches_per"] = joint_per
+    for entry in (*xl_entries[:2], k2):
+        entry["joint_call_launches"] = JOINT_CALL_LAUNCHES[entry["name"]]
+        entry["joint_call_launches_per"] = ("one OneStageTTS(model_type='JOINT') __call__ of 16 "
+                                            "sentences at 1008 frames (the joint trainer phase)")
     xl_entries[2]["jets_width"] = k6_jets
     k6_paths = {"jets_legacy_training": jl_train_launches,
                 "fs2_2048_training": fs2_long_launches}
@@ -3739,7 +3988,8 @@ def main() -> int:
         f"{trainer_figures['wait_ms_max']:.2f}); peak {trainer_figures['peak_gb']:.2f} GB; "
         f"both runs {trainer_figures['run_s']:.1f} s; parameter histograms "
         f"{[round(h, 3) for h in trainer_figures['hist_s']]} s an epoch end")
-    for label, fig in (("JETS", jets_trainer_figures), ("HiFi-GAN", hifigan_trainer_figures)):
+    for label, fig in (("JETS", jets_trainer_figures), ("HiFi-GAN", hifigan_trainer_figures),
+                       ("joint (text2wav)", joint_figures)):
         log(f"{label} trainer: step host median by mel bucket "
             f"{ {b: round(v, 4) for b, v in fig['step_s_median_by_bucket'].items()} } s "
             f"(steps {fig['step_s_by_bucket']}); data wait median {fig['wait_ms']:.2f} ms a "
@@ -3749,6 +3999,8 @@ def main() -> int:
             f"{[round(h, 3) for h in fig['hist_s']]} s an epoch end; first step card vs CPU "
             f"max rel {fig['card_vs_cpu_rel']:.3e}"
             + (f"; feature cache and stats {fig['cache_s']:.2f} s" if fig["cache_s"] else ""))
+    log(f"joint: finetune run {joint_figures['finetune_s']:.1f} s; JOINT __call__(16) host "
+        f"seconds {[round(c, 4) for c in joint_figures['call_s']]}; on {smi}")
     kernels_line = [k1, k2, *k3, *xl_entries, *xl_bwd_entries, *k6_bwd_entries, *rel_entries]
     if DEVICE_MS_MISSES:
         log(f"device_ms: {len(DEVICE_MS_MISSES)} backward figure(s) timed by CUDA events: "

@@ -12,6 +12,9 @@ hifi_conf)`` do the same for the JAX ``FastSpeech2`` (conformer block) and a
 standalone ``HiFiGANGenerator``, the inverses of ``import_fastspeech2`` and
 ``import_hifigan_generator``.
 
+``text2wav_from_jax(variables, conf)`` is the two of them under the JAX
+``Text2Wav``'s submodule names, ``text2mel.`` and ``mel2wav.``.
+
 ``msmpd_from_jax(params)`` does the same for the JAX
 ``MultiScaleMultiPeriodDiscriminator`` params; the port's names are the
 reference's espnet names that ``import_msmpd_discriminator`` reads. Both
@@ -356,6 +359,22 @@ def fastspeech2_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> 
                        stats["postnet"][f"bn_{i}"])
             i += 1
     return sd
+
+
+def text2wav_from_jax(variables: Dict[str, Any], conf: Dict[str, Any],
+                      version: str = "fastspeech2") -> StateDict:
+    """JAX ``Text2Wav`` variables {params, batch_stats} (numpy leaves) ->
+    the port ``Text2Wav`` state_dict: ``fastspeech2_from_jax`` of the
+    ``text2mel`` subtree under ``text2mel.`` (its BatchNorm statistics
+    included) and ``hifigan_from_jax`` of ``mel2wav`` under ``mel2wav.``;
+    ``conf`` is the merged config (``models.<version>``, ``models.hifigan``)."""
+    params = variables["params"]
+    fs2 = fastspeech2_from_jax({"params": params["text2mel"],
+                                "batch_stats": variables.get("batch_stats", {})["text2mel"]},
+                               conf["models"][version])
+    voc = hifigan_from_jax(params["mel2wav"], conf["models"]["hifigan"])
+    return {**{f"text2mel.{k}": v for k, v in fs2.items()},
+            **{f"mel2wav.{k}": v for k, v in voc.items()}}
 
 
 def _wn_conv2d(sd: StateDict, prefix: str, conv: Dict[str, Any],

@@ -87,20 +87,32 @@ def collate_acoustic(items: List[dict], t_text: int, t_mel: int) -> Dict[str, np
     return batch
 
 
-def make_jets_collate(hop_length: int = 256):
-    """The acoustic collate without the ``duration`` slot (JETS learns its
-    alignment), plus ``speech`` (B, t_mel * hop_length): each waveform cut
-    or zero-padded to the mel bucket's samples."""
+def make_joint_collate(hop_length: int = 256):
+    """The acoustic collate plus ``speech`` (B, t_mel * hop_length): each
+    waveform cut or zero-padded to the mel bucket's samples (the Text2Wav
+    trainer's ``collate_with_speech``, ``viet_tts_tpu/train/joint.py``)."""
 
     def collate(items: List[dict], t_text: int, t_mel: int) -> Dict[str, np.ndarray]:
         batch = collate_acoustic(items, t_text, t_mel)
-        del batch["duration"]
         t_wav = t_mel * hop_length
         speech = np.zeros((len(items), t_wav), np.float32)
         for i, it in enumerate(items):
             a = it["speech"][:t_wav]
             speech[i, : len(a)] = a
         batch["speech"] = speech
+        return batch
+
+    return collate
+
+
+def make_jets_collate(hop_length: int = 256):
+    """The joint collate without the ``duration`` slot (JETS learns its
+    alignment)."""
+    joint = make_joint_collate(hop_length)
+
+    def collate(items: List[dict], t_text: int, t_mel: int) -> Dict[str, np.ndarray]:
+        batch = joint(items, t_text, t_mel)
+        del batch["duration"]
         return batch
 
     return collate

@@ -1,25 +1,27 @@
-"""Batched inference API: one-stage JETS and two-stage FastSpeech2 +
-HiFi-GAN synthesis.
+"""Batched inference API: one-stage JETS and Text2Wav (JOINT), two-stage
+FastSpeech2 + HiFi-GAN synthesis.
 
 Counterpart of ``viet_tts_tpu/infer/api.py``: ``OneStageTTS`` for JETS and
-``TwoStageTTS`` for FastSpeech2 (acoustic model -> mel -> HiFi-GAN): text
-front-end, bucketed batches, synthesis on the card, waveform export. A port
-checkpoint is a directory with
+JOINT and ``TwoStageTTS`` for FastSpeech2 (acoustic model -> mel ->
+HiFi-GAN): text front-end, bucketed batches, synthesis on the card,
+waveform export. A port checkpoint is a directory with
 
 - ``model.pt``: the model's ``state_dict`` (``torch.save``), or, in a
   trainer's output directory, the newest
   ``generator_epoch{E}_iteration{I}_statedict.pt`` (its ``model`` entry);
 - ``config.json``: ``{"audio": ..., "models": {"jets": {"generator_params":
-  ...}, "fastspeech2": ..., "hifigan": ...}}`` (a ``config.yaml`` of the
-  same shape is read too, through the port's YAML-subset reader); without
-  either, the package's ``config.py``;
+  ...}, "fastspeech2": ..., "hifigan": ...}}`` and, for JOINT, the
+  ``version`` of its acoustic half (a ``config.yaml`` of the same shape is
+  read too, through the port's YAML-subset reader); without either, the
+  package's ``config.py``;
 - optional ``speakers.json`` (speaker name -> id) and, for an acoustic
   model, ``accents.json`` and ``stats.json`` (pitch / energy statistics).
 
 A two-stage pair is two such directories: the acoustic one (whose config
 also names the vocoder's geometry, as in the JAX package) and the
-vocoder's. ADASPEECH and MATCHA, VITS2 and Text2Wav are still to be ported;
-so are the JAX API's data-, sequence- and pipeline-parallel serving flags.
+vocoder's. ADASPEECH and MATCHA (items 12, 13 of ROADMAP.md section 1)
+and VITS2 (item 14) are still to be ported; so are the JAX API's data-,
+sequence- and pipeline-parallel serving flags (item 15).
 """
 
 from __future__ import annotations
@@ -164,43 +166,60 @@ class _TTSBase:
 
 
 class OneStageTTS(_TTSBase):
-    """Fused text -> waveform synthesis (JETS)."""
+    """Fused text -> waveform synthesis: JETS, or Text2Wav (``model_type=
+    "JOINT"``: FastSpeech2 -> HiFi-GAN in one model, built from the
+    checkpoint's ``config.json`` (``version``, ``models.fastspeech2``,
+    ``models.hifigan``) with its ``stats.json`` and ``accents.json``).
+
+    ``fused_vocoder`` routes the vocoder's ch <= 64 stages to kernel K2;
+    JOINT's acoustic half runs the attention route its config names
+    (``flash``: kernels K4 / K5 / K6)."""
 
     def __init__(self, checkpoint_path: str, model_type: str = "JETS",
                  max_mel_frames: int = 1008, half: bool = False,
                  fused_vocoder: bool = True,
                  packed_vocoder: Optional[bool] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        from viet_tts_torch.models.jets import JETS
-
         self.model_type = model_type.lower()
-        if self.model_type != "jets":
+        if self.model_type == "vits2":
             raise NotImplementedError(
-                f"model_type {model_type!r}: only JETS is ported so far")
+                f"model_type {model_type!r} is not ported yet (ROADMAP.md section 1, item 14)")
+        if self.model_type not in ("jets", "joint"):
+            raise ValueError(f"unknown one-stage model_type {model_type!r}")
         self.device = resolve_device(device)
         ckpt_path = resolve_checkpoint(checkpoint_path)
         side = load_sidecars(os.path.dirname(ckpt_path))
         self.conf = side.get("conf") or default_conf()
         self.speakers = side.get("speakers") or {}
+        self.accents = side.get("accents") or {}
+        self.stats = side.get("stats") or port_config.DEFAULT_STATS
         super().__init__(
             sr=self.conf["audio"]["signal"]["sampling_rate"],
             hop=self.conf["audio"]["stft"]["hop_length"],
         )
         self.max_mel_frames = max_mel_frames
-        jets_hp = dict(self.conf["models"]["jets"]["generator_params"])
-        if fused_vocoder:
-            jets_hp["fused_mrf"] = True
-        jets_hp["packed_tail"] = _resolve_packed(packed_vocoder)
-        model = JETS(
-            n_symbols=NUM_SYMBOLS,
-            n_channels=self.conf["audio"]["mel"]["channels"],
-            hparams=jets_hp,
-            n_speakers=max(len(self.speakers), 1),
-        )
+        self.n_mels = self.conf["audio"]["mel"]["channels"]
+        n_spk = max(len(self.speakers), 1)
+        if self.model_type == "jets":
+            from viet_tts_torch.models.jets import JETS
+
+            jets_hp = dict(self.conf["models"]["jets"]["generator_params"])
+            if fused_vocoder:
+                jets_hp["fused_mrf"] = True
+            jets_hp["packed_tail"] = _resolve_packed(packed_vocoder)
+            model = JETS(n_symbols=NUM_SYMBOLS, n_channels=self.n_mels, hparams=jets_hp,
+                         n_speakers=n_spk)
+        else:
+            from viet_tts_torch.models.text2wav import Text2Wav
+
+            model = Text2Wav(NUM_SYMBOLS, self.n_mels, self.conf, self.stats,
+                             n_speakers=n_spk, n_accents=max(len(self.accents), 2),
+                             version=self.conf.get("version") or "fastspeech2",
+                             fused_mrf=fused_vocoder)
         model.load_state_dict(model_state_dict(ckpt_path))
         self.half = half
-        dtype = torch.bfloat16 if half else torch.float32
-        self.model = model.to(device=self.device, dtype=dtype).eval()
+        self.dtype = torch.bfloat16 if half else torch.float32
+        self.model = model.to(device=self.device, dtype=self.dtype).eval()
         self._upsample = self.model.upsample_factor
 
     def _speaker_ids(self, speaker: Union[str, int], B: int) -> torch.Tensor:
@@ -212,29 +231,56 @@ class OneStageTTS(_TTSBase):
         return (torch.as_tensor(ids, device=self.device),
                 torch.as_tensor(lens, device=self.device))
 
-    def __call__(self, texts: Sequence[str],
-                 speaker: Union[str, int] = 0) -> List[np.ndarray]:
-        """Synthesize a batch of sentences -> list of float32 waveforms."""
+    def __call__(self, texts: Sequence[str], speaker: Union[str, int] = 0,
+                 accent: Union[str, int] = 0) -> List[np.ndarray]:
+        """Synthesize a batch of sentences -> list of float32 waveforms.
+        JOINT's CVAE takes ``accent`` and a reference mel of 64 zero frames,
+        as ``TwoStageTTS`` does by default (the JAX JOINT call passes
+        neither; ROADMAP.md section 3); JETS reads no accent."""
         ids, lens = self._inputs(texts)
-        wav, wav_lens = self.model.inference(
-            self._speaker_ids(speaker, len(texts)), ids, lens,
-            self.max_mel_frames)
+        B = len(texts)
+        sids = self._speaker_ids(speaker, B)
+        if self.model_type == "jets":
+            wav, wav_lens = self.model.inference(sids, ids, lens, self.max_mel_frames)
+        else:
+            aids = torch.full((B,), _label(self.accents, accent), dtype=torch.int64,
+                              device=self.device)
+            wav, wav_lens = self.model.inference(
+                sids, ids, lens, self.max_mel_frames,
+                feats=_reference_feats(B, None, self.n_mels, self.dtype, self.device),
+                aids=aids)
         wav = wav.float().cpu().numpy()
         wav_lens = wav_lens.cpu().numpy()
-        return [wav[i, : int(wav_lens[i])] for i in range(len(texts))]
+        return [wav[i, : int(wav_lens[i])] for i in range(B)]
 
     def stream_wav(self, text: str, speaker: Union[str, int] = 0,
                    chunk_frames: int = 64,
                    context_frames: int = 32) -> Iterator[np.ndarray]:
-        """Yield waveform chunks for ONE utterance: the acoustic half runs
-        once, the vocoder decodes fixed-size mel windows with
+        """Yield waveform chunks for ONE utterance (JETS): the acoustic half
+        runs once, the vocoder decodes fixed-size mel windows with
         receptive-field context (``infer/streaming.py``), so the first audio
-        arrives after one chunk."""
+        arrives after one chunk. JOINT raises ``NotImplementedError``, as in
+        the JAX package."""
+        if self.model_type != "jets":
+            raise NotImplementedError(
+                "chunked streaming decode is wired for JETS/VITS2; the "
+                "Text2Wav composer decode remains monolithic (use "
+                "stream_long for sentence-level streaming)")
         ids, lens = self._inputs([text])
         zs, mel_lens = self.model.inference_hidden(
             self._speaker_ids(speaker, 1), ids, lens, self.max_mel_frames)
         yield from _trimmed_stream(self.model.decode_hidden, zs, self._upsample,
                                    int(mel_lens[0]), chunk_frames, context_frames)
+
+
+def _reference_feats(B: int, reference_mel: Optional[np.ndarray], n_mels: int,
+                     dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The CVAE's reference mel (B, T, n_mels): zeros (64 frames) unless
+    given."""
+    if reference_mel is None:
+        return torch.zeros(B, 64, n_mels, dtype=dtype, device=device)
+    ref = torch.as_tensor(np.asarray(reference_mel), dtype=dtype, device=device)
+    return ref[None].expand(B, *ref.shape).contiguous()
 
 
 def _trimmed_stream(decode, hidden: torch.Tensor, upsample: int, n_frames: int,
@@ -300,31 +346,14 @@ class TwoStageTTS(_TTSBase):
                                self.stats, n_speakers=max(len(self.speakers), 1),
                                n_accents=max(len(self.accents), 2))
         acoustic.load_state_dict(model_state_dict(acoustic_ckpt))
-        hifi = self.conf["models"].get("hifigan", {})
-        vocoder = HiFiGANGenerator(
-            in_channels=self.n_mels,
-            channels=hifi.get("upsample_initial_channel", 512),
-            upsample_scales=tuple(hifi.get("upsample_rates", (8, 8, 2, 2))),
-            upsample_kernel_sizes=tuple(hifi.get("upsample_kernel_sizes", (16, 16, 4, 4))),
-            resblock_kernel_sizes=tuple(hifi.get("resblock_kernel_sizes", (3, 7, 11))),
-            resblock_dilations=tuple(map(tuple, hifi.get("resblock_dilation_sizes",
-                                                         ((1, 3, 5),) * 3))),
-            fused_mrf=fused_vocoder,
-            packed_tail=_resolve_packed(packed_vocoder),
-        )
+        del packed_vocoder  # accepted for the JAX signature (see _resolve_packed)
+        vocoder = HiFiGANGenerator.from_config(
+            self.n_mels, self.conf["models"].get("hifigan", {}), fused_mrf=fused_vocoder)
         vocoder.load_state_dict(model_state_dict(vocoder_ckpt))
         self.half = half
         self.dtype = torch.bfloat16 if half else torch.float32
         self.acoustic = acoustic.to(device=self.device, dtype=self.dtype).eval()
         self.vocoder = vocoder.to(device=self.device, dtype=self.dtype).eval()
-
-    def _feats(self, B: int, reference_mel: Optional[np.ndarray]) -> torch.Tensor:
-        """The CVAE's reference mel (B, T, n_mels): zeros (64 frames) unless
-        given."""
-        if reference_mel is None:
-            return torch.zeros(B, 64, self.n_mels, dtype=self.dtype, device=self.device)
-        ref = torch.as_tensor(np.asarray(reference_mel), dtype=self.dtype, device=self.device)
-        return ref[None].expand(B, *ref.shape).contiguous()
 
     def _mel(self, texts: Sequence[str], speaker, accent, reference_mel,
              d_control: float, p_control: float, e_control: float):
@@ -337,7 +366,8 @@ class TwoStageTTS(_TTSBase):
         mel, mel_lens, _ = self.acoustic.inference(
             sids, torch.as_tensor(ids, device=self.device),
             torch.as_tensor(lens, device=self.device), self.max_mel_frames,
-            feats=self._feats(B, reference_mel), aids=aids, d_control=d_control,
+            feats=_reference_feats(B, reference_mel, self.n_mels, self.dtype, self.device),
+            aids=aids, d_control=d_control,
             p_control=p_control, e_control=e_control)
         return mel, mel_lens
 

@@ -4,6 +4,7 @@
 Counterpart of ``viet_tts_tpu/infer/server.py``:
 
     python -m viet_tts_torch.infer.server -c ckpt_dir --port 8000
+    python -m viet_tts_torch.infer.server --model_type JOINT -c text2wav_ckpt_dir
     python -m viet_tts_torch.infer.server --model_type FASTSPEECH2 \
         -a acoustic_ckpt_dir -v vocoder_ckpt_dir --max_mel_frames 2048
 
@@ -12,7 +13,8 @@ API:
     POST /synthesize           -> audio/wav bytes
          body: {"text": "...", "speaker": 0}
     POST /synthesize_stream    -> chunked 16-bit PCM (no RIFF header);
-         audio bytes flow as the vocoder decodes (``stream_wav``).
+         audio bytes flow as the vocoder decodes (``stream_wav``); a
+         backend with no streaming decode (JOINT) answers 501.
 
 Requests are serialized through one lock: synthesis occupies the card, and
 batching beyond one request belongs to the bucketed ``__call__`` API. The
@@ -112,6 +114,8 @@ def make_handler(tts, model_name: str):
                         self.wfile.write(f"{len(pcm):x}\r\n".encode() + pcm + b"\r\n")
                         self.wfile.flush()
                     self.wfile.write(b"0\r\n\r\n")
+            except NotImplementedError as e:  # a backend with no streaming decode
+                self._json(501, {"error": repr(e)})
             except Exception as e:
                 if started:  # headers gone; just drop the connection
                     self.close_connection = True
@@ -138,7 +142,7 @@ def _main():
     ap = argparse.ArgumentParser(description="HTTP TTS serving endpoint (PyTorch)")
     ap.add_argument("--model_type", default="JETS")
     ap.add_argument("-c", "--checkpoint", default=None,
-                    help="one-stage (JETS) checkpoint directory")
+                    help="one-stage (JETS, JOINT) checkpoint directory")
     ap.add_argument("-a", "--acoustic_checkpoint", default=None,
                     help="two-stage acoustic (FASTSPEECH2) checkpoint directory")
     ap.add_argument("-v", "--vocoder_checkpoint", default=None,

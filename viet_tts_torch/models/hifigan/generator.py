@@ -223,6 +223,22 @@ class HiFiGANGenerator(nn.Module):
             nn.Tanh(),
         )
 
+    @classmethod
+    def from_config(cls, in_channels: int, hifi: dict,
+                    fused_mrf: bool = False) -> "HiFiGANGenerator":
+        """V1 from a ``models.hifigan`` config section, with the JAX
+        ``Text2Wav`` / two-stage API's defaults for what it leaves out and
+        no speaker input."""
+        return cls(
+            in_channels=in_channels,
+            channels=hifi.get("upsample_initial_channel", 512),
+            upsample_scales=tuple(hifi.get("upsample_rates", (8, 8, 2, 2))),
+            upsample_kernel_sizes=tuple(hifi.get("upsample_kernel_sizes", (16, 16, 4, 4))),
+            resblock_kernel_sizes=tuple(hifi.get("resblock_kernel_sizes", (3, 7, 11))),
+            resblock_dilations=tuple(map(tuple, hifi.get("resblock_dilation_sizes",
+                                                         ((1, 3, 5),) * 3))),
+            fused_mrf=fused_mrf)
+
     @property
     def upsample_factor(self) -> int:
         f = self.out_channels

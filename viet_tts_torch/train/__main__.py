@@ -2,6 +2,8 @@
 
     python -m viet_tts_torch.train --task fastspeech2 -i egs/dir -d data/dir -o out/dir
     python -m viet_tts_torch.train --task jets ... | --task hifigan ...
+    python -m viet_tts_torch.train --task text2wav ... [-a fs2_out -v hifigan_out]
+    python -m viet_tts_torch.train --task text2wav --is_finetune -c joint_ckpt ...
     python -m viet_tts_torch.train --task fastspeech2 ... --device cpu
 
 Runs on the CUDA card unless ``--device`` names another; it never falls
@@ -9,10 +11,16 @@ back to the CPU. ``-i`` holds (or receives) ``train.txt`` / ``test.txt``
 and ``speakers.json`` / ``accents.json``; ``-d`` the dataset
 (``<speaker>/metadata.csv`` and ``<speaker>/wavs/``); ``-o`` the
 checkpoints, sidecars and ``log/``. A rerun with the same ``-o`` resumes
-from its newest checkpoint; ``-c`` names a port trainer checkpoint to
-resume from instead. The GAN tasks (``jets``, ``hifigan``) also write and
-resume ``last_discriminator_statedict.pt`` there. ``fastspeech2``,
-``jets`` and ``hifigan`` are ported so far.
+from its newest checkpoint; for ``fastspeech2``, ``jets`` and ``hifigan``,
+``-c`` names a port trainer checkpoint to resume from instead. The GAN
+tasks (``jets``, ``hifigan``, ``text2wav``) also write and resume
+``last_discriminator_statedict.pt`` there. ``text2wav`` (the default,
+``Text2Wav`` of ``--version fastspeech2``; ``train/joint.py``) starts,
+when ``-o`` holds no checkpoint, from a joint checkpoint's weights
+(``-c``), or from a ``--task fastspeech2`` output (``-a``) and a ``--task
+hifigan`` output (``-v``); ``--is_finetune`` adapts the joint checkpoint
+``-c`` to the speakers of ``-i`` (text2wav only). ``fastspeech2``,
+``jets``, ``hifigan`` and ``text2wav`` are ported so far.
 """
 
 from __future__ import annotations
@@ -31,7 +39,6 @@ TASKS = ["text2wav", "fastspeech2", "adaspeech", "jets", "vits2", "matcha", "hif
 
 # the ROADMAP.md items (section 1) that port the other tasks
 NOT_PORTED = {
-    "text2wav": "item 11",
     "adaspeech": "item 12",
     "matcha": "item 13",
     "vits2": "item 14",
@@ -49,7 +56,8 @@ def build_arguments(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("-o", "--output_folder", type=str, required=True,
                         help="directory for checkpoints/logs")
     parser.add_argument("-c", "--checkpoint", type=str, default=None,
-                        help="a port trainer checkpoint to resume from")
+                        help="a port trainer checkpoint to resume from (text2wav: a joint "
+                             "checkpoint to start from, or to adapt with --is_finetune)")
     parser.add_argument("-a", "--acoustic_checkpoint", type=str, default=None,
                         help="path to an acoustic pretrained checkpoint")
     parser.add_argument("-v", "--vocoder_checkpoint", type=str, default=None,
@@ -81,6 +89,15 @@ def make_trainer(args, conf):
         raise NotImplementedError(
             f"--task {args.task} is not ported yet (ROADMAP.md section 1, "
             f"{NOT_PORTED[args.task]})")
+    if args.task == "text2wav":
+        from viet_tts_torch.models.text2wav.model import NOT_PORTED_VERSIONS
+        from viet_tts_torch.train.joint import JointFinetuner, JointTrainer
+
+        if args.version in NOT_PORTED_VERSIONS:
+            raise NotImplementedError(
+                f"--task text2wav --version {args.version} is not ported yet (ROADMAP.md "
+                f"section 1, {NOT_PORTED_VERSIONS[args.version]})")
+        return (JointFinetuner if args.is_finetune else JointTrainer)(args, conf)
     if args.is_finetune:
         raise ValueError(f"Fine-tuning model is not supported for `{args.task}` yet!")
     from viet_tts_torch.train.gan import HiFiGANTrainer, JETSTrainer

@@ -186,23 +186,34 @@ class BaseTrainer:
                                     self.iter, ckpt.make_payload(self.state))
         log.info(f"saved checkpoint: {path}")
 
-    def try_resume(self):
-        """Load ``-c`` or the newest checkpoint of the output folder, if any:
-        weights, BatchNorm statistics and optimizer state; the iteration
-        from its name, ``step = iter``; the epoch that iteration falls in
-        (not the name's epoch, which a checkpoint at an epoch's end shares
-        with the epoch it closed) and that epoch's learning rate; the
-        training batches skip to iteration ``iter``."""
-        path = getattr(self.args, "checkpoint", None) or ckpt.scan_checkpoint(
+    def resume_path(self) -> Optional[str]:
+        """The checkpoint ``try_resume`` loads: ``-c``, else the newest of
+        the output folder, else None."""
+        return getattr(self.args, "checkpoint", None) or ckpt.scan_checkpoint(
             self.args.output_folder, self.ckpt_prefix)
+
+    def seek(self, iteration: int) -> None:
+        """Set the epoch that ``iteration`` falls in and move the training
+        batches on to it."""
+        self.epoch = iteration // max(self.train_loader.epoch_batches(), 1)
+        self.train_loader.skip(iteration)
+
+    def try_resume(self) -> Optional[str]:
+        """Load ``resume_path()``, if any: weights, BatchNorm statistics and
+        optimizer state; the iteration from its name, ``step = iter``; the
+        epoch that iteration falls in (not the name's epoch, which a
+        checkpoint at an epoch's end shares with the epoch it closed) and
+        that epoch's learning rate; the training batches skip to iteration
+        ``iter``. Returns the path loaded, or None."""
+        path = self.resume_path()
         if path is None:
-            return
+            return None
         ckpt.restore_payload(self.state, ckpt.load_checkpoint(path))
         self.iter = self.state.step = ckpt.parse_checkpoint_name(path)[1]
-        self.epoch = self.iter // max(self.train_loader.epoch_batches(), 1)
+        self.seek(self.iter)
         self.set_epoch_rates(self.epoch)
-        self.train_loader.skip(self.iter)
         log.info(f"resumed from {path} (epoch {self.epoch}, iter {self.iter})")
+        return path
 
     # -- loop -----------------------------------------------------------
     def _install_preemption_handler(self):
