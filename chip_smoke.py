@@ -184,7 +184,27 @@ Phases (any failure exits non-zero; no phase is caught):
     (``/synthesize`` 200, ``/synthesize_stream`` 501); step host seconds by
     bucket, data wait and peak memory beside the card's name and power
     limit;
-22. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
+22. AdaSpeech and the FFT blocks: full-width AdaSpeech
+    (config/model_config.yaml:81-140: 4 + 6 CLN FFT layers, d_model 256,
+    2 heads, FFN 1024 with k=9, CVAE, learned alignment, Postnet) with
+    seeded random weights and phase 8's HiFi-GAN V1, served by
+    ``TwoStageTTS(model_type="ADASPEECH", fused_vocoder=True)``: 16
+    sentences at 1008 frames with K2 18 launches and no attention kernel a
+    call exactly, the host median of 5 calls, ``token_avg_mels``' host share
+    of it and (from one profiled call after phase 14) the device's busy
+    share; 2 sentences at 64 frames against the CPU (the mel within 1e-3,
+    the waveform on a vocoder copy at audio scale within 1e-3 of its
+    peak); FastSpeech2 with ``block_type: transformer`` (6 + 6 FFT layers,
+    d_model 384) the same for one call; ``--task adaspeech`` on phase 18's
+    dataset and config copy to ``--max_iter 6``, then resumed by scan to 8
+    (names, rates, finite losses with ``avg_mel_phn``, no kernel in a step,
+    step host seconds by mel bucket, data wait), its first step on the card
+    against ``--device cpu`` (losses within rel 1e-3, self-attention
+    gradients within 1e-2 of their norms); ``--task text2wav --version
+    adaspeech`` for 2 steps warm-started from that output and phase 20's
+    HiFi-GAN, and ``OneStageTTS(model_type="JOINT")`` serving it (K2 18 a
+    call);
+23. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
     JETS training steps, five two-stage calls, five FS2 training steps at
     T_mel 1008 and five at 512 and five of each JETS-conformer path (both
     flavours), of the FS2 step at T_mel 2048 and of the JETS, HiFi-GAN and
@@ -193,10 +213,11 @@ Phases (any failure exits non-zero; no phase is caught):
     Q2 kernels, bwd-kv on its own, K5's rotation pass on its own, K7's
     forward and bwd-q instances apart from K6's, K4's bwd-kv instance under
     K4 bwd);
-23. one JSON line ``{"kernels": [...]}``, then the card's line, then
+24. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
-Phases 3, 9, 11 and 14 run after phase 21 (in that order): their
+Phases 3, 9, 11 and 14 run after phase 22 (in that order), and phase 22's
+profiled call after them: their
 ``torch.profiler`` sessions leave every later kernel launch ~25 % dearer on
 the host, and the other phases read host seconds of launch-bound calls and
 steps. Each phase logs its host seconds (``phase time:``): the script has
@@ -2938,8 +2959,9 @@ def trainer_config(root: str, zero_dropout: bool = False, batch_size: int = 8) -
     params gain ``attn_implementation: flash`` (the file's own
     recommendation for training), edited as text (the card has no pyyaml);
     ``log_step`` 1; optionally every dropout 0 (JETS's duration predictor's,
-    which the file leaves to the model's default, added) and another batch
-    size. Read back through the port's reader and checked."""
+    which the file leaves to the model's default, added; AdaSpeech's
+    section's too) and another batch size. Read back through the port's
+    reader and checked."""
     from viet_tts_torch.config import JETS_DROPOUT_KEYS, build_config
 
     out = os.path.join(root, "config")
@@ -2962,6 +2984,12 @@ def trainer_config(root: str, zero_dropout: bool = False, batch_size: int = 8) -
                 jets_edits += [("    init_type:", "    duration_predictor_dropout_rate: 0.0\n"
                                                  "    init_type:")]
             text = _edit_section(text, "jets", jets_edits)
+            if zero_dropout:  # AdaSpeech's: its FFT blocks, predictors and encoders
+                text = _edit_section(text, "adaspeech", [
+                    ("encoder_dropout: 0.2", "encoder_dropout: 0.0"),
+                    ("decoder_dropout: 0.2", "decoder_dropout: 0.0"),
+                    ("      dropout: 0.5", "      dropout: 0.0"),
+                    ("dropout_rate: 0.5", "dropout_rate: 0.0")])
         elif name == "train_config.yaml":
             text = text.replace("\nlog_step: 100\n", "\nlog_step: 1\n").replace(
                 "\nbatch_size: 8\n", f"\nbatch_size: {batch_size}\n")
@@ -2977,6 +3005,16 @@ def trainer_config(root: str, zero_dropout: bool = False, batch_size: int = 8) -
                                       hp["variance"]["variance_predictor"]["dropout"])
                 != (drop, drop, drop))):
         raise AssertionError(f"trainer config copy not as edited: {hp}")
+    ada = conf["models"]["adaspeech"]
+    if drop is not None and (
+            (ada["building_block"]["transformer"]["encoder_dropout"],
+             ada["building_block"]["transformer"]["decoder_dropout"],
+             ada["variance"]["variance_predictor"]["dropout"])
+            != (drop, drop, drop) or any(
+                enc["dropout_rate"] != drop
+                for enc in ada["variance"]["reference_encoder"].values()
+                if isinstance(enc, dict))):
+        raise AssertionError(f"trainer config copy's AdaSpeech section not as edited: {ada}")
     jets = conf["models"]["jets"]["generator_params"]
     if jets["attn_implementation"] != "flash" or (drop is not None and any(
             jets[key] != drop for key in JETS_DROPOUT_KEYS if key in jets)) or (
@@ -3322,8 +3360,9 @@ def _set_tf32(on: bool) -> None:
 # self-attention tensor's norm (tools/jets_trainer_grads.py; PERF.md), and
 # a K3 that wrote zeros would differ by 1.
 GRAD_REL_TOL = 1e-2
-# the key projections' biases: JETS's espnet attention's, the conformer's
-KEY_BIASES = ("linear_k.bias", "key_proj.linear.bias")
+# the key projections' biases: JETS's espnet attention's, the conformer's,
+# the FFT blocks' (AdaSpeech)
+KEY_BIASES = ("linear_k.bias", "key_proj.linear.bias", "w_ks.bias")
 
 
 def _gan_card_vs_cpu(task: str, root: str, config_dir: str, wrappers, expect_launches,
@@ -3710,11 +3749,298 @@ def check_joint_trainer(dev, smi: str, profile: bool):
     return launches, figures, profile_args
 
 
-def profile_call(fn, label: str, out_name: str, repeats: int = 5) -> None:
+# --------------------------------------------------------------------------
+# phase 22: the FFT blocks and AdaSpeech (TwoStageTTS(model_type="ADASPEECH"),
+# FastSpeech2 with block_type transformer, --task adaspeech, --task text2wav
+# --version adaspeech and JOINT serving)
+# --------------------------------------------------------------------------
+
+# one __call__ of 16 sentences of a model with FFT blocks (AdaSpeech, or
+# FastSpeech2 with block_type transformer): no attention kernel (their
+# attention is plain PyTorch, as the JAX package's is plain einsums), the
+# vocoder's two fused stages on K2
+FFT_CALL_LAUNCHES = {"flash_xl3_fwd": 0, "flash_xl2_fwd": 0, "flash_xl_fwd": 0,
+                     "fused_mrf_stage": K2_PER_CALL, "flash_attention_fwd": 0}
+ADASPEECH_JOINT_ITERS = 2
+
+
+def _all_wrappers():
+    """Every kernel an acoustic model or vocoder of the port could launch
+    but K7 (the JETS conformer's): none runs in an AdaSpeech or joint step."""
+    return {**_xl_wrappers(), **_flash_wrappers(), **_mrf_wrappers()}
+
+
+def build_fft_acoustic(root: str):
+    """Full-width AdaSpeech (config/model_config.yaml:81-140: 4 + 6 CLN FFT
+    layers, d_model 256, 2 heads, FFN 1024 with k=9, CVAE, learned
+    alignment, Postnet; the CLNs at their LayerNorm start) and FastSpeech2
+    with ``block_type: transformer`` (its section's FFT block: 6 + 6
+    layers, d_model 384, 2 heads, FFN 1024), seeded random weights, saved
+    as port checkpoints beside phase 8's."""
+    from viet_tts_torch import config
+    from viet_tts_torch.infer.api import default_conf, save_checkpoint
+    from viet_tts_torch.models import build_acoustic
+    from viet_tts_torch.nn.utils import seeded_init_
+    from viet_tts_torch.text import NUM_SYMBOLS
+
+    conf = default_conf()
+    conf["models"]["fastspeech2"]["building_block"]["block_type"] = "transformer"
+    n_mels = conf["audio"]["mel"]["channels"]
+    gen = torch.Generator().manual_seed(SEED + 22)
+    dirs = []
+    for family in ("adaspeech", "fastspeech2"):
+        model = seeded_init_(build_acoustic(NUM_SYMBOLS, n_mels, conf, family,
+                                            config.DEFAULT_STATS, n_speakers=1), gen)
+        hp = conf["models"][family]
+        bt = hp["building_block"]["transformer"]
+        log(f"{family} (FFT blocks) full width: {sum(p.numel() for p in model.parameters())} "
+            f"parameters (d_model {hp['encoder_hidden']}, {bt['encoder_head']} heads, "
+            f"{hp['encoder_layers']} + {hp['decoder_layers']} layers, FFN "
+            f"{bt['conv_filter_size']} k={bt['conv_kernel_size']}, CVAE, postnet)")
+        dirs.append(os.path.join(root, family))
+        save_checkpoint(dirs[-1], model, conf, stats=config.DEFAULT_STATS)
+    return dirs
+
+
+def _fft_serving_against_cpu(dev, tts, label: str):
+    """2 sentences at 64 frames (64 zero reference frames): the acoustic
+    model on the card against a CPU copy (mel within 1e-3, equal lengths),
+    and the card's whole chain (acoustic, then the vocoder with K2) against
+    the CPU's on a copy of the vocoder whose upsamplers' g is 1 (audio
+    scale), within 1e-3 of the CPU waveform's peak."""
+    voc = copy.deepcopy(tts.vocoder)
+    with torch.no_grad():
+        for up in voc.upsamples:
+            up[1].weight_g.fill_(1.0)
+    cpu_ac, cpu_voc = copy.deepcopy(tts.acoustic).to("cpu"), copy.deepcopy(voc).to("cpu")
+    ids, lens, _ = tts.encode_texts(SENTENCES[:2])
+    args = (torch.zeros(2, dtype=torch.int64), torch.as_tensor(ids), torch.as_tensor(lens), 64)
+    kw = dict(feats=torch.zeros(2, 64, tts.n_mels), aids=torch.zeros(2, dtype=torch.int64))
+    with torch.no_grad():
+        mel_gpu, len_gpu, _ = tts.acoustic.inference(
+            *(a.to(dev) if torch.is_tensor(a) else a for a in args),
+            **{k: v.to(dev) for k, v in kw.items()})
+        wav_gpu = voc(mel_gpu)[..., 0].cpu()
+        mel_cpu, len_cpu, _ = cpu_ac.inference(*args, **kw)
+        wav_cpu = cpu_voc(mel_cpu)[..., 0]
+    mel_err = (mel_gpu.cpu() - mel_cpu).abs().max().item()
+    wav_err = (wav_gpu - wav_cpu).abs().max().item()
+    peak = wav_cpu.abs().max().item()
+    if (not torch.equal(len_gpu.cpu(), len_cpu) or not mel_err <= 1e-3
+            or not wav_err <= 1e-3 * peak):
+        raise AssertionError(f"{label} card vs CPU: lengths {len_gpu.tolist()} vs "
+                             f"{len_cpu.tolist()}, mel max_abs_err {mel_err}, wav max_abs_err "
+                             f"{wav_err}, peak |wav| {peak}")
+    log(f"{label} card vs CPU, 2 sentences x 64 frames: mel max_abs_err {mel_err:.3e} (tol "
+        f"1e-3), peak |mel| {mel_cpu.abs().max().item():.3f}; waveform (upsamplers' g 1) "
+        f"max_abs_err {wav_err:.3e}, peak |wav| {peak:.3f}, relative {wav_err / peak:.3e} "
+        f"(tol 1e-3)")
+    return mel_err, wav_err / peak
+
+
+def _token_avg_host(tts, calls: int = 5):
+    """Host seconds of ``token_avg_mels`` (its loop over the tokens) at a
+    16-sentence call's shapes: the arguments of one call's, timed alone
+    ``calls`` times (synchronised); the median."""
+    from viet_tts_torch.models.adaspeech import model as ada_model
+
+    seen, real = [], ada_model.token_avg_mels
+
+    def keep(*args):
+        seen.append(args)
+        return real(*args)
+
+    ada_model.token_avg_mels = keep
+    try:
+        tts(SENTENCES)
+    finally:
+        ada_model.token_avg_mels = real
+    (args,) = seen
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2], tuple(args[0].shape)
+
+
+def check_fft_serving(dev, smi: str, ada_dir: str, fs2_dir: str, voc_dir: str):
+    """``TwoStageTTS(model_type="ADASPEECH")`` on full-width AdaSpeech and
+    phase 8's HiFi-GAN V1: 16 sentences at 1008 frames with exactly the
+    launches of ``FFT_CALL_LAUNCHES`` (K2 18, no attention kernel) a call,
+    the host median of 5 calls and ``token_avg_mels``' share of it, a small
+    input against the CPU; FastSpeech2 with ``block_type: transformer`` the
+    same for one call."""
+    from viet_tts_torch.infer.api import TwoStageTTS
+    from viet_tts_torch.models.adaspeech import AdaSpeech
+
+    tts = TwoStageTTS(ada_dir, voc_dir, model_type="ADASPEECH", fused_vocoder=True)
+    if not isinstance(tts.acoustic, AdaSpeech):
+        raise AssertionError(f"TwoStageTTS(ADASPEECH) built {type(tts.acoustic).__name__}")
+    tts(SENTENCES[:2])  # warm-up: cuDNN autotune, allocator
+    per_call = []
+    for _ in range(2):
+        waves, _ = _counted_call(lambda: tts(SENTENCES), FFT_CALL_LAUNCHES,
+                                 "AdaSpeech two-stage fp32 __call__(16) at 1008 frames")
+        _check_waves(waves, len(SENTENCES), "AdaSpeech")
+        per_call.append(FFT_CALL_LAUNCHES["fused_mrf_stage"])
+    times = []
+    with torch.no_grad():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tts(SENTENCES)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    call_s = sorted(times)[len(times) // 2]
+    avg_s, avg_shape = _token_avg_host(tts)
+    log(f"AdaSpeech two-stage fp32 __call__(16) at 1008 frames ({smi}): host median of 5 "
+        f"{call_s:.4f} s ({[round(x, 4) for x in times]}); token_avg_mels at durations "
+        f"{avg_shape} and 64 reference frames {1e3 * avg_s:.2f} ms host, "
+        f"{100 * avg_s / call_s:.1f} % of the call; mel frames per sentence "
+        f"{[w.size // 256 for w in waves]}")
+    mel_err, wav_rel = _fft_serving_against_cpu(dev, tts, "AdaSpeech two-stage")
+
+    fs2 = TwoStageTTS(fs2_dir, voc_dir, fused_vocoder=True)
+    if not type(fs2.acoustic.encoder).__name__ == "TransformerEncoder":
+        raise AssertionError(f"FastSpeech2 transformer block: {type(fs2.acoustic.encoder)}")
+    fs2(SENTENCES[:2])
+    fs2_waves, fs2_s = _counted_call(lambda: fs2(SENTENCES), FFT_CALL_LAUNCHES,
+                                     "FS2-transformer two-stage fp32 __call__(16) at 1008 frames")
+    _check_waves(fs2_waves, len(SENTENCES), "FS2-transformer")
+    fs2_mel_err, fs2_wav_rel = _fft_serving_against_cpu(dev, fs2, "FS2-transformer two-stage")
+    del fs2
+    return tts, {"call_s": call_s, "call_s_all": times, "token_avg_s": avg_s,
+                 "token_avg_share": avg_s / call_s, "vs_cpu_mel": mel_err,
+                 "vs_cpu_wav_rel": wav_rel, "fs2_transformer_call_s": fs2_s,
+                 "fs2_transformer_vs_cpu_mel": fs2_mel_err,
+                 "fs2_transformer_vs_cpu_wav_rel": fs2_wav_rel, "launches_per_call": per_call}
+
+
+def check_adaspeech_trainer(dev, smi: str):
+    """``--task adaspeech`` through the CLI's entry function on phase 18's
+    dataset and config copy (full-width AdaSpeech, every dropout as
+    configured), batch size 8, to ``--max_iter 6``, then resumed by scan to
+    8: the checkpoints (keep-3, names), the resumed iteration, each step's
+    rate against its epoch's, finite losses with ``avg_mel_phn``, no kernel
+    launched in a step, both mel buckets; the first step on the card
+    against ``--device cpu`` (phase 18's one-bucket dataset, every dropout
+    0): losses within rel 1e-3 and the self-attention gradients within 1e-2
+    of each tensor's norm. Then ``--task text2wav --version adaspeech`` for
+    ``ADASPEECH_JOINT_ITERS`` steps, warm-started from this output (``-a``)
+    and phase 20's HiFi-GAN (``-v``), no kernel in a step, and
+    ``OneStageTTS(model_type="JOINT")`` serving its output with exactly
+    ``FFT_CALL_LAUNCHES`` a call."""
+    from viet_tts_torch.infer.api import OneStageTTS
+    from viet_tts_torch.models.adaspeech import AdaSpeech, AdaSpeechLoss
+    from viet_tts_torch.train.__main__ import main
+    from viet_tts_torch.train.checkpoint import SUFFIX, checkpoint_name
+    from viet_tts_torch.train.state import exponential_lr
+
+    config_dir = os.path.join(TRAINER_ROOT, "config")
+    probes = []
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    first, resumed = (main(_trainer_argv(TRAINER_ROOT, config_dir, "out_adaspeech", n,
+                                         task="adaspeech"),
+                           on_trainer=lambda tr: probes.append(_StepProbe(tr, _all_wrappers)))
+                      for n in TRAINER_ITERS)
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if (first.device.type != dev.type or not isinstance(first.model, AdaSpeech)
+            or not isinstance(first.criterion, AdaSpeechLoss)):
+        raise AssertionError(f"adaspeech trainer: {type(first.model).__name__} on "
+                             f"{first.device}, loss {type(first.criterion).__name__}")
+    out = first.args.output_folder
+    per_epoch = first.train_loader.epoch_batches()
+    n0, n1 = TRAINER_ITERS
+    names = sorted((f for f in os.listdir(out) if f.endswith(SUFFIX)),
+                   key=lambda f: int(f.split("iteration")[1].split("_")[0]))
+    want_names = [checkpoint_name("generator", 0, per_epoch),
+                  checkpoint_name("generator", n0 // per_epoch, n0),
+                  checkpoint_name("generator", n0 // per_epoch, n1)]
+    steps = [s for p in probes for s in p.steps]
+    if per_epoch != 4 or names != want_names:
+        raise AssertionError(f"adaspeech checkpoints {names}, expected {want_names}")
+    if [s["iter"] for s in steps] != list(range(n1)) or (resumed.iter,
+                                                         resumed.state.step) != (n1, n1):
+        raise AssertionError(f"adaspeech iterations {[s['iter'] for s in steps]}, resumed "
+                             f"at {resumed.iter}, step {resumed.state.step}")
+    idle = dict.fromkeys(_all_wrappers(), 0)
+    for s in steps:
+        if s["lr"] != exponential_lr(first.base_lr, first.gamma, s["iter"] // per_epoch):
+            raise AssertionError(f"adaspeech step {s['iter']}: rate {s['lr']}")
+        if s["launches"] != idle or "avg_mel_phn" not in s["metrics"] or not all(
+                np.isfinite(v) for v in s["metrics"].values()):
+            raise AssertionError(f"adaspeech step {s['iter']}: launches {s['launches']}, "
+                                 f"losses {s['metrics']}")
+    buckets = sorted({s["t_mel"] for s in steps})
+    if buckets != [256, 768]:
+        raise AssertionError(f"adaspeech mel buckets {buckets}")
+    figures = _gan_figures(first, steps, per_epoch, (base_gb, peak_gb), run_s,
+                           [h for p in probes for h in p.hist_s])
+    log(f"adaspeech trainer ({smi}): {len(first.train_set)} train utterances, {len(steps)} "
+        f"steps at (B, T_text, T_mel) {[(8, s['t_text'], s['t_mel']) for s in steps]}, "
+        f"resumed at iter {n0}; checkpoints {names}; step host seconds "
+        f"{[round(s['step_s'], 4) for s in steps]}; data wait ms "
+        f"{[round(1e3 * s['wait_s'], 2) for s in steps]}; peak {peak_gb:.2f} GB "
+        f"({base_gb:.2f} held before); both runs {run_s:.1f} s; no kernel launched; last "
+        f"losses {steps[-1]['metrics']}")
+    cmp_root = os.path.join(TRAINER_ROOT, "card_vs_cpu")
+    figures["card_vs_cpu_rel"] = _gan_card_vs_cpu(
+        "adaspeech", cmp_root, os.path.join(cmp_root, "config"), _all_wrappers, idle,
+        grads_of=".slf_attn.", zero_postnet_dropout=True)
+
+    # --task text2wav --version adaspeech, warm-started, then JOINT serving
+    probe = []
+    t0 = time.perf_counter()
+    joint = main(_trainer_argv(TRAINER_ROOT, config_dir, "out_text2wav_adaspeech",
+                               ADASPEECH_JOINT_ITERS, "--version", "adaspeech", "-a", out,
+                               "-v", os.path.join(TRAINER_ROOT, "out_hifigan"),
+                               task="text2wav"),
+                 on_trainer=lambda tr: probe.append(_StepProbe(tr, _all_wrappers)))
+    joint_s = time.perf_counter() - t0
+    jsteps = probe[0].steps
+    if (not isinstance(joint.model.text2mel, AdaSpeech) or not joint.criterion.is_finetune
+            or len(jsteps) != ADASPEECH_JOINT_ITERS
+            or any(s["launches"] != idle or "var_avg_mel_phn" not in s["metrics"]
+                   or not all(np.isfinite(v) for v in s["metrics"].values())
+                   for s in jsteps)):
+        raise AssertionError(f"text2wav --version adaspeech: {type(joint.model.text2mel)}, "
+                             f"is_finetune {joint.criterion.is_finetune}, steps {jsteps}")
+    log(f"joint trainer --version adaspeech ({smi}): warm-started from the adaspeech and "
+        f"hifigan outputs; {len(jsteps)} steps at T_mel {[s['t_mel'] for s in jsteps]}, step "
+        f"host seconds {[round(s['step_s'], 4) for s in jsteps]}; no kernel launched; run "
+        f"{joint_s:.1f} s; last metrics {jsteps[-1]['metrics']}")
+    jtts = OneStageTTS(joint.args.output_folder, model_type="JOINT", fused_vocoder=True)
+    speaker = dict(speaker=TRAINER_SPEAKERS[1], accent="hcm")
+    jtts(SENTENCES[:2], **speaker)  # warm-up
+    joint_calls = []
+    for _ in range(2):
+        waves, call_s = _counted_call(lambda: jtts(SENTENCES, **speaker), FFT_CALL_LAUNCHES,
+                                      "JOINT (AdaSpeech) __call__(16) at 1008 frames")
+        _check_waves(waves, len(SENTENCES), "JOINT (AdaSpeech)")
+        joint_calls.append(call_s)
+    figures.update(joint_step_s=[s["step_s"] for s in jsteps], joint_run_s=joint_s,
+                   joint_call_s=joint_calls)
+    return figures
+
+
+def check_adaspeech(dev, smi: str, ada_dir: str, fs2_dir: str, voc_dir: str):
+    tts, serving = check_fft_serving(dev, smi, ada_dir, fs2_dir, voc_dir)
+    training = check_adaspeech_trainer(dev, smi)
+    return tts, serving, training
+
+
+def profile_call(fn, label: str, out_name: str, repeats: int = 5):
     """Host time of ``repeats`` calls of ``fn``, then one under
     ``torch.profiler``: device time by kernel group and the device's busy
     share of the call (one stream, so kernels do not overlap); the
-    per-kernel table goes to ``OUT_DIR/<out_name>``."""
+    per-kernel table goes to ``OUT_DIR/<out_name>``. Returns (device busy
+    ms, wall ms) of the profiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3725,8 +4051,9 @@ def profile_call(fn, label: str, out_name: str, repeats: int = 5) -> None:
         fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    log(f"profile: {label} host seconds {[round(t, 4) for t in times]} "
-        f"(median {sorted(times)[len(times) // 2]:.4f})")
+    if times:
+        log(f"profile: {label} host seconds {[round(t, 4) for t in times]} "
+            f"(median {sorted(times)[len(times) // 2]:.4f})")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3757,6 +4084,7 @@ def profile_call(fn, label: str, out_name: str, repeats: int = 5) -> None:
         f.write("device_us\tcount\tkernel\n")
         for us, count, key in sorted(rows, reverse=True):
             f.write(f"{us:.1f}\t{count}\t{key}\n")
+    return busy / 1e3, wall_us / 1e3
 
 
 def main() -> int:
@@ -3830,6 +4158,9 @@ def main() -> int:
                                                       args.profile)
     joint_launches, joint_figures, joint_profile = phase_timed("21", check_joint_trainer, dev,
                                                                smi, args.profile)
+    ada_dir, fs2_fft_dir = build_fft_acoustic(os.path.join(REPO, "build", "chip_smoke_fft"))
+    ada_tts, ada_serving, ada_training = phase_timed("22", check_adaspeech, dev, smi, ada_dir,
+                                                     fs2_fft_dir, voc_dir)
     # the phases that time backward rows in device time run last: after a
     # torch.profiler session every kernel launch costs the host ~25 % more
     # (CUPTI stays attached; measured on the H100 machine), and the phases
@@ -3838,6 +4169,11 @@ def main() -> int:
     xl_train = phase_timed("9", check_xl_training, dev)
     rel, k6_jets = phase_timed("11", check_rel_kernels, dev, t_text)
     k6_train = phase_timed("14", check_xl_k6_training, dev)
+    # phase 22's busy share, from one profiled call after every host-timed phase
+    busy_ms, wall_ms = profile_call(lambda: ada_tts(SENTENCES),
+                                    "AdaSpeech two-stage fp32 __call__(16)",
+                                    "chip_smoke_profile_adaspeech.txt", repeats=0)
+    ada_serving["busy_share"] = busy_ms / wall_ms
     if args.profile:
         profile_call(lambda: tts(SENTENCES), "fp32 __call__(16)", "chip_smoke_profile.txt")
         profile_call(lambda: step(*step_args), "training step",
@@ -3919,6 +4255,16 @@ def main() -> int:
         entry["trainer_launches_per"] = trainer_per
         entry["joint_trainer_launches"] = joint_launches[entry["name"]]
         entry["joint_trainer_launches_per"] = joint_per
+    for key, per in (("adaspeech_call_launches", "one TwoStageTTS(model_type='ADASPEECH') "
+                                                 "__call__ of 16 sentences at 1008 frames"),
+                     ("fs2_transformer_call_launches", "one TwoStageTTS __call__ of 16 "
+                                                       "sentences at 1008 frames, FastSpeech2 "
+                                                       "with block_type transformer"),
+                     ("joint_adaspeech_call_launches", "one OneStageTTS(model_type='JOINT') "
+                                                       "__call__ of 16 sentences at 1008 "
+                                                       "frames, Text2Wav version adaspeech")):
+        k2[key] = FFT_CALL_LAUNCHES["fused_mrf_stage"]
+        k2[f"{key}_per"] = per
     for entry in (*xl_entries[:2], k2):
         entry["joint_call_launches"] = JOINT_CALL_LAUNCHES[entry["name"]]
         entry["joint_call_launches_per"] = ("one OneStageTTS(model_type='JOINT') __call__ of 16 "
@@ -4001,6 +4347,19 @@ def main() -> int:
             + (f"; feature cache and stats {fig['cache_s']:.2f} s" if fig["cache_s"] else ""))
     log(f"joint: finetune run {joint_figures['finetune_s']:.1f} s; JOINT __call__(16) host "
         f"seconds {[round(c, 4) for c in joint_figures['call_s']]}; on {smi}")
+    log(f"AdaSpeech: two-stage fp32 __call__(16) at 1008 frames host median "
+        f"{ada_serving['call_s']:.4f} s, device busy {100 * ada_serving['busy_share']:.1f} % "
+        f"(one profiled call), token_avg_mels {1e3 * ada_serving['token_avg_s']:.2f} ms "
+        f"({100 * ada_serving['token_avg_share']:.1f} % of the call), K2 "
+        f"{FFT_CALL_LAUNCHES['fused_mrf_stage']} a call; FS2-transformer __call__(16) "
+        f"{ada_serving['fs2_transformer_call_s']:.4f} s; trainer step host median by mel "
+        f"bucket { {b: round(v, 4) for b, v in ada_training['step_s_median_by_bucket'].items()} } "
+        f"s (steps {ada_training['step_s_by_bucket']}), data wait median "
+        f"{ada_training['wait_ms']:.2f} ms (max {ada_training['wait_ms_max']:.2f}), peak "
+        f"{ada_training['peak_gb']:.2f} GB, first step card vs CPU max rel "
+        f"{ada_training['card_vs_cpu_rel']:.3e}; joint --version adaspeech steps "
+        f"{[round(x, 4) for x in ada_training['joint_step_s']]} s, JOINT __call__(16) "
+        f"{[round(x, 4) for x in ada_training['joint_call_s']]} s; on {smi}")
     kernels_line = [k1, k2, *k3, *xl_entries, *xl_bwd_entries, *k6_bwd_entries, *rel_entries]
     if DEVICE_MS_MISSES:
         log(f"device_ms: {len(DEVICE_MS_MISSES)} backward figure(s) timed by CUDA events: "

@@ -5,7 +5,16 @@ without one. They import neither JAX nor the JAX package, so they run on a
 machine with only PyTorch:
 
     python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
+
+Their cases loop inside few items (``named_case`` names the failing one).
+Under ``pytest-xdist --dist load`` each worker's first chunk is a quarter
+of its share of the collection, in collection order, so every item here,
+skipped or not, widens the chunks that the CPU run of the whole suite
+hands its workers first.
 """
+
+import contextlib
+import itertools
 
 import numpy as np
 import pytest
@@ -22,6 +31,17 @@ from viet_tts_torch.ops.xl_attention import xl_pos_queries, xl_pos_query_stream
 
 KS = (3, 7, 11)
 DILS = ((1, 3, 5),) * 3
+DTYPE_LIMITS = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
+
+
+@contextlib.contextmanager
+def named_case(**case):
+    """Prefix a failing check's message with the loop case it ran at."""
+    try:
+        yield
+    except AssertionError as e:
+        e.args = (f"{case}: {e.args[0] if e.args else ''}",)
+        raise
 
 
 @pytest.fixture
@@ -34,11 +54,16 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [64, 1008, 45])
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_flash_attention_kernel_matches_plain(cuda_device, T, dtype, atol):
+def test_flash_attention_kernel_matches_plain(cuda_device):
     """K1 against the plain version on the same inputs, with a ragged and a
-    fully padded row (fp32 within 1e-4, bf16 inputs within 2e-2)."""
+    fully padded row, at T in {64, 1008, 45} (fp32 within 1e-4, bf16 inputs
+    within 2e-2)."""
+    for T, (dtype, atol) in itertools.product((64, 1008, 45), DTYPE_LIMITS):
+        with named_case(T=T, dtype=dtype):
+            _check_flash_attention(cuda_device, T, dtype, atol)
+
+
+def _check_flash_attention(cuda_device, T, dtype, atol):
     B, H, D = 3, 2, 128
     rng = np.random.RandomState(T)
     q, k, v = (torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32))
@@ -65,13 +90,18 @@ def _attention_case(device, T, dtype, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [64, 512, 45])
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("dropout_p", [0.0, 0.2])
-def test_flash_training_kernels_match_plain(cuda_device, T, dtype, atol, dropout_p):
+def test_flash_training_kernels_match_plain(cuda_device):
     """K1 with attention-weight dropout, then K3a (dq) and K3b (dk, dv) on
     the kernel's own ctx and lse, against the plain versions under the same
-    seed, with a ragged and a fully padded row."""
+    seed, with a ragged and a fully padded row, at T in {64, 512, 45}, fp32
+    and bf16, dropout 0 and 0.2."""
+    for T, (dtype, atol), dropout_p in itertools.product((64, 512, 45), DTYPE_LIMITS,
+                                                         (0.0, 0.2)):
+        with named_case(T=T, dtype=dtype, dropout_p=dropout_p):
+            _check_flash_training(cuda_device, T, dtype, atol, dropout_p)
+
+
+def _check_flash_training(cuda_device, T, dtype, atol, dropout_p):
     q, k, v, g, pad, scale = _attention_case(cuda_device, T, dtype, seed=T + 1)
     seed = 987654321012345
     ctx, lse = fa.attention_fwd(q, k, v, scale, pad, dropout_p, seed)
@@ -262,18 +292,26 @@ XL_KERNELS = {
 }
 
 
+XL_FWD_CASES = [("xl3", 64), ("xl3", 45), ("xl3", 300), ("xl3", 512),
+                ("xl2", 540), ("xl2", 1008), ("xl", 1100)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,T", [("xl3", 64), ("xl3", 45), ("xl3", 300), ("xl3", 512),
-                                    ("xl2", 540), ("xl2", 1008), ("xl", 1100)])
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("pad_rows", [True, False])
-def test_xl_kernels_match_plain(cuda_device, kind, T, dtype, atol, pad_rows):
+def test_xl_kernels_match_plain(cuda_device):
     """K4 (xl3), K5 (xl2) and K6 (xl) against their plain versions on the
-    same inputs: ragged rows and a fully padded one, or no pad mask; fp32
-    within 1e-4 (TF32 off), bf16 streams within 2e-2; the logsumexp within
-    rel 1e-5 in fp32 and 1e-3 in bf16 (K5 rounds its rotated stream to bf16,
-    and a one-ulp difference between the kernel's sincosf and the plain
-    version's sin / cos can flip that rounding)."""
+    same inputs, at each (kind, T) of ``XL_FWD_CASES``: ragged rows and a
+    fully padded one, or no pad mask; fp32 within 1e-4 (TF32 off), bf16
+    streams within 2e-2; the logsumexp within rel 1e-5 in fp32 and 1e-3 in
+    bf16 (K5 rounds its rotated stream to bf16, and a one-ulp difference
+    between the kernel's sincosf and the plain version's sin / cos can flip
+    that rounding)."""
+    for (kind, T), (dtype, atol), pad_rows in itertools.product(XL_FWD_CASES, DTYPE_LIMITS,
+                                                                (True, False)):
+        with named_case(kind=kind, T=T, dtype=dtype, pad_rows=pad_rows):
+            _check_xl_kernel(cuda_device, kind, T, dtype, atol, pad_rows)
+
+
+def _check_xl_kernel(cuda_device, kind, T, dtype, atol, pad_rows):
     streams, pad, scale = xl_case(cuda_device, 3, T, seed=T, pad_rows=pad_rows)
     fwd, plain, names = XL_KERNELS[kind]
     args = [streams[n].to(dtype) for n in names]
@@ -365,18 +403,23 @@ def _check_bwd_split(kind, bwd_args, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,T", XL_TRAIN_CASES)
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
-def test_xl_training_kernels_match_plain(cuda_device, kind, T, dtype, atol, dropout_p):
+def test_xl_training_kernels_match_plain(cuda_device):
     """K4 / K5 forward with attention-weight dropout against the plain
     forward, then K4 bwd (dqc, dk, dv, dqv, dp) or K5 bwd-q (dqc, dg2) and
     bwd-kv (dk, dv, dtab) against their plain versions on the kernel's own
     context and lse (so that a bf16 rounding of the forward cannot move the
     gradients' reference), under one seed, with a ragged and a fully padded
-    row; each gradient within atol of the plain one, scaled by its largest
-    value where that exceeds 1. K5 also ``_check_bwd_split``, with that pad
-    mask and with none."""
+    row, at each (kind, T) of ``XL_TRAIN_CASES``, fp32 and bf16, dropout 0
+    and 0.1; each gradient within atol of the plain one, scaled by its
+    largest value where that exceeds 1. K5 also ``_check_bwd_split``, with
+    that pad mask and with none."""
+    for (kind, T), (dtype, atol), dropout_p in itertools.product(XL_TRAIN_CASES, DTYPE_LIMITS,
+                                                                 (0.0, 0.1)):
+        with named_case(kind=kind, T=T, dtype=dtype, dropout_p=dropout_p):
+            _check_xl_training(cuda_device, kind, T, dtype, atol, dropout_p)
+
+
+def _check_xl_training(cuda_device, kind, T, dtype, atol, dropout_p):
     streams, pad, scale = xl_case(cuda_device, 3, T, seed=T + 7)
     names, fwd, plain_fwd, bwds = XL_TRAIN_FNS[kind]
     seed = 123456789012345
@@ -438,12 +481,16 @@ def test_xl_autograd_functions_launch_the_kernels(cuda_device, kind, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [64, 300])
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("pad_rows", [True, False])
-def test_xl_kernel_k6_at_the_jets_width(cuda_device, T, dtype, atol, pad_rows):
+def test_xl_kernel_k6_at_the_jets_width(cuda_device):
     """K6 at D = 128, E = 256 (the JETS conformer's legacy rel-pos route,
-    2 heads of adim 256) against its plain version."""
+    2 heads of adim 256) against its plain version, at T in {64, 300}, fp32
+    and bf16, with a ragged and a fully padded row or no pad mask."""
+    for T, (dtype, atol), pad_rows in itertools.product((64, 300), DTYPE_LIMITS, (True, False)):
+        with named_case(T=T, dtype=dtype, pad_rows=pad_rows):
+            _check_xl_k6_jets_width(cuda_device, T, dtype, atol, pad_rows)
+
+
+def _check_xl_k6_jets_width(cuda_device, T, dtype, atol, pad_rows):
     streams, pad, scale = xl_case(cuda_device, 3, T, H=2, D=128, seed=T + 2,
                                   pad_rows=pad_rows)
     fwd, plain, names = XL_KERNELS["xl"]
@@ -464,17 +511,21 @@ XL_NAMES = ("qc", "k", "v", "gA", "gB", "table")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,H,D", XL_K6_TRAIN_CASES)
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("pad_rows", [True, False])
-def test_xl_k6_training_kernels_match_plain(cuda_device, B, T, H, D, dtype, atol, pad_rows):
+def test_xl_k6_training_kernels_match_plain(cuda_device):
     """K6 forward with attention-weight dropout 0.2 against the plain
     forward, then K6 bwd-q (dqc, dgA, dgB) and bwd-kv (dk, dv, and dtab with
     ``want_dtab``) against their plain versions on the kernel's own context
-    and lse, under one seed, with a ragged and a fully padded row or no pad
-    mask; each gradient within atol of the plain one, scaled by its largest
-    value where that exceeds 1. Then ``_check_bwd_split`` at dropout 0.2
-    and 0."""
+    and lse, under one seed, at each shape of ``XL_K6_TRAIN_CASES``, fp32
+    and bf16, with a ragged and a fully padded row or no pad mask; each
+    gradient within atol of the plain one, scaled by its largest value
+    where that exceeds 1. Then ``_check_bwd_split`` at dropout 0.2 and 0."""
+    for (B, T, H, D), (dtype, atol), pad_rows in itertools.product(
+            XL_K6_TRAIN_CASES, DTYPE_LIMITS, (True, False)):
+        with named_case(B=B, T=T, H=H, D=D, dtype=dtype, pad_rows=pad_rows):
+            _check_xl_k6_training(cuda_device, B, T, H, D, dtype, atol, pad_rows)
+
+
+def _check_xl_k6_training(cuda_device, B, T, H, D, dtype, atol, pad_rows):
     streams, pad, scale = xl_case(cuda_device, B, T, H=H, D=D, seed=T + D, pad_rows=pad_rows)
     p, seed = 0.2, 987654321
     args = [streams[n].to(dtype) for n in XL_NAMES]
@@ -529,18 +580,23 @@ XL_TC_LENGTHS = [45, 63, 65, 127, 129, 1008, 1040, 2048]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,H,D", XL_BWD_Q_WIDTHS)
-@pytest.mark.parametrize("T", XL_TC_LENGTHS)
-def test_xl_bwd_q_tensor_core_kernels_match_plain(cuda_device, kind, H, D, T):
+def test_xl_bwd_q_tensor_core_kernels_match_plain(cuda_device):
     """K5 / K6 bwd-q (the tensor-core kernels: position logits, ds and dqc,
     then dgA / dgB) against their plain versions on the kernel forward's
-    lse, at lengths that are not multiples of the 64-row tiles (K5's row
-    shift of dgB crosses every tile boundary), each accepted head width,
-    for every case of ``XL_TC_CASES`` (fp32 and bf16, dropout 0 and 0.1, a
-    ragged and a fully padded row or no pad mask); each gradient within
-    atol of the plain one, scaled by its largest value where that exceeds
-    1; one launch count a call. Each case also ``_check_bwd_split`` (the
-    bwd-kv and dtab kernels at these lengths and widths)."""
+    lse, at the lengths of ``XL_TC_LENGTHS``, which are not multiples of the
+    64-row tiles (K5's row shift of dgB crosses every tile boundary), each
+    accepted head width of ``XL_BWD_Q_WIDTHS``, for every case of
+    ``XL_TC_CASES`` (fp32 and bf16, dropout 0 and 0.1, a ragged and a fully
+    padded row or no pad mask); each gradient within atol of the plain one,
+    scaled by its largest value where that exceeds 1; one launch count a
+    call. Each case also ``_check_bwd_split`` (the bwd-kv and dtab kernels
+    at these lengths and widths)."""
+    for (kind, H, D), T in itertools.product(XL_BWD_Q_WIDTHS, XL_TC_LENGTHS):
+        with named_case(kind=kind, H=H, D=D, T=T):
+            _check_xl_bwd_q_tensor_core(cuda_device, kind, H, D, T)
+
+
+def _check_xl_bwd_q_tensor_core(cuda_device, kind, H, D, T):
     B = 3
     names, fwd, kern, plain = XL_BWD_Q_FNS[kind]
     seed = 24681357 + T
@@ -596,16 +652,21 @@ XL_FWD_FNS = {  # kind: (stream names, forward, plain forward)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,H,D", XL_BWD_Q_WIDTHS)
-@pytest.mark.parametrize("T", XL_TC_LENGTHS)
-def test_xl_fwd_tensor_core_kernel_matches_plain(cuda_device, kind, H, D, T):
+def test_xl_fwd_tensor_core_kernel_matches_plain(cuda_device):
     """K5 / K6 forward (the tensor-core kernel; K5 after its rotation pass)
-    against the plain versions under one seed, at lengths that are not
-    multiples of the 64-row tiles (the diagonal tile and the last key tile
-    are partial), each accepted head width, for every case of
-    ``XL_TC_CASES``: ctx within atol, lse within rel 1e-5 in fp32 and 1e-3
-    in bf16 (a one-ulp sincosf difference can flip K5's bf16 rounding of
-    its rotated stream); one launch count a call."""
+    against the plain versions under one seed, at the lengths of
+    ``XL_TC_LENGTHS``, which are not multiples of the 64-row tiles (the
+    diagonal tile and the last key tile are partial), each accepted head
+    width of ``XL_BWD_Q_WIDTHS``, for every case of ``XL_TC_CASES``: ctx
+    within atol, lse within rel 1e-5 in fp32 and 1e-3 in bf16 (a one-ulp
+    sincosf difference can flip K5's bf16 rounding of its rotated stream);
+    one launch count a call."""
+    for (kind, H, D), T in itertools.product(XL_BWD_Q_WIDTHS, XL_TC_LENGTHS):
+        with named_case(kind=kind, H=H, D=D, T=T):
+            _check_xl_fwd_tensor_core(cuda_device, kind, H, D, T)
+
+
+def _check_xl_fwd_tensor_core(cuda_device, kind, H, D, T):
     B = 3
     names, fwd, plain = XL_FWD_FNS[kind]
     seed = 13572468 + T
@@ -736,16 +797,20 @@ REL_NAMES = ("qc", "k", "v", "g", "table")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [64, 45, 300])
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("pad_rows", [True, False])
-@pytest.mark.parametrize("dropout_p", [0.0, 0.2])
-def test_rel_kernels_match_plain(cuda_device, T, dtype, atol, pad_rows, dropout_p):
+def test_rel_kernels_match_plain(cuda_device):
     """K7 forward with attention-weight dropout against the plain forward,
     then K7 bwd-q (dqc, dg) and bwd-kv (dk, dv, dtable) against their plain
-    versions on the kernel's own context and lse, under one seed, with a
-    ragged and a fully padded row or no pad mask; each within atol of the
-    plain one, scaled by its largest value where that exceeds 1."""
+    versions on the kernel's own context and lse, under one seed, at T in
+    {64, 45, 300}, fp32 and bf16, dropout 0 and 0.2, with a ragged and a
+    fully padded row or no pad mask; each within atol of the plain one,
+    scaled by its largest value where that exceeds 1."""
+    for T, (dtype, atol), pad_rows, dropout_p in itertools.product(
+            (64, 45, 300), DTYPE_LIMITS, (True, False), (0.0, 0.2)):
+        with named_case(T=T, dtype=dtype, pad_rows=pad_rows, dropout_p=dropout_p):
+            _check_rel_kernels(cuda_device, T, dtype, atol, pad_rows, dropout_p)
+
+
+def _check_rel_kernels(cuda_device, T, dtype, atol, pad_rows, dropout_p):
     streams, pad, scale = rel_case(cuda_device, 3, T, seed=T + 9, pad_rows=pad_rows)
     args = [streams[n].to(dtype) for n in REL_NAMES]
     seed = 246813579024681

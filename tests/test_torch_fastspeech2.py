@@ -56,6 +56,7 @@ def test_config_dicts_equal_yaml():
     with open(REPO_ROOT / "config" / "model_config.yaml", encoding="utf8") as f:
         models = yaml.safe_load(f)
     assert port_config.fastspeech2_params() == models["fastspeech2"]
+    assert port_config.adaspeech_params() == models["adaspeech"]
     assert port_config.hifigan_params() == models["hifigan"]
     assert port_config.DEFAULT_STATS == JAX_DEFAULT_STATS
 
@@ -215,9 +216,8 @@ def test_two_stage_tts_matches_jax_and_serves(fs2_case, tmp_path):
 def test_two_stage_tts_refuses_what_is_not_ported(tmp_path):
     from viet_tts_torch.infer.api import TwoStageTTS
 
-    for model_type in ("ADASPEECH", "MATCHA"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TwoStageTTS(str(tmp_path), str(tmp_path), model_type=model_type, device="cpu")
-    with pytest.raises(NotImplementedError, match="conformer"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TwoStageTTS(str(tmp_path), str(tmp_path), model_type="MATCHA", device="cpu")
+    with pytest.raises(NotImplementedError, match="unknown building block"):
         FastSpeech2(N_SYMBOLS, N_MELS, fs2_hparams() | {"building_block": {
-            "block_type": "transformer"}}, FS2_STATS, 1)
+            "block_type": "lstm"}}, FS2_STATS, 1)

@@ -56,6 +56,7 @@ from tests.torch_parity import (  # noqa: F401 (one_torch_thread is autouse)
     jax_fs2,
     one_torch_thread,
     port_fs2,
+    session_cached,
     t,
 )
 
@@ -150,8 +151,15 @@ def jax_model():
 
 
 @pytest.fixture(scope="module", params=CASES, ids=[f"t{m}-step{s}" for m, s in CASES])
-def step_case(request, jax_model):
+def step_case(request, tmp_path_factory):
+    """The port's training forward and step and the JAX step at one case,
+    once a session for all the workers (``session_cached``)."""
     T_mel, step = request.param
+    return session_cached(tmp_path_factory, f"fs2_train_step_t{T_mel}_{step}",
+                          lambda: _step_case(T_mel, step, request.getfixturevalue("jax_model")))
+
+
+def _step_case(T_mel, step, jax_model):
     hp, reference, variables = jax_model
     batch = _batch(T_mel)
     metrics, stats, (outs, extra), cvae, grads = reference(variables, batch, step)

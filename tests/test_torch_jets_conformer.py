@@ -55,6 +55,7 @@ from tests.torch_parity import (
     jax_jets,
     port_jets,
     port_tiny_disc,
+    session_cached,
     t,
 )
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
@@ -175,11 +176,17 @@ def test_one_stage_tts_and_server_on_cpu(tmp_path):
 
 
 @pytest.fixture(scope="module", params=["latest", "legacy"])
-def step_case(request):
+def step_case(request, tmp_path_factory):
     """The port's training forward and one ``make_jets_train_step`` on the
     conformer JETS of each rel-pos flavour, and the JAX reference
-    (``test_torch_jets_train.py``)."""
-    hp = dict(CONF_TRAIN_HP, conformer_rel_pos_type=request.param)
+    (``test_torch_jets_train.py``): computed once a session for all the
+    workers (``session_cached``; the JAX step takes ~45 s on the CPU)."""
+    return session_cached(tmp_path_factory, f"jets_conformer_step_{request.param}",
+                          lambda: _step_case(request.param))
+
+
+def _step_case(flavour):
+    hp = dict(CONF_TRAIN_HP, conformer_rel_pos_type=flavour)
     jm, variables = jax_jets(port_jets(hp), hp)
     variables = jax.tree_util.tree_map(np.asarray, variables)
     model = TorchJETS(N_SYMBOLS, N_MELS, hp)

@@ -64,6 +64,7 @@ from tests.torch_parity import (
     jax_jets,
     port_jets,
     port_tiny_disc,
+    session_cached,
     t,
 )
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
@@ -151,7 +152,13 @@ def _jax_reference(jm, variables, dparams, dparams_for_gen, batch):
 
 
 @pytest.fixture(scope="module")
-def step_case():
+def step_case(tmp_path_factory):
+    """The port's training forward and step and the JAX reference, once a
+    session for all the workers (``session_cached``)."""
+    return session_cached(tmp_path_factory, "jets_train_step", _step_case)
+
+
+def _step_case():
     jm, variables = jax_jets(port_jets(TRAIN_HP), TRAIN_HP)
     variables = jax.tree_util.tree_map(np.asarray, variables)
     model = TorchJETS(N_SYMBOLS, N_MELS, TRAIN_HP)

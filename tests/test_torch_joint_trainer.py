@@ -293,7 +293,7 @@ def test_finetuner_surgery_adapter_batches_and_rates(cli, caplog):
         train_main.main(same[:3] + same[5:])
 
 
-@pytest.mark.parametrize("version,item", [("adaspeech", "item 12"), ("matcha", "item 13")])
+@pytest.mark.parametrize("version,item", [("matcha", "item 13")])
 def test_text2wav_refuses_unported_versions(version, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         train_main.main(["--task", "text2wav", "--version", version, "-i", str(tmp_path),

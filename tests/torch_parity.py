@@ -105,6 +105,36 @@ def jax_jets(model: TorchJETS, hp=SMALL_HP, n_speakers=1):
                            n_channels=N_MELS)
 
 
+def session_cached(tmp_path_factory, name: str, compute):
+    """``compute()``'s value, computed once per test session however many
+    xdist workers ask: the first one computes it under a file lock and
+    pickles it into the session's temporary root (the workers' common
+    parent directory), the others wait on the lock and load it. For
+    fixtures whose JAX reference takes tens of seconds to compile, which
+    ``--dist load`` would otherwise set up again on each worker that runs
+    one of their items. The value must pickle (numpy trees, CPU tensors,
+    modules)."""
+    import fcntl
+    import os
+    import pickle
+
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent  # <session>/popen-gwN -> <session>
+    path = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        value = compute()
+        tmp = root / f"{name}.pkl.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(value, f)
+        os.replace(tmp, path)
+        return value
+
+
 def t(x, dtype=None) -> torch.Tensor:
     """numpy -> torch (CPU)."""
     x = torch.from_numpy(np.array(x))
@@ -264,3 +294,52 @@ def jax_hifigan(model, hifi=TINY_HIFI):
         resblock_kernel_sizes=kw["resblock_kernel_sizes"],
         resblock_dilations=kw["resblock_dilations"])
     return JaxHiFiGAN(**kw), params
+
+
+def ada_hparams(phoneme_level_encoder_step: int = 5):
+    """``tests/test_adaspeech.py:tiny_hp`` (width 32, one CLN FFT layer
+    each, CVAE, MAS-learned durations with binarization from step 4,
+    Postnet) with every dropout rate 0, for parity; the UtteranceEncoder's
+    n_chans is the encoder's width, as the model adds them."""
+    from tests.test_adaspeech import tiny_hp
+
+    hp = tiny_hp(phoneme_level_encoder_step)
+    block = hp["building_block"]["transformer"]
+    block["encoder_dropout"] = block["decoder_dropout"] = 0.0
+    hp["variance"]["variance_predictor"]["dropout"] = 0.0
+    for enc in hp["variance"]["reference_encoder"].values():
+        if isinstance(enc, dict):
+            enc["dropout_rate"] = 0.0
+    return hp
+
+
+@torch.no_grad()
+def port_adaspeech(hp, n_speakers=2, seed=0):
+    """The port's AdaSpeech on the CPU with seeded weights, in eval mode.
+    The CLNs' projections are drawn too (a fresh model's are kernel 0, so
+    the speaker conditioning would not show), the BatchNorm statistics
+    drawn, the aligner's speaker projections' biases 0 (the reference has
+    none; the importer sets them to 0)."""
+    from viet_tts_torch.models.adaspeech import AdaSpeech
+
+    gen = torch.Generator().manual_seed(seed)
+    model = seeded_init_(AdaSpeech(N_SYMBOLS, N_MELS, hp, FS2_STATS, n_speakers), gen)
+    _randomise_batchnorms(model, gen)
+    for name, p in model.named_parameters():
+        if ".W_scale." in name or ".W_bias." in name:
+            base = 1.0 if name.endswith("W_scale.bias") else 0.0
+            p.copy_(base + 0.2 * torch.randn(p.shape, generator=gen))
+        elif "spk_proj" in name and name.endswith("linear.bias"):
+            p.zero_()
+    return model.eval()
+
+
+def jax_adaspeech(model, hp, n_speakers=2):
+    """(JAX AdaSpeech module, its {params, batch_stats}) holding ``model``'s
+    weights, through the reference names and ``import_adaspeech``."""
+    from viet_tts_tpu.models.adaspeech import AdaSpeech as JaxAdaSpeech
+    from viet_tts_tpu.train.torch_import import import_adaspeech
+
+    jm = JaxAdaSpeech(n_symbols=N_SYMBOLS, n_channels=N_MELS, hparams=hp, stats=FS2_STATS,
+                      n_speakers=n_speakers, n_accents=2)
+    return jm, import_adaspeech(reference_state_dict(model.state_dict()), hp)

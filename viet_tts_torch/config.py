@@ -2,7 +2,7 @@
 dicts.
 
 Copied from ``config/model_config.yaml`` (sections ``jets``: generator and
-discriminator params; ``fastspeech2``; ``hifigan``), ``config/train_config.yaml``
+discriminator params; ``fastspeech2``; ``adaspeech``; ``hifigan``), ``config/train_config.yaml``
 (section ``jets`` and ``grad_clip_thresh``) and
 ``config/preprocessing_config.yaml`` so that the port runs where ``pyyaml``
 is not installed; ``DEFAULT_STATS`` is ``viet_tts_tpu/infer/api.py``'s.
@@ -266,6 +266,37 @@ FASTSPEECH2: Dict[str, Any] = {
     "postnet": {"embedding_dim": 512, "conv_layers": 5, "kernel_size": 5},
 }
 
+def _adaspeech_encoder(idim: int, kernel_size: int, stride: int) -> Dict[str, Any]:
+    return {"idim": idim, "n_layers": 2, "n_chans": 256, "kernel_size": kernel_size,
+            "dropout_rate": 0.5, "stride": stride}
+
+
+# model_config.yaml: adaspeech (FastSpeech2's FFT-block variant with the
+# CLN blocks and the acoustic-condition encoders)
+ADASPEECH: Dict[str, Any] = {
+    "max_seq_len": 1000,
+    "encoder_layers": 4,
+    "encoder_hidden": 256,
+    "decoder_layers": 6,
+    "decoder_hidden": 256,
+    "use_cvae": True,
+    "use_postnet": True,
+    "building_block": {
+        "block_type": "transformer",
+        "transformer": copy.deepcopy(FASTSPEECH2["building_block"]["transformer"]),
+        "conformer": copy.deepcopy(FASTSPEECH2["building_block"]["conformer"]),
+    },
+    "vcae": copy.deepcopy(FASTSPEECH2["vcae"]),
+    "variance": dict(copy.deepcopy(FASTSPEECH2["variance"]), reference_encoder={
+        "phoneme_level_encoder_step": 60000,
+        "phn_latent_dim": 4,
+        "utterance_encoder": dict(_adaspeech_encoder(80, 5, 3), pool_kernel=3),
+        "phoneme_level_encoder": _adaspeech_encoder(80, 3, 1),
+        "phoneme_level_predictor": _adaspeech_encoder(256, 3, 1),
+    }),
+    "postnet": {"embedding_dim": 512, "conv_layers": 5, "kernel_size": 5},
+}
+
 HIFIGAN: Dict[str, Any] = {
     "use_spk": False,
     "segment_size": 64,
@@ -287,7 +318,7 @@ DEFAULT_STATS: Dict[str, Any] = {
 
 GRAD_CLIP_THRESH = 1.0  # train_config.yaml: grad_clip_thresh
 
-# train_config.yaml: fastspeech2
+# train_config.yaml: fastspeech2 (adaspeech's section is the same)
 FASTSPEECH2_TRAIN: Dict[str, Any] = {
     "loss": {
         "linbuild": {"start": 0.0001, "stop": 0.0005, "n_up": 10000, "n_stop": 35000},
@@ -348,6 +379,11 @@ def jets_generator_params() -> Dict[str, Any]:
 def fastspeech2_params() -> Dict[str, Any]:
     """A fresh copy of the FastSpeech2 section (callers may edit it)."""
     return copy.deepcopy(FASTSPEECH2)
+
+
+def adaspeech_params() -> Dict[str, Any]:
+    """A fresh copy of the AdaSpeech section (callers may edit it)."""
+    return copy.deepcopy(ADASPEECH)
 
 
 def hifigan_params() -> Dict[str, Any]:

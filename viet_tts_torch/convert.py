@@ -7,13 +7,15 @@ conv-module BatchNorm statistics from ``batch_stats``). It is the inverse
 of the JAX package's ``train/torch_import.py:import_jets``, and the port's
 parameter names are the reference/espnet torch names that importer reads.
 
-``fastspeech2_from_jax(variables, hparams)`` and ``hifigan_from_jax(params,
-hifi_conf)`` do the same for the JAX ``FastSpeech2`` (conformer block) and a
-standalone ``HiFiGANGenerator``, the inverses of ``import_fastspeech2`` and
-``import_hifigan_generator``.
+``fastspeech2_from_jax(variables, hparams)``, ``adaspeech_from_jax(variables,
+hparams)`` and ``hifigan_from_jax(params, hifi_conf)`` do the same for the
+JAX ``FastSpeech2`` (conformer or transformer block), ``AdaSpeech`` and a
+standalone ``HiFiGANGenerator``, the inverses of ``import_fastspeech2``,
+``import_adaspeech`` and ``import_hifigan_generator``.
 
-``text2wav_from_jax(variables, conf)`` is the two of them under the JAX
-``Text2Wav``'s submodule names, ``text2mel.`` and ``mel2wav.``.
+``text2wav_from_jax(variables, conf, version)`` is the acoustic one of the
+version and the vocoder's under the JAX ``Text2Wav``'s submodule names,
+``text2mel.`` and ``mel2wav.``.
 
 ``msmpd_from_jax(params)`` does the same for the JAX
 ``MultiScaleMultiPeriodDiscriminator`` params; the port's names are the
@@ -310,21 +312,38 @@ def _conformer_stack(sd: StateDict, prefix: str, p: Dict[str, Any],
         i += 1
 
 
-def fastspeech2_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> StateDict:
-    """JAX ``FastSpeech2`` variables {params, batch_stats} (numpy leaves,
-    conformer block) -> the port ``FastSpeech2`` state_dict (fp32 CPU
-    tensors), under the reference names that ``import_fastspeech2`` reads."""
-    if hparams["building_block"]["block_type"] != "conformer":
-        raise NotImplementedError("the port has the conformer building block only")
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    sd: StateDict = {}
-    _conformer_stack(sd, "encoder", params["encoder"], stats["encoder"])
-    _conformer_stack(sd, "decoder", params["decoder"], stats["decoder"])
-    spk = params["speaker_emb"]
+def _fft_stack(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    """JAX TransformerEncoder / Decoder (FFT blocks) or their CLN versions ->
+    ``layer_stack.{i}`` (``torch_import.py:_fft_block_params`` and
+    ``_cln_fft_block_params``, inverted); a CLN sits under the reference's
+    ``layer_norm`` name."""
+    if "src_word_emb" in p:
+        sd[f"{prefix}.src_word_emb.weight"] = _t(p["src_word_emb"]["embedding"])
+    i = 0
+    while f"layer_{i}" in p:
+        lp, block = p[f"layer_{i}"], f"{prefix}.layer_stack.{i}"
+        for part, names in (("slf_attn", ("w_qs", "w_ks", "w_vs", "fc")),
+                            ("pos_ffn", ("w_1", "w_2"))):
+            layer = _linear if part == "slf_attn" else _conv1d
+            for name in names:
+                layer(sd, f"{block}.{part}.{name}", lp[part][name])
+            if "cln" in lp[part]:
+                _cln(sd, f"{block}.{part}.layer_norm", lp[part]["cln"])
+            else:
+                _layernorm(sd, f"{block}.{part}.layer_norm", lp[part]["layer_norm"])
+        i += 1
+
+
+def _cln(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    _linear(sd, f"{prefix}.W_scale", p["W_scale"])
+    _linear(sd, f"{prefix}.W_bias", p["W_bias"])
+
+
+def _speaker_emb(sd: StateDict, spk: Dict[str, Any], spk_stats: Dict[str, Any]) -> None:
+    """The CVAE (espnet reference encoder + heads), an external vector's
+    projection, or an id embedding, under ``speaker_emb``."""
     if "cvae" in spk:
-        _reference_encoder(sd, "speaker_emb.encoder", spk["encoder"],
-                           stats["speaker_emb"]["encoder"])
+        _reference_encoder(sd, "speaker_emb.encoder", spk["encoder"], spk_stats["encoder"])
         for tag in ("acc", "spk"):
             sd[f"speaker_emb.cvae.embedding_layer_{tag}.weight"] = _t(
                 spk["cvae"][f"embedding_layer_{tag}"]["embedding"])
@@ -336,42 +355,108 @@ def fastspeech2_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> 
         _linear(sd, "speaker_emb", spk)
     else:
         sd["speaker_emb.weight"] = _t(spk["embedding"])
+
+
+def _aligner(sd: StateDict, prefix: str, al: Dict[str, Any]) -> None:
+    """JAX AlignmentEncoder -> the names ``_aligner_params`` reads."""
+    for jname, tname in (("key_conv1", "key_proj.0"), ("key_conv2", "key_proj.2"),
+                         ("query_conv1", "query_proj.0"), ("query_conv2", "query_proj.2"),
+                         ("query_conv3", "query_proj.4")):
+        _conv1d(sd, f"{prefix}.{tname}.conv", al[jname])
+    for name in ("key_spk_proj", "query_spk_proj"):
+        _linear(sd, f"{prefix}.{name}.linear", al[name])
+
+
+def _postnet(sd: StateDict, p: Dict[str, Any], s: Dict[str, Any]) -> None:
+    i = 0
+    while f"conv_{i}" in p:
+        _conv1d(sd, f"postnet.convolutions.{i}.0.conv", p[f"conv_{i}"])
+        _batchnorm(sd, f"postnet.convolutions.{i}.1", p[f"bn_{i}"], s[f"bn_{i}"])
+        i += 1
+
+
+def fastspeech2_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> StateDict:
+    """JAX ``FastSpeech2`` variables {params, batch_stats} (numpy leaves,
+    conformer or transformer block) -> the port ``FastSpeech2`` state_dict
+    (fp32 CPU tensors), under the reference names that
+    ``import_fastspeech2`` reads."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: StateDict = {}
+    if hparams["building_block"]["block_type"] == "transformer":
+        _fft_stack(sd, "encoder", params["encoder"])
+        _fft_stack(sd, "decoder", params["decoder"])
+    else:
+        _conformer_stack(sd, "encoder", params["encoder"], stats["encoder"])
+        _conformer_stack(sd, "decoder", params["decoder"], stats["decoder"])
+    _speaker_emb(sd, params["speaker_emb"], stats.get("speaker_emb", {}))
     va = params["variance_adaptor"]
     for name in ("duration_predictor", "pitch_predictor", "energy_predictor"):
         _fs2_predictor(sd, f"variance_adaptor.{name}", va[name])
     for name in ("pitch_embedding", "energy_embedding"):
         sd[f"variance_adaptor.{name}.weight"] = _t(va[name]["embedding"])
     if "aligner" in va:
-        # the names _aligner_params reads (torch_import.py)
-        al = va["aligner"]
-        for jname, tname in (("key_conv1", "key_proj.0"), ("key_conv2", "key_proj.2"),
-                             ("query_conv1", "query_proj.0"), ("query_conv2", "query_proj.2"),
-                             ("query_conv3", "query_proj.4")):
-            _conv1d(sd, f"variance_adaptor.aligner.{tname}.conv", al[jname])
-        for name in ("key_spk_proj", "query_spk_proj"):
-            _linear(sd, f"variance_adaptor.aligner.{name}.linear", al[name])
+        _aligner(sd, "variance_adaptor.aligner", va["aligner"])
     _linear(sd, "feats_linear", params["feats_linear"])
     if "postnet" in params:
-        i = 0
-        while f"conv_{i}" in params["postnet"]:
-            _conv1d(sd, f"postnet.convolutions.{i}.0.conv", params["postnet"][f"conv_{i}"])
-            _batchnorm(sd, f"postnet.convolutions.{i}.1", params["postnet"][f"bn_{i}"],
-                       stats["postnet"][f"bn_{i}"])
-            i += 1
+        _postnet(sd, params["postnet"], stats["postnet"])
+    return sd
+
+
+def _conv_ln_stack(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    """JAX ``_ConvLNStack`` {conv_i, ln_i} -> the reference's named
+    ``conv1d_{1,2}`` / ``layer_norm_{1,2}`` (``_conv_ln_stack_params``)."""
+    for i in range(2):
+        _conv1d(sd, f"{prefix}.conv1d_{i + 1}", p[f"conv_{i}"])
+        _layernorm(sd, f"{prefix}.layer_norm_{i + 1}", p[f"ln_{i}"])
+
+
+def adaspeech_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> StateDict:
+    """JAX ``AdaSpeech`` variables {params, batch_stats} (numpy leaves) ->
+    the port ``AdaSpeech`` state_dict (fp32 CPU tensors), under the
+    reference names that ``import_adaspeech`` reads: the CLN FFT stacks,
+    the speaker conditioning, the variance adaptor's predictors, embeddings,
+    aligner and acoustic-condition encoders under ``variance_adaptor.``, the
+    final ``cln``, ``feats_linear`` and the Postnet."""
+    del hparams  # the layout is read from the variables
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: StateDict = {}
+    _fft_stack(sd, "encoder", params["encoder"])
+    _fft_stack(sd, "decoder", params["decoder"])
+    _speaker_emb(sd, params["speaker_emb"], stats.get("speaker_emb", {}))
+    va = "variance_adaptor"
+    for name in ("duration_predictor", "pitch_predictor", "energy_predictor"):
+        _fs2_predictor(sd, f"{va}.{name}", params[name])
+    for name in ("pitch_embedding", "energy_embedding"):
+        sd[f"{va}.{name}.weight"] = _t(params[name]["embedding"])
+    if "aligner" in params:
+        _aligner(sd, f"{va}.aligner", params["aligner"])
+    _conv_ln_stack(sd, f"{va}.utterance_encoder.conv", params["utterance_encoder"]["conv"])
+    for name in ("phoneme_level_encoder", "phoneme_level_predictor"):
+        _conv_ln_stack(sd, f"{va}.{name}.conv", params[name]["conv"])
+        _linear(sd, f"{va}.{name}.linear", params[name]["linear"])
+    _linear(sd, f"{va}.phone_level_embed", params["phone_level_embed"])
+    _cln(sd, "cln", params["cln"])
+    _linear(sd, "feats_linear", params["feats_linear"])
+    if "postnet" in params:
+        _postnet(sd, params["postnet"], stats["postnet"])
     return sd
 
 
 def text2wav_from_jax(variables: Dict[str, Any], conf: Dict[str, Any],
                       version: str = "fastspeech2") -> StateDict:
     """JAX ``Text2Wav`` variables {params, batch_stats} (numpy leaves) ->
-    the port ``Text2Wav`` state_dict: ``fastspeech2_from_jax`` of the
-    ``text2mel`` subtree under ``text2mel.`` (its BatchNorm statistics
-    included) and ``hifigan_from_jax`` of ``mel2wav`` under ``mel2wav.``;
-    ``conf`` is the merged config (``models.<version>``, ``models.hifigan``)."""
+    the port ``Text2Wav`` state_dict: ``fastspeech2_from_jax`` (or
+    ``adaspeech_from_jax``) of the ``text2mel`` subtree under ``text2mel.``
+    (its BatchNorm statistics included) and ``hifigan_from_jax`` of
+    ``mel2wav`` under ``mel2wav.``; ``conf`` is the merged config
+    (``models.<version>``, ``models.hifigan``)."""
     params = variables["params"]
-    fs2 = fastspeech2_from_jax({"params": params["text2mel"],
-                                "batch_stats": variables.get("batch_stats", {})["text2mel"]},
-                               conf["models"][version])
+    acoustic = adaspeech_from_jax if version == "adaspeech" else fastspeech2_from_jax
+    fs2 = acoustic({"params": params["text2mel"],
+                    "batch_stats": variables.get("batch_stats", {})["text2mel"]},
+                   conf["models"][version])
     voc = hifigan_from_jax(params["mel2wav"], conf["models"]["hifigan"])
     return {**{f"text2mel.{k}": v for k, v in fs2.items()},
             **{f"mel2wav.{k}": v for k, v in voc.items()}}

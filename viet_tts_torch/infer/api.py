@@ -1,27 +1,27 @@
 """Batched inference API: one-stage JETS and Text2Wav (JOINT), two-stage
-FastSpeech2 + HiFi-GAN synthesis.
+FastSpeech2 or AdaSpeech + HiFi-GAN synthesis.
 
 Counterpart of ``viet_tts_tpu/infer/api.py``: ``OneStageTTS`` for JETS and
-JOINT and ``TwoStageTTS`` for FastSpeech2 (acoustic model -> mel ->
-HiFi-GAN): text front-end, bucketed batches, synthesis on the card,
+JOINT and ``TwoStageTTS`` for FastSpeech2 and AdaSpeech (acoustic model ->
+mel -> HiFi-GAN): text front-end, bucketed batches, synthesis on the card,
 waveform export. A port checkpoint is a directory with
 
 - ``model.pt``: the model's ``state_dict`` (``torch.save``), or, in a
   trainer's output directory, the newest
   ``generator_epoch{E}_iteration{I}_statedict.pt`` (its ``model`` entry);
 - ``config.json``: ``{"audio": ..., "models": {"jets": {"generator_params":
-  ...}, "fastspeech2": ..., "hifigan": ...}}`` and, for JOINT, the
-  ``version`` of its acoustic half (a ``config.yaml`` of the same shape is
-  read too, through the port's YAML-subset reader); without either, the
-  package's ``config.py``;
+  ...}, "fastspeech2": ..., "adaspeech": ..., "hifigan": ...}}`` and, for
+  JOINT, the ``version`` of its acoustic half (a ``config.yaml`` of the
+  same shape is read too, through the port's YAML-subset reader); without
+  either, the package's ``config.py``;
 - optional ``speakers.json`` (speaker name -> id) and, for an acoustic
   model, ``accents.json`` and ``stats.json`` (pitch / energy statistics).
 
 A two-stage pair is two such directories: the acoustic one (whose config
 also names the vocoder's geometry, as in the JAX package) and the
-vocoder's. ADASPEECH and MATCHA (items 12, 13 of ROADMAP.md section 1)
-and VITS2 (item 14) are still to be ported; so are the JAX API's data-,
-sequence- and pipeline-parallel serving flags (item 15).
+vocoder's. MATCHA (item 13 of ROADMAP.md section 1) and VITS2 (item 14)
+are still to be ported; so are the JAX API's data-, sequence- and
+pipeline-parallel serving flags (item 15).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import torch
 from viet_tts_torch import config as port_config
 from viet_tts_torch.data.batching import DEFAULT_TEXT_BUCKETS, bucket_for
 from viet_tts_torch.device import resolve_device
+from viet_tts_torch.models import ACOUSTIC_FAMILIES, build_acoustic
 from viet_tts_torch.text import NUM_SYMBOLS, VietnameseG2P, basic_clean, symbols_to_ids
 from viet_tts_torch.train.checkpoint import model_state_dict, scan_checkpoint
 from viet_tts_torch.utils.yaml_subset import load_file
@@ -46,11 +47,12 @@ WEIGHTS_NAME = "model.pt"
 
 def default_conf() -> Dict[str, Any]:
     """The shipped configuration: audio settings, the JETS generator params,
-    the FastSpeech2 and HiFi-GAN sections."""
+    the FastSpeech2, AdaSpeech and HiFi-GAN sections."""
     return {
         "audio": port_config.default_audio(),
         "models": {"jets": {"generator_params": port_config.jets_generator_params()},
                    "fastspeech2": port_config.fastspeech2_params(),
+                   "adaspeech": port_config.adaspeech_params(),
                    "hifigan": port_config.hifigan_params()},
     }
 
@@ -167,8 +169,8 @@ class _TTSBase:
 
 class OneStageTTS(_TTSBase):
     """Fused text -> waveform synthesis: JETS, or Text2Wav (``model_type=
-    "JOINT"``: FastSpeech2 -> HiFi-GAN in one model, built from the
-    checkpoint's ``config.json`` (``version``, ``models.fastspeech2``,
+    "JOINT"``: FastSpeech2 or AdaSpeech -> HiFi-GAN in one model, built from
+    the checkpoint's ``config.json`` (``version``, ``models.<version>``,
     ``models.hifigan``) with its ``stats.json`` and ``accents.json``).
 
     ``fused_vocoder`` routes the vocoder's ch <= 64 stages to kernel K2;
@@ -307,26 +309,30 @@ def _label(table: Dict[str, int], key: Union[str, int]) -> int:
 
 
 class TwoStageTTS(_TTSBase):
-    """Acoustic model -> mel -> HiFi-GAN vocoder (FastSpeech2).
+    """Acoustic model -> mel -> HiFi-GAN vocoder: ``model_type``
+    FASTSPEECH2 or ADASPEECH (its ``models.<family>`` section).
 
-    ``fused_vocoder`` routes the vocoder's ch <= 64 stages to kernel K2; the
-    acoustic model runs the attention route its config names (``flash``:
-    kernels K4 / K5 / K6)."""
+    ``fused_vocoder`` routes the vocoder's ch <= 64 stages to kernel K2; a
+    FastSpeech2-conformer runs the attention route its config names
+    (``flash``: kernels K4 / K5 / K6); the FFT blocks (AdaSpeech, a
+    FastSpeech2 with ``block_type: transformer``) are plain PyTorch. The
+    acoustic model gets the CVAE's reference mel (64 zero frames unless one
+    is given), so AdaSpeech takes its acoustic conditions from it, as in the
+    JAX package."""
 
     def __init__(self, acoustic_path: str, vocoder_path: str,
                  model_type: str = "FASTSPEECH2", max_mel_frames: int = 1008,
                  half: bool = False, fused_vocoder: bool = True,
                  packed_vocoder: Optional[bool] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        from viet_tts_torch.models.fastspeech2.model import FastSpeech2
         from viet_tts_torch.models.hifigan import HiFiGANGenerator
 
         self.model_type = model_type.lower()
-        if self.model_type in ("adaspeech", "matcha"):
+        if self.model_type == "matcha":
             raise NotImplementedError(
                 f"model_type {model_type!r} is not ported yet (ROADMAP.md section 1, "
-                "items 12 and 13)")
-        if self.model_type != "fastspeech2":
+                "item 13)")
+        if self.model_type not in ACOUSTIC_FAMILIES:
             raise ValueError(f"unknown two-stage model_type {model_type!r}")
         self.device = resolve_device(device)
         acoustic_ckpt = resolve_checkpoint(acoustic_path)
@@ -342,9 +348,9 @@ class TwoStageTTS(_TTSBase):
         )
         self.max_mel_frames = max_mel_frames
         self.n_mels = self.conf["audio"]["mel"]["channels"]
-        acoustic = FastSpeech2(NUM_SYMBOLS, self.n_mels, self.conf["models"]["fastspeech2"],
-                               self.stats, n_speakers=max(len(self.speakers), 1),
-                               n_accents=max(len(self.accents), 2))
+        acoustic = build_acoustic(NUM_SYMBOLS, self.n_mels, self.conf, self.model_type,
+                                  self.stats, n_speakers=max(len(self.speakers), 1),
+                                  n_accents=max(len(self.accents), 2))
         acoustic.load_state_dict(model_state_dict(acoustic_ckpt))
         del packed_vocoder  # accepted for the JAX signature (see _resolve_packed)
         vocoder = HiFiGANGenerator.from_config(

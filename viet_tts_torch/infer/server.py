@@ -7,6 +7,8 @@ Counterpart of ``viet_tts_tpu/infer/server.py``:
     python -m viet_tts_torch.infer.server --model_type JOINT -c text2wav_ckpt_dir
     python -m viet_tts_torch.infer.server --model_type FASTSPEECH2 \
         -a acoustic_ckpt_dir -v vocoder_ckpt_dir --max_mel_frames 2048
+    python -m viet_tts_torch.infer.server --model_type ADASPEECH \
+        -a adaspeech_ckpt_dir -v vocoder_ckpt_dir
 
 API:
     GET  /health               -> {"status": "ok", "model": "..."}
@@ -144,7 +146,7 @@ def _main():
     ap.add_argument("-c", "--checkpoint", default=None,
                     help="one-stage (JETS, JOINT) checkpoint directory")
     ap.add_argument("-a", "--acoustic_checkpoint", default=None,
-                    help="two-stage acoustic (FASTSPEECH2) checkpoint directory")
+                    help="two-stage acoustic (FASTSPEECH2, ADASPEECH) checkpoint directory")
     ap.add_argument("-v", "--vocoder_checkpoint", default=None,
                     help="two-stage HiFi-GAN checkpoint directory")
     ap.add_argument("--host", default="127.0.0.1")

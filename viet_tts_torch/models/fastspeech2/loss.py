@@ -2,7 +2,8 @@
 
 Counterpart of ``viet_tts_tpu/models/fastspeech2/loss.py``: masked L1 on the
 mel (and the postnet's mel), the forward-sum CTC of the aligner and its
-warm-up-weighted binarization loss, the log-domain phoneme (and sentence)
+warm-up-weighted binarization loss, the log-domain phoneme, word (the
+durations summed per word by the batch's ``word_ids``) and sentence
 duration MSE, masked pitch / energy MSE, and the CVAE's KL with its linear
 build-up. The step-dependent weights are host arithmetic on the step count
 (the JAX package traces them as ``jnp.where`` expressions).
@@ -14,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from viet_tts_torch.ops.duration import aggregate_by_ids
 from viet_tts_torch.ops.forward_sum import bin_loss, forward_sum_loss
 
 
@@ -46,17 +48,19 @@ class FastSpeech2Loss:
         self.dur_lambda = config["dur_loss_lambda"]
         self.pitch_level = config.get("pitch_feature_level", "phoneme_level")
         self.energy_level = config.get("energy_feature_level", "phoneme_level")
-        if self.dur_lambda.get("wdur", 0) > 0:
-            raise NotImplementedError(
-                "the word-level duration loss (wdur > 0, ops/duration.py:"
-                "aggregate_by_ids) is not ported; the configuration has wdur 0")
 
-    def _duration_losses(self, log_d_pred, d_target, valid_mask):
+    def _duration_losses(self, log_d_pred, d_target, word_ids, valid_mask):
         nonpad = valid_mask.to(torch.float32)
         d_target = d_target.to(torch.float32) * nonpad
+        d_pred = torch.clamp(torch.exp(log_d_pred) - 1.0, min=0.0)
         losses = {"pdur": torch.mean((log_d_pred - torch.log(d_target + 1.0)) ** 2)}
+        if self.dur_lambda.get("wdur", 0) > 0 and word_ids is not None:
+            n_words = word_ids.shape[1]
+            wd_pred = aggregate_by_ids(d_pred, word_ids, n_words)
+            wd_target = aggregate_by_ids(d_target, word_ids, n_words)
+            err = (torch.log(wd_pred + 1.0) - torch.log(wd_target + 1.0)) ** 2
+            losses["wdur"] = masked_mean(err, wd_pred > 0)
         if self.dur_lambda.get("sdur", 0) > 0:
-            d_pred = torch.clamp(torch.exp(log_d_pred) - 1.0, min=0.0)
             sp, st = d_pred.sum(-1), d_target.sum(-1)
             losses["sdur"] = torch.mean((torch.log(sp + 1.0) - torch.log(st + 1.0)) ** 2)
         return losses
@@ -86,7 +90,7 @@ class FastSpeech2Loss:
         losses (the validation step's)."""
         (feats_pred, postnet_pred, log_d_pred, pitch_pred, energy_pred, src_lens, src_pad,
          feats_lens, feats_pad, accent_probs, attn_outs) = predictions[:-1]
-        feats_target, _, _, d_target, pitch_target, energy_target = targets
+        feats_target, word_ids, _, d_target, pitch_target, energy_target = targets
         src_valid, feats_valid = ~src_pad, ~feats_pad
         feats_target = feats_target[:, : feats_valid.shape[1], :]
         losses: Dict[str, torch.Tensor] = {}
@@ -105,7 +109,7 @@ class FastSpeech2Loss:
                 losses.update(self._align_losses(attn_outs, src_lens, feats_lens, step))
             if accent_probs is not None:
                 losses.update(self._cvae_loss(accent_probs, step))
-            losses.update(self._duration_losses(log_d_pred, d_target, src_valid))
+            losses.update(self._duration_losses(log_d_pred, d_target, word_ids, src_valid))
             mask = src_valid if self.pitch_level == "phoneme_level" else feats_valid
             losses["pitch"] = masked_mean((pitch_pred - pitch_target) ** 2, mask)
             mask = src_valid if self.energy_level == "phoneme_level" else feats_valid

@@ -1,5 +1,5 @@
-"""FastSpeech2 acoustic model (conformer building block): inference and the
-teacher-forced training forward.
+"""FastSpeech2 acoustic model (conformer or transformer building block):
+inference and the teacher-forced training forward.
 
 Counterpart of ``viet_tts_tpu/models/fastspeech2/model.py``: encoder ->
 speaker conditioning (CVAE accent + speaker latents, an external vector, or
@@ -25,7 +25,10 @@ per phoneme over them, and the text states are expanded both softly
 taken while ``step < binarization_start_steps`` (both computed, as the JAX
 ``jnp.where`` computes both). Training mode (``model.train()``) turns the
 dropouts, the batch statistics of the BatchNorms and the CVAE's sampling
-on. The transformer building block (``nn/transformer.py``) is not ported.
+on. ``building_block.block_type`` picks the stacks: ``conformer``
+(``nn/conformer.py``, attention on the route ``attn_implementation``
+names) or ``transformer`` (the FFT blocks of ``nn/transformer.py``, whose
+attention is plain PyTorch, as the JAX package's is plain einsums).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from viet_tts_torch.models.fastspeech2.layers import (
     VariancePredictor,
 )
 from viet_tts_torch.nn.conformer import ConformerDecoder, ConformerEncoder
+from viet_tts_torch.nn.transformer import TransformerDecoder, TransformerEncoder
 from viet_tts_torch.nn.utils import pad_mask_from_lengths
 from viet_tts_torch.ops.duration import (
     average_by_duration,
@@ -204,27 +208,34 @@ class FastSpeech2(nn.Module):
         super().__init__()
         hp = hparams
         block = hp["building_block"]["block_type"]
-        if block != "conformer":
-            raise NotImplementedError(
-                f"building block {block!r}: the port has the conformer block; the "
-                "transformer (FFT) block, nn/transformer.py, is not ported yet "
-                "(ROADMAP.md section 1, item 12)")
-        bconf = hp["building_block"]["conformer"]
+        if block not in ("transformer", "conformer"):
+            raise NotImplementedError(f"unknown building block {block!r}")
+        bconf = hp["building_block"][block]
         d_model = hp["encoder_hidden"]
-        common = dict(
-            ffn_expansion=bconf["ffn_expansion_factor"],
-            conv_expansion=bconf["conv_expansion_factor"],
-            kernel_size=bconf["conv_kernel_size"],
-            half_step_residual=bconf["half_step_residual"],
-            mask_attn_keys=bool(bconf.get("mask_attn_keys", False)),
-            attn_implementation=str(hp.get("attn_implementation", "shift")),
-        )
-        self.encoder = ConformerEncoder(
-            n_symbols, hp["encoder_layers"], d_model, hp["max_seq_len"],
-            num_heads=bconf["encoder_head"], dropout=bconf["encoder_dropout"], **common)
-        self.decoder = ConformerDecoder(
-            hp["decoder_layers"], d_model, hp["max_seq_len"],
-            num_heads=bconf["decoder_head"], dropout=bconf["decoder_dropout"], **common)
+        if block == "transformer":
+            common = dict(d_inner=bconf["conv_filter_size"],
+                          kernel_sizes=tuple(bconf["conv_kernel_size"]))
+            self.encoder = TransformerEncoder(
+                n_symbols, hp["encoder_layers"], d_model, hp["max_seq_len"],
+                num_heads=bconf["encoder_head"], dropout=bconf["encoder_dropout"], **common)
+            self.decoder = TransformerDecoder(
+                hp["decoder_layers"], d_model, hp["max_seq_len"],
+                num_heads=bconf["decoder_head"], dropout=bconf["decoder_dropout"], **common)
+        else:
+            common = dict(
+                ffn_expansion=bconf["ffn_expansion_factor"],
+                conv_expansion=bconf["conv_expansion_factor"],
+                kernel_size=bconf["conv_kernel_size"],
+                half_step_residual=bconf["half_step_residual"],
+                mask_attn_keys=bool(bconf.get("mask_attn_keys", False)),
+                attn_implementation=str(hp.get("attn_implementation", "shift")),
+            )
+            self.encoder = ConformerEncoder(
+                n_symbols, hp["encoder_layers"], d_model, hp["max_seq_len"],
+                num_heads=bconf["encoder_head"], dropout=bconf["encoder_dropout"], **common)
+            self.decoder = ConformerDecoder(
+                hp["decoder_layers"], d_model, hp["max_seq_len"],
+                num_heads=bconf["decoder_head"], dropout=bconf["decoder_dropout"], **common)
         self.spk_dims = hp.get("spk_dims", -1)
         self.use_cvae = bool(hp.get("use_cvae", False))
         if self.spk_dims != -1:

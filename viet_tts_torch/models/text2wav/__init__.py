@@ -1,4 +1,4 @@
-"""Text2Wav: FastSpeech2 and HiFi-GAN as one model, in PyTorch."""
+"""Text2Wav: FastSpeech2 or AdaSpeech and HiFi-GAN as one model, in PyTorch."""
 
 from viet_tts_torch.models.text2wav.model import Text2Wav
 

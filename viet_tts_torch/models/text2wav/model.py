@@ -1,10 +1,10 @@
 """Text2Wav: the acoustic model and HiFi-GAN composed into one trainable
 graph.
 
-Counterpart of ``viet_tts_tpu/models/text2wav/model.py`` for
-``version: fastspeech2``: ``text2mel`` is the port's ``FastSpeech2``
-(``models.<version>``), ``mel2wav`` a ``HiFiGANGenerator`` (``models.hifigan``,
-no speaker input). The training forward takes a random ``segment_size``
+Counterpart of ``viet_tts_tpu/models/text2wav/model.py`` for ``version``
+fastspeech2 and adaspeech: ``text2mel`` is the port's ``FastSpeech2`` or
+``AdaSpeech`` (``models.<version>``), ``mel2wav`` a ``HiFiGANGenerator``
+(``models.hifigan``, no speaker input). The training forward takes a random ``segment_size``
 window of each predicted mel (the Postnet's output when there is one) and
 vocodes only the window; inference chains ``text2mel.inference`` into the
 vocoder. The submodules carry flax's names, so the JAX variables map onto
@@ -21,12 +21,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from viet_tts_torch.models.fastspeech2.model import FastSpeech2
+from viet_tts_torch.models import ACOUSTIC_FAMILIES, build_acoustic
 from viet_tts_torch.models.hifigan import HiFiGANGenerator
 from viet_tts_torch.ops.segments import get_random_segments
 
-# the ROADMAP.md items (section 1) that port the other acoustic families
-NOT_PORTED_VERSIONS = {"adaspeech": "item 12", "matcha": "item 13"}
+# the ROADMAP.md item (section 1) that ports the other acoustic family
+NOT_PORTED_VERSIONS = {"matcha": "item 13"}
 
 
 class Text2Wav(nn.Module):
@@ -38,11 +38,11 @@ class Text2Wav(nn.Module):
             raise NotImplementedError(
                 f"Text2Wav version {version!r} is not ported yet (ROADMAP.md section 1, "
                 f"{NOT_PORTED_VERSIONS[version]})")
-        if version != "fastspeech2":
+        if version not in ACOUSTIC_FAMILIES:
             raise NotImplementedError(f"Not implemented for {version} yet")
         self.version = version
-        self.text2mel = FastSpeech2(n_symbols, n_channels, conf["models"][version], stats,
-                                    n_speakers=n_speakers, n_accents=n_accents)
+        self.text2mel = build_acoustic(n_symbols, n_channels, conf, version, stats,
+                                       n_speakers=n_speakers, n_accents=n_accents)
         hifi = conf["models"]["hifigan"]
         self.mel2wav = HiFiGANGenerator.from_config(n_channels, hifi, fused_mrf=fused_mrf)
         self.segment_size = int(hifi.get("segment_size", 64))
@@ -57,13 +57,15 @@ class Text2Wav(nn.Module):
                 sids: Optional[torch.Tensor] = None, aids: Optional[torch.Tensor] = None,
                 step: int = 0, generator: Optional[torch.Generator] = None,
                 start_idxs: Optional[torch.Tensor] = None, cvae_eps=None) -> Tuple:
-        """The teacher-forced FastSpeech2 forward, then a vocoded window:
-        (outputs, (ds, ps, es), start_idxs). ``outputs[0]`` is the waveform
+        """The teacher-forced acoustic forward, then a vocoded window:
+        (outputs, its extra outputs ((ds, ps, es), AdaSpeech's with the
+        encoder's latents), start_idxs). ``outputs[0]`` is the waveform
         of the window (B, segment_size * up, 1), ``outputs[1]`` the mel
         window (B, segment_size, n_mels), ``outputs[2]`` None (no separate
-        Postnet output), the rest FastSpeech2's predictions after its two
-        mels, so ``outputs[1:]`` is what ``FastSpeech2Loss`` reads.
-        ``generator`` (a CPU ``torch.Generator``) draws FastSpeech2's
+        Postnet output), the rest the acoustic model's predictions after its
+        two mels, so ``outputs[1:]`` is what ``FastSpeech2Loss`` (or
+        ``AdaSpeechLoss``) reads.
+        ``generator`` (a CPU ``torch.Generator``) draws the acoustic model's
         dropout seeds and CVAE noise, then the windows' starts; given
         ``start_idxs`` (B,) and ``cvae_eps`` replace those draws."""
         y_pred, y_extra = self.text2mel(text, text_lengths, feats, feats_lengths, duration,

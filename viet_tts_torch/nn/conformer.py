@@ -29,16 +29,14 @@ BatchNorm flax's eval semantics (running statistics, eps 1e-5).
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from viet_tts_torch.models.fastspeech2.layers import ConvNorm, FlaxBatchNorm1d, LinearNorm
-from viet_tts_torch.nn.utils import sinusoid_position_table
+from viet_tts_torch.nn.utils import position_table
 from viet_tts_torch.ops.flash_attention import MASK_NEG
 from viet_tts_torch.ops.xl_attention import (
     relative_shift,
@@ -225,11 +223,6 @@ class ConformerBlock(nn.Module):
         return x
 
 
-@functools.lru_cache(maxsize=8)
-def _table_np(n: int, d: int) -> np.ndarray:
-    return sinusoid_position_table(n, d)
-
-
 class _ConformerStack(nn.Module):
     """The sinusoid table added to the input, then the blocks
     (``layer_stack.{i}``)."""
@@ -248,8 +241,7 @@ class _ConformerStack(nn.Module):
 
     def table(self, T: int, like: torch.Tensor) -> torch.Tensor:
         """The first T rows of the (max(max_seq_len + 1, T), d_model) table."""
-        table = _table_np(max(self.max_seq_len + 1, T), self.d_model)[:T]
-        return torch.from_numpy(table).to(device=like.device, dtype=like.dtype)
+        return position_table(self.max_seq_len, self.d_model, T, like)
 
     def _blocks(self, x: torch.Tensor, pad_mask: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:

@@ -3,6 +3,7 @@ initialisation."""
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -22,6 +23,20 @@ def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
     table[:, 0::2] = np.sin(angle[:, 0::2])
     table[:, 1::2] = np.cos(angle[:, 1::2])
     return table.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _table_np(n: int, d: int) -> np.ndarray:
+    return sinusoid_position_table(n, d)
+
+
+def position_table(max_seq_len: int, d_model: int, T: int,
+                   like: torch.Tensor) -> torch.Tensor:
+    """The first T rows of the (max(max_seq_len + 1, T), d_model) sinusoid
+    table that the FastSpeech2 stacks add to their input, on ``like``'s
+    device and dtype."""
+    table = _table_np(max(max_seq_len + 1, T), d_model)[:T]
+    return torch.from_numpy(table).to(device=like.device, dtype=like.dtype)
 
 
 def pad_mask_from_lengths(lengths: torch.Tensor, max_len: int) -> torch.Tensor:

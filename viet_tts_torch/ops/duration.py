@@ -1,9 +1,8 @@
 """Duration-driven expansion, all static-shape.
 
-Counterpart of the inference half of ``viet_tts_tpu/ops/duration.py``:
-``duration_to_index``, ``length_regulator`` and ``gaussian_upsample``.
-(``average_by_duration`` and the other training-side ops belong to the
-training slice.)
+Counterpart of ``viet_tts_tpu/ops/duration.py``: ``duration_to_index``,
+``length_regulator``, ``gaussian_upsample``, ``average_by_duration`` and
+``aggregate_by_ids``.
 """
 
 from __future__ import annotations
@@ -91,4 +90,23 @@ def average_by_duration(ds: torch.Tensor, xs: torch.Tensor,
     sums = torch.einsum("bnt,bt->bn", seg.to(xs.dtype), xs)
     counts = seg.sum(dim=-1)
     return torch.where(counts > 0, sums / torch.clamp(counts, min=1),
+                       torch.zeros_like(sums))
+
+
+def aggregate_by_ids(x: torch.Tensor, ids: torch.Tensor, num_segments: int,
+                     mode: str = "sum") -> torch.Tensor:
+    """Segment-aggregate (B, N) values by per-position segment ids (B, N)
+    -> (B, num_segments): the sum ("sum") or the mean ("mean", 0 for an
+    empty segment) of each segment's values. An id of -1 marks padding and
+    is dropped. Used for the word-level duration sums, with the word ids
+    the collate builds from the boundary lists."""
+    valid = ids >= 0
+    onehot = torch.nn.functional.one_hot(torch.where(valid, ids, 0).to(torch.int64),
+                                         num_segments).to(x.dtype)
+    onehot = onehot * valid[..., None].to(x.dtype)
+    sums = torch.einsum("bnw,bn->bw", onehot, x)
+    if mode == "sum":
+        return sums
+    counts = onehot.sum(dim=1)
+    return torch.where(counts > 0, sums / torch.clamp(counts, min=1.0),
                        torch.zeros_like(sums))

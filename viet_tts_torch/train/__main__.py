@@ -1,8 +1,9 @@
 """Training CLI of the port, with the JAX package's ``train.py`` flags.
 
     python -m viet_tts_torch.train --task fastspeech2 -i egs/dir -d data/dir -o out/dir
-    python -m viet_tts_torch.train --task jets ... | --task hifigan ...
+    python -m viet_tts_torch.train --task adaspeech ... | --task jets ... | --task hifigan ...
     python -m viet_tts_torch.train --task text2wav ... [-a fs2_out -v hifigan_out]
+    python -m viet_tts_torch.train --task text2wav --version adaspeech ... [-a adaspeech_out]
     python -m viet_tts_torch.train --task text2wav --is_finetune -c joint_ckpt ...
     python -m viet_tts_torch.train --task fastspeech2 ... --device cpu
 
@@ -11,16 +12,17 @@ back to the CPU. ``-i`` holds (or receives) ``train.txt`` / ``test.txt``
 and ``speakers.json`` / ``accents.json``; ``-d`` the dataset
 (``<speaker>/metadata.csv`` and ``<speaker>/wavs/``); ``-o`` the
 checkpoints, sidecars and ``log/``. A rerun with the same ``-o`` resumes
-from its newest checkpoint; for ``fastspeech2``, ``jets`` and ``hifigan``,
-``-c`` names a port trainer checkpoint to resume from instead. The GAN
-tasks (``jets``, ``hifigan``, ``text2wav``) also write and resume
-``last_discriminator_statedict.pt`` there. ``text2wav`` (the default,
-``Text2Wav`` of ``--version fastspeech2``; ``train/joint.py``) starts,
-when ``-o`` holds no checkpoint, from a joint checkpoint's weights
-(``-c``), or from a ``--task fastspeech2`` output (``-a``) and a ``--task
-hifigan`` output (``-v``); ``--is_finetune`` adapts the joint checkpoint
-``-c`` to the speakers of ``-i`` (text2wav only). ``fastspeech2``,
-``jets``, ``hifigan`` and ``text2wav`` are ported so far.
+from its newest checkpoint; for ``fastspeech2``, ``adaspeech``, ``jets``
+and ``hifigan``, ``-c`` names a port trainer checkpoint to resume from
+instead. The GAN tasks (``jets``, ``hifigan``, ``text2wav``) also write
+and resume ``last_discriminator_statedict.pt`` there. ``text2wav`` (the
+default, ``Text2Wav`` of ``--version fastspeech2`` or ``adaspeech``;
+``train/joint.py``) starts, when ``-o`` holds no checkpoint, from a joint
+checkpoint's weights (``-c``), or from a ``--task <version>`` output
+(``-a``) and a ``--task hifigan`` output (``-v``); ``--is_finetune``
+adapts the joint checkpoint ``-c`` to the speakers of ``-i`` (text2wav
+only). ``fastspeech2``, ``adaspeech``, ``jets``, ``hifigan`` and
+``text2wav`` are ported so far; ``--version matcha`` is not.
 """
 
 from __future__ import annotations
@@ -39,7 +41,6 @@ TASKS = ["text2wav", "fastspeech2", "adaspeech", "jets", "vits2", "matcha", "hif
 
 # the ROADMAP.md items (section 1) that port the other tasks
 NOT_PORTED = {
-    "adaspeech": "item 12",
     "matcha": "item 13",
     "vits2": "item 14",
 }
@@ -101,10 +102,10 @@ def make_trainer(args, conf):
     if args.is_finetune:
         raise ValueError(f"Fine-tuning model is not supported for `{args.task}` yet!")
     from viet_tts_torch.train.gan import HiFiGANTrainer, JETSTrainer
-    from viet_tts_torch.train.trainer import FastSpeech2Trainer
+    from viet_tts_torch.train.trainer import AdaSpeechTrainer, FastSpeech2Trainer
 
-    trainers = {"fastspeech2": FastSpeech2Trainer, "jets": JETSTrainer,
-                "hifigan": HiFiGANTrainer}
+    trainers = {"fastspeech2": FastSpeech2Trainer, "adaspeech": AdaSpeechTrainer,
+                "jets": JETSTrainer, "hifigan": HiFiGANTrainer}
     return trainers[args.task](args, conf)
 
 

@@ -1,18 +1,20 @@
 """Joint acoustic + vocoder training (``--task text2wav``) and speaker
 finetuning (``--task text2wav --is_finetune``).
 
-Counterpart of ``viet_tts_tpu/train/joint.py`` for the ``fastspeech2``
-version of ``Text2Wav``. The step runs the two phases of the other GAN
-steps (``train/gan.py``): a discriminator update on the detached vocoded
-window against the same window of the recorded waveform, then a generator
-update against the UPDATED discriminator, whose loss is adv + fm * 2 +
-mel * 45 (the log-mel loss at ``audio.mel.log_base``) plus every
-FastSpeech2 loss of the joint criterion (``is_joint=True``: the mel
-losses unmasked over the window, against the recorded mel's window).
+Counterpart of ``viet_tts_tpu/train/joint.py`` for the ``fastspeech2`` and
+``adaspeech`` versions of ``Text2Wav``. The step runs the two phases of the
+other GAN steps (``train/gan.py``): a discriminator update on the detached
+vocoded window against the same window of the recorded waveform, then a
+generator update against the UPDATED discriminator, whose loss is adv +
+fm * 2 + mel * 45 (the log-mel loss at ``audio.mel.log_base``) plus every
+acoustic loss of the joint criterion (``FastSpeech2Loss``, or
+``AdaSpeechLoss`` with its ``phoneme_level_encoder_step``;
+``is_joint=True``: the mel losses unmasked over the window, against the
+recorded mel's window).
 
 ``JointTrainer`` warm-starts from a joint checkpoint (``-c``: weights and
 BatchNorm statistics, no optimizer state, iteration 0), or its
-``text2mel`` from a ``--task fastspeech2`` output (``-a``) and its
+``text2mel`` from a ``--task <version>`` output (``-a``) and its
 ``mel2wav`` from a ``--task hifigan`` output (``-v``), by name and shape;
 a checkpoint of its own in the output folder wins over all three (resume
 by scan). ``JointFinetuner`` copies a joint checkpoint into a model with
@@ -72,7 +74,7 @@ def make_joint_train_step(model: nn.Module, disc: nn.Module, mel_loss: MelSpectr
     ``generator`` is a CPU ``torch.Generator``: it seeds the device
     generator for ``nn.Dropout`` and draws the model's dropout seeds, CVAE
     noise and window starts, unless ``start_idxs`` / ``cvae_eps`` give
-    them. ``metrics``: gen, mel, adv, fm, var_<k> for each FastSpeech2 loss,
+    them. ``metrics``: gen, mel, adv, fm, var_<k> for each acoustic loss,
     disc, disc_real, disc_fake (0-d tensors on the device)."""
     seg = int(model.segment_size)
 
@@ -121,10 +123,10 @@ def make_joint_train_step(model: nn.Module, disc: nn.Module, mel_loss: MelSpectr
 
 class JointTrainer(GANTrainer):
     """Text2Wav training (``src/trainer/joint_trainer.py``): ``Text2Wav``
-    (FastSpeech2 of ``models.fastspeech2``, HiFi-GAN V1 of
+    (FastSpeech2 or AdaSpeech of ``models.<version>``, HiFi-GAN V1 of
     ``models.hifigan`` with the plain MRF), the MSMPD of
     ``models.hifigan.discriminator_params``, the generator's AdamW from
-    ``train.fastspeech2.optimizer`` and the discriminator's from
+    ``train.<version>.optimizer`` and the discriminator's from
     ``train.hifigan.optimizer``, bucketed batches with the waveform
     (``make_joint_collate``)."""
 
@@ -200,13 +202,11 @@ class JointTrainer(GANTrainer):
         self.discriminator = disc.to(self.device)
 
     def __init_loss__(self):
-        from viet_tts_torch.config import fastspeech2_loss_conf
+        from viet_tts_torch.models import build_acoustic_loss
 
         audio = self.conf["audio"]
-        self.criterion = FastSpeech2Loss(
-            fastspeech2_loss_conf(self.conf["train"][self.version],
-                                  self.conf["models"][self.version]),
-            is_finetune=bool(self.warm_paths()))
+        self.criterion = build_acoustic_loss(self.conf, self.version,
+                                             is_finetune=bool(self.warm_paths()))
         # the configured log base (natural with null), not HiFi-GAN's log10
         self.mel_loss = build_mel_loss(audio, log_base=audio["mel"]["log_base"])
 

@@ -54,7 +54,14 @@ class AdamWWithClip:
 
     def step(self) -> torch.Tensor:
         """Clip the gradients held in ``.grad``, then one AdamW step;
-        returns the gradient norm before clipping."""
+        returns the gradient norm before clipping. A trainable parameter
+        that took no gradient this step (``.grad`` None: AdaSpeech's
+        PhonemeLevelEncoder once distillation starts) steps on a zero one,
+        as optax steps every leaf: its moments decay and move it on, and
+        its step count stays the others'."""
+        for p in self.params:
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
         norm = self.clip_by_global_norm()
         for group in self.opt.param_groups:
             group["lr"] = self.lr

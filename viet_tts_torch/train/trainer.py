@@ -1,7 +1,7 @@
-"""Host-side training loops: the trainer template and the FastSpeech2
-trainer (the GAN trainers are in ``train/gan.py``).
+"""Host-side training loops: the trainer template and the FastSpeech2 and
+AdaSpeech trainers (the GAN trainers are in ``train/gan.py``).
 
-Counterpart of ``viet_tts_tpu/train/trainer.py:79-462``: speakers and
+Counterpart of ``viet_tts_tpu/train/trainer.py:79-487``: speakers and
 accents loading, filelist creation, dataset -> model -> loss -> optimizer
 hooks, the epoch loop until ``max_iter``, per-epoch LR decay and
 validation with the coloured delta report, parameter histograms, keep-3
@@ -367,7 +367,8 @@ class BaseTrainer:
 
 
 class FastSpeech2Trainer(BaseTrainer):
-    """Acoustic-only training of the FastSpeech2 (conformer) model."""
+    """Acoustic-only training of the FastSpeech2 model (``models.<task>``,
+    conformer or transformer block)."""
 
     task = "fastspeech2"
 
@@ -392,25 +393,22 @@ class FastSpeech2Trainer(BaseTrainer):
         self.valid_loader = BucketBatcher(self.valid_data, bs, seed=self.seed)
 
     def __init_model__(self):
-        from viet_tts_torch.models.fastspeech2.model import FastSpeech2
+        from viet_tts_torch.models import build_acoustic
         from viet_tts_torch.nn.utils import seeded_init_
 
-        model = FastSpeech2(
-            self.n_symbols, self.conf["audio"]["mel"]["channels"],
-            self.conf["models"][self.task], self.stats,
-            n_speakers=len(self.speakers) if self.speakers else 1,
+        model = build_acoustic(
+            self.n_symbols, self.conf["audio"]["mel"]["channels"], self.conf, self.task,
+            self.stats, n_speakers=len(self.speakers) if self.speakers else 1,
             n_accents=len(self.accents) if self.accents else 2)
         # seeded on the CPU, so one seed gives the same weights on any device
         seeded_init_(model, torch.Generator().manual_seed(self.seed))
         self.model = model.to(self.device)
 
     def __init_loss__(self):
-        from viet_tts_torch.config import fastspeech2_loss_conf
-        from viet_tts_torch.models.fastspeech2.loss import FastSpeech2Loss
+        from viet_tts_torch.models import build_acoustic_loss
 
-        self.criterion = FastSpeech2Loss(
-            fastspeech2_loss_conf(self.conf["train"][self.task], self.conf["models"][self.task]),
-            is_finetune=getattr(self.args, "is_finetune", False))
+        self.criterion = build_acoustic_loss(self.conf, self.task,
+                                             is_finetune=getattr(self.args, "is_finetune", False))
 
     def __init_optimizer__(self):
         from viet_tts_torch.train.steps import make_fs2_train_step, make_fs2_valid_step
@@ -448,3 +446,11 @@ class FastSpeech2Trainer(BaseTrainer):
         val = {k: v / max(n, 1) for k, v in val.items()}
         self.valid_logger.log(val, self.iter)
         self._report_validation(val)
+
+
+class AdaSpeechTrainer(FastSpeech2Trainer):
+    """The same loop with AdaSpeech (``models.adaspeech``) and
+    ``AdaSpeechLoss``; the step passes its step count to the forward (the
+    distillation and binarization switches) and to the loss."""
+
+    task = "adaspeech"
