@@ -204,7 +204,28 @@ Phases (any failure exits non-zero; no phase is caught):
     adaspeech`` for 2 steps warm-started from that output and phase 20's
     HiFi-GAN, and ``OneStageTTS(model_type="JOINT")`` serving it (K2 18 a
     call);
-23. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
+23. Matcha-TTS: full-width Matcha (config/model_config.yaml:171-219: text
+    encoder 192 + 64 speaker dims, 6 RoPE layers with FFN 768 and 2 heads;
+    UNet channels (256, 256), 2 heads x 64, two mid blocks; CVAE; Gaussian
+    upsampling) with seeded random weights for 2 speakers (the duration
+    predictor's bias raised so that random weights give frames) and a
+    stats.json of mel statistics, with phase 8's HiFi-GAN V1, served by
+    ``TwoStageTTS(model_type="MATCHA", fused_vocoder=True)``: 16 sentences
+    at 1008 frames (10 Euler steps) with K2 18 launches and no attention
+    kernel a call exactly, the host median of 5 calls and (from one
+    profiled call after phase 14) the device's busy share; 2 sentences at
+    64 frames against the CPU, TF32 off (the mel within 1e-3, the waveform
+    on a vocoder copy at audio scale within 1e-3 of its peak); ``--task
+    matcha`` on phase 18's dataset and config copy to ``--max_iter 6``, then
+    resumed by scan to 8 (names, stats.json's mel statistics, rates, finite
+    diff / prior / cvae / ctc / bin / dur, no kernel in a step, step host
+    seconds by mel bucket, data wait), its first step on the card against
+    ``--device cpu`` (losses within rel 1e-3, the RoPE encoder's and the
+    UNet's attention gradients within 1e-2 of their norms); ``--task
+    text2wav --version matcha`` for 2 steps warm-started from that output
+    and phase 20's HiFi-GAN, and ``OneStageTTS(model_type="JOINT")``
+    serving it (K2 18 a call);
+24. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
     JETS training steps, five two-stage calls, five FS2 training steps at
     T_mel 1008 and five at 512 and five of each JETS-conformer path (both
     flavours), of the FS2 step at T_mel 2048 and of the JETS, HiFi-GAN and
@@ -213,11 +234,11 @@ Phases (any failure exits non-zero; no phase is caught):
     Q2 kernels, bwd-kv on its own, K5's rotation pass on its own, K7's
     forward and bwd-q instances apart from K6's, K4's bwd-kv instance under
     K4 bwd);
-24. one JSON line ``{"kernels": [...]}``, then the card's line, then
+25. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
-Phases 3, 9, 11 and 14 run after phase 22 (in that order), and phase 22's
-profiled call after them: their
+Phases 3, 9, 11 and 14 run after phase 23 (in that order), and phases 22
+and 23's profiled calls after them: their
 ``torch.profiler`` sessions leave every later kernel launch ~25 % dearer on
 the host, and the other phases read host seconds of launch-bound calls and
 steps. Each phase logs its host seconds (``phase time:``): the script has
@@ -2959,9 +2980,9 @@ def trainer_config(root: str, zero_dropout: bool = False, batch_size: int = 8) -
     params gain ``attn_implementation: flash`` (the file's own
     recommendation for training), edited as text (the card has no pyyaml);
     ``log_step`` 1; optionally every dropout 0 (JETS's duration predictor's,
-    which the file leaves to the model's default, added; AdaSpeech's
-    section's too) and another batch size. Read back through the port's
-    reader and checked."""
+    which the file leaves to the model's default, added; AdaSpeech's and
+    Matcha's sections' too) and another batch size. Read back through the
+    port's reader and checked."""
     from viet_tts_torch.config import JETS_DROPOUT_KEYS, build_config
 
     out = os.path.join(root, "config")
@@ -2990,6 +3011,12 @@ def trainer_config(root: str, zero_dropout: bool = False, batch_size: int = 8) -
                     ("decoder_dropout: 0.2", "decoder_dropout: 0.0"),
                     ("      dropout: 0.5", "      dropout: 0.0"),
                     ("dropout_rate: 0.5", "dropout_rate: 0.0")])
+                # Matcha's: the prenet, the RoPE encoder, the duration
+                # predictor, the UNet
+                text = _edit_section(text, "matcha", [
+                    ("p_dropout: 0.5", "p_dropout: 0.0"), ("p_dropout: 0.1", "p_dropout: 0.0"),
+                    ("    dropout: 0.5", "    dropout: 0.0"),
+                    ("    dropout: 0.05", "    dropout: 0.0")])
         elif name == "train_config.yaml":
             text = text.replace("\nlog_step: 100\n", "\nlog_step: 1\n").replace(
                 "\nbatch_size: 8\n", f"\nbatch_size: {batch_size}\n")
@@ -3015,6 +3042,13 @@ def trainer_config(root: str, zero_dropout: bool = False, batch_size: int = 8) -
                 for enc in ada["variance"]["reference_encoder"].values()
                 if isinstance(enc, dict))):
         raise AssertionError(f"trainer config copy's AdaSpeech section not as edited: {ada}")
+    matcha = conf["models"]["matcha"]
+    if drop is not None and (
+            (matcha["text_encoder"]["prenet"]["p_dropout"],
+             matcha["text_encoder"]["encoder"]["p_dropout"],
+             matcha["variance_predictor"]["dropout"], matcha["decoder"]["dropout"])
+            != (drop,) * 4):
+        raise AssertionError(f"trainer config copy's Matcha section not as edited: {matcha}")
     jets = conf["models"]["jets"]["generator_params"]
     if jets["attn_implementation"] != "flash" or (drop is not None and any(
             jets[key] != drop for key in JETS_DROPOUT_KEYS if key in jets)) or (
@@ -3034,10 +3068,10 @@ class _StepProbe:
     generator's and the discriminator's), then the batch, then the rest.
     With ``grads_of``, each step also keeps (on the host) the gradient the
     first state's module was stepped with, of each parameter whose name
-    holds that string."""
+    holds that string (or one of those strings, a tuple)."""
 
     def __init__(self, trainer, wrappers=None, sync: bool = True,
-                 zero_postnet_dropout: bool = False, grads_of: Optional[str] = None):
+                 zero_postnet_dropout: bool = False, grads_of=None):
         self.steps = []
         self.grads_of = grads_of
         self.hist_s = []
@@ -3086,7 +3120,9 @@ class _StepProbe:
         if self.grads_of is not None:
             self.steps[-1]["grads"] = {
                 n: p.grad.detach().cpu() for n, p in states[0].module.named_parameters()
-                if self.grads_of in n and p.grad is not None}
+                if p.grad is not None and any(
+                    g in n for g in ((self.grads_of,) if isinstance(self.grads_of, str)
+                                     else self.grads_of))}
         return out
 
 
@@ -3366,7 +3402,7 @@ KEY_BIASES = ("linear_k.bias", "key_proj.linear.bias", "w_ks.bias")
 
 
 def _gan_card_vs_cpu(task: str, root: str, config_dir: str, wrappers, expect_launches,
-                     grads_of: Optional[str] = None, zero_postnet_dropout: bool = False):
+                     grads_of=None, zero_postnet_dropout: bool = False):
     """The trainer's first step on the card and under ``--device cpu`` (the
     same seeded weights and segments): the metrics within rel 1e-3, and the
     card step's launches as expected. With ``grads_of``, the generator's
@@ -4035,6 +4071,220 @@ def check_adaspeech(dev, smi: str, ada_dir: str, fs2_dir: str, voc_dir: str):
     return tts, serving, training
 
 
+# --------------------------------------------------------------------------
+# phase 23: Matcha-TTS (two-stage serving, --task matcha, --task text2wav
+# --version matcha, JOINT serving)
+# --------------------------------------------------------------------------
+
+# the dataset's scalar mel statistics that the random-weight checkpoint
+# carries in its stats.json (the size of a log-mel's)
+MATCHA_STATS = {"mel_mean": -5.0, "mel_std": 2.0}
+# the duration predictor's bias of the random-weight checkpoint:
+# exp(1.5) - 1, ~3.5 frames a token, so the sentences get frames
+MATCHA_DUR_BIAS = 1.5
+MATCHA_JOINT_ITERS = 2
+# Matcha's serving call: its attention is plain PyTorch (the JAX package's
+# is plain einsums), the vocoder's two fused stages on K2
+MATCHA_CALL_LAUNCHES = FFT_CALL_LAUNCHES
+
+
+def build_matcha(root: str) -> str:
+    """Full-width Matcha (config/model_config.yaml:171-219: text encoder
+    192 + 64 speaker dims, 6 RoPE layers with FFN 768 and 2 heads; UNet
+    channels (256, 256), 2 heads x 64, two mid blocks; CVAE; Gaussian
+    upsampling) with seeded random weights for 2 speakers, the duration
+    predictor's bias at ``MATCHA_DUR_BIAS``, saved as a port checkpoint
+    with ``MATCHA_STATS`` as its stats.json."""
+    from viet_tts_torch.infer.api import default_conf, save_checkpoint
+    from viet_tts_torch.models import build_acoustic
+    from viet_tts_torch.nn.utils import seeded_init_
+    from viet_tts_torch.text import NUM_SYMBOLS
+
+    conf = default_conf()
+    hp = conf["models"]["matcha"]
+    model = seeded_init_(build_acoustic(NUM_SYMBOLS, conf["audio"]["mel"]["channels"], conf,
+                                        "matcha", MATCHA_STATS, n_speakers=2),
+                         torch.Generator().manual_seed(SEED + 23))
+    with torch.no_grad():
+        model.duration_predictor.linear.bias.fill_(MATCHA_DUR_BIAS)
+    te, dec = hp["text_encoder"], hp["decoder"]
+    log(f"Matcha full width: {sum(p.numel() for p in model.parameters())} parameters (text "
+        f"encoder {te['hidden_dim']} + {hp['spk_emb_dim']} speaker dims, "
+        f"{te['encoder']['n_layers']} RoPE layers, FFN {te['encoder']['filter_channels']}, "
+        f"{te['encoder']['n_heads']} heads; UNet channels {dec['channels']}, "
+        f"{dec['num_heads']} x {dec['attention_head_dim']} heads, {dec['num_mid_blocks']} mid "
+        f"blocks; CVAE; Gaussian upsampling)")
+    out = os.path.join(root, "matcha")
+    save_checkpoint(out, model, conf, speakers=dict(zip(TRAINER_SPEAKERS, range(2))),
+                    stats=MATCHA_STATS)
+    return out
+
+
+def check_matcha_serving(dev, smi: str, ac_dir: str, voc_dir: str):
+    """``TwoStageTTS(model_type="MATCHA")`` on full-width Matcha and phase
+    8's HiFi-GAN V1: 16 sentences at 1008 frames (10 Euler steps) with
+    exactly ``MATCHA_CALL_LAUNCHES`` (K2 18, no attention kernel) a call,
+    the host median of 5 calls; 2 sentences at 64 frames on the card
+    against the CPU (TF32 off: the mel within 1e-3, the waveform on a
+    vocoder copy at audio scale within 1e-3 of its peak)."""
+    from viet_tts_torch.infer.api import TwoStageTTS
+    from viet_tts_torch.models.matcha import MatchaTTS
+
+    _set_tf32(False)
+    tts = TwoStageTTS(ac_dir, voc_dir, model_type="MATCHA", fused_vocoder=True)
+    hp = tts.conf["models"]["matcha"]
+    width = hp["text_encoder"]["hidden_dim"] + hp["spk_emb_dim"]  # the speakers concatenated
+    if not isinstance(tts.acoustic, MatchaTTS) or tts.acoustic.encoder.proj_m.in_channels != width:
+        raise AssertionError(f"TwoStageTTS(MATCHA) built {type(tts.acoustic).__name__}")
+    tts(SENTENCES[:2])  # warm-up: cuDNN autotune, allocator
+    per_call = []
+    for _ in range(2):
+        waves, _ = _counted_call(lambda: tts(SENTENCES), MATCHA_CALL_LAUNCHES,
+                                 "Matcha two-stage fp32 __call__(16) at 1008 frames")
+        _check_waves(waves, len(SENTENCES), "Matcha")
+        per_call.append(MATCHA_CALL_LAUNCHES["fused_mrf_stage"])
+    times = []
+    with torch.no_grad():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tts(SENTENCES)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    call_s = sorted(times)[len(times) // 2]
+    frames = [w.size // 256 for w in waves]
+    if not min(frames) > 0:
+        raise AssertionError(f"Matcha two-stage: mel frames per sentence {frames}")
+    log(f"Matcha two-stage fp32 __call__(16) at 1008 frames, 10 Euler steps ({smi}): host "
+        f"median of 5 {call_s:.4f} s ({[round(x, 4) for x in times]}); mel frames per "
+        f"sentence {frames}")
+    mel_err, wav_rel = _fft_serving_against_cpu(dev, tts, "Matcha two-stage")
+    return tts, {"call_s": call_s, "call_s_all": times, "vs_cpu_mel": mel_err,
+                 "vs_cpu_wav_rel": wav_rel, "launches_per_call": per_call, "frames": frames}
+
+
+def check_matcha_trainer(dev, smi: str):
+    """``--task matcha`` through the CLI's entry function on phase 18's
+    dataset and config copy (full-width Matcha, every dropout as
+    configured), batch size 8, to ``--max_iter 6``, then resumed by scan to
+    8: the checkpoints (keep-3, names), ``stats.json``'s mel statistics,
+    the resumed iteration, each step's rate (gamma 1: the base rate),
+    finite diff / prior / cvae / ctc / bin / dur, no kernel launched in a
+    step, both mel buckets; the first step on the card against ``--device
+    cpu`` (phase 18's one-bucket dataset, every dropout 0): losses within
+    rel 1e-3 and the RoPE encoder's and the UNet's attention gradients
+    within 1e-2 of each tensor's norm. Then ``--task text2wav --version
+    matcha`` for ``MATCHA_JOINT_ITERS`` steps, warm-started from this
+    output (``-a``) and phase 20's HiFi-GAN (``-v``), no kernel in a step,
+    and ``OneStageTTS(model_type="JOINT")`` serving its output with
+    exactly ``MATCHA_CALL_LAUNCHES`` a call."""
+    from viet_tts_torch.infer.api import OneStageTTS
+    from viet_tts_torch.models.matcha import MatchaTTS, MatchaTTSLoss
+    from viet_tts_torch.train.__main__ import main
+    from viet_tts_torch.train.checkpoint import SUFFIX, checkpoint_name
+
+    config_dir = os.path.join(TRAINER_ROOT, "config")
+    probes = []
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    first, resumed = (main(_trainer_argv(TRAINER_ROOT, config_dir, "out_matcha", n,
+                                         task="matcha"),
+                           on_trainer=lambda tr: probes.append(_StepProbe(tr, _all_wrappers)))
+                      for n in TRAINER_ITERS)
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if (first.device.type != dev.type or not isinstance(first.model, MatchaTTS)
+            or not isinstance(first.criterion, MatchaTTSLoss)):
+        raise AssertionError(f"matcha trainer: {type(first.model).__name__} on "
+                             f"{first.device}, loss {type(first.criterion).__name__}")
+    out = first.args.output_folder
+    with open(os.path.join(out, "stats.json"), encoding="utf8") as f:
+        stats = json.load(f)
+    if sorted(stats) != ["mel_mean", "mel_std"] or resumed.stats != stats:
+        raise AssertionError(f"matcha stats.json {stats}, resumed with {resumed.stats}")
+    per_epoch = first.train_loader.epoch_batches()
+    n0, n1 = TRAINER_ITERS
+    names = sorted((f for f in os.listdir(out) if f.endswith(SUFFIX)),
+                   key=lambda f: int(f.split("iteration")[1].split("_")[0]))
+    want_names = [checkpoint_name("generator", 0, per_epoch),
+                  checkpoint_name("generator", n0 // per_epoch, n0),
+                  checkpoint_name("generator", n0 // per_epoch, n1)]
+    steps = [s for p in probes for s in p.steps]
+    if per_epoch != 4 or names != want_names:
+        raise AssertionError(f"matcha checkpoints {names}, expected {want_names}")
+    if [s["iter"] for s in steps] != list(range(n1)) or (resumed.iter,
+                                                         resumed.state.step) != (n1, n1):
+        raise AssertionError(f"matcha iterations {[s['iter'] for s in steps]}, resumed "
+                             f"at {resumed.iter}, step {resumed.state.step}")
+    idle = dict.fromkeys(_all_wrappers(), 0)
+    keys = {"diff", "prior", "cvae", "ctc", "bin", "dur", "total"}
+    for s in steps:
+        if s["lr"] != first.base_lr:
+            raise AssertionError(f"matcha step {s['iter']}: rate {s['lr']}")
+        if s["launches"] != idle or set(s["metrics"]) != keys or not all(
+                np.isfinite(v) for v in s["metrics"].values()):
+            raise AssertionError(f"matcha step {s['iter']}: launches {s['launches']}, "
+                                 f"losses {s['metrics']}")
+    buckets = sorted({s["t_mel"] for s in steps})
+    if buckets != [256, 768]:
+        raise AssertionError(f"matcha mel buckets {buckets}")
+    figures = _gan_figures(first, steps, per_epoch, (base_gb, peak_gb), run_s,
+                           [h for p in probes for h in p.hist_s])
+    log(f"matcha trainer ({smi}): {len(first.train_set)} train utterances, mel statistics "
+        f"{stats}, {len(steps)} steps at (B, T_text, T_mel) "
+        f"{[(8, s['t_text'], s['t_mel']) for s in steps]}, resumed at iter {n0}; checkpoints "
+        f"{names}; step host seconds {[round(s['step_s'], 4) for s in steps]}; data wait ms "
+        f"{[round(1e3 * s['wait_s'], 2) for s in steps]}; peak {peak_gb:.2f} GB "
+        f"({base_gb:.2f} held before); both runs {run_s:.1f} s; no kernel launched; last "
+        f"losses {steps[-1]['metrics']}")
+    cmp_root = os.path.join(TRAINER_ROOT, "card_vs_cpu")
+    figures["card_vs_cpu_rel"] = _gan_card_vs_cpu(
+        "matcha", cmp_root, os.path.join(cmp_root, "config"), _all_wrappers, idle,
+        grads_of=(".attn_layers.", ".attn1."))
+
+    # --task text2wav --version matcha, warm-started, then JOINT serving
+    probe = []
+    t0 = time.perf_counter()
+    joint = main(_trainer_argv(TRAINER_ROOT, config_dir, "out_text2wav_matcha",
+                               MATCHA_JOINT_ITERS, "--version", "matcha", "-a", out,
+                               "-v", os.path.join(TRAINER_ROOT, "out_hifigan"),
+                               task="text2wav"),
+                 on_trainer=lambda tr: probe.append(_StepProbe(tr, _all_wrappers)))
+    joint_s = time.perf_counter() - t0
+    jsteps = probe[0].steps
+    if (not isinstance(joint.model.text2mel, MatchaTTS) or not joint.criterion.is_finetune
+            or joint.stats != stats or len(jsteps) != MATCHA_JOINT_ITERS
+            or any(s["launches"] != idle or "var_diff" not in s["metrics"]
+                   or not all(np.isfinite(v) for v in s["metrics"].values())
+                   for s in jsteps)):
+        raise AssertionError(f"text2wav --version matcha: {type(joint.model.text2mel)}, "
+                             f"is_finetune {joint.criterion.is_finetune}, stats "
+                             f"{joint.stats}, steps {jsteps}")
+    log(f"joint trainer --version matcha ({smi}): warm-started from the matcha and hifigan "
+        f"outputs; {len(jsteps)} steps at T_mel {[s['t_mel'] for s in jsteps]}, step host "
+        f"seconds {[round(s['step_s'], 4) for s in jsteps]}; no kernel launched; run "
+        f"{joint_s:.1f} s; last metrics {jsteps[-1]['metrics']}")
+    jtts = OneStageTTS(joint.args.output_folder, model_type="JOINT", fused_vocoder=True)
+    speaker = dict(speaker=TRAINER_SPEAKERS[1], accent="hcm")
+    jtts(SENTENCES[:2], **speaker)  # warm-up
+    joint_calls = []
+    for _ in range(2):
+        waves, call_s = _counted_call(lambda: jtts(SENTENCES, **speaker), MATCHA_CALL_LAUNCHES,
+                                      "JOINT (Matcha) __call__(16) at 1008 frames")
+        _check_waves(waves, len(SENTENCES), "JOINT (Matcha)")
+        joint_calls.append(call_s)
+    figures.update(joint_step_s=[s["step_s"] for s in jsteps], joint_run_s=joint_s,
+                   joint_call_s=joint_calls)
+    return figures
+
+
+def check_matcha(dev, smi: str, ac_dir: str, voc_dir: str):
+    tts, serving = check_matcha_serving(dev, smi, ac_dir, voc_dir)
+    training = check_matcha_trainer(dev, smi)
+    return tts, serving, training
+
+
 def profile_call(fn, label: str, out_name: str, repeats: int = 5):
     """Host time of ``repeats`` calls of ``fn``, then one under
     ``torch.profiler``: device time by kernel group and the device's busy
@@ -4161,6 +4411,9 @@ def main() -> int:
     ada_dir, fs2_fft_dir = build_fft_acoustic(os.path.join(REPO, "build", "chip_smoke_fft"))
     ada_tts, ada_serving, ada_training = phase_timed("22", check_adaspeech, dev, smi, ada_dir,
                                                      fs2_fft_dir, voc_dir)
+    matcha_dir = build_matcha(os.path.join(REPO, "build", "chip_smoke_matcha"))
+    matcha_tts, matcha_serving, matcha_training = phase_timed("23", check_matcha, dev, smi,
+                                                              matcha_dir, voc_dir)
     # the phases that time backward rows in device time run last: after a
     # torch.profiler session every kernel launch costs the host ~25 % more
     # (CUPTI stays attached; measured on the H100 machine), and the phases
@@ -4169,11 +4422,16 @@ def main() -> int:
     xl_train = phase_timed("9", check_xl_training, dev)
     rel, k6_jets = phase_timed("11", check_rel_kernels, dev, t_text)
     k6_train = phase_timed("14", check_xl_k6_training, dev)
-    # phase 22's busy share, from one profiled call after every host-timed phase
+    # phases 22 and 23's busy shares, from one profiled call each after every
+    # host-timed phase
     busy_ms, wall_ms = profile_call(lambda: ada_tts(SENTENCES),
                                     "AdaSpeech two-stage fp32 __call__(16)",
                                     "chip_smoke_profile_adaspeech.txt", repeats=0)
     ada_serving["busy_share"] = busy_ms / wall_ms
+    busy_ms, wall_ms = profile_call(lambda: matcha_tts(SENTENCES),
+                                    "Matcha two-stage fp32 __call__(16)",
+                                    "chip_smoke_profile_matcha.txt", repeats=0)
+    matcha_serving["busy_share"] = busy_ms / wall_ms
     if args.profile:
         profile_call(lambda: tts(SENTENCES), "fp32 __call__(16)", "chip_smoke_profile.txt")
         profile_call(lambda: step(*step_args), "training step",
@@ -4262,7 +4520,12 @@ def main() -> int:
                                                        "with block_type transformer"),
                      ("joint_adaspeech_call_launches", "one OneStageTTS(model_type='JOINT') "
                                                        "__call__ of 16 sentences at 1008 "
-                                                       "frames, Text2Wav version adaspeech")):
+                                                       "frames, Text2Wav version adaspeech"),
+                     ("matcha_call_launches", "one TwoStageTTS(model_type='MATCHA') __call__ "
+                                              "of 16 sentences at 1008 frames"),
+                     ("joint_matcha_call_launches", "one OneStageTTS(model_type='JOINT') "
+                                                    "__call__ of 16 sentences at 1008 frames, "
+                                                    "Text2Wav version matcha")):
         k2[key] = FFT_CALL_LAUNCHES["fused_mrf_stage"]
         k2[f"{key}_per"] = per
     for entry in (*xl_entries[:2], k2):
@@ -4360,6 +4623,19 @@ def main() -> int:
         f"{ada_training['card_vs_cpu_rel']:.3e}; joint --version adaspeech steps "
         f"{[round(x, 4) for x in ada_training['joint_step_s']]} s, JOINT __call__(16) "
         f"{[round(x, 4) for x in ada_training['joint_call_s']]} s; on {smi}")
+    log(f"Matcha: two-stage fp32 __call__(16) at 1008 frames host median "
+        f"{matcha_serving['call_s']:.4f} s, device busy "
+        f"{100 * matcha_serving['busy_share']:.1f} % (one profiled call), K2 "
+        f"{MATCHA_CALL_LAUNCHES['fused_mrf_stage']} a call; card vs CPU mel max_abs_err "
+        f"{matcha_serving['vs_cpu_mel']:.3e}, waveform relative "
+        f"{matcha_serving['vs_cpu_wav_rel']:.3e}; trainer step host median by mel bucket "
+        f"{ {b: round(v, 4) for b, v in matcha_training['step_s_median_by_bucket'].items()} } "
+        f"s (steps {matcha_training['step_s_by_bucket']}), data wait median "
+        f"{matcha_training['wait_ms']:.2f} ms (max {matcha_training['wait_ms_max']:.2f}), peak "
+        f"{matcha_training['peak_gb']:.2f} GB, first step card vs CPU max rel "
+        f"{matcha_training['card_vs_cpu_rel']:.3e}; joint --version matcha steps "
+        f"{[round(x, 4) for x in matcha_training['joint_step_s']]} s, JOINT __call__(16) "
+        f"{[round(x, 4) for x in matcha_training['joint_call_s']]} s; on {smi}")
     kernels_line = [k1, k2, *k3, *xl_entries, *xl_bwd_entries, *k6_bwd_entries, *rel_entries]
     if DEVICE_MS_MISSES:
         log(f"device_ms: {len(DEVICE_MS_MISSES)} backward figure(s) timed by CUDA events: "

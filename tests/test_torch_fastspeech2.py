@@ -57,6 +57,7 @@ def test_config_dicts_equal_yaml():
         models = yaml.safe_load(f)
     assert port_config.fastspeech2_params() == models["fastspeech2"]
     assert port_config.adaspeech_params() == models["adaspeech"]
+    assert port_config.matcha_params() == models["matcha"]
     assert port_config.hifigan_params() == models["hifigan"]
     assert port_config.DEFAULT_STATS == JAX_DEFAULT_STATS
 
@@ -214,10 +215,10 @@ def test_two_stage_tts_matches_jax_and_serves(fs2_case, tmp_path):
 
 
 def test_two_stage_tts_refuses_what_is_not_ported(tmp_path):
-    from viet_tts_torch.infer.api import TwoStageTTS
+    from viet_tts_torch.infer.api import OneStageTTS
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TwoStageTTS(str(tmp_path), str(tmp_path), model_type="MATCHA", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 14"):
+        OneStageTTS(str(tmp_path), model_type="VITS2", device="cpu")
     with pytest.raises(NotImplementedError, match="unknown building block"):
         FastSpeech2(N_SYMBOLS, N_MELS, fs2_hparams() | {"building_block": {
             "block_type": "lstm"}}, FS2_STATS, 1)

@@ -293,14 +293,6 @@ def test_finetuner_surgery_adapter_batches_and_rates(cli, caplog):
         train_main.main(same[:3] + same[5:])
 
 
-@pytest.mark.parametrize("version,item", [("matcha", "item 13")])
-def test_text2wav_refuses_unported_versions(version, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        train_main.main(["--task", "text2wav", "--version", version, "-i", str(tmp_path),
-                         "-d", str(tmp_path), "-o", str(tmp_path / "out"), "--config",
-                         os.path.join(REPO, "config"), "--device", "cpu"])
-
-
 def test_is_finetune_refused_but_for_text2wav(tmp_path):
     with pytest.raises(ValueError, match="not supported for `fastspeech2`"):
         train_main.main(["--task", "fastspeech2", "--is_finetune", "-i", str(tmp_path), "-d",

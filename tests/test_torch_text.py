@@ -86,6 +86,7 @@ def test_config_dicts_equal_yaml():
     assert port_config.jets_discriminator_params() == models["jets"]["discriminator_params"]
     assert port_config.jets_train_conf() == train["jets"]
     assert port_config.fastspeech2_train_conf() == train["fastspeech2"]
+    assert port_config.matcha_train_conf() == train["matcha"]
     assert port_config.GRAD_CLIP_THRESH == train["grad_clip_thresh"]
     assert port_config.default_audio() == audio
     assert port_config.upsample_factor(audio) == 256

@@ -357,8 +357,7 @@ def test_weights_round_trip():
             torch.testing.assert_close(got[k], v, atol=tol, rtol=tol, msg=k)
 
 
-@pytest.mark.parametrize("version", ["matcha", "vits"])
+@pytest.mark.parametrize("version", ["vits"])
 def test_unported_versions_raise(version):
-    with pytest.raises(NotImplementedError,
-                       match={"matcha": "item 13"}.get(version, "Not implemented for vits")):
+    with pytest.raises(NotImplementedError, match=f"Not implemented for {version}"):
         Text2Wav(N_SYMBOLS, N_MELS, _conf(), FS2_STATS, n_speakers=2, version=version)

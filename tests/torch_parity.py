@@ -343,3 +343,72 @@ def jax_adaspeech(model, hp, n_speakers=2):
     jm = JaxAdaSpeech(n_symbols=N_SYMBOLS, n_channels=N_MELS, hparams=hp, stats=FS2_STATS,
                       n_speakers=n_speakers, n_accents=2)
     return jm, import_adaspeech(reference_state_dict(model.state_dict()), hp)
+
+
+MATCHA_STATS = {"mel_mean": -3.0, "mel_std": 2.5}
+
+
+def matcha_hparams(decoder_block_type: str = "transformer"):
+    """``tests/test_matcha.py:TINY_HP`` with every dropout rate 0, for
+    parity, and a narrower UNet: channels (16, 16), heads 2 x 8, one mid
+    block; ``decoder_block_type`` for every stage."""
+    import copy
+
+    from tests.test_matcha import TINY_HP
+
+    hp = copy.deepcopy(TINY_HP)
+    te = hp["text_encoder"]
+    te["prenet"]["p_dropout"] = te["encoder"]["p_dropout"] = 0.0
+    hp["variance_predictor"]["dropout"] = 0.0
+    hp["decoder"].update(channels=[16, 16], attention_head_dim=8, num_mid_blocks=1,
+                         dropout=0.0)
+    for stage in ("down", "mid", "up"):
+        hp["decoder"][f"{stage}_block_type"] = decoder_block_type
+    return hp
+
+
+@torch.no_grad()
+def port_matcha(hp, n_speakers=2, seed=0):
+    """The port's MatchaTTS on the CPU with seeded weights, in eval mode.
+    The parameters a fresh model holds at a constant (the prenet's zero
+    projection, the channel and flax-style norms' scales and offsets,
+    snakebeta's log-scale alpha / beta) are drawn too, so that each
+    shows; the BatchNorm statistics drawn; the aligner's speaker
+    projections' biases 0 and the CVAE GRU's hidden r / z biases folded
+    into its input biases, as the importer carries them (the reference
+    aligner and flax's GRUCell have none)."""
+    from viet_tts_torch.models.matcha import MatchaTTS
+
+    gen = torch.Generator().manual_seed(seed)
+    model = seeded_init_(MatchaTTS(N_SYMBOLS, N_MELS, hp, MATCHA_STATS, n_speakers), gen)
+    _randomise_batchnorms(model, gen)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if ".prenet.proj." in name:
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+        elif leaf in ("gamma", "alpha", "beta") or (
+                p.dim() == 1 and (".norm" in name or ".block.1." in name)):
+            base = 1.0 if leaf in ("gamma", "weight") else 0.0
+            p.copy_(base + 0.2 * torch.randn(p.shape, generator=gen))
+        elif "spk_proj" in name and name.endswith("linear.bias"):
+            p.zero_()
+    gru = model.speaker_emb.encoder.gru
+    H = gru.hidden_size
+    gru.bias_ih_l0[: 2 * H] += gru.bias_hh_l0[: 2 * H]
+    gru.bias_hh_l0[: 2 * H] = 0.0
+    return model.eval()
+
+
+def jax_matcha(model, hp, n_speakers=2):
+    """(JAX MatchaTTS module, its {params, batch_stats}) holding
+    ``model``'s weights, through the reference names and
+    ``import_matcha`` (numpy leaves)."""
+    import jax
+
+    from viet_tts_tpu.models.matcha import MatchaTTS as JaxMatchaTTS
+    from viet_tts_tpu.train.torch_import import import_matcha
+
+    jm = JaxMatchaTTS(n_symbols=N_SYMBOLS, n_channels=N_MELS, hparams=hp, stats=MATCHA_STATS,
+                      n_speakers=n_speakers, n_accents=2)
+    variables = import_matcha(reference_state_dict(model.state_dict()), hp)
+    return jm, jax.tree_util.tree_map(np.asarray, variables)

@@ -2,8 +2,9 @@
 dicts.
 
 Copied from ``config/model_config.yaml`` (sections ``jets``: generator and
-discriminator params; ``fastspeech2``; ``adaspeech``; ``hifigan``), ``config/train_config.yaml``
-(section ``jets`` and ``grad_clip_thresh``) and
+discriminator params; ``fastspeech2``; ``adaspeech``; ``matcha``;
+``hifigan``), ``config/train_config.yaml`` (sections ``jets``,
+``fastspeech2``, ``matcha`` and ``grad_clip_thresh``) and
 ``config/preprocessing_config.yaml`` so that the port runs where ``pyyaml``
 is not installed; ``DEFAULT_STATS`` is ``viet_tts_tpu/infer/api.py``'s.
 ``tests/test_torch_text.py`` and ``tests/test_torch_fastspeech2.py`` hold
@@ -297,6 +298,34 @@ ADASPEECH: Dict[str, Any] = {
     "postnet": {"embedding_dim": 512, "conv_layers": 5, "kernel_size": 5},
 }
 
+# model_config.yaml: matcha (Matcha-TTS: RoPE text encoder, CVAE speaker
+# conditioning, MAS-learned durations, the flow-matching UNet)
+MATCHA: Dict[str, Any] = {
+    "spk_dims": -1,
+    "use_cvae": True,
+    "vcae": copy.deepcopy(FASTSPEECH2["vcae"]),
+    "spk_emb_dim": 64,
+    "text_encoder": {
+        "hidden_dim": 192,
+        "use_prenet": True,
+        "prenet": {"kernel_size": 5, "n_layers": 3, "p_dropout": 0.5},
+        "encoder": {"filter_channels": 768, "n_heads": 2, "n_layers": 6, "kernel_size": 3,
+                    "p_dropout": 0.1},
+    },
+    "duration_modelling": copy.deepcopy(FASTSPEECH2["variance"]["duration_modelling"]),
+    "variance_predictor": copy.deepcopy(FASTSPEECH2["variance"]["variance_predictor"]),
+    "flow_matching": {"solver": "euler", "sigma_min": 1.0e-4},
+    "decoder": {
+        "channels": [256, 256],
+        "dropout": 0.05,
+        "attention_head_dim": 64,
+        "n_blocks": 1,
+        "num_mid_blocks": 2,
+        "num_heads": 2,
+        "act_fn": "snakebeta",
+    },
+}
+
 HIFIGAN: Dict[str, Any] = {
     "use_spk": False,
     "segment_size": 64,
@@ -328,6 +357,18 @@ FASTSPEECH2_TRAIN: Dict[str, Any] = {
     },
     "optimizer": {"lr": 2.0e-4, "betas": [0.8, 0.99], "eps": 1.0e-9, "weight_decay": 0.0},
     "scheduler": {"gamma": 0.999875},
+}
+
+# train_config.yaml: matcha (no betas / eps: the trainer's defaults, (0.9,
+# 0.999) and 1e-8, apply)
+MATCHA_TRAIN: Dict[str, Any] = {
+    "loss": {
+        "linbuild": {"start": 0.0001, "stop": 0.0005, "n_up": 10000, "n_stop": 35000},
+        "binarization_loss_warmup_steps": 10000,
+        "binarization_loss_enable_steps": 18000,
+    },
+    "optimizer": {"lr": 1.0e-4, "weight_decay": 0.0},
+    "scheduler": {"gamma": 1.0},
 }
 
 # every dropout rate that models/jets/model.py reads from the generator params
@@ -384,6 +425,15 @@ def fastspeech2_params() -> Dict[str, Any]:
 def adaspeech_params() -> Dict[str, Any]:
     """A fresh copy of the AdaSpeech section (callers may edit it)."""
     return copy.deepcopy(ADASPEECH)
+
+
+def matcha_params() -> Dict[str, Any]:
+    """A fresh copy of the Matcha section (callers may edit it)."""
+    return copy.deepcopy(MATCHA)
+
+
+def matcha_train_conf() -> Dict[str, Any]:
+    return copy.deepcopy(MATCHA_TRAIN)
 
 
 def hifigan_params() -> Dict[str, Any]:

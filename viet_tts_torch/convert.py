@@ -8,10 +8,13 @@ of the JAX package's ``train/torch_import.py:import_jets``, and the port's
 parameter names are the reference/espnet torch names that importer reads.
 
 ``fastspeech2_from_jax(variables, hparams)``, ``adaspeech_from_jax(variables,
-hparams)`` and ``hifigan_from_jax(params, hifi_conf)`` do the same for the
-JAX ``FastSpeech2`` (conformer or transformer block), ``AdaSpeech`` and a
-standalone ``HiFiGANGenerator``, the inverses of ``import_fastspeech2``,
-``import_adaspeech`` and ``import_hifigan_generator``.
+hparams)``, ``matcha_from_jax(variables, hparams)`` and
+``hifigan_from_jax(params, hifi_conf)`` do the same for the JAX
+``FastSpeech2`` (conformer or transformer block), ``AdaSpeech``,
+``MatchaTTS`` and a standalone ``HiFiGANGenerator``, the inverses of
+``import_fastspeech2``, ``import_adaspeech``, ``import_matcha`` (which has
+no branch for the UNet's conformer blocks: those keep flax's names) and
+``import_hifigan_generator``.
 
 ``text2wav_from_jax(variables, conf, version)`` is the acoustic one of the
 version and the vocoder's under the JAX ``Text2Wav``'s submodule names,
@@ -444,18 +447,134 @@ def adaspeech_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> St
     return sd
 
 
+def _channel_ln(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    sd[f"{prefix}.gamma"] = _t(p["gamma"])
+    sd[f"{prefix}.beta"] = _t(p["beta"])
+
+
+def _matcha_text_encoder(sd: StateDict, p: Dict[str, Any]) -> None:
+    """JAX ``TextEncoder`` -> ``encoder.`` (``_matcha_encoder_params`` and
+    ``_matcha_prenet_params``, inverted)."""
+    sd["encoder.src_word_emb.weight"] = _t(p["src_word_emb"]["embedding"])
+    if "prenet" in p:
+        pn = p["prenet"]
+        i = 0
+        while f"conv_{i}" in pn:
+            _conv1d(sd, f"encoder.prenet.conv_layers.{i}", pn[f"conv_{i}"])
+            _channel_ln(sd, f"encoder.prenet.norm_layers.{i}", pn[f"norm_{i}"])
+            i += 1
+        _conv1d(sd, "encoder.prenet.proj", pn["proj"])
+    enc = p["encoder"]
+    i = 0
+    while f"attn_{i}" in enc:
+        ep = "encoder.encoder"
+        for name in ("conv_q", "conv_k", "conv_v", "conv_o"):
+            _conv1d(sd, f"{ep}.attn_layers.{i}.{name}", enc[f"attn_{i}"][name])
+        _channel_ln(sd, f"{ep}.norm_layers_1.{i}", enc[f"norm1_{i}"])
+        for name in ("conv_1", "conv_2"):
+            _conv1d(sd, f"{ep}.ffn_layers.{i}.{name}", enc[f"ffn_{i}"][name])
+        _channel_ln(sd, f"{ep}.norm_layers_2.{i}", enc[f"norm2_{i}"])
+        i += 1
+    _conv1d(sd, "encoder.proj_m", p["proj_m"])
+
+
+def _unet_block1d(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    _conv1d(sd, f"{prefix}.block.0", p["conv"])
+    _layernorm(sd, f"{prefix}.block.1", p["norm"])
+
+
+def _unet_resnet(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    _unet_block1d(sd, f"{prefix}.block1", p["block1"])
+    _unet_block1d(sd, f"{prefix}.block2", p["block2"])
+    _linear(sd, f"{prefix}.mlp.1", p["mlp"])
+    _conv1d(sd, f"{prefix}.res_conv", p["res_conv"])
+
+
+def _unet_attention_block(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    """A transformer block under the reference's diffusers names
+    (``_unet_transformer_params``, inverted), or a conformer block under
+    flax's names (the reference has none)."""
+    if "rel_pos_emb" in p:
+        for name, leaf in p.items():
+            if name == "rel_pos_emb":
+                sd[f"{prefix}.rel_pos_emb"] = _t(leaf)
+            elif name == "conv_dw":
+                _conv1d(sd, f"{prefix}.conv_dw", leaf)
+            elif "scale" in leaf:
+                _layernorm(sd, f"{prefix}.{name}", leaf)
+            else:
+                _linear(sd, f"{prefix}.{name}", leaf)
+        return
+    _layernorm(sd, f"{prefix}.norm1", p["norm1"])
+    for name in ("to_q", "to_k", "to_v"):
+        _linear(sd, f"{prefix}.attn1.{name}", p[name])
+    _linear(sd, f"{prefix}.attn1.to_out.0", p["to_out"])
+    _layernorm(sd, f"{prefix}.norm3", p["norm3"])
+    _linear(sd, f"{prefix}.ff.net.0.proj", p["ff"]["proj_in"])
+    sd[f"{prefix}.ff.net.0.alpha"] = _t(p["ff"]["alpha"])
+    sd[f"{prefix}.ff.net.0.beta"] = _t(p["ff"]["beta"])
+    _linear(sd, f"{prefix}.ff.net.2", p["ff"]["proj_out"])
+
+
+def _unet_decoder(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    """JAX ``UNetDecoder`` -> the reference's names
+    (``_unet_decoder_params``, inverted). The transposed convs' kernels are
+    stored for an input-dilated conv, which takes the taps in reverse
+    order: flipped back for ``ConvTranspose1d``."""
+    for name in ("linear_1", "linear_2"):
+        _linear(sd, f"{prefix}.time_mlp.{name}", p["time_mlp"][name])
+    for stage in ("down", "mid", "up"):
+        i = 0
+        while f"{stage}_res_{i}" in p:
+            sp = f"{prefix}.{stage}_blocks.{i}"
+            _unet_resnet(sd, f"{sp}.0", p[f"{stage}_res_{i}"])
+            j = 0
+            while f"{stage}_tf_{i}_{j}" in p:
+                _unet_attention_block(sd, f"{sp}.1.{j}", p[f"{stage}_tf_{i}_{j}"])
+                j += 1
+            if f"{stage}_kernel_{i}" in p:
+                kernel = np.asarray(p[f"{stage}_kernel_{i}"])[::-1]  # (k, in, out)
+                sd[f"{sp}.2.conv.weight"] = _t(np.transpose(kernel, (1, 2, 0)))
+                sd[f"{sp}.2.conv.bias"] = _t(p[f"{stage}_bias_{i}"])
+            elif f"{stage}_conv_{i}" in p:
+                is_last = f"{stage}_res_{i + 1}" not in p
+                _conv1d(sd, f"{sp}.2" if is_last else f"{sp}.2.conv", p[f"{stage}_conv_{i}"])
+            i += 1
+    _unet_block1d(sd, f"{prefix}.final_block", p["final_block"])
+    _conv1d(sd, f"{prefix}.final_proj", p["final_proj"])
+
+
+def matcha_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> StateDict:
+    """JAX ``MatchaTTS`` variables {params, batch_stats} (numpy leaves) ->
+    the port ``MatchaTTS`` state_dict (fp32 CPU tensors), under the
+    reference names that ``import_matcha`` reads: the text encoder, the
+    speaker conditioning, the aligner, the duration predictor and the
+    UNet under ``decoder.estimator.``."""
+    del hparams  # the layout is read from the variables
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: StateDict = {}
+    _matcha_text_encoder(sd, params["encoder"])
+    _speaker_emb(sd, params["speaker_emb"], stats.get("speaker_emb", {}))
+    _aligner(sd, "aligner", params["aligner"])
+    _fs2_predictor(sd, "duration_predictor", params["duration_predictor"])
+    _unet_decoder(sd, "decoder.estimator", params["decoder"]["estimator"])
+    return sd
+
+
 def text2wav_from_jax(variables: Dict[str, Any], conf: Dict[str, Any],
                       version: str = "fastspeech2") -> StateDict:
     """JAX ``Text2Wav`` variables {params, batch_stats} (numpy leaves) ->
     the port ``Text2Wav`` state_dict: ``fastspeech2_from_jax`` (or
-    ``adaspeech_from_jax``) of the ``text2mel`` subtree under ``text2mel.``
-    (its BatchNorm statistics included) and ``hifigan_from_jax`` of
-    ``mel2wav`` under ``mel2wav.``; ``conf`` is the merged config
+    ``adaspeech_from_jax`` / ``matcha_from_jax``) of the ``text2mel``
+    subtree under ``text2mel.`` (its BatchNorm statistics included) and
+    ``hifigan_from_jax`` of ``mel2wav`` under ``mel2wav.``; ``conf`` is the merged config
     (``models.<version>``, ``models.hifigan``)."""
     params = variables["params"]
-    acoustic = adaspeech_from_jax if version == "adaspeech" else fastspeech2_from_jax
+    acoustic = {"adaspeech": adaspeech_from_jax,
+                "matcha": matcha_from_jax}.get(version, fastspeech2_from_jax)
     fs2 = acoustic({"params": params["text2mel"],
-                    "batch_stats": variables.get("batch_stats", {})["text2mel"]},
+                    "batch_stats": variables.get("batch_stats", {}).get("text2mel", {})},
                    conf["models"][version])
     voc = hifigan_from_jax(params["mel2wav"], conf["models"]["hifigan"])
     return {**{f"text2mel.{k}": v for k, v in fs2.items()},

@@ -1,8 +1,8 @@
 """Batched inference API: one-stage JETS and Text2Wav (JOINT), two-stage
-FastSpeech2 or AdaSpeech + HiFi-GAN synthesis.
+FastSpeech2, AdaSpeech or Matcha + HiFi-GAN synthesis.
 
 Counterpart of ``viet_tts_tpu/infer/api.py``: ``OneStageTTS`` for JETS and
-JOINT and ``TwoStageTTS`` for FastSpeech2 and AdaSpeech (acoustic model ->
+JOINT and ``TwoStageTTS`` for FastSpeech2, AdaSpeech and Matcha (acoustic model ->
 mel -> HiFi-GAN): text front-end, bucketed batches, synthesis on the card,
 waveform export. A port checkpoint is a directory with
 
@@ -10,18 +10,21 @@ waveform export. A port checkpoint is a directory with
   trainer's output directory, the newest
   ``generator_epoch{E}_iteration{I}_statedict.pt`` (its ``model`` entry);
 - ``config.json``: ``{"audio": ..., "models": {"jets": {"generator_params":
-  ...}, "fastspeech2": ..., "adaspeech": ..., "hifigan": ...}}`` and, for
+  ...}, "fastspeech2": ..., "adaspeech": ..., "matcha": ..., "hifigan":
+  ...}}`` and, for
   JOINT, the ``version`` of its acoustic half (a ``config.yaml`` of the
   same shape is read too, through the port's YAML-subset reader); without
   either, the package's ``config.py``;
 - optional ``speakers.json`` (speaker name -> id) and, for an acoustic
-  model, ``accents.json`` and ``stats.json`` (pitch / energy statistics).
+  model, ``accents.json`` and ``stats.json`` (pitch / energy statistics;
+  for Matcha the dataset's ``mel_mean`` / ``mel_std``, which it cannot do
+  without: there is no default).
 
 A two-stage pair is two such directories: the acoustic one (whose config
 also names the vocoder's geometry, as in the JAX package) and the
-vocoder's. MATCHA (item 13 of ROADMAP.md section 1) and VITS2 (item 14)
-are still to be ported; so are the JAX API's data-, sequence- and
-pipeline-parallel serving flags (item 15).
+vocoder's. VITS2 (item 14 of ROADMAP.md section 1) is still to be
+ported; so are the JAX API's data-, sequence- and pipeline-parallel
+serving flags (item 15).
 """
 
 from __future__ import annotations
@@ -47,12 +50,13 @@ WEIGHTS_NAME = "model.pt"
 
 def default_conf() -> Dict[str, Any]:
     """The shipped configuration: audio settings, the JETS generator params,
-    the FastSpeech2, AdaSpeech and HiFi-GAN sections."""
+    the FastSpeech2, AdaSpeech, Matcha and HiFi-GAN sections."""
     return {
         "audio": port_config.default_audio(),
         "models": {"jets": {"generator_params": port_config.jets_generator_params()},
                    "fastspeech2": port_config.fastspeech2_params(),
                    "adaspeech": port_config.adaspeech_params(),
+                   "matcha": port_config.matcha_params(),
                    "hifigan": port_config.hifigan_params()},
     }
 
@@ -169,7 +173,7 @@ class _TTSBase:
 
 class OneStageTTS(_TTSBase):
     """Fused text -> waveform synthesis: JETS, or Text2Wav (``model_type=
-    "JOINT"``: FastSpeech2 or AdaSpeech -> HiFi-GAN in one model, built from
+    "JOINT"``: FastSpeech2, AdaSpeech or Matcha -> HiFi-GAN in one model, built from
     the checkpoint's ``config.json`` (``version``, ``models.<version>``,
     ``models.hifigan``) with its ``stats.json`` and ``accents.json``).
 
@@ -310,15 +314,18 @@ def _label(table: Dict[str, int], key: Union[str, int]) -> int:
 
 class TwoStageTTS(_TTSBase):
     """Acoustic model -> mel -> HiFi-GAN vocoder: ``model_type``
-    FASTSPEECH2 or ADASPEECH (its ``models.<family>`` section).
+    FASTSPEECH2, ADASPEECH or MATCHA (its ``models.<family>`` section).
 
     ``fused_vocoder`` routes the vocoder's ch <= 64 stages to kernel K2; a
     FastSpeech2-conformer runs the attention route its config names
     (``flash``: kernels K4 / K5 / K6); the FFT blocks (AdaSpeech, a
-    FastSpeech2 with ``block_type: transformer``) are plain PyTorch. The
-    acoustic model gets the CVAE's reference mel (64 zero frames unless one
-    is given), so AdaSpeech takes its acoustic conditions from it, as in the
-    JAX package."""
+    FastSpeech2 with ``block_type: transformer``) and Matcha's attention are
+    plain PyTorch. The acoustic model gets the CVAE's reference mel (64 zero
+    frames unless one is given), so AdaSpeech takes its acoustic conditions
+    from it, as in the JAX package. Matcha solves its ODE in 10 Euler steps
+    from zero noise (the JAX API's temperature 0) and denormalises with the
+    checkpoint's ``stats.json``, which must hold ``mel_mean`` / ``mel_std``
+    (it refuses a checkpoint without them)."""
 
     def __init__(self, acoustic_path: str, vocoder_path: str,
                  model_type: str = "FASTSPEECH2", max_mel_frames: int = 1008,
@@ -328,10 +335,6 @@ class TwoStageTTS(_TTSBase):
         from viet_tts_torch.models.hifigan import HiFiGANGenerator
 
         self.model_type = model_type.lower()
-        if self.model_type == "matcha":
-            raise NotImplementedError(
-                f"model_type {model_type!r} is not ported yet (ROADMAP.md section 1, "
-                "item 13)")
         if self.model_type not in ACOUSTIC_FAMILIES:
             raise ValueError(f"unknown two-stage model_type {model_type!r}")
         self.device = resolve_device(device)

@@ -9,6 +9,8 @@ Counterpart of ``viet_tts_tpu/infer/server.py``:
         -a acoustic_ckpt_dir -v vocoder_ckpt_dir --max_mel_frames 2048
     python -m viet_tts_torch.infer.server --model_type ADASPEECH \
         -a adaspeech_ckpt_dir -v vocoder_ckpt_dir
+    python -m viet_tts_torch.infer.server --model_type MATCHA \
+        -a matcha_ckpt_dir -v vocoder_ckpt_dir
 
 API:
     GET  /health               -> {"status": "ok", "model": "..."}

@@ -1,14 +1,16 @@
 """Text2Wav: the acoustic model and HiFi-GAN composed into one trainable
 graph.
 
-Counterpart of ``viet_tts_tpu/models/text2wav/model.py`` for ``version``
-fastspeech2 and adaspeech: ``text2mel`` is the port's ``FastSpeech2`` or
-``AdaSpeech`` (``models.<version>``), ``mel2wav`` a ``HiFiGANGenerator``
-(``models.hifigan``, no speaker input). The training forward takes a random ``segment_size``
-window of each predicted mel (the Postnet's output when there is one) and
-vocodes only the window; inference chains ``text2mel.inference`` into the
-vocoder. The submodules carry flax's names, so the JAX variables map onto
-them by two prefixes (``convert.text2wav_from_jax``).
+Counterpart of ``viet_tts_tpu/models/text2wav/model.py``: ``text2mel`` is
+the port's ``FastSpeech2``, ``AdaSpeech`` or ``MatchaTTS`` (``version``,
+its ``models.<version>`` section), ``mel2wav`` a ``HiFiGANGenerator``
+(``models.hifigan``, no speaker input). The training forward takes a
+random ``segment_size`` window of each predicted mel (the Postnet's output
+when there is one; Matcha's CFM output, denormalised before the vocoder,
+as in the reference) and vocodes only the window; inference chains
+``text2mel.inference`` into the vocoder. The submodules carry flax's
+names, so the JAX variables map onto them by two prefixes
+(``convert.text2wav_from_jax``).
 
 ``fused_mrf`` routes the vocoder's ch <= 64 stages to kernel K2, which has
 no backward: a serving option, off in training.
@@ -25,19 +27,12 @@ from viet_tts_torch.models import ACOUSTIC_FAMILIES, build_acoustic
 from viet_tts_torch.models.hifigan import HiFiGANGenerator
 from viet_tts_torch.ops.segments import get_random_segments
 
-# the ROADMAP.md item (section 1) that ports the other acoustic family
-NOT_PORTED_VERSIONS = {"matcha": "item 13"}
-
 
 class Text2Wav(nn.Module):
     def __init__(self, n_symbols: int, n_channels: int, conf: Dict[str, Any],
                  stats: Dict[str, Any], n_speakers: int, n_accents: int = 2,
                  version: str = "fastspeech2", fused_mrf: bool = False):
         super().__init__()
-        if version in NOT_PORTED_VERSIONS:
-            raise NotImplementedError(
-                f"Text2Wav version {version!r} is not ported yet (ROADMAP.md section 1, "
-                f"{NOT_PORTED_VERSIONS[version]})")
         if version not in ACOUSTIC_FAMILIES:
             raise NotImplementedError(f"Not implemented for {version} yet")
         self.version = version
@@ -59,15 +54,28 @@ class Text2Wav(nn.Module):
                 start_idxs: Optional[torch.Tensor] = None, cvae_eps=None) -> Tuple:
         """The teacher-forced acoustic forward, then a vocoded window:
         (outputs, its extra outputs ((ds, ps, es), AdaSpeech's with the
-        encoder's latents), start_idxs). ``outputs[0]`` is the waveform
-        of the window (B, segment_size * up, 1), ``outputs[1]`` the mel
-        window (B, segment_size, n_mels), ``outputs[2]`` None (no separate
-        Postnet output), the rest the acoustic model's predictions after its
-        two mels, so ``outputs[1:]`` is what ``FastSpeech2Loss`` (or
-        ``AdaSpeechLoss``) reads.
-        ``generator`` (a CPU ``torch.Generator``) draws the acoustic model's
-        dropout seeds and CVAE noise, then the windows' starts; given
-        ``start_idxs`` (B,) and ``cvae_eps`` replace those draws."""
+        encoder's latents; None for Matcha), start_idxs). ``outputs[0]`` is
+        the waveform of the window (B, segment_size * up, 1), ``outputs[1]``
+        the mel window (B, segment_size, n_mels), ``outputs[2]`` None (no
+        separate Postnet output), the rest the acoustic model's predictions
+        after its two mels, so ``outputs[1:]`` is what ``FastSpeech2Loss``
+        (or ``AdaSpeechLoss``) reads. For Matcha ``outputs[1]`` is the
+        window of the CFM output (the vocoder reads it denormalised) and
+        the rest its predictions after it (u, mu_y, ...), whose u and mu_y
+        the loss windows too. ``generator`` (a CPU ``torch.Generator``)
+        draws the acoustic model's dropout seeds, CVAE noise (and Matcha's
+        flow times and noise), then the windows' starts; given
+        ``start_idxs`` (B,) and ``cvae_eps`` replace those draws. Matcha
+        reads neither ``pitch`` nor ``energy``."""
+        if self.version == "matcha":
+            preds = self.text2mel(text, text_lengths, feats, feats_lengths, sids=sids, aids=aids,
+                                  duration=duration, step=step, generator=generator,
+                                  draws=None if cvae_eps is None else {"cvae_eps": cvae_eps})
+            segs, start_idxs = get_random_segments(preds[0].transpose(1, 2), feats_lengths,
+                                                   self.segment_size, generator, start_idxs)
+            out_segments = segs.transpose(1, 2)
+            out_wavs = self.mel2wav(self.text2mel.denormalize(out_segments))
+            return (out_wavs, out_segments) + tuple(preds[1:]), None, start_idxs
         y_pred, y_extra = self.text2mel(text, text_lengths, feats, feats_lengths, duration,
                                         pitch, energy, sids, aids, step=step,
                                         generator=generator, cvae_eps=cvae_eps)

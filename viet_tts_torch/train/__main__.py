@@ -1,9 +1,11 @@
 """Training CLI of the port, with the JAX package's ``train.py`` flags.
 
     python -m viet_tts_torch.train --task fastspeech2 -i egs/dir -d data/dir -o out/dir
-    python -m viet_tts_torch.train --task adaspeech ... | --task jets ... | --task hifigan ...
+    python -m viet_tts_torch.train --task adaspeech ... | --task matcha ...
+    python -m viet_tts_torch.train --task jets ... | --task hifigan ...
     python -m viet_tts_torch.train --task text2wav ... [-a fs2_out -v hifigan_out]
     python -m viet_tts_torch.train --task text2wav --version adaspeech ... [-a adaspeech_out]
+    python -m viet_tts_torch.train --task text2wav --version matcha ... [-a matcha_out]
     python -m viet_tts_torch.train --task text2wav --is_finetune -c joint_ckpt ...
     python -m viet_tts_torch.train --task fastspeech2 ... --device cpu
 
@@ -12,17 +14,18 @@ back to the CPU. ``-i`` holds (or receives) ``train.txt`` / ``test.txt``
 and ``speakers.json`` / ``accents.json``; ``-d`` the dataset
 (``<speaker>/metadata.csv`` and ``<speaker>/wavs/``); ``-o`` the
 checkpoints, sidecars and ``log/``. A rerun with the same ``-o`` resumes
-from its newest checkpoint; for ``fastspeech2``, ``adaspeech``, ``jets``
-and ``hifigan``, ``-c`` names a port trainer checkpoint to resume from
-instead. The GAN tasks (``jets``, ``hifigan``, ``text2wav``) also write
-and resume ``last_discriminator_statedict.pt`` there. ``text2wav`` (the
-default, ``Text2Wav`` of ``--version fastspeech2`` or ``adaspeech``;
-``train/joint.py``) starts, when ``-o`` holds no checkpoint, from a joint
-checkpoint's weights (``-c``), or from a ``--task <version>`` output
-(``-a``) and a ``--task hifigan`` output (``-v``); ``--is_finetune``
-adapts the joint checkpoint ``-c`` to the speakers of ``-i`` (text2wav
-only). ``fastspeech2``, ``adaspeech``, ``jets``, ``hifigan`` and
-``text2wav`` are ported so far; ``--version matcha`` is not.
+from its newest checkpoint; for ``fastspeech2``, ``adaspeech``,
+``matcha``, ``jets`` and ``hifigan``, ``-c`` names a port trainer
+checkpoint to resume from instead. The GAN tasks (``jets``, ``hifigan``,
+``text2wav``) also write and resume ``last_discriminator_statedict.pt``
+there. ``text2wav`` (the default, ``Text2Wav`` of ``--version``
+fastspeech2, adaspeech or matcha; ``train/joint.py``) starts, when ``-o``
+holds no checkpoint, from a joint checkpoint's weights (``-c``), or from a
+``--task <version>`` output (``-a``) and a ``--task hifigan`` output
+(``-v``); ``--is_finetune`` adapts the joint checkpoint ``-c`` to the
+speakers of ``-i`` (text2wav only). ``matcha`` (``train/matcha.py``)
+writes the dataset's mel statistics to ``<out>/stats.json`` on its first
+run and reads them back after. Every task but ``vits2`` is ported.
 """
 
 from __future__ import annotations
@@ -39,9 +42,8 @@ from viet_tts_torch.config import build_config
 
 TASKS = ["text2wav", "fastspeech2", "adaspeech", "jets", "vits2", "matcha", "hifigan"]
 
-# the ROADMAP.md items (section 1) that port the other tasks
+# the ROADMAP.md item (section 1) that ports the task still to port
 NOT_PORTED = {
-    "matcha": "item 13",
     "vits2": "item 14",
 }
 
@@ -91,21 +93,17 @@ def make_trainer(args, conf):
             f"--task {args.task} is not ported yet (ROADMAP.md section 1, "
             f"{NOT_PORTED[args.task]})")
     if args.task == "text2wav":
-        from viet_tts_torch.models.text2wav.model import NOT_PORTED_VERSIONS
         from viet_tts_torch.train.joint import JointFinetuner, JointTrainer
 
-        if args.version in NOT_PORTED_VERSIONS:
-            raise NotImplementedError(
-                f"--task text2wav --version {args.version} is not ported yet (ROADMAP.md "
-                f"section 1, {NOT_PORTED_VERSIONS[args.version]})")
         return (JointFinetuner if args.is_finetune else JointTrainer)(args, conf)
     if args.is_finetune:
         raise ValueError(f"Fine-tuning model is not supported for `{args.task}` yet!")
     from viet_tts_torch.train.gan import HiFiGANTrainer, JETSTrainer
+    from viet_tts_torch.train.matcha import MatchaTrainer
     from viet_tts_torch.train.trainer import AdaSpeechTrainer, FastSpeech2Trainer
 
     trainers = {"fastspeech2": FastSpeech2Trainer, "adaspeech": AdaSpeechTrainer,
-                "jets": JETSTrainer, "hifigan": HiFiGANTrainer}
+                "matcha": MatchaTrainer, "jets": JETSTrainer, "hifigan": HiFiGANTrainer}
     return trainers[args.task](args, conf)
 
 

@@ -1,16 +1,19 @@
 """Joint acoustic + vocoder training (``--task text2wav``) and speaker
 finetuning (``--task text2wav --is_finetune``).
 
-Counterpart of ``viet_tts_tpu/train/joint.py`` for the ``fastspeech2`` and
-``adaspeech`` versions of ``Text2Wav``. The step runs the two phases of the
-other GAN steps (``train/gan.py``): a discriminator update on the detached
-vocoded window against the same window of the recorded waveform, then a
-generator update against the UPDATED discriminator, whose loss is adv +
-fm * 2 + mel * 45 (the log-mel loss at ``audio.mel.log_base``) plus every
-acoustic loss of the joint criterion (``FastSpeech2Loss``, or
-``AdaSpeechLoss`` with its ``phoneme_level_encoder_step``;
-``is_joint=True``: the mel losses unmasked over the window, against the
-recorded mel's window).
+Counterpart of ``viet_tts_tpu/train/joint.py`` for the ``fastspeech2``,
+``adaspeech`` and ``matcha`` versions of ``Text2Wav``. The step runs the
+two phases of the other GAN steps (``train/gan.py``): a discriminator
+update on the detached vocoded window against the same window of the
+recorded waveform, then a generator update against the UPDATED
+discriminator, whose loss is adv + fm * 2 + mel * 45 (the log-mel loss at
+``audio.mel.log_base``) plus every acoustic loss of the joint criterion (``FastSpeech2Loss``,
+``AdaSpeechLoss`` with its ``phoneme_level_encoder_step``, or
+``MatchaTTSLoss``; ``is_joint=True``: the mel losses unmasked over the
+window, against the recorded mel's window; Matcha's u and mu_y cut to the
+same window). Matcha's dataset normalises the mels by the dataset's scalar
+mel statistics (``train/matcha.py``), read from ``-a`` / ``-c`` / the
+output folder's ``stats.json`` or computed.
 
 ``JointTrainer`` warm-starts from a joint checkpoint (``-c``: weights and
 BatchNorm statistics, no optimizer state, iteration 0), or its
@@ -62,6 +65,24 @@ from viet_tts_torch.train.trainer import log, step_generator
 JOINT_GAMMA = 0.999875  # both optimizers' per-epoch decay (joint.py:__init_optimizer__)
 
 
+def acoustic_losses(model: nn.Module, criterion, y_pred, y_extra, starts: torch.Tensor,
+                    batch: Dict[str, torch.Tensor], step: int) -> Dict[str, torch.Tensor]:
+    """The joint criterion's acoustic losses over the vocoded window
+    (``is_joint``): the recorded mel's window as the target; for Matcha, u
+    and mu_y cut to the same window first."""
+    seg = int(model.segment_size)
+
+    def window(x):  # (B, T, C) -> the window (B, seg, C)
+        return get_segments(x.transpose(1, 2), starts, seg).transpose(1, 2)
+
+    feat_seg = window(batch["feats"])
+    if model.version == "matcha":
+        preds = (y_pred[1], window(y_pred[2]), window(y_pred[3])) + tuple(y_pred[4:])
+        return criterion(preds, (feat_seg, batch["text_lengths"]), is_joint=True, step=step)
+    targets = (feat_seg, batch["word_ids"], batch["word_ids"].shape[1], *y_extra)
+    return criterion(y_pred[1:], targets, is_joint=True, step=step)
+
+
 def make_joint_train_step(model: nn.Module, disc: nn.Module, mel_loss: MelSpectrogramLoss,
                           criterion: FastSpeech2Loss, hop: int):
     """``train_step(gen_state, disc_state, batch, generator, start_idxs=None,
@@ -106,9 +127,7 @@ def make_joint_train_step(model: nn.Module, disc: nn.Module, mel_loss: MelSpectr
             l_adv = generator_adversarial_loss(p_hat)
             l_fm = feature_match_loss(p_hat, p) * HIFIGAN_LAMBDA_FM
             l_mel = mel_loss(wav, speech_seg) * HIFIGAN_LAMBDA_MEL
-            feat_seg = get_segments(batch["feats"].transpose(1, 2), starts, seg).transpose(1, 2)
-            targets = (feat_seg, batch["word_ids"], batch["word_ids"].shape[1], *y_extra)
-            var_losses = criterion(y_pred[1:], targets, is_joint=True, step=step)
+            var_losses = acoustic_losses(model, criterion, y_pred, y_extra, starts, batch, step)
             total = l_adv + l_fm + l_mel + sum(var_losses.values())
             gen_state.tx.zero_grad()
             total.backward()
@@ -123,7 +142,7 @@ def make_joint_train_step(model: nn.Module, disc: nn.Module, mel_loss: MelSpectr
 
 class JointTrainer(GANTrainer):
     """Text2Wav training (``src/trainer/joint_trainer.py``): ``Text2Wav``
-    (FastSpeech2 or AdaSpeech of ``models.<version>``, HiFi-GAN V1 of
+    (FastSpeech2, AdaSpeech or Matcha of ``models.<version>``, HiFi-GAN V1 of
     ``models.hifigan`` with the plain MRF), the MSMPD of
     ``models.hifigan.discriminator_params``, the generator's AdamW from
     ``train.<version>.optimizer`` and the discriminator's from
@@ -150,8 +169,16 @@ class JointTrainer(GANTrainer):
         from viet_tts_torch.data.batching import BucketBatcher, make_joint_collate
         from viet_tts_torch.data.dataset import AcousticDataset
 
-        data = AcousticDataset(rows, self.conf["audio"], self.speakers, self.accents,
-                               stats=self.stats, include_speech=True)
+        if self.version == "matcha":
+            from viet_tts_torch.train.matcha import UNIT_STATS, MelNormalizedDataset
+
+            data = MelNormalizedDataset(
+                AcousticDataset(rows, self.conf["audio"], self.speakers, self.accents,
+                                stats=UNIT_STATS, include_speech=True),
+                self.stats["mel_mean"], self.stats["mel_std"])
+        else:
+            data = AcousticDataset(rows, self.conf["audio"], self.speakers, self.accents,
+                                   stats=self.stats, include_speech=True)
         return BucketBatcher(data, self.conf["train"]["batch_size"], seed=self.seed,
                              collate_fn=make_joint_collate(self.hop))
 
@@ -171,7 +198,13 @@ class JointTrainer(GANTrainer):
         stats_path = os.path.join(self.args.output_folder, "stats.json")
         if os.path.exists(stats_path):
             stats = load_stats(stats_path)
-        if stats is None:
+        if stats is None and self.version == "matcha":
+            from viet_tts_torch.train.matcha import UNIT_STATS, compute_mel_stats
+
+            stats = compute_mel_stats(AcousticDataset(
+                self.train_set, self.conf["audio"], self.speakers, self.accents,
+                stats=UNIT_STATS))
+        elif stats is None:
             stats = AcousticDataset(self.train_set, self.conf["audio"], self.speakers,
                                     self.accents).stats
         self.stats = stats
