@@ -134,7 +134,7 @@ Phases (any failure exits non-zero; no phase is caught):
     buckets 256, decoder on K4, and 768, on K5), full-width FastSpeech2
     (``attn_implementation: flash`` by a text edit of a copy of
     ``config/``, every dropout as configured), batch size 8, to
-    ``--max_iter 6``, then resumed by scan to 8: the feature cache, the
+    ``--max_iter 5``, then resumed by scan to 6: the feature cache, the
     sidecars, keep-3 checkpoint names, the resumed iteration, finite
     losses and each step's K4 / K5 launches against its bucket; the first
     step on the card against the same trainer with ``--device cpu`` (a
@@ -145,8 +145,8 @@ Phases (any failure exits non-zero; no phase is caught):
     speakers x 12 utterances at ~2 s and ~5.5 s (mel buckets 256 and 512),
     full-width JETS (``attn_implementation: flash`` by the config copy's
     edit, every dropout as configured, ``init_type: xavier_uniform``) and
-    the full MSMPD, batch size 8, to ``--max_iter 6``, then resumed by
-    scan to 8: the generator checkpoints' names, the discriminator file's
+    the full MSMPD, batch size 8, to ``--max_iter 5``, then resumed by
+    scan to 6: the generator checkpoints' names, the discriminator file's
     iteration, the resumed iteration, each step's two rates against its
     epoch's, finite metrics, both models changed, K1, K3a and K3b 10 each
     a step; the first step on the card against ``--device cpu`` (a
@@ -159,7 +159,7 @@ Phases (any failure exits non-zero; no phase is caught):
     seconds by mel bucket, data wait, histogram seconds, peak memory;
 20. the HiFi-GAN trainer: ``--task hifigan`` on phase 18's dataset and
     feature cache, full-width HiFi-GAN V1 and the default MSMPD, 64-frame
-    segments, batch size 8, to ``--max_iter 6``, then resumed to 8: as
+    segments, batch size 8, to ``--max_iter 5``, then resumed to 6: as
     phase 19's checks, with no K2 launch in a step; the first step on the
     card against the CPU within rel 1e-3; ``TwoStageTTS`` serving phase
     18's FastSpeech2 output with this phase's output as its vocoder (K2 18
@@ -169,7 +169,7 @@ Phases (any failure exits non-zero; no phase is caught):
     as configured): full-width ``Text2Wav`` (FastSpeech2 warm-started from
     phase 18's output with ``-a``, HiFi-GAN V1 from phase 20's with
     ``-v``) and the default MSMPD, 64-frame windows, batch size 8, to
-    ``--max_iter 6``, then resumed by scan to 8: as phase 19's checks, each
+    ``--max_iter 5``, then resumed by scan to 6: as phase 19's checks, each
     step's K4 / K5 launches against its mel bucket (``fs2_step_launches``)
     and no K2; the first step on the card against ``--device cpu``: its
     metrics within rel 1e-3 and the gradients of every self-attention
@@ -196,7 +196,7 @@ Phases (any failure exits non-zero; no phase is caught):
     the waveform on a vocoder copy at audio scale within 1e-3 of its
     peak); FastSpeech2 with ``block_type: transformer`` (6 + 6 FFT layers,
     d_model 384) the same for one call; ``--task adaspeech`` on phase 18's
-    dataset and config copy to ``--max_iter 6``, then resumed by scan to 8
+    dataset and config copy to ``--max_iter 5``, then resumed by scan to 6
     (names, rates, finite losses with ``avg_mel_phn``, no kernel in a step,
     step host seconds by mel bucket, data wait), its first step on the card
     against ``--device cpu`` (losses within rel 1e-3, self-attention
@@ -216,8 +216,8 @@ Phases (any failure exits non-zero; no phase is caught):
     profiled call after phase 14) the device's busy share; 2 sentences at
     64 frames against the CPU, TF32 off (the mel within 1e-3, the waveform
     on a vocoder copy at audio scale within 1e-3 of its peak); ``--task
-    matcha`` on phase 18's dataset and config copy to ``--max_iter 6``, then
-    resumed by scan to 8 (names, stats.json's mel statistics, rates, finite
+    matcha`` on phase 18's dataset and config copy to ``--max_iter 5``, then
+    resumed by scan to 6 (names, stats.json's mel statistics, rates, finite
     diff / prior / cvae / ctc / bin / dur, no kernel in a step, step host
     seconds by mel bucket, data wait), its first step on the card against
     ``--device cpu`` (losses within rel 1e-3, the RoPE encoder's and the
@@ -225,7 +225,26 @@ Phases (any failure exits non-zero; no phase is caught):
     text2wav --version matcha`` for 2 steps warm-started from that output
     and phase 20's HiFi-GAN, and ``OneStageTTS(model_type="JOINT")``
     serving it (K2 18 a call);
-24. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
+24. VITS2: full-width VITS2 (config/model_config.yaml:328-355: 192
+    channels, 6 rel-pos encoder layers, 16 posterior WaveNet layers, gin
+    256, an SDP of 4 flows, 4 pre_conv transformer flows, the V1-shaped
+    generator at 512 channels) with seeded random weights for 2 speakers
+    (the SDP's last affine flow shifted so that random weights give ~2.7
+    frames a token), served by ``OneStageTTS(model_type="VITS2")`` (its own
+    generator; ``fused_vocoder=True`` refused): 16 sentences at 1008 frames
+    with no kernel of the port launched, the host median of 5 calls,
+    ``stream_wav`` against the batched waveform, the HTTP server's
+    ``/synthesize`` and ``/synthesize_stream``, 2 sentences at 64 frames
+    against the CPU (TF32 off: ``mel_lens`` exact, the waveform within 1e-3
+    of its peak); ``--task vits2`` on phase 18's dataset and config copy to
+    ``--max_iter 6``, then resumed by scan to 8, with phase 19's trainer
+    checks (three states' rates, the discriminator
+    file with the duration discriminator's payload, the nine metrics, no
+    kernel in a step, step host seconds by mel bucket, data wait), its
+    first step on the card against ``--device cpu`` (losses within rel
+    1e-3, the encoder's and flows' attention gradients within 1e-2 of their
+    norms);
+25. with ``--profile`` only: five timed fp32 calls of 16 sentences, five
     JETS training steps, five two-stage calls, five FS2 training steps at
     T_mel 1008 and five at 512 and five of each JETS-conformer path (both
     flavours), of the FS2 step at T_mel 2048 and of the JETS, HiFi-GAN and
@@ -234,10 +253,10 @@ Phases (any failure exits non-zero; no phase is caught):
     Q2 kernels, bwd-kv on its own, K5's rotation pass on its own, K7's
     forward and bwd-q instances apart from K6's, K4's bwd-kv instance under
     K4 bwd);
-25. one JSON line ``{"kernels": [...]}``, then the card's line, then
+26. one JSON line ``{"kernels": [...]}``, then the card's line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
-Phases 3, 9, 11 and 14 run after phase 23 (in that order), and phases 22
+Phases 3, 9, 11 and 14 run after phase 24 (in that order), and phases 22
 and 23's profiled calls after them: their
 ``torch.profiler`` sessions leave every later kernel launch ~25 % dearer on
 the host, and the other phases read host seconds of launch-bound calls and
@@ -2907,7 +2926,8 @@ TRAINER_SPEAKERS = ("hn_spk", "hcm_spk")
 # ~172 and ~646 mel frames: mel buckets 256 (decoder on K4) and 768 (on K5)
 TRAINER_SECONDS = (2.0, 7.5)
 TRAINER_UTTS = 12  # a speaker: 11 train, 1 test (the filelist's 95 / 5 split)
-TRAINER_ITERS = (6, 8)  # the first run, then the resumed run
+TRAINER_ITERS = (5, 6)  # the first run, then the resumed run (from inside epoch 1)
+VITS2_ITERS = (6, 8)  # the VITS2 trainer's (phase 24): resumed at epoch 1's end
 TRAINER_ROOT = os.path.join(REPO, "build", "chip_smoke_trainer")
 # config/model_config.yaml's JETS dropout rates, as written there
 JETS_CONFIG_DROPOUT = tuple(
@@ -3017,6 +3037,9 @@ def trainer_config(root: str, zero_dropout: bool = False, batch_size: int = 8) -
                     ("p_dropout: 0.5", "p_dropout: 0.0"), ("p_dropout: 0.1", "p_dropout: 0.0"),
                     ("    dropout: 0.5", "    dropout: 0.0"),
                     ("    dropout: 0.05", "    dropout: 0.0")])
+                # VITS2's text encoder (the rates its model holds in code are
+                # zeroed on the trainer: _zero_model_dropout)
+                text = _edit_section(text, "vits2", [("p_dropout: 0.1", "p_dropout: 0.0")])
         elif name == "train_config.yaml":
             text = text.replace("\nlog_step: 100\n", "\nlog_step: 1\n").replace(
                 "\nbatch_size: 8\n", f"\nbatch_size: {batch_size}\n")
@@ -3049,6 +3072,9 @@ def trainer_config(root: str, zero_dropout: bool = False, batch_size: int = 8) -
              matcha["variance_predictor"]["dropout"], matcha["decoder"]["dropout"])
             != (drop,) * 4):
         raise AssertionError(f"trainer config copy's Matcha section not as edited: {matcha}")
+    if drop is not None and conf["models"]["vits2"]["p_dropout"] != drop:
+        raise AssertionError(f"trainer config copy's VITS2 section not as edited: "
+                             f"{conf['models']['vits2']}")
     jets = conf["models"]["jets"]["generator_params"]
     if jets["attn_implementation"] != "flash" or (drop is not None and any(
             jets[key] != drop for key in JETS_DROPOUT_KEYS if key in jets)) or (
@@ -3138,7 +3164,7 @@ def check_trainer(dev, voc_dir: str):
     card (its default device): a dataset of 2 speakers x 12 utterances at
     ~2 s and ~7.5 s (mel buckets 256 and 768), full-width FastSpeech2 with
     ``attn_implementation: flash`` and every dropout as configured, batch
-    size 8, to ``--max_iter 6``, then resumed by scan to 8. Held: the
+    size 8, to ``--max_iter 5``, then resumed by scan to 6. Held: the
     feature cache, the sidecars, the checkpoints (keep-3, names), the
     resumed iteration, each step's learning rate against its epoch's,
     finite losses, each step's K4 / K5 launches against
@@ -3302,10 +3328,9 @@ def _generator_names(out: str):
 
 
 def _run_gan_trainer(task: str, root: str, config_dir: str, wrappers, dev, profile: bool,
-                     extra=()):
+                     extra=(), iters=TRAINER_ITERS):
     """``main`` with ``--task`` (and ``extra`` arguments) on the card's
-    default device to ``TRAINER_ITERS[0]``, then resumed by scan to
-    ``TRAINER_ITERS[1]``.
+    default device to ``iters[0]``, then resumed by scan to ``iters[1]``.
     Held: the device, the resumed iteration and steps, the generator
     checkpoints' names (keep-3), the discriminator file's iteration, each
     step's two rates against ``exponential_lr`` of its epoch, finite
@@ -3336,7 +3361,7 @@ def _run_gan_trainer(task: str, root: str, config_dir: str, wrappers, dev, profi
         _set_tf32(True)
         first, resumed = (main(_trainer_argv(root, config_dir, f"out_{task}", n, *extra,
                                              task=task),
-                               on_trainer=on_trainer) for n in TRAINER_ITERS)
+                               on_trainer=on_trainer) for n in iters)
     finally:
         _set_tf32(False)
     run_s = time.perf_counter() - t0
@@ -3347,7 +3372,7 @@ def _run_gan_trainer(task: str, root: str, config_dir: str, wrappers, dev, profi
         raise AssertionError(f"{task} trainer ran on {first.device}, not on {dev}")
     out = first.args.output_folder
     per_epoch = first.train_loader.epoch_batches()
-    n0, n1 = TRAINER_ITERS
+    n0, n1 = iters
     # saved at each epoch's end and at each run's --max_iter; keep-3
     saved = sorted({*range(per_epoch, n1 + 1, per_epoch), n0, n1})[-3:]
     want_names = [checkpoint_name("generator", (i - 1) // per_epoch, i) for i in saved]
@@ -3364,8 +3389,10 @@ def _run_gan_trainer(task: str, root: str, config_dir: str, wrappers, dev, profi
                              f"{resumed.disc_state.step}")
     for s in steps:
         epoch = s["iter"] // per_epoch
+        dis = exponential_lr(first.dis_lr, first.dis_gamma, epoch)
+        # the generator's rate, then each discriminator's (VITS2 has two)
         want = (exponential_lr(first.base_lr, first.gamma, epoch),
-                exponential_lr(first.dis_lr, first.dis_gamma, epoch))
+                *(dis,) * (len(s["lrs"]) - 1))
         if s["lrs"] != want:
             raise AssertionError(f"{task} step {s['iter']}: rates {s['lrs']}, expected {want}")
         if not all(np.isfinite(v) for v in s["metrics"].values()):
@@ -3402,7 +3429,8 @@ KEY_BIASES = ("linear_k.bias", "key_proj.linear.bias", "w_ks.bias")
 
 
 def _gan_card_vs_cpu(task: str, root: str, config_dir: str, wrappers, expect_launches,
-                     grads_of=None, zero_postnet_dropout: bool = False):
+                     grads_of=None, zero_postnet_dropout: bool = False, prepare=None,
+                     key_biases=KEY_BIASES):
     """The trainer's first step on the card and under ``--device cpu`` (the
     same seeded weights and segments): the metrics within rel 1e-3, and the
     card step's launches as expected. With ``grads_of``, the generator's
@@ -3412,12 +3440,16 @@ def _gan_card_vs_cpu(task: str, root: str, config_dir: str, wrappers, expect_lau
     norm. A key projection's bias (KEY_BIASES) is left out: softmax is
     invariant to the
     shift it adds to a row's logits, so its gradient is 0 in exact
-    arithmetic and only rounding remains."""
+    arithmetic and only rounding remains. ``prepare(trainer)`` runs on each
+    trainer before its step (VITS2: the dropout rates its model holds in
+    code to 0)."""
     from viet_tts_torch.train.__main__ import main
 
     def on_trainer(tr):
         probe.append(_StepProbe(tr, wrappers, sync=device == "cuda", grads_of=grads_of,
                                 zero_postnet_dropout=zero_postnet_dropout))
+        if prepare is not None:
+            prepare(tr)
         # these runs are read for their first step only: no parameter
         # histograms at the epoch end (5-6 s at full width; the phase's
         # main runs write them)
@@ -3444,8 +3476,11 @@ def _gan_card_vs_cpu(task: str, root: str, config_dir: str, wrappers, expect_lau
         if not cpu_g or sorted(card_g) != sorted(cpu_g):
             raise AssertionError(f"{task} card vs CPU: gradients of {sorted(card_g)} against "
                                  f"{sorted(cpu_g)}")
+        # a gradient that is 0 on the CPU (VITS2's flows at their first step:
+        # the zero-initialised post conv passes none back) must be 0 on the card
         grad_rel = {n: ((card_g[n] - g).double().norm() / g.double().norm()).item()
-                    for n, g in cpu_g.items() if not n.endswith(KEY_BIASES)}
+                    if g.any() else (0.0 if not card_g[n].any() else float("inf"))
+                    for n, g in cpu_g.items() if not n.endswith(key_biases)}
         bad = {n: e for n, e in grad_rel.items() if not e <= GRAD_REL_TOL}
         if bad:
             raise AssertionError(f"{task} card vs CPU: gradients beyond {GRAD_REL_TOL} of "
@@ -3478,7 +3513,7 @@ def check_jets_trainer(dev, profile: bool):
     ~2 s and ~5.5 s (mel buckets 256 and 512), full-width JETS with
     ``attn_implementation: flash`` and every dropout as configured
     (``init_type: xavier_uniform`` applied), the full MSMPD, batch size 8,
-    to ``--max_iter 6``, then resumed by scan to 8 (``_run_gan_trainer``'s
+    to ``--max_iter 5``, then resumed by scan to 6 (``_run_gan_trainer``'s
     checks), each step's K1, K3a and K3b launches held at 10 each (4
     encoder + 6 decoder layers). Then the first step on the card against
     the CPU (a one-bucket dataset, every dropout 0 by the config edit): the
@@ -3543,7 +3578,7 @@ def check_hifigan_trainer(dev, profile: bool):
     """The HiFi-GAN trainer through the CLI's entry function on phase 18's
     dataset, feature cache and config copy: full-width HiFi-GAN V1 (plain
     MRF) and the default MSMPD, 64-frame segments, batch size 8, to
-    ``--max_iter 6``, then resumed by scan to 8 (``_run_gan_trainer``'s
+    ``--max_iter 5``, then resumed by scan to 6 (``_run_gan_trainer``'s
     checks), no K2 launch in a step. Then the first step on the card
     against the CPU (phase 18's one-bucket dataset). Then ``TwoStageTTS``
     serves phase 18's FastSpeech2 output with this phase's output as its
@@ -3637,7 +3672,7 @@ def check_joint_trainer(dev, smi: str, profile: bool):
     (``attn_implementation: flash``, every dropout as configured): full-width
     FastSpeech2 warm-started from phase 18's output (``-a``) and HiFi-GAN V1
     from phase 20's (``-v``), the default MSMPD, 64-frame windows, batch
-    size 8, to ``--max_iter 6``, then resumed by scan to 8
+    size 8, to ``--max_iter 5``, then resumed by scan to 6
     (``_run_gan_trainer``'s checks), each step's K4 / K5 launches against
     its mel bucket and no K2. Then the first step on the card against
     ``--device cpu`` (phase 18's one-bucket dataset, every dropout 0): the
@@ -3958,8 +3993,8 @@ def check_fft_serving(dev, smi: str, ada_dir: str, fs2_dir: str, voc_dir: str):
 def check_adaspeech_trainer(dev, smi: str):
     """``--task adaspeech`` through the CLI's entry function on phase 18's
     dataset and config copy (full-width AdaSpeech, every dropout as
-    configured), batch size 8, to ``--max_iter 6``, then resumed by scan to
-    8: the checkpoints (keep-3, names), the resumed iteration, each step's
+    configured), batch size 8, to ``--max_iter 5``, then resumed by scan to
+    6: the checkpoints (keep-3, names), the resumed iteration, each step's
     rate against its epoch's, finite losses with ``avg_mel_phn``, no kernel
     launched in a step, both mel buckets; the first step on the card
     against ``--device cpu`` (phase 18's one-bucket dataset, every dropout
@@ -4166,8 +4201,8 @@ def check_matcha_serving(dev, smi: str, ac_dir: str, voc_dir: str):
 def check_matcha_trainer(dev, smi: str):
     """``--task matcha`` through the CLI's entry function on phase 18's
     dataset and config copy (full-width Matcha, every dropout as
-    configured), batch size 8, to ``--max_iter 6``, then resumed by scan to
-    8: the checkpoints (keep-3, names), ``stats.json``'s mel statistics,
+    configured), batch size 8, to ``--max_iter 5``, then resumed by scan to
+    6: the checkpoints (keep-3, names), ``stats.json``'s mel statistics,
     the resumed iteration, each step's rate (gamma 1: the base rate),
     finite diff / prior / cvae / ctc / bin / dur, no kernel launched in a
     step, both mel buckets; the first step on the card against ``--device
@@ -4283,6 +4318,208 @@ def check_matcha(dev, smi: str, ac_dir: str, voc_dir: str):
     tts, serving = check_matcha_serving(dev, smi, ac_dir, voc_dir)
     training = check_matcha_trainer(dev, smi)
     return tts, serving, training
+
+
+# phase 24: VITS2 (one-stage serving with streaming, the server, --task vits2)
+# the SDP's last affine flow's shift in the random-weight checkpoint:
+# reverse adds 1 to every log-duration, ~2.7 frames a token (its ConvFlows
+# start as fixed splines), so the sentences get frames and stay under 1008
+VITS2_DUR_SHIFT = -1.0
+
+
+def _every_wrapper():
+    """Every kernel wrapper of the port (K1-K7, forward and backward)."""
+    return {**_all_wrappers(), **_jc_wrappers()}
+
+
+def _every_count():
+    return {name: fn.launches for name, fn in _every_wrapper().items()}
+
+
+def build_vits2(root: str) -> str:
+    """Full-width VITS2 (config/model_config.yaml:328-355: 192 channels, 6
+    rel-pos encoder layers with FFN 768 and 2 heads, 16 posterior WaveNet
+    layers, gin 256, an SDP of 4 flows, 4 pre_conv transformer flows, the
+    V1-shaped generator at 512 channels) with seeded random weights for 2
+    speakers, the SDP's last affine flow shifted by ``VITS2_DUR_SHIFT`` and
+    the generator's upsamplers' g at 1 (audio scale), saved as a port
+    checkpoint."""
+    from viet_tts_torch.infer.api import default_conf, save_checkpoint
+    from viet_tts_torch.models.vits2 import VITS2
+    from viet_tts_torch.nn.utils import seeded_init_
+    from viet_tts_torch.text import NUM_SYMBOLS
+
+    conf = default_conf()
+    hp = conf["models"]["vits2"]
+    model = seeded_init_(VITS2(NUM_SYMBOLS, hp, n_speakers=2,
+                               spec_channels=conf["audio"]["mel"]["channels"]),
+                         torch.Generator().manual_seed(SEED + 24))
+    with torch.no_grad():
+        model.dp.flows[0].m[0] = VITS2_DUR_SHIFT
+        for up in model.dec.ups:
+            up.weight_g.fill_(1.0)
+    log(f"VITS2 full width: {sum(p.numel() for p in model.parameters())} parameters "
+        f"(hidden {hp['hidden_channels']}, {hp['n_layers']} encoder layers, FFN "
+        f"{hp['filter_channels']}, {hp['n_heads']} heads; {len(model.enc_q.enc.in_layers)} "
+        f"posterior layers; SDP {len(model.dp.flows) // 2} flows; "
+        f"{len(model.flow.flows) // 2} {hp['transformer_flow_type']} flows; generator "
+        f"{hp['upsample_initial_channel']} channels, up {hp['upsample_rates']})")
+    out = os.path.join(root, "vits2")
+    save_checkpoint(out, model, conf, speakers=dict(zip(TRAINER_SPEAKERS, range(2))))
+    return out
+
+
+def check_vits2_serving(dev, smi: str, ckpt_dir: str):
+    """``OneStageTTS(model_type="VITS2")`` on full-width VITS2 (the plain
+    generator; the fused route refused): 16 sentences at 1008 frames with no
+    kernel of the port launched (every count 0), the host median of 5
+    calls, ``stream_wav``; the HTTP server's ``/synthesize`` and
+    ``/synthesize_stream``; 2 sentences at 64 frames on the card against the
+    CPU (TF32 off: ``mel_lens`` exact, the waveform within 1e-3 of its
+    peak)."""
+    from viet_tts_torch.infer.api import OneStageTTS
+    from viet_tts_torch.infer.server import serve
+    from viet_tts_torch.models.vits2 import VITS2
+
+    _set_tf32(False)
+    tts = OneStageTTS(ckpt_dir, model_type="VITS2")
+    if not isinstance(tts.model, VITS2) or next(tts.model.parameters()).device.type != dev.type:
+        raise AssertionError(f"OneStageTTS(VITS2) built {type(tts.model).__name__}")
+    try:
+        OneStageTTS(ckpt_dir, model_type="VITS2", fused_vocoder=True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("OneStageTTS(VITS2, fused_vocoder=True) did not raise")
+    idle = dict.fromkeys(_every_wrapper(), 0)
+    tts(SENTENCES[:2])  # warm-up: cuDNN autotune, allocator
+    for _ in range(2):
+        waves, _ = _counted_call(lambda: tts(SENTENCES), idle,
+                                 "VITS2 fp32 __call__(16) at 1008 frames", counts=_every_count)
+        _check_waves(waves, len(SENTENCES), "VITS2")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tts(SENTENCES)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    call_s = sorted(times)[len(times) // 2]
+    frames = [w.size // 256 for w in waves]
+    if not 0 < min(frames) <= max(frames) < tts.max_mel_frames:
+        raise AssertionError(f"VITS2: mel frames per sentence {frames}")
+    log(f"VITS2 fp32 __call__(16) at 1008 frames ({smi}): host median of 5 {call_s:.4f} s "
+        f"({[round(x, 4) for x in times]}); mel frames per sentence {frames}")
+    before = _every_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks = tts.stream_wav(SENTENCES[0])
+    first = next(chunks)
+    first_s = time.perf_counter() - t0
+    streamed = np.concatenate([first, *chunks])
+    stream_s = time.perf_counter() - t0
+    edge = 16 * 256  # the first window's zero left context: ~10 frames differ
+    err = np.abs(streamed[edge:] - waves[0][edge:]).max()
+    if streamed.shape != waves[0].shape or not err <= 1e-3 * np.abs(waves[0]).max():
+        raise AssertionError(f"VITS2 stream_wav: {streamed.shape} vs {waves[0].shape}, "
+                             f"max_abs_err past 16 frames {err}")
+    httpd = serve(tts, port=0, model_name="VITS2")
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        status, body = post(f"{base}/synthesize", {"text": SENTENCES[1], "speaker": 1})
+        s_status, s_body = post(f"{base}/synthesize_stream", {"text": SENTENCES[1]})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    got = {k: v - before[k] for k, v in _every_count().items()}
+    if (status, s_status) != (200, 200) or body[:4] != b"RIFF" or not s_body or any(
+            got.values()):
+        raise AssertionError(f"VITS2 server: {status} / {s_status}, launches {got}")
+    log(f"VITS2 stream_wav: first chunk {first_s:.4f} s, whole {stream_s:.4f} s, "
+        f"max_abs_err past 16 frames {err:.3e}; server /synthesize 200 ({len(body)} bytes), "
+        f"/synthesize_stream 200 ({len(s_body)} bytes); no kernel launched")
+
+    cpu = copy.deepcopy(tts.model).to("cpu")
+    ids, lens, _ = tts.encode_texts(SENTENCES[:2])
+    args = (torch.zeros(2, dtype=torch.int64), torch.as_tensor(ids), torch.as_tensor(lens), 64)
+    wav_gpu, len_gpu = tts.model.inference(*(a.to(dev) if torch.is_tensor(a) else a
+                                             for a in args))
+    wav_cpu, len_cpu = cpu.inference(*args)
+    wav_err = (wav_gpu.cpu() - wav_cpu).abs().max().item()
+    peak = wav_cpu.abs().max().item()
+    if not torch.equal(len_gpu.cpu(), len_cpu) or not wav_err <= 1e-3 * peak:
+        raise AssertionError(f"VITS2 card vs CPU: lengths {len_gpu.tolist()} vs "
+                             f"{len_cpu.tolist()}, wav max_abs_err {wav_err}, peak {peak}")
+    log(f"VITS2 card vs CPU, 2 sentences x 64 frames: mel_lens "
+        f"{(len_cpu // tts.model.upsample_factor).tolist()} (equal); "
+        f"waveform max_abs_err {wav_err:.3e}, peak |wav| {peak:.3f}, relative "
+        f"{wav_err / peak:.3e} (tol 1e-3)")
+    return tts, {"call_s": call_s, "call_s_all": times, "frames": frames,
+                 "stream_first_s": first_s, "stream_s": stream_s,
+                 "vs_cpu_wav_rel": wav_err / peak}
+
+
+def _zero_model_dropout(trainer):
+    """The rates the VITS2 model holds in code (the flows' transformers'
+    0.1, the duration predictor's 0.5) to 0, for the card-vs-CPU step."""
+    for m in trainer.model.modules():
+        if hasattr(m, "p_dropout"):
+            m.p_dropout = 0.0
+
+
+def check_vits2_trainer(dev, smi: str):
+    """``--task vits2`` on phase 18's dataset and config copy (full-width
+    VITS2, every dropout as configured, the MPD of periods 2, 3, 5, 7, 11
+    and the duration discriminator), batch size 8, to ``VITS2_ITERS[0]``
+    then resumed by scan to ``VITS2_ITERS[1]``: as phase 19's checks
+    (``_run_gan_trainer``), the three states' rates, the discriminator
+    file's duration-discriminator payload, the nine finite metrics, no
+    kernel launched in a step, both mel buckets; the first step on the card
+    against ``--device cpu`` (the one-bucket dataset, every dropout 0):
+    losses within rel 1e-3, the text encoder's and the flows' attention
+    gradients within 1e-2 of each tensor's norm (the key bias, 0 but for
+    rounding, left out)."""
+    from viet_tts_torch.train.checkpoint import load_checkpoint
+    from viet_tts_torch.train.gan import DISCRIMINATOR_FILE
+    from viet_tts_torch.train.vits2_trainer import METRICS, VITS2Trainer
+
+    config_dir = os.path.join(TRAINER_ROOT, "config")
+    first, steps, per_epoch, peak_gb, run_s, hist_s, _, _ = _run_gan_trainer(
+        "vits2", TRAINER_ROOT, config_dir, _every_wrapper, dev, profile=False,
+        iters=VITS2_ITERS)
+    if not isinstance(first, VITS2Trainer):
+        raise AssertionError(f"--task vits2 built {type(first).__name__}")
+    payload = load_checkpoint(os.path.join(first.args.output_folder, DISCRIMINATOR_FILE))
+    idle = dict.fromkeys(_every_wrapper(), 0)
+    if payload.get("dur_step") != VITS2_ITERS[1] or not payload.get("dur_model"):
+        raise AssertionError(f"vits2 discriminator file: dur_step {payload.get('dur_step')}")
+    for s in steps:
+        if s["launches"] != idle or set(s["metrics"]) != set(METRICS) or len(s["lrs"]) != 3:
+            raise AssertionError(f"vits2 step {s['iter']}: launches {s['launches']}, metrics "
+                                 f"{s['metrics']}, rates {s['lrs']}")
+    buckets = sorted({s["t_mel"] for s in steps})
+    if buckets != [256, 768]:
+        raise AssertionError(f"vits2 mel buckets {buckets}")
+    figures = _gan_figures(first, steps, per_epoch, peak_gb, run_s, hist_s)
+    log(f"vits2 trainer ({smi}): {len(steps)} steps at (B, T_text, T_mel) "
+        f"{[(8, s['t_text'], s['t_mel']) for s in steps]}, resumed at iter "
+        f"{VITS2_ITERS[0]}; checkpoints {_generator_names(first.args.output_folder)}; step "
+        f"host seconds {[round(s['step_s'], 4) for s in steps]}; data wait ms "
+        f"{[round(1e3 * s['wait_s'], 2) for s in steps]}; peak {peak_gb[1]:.2f} GB "
+        f"({peak_gb[0]:.2f} held before); both runs {run_s:.1f} s; histograms "
+        f"{[round(h, 3) for h in hist_s]} s; no kernel launched; last metrics "
+        f"{steps[-1]['metrics']}")
+    cmp_root = os.path.join(TRAINER_ROOT, "card_vs_cpu")
+    figures["card_vs_cpu_rel"] = _gan_card_vs_cpu(
+        "vits2", cmp_root, os.path.join(cmp_root, "config"), _every_wrapper, idle,
+        grads_of=".attn_layers.", prepare=_zero_model_dropout,
+        key_biases=KEY_BIASES + ("conv_k.bias",))
+    return figures
+
+
+def check_vits2(dev, smi: str, ckpt_dir: str):
+    tts, serving = check_vits2_serving(dev, smi, ckpt_dir)
+    return tts, serving, check_vits2_trainer(dev, smi)
 
 
 def profile_call(fn, label: str, out_name: str, repeats: int = 5):
@@ -4414,6 +4651,8 @@ def main() -> int:
     matcha_dir = build_matcha(os.path.join(REPO, "build", "chip_smoke_matcha"))
     matcha_tts, matcha_serving, matcha_training = phase_timed("23", check_matcha, dev, smi,
                                                               matcha_dir, voc_dir)
+    vits2_dir = build_vits2(os.path.join(REPO, "build", "chip_smoke_vits2"))
+    _, vits2_serving, vits2_training = phase_timed("24", check_vits2, dev, smi, vits2_dir)
     # the phases that time backward rows in device time run last: after a
     # torch.profiler session every kernel launch costs the host ~25 % more
     # (CUPTI stays attached; measured on the H100 machine), and the phases
@@ -4528,6 +4767,10 @@ def main() -> int:
                                                     "Text2Wav version matcha")):
         k2[key] = FFT_CALL_LAUNCHES["fused_mrf_stage"]
         k2[f"{key}_per"] = per
+    k2["vits2_call_launches"] = 0
+    k2["vits2_call_launches_per"] = ("one OneStageTTS(model_type='VITS2') __call__ of 16 "
+                                     "sentences at 1008 frames: VITS2 runs its own generator "
+                                     "and no kernel of the port (nor does its training step)")
     for entry in (*xl_entries[:2], k2):
         entry["joint_call_launches"] = JOINT_CALL_LAUNCHES[entry["name"]]
         entry["joint_call_launches_per"] = ("one OneStageTTS(model_type='JOINT') __call__ of 16 "
@@ -4636,6 +4879,16 @@ def main() -> int:
         f"{matcha_training['card_vs_cpu_rel']:.3e}; joint --version matcha steps "
         f"{[round(x, 4) for x in matcha_training['joint_step_s']]} s, JOINT __call__(16) "
         f"{[round(x, 4) for x in matcha_training['joint_call_s']]} s; on {smi}")
+    log(f"VITS2: OneStageTTS fp32 __call__(16) at 1008 frames host median "
+        f"{vits2_serving['call_s']:.4f} s, no kernel launched; stream_wav first chunk "
+        f"{vits2_serving['stream_first_s']:.4f} s of {vits2_serving['stream_s']:.4f}; card vs "
+        f"CPU waveform relative {vits2_serving['vs_cpu_wav_rel']:.3e}; trainer step host median "
+        f"by mel bucket "
+        f"{ {b: round(v, 4) for b, v in vits2_training['step_s_median_by_bucket'].items()} } s "
+        f"(steps {vits2_training['step_s_by_bucket']}), data wait median "
+        f"{vits2_training['wait_ms']:.2f} ms (max {vits2_training['wait_ms_max']:.2f}), peak "
+        f"{vits2_training['peak_gb']:.2f} GB, first step card vs CPU max rel "
+        f"{vits2_training['card_vs_cpu_rel']:.3e}; on {smi}")
     kernels_line = [k1, k2, *k3, *xl_entries, *xl_bwd_entries, *k6_bwd_entries, *rel_entries]
     if DEVICE_MS_MISSES:
         log(f"device_ms: {len(DEVICE_MS_MISSES)} backward figure(s) timed by CUDA events: "

@@ -215,10 +215,6 @@ def test_two_stage_tts_matches_jax_and_serves(fs2_case, tmp_path):
 
 
 def test_two_stage_tts_refuses_what_is_not_ported(tmp_path):
-    from viet_tts_torch.infer.api import OneStageTTS
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 14"):
-        OneStageTTS(str(tmp_path), model_type="VITS2", device="cpu")
     with pytest.raises(NotImplementedError, match="unknown building block"):
         FastSpeech2(N_SYMBOLS, N_MELS, fs2_hparams() | {"building_block": {
             "block_type": "lstm"}}, FS2_STATS, 1)

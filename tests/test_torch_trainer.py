@@ -27,7 +27,7 @@ from viet_tts_tpu.train.state import exponential_lr as jax_exponential_lr
 from viet_tts_tpu.train.trainer import BaseTrainer as JaxBaseTrainer
 from viet_tts_torch.config import build_config
 from viet_tts_torch.train import checkpoint as ckpt
-from viet_tts_torch.train.__main__ import NOT_PORTED, main
+from viet_tts_torch.train.__main__ import main
 from viet_tts_torch.train.trainer import BaseTrainer, FastSpeech2Trainer, step_generator
 from viet_tts_torch.utils.tfevents import read_events
 
@@ -218,14 +218,6 @@ def test_two_stage_tts_serves_a_trainer_output(tmp_path):
     for w in waves:
         assert w.ndim == 1 and w.dtype == np.float32 and np.isfinite(w).all()
         assert len(w) % 256 == 0
-
-
-@pytest.mark.parametrize("task", sorted(NOT_PORTED))
-def test_cli_refuses_unported_tasks(task, tmp_path):
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[task].split(",")[0]):
-        main(["--task", task, "-i", str(tmp_path), "-d", str(tmp_path), "-o",
-              str(tmp_path / "out"), "--config", os.path.join(REPO, "config"),
-              "--device", "cpu"])
 
 
 def test_cli_runs_on_cuda_by_default_and_never_falls_back(tmp_path):

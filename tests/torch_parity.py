@@ -412,3 +412,159 @@ def jax_matcha(model, hp, n_speakers=2):
                       n_speakers=n_speakers, n_accents=2)
     variables = import_matcha(reference_state_dict(model.state_dict()), hp)
     return jm, jax.tree_util.tree_map(np.asarray, variables)
+
+
+# --------------------------------------------------------------------------
+# VITS2
+# --------------------------------------------------------------------------
+
+def vits2_hparams(flow_type: str = "pre_conv"):
+    """``tests/test_vits2.py:TINY_HP`` with ``transformer_flow_type``
+    ("none": ``use_transformer_flows`` off)."""
+    import copy
+
+    from tests.test_vits2 import TINY_HP
+
+    hp = copy.deepcopy(TINY_HP)
+    hp["use_transformer_flows"] = flow_type != "none"
+    hp["transformer_flow_type"] = "pre_conv" if flow_type == "none" else flow_type
+    return hp
+
+
+# the duration predictor's last affine flow's shift: reverse adds -m to the
+# log-duration, so durations sit near e^1.3 ~ 3.7 frames, away from integers
+VITS2_LOGW_SHIFT = -1.3
+
+
+@torch.no_grad()
+def port_vits2(hp, n_speakers=2, seed=0):
+    """The port's VITS2 on the CPU with seeded weights, in eval mode. The
+    parameters a fresh model holds at zero (the flows' ``post`` / ``proj``,
+    the affine flows' m / logs) are drawn too, so that every flow is more
+    than the identity; the transposed convs' g is 1 (see ``port_jets``);
+    the SDP's last affine flow shifts the log-durations by
+    ``-VITS2_LOGW_SHIFT``."""
+    from viet_tts_torch.models.vits2 import VITS2
+
+    gen = torch.Generator().manual_seed(seed)
+    model = seeded_init_(VITS2(N_SYMBOLS, hp, n_speakers=n_speakers, spec_channels=N_MELS), gen)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        owner = name.rsplit(".", 2)[-2]
+        if owner in ("post", "proj") and ("flow" in name) and leaf in ("weight", "bias"):
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+        elif leaf in ("m", "logs"):
+            p.copy_(0.2 * torch.randn(p.shape, generator=gen))
+    for up in model.dec.ups:
+        up.weight_g.fill_(1.0)
+    if model.use_sdp:
+        model.dp.flows[0].m[0] = VITS2_LOGW_SHIFT
+    return model.eval()
+
+
+def jax_vits2(model, hp, n_speakers=2):
+    """(JAX VITS2 module, its {params} as numpy) holding ``model``'s weights,
+    through the reference names and ``import_vits2``."""
+    import jax
+
+    from viet_tts_tpu.models.vits2 import VITS2 as JaxVITS2
+    from viet_tts_tpu.train.torch_import import import_vits2
+
+    jm = JaxVITS2(n_symbols=N_SYMBOLS, hparams=hp, n_speakers=n_speakers,
+                  spec_channels=N_MELS)
+    variables = import_vits2(reference_state_dict(model.state_dict()), hp)
+    return jm, jax.tree_util.tree_map(np.asarray, variables)
+
+
+def random_flax_params(module, *args, seed=0, **kw):
+    """Params of ``module`` of its init's shapes (``jax.eval_shape``: no
+    init is run), drawn from numpy: kernels ~ N(0, 1 / fan_in), norms' scales
+    1 + N(0, 0.1^2), biases N(0, 0.1^2), the affine flows' m / logs and the
+    relative tables N(0, 0.2^2), so that every flow is more than the
+    identity."""
+    import jax
+
+    rng = np.random.RandomState(seed)
+    rngs = kw.pop("rngs", jax.random.PRNGKey(0))
+    shapes = jax.eval_shape(lambda: module.init(rngs, *args, **kw))["params"]
+
+    def draw(path, leaf):
+        name = getattr(path[-1], "key", "")
+        shape = leaf.shape
+        if name.endswith("scale"):
+            x = 1.0 + 0.1 * rng.randn(*shape)
+        elif name in ("bias", "m", "logs") or name.startswith("emb_rel"):
+            x = (0.1 if name == "bias" else 0.2) * rng.randn(*shape)
+        else:  # kernel, kernel_v, kernel_g, embedding
+            x = rng.randn(*shape) / np.sqrt(max(int(np.prod(shape[:-1])), 1))
+            if name == "kernel_g":
+                x = np.abs(x) + 0.5
+        return x.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def zero_dropout_(model):
+    """Every dropout rate of a port VITS2 module tree to 0: the JAX side
+    runs its ``nn.Dropout``s as the identity (``no_dropout``)."""
+    for m in model.modules():
+        if hasattr(m, "p_dropout"):
+            m.p_dropout = 0.0
+    return model
+
+
+def no_dropout(next_fun, args, kwargs, context):
+    """A flax interceptor that runs every ``nn.Dropout`` as the identity
+    (dropout bits cannot be reproduced; the port runs with rate 0)."""
+    import flax.linen as fnn
+
+    if isinstance(context.module, fnn.Dropout):
+        return args[0]
+    return next_fun(*args, **kwargs)
+
+
+class JaxNormalDraws:
+    """Records every ``jax.random.normal`` the JAX VITS2 modules draw, in
+    call order (``draws``): within a ``with`` block it stands in for the
+    ``jax`` name of ``viet_tts_tpu/models/vits2/layers.py`` and
+    ``model.py`` (the posterior's noise, the SDP's noises, the MAS noise,
+    the inference noise). Under ``jax.jit`` the records are the trace's
+    values and can be returned from the traced function."""
+
+    def __init__(self):
+        import jax
+
+        self.draws = []
+        outer = self
+
+        class _Random:
+            def __getattr__(self, name):
+                return getattr(jax.random, name)
+
+            def normal(self, key, shape=(), dtype=np.float32):
+                x = jax.random.normal(key, shape, dtype)
+                outer.draws.append(x)
+                return x
+
+        class _Jax:
+            random = _Random()
+
+            def __getattr__(self, name):
+                return getattr(jax, name)
+
+        self._shim = _Jax()
+
+    def __enter__(self):
+        from viet_tts_tpu.models.vits2 import layers, model
+
+        self._mods = (layers, model)
+        self._saved = [m.jax for m in self._mods]
+        for m in self._mods:
+            m.jax = self._shim
+        self.draws.clear()
+        return self
+
+    def __exit__(self, *exc):
+        for m, saved in zip(self._mods, self._saved):
+            m.jax = saved
+        return False

@@ -3,8 +3,8 @@ dicts.
 
 Copied from ``config/model_config.yaml`` (sections ``jets``: generator and
 discriminator params; ``fastspeech2``; ``adaspeech``; ``matcha``;
-``hifigan``), ``config/train_config.yaml`` (sections ``jets``,
-``fastspeech2``, ``matcha`` and ``grad_clip_thresh``) and
+``vits2``; ``hifigan``), ``config/train_config.yaml`` (sections ``jets``,
+``fastspeech2``, ``matcha``, ``vits2`` and ``grad_clip_thresh``) and
 ``config/preprocessing_config.yaml`` so that the port runs where ``pyyaml``
 is not installed; ``DEFAULT_STATS`` is ``viet_tts_tpu/infer/api.py``'s.
 ``tests/test_torch_text.py`` and ``tests/test_torch_fastspeech2.py`` hold
@@ -326,6 +326,37 @@ MATCHA: Dict[str, Any] = {
     },
 }
 
+# model_config.yaml: vits2 (VITS2: 6 rel-pos encoder layers, 16 posterior
+# WaveNet layers (the reference hardcodes them; n_layers_q is dead), SDP,
+# pre_conv transformer flows, the V1-shaped generator, dur_disc_1)
+VITS2: Dict[str, Any] = {
+    "segment_size": 8192,
+    "inter_channels": 192,
+    "hidden_channels": 192,
+    "filter_channels": 768,
+    "n_heads": 2,
+    "n_layers": 6,
+    "kernel_size": 3,
+    "p_dropout": 0.1,
+    "resblock": "1",
+    "resblock_kernel_sizes": [3, 7, 11],
+    "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+    "upsample_rates": [8, 8, 2, 2],
+    "upsample_initial_channel": 512,
+    "upsample_kernel_sizes": [16, 16, 4, 4],
+    "gin_channels": 256,
+    "use_sdp": True,
+    "use_mel_posterior_encoder": True,
+    "use_transformer_flows": True,
+    "transformer_flow_type": "pre_conv",
+    "use_spk_conditioned_encoder": False,
+    "use_noise_scaled_mas": True,
+    "use_duration_discriminator": True,
+    "duration_discriminator_type": "dur_disc_1",
+    "n_layers_q": 3,
+    "use_spectral_norm": False,
+}
+
 HIFIGAN: Dict[str, Any] = {
     "use_spk": False,
     "segment_size": 64,
@@ -369,6 +400,13 @@ MATCHA_TRAIN: Dict[str, Any] = {
     },
     "optimizer": {"lr": 1.0e-4, "weight_decay": 0.0},
     "scheduler": {"gamma": 1.0},
+}
+
+# train_config.yaml: vits2
+VITS2_TRAIN: Dict[str, Any] = {
+    "loss": {"c_mel": 45, "c_kl": 1.0},
+    "optimizer": {"lr": 2.0e-4, "betas": [0.8, 0.99], "eps": 1.0e-9},
+    "scheduler": {"gamma": 0.999875},
 }
 
 # every dropout rate that models/jets/model.py reads from the generator params
@@ -434,6 +472,15 @@ def matcha_params() -> Dict[str, Any]:
 
 def matcha_train_conf() -> Dict[str, Any]:
     return copy.deepcopy(MATCHA_TRAIN)
+
+
+def vits2_params() -> Dict[str, Any]:
+    """A fresh copy of the VITS2 section (callers may edit it)."""
+    return copy.deepcopy(VITS2)
+
+
+def vits2_train_conf() -> Dict[str, Any]:
+    return copy.deepcopy(VITS2_TRAIN)
 
 
 def hifigan_params() -> Dict[str, Any]:

@@ -20,6 +20,14 @@ no branch for the UNet's conformer blocks: those keep flax's names) and
 version and the vocoder's under the JAX ``Text2Wav``'s submodule names,
 ``text2mel.`` and ``mel2wav.``.
 
+``vits2_from_jax(variables, hparams)`` is the inverse of ``import_vits2``
+for the JAX ``VITS2`` (every ``transformer_flow_type``, the stochastic or
+the deterministic duration predictor). ``import_vits2`` reads no
+discriminator, so ``vits2_mpd_from_jax(params)`` and
+``duration_discriminator_from_jax(params)`` map the JAX VITS2
+``MultiPeriodDiscriminator`` / ``DurationDiscriminator`` params onto the
+port's names directly.
+
 ``msmpd_from_jax(params)`` does the same for the JAX
 ``MultiScaleMultiPeriodDiscriminator`` params; the port's names are the
 reference's espnet names that ``import_msmpd_discriminator`` reads. Both
@@ -615,6 +623,158 @@ def msmpd_from_jax(params: Dict[str, Any]) -> StateDict:
                        per[f"wn_{li}"][f"conv_{li}/kernel/scale"])
         _wn_conv2d(sd, f"mpd.discriminators.{i}.output_conv", per["output_conv"],
                    per["wn_out"]["output_conv/kernel/scale"])
+    return sd
+
+
+def _vits_ln(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    """flax LayerNorm {scale, bias} -> the VITS LayerNorm's gamma / beta."""
+    sd[f"{prefix}.gamma"] = _t(p["scale"])
+    sd[f"{prefix}.beta"] = _t(p["bias"])
+
+
+def _vits_attention(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    for name in ("conv_q", "conv_k", "conv_v", "conv_o"):
+        _conv1d(sd, f"{prefix}.{name}", p[name])
+    for name in ("emb_rel_k", "emb_rel_v"):
+        if name in p:
+            sd[f"{prefix}.{name}"] = _t(p[name])
+
+
+def _vits_encoder(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    """VitsEncoder (attn_i, norm1_i, ffn_i, norm2_i, spk_emb_linear) or
+    CausalFFT (attn_i, norm0_i, ffn_i, norm1_i, cond_layer, cond_pre)."""
+    causal = "norm0_0" in p
+    attn = "self_attn_layers" if causal else "attn_layers"
+    norms = (("norm0", "norm_layers_0"), ("norm1", "norm_layers_1")) if causal else (
+        ("norm1", "norm_layers_1"), ("norm2", "norm_layers_2"))
+    i = 0
+    while f"attn_{i}" in p:
+        _vits_attention(sd, f"{prefix}.{attn}.{i}", p[f"attn_{i}"])
+        for flax_name, name in norms:
+            _vits_ln(sd, f"{prefix}.{name}.{i}", p[f"{flax_name}_{i}"])
+        for conv in ("conv_1", "conv_2"):
+            _conv1d(sd, f"{prefix}.ffn_layers.{i}.{conv}", p[f"ffn_{i}"][conv])
+        i += 1
+    if "spk_emb_linear" in p:
+        _linear(sd, f"{prefix}.spk_emb_linear", p["spk_emb_linear"])
+    if "cond_layer" in p:  # CausalFFT's Dense, stored as a 1x1 conv
+        sd[f"{prefix}.cond_layer.weight"] = _t(np.asarray(p["cond_layer"]["kernel"]).T[..., None])
+        sd[f"{prefix}.cond_layer.bias"] = _t(p["cond_layer"]["bias"])
+        _conv1d(sd, f"{prefix}.cond_pre", p["cond_pre"])
+
+
+def _wn_stack(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    i = 0
+    while f"in_{i}" in p:
+        _wn_conv1d(sd, f"{prefix}.in_layers.{i}", p[f"in_{i}"])
+        _wn_conv1d(sd, f"{prefix}.res_skip_layers.{i}", p[f"res_skip_{i}"])
+        i += 1
+    if "cond_layer" in p:
+        _wn_conv1d(sd, f"{prefix}.cond_layer", p["cond_layer"])
+
+
+def _dds_conv(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    i = 0
+    while f"conv_sep_{i}" in p:
+        _conv1d(sd, f"{prefix}.convs_sep.{i}", p[f"conv_sep_{i}"])
+        _conv1d(sd, f"{prefix}.convs_1x1.{i}", p[f"conv_1x1_{i}"])
+        _vits_ln(sd, f"{prefix}.norms_1.{i}", p[f"norm1_{i}"])
+        _vits_ln(sd, f"{prefix}.norms_2.{i}", p[f"norm2_{i}"])
+        i += 1
+
+
+def _vits_module(sd: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    """A VITS2 submodule by its flax children's names: plain convs, the WN
+    or CausalFFT ``enc``, a ``pre_transformer`` / ``encoder`` stack, a
+    DDSConv ``convs``, flows ``flows_i`` / ``post_flows_i`` (an
+    ElementwiseAffine's m / logs as (C, 1))."""
+    for name, child in p.items():
+        if name in ("m", "logs"):
+            sd[f"{prefix}.{name}"] = _t(np.asarray(child).reshape(-1, 1))
+        elif name in ("pre", "post", "proj", "post_pre", "post_proj", "cond", "conv_1",
+                      "conv_2"):
+            _conv1d(sd, f"{prefix}.{name}", child)
+        elif name in ("norm_1", "norm_2"):
+            _vits_ln(sd, f"{prefix}.{name}", child)
+        elif name == "enc":
+            (_wn_stack if "in_0" in child else _vits_encoder)(sd, f"{prefix}.enc", child)
+        elif name in ("pre_transformer", "encoder"):
+            _vits_encoder(sd, f"{prefix}.{name}", child)
+        elif name in ("convs", "post_convs"):
+            _dds_conv(sd, f"{prefix}.{name}", child)
+        elif name.startswith(("flows_", "post_flows_")):
+            group, idx = name.rsplit("_", 1)
+            _vits_module(sd, f"{prefix}.{group}.{idx}", child)
+        else:
+            raise KeyError(f"unknown VITS2 parameter group {prefix}.{name}")
+
+
+def _vits_generator(sd: StateDict, p: Dict[str, Any], hparams: Dict[str, Any]) -> None:
+    _conv1d(sd, "dec.conv_pre", p["conv_pre"])
+    _conv1d(sd, "dec.conv_post", p["conv_post"])
+    if "cond" in p:
+        _conv1d(sd, "dec.cond", p["cond"])
+    n = len(hparams["resblock_kernel_sizes"])
+    for i in range(len(hparams["upsample_rates"])):
+        _wn_conv_transpose1d(sd, f"dec.ups.{i}", p[f"up_{i}"])
+        for j in range(n):
+            for name, conv in p[f"res_{i}_{j}"].items():
+                kind, d = name.rsplit("_", 1)  # conv1_d, conv2_d or conv_d
+                group = {"conv1": "convs1", "conv2": "convs2", "conv": "convs"}[kind]
+                _wn_conv1d(sd, f"dec.resblocks.{i * n + j}.{group}.{d}", conv)
+
+
+def vits2_from_jax(variables: Dict[str, Any], hparams: Dict[str, Any]) -> StateDict:
+    """JAX ``VITS2`` variables {params} (numpy leaves) -> the port ``VITS2``
+    state_dict (fp32 CPU tensors) under the reference names that
+    ``import_vits2`` reads."""
+    params = variables["params"]
+    sd: StateDict = {"emb_g.weight": _t(params["emb_g"]["embedding"]),
+                     "enc_p.emb.weight": _t(params["enc_p"]["emb"]["embedding"])}
+    _vits_encoder(sd, "enc_p.encoder", params["enc_p"]["encoder"])
+    _conv1d(sd, "enc_p.proj", params["enc_p"]["proj"])
+    _vits_module(sd, "enc_q", params["enc_q"])
+    _vits_generator(sd, params["dec"], hparams)
+    _vits_module(sd, "flow", params["flow"])
+    _vits_module(sd, "dp", params["dp"])
+    return sd
+
+
+def vits2_mpd_from_jax(params: Dict[str, Any]) -> StateDict:
+    """JAX VITS2 ``MultiPeriodDiscriminator`` params (numpy leaves) -> the
+    port's state_dict: the scale discriminator first, then the period
+    ones in ascending period order (the config's ``mpd_periods`` order)."""
+    sd: StateDict = {}
+    s = params["disc_s"]
+    i = 0
+    while f"conv_{i}" in s:
+        _wn_conv1d(sd, f"discriminators.0.convs.{i}", s[f"conv_{i}"])
+        i += 1
+    _wn_conv1d(sd, "discriminators.0.conv_post", s["conv_post"])
+    periods = sorted((k for k in params if k.startswith("disc_p")), key=lambda k: int(k[6:]))
+    for d, key in enumerate(periods, start=1):
+        per = params[key]
+        i = 0
+        while f"conv_{i}" in per:
+            _wn_conv2d(sd, f"discriminators.{d}.convs.{i}", per[f"conv_{i}"],
+                       per[f"wn_{i}"][f"conv_{i}/kernel/scale"])
+            i += 1
+        _wn_conv2d(sd, f"discriminators.{d}.conv_post", per["conv_post"],
+                   per["wn_post"]["conv_post/kernel/scale"])
+    return sd
+
+
+def duration_discriminator_from_jax(params: Dict[str, Any]) -> StateDict:
+    """JAX VITS2 ``DurationDiscriminator`` params (either variant) -> the
+    port's state_dict."""
+    sd: StateDict = {}
+    for name, child in params.items():
+        if name == "output_layer":
+            _linear(sd, "output_layer.0", child)
+        elif "norm" in name:
+            _vits_ln(sd, name, child)
+        else:
+            _conv1d(sd, name, child)
     return sd
 
 

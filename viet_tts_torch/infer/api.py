@@ -1,8 +1,8 @@
-"""Batched inference API: one-stage JETS and Text2Wav (JOINT), two-stage
-FastSpeech2, AdaSpeech or Matcha + HiFi-GAN synthesis.
+"""Batched inference API: one-stage JETS, VITS2 and Text2Wav (JOINT),
+two-stage FastSpeech2, AdaSpeech or Matcha + HiFi-GAN synthesis.
 
-Counterpart of ``viet_tts_tpu/infer/api.py``: ``OneStageTTS`` for JETS and
-JOINT and ``TwoStageTTS`` for FastSpeech2, AdaSpeech and Matcha (acoustic model ->
+Counterpart of ``viet_tts_tpu/infer/api.py``: ``OneStageTTS`` for JETS,
+VITS2 and JOINT and ``TwoStageTTS`` for FastSpeech2, AdaSpeech and Matcha (acoustic model ->
 mel -> HiFi-GAN): text front-end, bucketed batches, synthesis on the card,
 waveform export. A port checkpoint is a directory with
 
@@ -10,8 +10,8 @@ waveform export. A port checkpoint is a directory with
   trainer's output directory, the newest
   ``generator_epoch{E}_iteration{I}_statedict.pt`` (its ``model`` entry);
 - ``config.json``: ``{"audio": ..., "models": {"jets": {"generator_params":
-  ...}, "fastspeech2": ..., "adaspeech": ..., "matcha": ..., "hifigan":
-  ...}}`` and, for
+  ...}, "vits2": ..., "fastspeech2": ..., "adaspeech": ..., "matcha": ...,
+  "hifigan": ...}}`` and, for
   JOINT, the ``version`` of its acoustic half (a ``config.yaml`` of the
   same shape is read too, through the port's YAML-subset reader); without
   either, the package's ``config.py``;
@@ -22,9 +22,8 @@ waveform export. A port checkpoint is a directory with
 
 A two-stage pair is two such directories: the acoustic one (whose config
 also names the vocoder's geometry, as in the JAX package) and the
-vocoder's. VITS2 (item 14 of ROADMAP.md section 1) is still to be
-ported; so are the JAX API's data-, sequence- and pipeline-parallel
-serving flags (item 15).
+vocoder's. The JAX API's data-, sequence- and pipeline-parallel serving
+flags are still to be ported (item 15 of ROADMAP.md section 1).
 """
 
 from __future__ import annotations
@@ -50,10 +49,11 @@ WEIGHTS_NAME = "model.pt"
 
 def default_conf() -> Dict[str, Any]:
     """The shipped configuration: audio settings, the JETS generator params,
-    the FastSpeech2, AdaSpeech, Matcha and HiFi-GAN sections."""
+    the VITS2, FastSpeech2, AdaSpeech, Matcha and HiFi-GAN sections."""
     return {
         "audio": port_config.default_audio(),
         "models": {"jets": {"generator_params": port_config.jets_generator_params()},
+                   "vits2": port_config.vits2_params(),
                    "fastspeech2": port_config.fastspeech2_params(),
                    "adaspeech": port_config.adaspeech_params(),
                    "matcha": port_config.matcha_params(),
@@ -172,26 +172,35 @@ class _TTSBase:
 
 
 class OneStageTTS(_TTSBase):
-    """Fused text -> waveform synthesis: JETS, or Text2Wav (``model_type=
-    "JOINT"``: FastSpeech2, AdaSpeech or Matcha -> HiFi-GAN in one model, built from
-    the checkpoint's ``config.json`` (``version``, ``models.<version>``,
-    ``models.hifigan``) with its ``stats.json`` and ``accents.json``).
+    """Fused text -> waveform synthesis: JETS, VITS2 (``models.vits2``), or
+    Text2Wav (``model_type="JOINT"``: FastSpeech2, AdaSpeech or Matcha ->
+    HiFi-GAN in one model, built from the checkpoint's ``config.json``
+    (``version``, ``models.<version>``, ``models.hifigan``) with its
+    ``stats.json`` and ``accents.json``).
 
-    ``fused_vocoder`` routes the vocoder's ch <= 64 stages to kernel K2;
-    JOINT's acoustic half runs the attention route its config names
-    (``flash``: kernels K4 / K5 / K6)."""
+    ``fused_vocoder`` routes the HiFi-GAN vocoder's ch <= 64 stages to
+    kernel K2; None (the default) takes the family's own route: K2 for JETS
+    and JOINT, the plain generator for VITS2, whose decoder is its own
+    stack (asking for the fused route on VITS2 raises, as in the JAX
+    package). JOINT's acoustic half runs the attention route its config
+    names (``flash``: kernels K4 / K5 / K6); VITS2's attention is plain
+    PyTorch. VITS2 samples at the JAX API's noise scales (0 and 0: no
+    noise)."""
 
     def __init__(self, checkpoint_path: str, model_type: str = "JETS",
                  max_mel_frames: int = 1008, half: bool = False,
-                 fused_vocoder: bool = True,
+                 fused_vocoder: Optional[bool] = None,
                  packed_vocoder: Optional[bool] = None,
                  device: Optional[Union[str, torch.device]] = None):
         self.model_type = model_type.lower()
-        if self.model_type == "vits2":
-            raise NotImplementedError(
-                f"model_type {model_type!r} is not ported yet (ROADMAP.md section 1, item 14)")
-        if self.model_type not in ("jets", "joint"):
+        if self.model_type not in ("jets", "vits2", "joint"):
             raise ValueError(f"unknown one-stage model_type {model_type!r}")
+        if self.model_type == "vits2" and fused_vocoder:
+            raise ValueError(
+                "fused_vocoder is only wired into the HiFiGAN-family decoders (jets / "
+                "two-stage); the VITS2 generator has its own decode stack")
+        if fused_vocoder is None:
+            fused_vocoder = self.model_type != "vits2"
         self.device = resolve_device(device)
         ckpt_path = resolve_checkpoint(checkpoint_path)
         side = load_sidecars(os.path.dirname(ckpt_path))
@@ -215,6 +224,14 @@ class OneStageTTS(_TTSBase):
             jets_hp["packed_tail"] = _resolve_packed(packed_vocoder)
             model = JETS(n_symbols=NUM_SYMBOLS, n_channels=self.n_mels, hparams=jets_hp,
                          n_speakers=n_spk)
+        elif self.model_type == "vits2":
+            from viet_tts_torch.models.vits2 import VITS2
+
+            del packed_vocoder  # accepted for the JAX signature (see _resolve_packed)
+            vits_hp = self.conf["models"]["vits2"]
+            model = VITS2(NUM_SYMBOLS, vits_hp, n_speakers=n_spk,
+                          spec_channels=self.n_mels if vits_hp.get(
+                              "use_mel_posterior_encoder", True) else None)
         else:
             from viet_tts_torch.models.text2wav import Text2Wav
 
@@ -242,11 +259,11 @@ class OneStageTTS(_TTSBase):
         """Synthesize a batch of sentences -> list of float32 waveforms.
         JOINT's CVAE takes ``accent`` and a reference mel of 64 zero frames,
         as ``TwoStageTTS`` does by default (the JAX JOINT call passes
-        neither; ROADMAP.md section 3); JETS reads no accent."""
+        neither; ROADMAP.md section 3); JETS and VITS2 read no accent."""
         ids, lens = self._inputs(texts)
         B = len(texts)
         sids = self._speaker_ids(speaker, B)
-        if self.model_type == "jets":
+        if self.model_type in ("jets", "vits2"):
             wav, wav_lens = self.model.inference(sids, ids, lens, self.max_mel_frames)
         else:
             aids = torch.full((B,), _label(self.accents, accent), dtype=torch.int64,
@@ -262,21 +279,26 @@ class OneStageTTS(_TTSBase):
     def stream_wav(self, text: str, speaker: Union[str, int] = 0,
                    chunk_frames: int = 64,
                    context_frames: int = 32) -> Iterator[np.ndarray]:
-        """Yield waveform chunks for ONE utterance (JETS): the acoustic half
-        runs once, the vocoder decodes fixed-size mel windows with
-        receptive-field context (``infer/streaming.py``), so the first audio
-        arrives after one chunk. JOINT raises ``NotImplementedError``, as in
-        the JAX package."""
-        if self.model_type != "jets":
+        """Yield waveform chunks for ONE utterance (JETS, VITS2): the
+        acoustic half (VITS2: up to the flow's latents) runs once, the
+        decoder decodes fixed-size windows with receptive-field context
+        (``infer/streaming.py``), so the first audio arrives after one
+        chunk. JOINT raises ``NotImplementedError``, as in the JAX
+        package."""
+        if self.model_type not in ("jets", "vits2"):
             raise NotImplementedError(
                 "chunked streaming decode is wired for JETS/VITS2; the "
                 "Text2Wav composer decode remains monolithic (use "
                 "stream_long for sentence-level streaming)")
         ids, lens = self._inputs([text])
-        zs, mel_lens = self.model.inference_hidden(
-            self._speaker_ids(speaker, 1), ids, lens, self.max_mel_frames)
-        yield from _trimmed_stream(self.model.decode_hidden, zs, self._upsample,
-                                   int(mel_lens[0]), chunk_frames, context_frames)
+        sids = self._speaker_ids(speaker, 1)
+        zs, mel_lens = self.model.inference_hidden(sids, ids, lens, self.max_mel_frames)
+        decode = self.model.decode_hidden
+        if self.model_type == "vits2":
+            def decode(z):
+                return self.model.decode_hidden(z, sids)
+        yield from _trimmed_stream(decode, zs, self._upsample, int(mel_lens[0]),
+                                   chunk_frames, context_frames)
 
 
 def _reference_feats(B: int, reference_mel: Optional[np.ndarray], n_mels: int,

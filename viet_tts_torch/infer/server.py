@@ -5,6 +5,7 @@ Counterpart of ``viet_tts_tpu/infer/server.py``:
 
     python -m viet_tts_torch.infer.server -c ckpt_dir --port 8000
     python -m viet_tts_torch.infer.server --model_type JOINT -c text2wav_ckpt_dir
+    python -m viet_tts_torch.infer.server --model_type VITS2 -c vits2_ckpt_dir
     python -m viet_tts_torch.infer.server --model_type FASTSPEECH2 \
         -a acoustic_ckpt_dir -v vocoder_ckpt_dir --max_mel_frames 2048
     python -m viet_tts_torch.infer.server --model_type ADASPEECH \
@@ -138,7 +139,10 @@ def serve(tts, host: str = "127.0.0.1", port: int = 8000,
     return httpd
 
 
-def _main():
+def build_backend(argv=None):
+    """Parse the command line (``argv``, default ``sys.argv``) and build its
+    ``OneStageTTS`` (JETS, VITS2, JOINT: ``-c``) or ``TwoStageTTS``
+    (FASTSPEECH2, ADASPEECH, MATCHA: ``-a``, ``-v``); returns (tts, args)."""
     import argparse
 
     from viet_tts_torch.infer.api import OneStageTTS, TwoStageTTS
@@ -146,9 +150,10 @@ def _main():
     ap = argparse.ArgumentParser(description="HTTP TTS serving endpoint (PyTorch)")
     ap.add_argument("--model_type", default="JETS")
     ap.add_argument("-c", "--checkpoint", default=None,
-                    help="one-stage (JETS, JOINT) checkpoint directory")
+                    help="one-stage (JETS, VITS2, JOINT) checkpoint directory")
     ap.add_argument("-a", "--acoustic_checkpoint", default=None,
-                    help="two-stage acoustic (FASTSPEECH2, ADASPEECH) checkpoint directory")
+                    help="two-stage acoustic (FASTSPEECH2, ADASPEECH, MATCHA) checkpoint "
+                         "directory")
     ap.add_argument("-v", "--vocoder_checkpoint", default=None,
                     help="two-stage HiFi-GAN checkpoint directory")
     ap.add_argument("--host", default="127.0.0.1")
@@ -157,7 +162,7 @@ def _main():
     ap.add_argument("--max_mel_frames", type=int, default=1008)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if args.model_type.upper() in ("FASTSPEECH2", "ADASPEECH", "MATCHA"):
         if not (args.acoustic_checkpoint and args.vocoder_checkpoint):
             ap.error(f"--model_type {args.model_type} needs -a and -v")
@@ -170,6 +175,11 @@ def _main():
         tts = OneStageTTS(args.checkpoint, model_type=args.model_type,
                           half=args.half, max_mel_frames=args.max_mel_frames,
                           device=args.device)
+    return tts, args
+
+
+def _main(argv=None):
+    tts, args = build_backend(argv)
     httpd = ThreadingHTTPServer((args.host, args.port),
                                 make_handler(tts, args.model_type))
     print(f"serving {args.model_type} on http://{args.host}:{args.port}")

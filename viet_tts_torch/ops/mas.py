@@ -1,7 +1,7 @@
 """Batched monotonic alignment search (MAS) on the device.
 
 Counterpart of ``viet_tts_tpu/ops/mas.py`` (``monotonic_alignment``,
-``viterbi_decode``, ``binarize_attention``). The JAX package runs the Viterbi DP as two
+``viterbi_decode``, ``binarize_attention``, ``maximum_path``). The JAX package runs the Viterbi DP as two
 ``lax.scan``s over mel frames; here they are two Python loops over frames
 whose bodies are batched over (batch, text) tensor ops on the device, with
 no gradient. At T_mel = 512 that is some ten small launches a frame:
@@ -87,3 +87,10 @@ def binarize_attention(attn: torch.Tensor, in_lens: torch.Tensor,
     log_attn = torch.log(torch.clamp(attn[:, 0].detach().float(), min=1e-30))
     path, _ = monotonic_alignment(log_attn, in_lens, out_lens)
     return path[:, None]
+
+
+def maximum_path(neg_cent: torch.Tensor, text_lens: torch.Tensor,
+                 mel_lens: torch.Tensor) -> torch.Tensor:
+    """VITS-layout MAS: scores and path (B, T_text, T_mel), no gradient."""
+    path, _ = monotonic_alignment(neg_cent.transpose(1, 2), text_lens, mel_lens)
+    return path.transpose(1, 2)

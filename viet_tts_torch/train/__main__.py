@@ -2,7 +2,7 @@
 
     python -m viet_tts_torch.train --task fastspeech2 -i egs/dir -d data/dir -o out/dir
     python -m viet_tts_torch.train --task adaspeech ... | --task matcha ...
-    python -m viet_tts_torch.train --task jets ... | --task hifigan ...
+    python -m viet_tts_torch.train --task jets ... | --task hifigan ... | --task vits2 ...
     python -m viet_tts_torch.train --task text2wav ... [-a fs2_out -v hifigan_out]
     python -m viet_tts_torch.train --task text2wav --version adaspeech ... [-a adaspeech_out]
     python -m viet_tts_torch.train --task text2wav --version matcha ... [-a matcha_out]
@@ -15,17 +15,19 @@ and ``speakers.json`` / ``accents.json``; ``-d`` the dataset
 (``<speaker>/metadata.csv`` and ``<speaker>/wavs/``); ``-o`` the
 checkpoints, sidecars and ``log/``. A rerun with the same ``-o`` resumes
 from its newest checkpoint; for ``fastspeech2``, ``adaspeech``,
-``matcha``, ``jets`` and ``hifigan``, ``-c`` names a port trainer
-checkpoint to resume from instead. The GAN tasks (``jets``, ``hifigan``,
-``text2wav``) also write and resume ``last_discriminator_statedict.pt``
-there. ``text2wav`` (the default, ``Text2Wav`` of ``--version``
-fastspeech2, adaspeech or matcha; ``train/joint.py``) starts, when ``-o``
+``matcha``, ``jets``, ``hifigan`` and ``vits2``, ``-c`` names a port
+trainer checkpoint to resume from instead. The GAN tasks (``jets``,
+``hifigan``, ``vits2``, ``text2wav``) also write and resume
+``last_discriminator_statedict.pt`` there (``vits2``: the multi-period and
+the duration discriminator together). ``text2wav`` (the default,
+``Text2Wav`` of ``--version`` fastspeech2, adaspeech or matcha;
+``train/joint.py``) starts, when ``-o``
 holds no checkpoint, from a joint checkpoint's weights (``-c``), or from a
 ``--task <version>`` output (``-a``) and a ``--task hifigan`` output
 (``-v``); ``--is_finetune`` adapts the joint checkpoint ``-c`` to the
 speakers of ``-i`` (text2wav only). ``matcha`` (``train/matcha.py``)
 writes the dataset's mel statistics to ``<out>/stats.json`` on its first
-run and reads them back after. Every task but ``vits2`` is ported.
+run and reads them back after; ``vits2`` is ``train/vits2_trainer.py``.
 """
 
 from __future__ import annotations
@@ -41,11 +43,6 @@ import torch
 from viet_tts_torch.config import build_config
 
 TASKS = ["text2wav", "fastspeech2", "adaspeech", "jets", "vits2", "matcha", "hifigan"]
-
-# the ROADMAP.md item (section 1) that ports the task still to port
-NOT_PORTED = {
-    "vits2": "item 14",
-}
 
 
 def build_arguments(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -88,10 +85,6 @@ def set_seed(seed: int):
 
 
 def make_trainer(args, conf):
-    if args.task in NOT_PORTED:
-        raise NotImplementedError(
-            f"--task {args.task} is not ported yet (ROADMAP.md section 1, "
-            f"{NOT_PORTED[args.task]})")
     if args.task == "text2wav":
         from viet_tts_torch.train.joint import JointFinetuner, JointTrainer
 
@@ -101,9 +94,11 @@ def make_trainer(args, conf):
     from viet_tts_torch.train.gan import HiFiGANTrainer, JETSTrainer
     from viet_tts_torch.train.matcha import MatchaTrainer
     from viet_tts_torch.train.trainer import AdaSpeechTrainer, FastSpeech2Trainer
+    from viet_tts_torch.train.vits2_trainer import VITS2Trainer
 
     trainers = {"fastspeech2": FastSpeech2Trainer, "adaspeech": AdaSpeechTrainer,
-                "matcha": MatchaTrainer, "jets": JETSTrainer, "hifigan": HiFiGANTrainer}
+                "matcha": MatchaTrainer, "jets": JETSTrainer, "hifigan": HiFiGANTrainer,
+                "vits2": VITS2Trainer}
     return trainers[args.task](args, conf)
 
 

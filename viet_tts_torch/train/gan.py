@@ -77,14 +77,16 @@ def _discriminator_update(disc: nn.Module, disc_state: TrainState,
 
 
 @contextlib.contextmanager
-def _frozen(disc: nn.Module):
-    """The discriminator's parameters take no gradient inside, so nothing
-    of the generator loss reaches the discriminator's optimizer."""
-    disc.requires_grad_(False)
+def _frozen(*discs: nn.Module):
+    """The discriminators' parameters take no gradient inside, so nothing
+    of the generator loss reaches the discriminators' optimizers."""
+    for disc in discs:
+        disc.requires_grad_(False)
     try:
         yield
     finally:
-        disc.requires_grad_(True)
+        for disc in discs:
+            disc.requires_grad_(True)
 
 
 def make_hifigan_train_step(gen: nn.Module, disc: nn.Module,
@@ -247,20 +249,22 @@ class GANTrainer(BaseTrainer):
         weights, Adam moments and step (the rate follows from the epoch,
         ``set_epoch_rates``). A missing file, or one written at another
         iteration than the generator's checkpoint, logs a warning: the
-        resumed run then does not repeat an uninterrupted one."""
+        resumed run then does not repeat an uninterrupted one. Returns the
+        file's payload, or None."""
         if not self.iter:
-            return
+            return None
         path = os.path.join(self.args.output_folder, DISCRIMINATOR_FILE)
         if not os.path.exists(path):
             log.warning("no discriminator checkpoint found; fresh discriminator "
                         "can make resumed GAN training harder")
-            return
+            return None
         payload = ckpt.load_checkpoint(path)
         ckpt.restore_payload(self.disc_state, payload)
         if payload.get("iteration") != self.iter:
             log.warning(f"the discriminator checkpoint is from iteration "
                         f"{payload.get('iteration')}, the generator's from {self.iter}")
         log.info(f"resumed the discriminator from {path}")
+        return payload
 
     def _valid_mel(self, mel_l1) -> None:
         """Mean of ``mel_l1(batch)`` over the validation batches, logged and
